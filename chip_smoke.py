@@ -17,13 +17,21 @@ and PyTorch built for CUDA. In order, it:
    the seed and loads them by their reference names through
    ``io.params_from_jax``;
 4. serves four requests, prompts filling both prompt buckets (128, 512),
-   32 new tokens each, through ``GenerationScheduler.submit``, and checks
-   the kernels' launch counts against admissions and decode steps;
-5. times prefill and decode steps end to end, profiles one of each
-   with torch.profiler (device-busy share, top kernels), and times each
-   kernel on the device (profiler kernel durations) beside its bound, its
-   plain version and the one PyTorch call that computes the same
-   function.
+   32 new tokens each, through ``GenerationScheduler.submit`` on the dense
+   KV layout, and checks the kernels' launch counts against admissions
+   and decode steps;
+5. serves five requests on the paged KV layout with the prefix cache on
+   (block 16, a pool of 512 blocks): a 192-token system prompt with three
+   suffixes, an exact repeat of the first request and one unrelated
+   prompt; checks the prefix hits, the prefill windows, that every decode
+   step went through the paged decode kernel, the pool's books, and the
+   paged model's prefill logits (prefix hit and miss) against the dense
+   model's;
+6. times prefill and decode steps end to end (dense, and paged beside
+   dense), profiles both layouts with torch.profiler (device-busy share,
+   top kernels), and times each kernel on the device (profiler kernel
+   durations) beside its bound, its plain version and the one PyTorch
+   call that computes the same function.
 
 Any failed phase exits nonzero. The line before the last is the card's
 name and power limit from nvidia-smi; the one before that lists the
@@ -51,6 +59,16 @@ F32_FLOPS = 67e12
 KERNEL_ATOL = 1e-4
 # the small LM on the card vs on the CPU: f32 through two layers
 LM_ATOL = 1e-4
+# the paged cell: block 16, the pool auto-sized to byte parity with the
+# dense cache (8 slots x 64 blocks), prefix cache on; the traffic is a
+# 192-token (12-block) system prompt with three suffixes, a repeat of the
+# first request and one unrelated prompt
+BLOCK_SIZE = 16
+SYSTEM_LEN, SUFFIX_LENS, UNRELATED_LEN = 192, (36, 108, 308), 100
+# paged vs dense prefill logits at full width: f32 through 12 layers,
+# prefill attention by two codes (the flash kernel, plain torch over the
+# gathered pool), sums in another order
+PAGED_LOGITS_ATOL = 1e-3
 
 
 class SmokeFailure(RuntimeError):
@@ -100,6 +118,28 @@ def device_ms(fn, iters=30, warmup=3):
         print("[time] the profiler saw no device time: CUDA events instead")
         return cuda_ms(fn, iters, warmup)
     return us / iters / 1e3
+
+
+def roofline_ms(nbytes, flops):
+    """The least time the card could take for work that moves ``nbytes``
+    and does ``flops`` f32 operations: (ms, "bytes" or "operations")."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, \
+        "bytes" if t_bytes > t_ops else "operations"
+
+
+KERNELS = ("flash_attention", "decode_attention", "decode_attention_paged")
+
+
+def reset_launches():
+    from paddle_tpu_torch.ops import flash_attention as fa
+    for name in KERNELS:
+        getattr(fa, name).launches = 0
+
+
+def read_launches():
+    from paddle_tpu_torch.ops import flash_attention as fa
+    return {name: getattr(fa, name).launches for name in KERNELS}
 
 
 def make_params(cfg, rng):
@@ -195,6 +235,77 @@ def phase_compare(rng):
             "decode_attention": max(decode_errs)}
 
 
+def paged_case(rng, lens, heads, d, nb, bs, mb, poison=True):
+    """Decode inputs on the card over a paged cache: q [S, H*D], pools
+    [NB, BS, H*D] whose blocks no table references are NaN (when
+    ``poison``), scattered unordered tables [S, MB] (a slot of length 0
+    in ``lens`` gets an all-dead row, entries = NB, and runs at length
+    1, as the session runs inactive slots) and int32 lengths."""
+    import torch
+    s, hd = len(lens), heads * d
+    tables = np.full((s, mb), nb, np.int32)
+    perm = iter(rng.permutation(nb))
+    for si, n in enumerate(lens):
+        for j in range(-(-n // bs)):
+            tables[si, j] = next(perm)
+    used = np.unique(tables[tables < nb])
+    fill = float("nan") if poison else 0.0
+    pools = []
+    for _ in range(2):
+        pool = torch.full((nb, bs, hd), fill, device="cuda")
+        pool[torch.from_numpy(used).cuda()] = torch.from_numpy(
+            rng.standard_normal((used.size, bs, hd), dtype=np.float32)).cuda()
+        pools.append(pool)
+    q = torch.from_numpy(rng.standard_normal((s, hd),
+                                             dtype=np.float32)).cuda()
+    lengths = torch.tensor([max(n, 1) for n in lens], dtype=torch.int32,
+                           device="cuda")
+    return q, pools[0], pools[1], lengths, torch.from_numpy(tables).cuda()
+
+
+def phase_compare_paged(rng):
+    """The paged decode kernel against its plain version, and against the
+    dense decode kernel on the same logical cache, at the path's shape
+    (S 8, H 16, D 128, BS 16, MB 64, NB 512) and at D 64, BS 8. The last
+    slot's table row is all dead: its output is left out of the
+    comparison, but its launch must not fault."""
+    import torch
+    from paddle_tpu_torch.ops import flash_attention as fa
+    h, d = FULL["num_heads"], FULL["d_model"] // FULL["num_heads"]
+    mb = -(-CACHE_LEN // BLOCK_SIZE)
+    worst = 0.0
+    for lens, hh, hd, nb, bs, cmb in (
+            ([1, 16, 17, 100, 300, 513, 1024, 0], h, d, SLOTS * mb,
+             BLOCK_SIZE, mb),
+            ([1, 9, 80, 0], 4, 64, 40, 8, 10)):
+        q, pk, pv, lengths, tables = paged_case(rng, lens, hh, hd, nb, bs,
+                                                cmb)
+        got = fa.decode_attention_paged(q, pk, pv, lengths, tables, hh)
+        torch.cuda.synchronize()   # a fault of the dead row shows here
+        pk0, pv0 = pk.nan_to_num(), pv.nan_to_num()
+        want = fa._decode_paged_reference(q, pk0, pv0, lengths, tables, hh)
+        tbl = tables.long().clamp(0, nb - 1)
+        s, c = len(lens), cmb * bs
+        dense = fa.decode_attention(q, pk0[tbl].reshape(s, c, hh * hd),
+                                    pv0[tbl].reshape(s, c, hh * hd),
+                                    lengths, hh)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got[:-1]).all()),
+              "decode_attention_paged read a poisoned block")
+        err = float((got[:-1] - want[:-1]).abs().max())
+        err_dense = float((got[:-1] - dense[:-1]).abs().max())
+        print("[compare] decode_attention_paged S=%d H=%d D=%d BS=%d MB=%d "
+              "NB=%d lengths %s: max_abs_err vs plain %.3g, vs "
+              "decode_attention %.3g (tol %g)"
+              % (s, hh, hd, bs, cmb, nb, lens[:-1], err, err_dense,
+                 KERNEL_ATOL))
+        check(err <= KERNEL_ATOL and err_dense <= KERNEL_ATOL,
+              "decode_attention_paged disagrees: %g / %g" % (err, err_dense))
+        if hh == h:
+            worst = err
+    return worst
+
+
 def phase_small_lm(rng):
     """A small LM (head dim 128) on the card, kernels in the path, held
     against the same LM on the CPU (plain versions): prefill logits and
@@ -235,16 +346,55 @@ def phase_small_lm(rng):
     check(np.isfinite(logits["cuda"].numpy()).all(), "non-finite logits")
 
 
+def phase_small_lm_paged(rng):
+    """The small LM's paged sessions (prefix cache on) on the card and on
+    the CPU, and its dense session on the card: the same prompts, two of
+    them sharing a 100-token prefix and one repeated, must give the same
+    greedy tokens everywhere and the same prefill log on both paged
+    sessions."""
+    from paddle_tpu_torch.io import params_from_jax
+    from paddle_tpu_torch.models.transformer import transformer_lm_session
+    from paddle_tpu_torch.serving import GenerationSession
+    cfg = dict(vocab_size=512, d_model=256, num_heads=2, d_ff=512,
+               num_layers=2, max_len=256)
+    named = make_params(cfg, rng)
+    sessions = {}
+    for name, dev, paged in (("cpu paged", "cpu", True),
+                             ("card paged", "cuda", True),
+                             ("card dense", "cuda", False)):
+        spec = transformer_lm_session(
+            slots=2, cache_len=256, prompt_buckets=(64, 256), eos_id=1,
+            device=dev, paged=paged, block_size=BLOCK_SIZE,
+            prefix_cache=True, **cfg)
+        sessions[name] = GenerationSession(spec,
+                                           params_from_jax(named, device=dev))
+    shared = rng.integers(2, cfg["vocab_size"], 100)
+    prompts = [np.concatenate([shared, rng.integers(2, cfg["vocab_size"], n)])
+               for n in (30, 50)]
+    prompts.append(prompts[0])
+    for p in prompts:
+        outs = {name: sess.generate(p, max_new_tokens=8, eos_id=-1)
+                for name, sess in sessions.items()}
+        check(len(set(map(tuple, outs.values()))) == 1,
+              "paged small LM tokens differ: %s" % outs)
+    logs = [sessions[k].prefill_log for k in ("cpu paged", "card paged")]
+    print("[small-lm] paged on the card == paged on the CPU == dense on the "
+          "card, greedy tokens of %d prompts; prefill log %s"
+          % (len(prompts), logs[1]))
+    check(logs[0] == logs[1] and logs[1][1][1] == 96,
+          "paged prefill logs differ: %s" % logs)
+    for sess in sessions.values():
+        sess.close()
+
+
 def phase_serve(sess, rng):
     """Serve the requests through the scheduler with every launch count
     at 0 just before; returns the counts and the served lengths."""
     import torch
-    from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.serving import GenerationScheduler
     prompts = [rng.integers(2, FULL["vocab_size"], n) for n in PROMPT_LENS]
     sched = GenerationScheduler(sess, autostart=False)
-    fa.flash_attention.launches = 0
-    fa.decode_attention.launches = 0
+    reset_launches()
     prefills0, steps0 = sess.prefills, sess.steps
     t0 = time.perf_counter()
     futs = [sched.submit(p, max_new_tokens=NEW_TOKENS, eos_id=-1)
@@ -253,8 +403,7 @@ def phase_serve(sess, rng):
     outs = [f.result(timeout=600) for f in futs]
     sched.drain(timeout=60)
     torch.cuda.synchronize()
-    launches = {"flash_attention": fa.flash_attention.launches,
-                "decode_attention": fa.decode_attention.launches}
+    launches = read_launches()
     wall = time.perf_counter() - t0
     admissions = sess.prefills - prefills0
     steps = sess.steps - steps0
@@ -273,8 +422,176 @@ def phase_serve(sess, rng):
     check(launches["decode_attention"] == layers * steps > 0,
           "decode launches %d != %d x %d steps"
           % (launches["decode_attention"], layers, steps))
+    check(launches["decode_attention_paged"] == 0,
+          "the dense path launched the paged decode kernel")
     final = [p.size + NEW_TOKENS - 1 for p in prompts]
     return launches, final
+
+
+def phase_paged_serve(sess, rng):
+    """Serve the paged cell's five requests through the scheduler with
+    every launch count at 0 just before. All five are queued before the
+    dispatcher starts, so they are admitted in order: the first and the
+    unrelated prompt miss the prefix cache; the other two suffixes share
+    the system prompt's 12 blocks; the repeat shares the first request's
+    227 tokens (the match stops at n - 1) and copies its partial last
+    block. Returns the counts, the served lengths and the system
+    prompt."""
+    import torch
+    from paddle_tpu_torch.serving import GenerationScheduler
+    v = FULL["vocab_size"]
+    system = rng.integers(2, v, SYSTEM_LEN)
+    prompts = [np.concatenate([system, rng.integers(2, v, n)])
+               for n in SUFFIX_LENS]
+    prompts.append(prompts[0].copy())
+    prompts.append(rng.integers(2, v, UNRELATED_LEN))
+    sched = GenerationScheduler(sess, autostart=False)
+    stats0 = sess.prefix_stats()
+    log0 = len(sess.prefill_log)
+    reset_launches()
+    prefills0, steps0 = sess.prefills, sess.steps
+    t0 = time.perf_counter()
+    futs = [sched.submit(p, max_new_tokens=NEW_TOKENS, eos_id=-1)
+            for p in prompts]
+    sched.start()
+    outs = [f.result(timeout=600) for f in futs]
+    sched.drain(timeout=60)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    wall = time.perf_counter() - t0
+    admissions = sess.prefills - prefills0
+    steps = sess.steps - steps0
+    stats = {k: sess.prefix_stats()[k] - stats0[k]
+             for k in ("hits", "misses", "shared_tokens", "cows")}
+    log = sess.prefill_log[log0:]
+    layers = FULL["num_layers"]
+    print("[paged-serve] %d requests, %d admissions, %d decode steps in "
+          "%.2f s; prefill log (bucket, shared, window) %s; prefix %s; "
+          "pool %s; launches %s"
+          % (len(prompts), admissions, steps, wall, log, stats,
+             sess.pool_stats(), launches))
+    for p, out in zip(prompts, outs):
+        check(len(out) == NEW_TOKENS, "request of %d tokens returned %d"
+              % (p.size, len(out)))
+        check(((out >= 0) & (out < FULL["vocab_size"])).all(),
+              "token out of the vocabulary")
+    check((outs[3] == outs[0]).all(),
+          "the repeated request's tokens differ from the first's")
+    check(admissions == len(prompts), "admissions %d" % admissions)
+    check([w for _, _, w in log] == [228, 108, 308, 1, 100],
+          "prefill windows %s" % log)
+    check(stats["hits"] == 3 and stats["misses"] == 2
+          and stats["shared_tokens"] == 611 and stats["cows"] >= 1,
+          "prefix counters %s" % stats)
+    check(launches["decode_attention_paged"] == layers * steps > 0,
+          "paged decode launches %d != %d x %d steps"
+          % (launches["decode_attention_paged"], layers, steps))
+    check(launches["flash_attention"] == 0
+          and launches["decode_attention"] == 0,
+          "the paged path launched a dense kernel: %s" % launches)
+    try:
+        sess.check_pool_invariant()
+    except AssertionError as exc:
+        raise SmokeFailure("pool books: %s" % exc) from None
+    final = [p.size + NEW_TOKENS - 1 for p in prompts]
+    return launches, final, system
+
+
+def phase_paged_logits(paged, dense, system, rng):
+    """The paged model's prefill logits for one 300-token prompt whose
+    first 192 tokens are the system prompt, as a prefix miss (the whole
+    prompt, bucket 512) and as a hit (the 108-token window after the
+    cached 192, bucket 128, reading the rows the miss wrote), against the
+    dense model's prefill of the same prompt."""
+    import torch
+    prompt = np.concatenate([system, rng.integers(2, FULL["vocab_size"],
+                                                  108)])
+    n, spec = prompt.size, paged.spec
+    blocks = [paged.pool.alloc() for _ in range(-(-n // BLOCK_SIZE))]
+    tab = np.full(spec.max_blocks, spec.num_blocks, np.int32)
+    tab[:len(blocks)] = blocks
+
+    def window(start, bucket):
+        w = n - start
+        padded = np.full((1, bucket), 1, np.int64)
+        padded[0, :w] = prompt[start:]
+        pix = np.clip(start + np.arange(bucket), 0, spec.max_len - 1)
+        return paged.model.prefill_paged(
+            torch.from_numpy(padded).cuda(), w, start,
+            torch.from_numpy(pix).cuda(), torch.from_numpy(tab).cuda())
+
+    try:
+        miss = window(0, BUCKETS[-1])
+        hit = window(SYSTEM_LEN, BUCKETS[0])
+    finally:
+        for b in blocks:
+            paged.pool.decref(b)
+    padded = np.full((1, BUCKETS[-1]), 1, np.int64)
+    padded[0, :n] = prompt
+    want = dense.model.prefill(torch.from_numpy(padded).cuda(), n,
+                               dense.free_slots()[0])
+    errs = {name: float((got - want).abs().max())
+            for name, got in (("miss", miss), ("hit", hit))}
+    print("[paged-serve] prefill logits of a %d-token prompt, paged vs "
+          "dense: max_abs_err %s (tol %g); argmax %d / %d / %d"
+          % (n, {k: "%.3g" % e for k, e in errs.items()}, PAGED_LOGITS_ATOL,
+             int(miss.argmax()), int(hit.argmax()), int(want.argmax())))
+    check(max(errs.values()) <= PAGED_LOGITS_ATOL,
+          "paged prefill logits disagree with dense: %s" % errs)
+    check(int(miss.argmax()) == int(hit.argmax()) == int(want.argmax()),
+          "paged prefill picks another token than dense")
+
+
+def phase_paged_latency(paged, dense, system, rng):
+    """TTFT of a 300-token prompt on the paged session as a prefix hit
+    (the 192-token system prompt cached: window 108, bucket 128) and as a
+    miss (bucket 512), and on the dense session (bucket 512); then the
+    decode step with 8 active slots on each, in turns. Host clock around
+    work that ends in tokens read back; medians of 3."""
+    import torch
+    v = FULL["vocab_size"]
+    cases = (("paged hit", paged, lambda: np.concatenate(
+                [system, rng.integers(2, v, 108)])),
+             ("paged miss", paged, lambda: rng.integers(2, v, 300)),
+             ("dense", dense, lambda: rng.integers(2, v, 300)))
+    ttft = {name: [] for name, _, _ in cases}
+    for _ in range(3):
+        for name, sess, make in cases:
+            prompt = make()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            slot, _ = sess.admit(prompt)
+            ttft[name].append((time.perf_counter() - t0) * 1e3)
+            if sess is paged:
+                want = (128, 192, 108) if name == "paged hit" \
+                    else (512, 0, 300)
+                check(paged.prefill_log[-1] == want,
+                      "%s prefill %s" % (name, paged.prefill_log[-1]))
+            sess.retire(slot)
+    for sess in (paged, dense):
+        for i in range(SLOTS):
+            sess.admit(rng.integers(2, v, 64 + 56 * i))
+        for _ in range(3):
+            sess.step()
+    steps = {"paged step": [], "dense step": []}
+    for _ in range(3):
+        for name, sess in (("paged step", paged), ("dense step", dense)):
+            t0 = time.perf_counter()
+            for _ in range(16):
+                sess.step()
+            steps[name].append((time.perf_counter() - t0) * 1e3 / 16)
+    for sess in (paged, dense):
+        for s in range(SLOTS):
+            sess.retire(s)
+    runs = dict(ttft, **steps)
+    med = {k: sorted(t)[1] for k, t in runs.items()}
+    print("[latency] 300-token prompt TTFT ms (median of 3): paged hit "
+          "%.3f (window 108), paged miss %.3f, dense %.3f; decode step "
+          "with %d active slots ms (median of 3 rounds of 16): paged %.3f, "
+          "dense %.3f; all runs %s"
+          % (med["paged hit"], med["paged miss"], med["dense"], SLOTS,
+             med["paged step"], med["dense step"],
+             {k: [round(x, 3) for x in t] for k, t in runs.items()}))
 
 
 def phase_latency(sess, rng):
@@ -314,11 +631,13 @@ def phase_latency(sess, rng):
              step_ms / SLOTS, [round(r, 3) for r in rounds]))
 
 
-def phase_profile(sess, rng):
+def phase_profile(sess, rng, paged=None, system=None):
     """Where device time goes: torch.profiler over one 512-token
-    admission, then over 4 decode steps with every slot active. Prints
-    each window's device-busy share (kernel time over wall time; one
-    stream, so kernels do not overlap) and its top kernels."""
+    admission, then over 4 decode steps with every slot active; with a
+    ``paged`` session, the same over one prefix-hit admission (window
+    108 after the cached ``system`` prompt) and 4 paged decode steps.
+    Prints each window's device-busy share (kernel time over wall time;
+    one stream, so kernels do not overlap) and its top kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -355,9 +674,20 @@ def phase_profile(sess, rng):
            lambda: [sess.step() for _ in range(4)])
     for s in range(SLOTS):
         sess.retire(s)
+    if paged is None:
+        return
+    hit = np.concatenate([system, rng.integers(2, FULL["vocab_size"], 108)])
+    window("paged prefill, 192-token prefix hit, window 108",
+           lambda: paged.retire(paged.admit(hit)[0]))
+    for i in range(SLOTS):
+        paged.admit(rng.integers(2, FULL["vocab_size"], 64 + 56 * i))
+    window("4 paged decode steps, %d slots" % SLOTS,
+           lambda: [paged.step() for _ in range(4)])
+    for s in range(SLOTS):
+        paged.retire(s)
 
 
-def phase_time(rng, launches, errs, final_lengths):
+def phase_time(rng, launches, errs, final_lengths, paged_final):
     """Each kernel at the path's shapes: its time, its plain version's,
     the library call's, and its bound from this run's inputs."""
     import torch
@@ -383,28 +713,26 @@ def phase_time(rng, launches, errs, final_lengths):
     pairs = n * (n + 1) // 2            # attendable (query, key) pairs
     flops = 4 * d * h * pairs           # QK^T and PV, 2 flops per MAC
     nbytes = 4 * (4 * h * p * d) + 4 * p
-    bound = max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS) * 1e3
+    bound, bound_by = roofline_ms(nbytes, flops)
     rows.append(dict(
         name="flash_attention", route="cuda",
         source="paddle_tpu_torch/csrc/flash_attention.cu",
         replaces="paddle_tpu/ops/pallas_attention.py:584",
         launches=launches["flash_attention"],
         max_abs_err=errs["flash_attention"], ms=ms, plain_ms=plain_ms,
-        bound_ms=bound,
-        bound_by="bytes" if nbytes / HBM_BYTES_PER_S > flops / F32_FLOPS
-        else "operations", library_ms=lib_ms))
+        bound_ms=bound, bound_by=bound_by, library_ms=lib_ms))
     events = {"flash_attention": event_ms}
 
     # decode attention: all slots, the lengths the served requests ended
     # at, free slots at length 1 (as the path runs them)
     s, c = SLOTS, CACHE_LEN
-    lens_host = np.ones(s, np.int32)
-    lens_host[:len(final_lengths)] = final_lengths
+    lens_dense = np.ones(s, np.int32)
+    lens_dense[:len(final_lengths)] = final_lengths
     q = torch.from_numpy(rng.standard_normal((s, h * d), dtype=np.float32))
     kc, vc = (torch.from_numpy(rng.standard_normal(
         (s, c, h * d), dtype=np.float32)) for _ in range(2))
     q, kc, vc = q.cuda(), kc.cuda(), vc.cuda()
-    lens = torch.from_numpy(lens_host).cuda()
+    lens = torch.from_numpy(lens_dense).cuda()
     saved = fa.decode_attention.launches
     kernel = functools.partial(fa.decode_attention, q, kc, vc, lens, h)
     ms, events["decode_attention"] = device_ms(kernel), cuda_ms(kernel)
@@ -417,26 +745,73 @@ def phase_time(rng, launches, errs, final_lengths):
     mask = (torch.arange(c, device="cuda")[None] < lens[:, None])
     lib_ms = device_ms(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, attn_mask=mask[:, None, None, :]))
-    total = int(lens_host.sum())
+    total = int(lens_dense.sum())
     nbytes = 2 * total * h * d * 4 + 2 * s * h * d * 4 + 4 * s
     flops = 4 * total * h * d
-    bound = max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS) * 1e3
+    bound, bound_by = roofline_ms(nbytes, flops)
     rows.append(dict(
         name="decode_attention", route="cuda",
         source="paddle_tpu_torch/csrc/decode_attention.cu",
         replaces="paddle_tpu/ops/pallas_attention.py:558",
         launches=launches["decode_attention"],
         max_abs_err=errs["decode_attention"], ms=ms, plain_ms=plain_ms,
-        bound_ms=bound,
-        bound_by="bytes" if nbytes / HBM_BYTES_PER_S > flops / F32_FLOPS
-        else "operations", library_ms=lib_ms))
+        bound_ms=bound, bound_by=bound_by, library_ms=lib_ms))
+
+    # paged decode attention: the paged cell's pool and tables, the
+    # lengths its requests ended at, free slots at length 1 with all-dead
+    # table rows (as the path runs them)
+    mb = -(-CACHE_LEN // BLOCK_SIZE)
+    nb = SLOTS * mb
+    plens = [0] * s
+    plens[:len(paged_final)] = paged_final
+    q, pk, pv, lens, tables = paged_case(rng, plens, h, d, nb, BLOCK_SIZE,
+                                         mb, poison=False)
+    saved = fa.decode_attention_paged.launches
+    kernel = functools.partial(fa.decode_attention_paged, q, pk, pv, lens,
+                               tables, h)
+    ms, events["decode_attention_paged"] = device_ms(kernel), cuda_ms(kernel)
+    fa.decode_attention_paged.launches = saved
+    plain_ms = device_ms(lambda: fa._decode_paged_reference(
+        q, pk, pv, lens, tables, h))
+    c = mb * BLOCK_SIZE
+    mask = (torch.arange(c, device="cuda")[None] < lens[:, None])
+
+    def gather_sdpa():
+        tbl = tables.long().clamp(0, nb - 1)
+        kt = pk[tbl].reshape(s, c, h, d).transpose(1, 2)
+        vt = pv[tbl].reshape(s, c, h, d).transpose(1, 2)
+        return F.scaled_dot_product_attention(
+            q.reshape(s, h, 1, d), kt, vt, attn_mask=mask[:, None, None, :])
+
+    gather_sdpa_ms = device_ms(gather_sdpa)
+    lens_host = lens.cpu().numpy()
+    total = int(lens_host.sum())
+    live_entries = int(sum(-(-n // BLOCK_SIZE) for n in lens_host))
+    nbytes = 2 * total * h * d * 4 + 2 * s * h * d * 4 + 4 * s + \
+        4 * live_entries
+    flops = 4 * total * h * d
+    bound, bound_by = roofline_ms(nbytes, flops)
+    rows.append(dict(
+        name="decode_attention_paged", route="cuda",
+        source="paddle_tpu_torch/csrc/decode_attention_paged.cu",
+        replaces="paddle_tpu/ops/pallas_attention.py:486",
+        launches=launches["decode_attention_paged"],
+        max_abs_err=errs["decode_attention_paged"], ms=ms,
+        plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
+        library_ms=None))
     for r in rows:
+        lib = "none" if r["library_ms"] is None \
+            else "%.4f ms" % r["library_ms"]
         print("[time] %s: device %.4f ms (bound %.4f ms by %s, plain %.4f "
-              "ms, library %.4f ms); back-to-back calls %.4f ms each "
-              "between CUDA events" % (
+              "ms, library %s); back-to-back calls %.4f ms each between "
+              "CUDA events" % (
                   r["name"], r["ms"], r["bound_ms"], r["bound_by"],
-                  r["plain_ms"], r["library_ms"], events[r["name"]]))
-    print("[time] decode lengths %s" % lens_host.tolist())
+                  r["plain_ms"], lib, events[r["name"]]))
+    print("[time] decode_attention_paged: a gather of the pools plus "
+          "F.scaled_dot_product_attention (no single PyTorch call computes "
+          "it) gather_sdpa_ms %.4f" % gather_sdpa_ms)
+    print("[time] decode lengths: dense %s, paged %s"
+          % (lens_dense.tolist(), lens_host.tolist()))
     return rows
 
 
@@ -468,7 +843,9 @@ def main(argv=None):
     try:
         phase_build()
         errs = phase_compare(rng)
+        errs["decode_attention_paged"] = phase_compare_paged(rng)
         phase_small_lm(rng)
+        phase_small_lm_paged(rng)
         t0 = time.perf_counter()
         named = make_params(FULL, rng)
         params = params_from_jax(named, device="cuda")
@@ -477,15 +854,27 @@ def main(argv=None):
             slots=SLOTS, cache_len=CACHE_LEN, prompt_buckets=BUCKETS,
             eos_id=1, device="cuda", **FULL)
         sess = GenerationSession(spec, params)
+        paged_spec = transformer_lm_session(
+            slots=SLOTS, cache_len=CACHE_LEN, prompt_buckets=BUCKETS,
+            eos_id=1, device="cuda", paged=True, block_size=BLOCK_SIZE,
+            num_blocks=0, prefix_cache=True, **FULL)
+        paged = GenerationSession(paged_spec, params)
         del params
         torch.cuda.synchronize()
         nparam = sum(p.numel() for p in sess.model.parameters())
-        print("[weights] %d parameters (%.2f GB f32) made and loaded in "
-              "%.1f s" % (nparam, nparam * 4 / 1e9, time.perf_counter() - t0))
+        print("[weights] %d parameters (%.2f GB f32) made and loaded into "
+              "a dense and a paged session in %.1f s"
+              % (nparam, nparam * 4 / 1e9, time.perf_counter() - t0))
         launches, final = phase_serve(sess, rng)
+        paged_launches, paged_final, system = phase_paged_serve(paged, rng)
+        launches["decode_attention_paged"] = \
+            paged_launches["decode_attention_paged"]
+        phase_paged_logits(paged, sess, system, rng)
         phase_latency(sess, rng)
-        phase_profile(sess, rng)
-        rows = phase_time(rng, launches, errs, final)
+        phase_paged_latency(paged, sess, system, rng)
+        phase_profile(sess, rng, paged, system)
+        rows = phase_time(rng, launches, errs, final, paged_final)
+        paged.close()
         print("[memory] peak allocated %.2f GB"
               % (torch.cuda.max_memory_allocated() / 1e9))
     except SmokeFailure as exc:

@@ -19,6 +19,15 @@ _flags = {
     "generation_slots": 4,
     "generation_cache_buckets": (128,),
     "generation_prompt_buckets": (16,),
+    # paged KV layout: per-layer [num_blocks, block_size, d_model] pools
+    # addressed through per-sequence block tables; pool_blocks 0 sizes
+    # the pool to byte parity with the dense cache (slots x
+    # ceil(cache_len / block_size)); prefix_cache shares prompt blocks
+    # between admissions (serving/paged_cache.py)
+    "generation_paged_kv": False,
+    "generation_block_size": 16,
+    "generation_pool_blocks": 0,
+    "generation_prefix_cache": False,
 }
 
 

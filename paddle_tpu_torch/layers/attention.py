@@ -1,6 +1,6 @@
 """Transformer layers with a KV cache, as ``nn.Module``s (reference
 ``paddle_tpu/layers/attention.py``: ``multi_head_attention_cached``
-dense branch, ``transformer_encoder_layer``,
+dense and paged branches, ``transformer_encoder_layer``,
 ``positional_encoding_window``). Weights keep the reference's [in, out]
 layout; the models' loaders map the reference's parameter names onto
 these modules."""
@@ -9,8 +9,11 @@ import torch
 from torch import nn
 
 from ..ops.attention_ops import multihead_attention
-from ..ops.generation_ops import (kv_cache_append, kv_cache_write_slot,
-                                  multihead_attention_decode)
+from ..ops.generation_ops import (kv_cache_append, kv_cache_write_rows,
+                                  kv_cache_write_slot,
+                                  multihead_attention_decode,
+                                  multihead_attention_decode_paged,
+                                  multihead_attention_prefill_paged)
 from ..ops.nn_ops import fc, gather, gelu, layer_norm, mul
 
 __all__ = ["MultiHeadAttentionCached", "TransformerEncoderLayer",
@@ -31,7 +34,20 @@ class MultiHeadAttentionCached(nn.Module):
       causally within the prompt (``key_length`` masks right-padding).
     * ``decode`` — x is one token per slot [S, 1, D]: K/V rows are
       written at per-slot positions ``pos`` and each query attends its
-      slot's cache rows [0, pos], its own row included."""
+      slot's cache rows [0, pos], its own row included.
+
+    The paged layout (``cache_k``/``cache_v`` are one layer's
+    [NB + 1, BS, D] pool storages, ``ops/generation_ops.py``):
+
+    * ``prefill_paged`` — x is a prompt window [1, P, D] whose first
+      row sits at logical position ``hist`` (the rows before it are a
+      cached prefix, shared blocks); its K/V rows are written at the
+      storage ``rows`` (``ops.generation_ops.paged_window_rows``) and
+      each attends the prefix and the window causally through the block
+      ``table``.
+    * ``decode_paged`` — as ``decode``, through per-slot table rows
+      ``table`` [S, MB], writing at the storage ``rows``
+      (``paged_append_rows``)."""
 
     def __init__(self, d_model, num_heads, device=None):
         super().__init__()
@@ -60,10 +76,30 @@ class MultiHeadAttentionCached(nn.Module):
                                          self.num_heads)
         return mul(ctx, self.wo)
 
+    def prefill_paged(self, x, cache_k, cache_v, table, hist, rows):
+        q, k, v = self._qkv(x)
+        kv_cache_write_rows(cache_k, k[0], rows)
+        kv_cache_write_rows(cache_v, v[0], rows)
+        ctx = multihead_attention_prefill_paged(q, cache_k, cache_v, table,
+                                                hist, self.num_heads)
+        return mul(ctx, self.wo)
+
+    def decode_paged(self, x, cache_k, cache_v, pos, table, rows):
+        q, k, v = self._qkv(x)
+        kv_cache_write_rows(cache_k, k[:, 0], rows)
+        kv_cache_write_rows(cache_v, v[:, 0], rows)
+        ctx = multihead_attention_decode_paged(q, cache_k, cache_v, pos,
+                                               table, self.num_heads)
+        return mul(ctx, self.wo)
+
+
+_MODES = ("prefill", "decode", "prefill_paged", "decode_paged")
+
 
 class TransformerEncoderLayer(nn.Module):
     """Pre-norm block: x + MHA(LN(x)); x + FFN(LN(x)), FFN = fc + gelu,
-    fc. ``mode`` picks the cached attention's prefill or decode."""
+    fc. ``mode`` names the cached attention's method (prefill, decode,
+    prefill_paged, decode_paged) and ``index`` its keyword arguments."""
 
     def __init__(self, d_model, num_heads, d_ff, device=None):
         super().__init__()
@@ -77,17 +113,12 @@ class TransformerEncoderLayer(nn.Module):
         self.ffn2_w = _weight(d_ff, d_model, device=device)
         self.ffn2_b = _weight(d_model, device=device)
 
-    def forward(self, x, cache_k, cache_v, mode, slot=None, pos=None,
-                key_length=None):
+    def forward(self, x, cache_k, cache_v, mode, **index):
+        if mode not in _MODES:
+            raise ValueError("mode must be one of %s, got %r"
+                             % (_MODES, mode))
         h = layer_norm(x, self.ln1_w, self.ln1_b)
-        if mode == "prefill":
-            att = self.attn.prefill(h, cache_k, cache_v, slot, key_length)
-        elif mode == "decode":
-            att = self.attn.decode(h, cache_k, cache_v, pos)
-        else:
-            raise ValueError("mode must be 'prefill' or 'decode', got %r"
-                             % (mode,))
-        x = x + att
+        x = x + getattr(self.attn, mode)(h, cache_k, cache_v, **index)
         h = layer_norm(x, self.ln2_w, self.ln2_b)
         ff = fc(h, self.ffn1_w, self.ffn1_b, act=gelu)
         return x + fc(ff, self.ffn2_w, self.ffn2_b)
@@ -95,15 +126,17 @@ class TransformerEncoderLayer(nn.Module):
 
 class PositionalEncodingWindow(nn.Module):
     """A window of the learned [max_len, D] position table: rows
-    [0, P) added to a prompt [1, P, D] (``pos=None``), or row pos[s]
-    added to each slot's token [S, 1, D]."""
+    [0, P) added to a prompt [1, P, D] (``pos=None``), row pos[s]
+    added to each slot's token [S, 1, D], or, with ``window_rows``
+    (the paged suffix prefill), row pos[i] added to window row i of
+    x [1, P, D]."""
 
     def __init__(self, max_len, d_model, device=None):
         super().__init__()
         self.max_len = max_len
         self.table = _weight(max_len, d_model, device=device)
 
-    def forward(self, x, pos=None):
+    def forward(self, x, pos=None, window_rows=False):
         if pos is None:
             t = x.shape[1]
             if t > self.max_len:
@@ -111,4 +144,5 @@ class PositionalEncodingWindow(nn.Module):
                                  "table length %d" % (t, self.max_len))
             return x + self.table[:t]
         rows = gather(self.table, pos.to(device=x.device, dtype=torch.long))
-        return x + rows.reshape(-1, 1, x.shape[2])
+        shape = (1, -1, x.shape[2]) if window_rows else (-1, 1, x.shape[2])
+        return x + rows.reshape(shape)

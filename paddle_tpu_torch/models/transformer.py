@@ -1,6 +1,6 @@
 """The causal transformer LM for KV-cached generation (reference
-``paddle_tpu/models/transformer.py``: ``_lm_backbone`` and the dense,
-greedy branch of ``transformer_lm_session``).
+``paddle_tpu/models/transformer.py``: ``_lm_backbone`` and the greedy
+dense and paged branches of ``transformer_lm_session``).
 
 Parameters carry the reference's names at the boundary
 (:func:`lm_param_names`), so weights saved by ``paddle_tpu`` load here
@@ -15,6 +15,8 @@ from torch import nn
 from .. import config as _config
 from ..layers.attention import (PositionalEncodingWindow,
                                 TransformerEncoderLayer)
+from ..ops.generation_ops import (kv_block_copy, paged_append_rows,
+                                  paged_window_rows)
 from ..ops.nn_ops import layer_norm, lookup_table, mul
 from ..place import resolve_device
 
@@ -64,8 +66,10 @@ def infer_num_layers(names):
 class TransformerLM(nn.Module):
     """Embedding + learned positions, ``num_layers`` pre-norm blocks, a
     final layer norm and the LM head, over per-layer KV caches that
-    :meth:`allocate_cache` creates. :meth:`prefill` fills one slot from
-    a prompt; :meth:`decode` advances every slot by one token."""
+    :meth:`allocate_cache` (dense) or :meth:`allocate_pools` (paged)
+    creates. :meth:`prefill` fills one slot from a prompt,
+    :meth:`prefill_paged` a prompt window through a block table;
+    :meth:`decode` advances every slot by one token."""
 
     def __init__(self, vocab_size, d_model, num_heads, d_ff, num_layers,
                  max_len, device=None):
@@ -110,13 +114,28 @@ class TransformerLM(nn.Module):
     def allocate_cache(self, slots, cache_len):
         """Zeroed float32 [slots, cache_len, d_model] K and V tensors per
         layer."""
-        shape = (slots, cache_len, self.tok_embedding.shape[1])
+        self._zero_caches(slots, cache_len)
+
+    def allocate_pools(self, num_blocks, block_size):
+        """The paged layout: zeroed float32 [num_blocks + 1, block_size,
+        d_model] K and V pool storages per layer, the ``num_blocks``
+        blocks that block tables address plus the sink block that
+        dropped writes land in (``ops/generation_ops.py``)."""
+        self._zero_caches(num_blocks + 1, block_size)
+
+    def _zero_caches(self, rows, cols):
+        shape = (rows, cols, self.tok_embedding.shape[1])
         self.caches = [(torch.zeros(shape, device=self.device),
                         torch.zeros(shape, device=self.device))
                        for _ in range(self.num_layers)]
 
     def release_cache(self):
         self.caches = []
+
+    def _pool_geometry(self):
+        """(num_blocks, block_size) of the paged caches."""
+        storage = self.caches[0][0]
+        return storage.shape[0] - 1, storage.shape[1]
 
     def _head(self, x):
         return mul(layer_norm(x, self.ln_f_w, self.ln_f_b), self.lm_head)
@@ -135,14 +154,48 @@ class TransformerLM(nn.Module):
         return self._head(x[:, length - 1])
 
     @torch.no_grad()
-    def decode(self, tokens, pos):
+    def prefill_paged(self, tokens, length, hist, pos_idx, table):
+        """The paged suffix prefill. tokens [1, P]: a prompt window
+        padded to a bucket, ``length`` real rows, the first at logical
+        position ``hist`` (positions before it are cached in the table's
+        first blocks); pos_idx [P] int, each window row's position-table
+        row; table [MB] int block ids. Writes the window's real K/V rows
+        through the table in every layer and returns the logits [1, V]
+        at window row length - 1."""
+        nb, bs = self._pool_geometry()
+        rows = paged_window_rows(table, hist, length, tokens.shape[1], nb,
+                                 bs)
+        x = self.pos(lookup_table(self.tok_embedding, tokens), pos_idx,
+                     window_rows=True)
+        for layer, (ck, cv) in zip(self.layers, self.caches):
+            x = layer(x, ck, cv, "prefill_paged", table=table, hist=hist,
+                      rows=rows)
+        return self._head(x[:, length - 1])
+
+    @torch.no_grad()
+    def decode(self, tokens, pos, table=None):
         """tokens [S, 1], pos [S] int32 (each slot's write position).
         Appends one K/V row per slot, active or not, and returns the
-        logits [S, V]."""
+        logits [S, V]. Paged caches take ``table`` [S, MB] int32, each
+        slot's block-table row; a dead entry drops the slot's write."""
+        if table is None:
+            mode, index = "decode", {"pos": pos}
+        else:
+            rows = paged_append_rows(pos, table, *self._pool_geometry())
+            mode, index = "decode_paged", {"pos": pos, "table": table,
+                                           "rows": rows}
         x = self.pos(lookup_table(self.tok_embedding, tokens), pos)
         for layer, (ck, cv) in zip(self.layers, self.caches):
-            x = layer(x, ck, cv, "decode", pos=pos)
+            x = layer(x, ck, cv, mode, **index)
         return self._head(x[:, 0])
+
+    @torch.no_grad()
+    def copy_block(self, src, dst):
+        """Copy-on-write of paged caches: block ``src`` -> ``dst`` in
+        every layer's K and V pool, on the device."""
+        for ck, cv in self.caches:
+            kv_block_copy(ck, src, dst)
+            kv_block_copy(cv, src, dst)
 
 
 def _build_model(params, vocab_size, d_model, num_heads, d_ff, num_layers,
@@ -156,14 +209,26 @@ def _build_model(params, vocab_size, d_model, num_heads, d_ff, num_layers,
 def transformer_lm_session(vocab_size, d_model=128, num_heads=4, d_ff=256,
                            num_layers=2, max_len=16, slots=None,
                            cache_len=None, prompt_buckets=None, eos_id=1,
-                           device=None):
-    """The KV-cached generation spec of the causal LM: dense float32
-    cache, greedy. Defaults for ``slots`` / ``cache_len`` / ``prompt_buckets``
+                           device=None, paged=None, block_size=None,
+                           num_blocks=None, prefix_cache=None):
+    """The KV-cached generation spec of the causal LM: float32 cache,
+    greedy. Defaults for ``slots`` / ``cache_len`` / ``prompt_buckets``
     come from the ``generation_slots`` / ``generation_cache_buckets`` /
     ``generation_prompt_buckets`` flags, resolved as the reference does.
-    ``device`` defaults to CUDA and raises when there is none. Returns a
-    :class:`~paddle_tpu_torch.serving.generation.GenerationSpec` for
-    ``GenerationSession(spec, params)``."""
+    ``device`` defaults to CUDA and raises when there is none.
+
+    ``paged`` (default: the ``generation_paged_kv`` flag) swaps the dense
+    [slots, cache_len, d_model] caches for per-layer block pools of
+    ``num_blocks`` blocks of ``block_size`` rows (defaults: the
+    ``generation_pool_blocks`` / ``generation_block_size`` flags;
+    ``num_blocks`` 0 means slots x ceil(cache_len / block_size), byte
+    parity with the dense cache), addressed through block tables of
+    ``max_blocks`` = ceil(cache_len / block_size) entries;
+    ``prefix_cache`` (default: the ``generation_prefix_cache`` flag)
+    shares prompt blocks between admissions.
+
+    Returns a :class:`~paddle_tpu_torch.serving.generation.GenerationSpec`
+    for ``GenerationSession(spec, params)``."""
     from ..serving.generation import GenerationSpec
 
     device = resolve_device(device)
@@ -183,9 +248,26 @@ def transformer_lm_session(vocab_size, d_model=128, num_heads=4, d_ff=256,
         min(int(p), max_len) for p in prompt_buckets if int(p) >= 1}))
     if not prompt_buckets:
         raise ValueError("need at least one prompt bucket")
+    if paged is None:
+        paged = bool(_config.get_flag("generation_paged_kv"))
+    max_blocks = 0
+    if paged:
+        if block_size is None:
+            block_size = int(_config.get_flag("generation_block_size"))
+        block_size = max(1, int(block_size))
+        max_blocks = -(-cache_len // block_size)
+        if num_blocks is None:
+            num_blocks = int(_config.get_flag("generation_pool_blocks"))
+        num_blocks = int(num_blocks) or slots * max_blocks
+        if prefix_cache is None:
+            prefix_cache = bool(_config.get_flag("generation_prefix_cache"))
+    else:
+        block_size, num_blocks, prefix_cache = 0, 0, False
     return GenerationSpec(
         slots=slots, cache_len=cache_len, max_len=max_len,
         prompt_buckets=prompt_buckets, eos_id=eos_id, device=device,
+        paged=bool(paged), block_size=block_size, num_blocks=num_blocks,
+        max_blocks=max_blocks, prefix_cache=bool(prefix_cache),
         build_model=functools.partial(
             _build_model, vocab_size=vocab_size, d_model=d_model,
             num_heads=num_heads, d_ff=d_ff, num_layers=num_layers,

@@ -28,6 +28,9 @@ ENTRY_POINTS = {
                             (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P)),
     "decode_attention_f32": ("decode_attention",
                              (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P)),
+    "decode_attention_paged_f32": ("decode_attention_paged",
+                                   (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                    _I, _I, _P)),
 }
 
 _lock = threading.Lock()

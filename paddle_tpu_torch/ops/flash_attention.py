@@ -1,5 +1,5 @@
-"""Flash attention for prefill and decode: the wrappers of the port's two
-CUDA kernels and their plain PyTorch versions.
+"""Flash attention for prefill and decode: the wrappers of the port's
+three CUDA kernels and their plain PyTorch versions.
 
 * :func:`flash_attention` replaces the Pallas kernel
   ``paddle_tpu/ops/pallas_attention.py::flash_attention`` (forward only:
@@ -12,6 +12,11 @@ CUDA kernels and their plain PyTorch versions.
   ``csrc/decode_attention.cu``. It is bound by device-memory bytes; the
   kernel reads the cache in its native [S, C, H*D] layout (no transpose
   copy) and only the rows below each slot's length.
+* :func:`decode_attention_paged` replaces
+  ``paddle_tpu/ops/pallas_attention.py::decode_attention_paged``.
+  Kernel: ``csrc/decode_attention_paged.cu``. The dense decode kernel
+  with each row addressed through the slot's block table; bound by
+  device-memory bytes like it.
 
 A wrapper given CPU tensors computes the plain version (the CPU tests
 rely on it). Given CUDA tensors it launches the kernel or raises: there
@@ -184,3 +189,72 @@ def decode_attention(q, k_cache, v_cache, lengths, num_heads):
 
 
 decode_attention.launches = 0
+
+# the kernel keeps a slot's table row in at most 48 KB of shared memory
+_MAX_TABLE_BLOCKS = 48 * 1024 // 4
+
+
+def _decode_paged_reference(q, k_pool, v_pool, lengths, tables, num_heads):
+    """The plain version of :func:`decode_attention_paged`, on any
+    device (reference ``_decode_paged_reference``): block ids clipped
+    into [0, NB), each slot's blocks gathered into a dense [S, MB*BS,
+    H*D] cache, then :func:`decode_attention_plain` on it. After the
+    gather it is the dense decode exactly, so the paged and dense
+    layouts give the same tokens."""
+    s = q.shape[0]
+    nb, bs, hd = k_pool.shape
+    tbl = tables.to(device=k_pool.device, dtype=torch.long).clamp(0, nb - 1)
+    c = tbl.shape[1] * bs
+    return decode_attention_plain(q, k_pool[tbl].reshape(s, c, hd),
+                                  v_pool[tbl].reshape(s, c, hd), lengths,
+                                  num_heads)
+
+
+def decode_attention_paged(q, k_pool, v_pool, lengths, tables, num_heads):
+    """One query per slot against a paged cache: q [S, H*D], pools
+    [NB, BS, H*D], lengths [S] int (live logical rows per slot), tables
+    [S, MB] int block ids: logical row c of slot s is pool row
+    ``tables[s, c // BS] * BS + c % BS``. Entries outside [0, NB) are
+    clamped into it (the host marks dead entries with NB) and the length
+    keeps them unattended. Returns [S, H*D]. Lengths >= 1, as for
+    :func:`decode_attention`."""
+    s, hd = q.shape
+    _require(k_pool.dim() == 3 and k_pool.shape[2] == hd
+             and v_pool.shape == k_pool.shape,
+             "pools must be [NB, BS, H*D] = [NB, BS, %d], got %s %s"
+             % (hd, tuple(k_pool.shape), tuple(v_pool.shape)))
+    _require(hd % num_heads == 0,
+             "H*D = %d not divisible by %d heads" % (hd, num_heads))
+    _require(tuple(lengths.shape) == (s,),
+             "lengths must be [S] = [%d], got %s" % (s, tuple(lengths.shape)))
+    _require(tables.dim() == 2 and tables.shape[0] == s
+             and tables.shape[1] >= 1,
+             "tables must be [S, MB] = [%d, MB >= 1], got %s"
+             % (s, tuple(tables.shape)))
+    nb, bs, _ = k_pool.shape
+    mb = tables.shape[1]
+    d = hd // num_heads
+    if _on_cpu(q, k_pool, v_pool, lengths, tables):
+        return _decode_paged_reference(q, k_pool, v_pool, lengths, tables,
+                                       num_heads)
+    for name, x in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool)):
+        _check_f32(name, x)
+    _require(d in _HEAD_DIMS, "head dim %d not in %s" % (d, _HEAD_DIMS))
+    _require(nb >= 1 and bs >= 1, "empty pool %s" % (tuple(k_pool.shape),))
+    for name, x in (("lengths", lengths), ("tables", tables)):
+        _require(x.dtype == torch.int32 and x.is_contiguous(),
+                 "%s must be contiguous int32" % name)
+    _require(mb <= _MAX_TABLE_BLOCKS, "a table row of %d blocks exceeds "
+             "the kernel's %d" % (mb, _MAX_TABLE_BLOCKS))
+    out = torch.empty_like(q)
+    fn = _build.entry("decode_attention_paged_f32")
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+             lengths.data_ptr(), tables.data_ptr(), out.data_ptr(), s,
+             num_heads, d, nb, bs, mb, stream)
+    _build.check(err, "decode_attention_paged")
+    decode_attention_paged.launches += 1
+    return out
+
+
+decode_attention_paged.launches = 0

@@ -1,29 +1,37 @@
 """Autoregressive generation serving: KV-cache sessions and a
 continuous-batching scheduler (reference
-``paddle_tpu/serving/generation.py``, dense layout, greedy, core only).
+``paddle_tpu/serving/generation.py``, greedy, core only).
 
 * :class:`GenerationSession` owns one decode batch: ``spec.slots``
-  sequences over a model whose per-layer [slots, cache_len, d_model]
-  K/V caches stay on the device between steps. ``admit()`` prefills a
-  prompt into one free slot and returns its first greedy token;
-  ``step()`` decodes one token for every active slot, each at its own
-  depth, so sequences admitted at different times decode together.
+  sequences over a model whose per-layer K/V caches stay on the device
+  between steps. ``admit()`` prefills a prompt into one free slot and
+  returns its first greedy token; ``step()`` decodes one token for every
+  active slot, each at its own depth, so sequences admitted at different
+  times decode together. The caches are dense ([slots, cache_len,
+  d_model] per layer) or, with ``spec.paged``, block pools addressed
+  through per-sequence block tables (``serving/paged_cache.py``), with
+  copy-on-write sharing of cached prompt prefixes when
+  ``spec.prefix_cache`` is on.
 * :class:`GenerationScheduler` is the front door: ``submit(prompt) ->
   Future``. A bounded queue (``ServingOverloadError`` when ``submit``
   times out on it), one dispatcher thread that admits waiting requests
   into free slots and steps every session with active slots, and
-  slot-level retirement on EOS, token budget, cache capacity or
-  deadline: co-resident sequences never stall for an admit or a retire.
+  slot-level retirement on EOS, token budget, cache capacity (the
+  position table, or a paged pool with no block left) or deadline:
+  co-resident sequences never stall for an admit or a retire.
   ``drain()`` serves everything accepted, then stops; ``close()`` is the
   bounded fast exit.
 
-Not ported yet: breakers, token replay, session rebuild and step
+Not ported yet: breakers, token replay (so pool starvation finishes a
+sequence at its current length, the reference's behaviour with
+``generation_replay_attempts`` 0), preemption, session rebuild and step
 timeouts; shedding on projected queue wait; ``swap_weights``; tracing
-and metrics; decode policies; the paged layout and prefix cache.
+and metrics; decode policies.
 
 Threads: the dispatcher thread is the only caller of its sessions, and
-so the only thread that launches their device work. Tokens are the only
-thing read back to the host, once per prefill and once per step.
+so the only thread that launches their device work or touches a block
+pool. Tokens are the only thing read back to the host, once per prefill
+and once per step.
 """
 
 import collections
@@ -37,6 +45,7 @@ import torch
 
 from .. import config as _config
 from ..ops.nn_ops import argmax
+from .paged_cache import BlockPool, PoolExhausted, PrefixIndex
 
 __all__ = ["GenerationSpec", "GenerationSession", "GenerationScheduler",
            "ServingOverloadError", "ServingDeadlineError",
@@ -73,14 +82,22 @@ def _resolve(future, result=None, exception=None):
 class GenerationSpec:
     """The contract between a model's session builder (e.g.
     ``models.transformer.transformer_lm_session``) and the session:
-    shapes, token ids, the device, and ``build_model(params)``, which
-    returns a module with ``allocate_cache``, ``prefill`` and
-    ``decode``."""
+    shapes, token ids, the device, the cache layout, and
+    ``build_model(params)``, which returns a module with
+    ``allocate_cache``, ``prefill`` and ``decode`` (dense) and
+    ``allocate_pools``, ``prefill_paged``, ``decode(..., table)`` and
+    ``copy_block`` (paged). The paged fields default to the dense
+    layout."""
 
     __slots__ = ("slots", "cache_len", "max_len", "prompt_buckets",
-                 "eos_id", "device", "build_model")
+                 "eos_id", "device", "build_model", "paged", "block_size",
+                 "num_blocks", "max_blocks", "prefix_cache")
+    _DEFAULTS = {"paged": False, "block_size": 0, "num_blocks": 0,
+                 "max_blocks": 0, "prefix_cache": False}
 
     def __init__(self, **kwargs):
+        for name, value in self._DEFAULTS.items():
+            kwargs.setdefault(name, value)
         for name in self.__slots__:
             setattr(self, name, kwargs.pop(name))
         if kwargs:
@@ -98,7 +115,6 @@ class GenerationSession:
         self.spec = spec
         self.device = spec.device
         self.model = spec.build_model(params)
-        self.model.allocate_cache(spec.slots, spec.cache_len)
         n = spec.slots
         self.lengths = np.zeros(n, np.int64)     # cached rows per slot
         self.last_token = np.zeros(n, np.int64)  # next token to decode
@@ -108,6 +124,25 @@ class GenerationSession:
         self.max_pos = min(spec.cache_len, spec.max_len)
         self.prefills = 0   # admissions run
         self.steps = 0      # decode steps run
+        self.paged = bool(spec.paged)
+        self.pool = None
+        self.prefix = None
+        if self.paged:
+            self.model.allocate_pools(spec.num_blocks, spec.block_size)
+            self.pool = BlockPool(spec.num_blocks, spec.block_size)
+            if spec.prefix_cache:
+                self.prefix = PrefixIndex(self.pool)
+            # host block table per slot: the physical block ids backing
+            # logical rows [0, lengths[slot])
+            self.tables = [[] for _ in range(n)]
+            # slots whose next write found no block this step: left out
+            # of the step's result, finished at their current length
+            self._starved = set()
+            # (bucket, hist, window) per admission: hist is the shared
+            # prefix that was NOT prefilled; bounded in _admit_paged
+            self.prefill_log = []
+        else:
+            self.model.allocate_cache(spec.slots, spec.cache_len)
 
     # -- slot bookkeeping ------------------------------------------------
     def free_slots(self):
@@ -124,8 +159,121 @@ class GenerationSession:
                 return p
         return None
 
+    # -- paged-pool surface (trivial on the dense layout) ----------------
+    def admit_ok(self, n_tokens):
+        """Can an ``n_tokens``-history admission get storage now? Dense:
+        always (the slot is the storage). Paged: enough free or
+        evictable blocks for the whole history, plus one copy-on-write
+        block when the prefix cache is on, capped at the pool size. The
+        count does not depend on sharing: m matched blocks save m fresh
+        ones but pin m entries that were evictable."""
+        if not self.paged:
+            return True
+        need = -(-min(int(n_tokens), self.max_pos)
+                 // self.spec.block_size)
+        avail = self.pool.free_count()
+        if self.prefix is not None:
+            need = min(need + 1, self.pool.num_blocks)
+            if avail < need:
+                avail += self.prefix.evictable_count()
+        return avail >= need
+
+    def storable(self, n_tokens):
+        """Could this session's storage ever hold an ``n_tokens``
+        history? Dense: yes (``max_pos`` bounds it elsewhere); paged: the
+        pool must have that many blocks in all."""
+        if not self.paged:
+            return True
+        return -(-int(n_tokens) // self.spec.block_size) <= \
+            self.pool.num_blocks
+
+    def window_fits(self, history):
+        """For a history that fits no prompt bucket whole: with the
+        prefix cache on, does the window left after its cached prefix
+        fit one? No side effects (``PrefixIndex.peek``); False on dense
+        and prefix-off sessions."""
+        if not self.paged or self.prefix is None:
+            return False
+        history = np.asarray(history, np.int64).reshape(-1)
+        n = history.size
+        if n < 1 or n > self.max_pos:
+            return False
+        matched = self.prefix.peek(history[:n - 1])
+        return self.prompt_bucket(n - matched) is not None
+
+    def pool_stats(self):
+        """{blocks_in_use, num_blocks, block_size, bytes_per_block} of
+        the paged layout (None on dense). The sink block the pools carry
+        is not counted."""
+        if not self.paged:
+            return None
+        d_model = self.model.tok_embedding.shape[1]
+        return {"blocks_in_use": self.pool.used_count(),
+                "num_blocks": self.pool.num_blocks,
+                "block_size": self.spec.block_size,
+                "bytes_per_block": self.spec.block_size * d_model * 4
+                * 2 * self.model.num_layers}
+
+    def prefix_stats(self):
+        """Prefix-cache counters (zeros when the cache is off)."""
+        if self.prefix is None:
+            return {"hits": 0, "misses": 0, "shared_tokens": 0,
+                    "entries": 0, "cows": 0, "evictions": 0}
+        return self.prefix.stats()
+
+    def check_pool_invariant(self):
+        """Assert the block-pool books balance against every live table
+        and index pin. No-op on dense."""
+        if self.paged:
+            self.pool.check_invariant(self.tables, self.prefix)
+
+    def _alloc_block(self):
+        """One fresh block, evicting cold prefix entries (LRU, pin-only)
+        under pressure before giving up."""
+        while True:
+            try:
+                return self.pool.alloc()
+            except PoolExhausted:
+                if self.prefix is None or not self.prefix.evict_one():
+                    raise
+
+    def _release_table(self, slot):
+        for block in self.tables[slot]:
+            self.pool.decref(block)
+        self.tables[slot] = []
+
+    def _ensure_writable(self, table, idx):
+        """Copy-on-write: if ``table[idx]`` is shared, copy it into a
+        fresh block on the device (every layer's K and V pool) and swap
+        that into the table. Raises PoolExhausted when no block is
+        allocatable."""
+        old = table[idx]
+        if self.pool.refcount(old) <= 1:
+            return
+        new = self._alloc_block()
+        try:
+            self.model.copy_block(old, new)
+        except BaseException:
+            self.pool.decref(new)
+            raise
+        self.pool.decref(old)
+        table[idx] = new
+        # blocks are shared only through the prefix index, so it exists
+        self.prefix.cows += 1
+
     def close(self):
-        """Free the caches; the session must not be used after."""
+        """Free the caches; the session must not be used after. Paged:
+        every block reference (slot tables and prefix pins) returns to
+        the pool first, and the books are checked to balance at zero."""
+        if self.paged:
+            for slot in range(self.spec.slots):
+                self._release_table(slot)
+            if self.prefix is not None:
+                self.prefix.clear()
+            self.check_pool_invariant()
+            assert self.pool.used_count() == 0, \
+                "closed session leaked %d blocks" % self.pool.used_count()
+            self.paged = False
         self.model.release_cache()
         self.active[:] = False
 
@@ -133,11 +281,19 @@ class GenerationSession:
     def admit(self, prompt):
         """Prefill ``prompt`` (1-D int ids) into a free slot and return
         ``(slot, first greedy token)``. Raises RuntimeError when no slot
-        is free and ValueError when the prompt fits no bucket."""
+        is free and ValueError when the prompt fits no bucket.
+
+        Paged: storage comes from the block pool through a fresh table;
+        with the prefix cache on, the longest cached prefix is shared
+        (its blocks referenced, not recomputed) and only the rest is
+        prefilled, the match capped at len - 1 because the logits need
+        the last prompt token's forward pass."""
         prompt = np.asarray(prompt, np.int64).reshape(-1)
         n = prompt.size
         if n < 1:
             raise ValueError("empty prompt")
+        if self.paged:
+            return self._admit_paged(prompt)
         bucket = self.prompt_bucket(n)
         if bucket is None:
             raise ValueError(
@@ -159,13 +315,83 @@ class GenerationSession:
         self.active[slot] = True
         return slot, first
 
+    def _admit_paged(self, prompt):
+        """Match the cached prefix, reference its blocks, allocate the
+        rest, prefill only the unshared window, then register the
+        prompt's blocks. Every reference taken here is returned if
+        anything fails."""
+        n = prompt.size
+        bs = self.spec.block_size
+        if n > self.max_pos:
+            raise ValueError("prompt length %d exceeds the cache capacity "
+                             "%d" % (n, self.max_pos))
+        free = self.free_slots()
+        if not free:
+            raise RuntimeError("no free cache slot (%d active)"
+                               % self.spec.slots)
+        slot = free[0]
+        matched, shared = 0, []
+        if self.prefix is not None:
+            matched, shared = self.prefix.match(prompt[:n - 1])
+        suffix = prompt[matched:]
+        bucket = self.prompt_bucket(suffix.size)
+        if bucket is None:
+            raise ValueError(
+                "prompt length %d (unshared suffix %d) exceeds the "
+                "largest prompt bucket %d"
+                % (n, suffix.size, self.spec.prompt_buckets[-1]))
+        table = list(shared)
+        for block in shared:
+            self.pool.incref(block)
+        w = suffix.size
+        try:
+            if matched % bs:
+                # the shared prefix ends mid-block: the window writes
+                # into that block, so diverge onto a copy first
+                self._ensure_writable(table, len(table) - 1)
+            while len(table) * bs < n:
+                table.append(self._alloc_block())
+            padded = np.full((1, bucket), self.spec.eos_id, np.int64)
+            padded[0, :w] = suffix
+            pix = np.clip(matched + np.arange(bucket), 0,
+                          self.spec.max_len - 1)
+            tab = np.full(self.spec.max_blocks, self.pool.num_blocks,
+                          np.int32)
+            tab[:len(table)] = table
+            dev = self.device
+            logits = self.model.prefill_paged(
+                torch.from_numpy(padded).to(dev), w, matched,
+                torch.from_numpy(pix).to(dev), torch.from_numpy(tab).to(dev))
+            first = int(argmax(logits, -1)[0])
+        except BaseException:
+            for block in table:
+                self.pool.decref(block)
+            raise
+        if self.prefix is not None:
+            self.prefix.register(prompt, table)
+        self.tables[slot] = table
+        self.prefills += 1
+        self.lengths[slot] = n
+        self.last_token[slot] = first
+        self.active[slot] = True
+        self._starved.discard(slot)
+        self.prefill_log.append((bucket, matched, w))
+        if len(self.prefill_log) > 4096:
+            del self.prefill_log[:2048]
+        return slot, first
+
     def step(self):
         """One decode step for EVERY active slot: each slot's pending
         token is embedded at its own position, its K/V row written in
         place, and its query attended against the slot's live cache
         rows. Returns {slot: next_token} for active slots (free slots
         compute masked garbage that the next prefill overwrites). Raises
-        RuntimeError when an active slot is out of capacity."""
+        RuntimeError when an active slot is out of capacity.
+
+        Paged: a slot whose next row needs a block the pool cannot give
+        (even after evicting cold prefix entries) is left out of the
+        result; it neither advances nor writes, and the caller finishes
+        it at its current length."""
         prepared = self.step_prepare()
         if prepared is None:
             return {}
@@ -173,7 +399,8 @@ class GenerationSession:
 
     def step_prepare(self):
         """Phase 1 of a step, host only: the active-slot snapshot, the
-        capacity check and the feeds. None when nothing is active."""
+        capacity check, every block-pool change (growth, copy-on-write)
+        and the feeds. None when nothing is active."""
         act = np.flatnonzero(self.active)
         if act.size == 0:
             return None
@@ -182,36 +409,76 @@ class GenerationSession:
             raise RuntimeError(
                 "slots %s are at cache capacity %d — retire before "
                 "stepping" % (over, self.max_pos))
-        return (act, self.last_token.reshape(-1, 1).copy(),
-                self.lengths.astype(np.int32))
+        table, starved = None, frozenset()
+        if self.paged:
+            table = self._prepare_paged(act)
+            starved = frozenset(self._starved)
+        return (act, starved, self.last_token.reshape(-1, 1).copy(),
+                self.lengths.astype(np.int32), table)
+
+    def _prepare_paged(self, act):
+        """Grow or copy-on-write each active slot's write block and
+        build the [slots, max_blocks] table feed. Inactive and starved
+        slots get all-dead rows (entries = num_blocks), so their device
+        writes drop."""
+        bs = self.spec.block_size
+        self._starved.clear()   # a retire may have freed blocks since
+        for s in act:
+            s = int(s)
+            pos = int(self.lengths[s])
+            tbl = self.tables[s]
+            try:
+                if pos // bs == len(tbl):
+                    tbl.append(self._alloc_block())
+                else:
+                    self._ensure_writable(tbl, pos // bs)
+            except PoolExhausted:
+                self._starved.add(s)
+        tab = np.full((self.spec.slots, self.spec.max_blocks),
+                      self.pool.num_blocks, np.int32)
+        for s in act:
+            s = int(s)
+            if s not in self._starved:
+                tab[s, :len(self.tables[s])] = self.tables[s]
+        return tab
 
     def step_run(self, prepared):
         """Phase 2: the device step and the result's application."""
-        act, tokens, pos = prepared
-        logits = self.model.decode(torch.from_numpy(tokens).to(self.device),
-                                   torch.from_numpy(pos).to(self.device))
+        act, starved, tokens, pos, table = prepared
+        dev = self.device
+        logits = self.model.decode(
+            torch.from_numpy(tokens).to(dev), torch.from_numpy(pos).to(dev),
+            None if table is None else torch.from_numpy(table).to(dev))
         nxt = argmax(logits, -1).cpu().numpy()
         self.steps += 1
         result = {}
         for s in act:
             s = int(s)
+            if s in starved:
+                continue
             self.lengths[s] += 1
             self.last_token[s] = int(nxt[s])
             result[s] = int(nxt[s])
         return result
 
     def retire(self, slot):
-        """Free a slot mid-flight. Its cache rows stay as they are: the
-        next prefill into the slot overwrites them, and the per-slot
-        length keeps them unattended meanwhile."""
+        """Free a slot mid-flight. Dense: its cache rows stay as they
+        are, the next prefill into the slot overwrites them and the
+        per-slot length keeps them unattended meanwhile. Paged: every
+        block reference of its table returns to the pool (a block the
+        prefix index pins survives as cached prompt state)."""
         self.active[slot] = False
         self.lengths[slot] = 0
         self.last_token[slot] = 0
+        if self.paged:
+            self._release_table(slot)
+            self._starved.discard(slot)
 
     def generate(self, prompt, max_new_tokens=None, eos_id=None):
         """Synchronous single-sequence convenience: the greedy
-        continuation of ``prompt``, stopping at ``eos_id`` or
-        ``max_new_tokens``, as a list of ids (EOS excluded)."""
+        continuation of ``prompt``, stopping at ``eos_id``,
+        ``max_new_tokens`` or an exhausted paged pool, as a list of ids
+        (EOS excluded)."""
         eos = self.spec.eos_id if eos_id is None else eos_id
         slot, first = self.admit(prompt)
         # prefill produced one token; each step writes one more K/V
@@ -222,7 +489,10 @@ class GenerationSession:
         tokens = [first]
         try:
             while tokens[-1] != eos and len(tokens) < limit:
-                tokens.append(self.step()[slot])
+                nxt = self.step()
+                if slot not in nxt:
+                    break   # paged pool exhausted: finish at length
+                tokens.append(nxt[slot])
         finally:
             self.retire(slot)
         if tokens[-1] == eos:
@@ -313,8 +583,13 @@ class GenerationScheduler:
         prompt = np.asarray(prompt, np.int64).reshape(-1)
         if prompt.size < 1:
             raise ValueError("empty prompt")
+        # a session fits when a prompt bucket does, or (paged, prefix
+        # cache on) when a cached prefix may shrink the prefill window
+        # into one: placement decides that on the dispatcher thread,
+        # which owns the prefix index
         fitting = [s for s in self.sessions
-                   if s.prompt_bucket(prompt.size) is not None]
+                   if s.prompt_bucket(prompt.size) is not None
+                   or (s.prefix is not None and prompt.size <= s.max_pos)]
         if not fitting:
             raise ValueError(
                 "prompt length %d exceeds every session's largest prompt "
@@ -363,16 +638,22 @@ class GenerationScheduler:
             return None
 
     def _fits(self, sess, item):
-        """Can ``sess`` serve this request in full: a prompt bucket, and
-        cache capacity for an explicit token budget?"""
+        """Can ``sess`` serve this request in full: cache capacity and
+        pool storage for an explicit token budget, and a prompt bucket
+        for the whole prompt or, with a paged prefix cache, for the
+        window left once the cached prefix is subtracted
+        (``window_fits``, no side effects)?"""
         n = item.prompt.size
         need = item.max_new if item.explicit_budget else 1
-        return sess.max_pos - n + 1 >= need and \
-            sess.prompt_bucket(n) is not None
+        if sess.max_pos - n + 1 < need or not sess.storable(n + need - 1):
+            return False
+        return sess.prompt_bucket(n) is not None or \
+            sess.window_fits(item.prompt)
 
     def _place(self, item):
         """Admit ``item``, park it, or resolve it. Returns False when it
-        was parked (no free slot now: stop pulling from the queue)."""
+        was parked (no free slot, or a paged pool short of blocks, now:
+        stop pulling from the queue)."""
         if item.deadline is not None and time.monotonic() >= item.deadline:
             _resolve(item.future, exception=ServingDeadlineError(
                 "deadline expired in queue"))
@@ -383,7 +664,8 @@ class GenerationScheduler:
             _resolve(item.future, exception=ServingUnavailableError(
                 "no generation session can serve this request"))
             return True
-        free = [i for i in fitting if self.sessions[i].free_slots()]
+        free = [i for i in fitting if self.sessions[i].free_slots()
+                and self.sessions[i].admit_ok(item.prompt.size)]
         if not free:
             self._pending.appendleft(item)
             return False
@@ -447,6 +729,15 @@ class GenerationScheduler:
                     _resolve(it.future, exception=exc)
                 continue
             for slot, it in mine:
+                if slot not in toks:
+                    # a paged pool had no block for this sequence's next
+                    # row: it finishes at its current length (reason
+                    # "capacity"; there is no replay to resume it)
+                    sess.retire(slot)
+                    del self._active[(si, slot)]
+                    _resolve(it.future,
+                             result=np.asarray(it.tokens, np.int64))
+                    continue
                 it.tokens.append(toks[slot])
                 self._finish_if_done(it)
 

@@ -84,6 +84,14 @@ def test_no_device_means_cuda_and_raises_without_it(monkeypatch):
     assert place.resolve_device("cpu") == torch.device("cpu")
 
 
+def test_paged_session_without_device_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        port_tf.transformer_lm_session(29, max_len=8, slots=1, cache_len=8,
+                                       prompt_buckets=(4,), paged=True,
+                                       block_size=4, prefix_cache=True)
+
+
 def _named(num_layers=2, d=4):
     rs = np.random.RandomState(0)
     return {n: rs.standard_normal((d, d)).astype(np.float32)
