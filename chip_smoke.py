@@ -10,8 +10,10 @@ and PyTorch built for CUDA. In order, it:
    csrc`` (one ``nvcc`` per source, in parallel) and prints what
    ``-Xptxas -v`` reports;
 2. holds each kernel against its plain PyTorch version on the card, at
-   the shapes the serving path gives it, and a small LM on the card
-   against the same LM on the CPU;
+   the shapes the serving path gives it (the int8 kernel exactly, the
+   decode kernels on float32 and bfloat16 caches), and small LMs on the
+   card against the same LMs on the CPU (float32; int8 weights with
+   bfloat16 caches, dense and paged);
 3. makes full-width weights of the flagship LM (vocab 32768, d_model
    2048, 16 heads, d_ff 8192, 12 layers, 1024 positions) with numpy from
    the seed and loads them by their reference names through
@@ -27,11 +29,17 @@ and PyTorch built for CUDA. In order, it:
    step went through the paged decode kernel, the pool's books, and the
    paged model's prefill logits (prefix hit and miss) against the dense
    model's;
-6. times prefill and decode steps end to end (dense, and paged beside
-   dense), profiles both layouts with torch.profiler (device-busy share,
-   top kernels), and times each kernel on the device (profiler kernel
-   durations) beside its bound, its plain version and the one PyTorch
-   call that computes the same function.
+6. serves the same five requests on a paged session with int8 weight
+   compute and bfloat16 KV pools, and checks that every armed product
+   went through the int8 kernel and every decode through the paged
+   kernel, the prefix counters, the pool's bytes per block, and prints
+   its tokens' agreement with the float32 session's;
+7. times prefill and decode steps end to end (dense, paged, and the
+   int8/bf16 session beside them), profiles the three with
+   torch.profiler (device-busy share, top kernels), and times each
+   kernel on the device (profiler kernel durations) beside its bound, its
+   plain version and the one PyTorch call that computes the same
+   function.
 
 Any failed phase exits nonzero. The line before the last is the card's
 name and power limit from nvidia-smi; the one before that lists the
@@ -52,9 +60,11 @@ FULL = dict(vocab_size=32768, d_model=2048, num_heads=16, d_ff=8192,
 SLOTS, CACHE_LEN, BUCKETS = 8, 1024, (128, 512)
 PROMPT_LENS = (100, 128, 300, 512)
 NEW_TOKENS = 32
-# H100 SXM data sheet: HBM3 bandwidth, and f32 outside the tensor cores
+# H100 SXM data sheet: HBM3 bandwidth, f32 outside the tensor cores, and
+# dense int8 on the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+INT8_OPS = 1979e12
 # kernel vs plain version on the card: both f32, sums in another order
 KERNEL_ATOL = 1e-4
 # the small LM on the card vs on the CPU: f32 through two layers
@@ -69,6 +79,31 @@ SYSTEM_LEN, SUFFIX_LENS, UNRELATED_LEN = 192, (36, 108, 308), 100
 # prefill attention by two codes (the flash kernel, plain torch over the
 # gathered pool), sums in another order
 PAGED_LOGITS_ATOL = 1e-3
+# int8 compute: the int8 products per admission and per decode step
+# (q, k, v, o, ffn1, ffn2 in each layer, and the LM head), and the
+# (m, k, n) of each product on the path: decode m = 8, prefill windows
+# padded to a bucket (128, 512), the LM head at prefill m = 1
+INT8_PER_PASS = 6 * FULL["num_layers"] + 1
+INT8_KN = ((FULL["d_model"], FULL["d_model"]),
+           (FULL["d_model"], FULL["d_ff"]), (FULL["d_ff"], FULL["d_model"]))
+INT8_SHAPES = tuple((m, k, n) for m in (SLOTS,) + BUCKETS
+                    for k, n in INT8_KN) \
+    + ((SLOTS, FULL["d_model"], FULL["vocab_size"]),
+       (1, FULL["d_model"], FULL["vocab_size"]))
+# ragged shapes off the path, and every path shape, for the exact compare
+INT8_RAGGED = ((3, 200, 72), (5, 37, 19), (17, 100, 33))
+# the small LM with int8 weights and bf16 caches, card vs CPU: their f32
+# parts differ in the last bits, which can move one element's int8
+# rounding by one step. One step of the LM head's input moves a logit
+# by at most amax(head input) * max(head scale) (q * x_scale * w_scale
+# with |q| <= 127 and x_scale = amax / 127); flips in earlier layers
+# reach the logits through the residual and the final layer norm. The
+# logits are held to LM_INT8_STEPS such steps, computed from the CPU
+# model in the run.
+LM_INT8_STEPS = 4
+# host-clock latencies spread by tens of percent between rounds (the
+# step is host-bound): medians of this many rounds, every round printed
+LATENCY_ROUNDS = 7
 
 
 class SmokeFailure(RuntimeError):
@@ -120,26 +155,43 @@ def device_ms(fn, iters=30, warmup=3):
     return us / iters / 1e3
 
 
-def roofline_ms(nbytes, flops):
+def roofline_ms(nbytes, flops, peak=F32_FLOPS):
     """The least time the card could take for work that moves ``nbytes``
-    and does ``flops`` f32 operations: (ms, "bytes" or "operations")."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
+    and does ``flops`` operations at ``peak`` per second (default f32):
+    (ms, "bytes" or "operations")."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
     return max(t_bytes, t_ops) * 1e3, \
         "bytes" if t_bytes > t_ops else "operations"
 
 
-KERNELS = ("flash_attention", "decode_attention", "decode_attention_paged")
+def wrappers():
+    """{kernel name: its wrapper}; each wrapper counts its launches."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import quant_ops
+    return {"flash_attention": fa.flash_attention,
+            "decode_attention": fa.decode_attention,
+            "decode_attention_paged": fa.decode_attention_paged,
+            "int8_matmul": quant_ops.quant_matmul_2d}
 
 
 def reset_launches():
-    from paddle_tpu_torch.ops import flash_attention as fa
-    for name in KERNELS:
-        getattr(fa, name).launches = 0
+    for fn in wrappers().values():
+        fn.launches = 0
 
 
 def read_launches():
-    from paddle_tpu_torch.ops import flash_attention as fa
-    return {name: getattr(fa, name).launches for name in KERNELS}
+    return {name: fn.launches for name, fn in wrappers().items()}
+
+
+def uncounted(fn):
+    """Call ``fn()`` and leave every launch count as it was: the launches
+    of comparisons and timings are not the main path's."""
+    saved = read_launches()
+    try:
+        return fn()
+    finally:
+        for name, w in wrappers().items():
+            w.launches = saved[name]
 
 
 def make_params(cfg, rng):
@@ -175,7 +227,7 @@ def phase_build():
           % (len(logs), time.perf_counter() - t0))
     for stem, log in sorted(logs.items()):
         for line in log.splitlines():
-            if "ptxas" in line:
+            if "ptxas" in line or "spill" in line:
                 print("[build] %s: %s" % (stem, line.strip()))
 
 
@@ -235,12 +287,13 @@ def phase_compare(rng):
             "decode_attention": max(decode_errs)}
 
 
-def paged_case(rng, lens, heads, d, nb, bs, mb, poison=True):
+def paged_case(rng, lens, heads, d, nb, bs, mb, poison=True, dtype=None):
     """Decode inputs on the card over a paged cache: q [S, H*D], pools
-    [NB, BS, H*D] whose blocks no table references are NaN (when
-    ``poison``), scattered unordered tables [S, MB] (a slot of length 0
-    in ``lens`` gets an all-dead row, entries = NB, and runs at length
-    1, as the session runs inactive slots) and int32 lengths."""
+    [NB, BS, H*D] (of ``dtype``, default float32) whose blocks no table
+    references are NaN (when ``poison``), scattered unordered tables
+    [S, MB] (a slot of length 0 in ``lens`` gets an all-dead row,
+    entries = NB, and runs at length 1, as the session runs inactive
+    slots) and int32 lengths."""
     import torch
     s, hd = len(lens), heads * d
     tables = np.full((s, mb), nb, np.int32)
@@ -255,7 +308,7 @@ def paged_case(rng, lens, heads, d, nb, bs, mb, poison=True):
         pool = torch.full((nb, bs, hd), fill, device="cuda")
         pool[torch.from_numpy(used).cuda()] = torch.from_numpy(
             rng.standard_normal((used.size, bs, hd), dtype=np.float32)).cuda()
-        pools.append(pool)
+        pools.append(pool if dtype is None else pool.to(dtype))
     q = torch.from_numpy(rng.standard_normal((s, hd),
                                              dtype=np.float32)).cuda()
     lengths = torch.tensor([max(n, 1) for n in lens], dtype=torch.int32,
@@ -304,6 +357,85 @@ def phase_compare_paged(rng):
         if hh == h:
             worst = err
     return worst
+
+
+def quantized(rng, k, n):
+    """A weight of the small-std LM's kind, armed: (int8 [k, n], f32 [n]
+    scales) on the card, quantized as the session arms it."""
+    import torch
+    from paddle_tpu_torch.serving.quant import quantize_array
+    w = rng.standard_normal((k, n), dtype=np.float32)
+    w *= 0.02
+    q, s = quantize_array(w, 1)
+    return torch.from_numpy(q).cuda(), torch.from_numpy(s).cuda()
+
+
+def phase_compare_int8(rng):
+    """The int8 kernel against its plain version on the same card inputs,
+    at every (m, k, n) of the path and at ragged shapes, each x with an
+    all-zero row: the contract is bitwise equality."""
+    import torch
+    from paddle_tpu_torch.ops import quant_ops
+    worst = 0.0
+    for m, k, n in INT8_SHAPES + INT8_RAGGED:
+        x = torch.from_numpy(rng.standard_normal((m, k), dtype=np.float32))
+        x = x.cuda()
+        if m > 1:
+            x[m // 2] = 0.0
+        wq, ws = quantized(rng, k, n)
+        got = quant_ops.quant_matmul_2d(x, wq, ws)
+        want = quant_ops.int8_matmul_plain(x, wq, ws)
+        torch.cuda.synchronize()
+        differ = int((got != want).sum())
+        err = float((got - want).abs().max())
+        print("[compare] int8_matmul m=%d k=%d n=%d max_abs_err=%.3g, %d "
+              "differing elements (exact)" % (m, k, n, err, differ))
+        check(differ == 0, "int8_matmul differs from its plain version at "
+              "%s in %d elements" % ((m, k, n), differ))
+        worst = max(worst, err)
+    return worst
+
+
+def phase_compare_bf16(rng):
+    """The decode kernels on bfloat16 caches against their plain versions
+    at the path's shapes (B5 with NaN-poisoned unreferenced blocks)."""
+    import torch
+    from paddle_tpu_torch.ops import flash_attention as fa
+    h, d = FULL["num_heads"], FULL["d_model"] // FULL["num_heads"]
+    bf16 = torch.bfloat16
+    lens = [1, 7, 129, 300, 512, 513, 1000, 1024]
+    q = torch.from_numpy(rng.standard_normal((SLOTS, h * d),
+                                             dtype=np.float32)).cuda()
+    kc, vc = (torch.from_numpy(rng.standard_normal(
+        (SLOTS, CACHE_LEN, h * d), dtype=np.float32)).cuda().to(bf16)
+        for _ in range(2))
+    lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    got = fa.decode_attention(q, kc, vc, lengths, h)
+    torch.cuda.synchronize()
+    err4 = float((got - fa.decode_attention_plain(q, kc, vc, lengths, h))
+                 .abs().max())
+    print("[compare] decode_attention bf16 cache S=%d C=%d H=%d D=%d "
+          "max_abs_err=%.3g (tol %g)" % (SLOTS, CACHE_LEN, h, d, err4,
+                                         KERNEL_ATOL))
+    check(err4 <= KERNEL_ATOL, "decode_attention bf16 disagrees: %g" % err4)
+    mb = -(-CACHE_LEN // BLOCK_SIZE)
+    plens = [1, 16, 17, 100, 300, 513, 1024, 0]
+    q, pk, pv, lengths, tables = paged_case(rng, plens, h, d, SLOTS * mb,
+                                            BLOCK_SIZE, mb, dtype=bf16)
+    got = fa.decode_attention_paged(q, pk, pv, lengths, tables, h)
+    torch.cuda.synchronize()
+    want = fa._decode_paged_reference(q, pk.nan_to_num(), pv.nan_to_num(),
+                                      lengths, tables, h)
+    check(bool(torch.isfinite(got[:-1]).all()),
+          "decode_attention_paged bf16 read a poisoned block")
+    err5 = float((got[:-1] - want[:-1]).abs().max())
+    print("[compare] decode_attention_paged bf16 pools S=%d H=%d D=%d BS=%d "
+          "MB=%d lengths %s max_abs_err=%.3g (tol %g)"
+          % (SLOTS, h, d, BLOCK_SIZE, mb, plens[:-1], err5, KERNEL_ATOL))
+    check(err5 <= KERNEL_ATOL,
+          "decode_attention_paged bf16 disagrees: %g" % err5)
+    return {"decode_attention bf16": err4,
+            "decode_attention_paged bf16": err5}
 
 
 def phase_small_lm(rng):
@@ -387,6 +519,94 @@ def phase_small_lm_paged(rng):
         sess.close()
 
 
+def phase_small_lm_quant(rng):
+    """The small LM with int8 weights and bfloat16 caches on the card
+    against the same LM on the CPU, dense and paged: prefill logits and
+    eight teacher-forced decode steps (tokens from the CPU), within
+    LM_INT8_STEPS head quantization steps; the count of equal greedy
+    tokens is printed. Returns the dense card run's decode-kernel
+    launches (bfloat16 caches)."""
+    import torch
+    from paddle_tpu_torch.io import params_from_jax
+    from paddle_tpu_torch.models.transformer import TransformerLM
+    from paddle_tpu_torch.serving.quant import arm_quant_compute
+    cfg = dict(vocab_size=512, d_model=256, num_heads=2, d_ff=512,
+               num_layers=2, max_len=256)
+    named = make_params(cfg, rng)
+    n, bs = 150, BLOCK_SIZE
+    prompt = np.full((1, 256), 1, np.int64)
+    prompt[0, :n] = rng.integers(2, cfg["vocab_size"], n)
+    mb = cfg["max_len"] // bs
+    nb = 2 * mb
+    tables = np.full((2, mb), nb, np.int32)    # slot 0 inactive: all dead
+    tables[1] = rng.permutation(nb)[:mb]
+    dec_launches = 0
+    for paged in (False, True):
+        models = {}
+        for dev in ("cpu", "cuda"):
+            m = TransformerLM(device=dev, **cfg)
+            m.load_params(params_from_jax(named, device=dev))
+            arm_quant_compute(m)
+            if paged:
+                m.allocate_pools(nb, bs, torch.bfloat16)
+            else:
+                m.allocate_cache(2, cfg["max_len"], torch.bfloat16)
+            models[dev] = m
+        # one quantization step of the LM head's input: a layer-norm
+        # output has |z| <= sqrt(d - 1) * max|scale| + max|shift|
+        cpu = models["cpu"]
+        amax = (cfg["d_model"] - 1) ** 0.5 * float(cpu.ln_f_w.abs().max()) \
+            + float(cpu.ln_f_b.abs().max())
+        tol = LM_INT8_STEPS * amax * float(cpu.lm_head_scale.max())
+        reset_launches()
+
+        def prefill(m, dev):
+            tok = torch.from_numpy(prompt).to(dev)
+            if not paged:
+                return m.prefill(tok, n, 1)
+            pix = torch.arange(cfg["max_len"], device=dev)
+            return m.prefill_paged(tok, n, 0, pix,
+                                   torch.from_numpy(tables[1]).to(dev))
+
+        logits = {dev: prefill(m, dev).cpu() for dev, m in models.items()}
+        worst = float((logits["cpu"] - logits["cuda"]).abs().max())
+        equal = int(logits["cpu"].argmax() == logits["cuda"].argmax())
+        tok = int(logits["cpu"].argmax())
+        lengths = np.array([0, n], np.int32)
+        for _ in range(8):
+            toks = np.array([[0], [tok]], np.int64)
+            logits = {dev: m.decode(
+                torch.from_numpy(toks).to(dev),
+                torch.from_numpy(lengths).to(dev),
+                torch.from_numpy(tables).to(dev) if paged else None).cpu()
+                for dev, m in models.items()}
+            worst = max(worst, float((logits["cpu"][1] -
+                                      logits["cuda"][1]).abs().max()))
+            equal += int(logits["cpu"][1].argmax() ==
+                         logits["cuda"][1].argmax())
+            tok = int(logits["cpu"][1].argmax())
+            lengths[1] += 1
+        torch.cuda.synchronize()
+        launches = read_launches()
+        layout = "paged" if paged else "dense"
+        print("[small-lm] int8 weights, bf16 %s caches: card vs CPU logits "
+              "max_abs_err=%.3g (tol %.3g = %d head steps of %.3g); equal "
+              "greedy tokens %d of 9; card launches %s"
+              % (layout, worst, tol, LM_INT8_STEPS, tol / LM_INT8_STEPS,
+                 equal, launches))
+        check(worst <= tol, "int8/bf16 small LM (%s) on the card disagrees "
+              "with the CPU: %g > %g" % (layout, worst, tol))
+        check(np.isfinite(logits["cuda"].numpy()).all(), "non-finite logits")
+        check(launches["int8_matmul"] == 9 * (6 * cfg["num_layers"] + 1),
+              "int8 launches %d" % launches["int8_matmul"])
+        dec = "decode_attention_paged" if paged else "decode_attention"
+        check(launches[dec] == 8 * cfg["num_layers"],
+              "%s launches %d" % (dec, launches[dec]))
+        if not paged:
+            dec_launches = launches[dec]
+    return dec_launches
+
+
 def phase_serve(sess, rng):
     """Serve the requests through the scheduler with every launch count
     at 0 just before; returns the counts and the served lengths."""
@@ -422,29 +642,37 @@ def phase_serve(sess, rng):
     check(launches["decode_attention"] == layers * steps > 0,
           "decode launches %d != %d x %d steps"
           % (launches["decode_attention"], layers, steps))
-    check(launches["decode_attention_paged"] == 0,
-          "the dense path launched the paged decode kernel")
+    check(launches["decode_attention_paged"] == 0
+          and launches["int8_matmul"] == 0,
+          "the dense f32 path launched the paged decode or int8 kernel")
     final = [p.size + NEW_TOKENS - 1 for p in prompts]
     return launches, final
 
 
-def phase_paged_serve(sess, rng):
-    """Serve the paged cell's five requests through the scheduler with
-    every launch count at 0 just before. All five are queued before the
-    dispatcher starts, so they are admitted in order: the first and the
-    unrelated prompt miss the prefix cache; the other two suffixes share
-    the system prompt's 12 blocks; the repeat shares the first request's
-    227 tokens (the match stops at n - 1) and copies its partial last
-    block. Returns the counts, the served lengths and the system
-    prompt."""
-    import torch
-    from paddle_tpu_torch.serving import GenerationScheduler
+def paged_prompts(rng):
+    """The paged cell's traffic: a 192-token system prompt with three
+    suffixes, an exact repeat of the first request and one unrelated
+    prompt. Returns (system prompt, the five prompts)."""
     v = FULL["vocab_size"]
     system = rng.integers(2, v, SYSTEM_LEN)
     prompts = [np.concatenate([system, rng.integers(2, v, n)])
                for n in SUFFIX_LENS]
     prompts.append(prompts[0].copy())
     prompts.append(rng.integers(2, v, UNRELATED_LEN))
+    return system, prompts
+
+
+def serve_paged(sess, prompts, tag):
+    """Serve ``prompts`` through the scheduler with every launch count at
+    0 just before. All are queued before the dispatcher starts, so they
+    are admitted in order: the first and the unrelated prompt miss the
+    prefix cache; the other two suffixes share the system prompt's 12
+    blocks; the repeat shares the first request's 227 tokens (the match
+    stops at n - 1) and copies its partial last block. Checks what does
+    not depend on the weights' dtype and returns (launches, outputs,
+    decode steps)."""
+    import torch
+    from paddle_tpu_torch.serving import GenerationScheduler
     sched = GenerationScheduler(sess, autostart=False)
     stats0 = sess.prefix_stats()
     log0 = len(sess.prefill_log)
@@ -464,28 +692,24 @@ def phase_paged_serve(sess, rng):
     stats = {k: sess.prefix_stats()[k] - stats0[k]
              for k in ("hits", "misses", "shared_tokens", "cows")}
     log = sess.prefill_log[log0:]
-    layers = FULL["num_layers"]
-    print("[paged-serve] %d requests, %d admissions, %d decode steps in "
-          "%.2f s; prefill log (bucket, shared, window) %s; prefix %s; "
-          "pool %s; launches %s"
-          % (len(prompts), admissions, steps, wall, log, stats,
-             sess.pool_stats(), launches))
+    print("[%s] %d requests, %d admissions, %d decode steps in %.2f s; "
+          "prefill log (bucket, shared, window) %s; prefix %s; pool %s; "
+          "launches %s" % (tag, len(prompts), admissions, steps, wall, log,
+                           stats, sess.pool_stats(), launches))
     for p, out in zip(prompts, outs):
         check(len(out) == NEW_TOKENS, "request of %d tokens returned %d"
               % (p.size, len(out)))
         check(((out >= 0) & (out < FULL["vocab_size"])).all(),
               "token out of the vocabulary")
-    check((outs[3] == outs[0]).all(),
-          "the repeated request's tokens differ from the first's")
     check(admissions == len(prompts), "admissions %d" % admissions)
     check([w for _, _, w in log] == [228, 108, 308, 1, 100],
           "prefill windows %s" % log)
     check(stats["hits"] == 3 and stats["misses"] == 2
           and stats["shared_tokens"] == 611 and stats["cows"] >= 1,
           "prefix counters %s" % stats)
-    check(launches["decode_attention_paged"] == layers * steps > 0,
-          "paged decode launches %d != %d x %d steps"
-          % (launches["decode_attention_paged"], layers, steps))
+    check(launches["decode_attention_paged"] == FULL["num_layers"] * steps
+          > 0, "paged decode launches %d != %d x %d steps"
+          % (launches["decode_attention_paged"], FULL["num_layers"], steps))
     check(launches["flash_attention"] == 0
           and launches["decode_attention"] == 0,
           "the paged path launched a dense kernel: %s" % launches)
@@ -493,8 +717,57 @@ def phase_paged_serve(sess, rng):
         sess.check_pool_invariant()
     except AssertionError as exc:
         raise SmokeFailure("pool books: %s" % exc) from None
+    return launches, outs, steps
+
+
+def phase_paged_serve(sess, prompts):
+    """The paged cell's five requests on the float32 session: no int8
+    launch, and the repeat's tokens equal the first request's. Returns
+    the counts, the outputs and the served lengths."""
+    launches, outs, _ = serve_paged(sess, prompts, "paged-serve")
+    check((outs[3] == outs[0]).all(),
+          "the repeated request's tokens differ from the first's")
+    check(launches["int8_matmul"] == 0, "the f32 path launched int8_matmul")
     final = [p.size + NEW_TOKENS - 1 for p in prompts]
-    return launches, final, system
+    return launches, outs, final
+
+
+def phase_quant_serve(quant, f32, prompts, f32_outs):
+    """The paged cell's five requests on the int8/bf16 session: every
+    armed product through the int8 kernel (73 per admission and per
+    step), every decode through the paged kernel; the armed weights
+    int8; bfloat16 pools at half the f32 session's bytes per block. The
+    repeat's tokens against the first request's, and the greedy tokens'
+    agreement with the f32 session's, are printed, not gated: random
+    weights leave tiny margins that one int8 rounding step can flip."""
+    import torch
+    armed = quant._quant_armed
+    weights = [quant.model.mul_weight(name) for name in armed]
+    check(len(armed) == INT8_PER_PASS and all(
+        w.dtype == torch.int8 and s is not None for w, s in weights),
+        "armed weights: %d names, dtypes %s"
+        % (len(armed), sorted({str(w.dtype) for w, _ in weights})))
+    nbytes = sum(w.numel() for w, _ in weights)
+    sbytes = sum(s.numel() * 4 for _, s in weights)
+    print("[quant-serve] %d armed weights: %d int8 bytes (%.3f GB) and %d "
+          "scale bytes; pools %s" % (len(armed), nbytes, nbytes / 1e9,
+                                     sbytes, quant.model.caches[0][0].dtype))
+    launches, outs, steps = serve_paged(quant, prompts, "quant-serve")
+    check(launches["int8_matmul"] == INT8_PER_PASS * (len(prompts) + steps),
+          "int8 launches %d != %d x (%d admissions + %d steps)"
+          % (launches["int8_matmul"], INT8_PER_PASS, len(prompts), steps))
+    b32 = f32.pool_stats()["bytes_per_block"]
+    b16 = quant.pool_stats()["bytes_per_block"]
+    check(2 * b16 == b32, "bytes per block %d, f32 %d" % (b16, b32))
+    agree = np.mean(np.concatenate(outs) == np.concatenate(f32_outs))
+    print("[quant-serve] repeat's tokens equal the first's: %s; greedy "
+          "tokens equal to the f32 paged session's: %.4f (%d of %d); bytes "
+          "per block %d (f32 %d)"
+          % (bool((outs[3] == outs[0]).all()), agree,
+             int(round(agree * len(prompts) * NEW_TOKENS)),
+             len(prompts) * NEW_TOKENS, b16, b32))
+    final = [p.size + NEW_TOKENS - 1 for p in prompts]
+    return launches, final
 
 
 def phase_paged_logits(paged, dense, system, rng):
@@ -542,55 +815,63 @@ def phase_paged_logits(paged, dense, system, rng):
           "paged prefill picks another token than dense")
 
 
-def phase_paged_latency(paged, dense, system, rng):
-    """TTFT of a 300-token prompt on the paged session as a prefix hit
-    (the 192-token system prompt cached: window 108, bucket 128) and as a
-    miss (bucket 512), and on the dense session (bucket 512); then the
-    decode step with 8 active slots on each, in turns. Host clock around
-    work that ends in tokens read back; medians of 3."""
+def phase_paged_latency(paged, dense, system, rng, quant):
+    """TTFT of a 300-token prompt on the paged sessions (float32, and
+    int8 weights with bf16 pools) as a prefix hit (the 192-token system
+    prompt cached: window 108, bucket 128) and as a miss (bucket 512),
+    and on the dense session (bucket 512); then the decode step with 8
+    active slots on each, in turns. Host clock around work that ends in
+    tokens read back; medians of LATENCY_ROUNDS."""
     import torch
     v = FULL["vocab_size"]
-    cases = (("paged hit", paged, lambda: np.concatenate(
-                [system, rng.integers(2, v, 108)])),
-             ("paged miss", paged, lambda: rng.integers(2, v, 300)),
-             ("dense", dense, lambda: rng.integers(2, v, 300)))
+    cases = []
+    for label, sess in (("paged", paged), ("int8", quant)):
+        cases += [("%s hit" % label, sess, lambda: np.concatenate(
+                      [system, rng.integers(2, v, 108)])),
+                  ("%s miss" % label, sess, lambda: rng.integers(2, v, 300))]
+    cases.append(("dense", dense, lambda: rng.integers(2, v, 300)))
     ttft = {name: [] for name, _, _ in cases}
-    for _ in range(3):
+    for _ in range(LATENCY_ROUNDS):
         for name, sess, make in cases:
             prompt = make()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             slot, _ = sess.admit(prompt)
             ttft[name].append((time.perf_counter() - t0) * 1e3)
-            if sess is paged:
-                want = (128, 192, 108) if name == "paged hit" \
+            if sess.paged:
+                want = (128, 192, 108) if name.endswith("hit") \
                     else (512, 0, 300)
-                check(paged.prefill_log[-1] == want,
-                      "%s prefill %s" % (name, paged.prefill_log[-1]))
+                check(sess.prefill_log[-1] == want,
+                      "%s prefill %s" % (name, sess.prefill_log[-1]))
             sess.retire(slot)
-    for sess in (paged, dense):
+    stepped = (("paged step", paged), ("int8 step", quant),
+               ("dense step", dense))
+    for _, sess in stepped:
         for i in range(SLOTS):
             sess.admit(rng.integers(2, v, 64 + 56 * i))
         for _ in range(3):
             sess.step()
-    steps = {"paged step": [], "dense step": []}
-    for _ in range(3):
-        for name, sess in (("paged step", paged), ("dense step", dense)):
+    steps = {name: [] for name, _ in stepped}
+    for _ in range(LATENCY_ROUNDS):
+        for name, sess in stepped:
             t0 = time.perf_counter()
             for _ in range(16):
                 sess.step()
             steps[name].append((time.perf_counter() - t0) * 1e3 / 16)
-    for sess in (paged, dense):
+    for _, sess in stepped:
         for s in range(SLOTS):
             sess.retire(s)
     runs = dict(ttft, **steps)
-    med = {k: sorted(t)[1] for k, t in runs.items()}
-    print("[latency] 300-token prompt TTFT ms (median of 3): paged hit "
-          "%.3f (window 108), paged miss %.3f, dense %.3f; decode step "
-          "with %d active slots ms (median of 3 rounds of 16): paged %.3f, "
+    med = {k: sorted(t)[len(t) // 2] for k, t in runs.items()}
+    print("[latency] 300-token prompt TTFT ms (median of %d): paged hit "
+          "%.3f (window 108), paged miss %.3f, int8/bf16 hit %.3f, int8/bf16 "
+          "miss %.3f, dense %.3f; decode step with %d active slots ms "
+          "(median of %d rounds of 16): paged %.3f, int8/bf16 paged %.3f, "
           "dense %.3f; all runs %s"
-          % (med["paged hit"], med["paged miss"], med["dense"], SLOTS,
-             med["paged step"], med["dense step"],
+          % (LATENCY_ROUNDS, med["paged hit"], med["paged miss"],
+             med["int8 hit"], med["int8 miss"], med["dense"], SLOTS,
+             LATENCY_ROUNDS, med["paged step"], med["int8 step"],
+             med["dense step"],
              {k: [round(x, 3) for x in t] for k, t in runs.items()}))
 
 
@@ -631,11 +912,12 @@ def phase_latency(sess, rng):
              step_ms / SLOTS, [round(r, 3) for r in rounds]))
 
 
-def phase_profile(sess, rng, paged=None, system=None):
+def phase_profile(sess, rng, paged, system, quant):
     """Where device time goes: torch.profiler over one 512-token
-    admission, then over 4 decode steps with every slot active; with a
-    ``paged`` session, the same over one prefix-hit admission (window
-    108 after the cached ``system`` prompt) and 4 paged decode steps.
+    admission, then over 4 decode steps with every slot active; on the
+    ``paged`` session and on the int8/bf16 ``quant`` session, the same
+    over one prefix-hit admission (window 108 after the cached
+    ``system`` prompt) and 4 paged decode steps.
     Prints each window's device-busy share (kernel time over wall time;
     one stream, so kernels do not overlap) and its top kernels."""
     import torch
@@ -674,22 +956,25 @@ def phase_profile(sess, rng, paged=None, system=None):
            lambda: [sess.step() for _ in range(4)])
     for s in range(SLOTS):
         sess.retire(s)
-    if paged is None:
-        return
-    hit = np.concatenate([system, rng.integers(2, FULL["vocab_size"], 108)])
-    window("paged prefill, 192-token prefix hit, window 108",
-           lambda: paged.retire(paged.admit(hit)[0]))
-    for i in range(SLOTS):
-        paged.admit(rng.integers(2, FULL["vocab_size"], 64 + 56 * i))
-    window("4 paged decode steps, %d slots" % SLOTS,
-           lambda: [paged.step() for _ in range(4)])
-    for s in range(SLOTS):
-        paged.retire(s)
+    for label, ps in (("paged", paged), ("int8/bf16 paged", quant)):
+        hit = np.concatenate([system,
+                              rng.integers(2, FULL["vocab_size"], 108)])
+        window("%s prefill, 192-token prefix hit, window 108" % label,
+               lambda: ps.retire(ps.admit(hit)[0]))
+        for i in range(SLOTS):
+            ps.admit(rng.integers(2, FULL["vocab_size"], 64 + 56 * i))
+        window("4 %s decode steps, %d slots" % (label, SLOTS),
+               lambda: [ps.step() for _ in range(4)])
+        for s in range(SLOTS):
+            ps.retire(s)
 
 
-def phase_time(rng, launches, errs, final_lengths, paged_final):
+def phase_time(rng, launches, errs, final_lengths, paged_final,
+               quant_launches, b4_bf16_launches):
     """Each kernel at the path's shapes: its time, its plain version's,
-    the library call's, and its bound from this run's inputs."""
+    the library call's, and its bound from this run's inputs. The decode
+    kernels on float32 and bfloat16 caches; the int8 kernel at each
+    (m, k, n) of the path."""
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.ops import flash_attention as fa
@@ -701,10 +986,8 @@ def phase_time(rng, launches, errs, final_lengths, paged_final):
     q, k, v = (torch.from_numpy(rng.standard_normal(
         (1, h, p, d), dtype=np.float32)).cuda() for _ in range(3))
     seg = (torch.arange(p, device="cuda")[None] < n).to(torch.int32)
-    saved = fa.flash_attention.launches
     kernel = functools.partial(fa.flash_attention, q, k, v, True, seg)
-    ms, event_ms = device_ms(kernel), cuda_ms(kernel)
-    fa.flash_attention.launches = saved
+    ms, event_ms = uncounted(lambda: (device_ms(kernel), cuda_ms(kernel)))
     plain_ms = device_ms(lambda: fa.flash_attention_plain(q, k, v, True, seg))
     live = torch.ones(p, p, dtype=torch.bool, device="cuda").tril()
     live &= (seg[0][:, None] == seg[0][None, :]) & (seg[0][None, :] != 0)
@@ -721,95 +1004,164 @@ def phase_time(rng, launches, errs, final_lengths, paged_final):
         launches=launches["flash_attention"],
         max_abs_err=errs["flash_attention"], ms=ms, plain_ms=plain_ms,
         bound_ms=bound, bound_by=bound_by, library_ms=lib_ms))
-    events = {"flash_attention": event_ms}
+    events = [event_ms]
+    notes = []
 
     # decode attention: all slots, the lengths the served requests ended
-    # at, free slots at length 1 (as the path runs them)
+    # at, free slots at length 1 (as the path runs them); float32 caches
+    # (the dense cell) and bfloat16 (the int8/bf16 small LM)
     s, c = SLOTS, CACHE_LEN
     lens_dense = np.ones(s, np.int32)
     lens_dense[:len(final_lengths)] = final_lengths
     q = torch.from_numpy(rng.standard_normal((s, h * d), dtype=np.float32))
-    kc, vc = (torch.from_numpy(rng.standard_normal(
+    kc32, vc32 = (torch.from_numpy(rng.standard_normal(
         (s, c, h * d), dtype=np.float32)) for _ in range(2))
-    q, kc, vc = q.cuda(), kc.cuda(), vc.cuda()
+    q, kc32, vc32 = q.cuda(), kc32.cuda(), vc32.cuda()
     lens = torch.from_numpy(lens_dense).cuda()
-    saved = fa.decode_attention.launches
-    kernel = functools.partial(fa.decode_attention, q, kc, vc, lens, h)
-    ms, events["decode_attention"] = device_ms(kernel), cuda_ms(kernel)
-    fa.decode_attention.launches = saved
-    plain_ms = device_ms(lambda: fa.decode_attention_plain(q, kc, vc, lens,
-                                                           h))
-    kt = kc.reshape(s, c, h, d).transpose(1, 2).contiguous()
-    vt = vc.reshape(s, c, h, d).transpose(1, 2).contiguous()
     qt = q.reshape(s, h, 1, d)
     mask = (torch.arange(c, device="cuda")[None] < lens[:, None])
-    lib_ms = device_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, attn_mask=mask[:, None, None, :]))
     total = int(lens_dense.sum())
-    nbytes = 2 * total * h * d * 4 + 2 * s * h * d * 4 + 4 * s
-    flops = 4 * total * h * d
-    bound, bound_by = roofline_ms(nbytes, flops)
-    rows.append(dict(
-        name="decode_attention", route="cuda",
-        source="paddle_tpu_torch/csrc/decode_attention.cu",
-        replaces="paddle_tpu/ops/pallas_attention.py:558",
-        launches=launches["decode_attention"],
-        max_abs_err=errs["decode_attention"], ms=ms, plain_ms=plain_ms,
-        bound_ms=bound, bound_by=bound_by, library_ms=lib_ms))
+    for dt, count, err in ((torch.float32, launches["decode_attention"],
+                            errs["decode_attention"]),
+                           (torch.bfloat16, b4_bf16_launches,
+                            errs["decode_attention bf16"])):
+        kc, vc = kc32.to(dt), vc32.to(dt)
+        kernel = functools.partial(fa.decode_attention, q, kc, vc, lens, h)
+        ms, event_ms = uncounted(lambda: (device_ms(kernel), cuda_ms(kernel)))
+        plain_ms = device_ms(lambda: fa.decode_attention_plain(
+            q, kc, vc, lens, h))
+        kt = kc.reshape(s, c, h, d).transpose(1, 2).contiguous()
+        vt = vc.reshape(s, c, h, d).transpose(1, 2).contiguous()
+        sdpa_ms = device_ms(lambda: F.scaled_dot_product_attention(
+            qt.to(dt), kt, vt, attn_mask=mask[:, None, None, :]))
+        nbytes = 2 * total * h * d * kc.element_size() + 2 * s * h * d * 4 \
+            + 4 * s
+        bound, bound_by = roofline_ms(nbytes, 4 * total * h * d)
+        bf16 = dt == torch.bfloat16
+        rows.append(dict(
+            name="decode_attention", route="cuda",
+            source="paddle_tpu_torch/csrc/decode_attention.cu",
+            replaces="paddle_tpu/ops/pallas_attention.py:558",
+            launches=count, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            bound_ms=bound, bound_by=bound_by,
+            # no one PyTorch call takes f32 queries over bf16 caches;
+            # SDPA over all-bf16 inputs is printed as a yardstick
+            library_ms=None if bf16 else sdpa_ms,
+            kv_dtype="bfloat16" if bf16 else "float32"))
+        if bf16:
+            rows[-1]["launches_in"] = "[small-lm] dense int8/bf16"
+            notes.append("decode_attention bf16: no single PyTorch call "
+                         "takes f32 queries over bf16 caches; SDPA with "
+                         "the queries cast to bf16 %.4f ms" % sdpa_ms)
+        events.append(event_ms)
 
     # paged decode attention: the paged cell's pool and tables, the
     # lengths its requests ended at, free slots at length 1 with all-dead
-    # table rows (as the path runs them)
+    # table rows (as the path runs them); float32 pools (the paged cell)
+    # and bfloat16 (the int8/bf16 session, which served the same traffic)
     mb = -(-CACHE_LEN // BLOCK_SIZE)
     nb = SLOTS * mb
     plens = [0] * s
     plens[:len(paged_final)] = paged_final
-    q, pk, pv, lens, tables = paged_case(rng, plens, h, d, nb, BLOCK_SIZE,
-                                         mb, poison=False)
-    saved = fa.decode_attention_paged.launches
-    kernel = functools.partial(fa.decode_attention_paged, q, pk, pv, lens,
-                               tables, h)
-    ms, events["decode_attention_paged"] = device_ms(kernel), cuda_ms(kernel)
-    fa.decode_attention_paged.launches = saved
-    plain_ms = device_ms(lambda: fa._decode_paged_reference(
-        q, pk, pv, lens, tables, h))
+    q, pk32, pv32, lens, tables = paged_case(rng, plens, h, d, nb,
+                                             BLOCK_SIZE, mb, poison=False)
     c = mb * BLOCK_SIZE
     mask = (torch.arange(c, device="cuda")[None] < lens[:, None])
-
-    def gather_sdpa():
-        tbl = tables.long().clamp(0, nb - 1)
-        kt = pk[tbl].reshape(s, c, h, d).transpose(1, 2)
-        vt = pv[tbl].reshape(s, c, h, d).transpose(1, 2)
-        return F.scaled_dot_product_attention(
-            q.reshape(s, h, 1, d), kt, vt, attn_mask=mask[:, None, None, :])
-
-    gather_sdpa_ms = device_ms(gather_sdpa)
     lens_host = lens.cpu().numpy()
     total = int(lens_host.sum())
     live_entries = int(sum(-(-n // BLOCK_SIZE) for n in lens_host))
-    nbytes = 2 * total * h * d * 4 + 2 * s * h * d * 4 + 4 * s + \
-        4 * live_entries
-    flops = 4 * total * h * d
-    bound, bound_by = roofline_ms(nbytes, flops)
-    rows.append(dict(
-        name="decode_attention_paged", route="cuda",
-        source="paddle_tpu_torch/csrc/decode_attention_paged.cu",
-        replaces="paddle_tpu/ops/pallas_attention.py:486",
-        launches=launches["decode_attention_paged"],
-        max_abs_err=errs["decode_attention_paged"], ms=ms,
-        plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
-        library_ms=None))
-    for r in rows:
+    for dt, count, err in ((torch.float32, launches["decode_attention_paged"],
+                            errs["decode_attention_paged"]),
+                           (torch.bfloat16,
+                            quant_launches["decode_attention_paged"],
+                            errs["decode_attention_paged bf16"])):
+        pk, pv = pk32.to(dt), pv32.to(dt)
+        kernel = functools.partial(fa.decode_attention_paged, q, pk, pv,
+                                   lens, tables, h)
+        ms, event_ms = uncounted(lambda: (device_ms(kernel), cuda_ms(kernel)))
+        plain_ms = device_ms(lambda: fa._decode_paged_reference(
+            q, pk, pv, lens, tables, h))
+
+        def gather_sdpa():
+            tbl = tables.long().clamp(0, nb - 1)
+            kt = pk[tbl].reshape(s, c, h, d).transpose(1, 2)
+            vt = pv[tbl].reshape(s, c, h, d).transpose(1, 2)
+            return F.scaled_dot_product_attention(
+                q.reshape(s, h, 1, d).to(dt), kt, vt,
+                attn_mask=mask[:, None, None, :])
+
+        gather_sdpa_ms = device_ms(gather_sdpa)
+        nbytes = 2 * total * h * d * pk.element_size() + 2 * s * h * d * 4 \
+            + 4 * s + 4 * live_entries
+        bound, bound_by = roofline_ms(nbytes, 4 * total * h * d)
+        bf16 = dt == torch.bfloat16
+        rows.append(dict(
+            name="decode_attention_paged", route="cuda",
+            source="paddle_tpu_torch/csrc/decode_attention_paged.cu",
+            replaces="paddle_tpu/ops/pallas_attention.py:486",
+            launches=count, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            bound_ms=bound, bound_by=bound_by, library_ms=None,
+            kv_dtype="bfloat16" if bf16 else "float32"))
+        events.append(event_ms)
+        notes.append("decode_attention_paged %s: a gather of the pools plus "
+                     "F.scaled_dot_product_attention (no single PyTorch call "
+                     "computes it) %.4f ms" % (rows[-1]["kv_dtype"],
+                                               gather_sdpa_ms))
+
+    # int8 weight compute at every (m, k, n) of the path: the kernel, its
+    # plain version, the library route (quantize in torch, torch._int_mm
+    # on m padded to what it takes, the epilogue) and the f32 product it
+    # replaces
+    from paddle_tpu_torch.ops import quant_ops
+    for m, k, n in INT8_SHAPES:
+        x = torch.from_numpy(rng.standard_normal((m, k), dtype=np.float32))
+        x = x.cuda()
+        wq, ws = quantized(rng, k, n)
+        kernel = functools.partial(quant_ops.quant_matmul_2d, x, wq, ws)
+        ms, event_ms = uncounted(lambda: (device_ms(kernel, iters=10),
+                                          cuda_ms(kernel, iters=10)))
+        plain_ms = device_ms(lambda: quant_ops.int8_matmul_plain(x, wq, ws),
+                             iters=10)
+        mp = max(24, -(-m // 8) * 8)     # _int_mm: m > 16, a multiple of 8
+
+        def int_mm():
+            xq, xs = quant_ops.quantize_rows(x)
+            xq = F.pad(xq, (0, 0, 0, mp - m))
+            return torch._int_mm(xq, wq)[:m].float() * xs * ws[None, :]
+
+        try:
+            lib_ms = device_ms(int_mm, iters=10)
+        except RuntimeError as exc:
+            lib_ms = None
+            notes.append("int8_matmul %s: torch._int_mm refused: %s"
+                         % ((m, k, n), str(exc).splitlines()[0]))
+        w32 = wq.float() * ws[None, :]
+        f32_ms = device_ms(lambda: torch.matmul(x, w32), iters=10)
+        del w32
+        nbytes = 4 * m * k + k * n + 4 * n + 4 * m * n
+        bound, bound_by = roofline_ms(nbytes, 2 * m * k * n, INT8_OPS)
+        rows.append(dict(
+            name="int8_matmul", route="cuda",
+            source="paddle_tpu_torch/csrc/int8_matmul.cu",
+            replaces="paddle_tpu/ops/quant_ops.py:113",
+            launches=quant_launches["int8_matmul"],
+            max_abs_err=errs["int8_matmul"], ms=ms, plain_ms=plain_ms,
+            bound_ms=bound, bound_by=bound_by, library_ms=lib_ms,
+            shape=[m, k, n], f32_matmul_ms=f32_ms))
+        events.append(event_ms)
+    for r, event_ms in zip(rows, events):
         lib = "none" if r["library_ms"] is None \
             else "%.4f ms" % r["library_ms"]
+        label = r["name"] + (" " + r["kv_dtype"] if "kv_dtype" in r else "") \
+            + (" m=%d k=%d n=%d" % tuple(r["shape"]) if "shape" in r else "")
+        extra = "; f32 torch.matmul %.4f ms" % r["f32_matmul_ms"] \
+            if "f32_matmul_ms" in r else ""
         print("[time] %s: device %.4f ms (bound %.4f ms by %s, plain %.4f "
-              "ms, library %s); back-to-back calls %.4f ms each between "
-              "CUDA events" % (
-                  r["name"], r["ms"], r["bound_ms"], r["bound_by"],
-                  r["plain_ms"], lib, events[r["name"]]))
-    print("[time] decode_attention_paged: a gather of the pools plus "
-          "F.scaled_dot_product_attention (no single PyTorch call computes "
-          "it) gather_sdpa_ms %.4f" % gather_sdpa_ms)
+              "ms, library %s%s); back-to-back calls %.4f ms each between "
+              "CUDA events" % (label, r["ms"], r["bound_ms"], r["bound_by"],
+                               r["plain_ms"], lib, extra, event_ms))
+    for note in notes:
+        print("[time] " + note)
     print("[time] decode lengths: dense %s, paged %s"
           % (lens_dense.tolist(), lens_host.tolist()))
     return rows
@@ -844,8 +1196,11 @@ def main(argv=None):
         phase_build()
         errs = phase_compare(rng)
         errs["decode_attention_paged"] = phase_compare_paged(rng)
+        errs.update(phase_compare_bf16(rng))
+        errs["int8_matmul"] = phase_compare_int8(rng)
         phase_small_lm(rng)
         phase_small_lm_paged(rng)
+        b4_bf16_launches = phase_small_lm_quant(rng)
         t0 = time.perf_counter()
         named = make_params(FULL, rng)
         params = params_from_jax(named, device="cuda")
@@ -854,27 +1209,39 @@ def main(argv=None):
             slots=SLOTS, cache_len=CACHE_LEN, prompt_buckets=BUCKETS,
             eos_id=1, device="cuda", **FULL)
         sess = GenerationSession(spec, params)
-        paged_spec = transformer_lm_session(
-            slots=SLOTS, cache_len=CACHE_LEN, prompt_buckets=BUCKETS,
-            eos_id=1, device="cuda", paged=True, block_size=BLOCK_SIZE,
-            num_blocks=0, prefix_cache=True, **FULL)
-        paged = GenerationSession(paged_spec, params)
+        paged_kw = dict(slots=SLOTS, cache_len=CACHE_LEN,
+                        prompt_buckets=BUCKETS, eos_id=1, device="cuda",
+                        paged=True, block_size=BLOCK_SIZE, num_blocks=0,
+                        prefix_cache=True, **FULL)
+        paged = GenerationSession(transformer_lm_session(**paged_kw), params)
+        t1 = time.perf_counter()
+        quant = GenerationSession(
+            transformer_lm_session(dtype="bfloat16", **paged_kw), params,
+            arm_quant=True)
+        arm_s = time.perf_counter() - t1
         del params
         torch.cuda.synchronize()
         nparam = sum(p.numel() for p in sess.model.parameters())
         print("[weights] %d parameters (%.2f GB f32) made and loaded into "
-              "a dense and a paged session in %.1f s"
-              % (nparam, nparam * 4 / 1e9, time.perf_counter() - t0))
+              "a dense, a paged and an int8/bf16 paged session in %.1f s "
+              "(building and arming the int8 one: %.1f s)"
+              % (nparam, nparam * 4 / 1e9, time.perf_counter() - t0, arm_s))
         launches, final = phase_serve(sess, rng)
-        paged_launches, paged_final, system = phase_paged_serve(paged, rng)
+        system, prompts = paged_prompts(rng)
+        paged_launches, paged_outs, paged_final = phase_paged_serve(paged,
+                                                                    prompts)
         launches["decode_attention_paged"] = \
             paged_launches["decode_attention_paged"]
+        quant_launches, _ = phase_quant_serve(quant, paged, prompts,
+                                              paged_outs)
         phase_paged_logits(paged, sess, system, rng)
         phase_latency(sess, rng)
-        phase_paged_latency(paged, sess, system, rng)
-        phase_profile(sess, rng, paged, system)
-        rows = phase_time(rng, launches, errs, final, paged_final)
+        phase_paged_latency(paged, sess, system, rng, quant)
+        phase_profile(sess, rng, paged, system, quant)
+        rows = phase_time(rng, launches, errs, final, paged_final,
+                          quant_launches, b4_bf16_launches)
         paged.close()
+        quant.close()
         print("[memory] peak allocated %.2f GB"
               % (torch.cuda.max_memory_allocated() / 1e9))
     except SmokeFailure as exc:

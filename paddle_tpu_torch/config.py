@@ -4,7 +4,10 @@ when the object that uses it is constructed.
 
 The reference's ``flash_attention`` flag is not carried over: in the
 port a CUDA tensor always takes the attention kernels, which is the
-reference's ``flash_attention=True`` configuration.
+reference's ``flash_attention=True`` configuration. Nor is
+``quant_pallas``, for the same reason: an int8 product on a CUDA tensor
+always takes kernel B3, and the reference's dense and Pallas int8 paths
+are bitwise equal by its own contract, so the flag would change nothing.
 """
 
 __all__ = ["set_flags", "get_flag"]
@@ -28,6 +31,16 @@ _flags = {
     "generation_block_size": 16,
     "generation_pool_blocks": 0,
     "generation_prefix_cache": False,
+    # int8 weight compute: GenerationSession quantizes the LM's mul
+    # weights in place at construction (serving/quant.py) and their
+    # products run int8 x int8 -> int32 through kernel B3
+    # (ops/quant_ops.py); read only at session construction
+    "serving_quant_compute": False,
+    # K/V cache storage dtype, dense and paged ("bfloat16" halves the
+    # cache bytes; attention upcasts at the contraction); None keeps
+    # float32. Read only by transformer_lm_session, and only when its
+    # dtype argument is left at "float32"
+    "generation_kv_dtype": None,
 }
 
 

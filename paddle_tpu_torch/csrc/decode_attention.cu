@@ -1,5 +1,6 @@
-// Single-query decode attention against a dense KV cache, f32, for
-// Hopper (sm_90a).
+// Single-query decode attention against a dense KV cache, f32 or bf16
+// cache storage with f32 queries, outputs and arithmetic, for Hopper
+// (sm_90a).
 //
 // Replaces the Pallas kernel paddle_tpu/ops/pallas_attention.py
 // `decode_attention` (_decode_forward / _decode_body): one query row per
@@ -16,7 +17,9 @@
 // more loads in flight. Each warp keeps its own running max, sum and
 // accumulator; the 8 partial states are combined in shared memory at the
 // end. The loop bound is the slot's length, so a step reads O(length)
-// bytes of cache, not O(C).
+// bytes of cache, not O(C). A bf16 cache is upcast to f32 as it is
+// loaded (the reference upcasts at the contraction), so bf16 halves the
+// bytes read and changes nothing else.
 //
 // What bounds it on the H100: device-memory bytes (each live K and V row
 // is read once, two flops per byte loaded). At the slice's shapes
@@ -24,6 +27,7 @@
 // gives each SM one block of 8 warps; splitting the keys across blocks
 // (flash-decoding) is the known next step.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cmath>
@@ -34,27 +38,49 @@ constexpr int kWarps = 8;
 constexpr int kUnroll = 4;      // rows in flight per warp
 constexpr float kNeg = -1e30f;  // the masking constant of the TPU kernel
 
-template <int V>
+// V consecutive cache elements (float or bf16) -> V floats in registers
+template <typename T, int V>
 struct Vec;
 template <>
-struct Vec<4> {
+struct Vec<float, 4> {
   static __device__ __forceinline__ void load(const float* p, float* r) {
     const float4 x = *reinterpret_cast<const float4*>(p);
     r[0] = x.x; r[1] = x.y; r[2] = x.z; r[3] = x.w;
   }
 };
 template <>
-struct Vec<2> {
+struct Vec<float, 2> {
   static __device__ __forceinline__ void load(const float* p, float* r) {
     const float2 x = *reinterpret_cast<const float2*>(p);
     r[0] = x.x; r[1] = x.y;
   }
 };
+template <>
+struct Vec<__nv_bfloat16, 4> {
+  static __device__ __forceinline__ void load(const __nv_bfloat16* p,
+                                              float* r) {
+    const uint2 x = *reinterpret_cast<const uint2*>(p);
+    const float2 lo = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&x.x));
+    const float2 hi = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&x.y));
+    r[0] = lo.x; r[1] = lo.y; r[2] = hi.x; r[3] = hi.y;
+  }
+};
+template <>
+struct Vec<__nv_bfloat16, 2> {
+  static __device__ __forceinline__ void load(const __nv_bfloat16* p,
+                                              float* r) {
+    const float2 x = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(p));
+    r[0] = x.x; r[1] = x.y;
+  }
+};
 
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(kWarps * 32)
-decode_kernel(const float* __restrict__ q, const float* __restrict__ kc,
-              const float* __restrict__ vc, const int* __restrict__ lengths,
+decode_kernel(const float* __restrict__ q, const T* __restrict__ kc,
+              const T* __restrict__ vc, const int* __restrict__ lengths,
               float* __restrict__ o, int heads, int C, float scale) {
   constexpr int V = D / 32;
   __shared__ float sm[kWarps], sl[kWarps];
@@ -67,9 +93,9 @@ decode_kernel(const float* __restrict__ q, const float* __restrict__ kc,
   const size_t col = static_cast<size_t>(h) * D + lane * V;
 
   float qv[V];
-  Vec<V>::load(q + static_cast<size_t>(s) * hd + col, qv);
-  const float* kbase = kc + static_cast<size_t>(s) * C * hd + col;
-  const float* vbase = vc + static_cast<size_t>(s) * C * hd + col;
+  Vec<float, V>::load(q + static_cast<size_t>(s) * hd + col, qv);
+  const T* kbase = kc + static_cast<size_t>(s) * C * hd + col;
+  const T* vbase = vc + static_cast<size_t>(s) * C * hd + col;
 
   float m = kNeg, l = 0.f, acc[V];
 #pragma unroll
@@ -81,7 +107,7 @@ decode_kernel(const float* __restrict__ q, const float* __restrict__ kc,
     for (int u = 0; u < kUnroll; ++u) {
       const int c = c0 + u * kWarps;
       if (c < len) {
-        Vec<V>::load(kbase + static_cast<size_t>(c) * hd, kr[u]);
+        Vec<T, V>::load(kbase + static_cast<size_t>(c) * hd, kr[u]);
       } else {
 #pragma unroll
         for (int i = 0; i < V; ++i) kr[u][i] = 0.f;
@@ -116,7 +142,7 @@ decode_kernel(const float* __restrict__ q, const float* __restrict__ kc,
       if (c < len) {
         const float p = expf(sc[u] - m_new);
         float vr[V];
-        Vec<V>::load(vbase + static_cast<size_t>(c) * hd, vr);
+        Vec<T, V>::load(vbase + static_cast<size_t>(c) * hd, vr);
         l += p;
 #pragma unroll
         for (int i = 0; i < V; ++i) acc[i] = fmaf(p, vr[i], acc[i]);
@@ -149,38 +175,53 @@ decode_kernel(const float* __restrict__ q, const float* __restrict__ kc,
   }
 }
 
-template <int D>
-cudaError_t launch(const float* q, const float* k, const float* v,
+template <int D, typename T>
+cudaError_t launch(const float* q, const T* k, const T* v,
                    const int* lengths, float* o, int slots, int heads, int c,
                    cudaStream_t stream) {
   const float scale = static_cast<float>(1.0 / std::sqrt(static_cast<double>(D)));
-  decode_kernel<D><<<dim3(heads, slots), kWarps * 32, 0, stream>>>(
+  decode_kernel<D, T><<<dim3(heads, slots), kWarps * 32, 0, stream>>>(
       q, k, v, lengths, o, heads, c, scale);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// q, o: contiguous f32 [slots, heads * d]; k, v: contiguous f32
-// [slots, c, heads * d]; lengths: int32 [slots], live cache rows per slot.
-// Every pointer must be 16-byte aligned. Returns a cudaError_t.
-extern "C" int decode_attention_f32(const void* q, const void* k,
-                                    const void* v, const void* lengths,
-                                    void* o, int slots, int heads, int d,
-                                    int c, void* stream) {
+template <typename T>
+int dispatch(const void* q, const void* k, const void* v, const void* lengths,
+             void* o, int slots, int heads, int d, int c, void* stream) {
   if (slots <= 0 || heads <= 0) return cudaSuccess;
   const auto* qf = static_cast<const float*>(q);
-  const auto* kf = static_cast<const float*>(k);
-  const auto* vf = static_cast<const float*>(v);
+  const auto* kt = static_cast<const T*>(k);
+  const auto* vt = static_cast<const T*>(v);
   const auto* ln = static_cast<const int*>(lengths);
   auto* of = static_cast<float*>(o);
   auto st = static_cast<cudaStream_t>(stream);
   switch (d) {
     case 64:
-      return launch<64>(qf, kf, vf, ln, of, slots, heads, c, st);
+      return launch<64, T>(qf, kt, vt, ln, of, slots, heads, c, st);
     case 128:
-      return launch<128>(qf, kf, vf, ln, of, slots, heads, c, st);
+      return launch<128, T>(qf, kt, vt, ln, of, slots, heads, c, st);
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+}  // namespace
+
+// q, o: contiguous f32 [slots, heads * d]; k, v: contiguous [slots, c,
+// heads * d] caches, f32 (decode_attention_f32) or bf16
+// (decode_attention_bf16); lengths: int32 [slots], live cache rows per
+// slot. Every pointer must be 16-byte aligned. Returns a cudaError_t.
+extern "C" int decode_attention_f32(const void* q, const void* k,
+                                    const void* v, const void* lengths,
+                                    void* o, int slots, int heads, int d,
+                                    int c, void* stream) {
+  return dispatch<float>(q, k, v, lengths, o, slots, heads, d, c, stream);
+}
+
+extern "C" int decode_attention_bf16(const void* q, const void* k,
+                                     const void* v, const void* lengths,
+                                     void* o, int slots, int heads, int d,
+                                     int c, void* stream) {
+  return dispatch<__nv_bfloat16>(q, k, v, lengths, o, slots, heads, d, c,
+                                 stream);
 }

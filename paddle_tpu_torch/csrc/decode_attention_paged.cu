@@ -1,5 +1,6 @@
 // Single-query decode attention through a block table over a paged KV
-// pool, f32, for Hopper (sm_90a).
+// pool, f32 or bf16 pool storage with f32 queries, outputs and
+// arithmetic, for Hopper (sm_90a).
 //
 // Replaces the Pallas kernel paddle_tpu/ops/pallas_attention.py
 // `decode_attention_paged` (_decode_paged_body, index map kv_index): one
@@ -20,7 +21,9 @@
 // Four rows are loaded before their dot products are reduced. Each warp
 // keeps its own running max, sum and accumulator; the 8 partial states
 // are combined in shared memory at the end. Any BS >= 1 works: a row's
-// block is c / BS, so no block needs to be a multiple of the tile.
+// block is c / BS, so no block needs to be a multiple of the tile. A
+// bf16 pool is upcast to f32 as it is loaded, as the reference upcasts at
+// the contraction.
 //
 // What bounds it on the H100: device-memory bytes (each live K and V row
 // is read once, two flops per byte). As for the dense kernel, one block
@@ -28,6 +31,7 @@
 // the keys across blocks, and reading each pool block once for all
 // heads, are the known next steps.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cmath>
@@ -38,27 +42,49 @@ constexpr int kWarps = 8;
 constexpr int kUnroll = 4;      // rows in flight per warp
 constexpr float kNeg = -1e30f;  // the masking constant of the TPU kernel
 
-template <int V>
+// V consecutive cache elements (float or bf16) -> V floats in registers
+template <typename T, int V>
 struct Vec;
 template <>
-struct Vec<4> {
+struct Vec<float, 4> {
   static __device__ __forceinline__ void load(const float* p, float* r) {
     const float4 x = *reinterpret_cast<const float4*>(p);
     r[0] = x.x; r[1] = x.y; r[2] = x.z; r[3] = x.w;
   }
 };
 template <>
-struct Vec<2> {
+struct Vec<float, 2> {
   static __device__ __forceinline__ void load(const float* p, float* r) {
     const float2 x = *reinterpret_cast<const float2*>(p);
     r[0] = x.x; r[1] = x.y;
   }
 };
+template <>
+struct Vec<__nv_bfloat16, 4> {
+  static __device__ __forceinline__ void load(const __nv_bfloat16* p,
+                                              float* r) {
+    const uint2 x = *reinterpret_cast<const uint2*>(p);
+    const float2 lo = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&x.x));
+    const float2 hi = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&x.y));
+    r[0] = lo.x; r[1] = lo.y; r[2] = hi.x; r[3] = hi.y;
+  }
+};
+template <>
+struct Vec<__nv_bfloat16, 2> {
+  static __device__ __forceinline__ void load(const __nv_bfloat16* p,
+                                              float* r) {
+    const float2 x = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(p));
+    r[0] = x.x; r[1] = x.y;
+  }
+};
 
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(kWarps * 32)
-paged_decode_kernel(const float* __restrict__ q, const float* __restrict__ kp,
-                    const float* __restrict__ vp,
+paged_decode_kernel(const float* __restrict__ q, const T* __restrict__ kp,
+                    const T* __restrict__ vp,
                     const int* __restrict__ lengths,
                     const int* __restrict__ tables, float* __restrict__ o,
                     int heads, int nb, int bs, int mb, float scale) {
@@ -80,7 +106,7 @@ paged_decode_kernel(const float* __restrict__ q, const float* __restrict__ kp,
 
   const size_t col = static_cast<size_t>(h) * D + lane * V;
   float qv[V];
-  Vec<V>::load(q + static_cast<size_t>(s) * hd + col, qv);
+  Vec<float, V>::load(q + static_cast<size_t>(s) * hd + col, qv);
   // pool row of logical row c, times the row stride, plus the column
   auto offset = [&](int c) {
     const int j = c / bs;
@@ -98,7 +124,7 @@ paged_decode_kernel(const float* __restrict__ q, const float* __restrict__ kp,
     for (int u = 0; u < kUnroll; ++u) {
       const int c = c0 + u * kWarps;
       if (c < len) {
-        Vec<V>::load(kp + offset(c), kr[u]);
+        Vec<T, V>::load(kp + offset(c), kr[u]);
       } else {
 #pragma unroll
         for (int i = 0; i < V; ++i) kr[u][i] = 0.f;
@@ -133,7 +159,7 @@ paged_decode_kernel(const float* __restrict__ q, const float* __restrict__ kp,
       if (c < len) {
         const float p = expf(sc[u] - m_new);
         float vr[V];
-        Vec<V>::load(vp + offset(c), vr);
+        Vec<T, V>::load(vp + offset(c), vr);
         l += p;
 #pragma unroll
         for (int i = 0; i < V; ++i) acc[i] = fmaf(p, vr[i], acc[i]);
@@ -166,45 +192,65 @@ paged_decode_kernel(const float* __restrict__ q, const float* __restrict__ kp,
   }
 }
 
-template <int D>
-cudaError_t launch(const float* q, const float* k, const float* v,
+template <int D, typename T>
+cudaError_t launch(const float* q, const T* k, const T* v,
                    const int* lengths, const int* tables, float* o, int slots,
                    int heads, int nb, int bs, int mb, cudaStream_t stream) {
   const float scale = static_cast<float>(1.0 / std::sqrt(static_cast<double>(D)));
-  paged_decode_kernel<D><<<dim3(heads, slots), kWarps * 32,
-                           static_cast<size_t>(mb) * sizeof(int), stream>>>(
+  paged_decode_kernel<D, T><<<dim3(heads, slots), kWarps * 32,
+                              static_cast<size_t>(mb) * sizeof(int), stream>>>(
       q, k, v, lengths, tables, o, heads, nb, bs, mb, scale);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// q, o: contiguous f32 [slots, heads * d]; k, v: contiguous f32 pools
-// [nb, bs, heads * d]; lengths: int32 [slots], live logical rows per
-// slot; tables: int32 [slots, mb] block ids (entries outside [0, nb) are
-// clamped into it; the length keeps them unattended). q, o, k and v must
-// be 16-byte aligned; mb * 4 bytes must fit in 48 KB of shared memory.
-// Returns a cudaError_t.
-extern "C" int decode_attention_paged_f32(const void* q, const void* k,
-                                          const void* v, const void* lengths,
-                                          const void* tables, void* o,
-                                          int slots, int heads, int d, int nb,
-                                          int bs, int mb, void* stream) {
+template <typename T>
+int dispatch(const void* q, const void* k, const void* v, const void* lengths,
+             const void* tables, void* o, int slots, int heads, int d, int nb,
+             int bs, int mb, void* stream) {
   if (slots <= 0 || heads <= 0) return cudaSuccess;
   if (nb <= 0 || bs <= 0 || mb <= 0) return cudaErrorInvalidValue;
   const auto* qf = static_cast<const float*>(q);
-  const auto* kf = static_cast<const float*>(k);
-  const auto* vf = static_cast<const float*>(v);
+  const auto* kt = static_cast<const T*>(k);
+  const auto* vt = static_cast<const T*>(v);
   const auto* ln = static_cast<const int*>(lengths);
   const auto* tb = static_cast<const int*>(tables);
   auto* of = static_cast<float*>(o);
   auto st = static_cast<cudaStream_t>(stream);
   switch (d) {
     case 64:
-      return launch<64>(qf, kf, vf, ln, tb, of, slots, heads, nb, bs, mb, st);
+      return launch<64, T>(qf, kt, vt, ln, tb, of, slots, heads, nb, bs, mb,
+                           st);
     case 128:
-      return launch<128>(qf, kf, vf, ln, tb, of, slots, heads, nb, bs, mb, st);
+      return launch<128, T>(qf, kt, vt, ln, tb, of, slots, heads, nb, bs, mb,
+                            st);
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+}  // namespace
+
+// q, o: contiguous f32 [slots, heads * d]; k, v: contiguous [nb, bs,
+// heads * d] pools, f32 (decode_attention_paged_f32) or bf16
+// (decode_attention_paged_bf16); lengths: int32 [slots], live logical
+// rows per slot; tables: int32 [slots, mb] block ids (entries outside
+// [0, nb) are clamped into it; the length keeps them unattended). q, o, k
+// and v must be 16-byte aligned; mb * 4 bytes must fit in 48 KB of shared
+// memory. Returns a cudaError_t.
+extern "C" int decode_attention_paged_f32(const void* q, const void* k,
+                                          const void* v, const void* lengths,
+                                          const void* tables, void* o,
+                                          int slots, int heads, int d, int nb,
+                                          int bs, int mb, void* stream) {
+  return dispatch<float>(q, k, v, lengths, tables, o, slots, heads, d, nb, bs,
+                         mb, stream);
+}
+
+extern "C" int decode_attention_paged_bf16(const void* q, const void* k,
+                                           const void* v, const void* lengths,
+                                           const void* tables, void* o,
+                                           int slots, int heads, int d, int nb,
+                                           int bs, int mb, void* stream) {
+  return dispatch<__nv_bfloat16>(q, k, v, lengths, tables, o, slots, heads, d,
+                                 nb, bs, mb, stream);
 }

@@ -11,7 +11,7 @@ import os
 import numpy as np
 import torch
 
-from .models.transformer import infer_num_layers, lm_param_names
+from .models.transformer import check_lm_params, infer_num_layers
 from .place import resolve_device
 
 __all__ = ["load_params", "params_from_jax"]
@@ -30,13 +30,10 @@ def params_from_jax(named, device=None):
     """{reference name: array} of the transformer LM -> {name: tensor}
     on ``device`` (default CUDA). Every name of the LM whose layer count
     the names imply must be present, and no other: a missing or unknown
-    name raises ValueError."""
-    expected = set(lm_param_names(infer_num_layers(named)))
-    missing = sorted(expected - set(named))
-    unknown = sorted(set(named) - expected)
-    if missing or unknown:
-        raise ValueError("not the parameters of a transformer LM: missing "
-                         "%s, unknown %s" % (missing, unknown))
+    name raises ValueError. An armed reference scope is accepted as it
+    is: the int8 form of a mul weight with its scales under
+    ``<name>@quant.scale`` (``models.transformer.check_lm_params``)."""
+    check_lm_params(named, infer_num_layers(named))
     device = resolve_device(device)
     return {name: torch.as_tensor(np.asarray(val)).to(device)
             for name, val in named.items()}

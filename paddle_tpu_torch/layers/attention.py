@@ -3,7 +3,9 @@
 dense and paged branches, ``transformer_encoder_layer``,
 ``positional_encoding_window``). Weights keep the reference's [in, out]
 layout; the models' loaders map the reference's parameter names onto
-these modules."""
+these modules. A weight consumed only by ``mul`` (the projections and
+the FFN) may be int8, armed for int8 compute: its f32 [out] scales are
+the buffer ``<weight>_scale`` beside it, None while it is float32."""
 
 import torch
 from torch import nn
@@ -23,6 +25,12 @@ __all__ = ["MultiHeadAttentionCached", "TransformerEncoderLayer",
 def _weight(*shape, device):
     return nn.Parameter(torch.zeros(*shape, device=device),
                         requires_grad=False)
+
+
+def _scales(module, *weights):
+    """Register the (empty) scale buffer of each mul weight."""
+    for name in weights:
+        module.register_buffer(name + "_scale", None)
 
 
 class MultiHeadAttentionCached(nn.Module):
@@ -56,9 +64,15 @@ class MultiHeadAttentionCached(nn.Module):
         self.wk = _weight(d_model, d_model, device=device)
         self.wv = _weight(d_model, d_model, device=device)
         self.wo = _weight(d_model, d_model, device=device)
+        _scales(self, "wq", "wk", "wv", "wo")
 
     def _qkv(self, x):
-        return mul(x, self.wq), mul(x, self.wk), mul(x, self.wv)
+        return (mul(x, self.wq, self.wq_scale),
+                mul(x, self.wk, self.wk_scale),
+                mul(x, self.wv, self.wv_scale))
+
+    def _out(self, ctx):
+        return mul(ctx, self.wo, self.wo_scale)
 
     def prefill(self, x, cache_k, cache_v, slot, key_length):
         q, k, v = self._qkv(x)
@@ -66,7 +80,7 @@ class MultiHeadAttentionCached(nn.Module):
         kv_cache_write_slot(cache_v, v, slot)
         ctx = multihead_attention(q, k, v, self.num_heads, causal=True,
                                   key_length=key_length)
-        return mul(ctx, self.wo)
+        return self._out(ctx)
 
     def decode(self, x, cache_k, cache_v, pos):
         q, k, v = self._qkv(x)
@@ -74,7 +88,7 @@ class MultiHeadAttentionCached(nn.Module):
         kv_cache_append(cache_v, v, pos)
         ctx = multihead_attention_decode(q, cache_k, cache_v, pos,
                                          self.num_heads)
-        return mul(ctx, self.wo)
+        return self._out(ctx)
 
     def prefill_paged(self, x, cache_k, cache_v, table, hist, rows):
         q, k, v = self._qkv(x)
@@ -82,7 +96,7 @@ class MultiHeadAttentionCached(nn.Module):
         kv_cache_write_rows(cache_v, v[0], rows)
         ctx = multihead_attention_prefill_paged(q, cache_k, cache_v, table,
                                                 hist, self.num_heads)
-        return mul(ctx, self.wo)
+        return self._out(ctx)
 
     def decode_paged(self, x, cache_k, cache_v, pos, table, rows):
         q, k, v = self._qkv(x)
@@ -90,7 +104,7 @@ class MultiHeadAttentionCached(nn.Module):
         kv_cache_write_rows(cache_v, v[:, 0], rows)
         ctx = multihead_attention_decode_paged(q, cache_k, cache_v, pos,
                                                table, self.num_heads)
-        return mul(ctx, self.wo)
+        return self._out(ctx)
 
 
 _MODES = ("prefill", "decode", "prefill_paged", "decode_paged")
@@ -112,6 +126,7 @@ class TransformerEncoderLayer(nn.Module):
         self.ffn1_b = _weight(d_ff, device=device)
         self.ffn2_w = _weight(d_ff, d_model, device=device)
         self.ffn2_b = _weight(d_model, device=device)
+        _scales(self, "ffn1_w", "ffn2_w")
 
     def forward(self, x, cache_k, cache_v, mode, **index):
         if mode not in _MODES:
@@ -120,8 +135,10 @@ class TransformerEncoderLayer(nn.Module):
         h = layer_norm(x, self.ln1_w, self.ln1_b)
         x = x + getattr(self.attn, mode)(h, cache_k, cache_v, **index)
         h = layer_norm(x, self.ln2_w, self.ln2_b)
-        ff = fc(h, self.ffn1_w, self.ffn1_b, act=gelu)
-        return x + fc(ff, self.ffn2_w, self.ffn2_b)
+        ff = fc(h, self.ffn1_w, self.ffn1_b, act=gelu,
+                w_scale=self.ffn1_w_scale)
+        return x + fc(ff, self.ffn2_w, self.ffn2_b,
+                      w_scale=self.ffn2_w_scale)
 
 
 class PositionalEncodingWindow(nn.Module):

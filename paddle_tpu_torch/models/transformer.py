@@ -4,7 +4,9 @@ dense and paged branches of ``transformer_lm_session``).
 
 Parameters carry the reference's names at the boundary
 (:func:`lm_param_names`), so weights saved by ``paddle_tpu`` load here
-through ``io.params_from_jax``."""
+through ``io.params_from_jax``, float32 or already armed for int8
+compute (the int8 form of each weight of :func:`lm_mul_weight_names`
+with its scales under ``<name>@quant.scale``)."""
 
 import functools
 import re
@@ -18,9 +20,11 @@ from ..layers.attention import (PositionalEncodingWindow,
 from ..ops.generation_ops import (kv_block_copy, paged_append_rows,
                                   paged_window_rows)
 from ..ops.nn_ops import layer_norm, lookup_table, mul
+from ..ops.quant_ops import SCALE_SUFFIX, scale_var_name
 from ..place import resolve_device
 
-__all__ = ["TransformerLM", "lm_param_names", "infer_num_layers",
+__all__ = ["TransformerLM", "lm_param_names", "lm_mul_weight_names",
+           "check_lm_params", "infer_num_layers", "kv_dtype",
            "transformer_lm_session"]
 
 
@@ -54,6 +58,53 @@ def _name_map(num_layers):
 def lm_param_names(num_layers):
     """The reference's parameter names of a ``num_layers`` LM."""
     return list(_name_map(num_layers))
+
+
+def lm_mul_weight_names(num_layers):
+    """Sorted reference names of the 2-D [in, out] weights the LM
+    consumes only through ``mul``, with the output channel on axis 1:
+    the q/k/v/o projections, the two FFN weights and the LM head. They
+    are the weights the reference's ``select_compute_vars`` arms for
+    int8 compute; the embedding (a ``lookup_table``), the position
+    table, the layer norms and the biases stay float32."""
+    names = ["lm_head.w"]
+    for i in range(num_layers):
+        names += ["mha_%d.qkv_%s.w" % (i, p) for p in "qkv"]
+        names += ["mha_%d.o.w" % i, "enc_%d.ffn1.w" % i, "enc_%d.ffn2.w" % i]
+    return sorted(names)
+
+
+def _is_int8(value):
+    return str(value.dtype) in ("int8", "torch.int8")
+
+
+def check_lm_params(params, num_layers):
+    """Raise ValueError unless ``params`` ({reference name: array or
+    tensor}) holds every parameter of a ``num_layers`` LM and nothing
+    else. A weight of :func:`lm_mul_weight_names` may come int8 with its
+    scales under ``<name>@quant.scale`` (an armed reference scope); a
+    scale without its int8 weight, or an int8 weight without its scale,
+    raises."""
+    expected = set(lm_param_names(num_layers))
+    armable = set(lm_mul_weight_names(num_layers))
+    scales = {n for n in params if n.endswith(SCALE_SUFFIX)}
+    missing = sorted(expected - set(params))
+    unknown = sorted(set(params) - expected - scales)
+    for name in sorted(scales):
+        base = name[:-len(SCALE_SUFFIX)]
+        if base not in armable or base not in params \
+                or not _is_int8(params[base]):
+            unknown.append(name)
+    for name in sorted(expected & set(params)):
+        if _is_int8(params[name]):
+            if name not in armable:
+                unknown.append(name + " (int8)")
+            elif scale_var_name(name) not in params:
+                missing.append(scale_var_name(name))
+    if missing or unknown:
+        raise ValueError("parameter names do not match a %d-layer LM: "
+                         "missing %s, unknown %s"
+                         % (num_layers, missing, unknown))
 
 
 def infer_num_layers(names):
@@ -90,43 +141,74 @@ class TransformerLM(nn.Module):
         self.ln_f_w = weight(d_model)
         self.ln_f_b = weight(d_model)
         self.lm_head = weight(d_model, vocab_size)
+        self.register_buffer("lm_head_scale", None)
         self.caches = []
+
+    def _owner(self, name):
+        """(module, attribute) of the reference-named parameter."""
+        path = _name_map(self.num_layers)[name]
+        mod, _, attr = path.rpartition(".")
+        return (self.get_submodule(mod) if mod else self), attr
+
+    def mul_weight(self, name):
+        """(weight, scales or None) of a weight of
+        :func:`lm_mul_weight_names`, by its reference name."""
+        mod, attr = self._owner(name)
+        return getattr(mod, attr), getattr(mod, attr + "_scale")
+
+    @torch.no_grad()
+    def set_int8_weight(self, name, wq, scales):
+        """Replace the weight ``name`` of :func:`lm_mul_weight_names` by
+        its int8 [in, out] form and f32 [out] scales, on the module's
+        device. The float32 weight is dropped."""
+        mod, attr = self._owner(name)
+        old = getattr(mod, attr)
+        if tuple(wq.shape) != tuple(old.shape) or \
+                tuple(scales.shape) != (old.shape[1],):
+            raise ValueError("%s: int8 shape %s / scales %s, expected %s"
+                             % (name, tuple(wq.shape), tuple(scales.shape),
+                                tuple(old.shape)))
+        setattr(mod, attr, nn.Parameter(
+            torch.as_tensor(wq).to(device=self.device, dtype=torch.int8),
+            requires_grad=False))
+        setattr(mod, attr + "_scale", torch.as_tensor(scales).to(
+            device=self.device, dtype=torch.float32))
 
     @torch.no_grad()
     def load_params(self, params):
         """Copy ``{reference name: tensor}`` into the module. Every name
-        must be present with its shape; unknown names raise."""
-        names = _name_map(self.num_layers)
-        missing = sorted(set(names) - set(params))
-        unknown = sorted(set(params) - set(names))
-        if missing or unknown:
-            raise ValueError("parameter names do not match a %d-layer LM: "
-                             "missing %s, unknown %s"
-                             % (self.num_layers, missing, unknown))
+        must be present with its shape; unknown names raise
+        (:func:`check_lm_params`). An int8 weight and its scales are
+        taken as they are."""
+        check_lm_params(params, self.num_layers)
         own = dict(self.named_parameters())
-        for name, path in names.items():
+        for name, path in _name_map(self.num_layers).items():
             dst, src = own[path], params[name]
             if tuple(src.shape) != tuple(dst.shape):
                 raise ValueError("%s: shape %s, expected %s"
                                  % (name, tuple(src.shape), tuple(dst.shape)))
-            dst.copy_(src)
+            if _is_int8(src):
+                self.set_int8_weight(name, src,
+                                     params[scale_var_name(name)])
+            else:
+                dst.copy_(src)
 
-    def allocate_cache(self, slots, cache_len):
-        """Zeroed float32 [slots, cache_len, d_model] K and V tensors per
-        layer."""
-        self._zero_caches(slots, cache_len)
+    def allocate_cache(self, slots, cache_len, dtype=torch.float32):
+        """Zeroed [slots, cache_len, d_model] K and V tensors of
+        ``dtype`` (float32 or bfloat16) per layer."""
+        self._zero_caches(slots, cache_len, dtype)
 
-    def allocate_pools(self, num_blocks, block_size):
-        """The paged layout: zeroed float32 [num_blocks + 1, block_size,
-        d_model] K and V pool storages per layer, the ``num_blocks``
+    def allocate_pools(self, num_blocks, block_size, dtype=torch.float32):
+        """The paged layout: zeroed [num_blocks + 1, block_size, d_model]
+        K and V pool storages of ``dtype`` per layer, the ``num_blocks``
         blocks that block tables address plus the sink block that
         dropped writes land in (``ops/generation_ops.py``)."""
-        self._zero_caches(num_blocks + 1, block_size)
+        self._zero_caches(num_blocks + 1, block_size, dtype)
 
-    def _zero_caches(self, rows, cols):
+    def _zero_caches(self, rows, cols, dtype):
         shape = (rows, cols, self.tok_embedding.shape[1])
-        self.caches = [(torch.zeros(shape, device=self.device),
-                        torch.zeros(shape, device=self.device))
+        self.caches = [(torch.zeros(shape, dtype=dtype, device=self.device),
+                        torch.zeros(shape, dtype=dtype, device=self.device))
                        for _ in range(self.num_layers)]
 
     def release_cache(self):
@@ -138,7 +220,8 @@ class TransformerLM(nn.Module):
         return storage.shape[0] - 1, storage.shape[1]
 
     def _head(self, x):
-        return mul(layer_norm(x, self.ln_f_w, self.ln_f_b), self.lm_head)
+        return mul(layer_norm(x, self.ln_f_w, self.ln_f_b), self.lm_head,
+                   self.lm_head_scale)
 
     @torch.no_grad()
     def prefill(self, tokens, length, slot):
@@ -198,6 +281,15 @@ class TransformerLM(nn.Module):
             kv_block_copy(cv, src, dst)
 
 
+def kv_dtype(name):
+    """The torch dtype of a cache dtype name ("float32", "bfloat16",
+    ...); raises ValueError for a name that is not a floating dtype."""
+    dt = getattr(torch, str(name), None)
+    if not isinstance(dt, torch.dtype) or not dt.is_floating_point:
+        raise ValueError("not a floating cache dtype: %r" % (name,))
+    return dt
+
+
 def _build_model(params, vocab_size, d_model, num_heads, d_ff, num_layers,
                  max_len, device):
     model = TransformerLM(vocab_size, d_model, num_heads, d_ff, num_layers,
@@ -209,13 +301,19 @@ def _build_model(params, vocab_size, d_model, num_heads, d_ff, num_layers,
 def transformer_lm_session(vocab_size, d_model=128, num_heads=4, d_ff=256,
                            num_layers=2, max_len=16, slots=None,
                            cache_len=None, prompt_buckets=None, eos_id=1,
-                           device=None, paged=None, block_size=None,
-                           num_blocks=None, prefix_cache=None):
-    """The KV-cached generation spec of the causal LM: float32 cache,
-    greedy. Defaults for ``slots`` / ``cache_len`` / ``prompt_buckets``
-    come from the ``generation_slots`` / ``generation_cache_buckets`` /
+                           device=None, dtype="float32", paged=None,
+                           block_size=None, num_blocks=None,
+                           prefix_cache=None):
+    """The KV-cached generation spec of the causal LM, greedy. Defaults
+    for ``slots`` / ``cache_len`` / ``prompt_buckets`` come from the
+    ``generation_slots`` / ``generation_cache_buckets`` /
     ``generation_prompt_buckets`` flags, resolved as the reference does.
     ``device`` defaults to CUDA and raises when there is none.
+
+    ``dtype`` is the K/V cache storage, dense rows and paged pools both
+    ("float32" or "bfloat16"; weights and activations stay float32).
+    Left at "float32", it is filled from the ``generation_kv_dtype``
+    flag when that is set; any other explicit dtype wins over the flag.
 
     ``paged`` (default: the ``generation_paged_kv`` flag) swaps the dense
     [slots, cache_len, d_model] caches for per-layer block pools of
@@ -248,6 +346,11 @@ def transformer_lm_session(vocab_size, d_model=128, num_heads=4, d_ff=256,
         min(int(p), max_len) for p in prompt_buckets if int(p) >= 1}))
     if not prompt_buckets:
         raise ValueError("need at least one prompt bucket")
+    if dtype == "float32":
+        kvd = _config.get_flag("generation_kv_dtype")
+        if kvd:
+            dtype = str(kvd)
+    kv_dtype(dtype)
     if paged is None:
         paged = bool(_config.get_flag("generation_paged_kv"))
     max_blocks = 0
@@ -266,8 +369,9 @@ def transformer_lm_session(vocab_size, d_model=128, num_heads=4, d_ff=256,
     return GenerationSpec(
         slots=slots, cache_len=cache_len, max_len=max_len,
         prompt_buckets=prompt_buckets, eos_id=eos_id, device=device,
-        paged=bool(paged), block_size=block_size, num_blocks=num_blocks,
-        max_blocks=max_blocks, prefix_cache=bool(prefix_cache),
+        dtype=str(dtype), paged=bool(paged), block_size=block_size,
+        num_blocks=num_blocks, max_blocks=max_blocks,
+        prefix_cache=bool(prefix_cache),
         build_model=functools.partial(
             _build_model, vocab_size=vocab_size, d_model=d_model,
             num_heads=num_heads, d_ff=d_ff, num_layers=num_layers,

@@ -13,6 +13,8 @@ import shutil
 import subprocess
 import threading
 
+import torch
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "build")
@@ -28,9 +30,15 @@ ENTRY_POINTS = {
                             (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P)),
     "decode_attention_f32": ("decode_attention",
                              (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P)),
+    "decode_attention_bf16": ("decode_attention",
+                              (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P)),
     "decode_attention_paged_f32": ("decode_attention_paged",
                                    (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                     _I, _I, _P)),
+    "decode_attention_paged_bf16": ("decode_attention_paged",
+                                    (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                     _I, _I, _P)),
+    "int8_matmul": ("int8_matmul", (_P, _P, _P, _P, _I, _I, _I, _P)),
 }
 
 _lock = threading.Lock()
@@ -109,6 +117,14 @@ def entry(name):
             fn.restype = ctypes.c_int
             _libs[name] = fn
         return fn
+
+
+def stream(device):
+    """The raw handle of PyTorch's current stream on CUDA ``device``, as
+    an int for ctypes. The private accessor (the one Triton's launcher
+    uses) skips ``torch.cuda.current_stream(device).cuda_stream``'s
+    Stream object, which a launch would otherwise build every time."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def check(err, name):

@@ -18,6 +18,11 @@ three CUDA kernels and their plain PyTorch versions.
   with each row addressed through the slot's block table; bound by
   device-memory bytes like it.
 
+The decode kernels read float32 or bfloat16 caches (both of one dtype;
+the ``generation_kv_dtype`` flag); q, the output and all arithmetic
+stay float32, the cache upcast at the contraction as the reference
+does. The plain versions upcast the caches before their einsums.
+
 A wrapper given CPU tensors computes the plain version (the CPU tests
 rely on it). Given CUDA tensors it launches the kernel or raises: there
 is no fallback. Each wrapper counts its kernel launches in
@@ -62,26 +67,47 @@ def _decode_reference(q, k, v, lengths):
     return torch.einsum("bqk,bkd->bqd", p, v)
 
 
-def _require(cond, msg):
+def _require(cond, msg, *args):
+    """Raise ValueError(msg % args) unless ``cond``; the message is
+    formatted only on failure, which keeps passing checks cheap on the
+    wrappers' per-launch path."""
     if not cond:
-        raise ValueError(msg)
+        raise ValueError(msg % args if args else msg)
 
 
 def _on_cpu(*tensors):
-    devices = {t.device.type for t in tensors if t is not None}
-    if devices == {"cpu"}:
-        return True
-    if devices != {"cuda"}:
+    """True when the tensors all lie on the CPU, False when they are all
+    CUDA tensors; raises on anything else."""
+    tensors = [t for t in tensors if t is not None]
+    if all(t.is_cuda for t in tensors):
+        return False
+    devices = {t.device.type for t in tensors}
+    if devices != {"cpu"}:
         raise ValueError("tensors must all lie on the CPU or all on one "
                          "CUDA device, got %s" % sorted(devices))
-    return False
+    return True
 
 
-def _check_f32(name, t):
-    _require(t.dtype == torch.float32,
-             "%s must be float32, got %s" % (name, t.dtype))
-    _require(t.is_contiguous(), "%s must be contiguous" % name)
-    _require(t.data_ptr() % 16 == 0, "%s must be 16-byte aligned" % name)
+def _check_input(name, t, dtype=torch.float32):
+    _require(t.dtype == dtype, "%s must be %s, got %s", name, dtype, t.dtype)
+    _require(t.is_contiguous(), "%s must be contiguous", name)
+    _require(t.data_ptr() % 16 == 0, "%s must be 16-byte aligned", name)
+
+
+# cache dtype -> suffix of the decode kernels' C entry points
+_KV_ENTRY = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+
+def _check_decode_inputs(q, k, v):
+    """q f32; the two caches of one dtype the decode kernels read. Returns
+    the entry-point suffix."""
+    _check_input("q", q)
+    _require(k.dtype in _KV_ENTRY and v.dtype == k.dtype,
+             "caches must both be float32 or both bfloat16, got %s %s",
+             k.dtype, v.dtype)
+    _check_input("k", k, k.dtype)
+    _check_input("v", v, k.dtype)
+    return _KV_ENTRY[k.dtype]
 
 
 def flash_attention_plain(q, k, v, causal=False, segment_ids=None):
@@ -109,25 +135,25 @@ def flash_attention(q, k, v, causal=False, segment_ids=None):
             segment_ids = segment_ids[None]
     b, h, t, d = q.shape
     _require(k.shape == q.shape and v.shape == q.shape,
-             "q, k, v shapes differ: %s %s %s"
-             % (tuple(q.shape), tuple(k.shape), tuple(v.shape)))
+             "q, k, v shapes differ: %s %s %s", tuple(q.shape),
+             tuple(k.shape), tuple(v.shape))
     if segment_ids is not None:
         _require(tuple(segment_ids.shape) == (b, t),
-                 "segment_ids must be [B, T] = %s, got %s"
-                 % ((b, t), tuple(segment_ids.shape)))
+                 "segment_ids must be [B, T] = %s, got %s", (b, t),
+                 tuple(segment_ids.shape))
     if _on_cpu(q, k, v, segment_ids):
         out = flash_attention_plain(q, k, v, causal, segment_ids)
     else:
         for name, x in (("q", q), ("k", k), ("v", v)):
-            _check_f32(name, x)
-        _require(d in _HEAD_DIMS, "head dim %d not in %s" % (d, _HEAD_DIMS))
+            _check_input(name, x)
+        _require(d in _HEAD_DIMS, "head dim %d not in %s", d, _HEAD_DIMS)
         if segment_ids is not None:
             _require(segment_ids.dtype == torch.int32
                      and segment_ids.is_contiguous(),
                      "segment_ids must be contiguous int32")
         out = torch.empty_like(q)
         fn = _build.entry("flash_attention_f32")
-        stream = torch.cuda.current_stream(q.device).cuda_stream
+        stream = _build.stream(q.device)
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                  None if segment_ids is None else segment_ids.data_ptr(),
                  out.data_ptr(), b * h, t, d, h, int(causal), stream)
@@ -141,10 +167,12 @@ flash_attention.launches = 0
 
 def decode_attention_plain(q, k_cache, v_cache, lengths, num_heads):
     """The plain version of :func:`decode_attention`, on any device:
-    the cache is transposed to [S*H, C, D] for :func:`_decode_reference`."""
+    the cache is upcast to float32 and transposed to [S*H, C, D] for
+    :func:`_decode_reference`."""
     s, hd = q.shape
     c = k_cache.shape[1]
     d = hd // num_heads
+    k_cache, v_cache = k_cache.float(), v_cache.float()
     kh = k_cache.reshape(s, c, num_heads, d).transpose(1, 2)
     vh = v_cache.reshape(s, c, num_heads, d).transpose(1, 2)
     out = _decode_reference(
@@ -156,31 +184,31 @@ def decode_attention_plain(q, k_cache, v_cache, lengths, num_heads):
 def decode_attention(q, k_cache, v_cache, lengths, num_heads):
     """One query per slot against a dense cache in its native layout:
     q [S, H*D], k_cache/v_cache [S, C, H*D], lengths [S] int (live rows
-    per slot; row c is attendable iff c < lengths[s]). Returns
-    [S, H*D]. A length of 0 yields zeros from the kernel and the mean
-    of V from the plain version; callers pass lengths >= 1."""
+    per slot; row c is attendable iff c < lengths[s]), the caches
+    float32 or bfloat16. Returns [S, H*D] float32. A length of 0
+    yields zeros from the kernel and the mean of V from the plain
+    version; callers pass lengths >= 1."""
     s, hd = q.shape
     _require(k_cache.dim() == 3 and k_cache.shape[0] == s
              and k_cache.shape[2] == hd and v_cache.shape == k_cache.shape,
-             "caches must be [S, C, H*D] = [%d, C, %d], got %s %s"
-             % (s, hd, tuple(k_cache.shape), tuple(v_cache.shape)))
+             "caches must be [S, C, H*D] = [%d, C, %d], got %s %s", s, hd,
+             tuple(k_cache.shape), tuple(v_cache.shape))
     _require(hd % num_heads == 0,
-             "H*D = %d not divisible by %d heads" % (hd, num_heads))
+             "H*D = %d not divisible by %d heads", hd, num_heads)
     _require(tuple(lengths.shape) == (s,),
-             "lengths must be [S] = [%d], got %s" % (s, tuple(lengths.shape)))
+             "lengths must be [S] = [%d], got %s", s, tuple(lengths.shape))
     c = k_cache.shape[1]
     d = hd // num_heads
     if _on_cpu(q, k_cache, v_cache, lengths):
         return decode_attention_plain(q, k_cache, v_cache, lengths,
                                       num_heads)
-    for name, x in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
-        _check_f32(name, x)
-    _require(d in _HEAD_DIMS, "head dim %d not in %s" % (d, _HEAD_DIMS))
+    kind = _check_decode_inputs(q, k_cache, v_cache)
+    _require(d in _HEAD_DIMS, "head dim %d not in %s", d, _HEAD_DIMS)
     _require(lengths.dtype == torch.int32 and lengths.is_contiguous(),
              "lengths must be contiguous int32")
     out = torch.empty_like(q)
-    fn = _build.entry("decode_attention_f32")
-    stream = torch.cuda.current_stream(q.device).cuda_stream
+    fn = _build.entry("decode_attention_" + kind)
+    stream = _build.stream(q.device)
     err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
              lengths.data_ptr(), out.data_ptr(), s, num_heads, d, c, stream)
     _build.check(err, "decode_attention")
@@ -212,7 +240,8 @@ def _decode_paged_reference(q, k_pool, v_pool, lengths, tables, num_heads):
 
 def decode_attention_paged(q, k_pool, v_pool, lengths, tables, num_heads):
     """One query per slot against a paged cache: q [S, H*D], pools
-    [NB, BS, H*D], lengths [S] int (live logical rows per slot), tables
+    [NB, BS, H*D] (float32 or bfloat16, as for :func:`decode_attention`),
+    lengths [S] int (live logical rows per slot), tables
     [S, MB] int block ids: logical row c of slot s is pool row
     ``tables[s, c // BS] * BS + c % BS``. Entries outside [0, NB) are
     clamped into it (the host marks dead entries with NB) and the length
@@ -221,34 +250,33 @@ def decode_attention_paged(q, k_pool, v_pool, lengths, tables, num_heads):
     s, hd = q.shape
     _require(k_pool.dim() == 3 and k_pool.shape[2] == hd
              and v_pool.shape == k_pool.shape,
-             "pools must be [NB, BS, H*D] = [NB, BS, %d], got %s %s"
-             % (hd, tuple(k_pool.shape), tuple(v_pool.shape)))
+             "pools must be [NB, BS, H*D] = [NB, BS, %d], got %s %s", hd,
+             tuple(k_pool.shape), tuple(v_pool.shape))
     _require(hd % num_heads == 0,
-             "H*D = %d not divisible by %d heads" % (hd, num_heads))
+             "H*D = %d not divisible by %d heads", hd, num_heads)
     _require(tuple(lengths.shape) == (s,),
-             "lengths must be [S] = [%d], got %s" % (s, tuple(lengths.shape)))
+             "lengths must be [S] = [%d], got %s", s, tuple(lengths.shape))
     _require(tables.dim() == 2 and tables.shape[0] == s
              and tables.shape[1] >= 1,
-             "tables must be [S, MB] = [%d, MB >= 1], got %s"
-             % (s, tuple(tables.shape)))
+             "tables must be [S, MB] = [%d, MB >= 1], got %s", s,
+             tuple(tables.shape))
     nb, bs, _ = k_pool.shape
     mb = tables.shape[1]
     d = hd // num_heads
     if _on_cpu(q, k_pool, v_pool, lengths, tables):
         return _decode_paged_reference(q, k_pool, v_pool, lengths, tables,
                                        num_heads)
-    for name, x in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool)):
-        _check_f32(name, x)
-    _require(d in _HEAD_DIMS, "head dim %d not in %s" % (d, _HEAD_DIMS))
-    _require(nb >= 1 and bs >= 1, "empty pool %s" % (tuple(k_pool.shape),))
+    kind = _check_decode_inputs(q, k_pool, v_pool)
+    _require(d in _HEAD_DIMS, "head dim %d not in %s", d, _HEAD_DIMS)
+    _require(nb >= 1 and bs >= 1, "empty pool %s", tuple(k_pool.shape))
     for name, x in (("lengths", lengths), ("tables", tables)):
         _require(x.dtype == torch.int32 and x.is_contiguous(),
-                 "%s must be contiguous int32" % name)
+                 "%s must be contiguous int32", name)
     _require(mb <= _MAX_TABLE_BLOCKS, "a table row of %d blocks exceeds "
-             "the kernel's %d" % (mb, _MAX_TABLE_BLOCKS))
+             "the kernel's %d", mb, _MAX_TABLE_BLOCKS)
     out = torch.empty_like(q)
-    fn = _build.entry("decode_attention_paged_f32")
-    stream = torch.cuda.current_stream(q.device).cuda_stream
+    fn = _build.entry("decode_attention_paged_" + kind)
+    stream = _build.stream(q.device)
     err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
              lengths.data_ptr(), tables.data_ptr(), out.data_ptr(), s,
              num_heads, d, nb, bs, mb, stream)

@@ -163,15 +163,17 @@ def multihead_attention_prefill_paged(q, cache_k, cache_v, table, hist,
     table-gathered rows [0, hist + i]: the cached prefix plus the window,
     causally. Padding rows compute values no real row reads. Plain
     torch, as the reference computes it in XLA: it runs once per
-    admission. Returns [1, P, H*D]."""
+    admission. The gathered rows of bfloat16 pools are upcast to
+    float32 before the products, as ``jnp.einsum`` promotes them.
+    Returns [1, P, H*D]."""
     _, p, dm = q.shape
     nb, bs = cache_k.shape[0] - 1, cache_k.shape[1]
     hd = dm // num_heads
     tbl = table.to(device=q.device, dtype=torch.long).clamp(0, nb - 1)
     c = tbl.shape[0] * bs
     qh = q.reshape(p, num_heads, hd).transpose(0, 1)            # [H, P, hd]
-    kh = cache_k[tbl].reshape(c, num_heads, hd).transpose(0, 1)  # [H, C, hd]
-    vh = cache_v[tbl].reshape(c, num_heads, hd).transpose(0, 1)
+    kh = cache_k[tbl].float().reshape(c, num_heads, hd).transpose(0, 1)
+    vh = cache_v[tbl].float().reshape(c, num_heads, hd).transpose(0, 1)
     s = torch.matmul(qh, kh.transpose(1, 2)) * (hd ** -0.5)
     cols = torch.arange(c, device=q.device)
     rows = int(hist) + torch.arange(p, device=q.device)

@@ -1,10 +1,14 @@
 """The dense ops of the LM backbone, as plain tensor functions with the
 reference's semantics (``paddle_tpu/ops/{nn_ops,activation_ops,
-math_ops,tensor_ops}.py``). Matrix products go to ``torch.matmul``, as
-the reference left them to XLA."""
+math_ops,tensor_ops}.py``). Matrix products of float32 weights go to
+``torch.matmul``, as the reference left them to XLA; an int8 weight
+(armed for int8 compute, ``serving/quant.py``) goes through kernel B3
+(``ops/quant_ops.py``)."""
 
 import torch
 import torch.nn.functional as F
+
+from .quant_ops import quant_matmul_2d
 
 __all__ = ["layer_norm", "gelu", "mul", "fc", "lookup_table", "gather",
            "argmax"]
@@ -21,16 +25,24 @@ def gelu(x):
     return F.gelu(x, approximate="tanh")
 
 
-def mul(x, w):
+def mul(x, w, w_scale=None):
     """x [..., in] times w [in, out] (the reference stores fc weights as
-    [in, out])."""
-    return torch.matmul(x, w)
+    [in, out]). An int8 ``w`` takes its f32 [out] ``w_scale``: x is
+    flattened to [-1, in] for :func:`quant_matmul_2d` and the result
+    reshaped back, as the reference's ``_quant_mul`` does."""
+    if w.dtype != torch.int8:
+        return torch.matmul(x, w)
+    if w_scale is None:
+        raise ValueError("an int8 weight needs its scales")
+    k, n = w.shape
+    y = quant_matmul_2d(x.reshape(-1, k).contiguous(), w, w_scale)
+    return y.reshape(x.shape[:-1] + (n,))
 
 
-def fc(x, w, b=None, act=None):
+def fc(x, w, b=None, act=None, w_scale=None):
     """The reference ``layers.fc``: mul, then the bias, then the
     activation."""
-    y = mul(x, w)
+    y = mul(x, w, w_scale)
     if b is not None:
         y = y + b
     return act(y) if act is not None else y

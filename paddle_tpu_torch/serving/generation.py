@@ -44,7 +44,9 @@ import numpy as np
 import torch
 
 from .. import config as _config
+from ..models.transformer import kv_dtype
 from ..ops.nn_ops import argmax
+from . import quant as _quant
 from .paged_cache import BlockPool, PoolExhausted, PrefixIndex
 
 __all__ = ["GenerationSpec", "GenerationSession", "GenerationScheduler",
@@ -82,7 +84,8 @@ def _resolve(future, result=None, exception=None):
 class GenerationSpec:
     """The contract between a model's session builder (e.g.
     ``models.transformer.transformer_lm_session``) and the session:
-    shapes, token ids, the device, the cache layout, and
+    shapes, token ids, the device, the cache layout and its dtype name
+    (``dtype``, "float32" or "bfloat16"), and
     ``build_model(params)``, which returns a module with
     ``allocate_cache``, ``prefill`` and ``decode`` (dense) and
     ``allocate_pools``, ``prefill_paged``, ``decode(..., table)`` and
@@ -90,10 +93,10 @@ class GenerationSpec:
     layout."""
 
     __slots__ = ("slots", "cache_len", "max_len", "prompt_buckets",
-                 "eos_id", "device", "build_model", "paged", "block_size",
-                 "num_blocks", "max_blocks", "prefix_cache")
-    _DEFAULTS = {"paged": False, "block_size": 0, "num_blocks": 0,
-                 "max_blocks": 0, "prefix_cache": False}
+                 "eos_id", "device", "build_model", "dtype", "paged",
+                 "block_size", "num_blocks", "max_blocks", "prefix_cache")
+    _DEFAULTS = {"dtype": "float32", "paged": False, "block_size": 0,
+                 "num_blocks": 0, "max_blocks": 0, "prefix_cache": False}
 
     def __init__(self, **kwargs):
         for name, value in self._DEFAULTS.items():
@@ -109,12 +112,23 @@ class GenerationSession:
     """One decode batch of ``spec.slots`` cache slots over the model
     built from ``params`` ({reference parameter name: tensor}). Methods
     are single-threaded by contract: the scheduler's dispatcher thread
-    is the only caller in a serving deployment."""
+    is the only caller in a serving deployment.
 
-    def __init__(self, spec, params):
+    ``arm_quant`` (default: the ``serving_quant_compute`` flag, read
+    here only) quantizes the model's mul weights to int8 in place
+    (``serving/quant.py``); their products then run through kernel B3.
+    ``_quant_armed`` lists the armed reference names; no float32 copy
+    of an armed weight is kept."""
+
+    def __init__(self, spec, params, arm_quant=None):
         self.spec = spec
         self.device = spec.device
         self.model = spec.build_model(params)
+        if arm_quant is None:
+            arm_quant = bool(_config.get_flag("serving_quant_compute"))
+        self._quant_armed = []
+        if arm_quant:
+            self._quant_armed = _quant.arm_quant_compute(self.model)
         n = spec.slots
         self.lengths = np.zeros(n, np.int64)     # cached rows per slot
         self.last_token = np.zeros(n, np.int64)  # next token to decode
@@ -127,8 +141,9 @@ class GenerationSession:
         self.paged = bool(spec.paged)
         self.pool = None
         self.prefix = None
+        kv = kv_dtype(spec.dtype)
         if self.paged:
-            self.model.allocate_pools(spec.num_blocks, spec.block_size)
+            self.model.allocate_pools(spec.num_blocks, spec.block_size, kv)
             self.pool = BlockPool(spec.num_blocks, spec.block_size)
             if spec.prefix_cache:
                 self.prefix = PrefixIndex(self.pool)
@@ -142,7 +157,7 @@ class GenerationSession:
             # prefix that was NOT prefilled; bounded in _admit_paged
             self.prefill_log = []
         else:
-            self.model.allocate_cache(spec.slots, spec.cache_len)
+            self.model.allocate_cache(spec.slots, spec.cache_len, kv)
 
     # -- slot bookkeeping ------------------------------------------------
     def free_slots(self):
@@ -203,16 +218,17 @@ class GenerationSession:
 
     def pool_stats(self):
         """{blocks_in_use, num_blocks, block_size, bytes_per_block} of
-        the paged layout (None on dense). The sink block the pools carry
-        is not counted."""
+        the paged layout (None on dense): a block's K and V rows in every
+        layer, at the pools' element size. The sink block the pools
+        carry is not counted."""
         if not self.paged:
             return None
-        d_model = self.model.tok_embedding.shape[1]
+        pool = self.model.caches[0][0]
         return {"blocks_in_use": self.pool.used_count(),
                 "num_blocks": self.pool.num_blocks,
                 "block_size": self.spec.block_size,
-                "bytes_per_block": self.spec.block_size * d_model * 4
-                * 2 * self.model.num_layers}
+                "bytes_per_block": self.spec.block_size * pool.shape[2]
+                * pool.element_size() * 2 * self.model.num_layers}
 
     def prefix_stats(self):
         """Prefix-cache counters (zeros when the cache is off)."""
