@@ -6,9 +6,9 @@
 Run from the repository root on a machine with an NVIDIA H100, ``nvcc``
 and PyTorch built for CUDA. In order, it:
 
-1. builds every CUDA kernel of the serving path from ``paddle_tpu_torch/
-   csrc`` (one ``nvcc`` per source, in parallel) and prints what
-   ``-Xptxas -v`` reports;
+1. builds every CUDA kernel of the serving and training paths from
+   ``paddle_tpu_torch/csrc`` (one ``nvcc`` per source, in parallel) and
+   prints what ``-Xptxas -v`` reports;
 2. holds each kernel against its plain PyTorch version on the card, at
    the shapes the serving path gives it (the int8 kernel exactly, the
    decode kernels on float32 and bfloat16 caches), and small LMs on the
@@ -39,7 +39,19 @@ and PyTorch built for CUDA. In order, it:
    torch.profiler (device-busy share, top kernels), and times each
    kernel on the device (profiler kernel durations) beside its bound, its
    plain version and the one PyTorch call that computes the same
-   function.
+   function;
+8. holds the fused 1x1 conv + BN-statistics kernel (B1) against its plain
+   version at every shape of the ResNet-50 path and at ragged shapes
+   (bitwise repeatable, with a gradient check), and its bf16
+   instantiation with a BN-apply + ReLU prologue (the probe T1); trains a
+   small bottleneck ResNet on the card against the CPU, fused against
+   unfused;
+9. frees the LM, then trains ResNet-50 as bench.py does on the
+   accelerator (224 x 224, batch 256, Momentum(0.1, 0.9)) in float32 with
+   fused_conv_bn on, through ``models.resnet.resnet_imagenet`` and
+   ``trainer.train_step``: step time, images per second, f32 MFU, peak
+   memory, 30 B1 launches per step; profiles one step and times B1 at
+   each of its shapes.
 
 Any failed phase exits nonzero. The line before the last is the card's
 name and power limit from nvidia-smi; the one before that lists the
@@ -48,6 +60,7 @@ kernels as JSON; the last line is ``{"ok": true, "device": ...}``.
 
 import argparse
 import functools
+import gc
 import json
 import subprocess
 import sys
@@ -61,9 +74,10 @@ SLOTS, CACHE_LEN, BUCKETS = 8, 1024, (128, 512)
 PROMPT_LENS = (100, 128, 300, 512)
 NEW_TOKENS = 32
 # H100 SXM data sheet: HBM3 bandwidth, f32 outside the tensor cores, and
-# dense int8 on the tensor cores
+# dense bf16 and int8 on the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+BF16_FLOPS = 989e12
 INT8_OPS = 1979e12
 # kernel vs plain version on the card: both f32, sums in another order
 KERNEL_ATOL = 1e-4
@@ -104,6 +118,50 @@ LM_INT8_STEPS = 4
 # host-clock latencies spread by tens of percent between rounds (the
 # step is host-bound): medians of this many rounds, every round printed
 LATENCY_ROUNDS = 7
+# ResNet-50 training as bench.py trains it on the accelerator
+# (resnet_imagenet depth 50, 224 x 224, 1000 classes, batch 256,
+# Momentum(0.1, 0.9), random images and labels from a seed), in float32
+# with fused_conv_bn on: the path that runs kernel B1, 30 launches per
+# step. bench.py counts a training step as 3 x the forward's 4.1 G
+# multiply-adds per image at 224, and labels the 12.3 G "GFLOP"; a FLOP
+# here is one multiply or one add, as in every bound of this script, so
+# a step does 2 x 12.3 = 24.6 GFLOP per image. MFU is reported in both
+TRAIN = dict(depth=50, res=224, batch=256, class_dim=1000, lr=0.1,
+             momentum=0.9)
+TRAIN_WARMUP, TRAIN_STEPS = 3, 8
+TRAIN_GMAC_PER_IMAGE = 12.3
+TRAIN_GFLOP_PER_IMAGE = 2 * TRAIN_GMAC_PER_IMAGE
+B1_PER_STEP = 30
+# B1's (C, O, H = W) on the path, at batch 256
+B1_SHAPES = ((64, 64, 56), (64, 256, 56), (256, 64, 56), (512, 128, 28),
+             (128, 512, 28), (1024, 256, 14), (256, 1024, 14),
+             (2048, 512, 7), (512, 2048, 7))
+# ragged shapes off the path: (N, C, O, H, W)
+B1_RAGGED = ((3, 37, 19, 5, 7), (2, 5, 130, 1, 1), (7, 96, 40, 9, 11))
+# B1 vs its plain version (cuDNN's f32 convolution, TF32 off, and torch's
+# sums), both f32 with sums in other orders: y within B1_RTOL of max|y|,
+# each channel's sum within B1_RTOL of the sum of |y| it adds (a sum of
+# signed terms cancels), sum of squares and the variance E[y^2] - E[y]^2
+# within B1_RTOL of E[y^2] (the formula cancels in f32; the reference
+# uses it too)
+B1_RTOL = 1e-5
+# the probe T1's three ResNet cases (tools/fused_conv_bn_probe.py): rows
+# R = 256 H W, C -> O, bf16; held to one bf16 step of max|y| and its f32
+# sums to T1_SUM_RTOL of the sum of |y| (or y^2) they add
+T1_CASES = (("stage2 28x28 128->512", 256 * 28 * 28, 128, 512),
+            ("stage3 14x14 256->1024", 256 * 14 * 14, 256, 1024),
+            ("stage1 56x56 64->256", 256 * 56 * 56, 64, 256))
+T1_SUM_RTOL = 1e-5
+# the small bottleneck ResNet, card vs CPU over 3 Momentum steps (f32,
+# B1 and cuDNN on the card, the plain versions on the CPU): losses,
+# parameters, velocities and running statistics within SMALL_RESNET_RTOL
+# of each tensor's norm; fused vs unfused on the card: losses at the
+# reference's own rtol (tests/test_quant_compute.py)
+SMALL_RESNET_RTOL = 1e-4
+FUSED_UNFUSED_RTOL = 1e-4
+# its 1x1 stride-1 convolutions: the first block's shortcut, conv1 and
+# conv3, the second block's conv3
+SMALL_B1_PER_STEP = 4
 
 
 class SmokeFailure(RuntimeError):
@@ -166,12 +224,15 @@ def roofline_ms(nbytes, flops, peak=F32_FLOPS):
 
 def wrappers():
     """{kernel name: its wrapper}; each wrapper counts its launches."""
+    from paddle_tpu_torch.ops import conv_bn
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.ops import quant_ops
     return {"flash_attention": fa.flash_attention,
             "decode_attention": fa.decode_attention,
             "decode_attention_paged": fa.decode_attention_paged,
-            "int8_matmul": quant_ops.quant_matmul_2d}
+            "int8_matmul": quant_ops.quant_matmul_2d,
+            "conv_bn_stats": conv_bn.conv_bn_stats_1x1,
+            "conv1x1_bn_relu": conv_bn.conv1x1_bn_relu}
 
 
 def reset_launches():
@@ -1167,6 +1228,386 @@ def phase_time(rng, launches, errs, final_lengths, paged_final,
     return rows
 
 
+def b1_check(y, s, ss, want, label):
+    """B1's outputs against its plain version's (``want``), to B1_RTOL;
+    prints and returns the error of y, in units of max|y|."""
+    wy, ws, wss = want
+    scale = float(wy.abs().max())
+    mags = wy.abs().sum(dim=(0, 2, 3))
+    count = wy.numel() // wy.shape[1]
+    ey = float((y - wy).abs().max())
+    es = float(((s - ws).abs() / mags).max())
+    ess = float(((ss - wss).abs() / wss).max())
+    var = ss / count - (s / count) ** 2
+    wvar = wss / count - (ws / count) ** 2
+    evar = float(((var - wvar).abs() / (wss / count)).max())
+    print("[compare] conv_bn_stats %s: max_abs_err y %.3g (max|y| %.3g), "
+          "sum %.3g, sumsq %.3g, variance %.3g (relative; tol %g)"
+          % (label, ey, scale, es, ess, evar, B1_RTOL))
+    check(ey <= B1_RTOL * scale and es <= B1_RTOL and ess <= B1_RTOL
+          and evar <= B1_RTOL, "conv_bn_stats disagrees at %s" % label)
+    return ey
+
+
+def phase_compare_conv_bn(rng):
+    """Kernel B1 against its plain version at every shape of the ResNet-50
+    path (batch 256) and at ragged shapes; two launches give the same
+    bits; its autograd Function against autograd of the plain version
+    with cotangents on y, sum and sumsq; and B1's bf16 instantiation
+    with the BN-apply + ReLU prologue (the probe T1) against its plain
+    version at the probe's three cases."""
+    import torch
+    from paddle_tpu_torch.ops import conv_bn
+    batch = TRAIN["batch"]
+    worst, worst_rel = 0.0, 0.0
+    cases = [(batch, c, o, h, h) for c, o, h in B1_SHAPES] + list(B1_RAGGED)
+    for n, c, o, h, w in cases:
+        x = torch.randn(n, c, h, w, device="cuda")
+        wt = torch.randn(o, c, 1, 1, device="cuda") * c ** -0.5
+        got = conv_bn.conv_bn_stats_1x1(x, wt)
+        again = conv_bn.conv_bn_stats_1x1(x, wt)
+        want = conv_bn.conv_bn_stats_plain(x, wt)
+        torch.cuda.synchronize()
+        label = "N=%d C=%d O=%d %dx%d" % (n, c, o, h, w)
+        err = b1_check(*got, want, label)
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              "conv_bn_stats: two launches differ at %s" % label)
+        worst = max(worst, err)
+        worst_rel = max(worst_rel, err / float(want[0].abs().max()))
+        del x, wt, got, again, want
+    print("[compare] conv_bn_stats: two launches bitwise equal at all %d "
+          "shapes" % len(cases))
+    # the autograd Function (B1 forward) against autograd of the plain
+    # version, cotangents on all three outputs
+    x = torch.randn(8, 256, 56, 56, device="cuda")
+    wt = torch.randn(64, 256, 1, 1, device="cuda") * 256 ** -0.5
+    cts = [torch.randn(8, 64, 56, 56, device="cuda"),
+           torch.randn(64, device="cuda"), torch.randn(64, device="cuda")]
+    grads = []
+    for fn in (conv_bn.conv_bn_stats,
+               lambda a, b: conv_bn.conv_bn_stats_plain(a, b)):
+        xa = x.clone().requires_grad_()
+        wa = wt.clone().requires_grad_()
+        torch.autograd.backward(list(fn(xa, wa)), cts)
+        grads.append((xa.grad, wa.grad))
+    torch.cuda.synchronize()
+    errs = [float((a - b).abs().max() / b.abs().max())
+            for a, b in zip(*grads)]
+    print("[compare] conv_bn_stats gradient (N=8 C=256 O=64 56x56, "
+          "cotangents on y, sum, sumsq): Function vs autograd of the plain "
+          "version, max_abs_err / max|grad| x %.3g, w %.3g (tol %g)"
+          % (errs[0], errs[1], B1_RTOL))
+    check(max(errs) <= B1_RTOL, "conv_bn_stats gradient disagrees")
+    del x, wt, cts, grads
+    t1 = 0.0
+    for name, r, c, o in T1_CASES:
+        x = torch.randn(r, c, device="cuda").bfloat16()
+        a = (torch.rand(c, device="cuda") + 0.5).bfloat16()
+        b = (torch.randn(c, device="cuda") * 0.1).bfloat16()
+        w = (torch.randn(c, o, device="cuda") * 0.05).bfloat16()
+        y, s, ss = conv_bn.conv1x1_bn_relu(x, a, b, w)
+        wy, ws, wss = conv_bn.conv1x1_bn_relu_plain(x, a, b, w)
+        torch.cuda.synchronize()
+        yf, wyf = y.float(), wy.float()
+        scale = float(wyf.abs().max())
+        ey = float((yf - wyf).abs().max())
+        es = float(((s - ws).abs() / wyf.abs().sum(0)).max())
+        ess = float(((ss - wss).abs() / wss).max())
+        print("[compare] conv1x1_bn_relu bf16 %s: max_abs_err y %.3g "
+              "(max|y| %.3g, tol one bf16 step %.3g), sum %.3g, sumsq %.3g "
+              "(relative; tol %g)" % (name, ey, scale, scale * 2 ** -7, es,
+                                      ess, T1_SUM_RTOL))
+        check(ey <= scale * 2 ** -7 and es <= T1_SUM_RTOL
+              and ess <= T1_SUM_RTOL, "conv1x1_bn_relu disagrees at " + name)
+        t1 = max(t1, ey)
+        del x, a, b, w, y, s, ss, wy, ws, wss, yf, wyf
+    return {"conv_bn_stats": worst, "conv_bn_stats_rel": worst_rel,
+            "conv1x1_bn_relu": t1}
+
+
+def small_resnet(fused, device):
+    """A narrow bottleneck ResNet from the port's layers: 3x3 stem (3 ->
+    8), a bottleneck to 16 channels at stride 1, one to 32 at stride 2
+    (a strided 1x1 conv1 and shortcut beside B1's 1x1 convs), global
+    average pool, fc to 10 classes; reference names, initialized from
+    seed 0."""
+    from paddle_tpu_torch import resolve_device
+    from paddle_tpu_torch.models import resnet
+    b = resnet._Build(fused, False, resolve_device(device))
+    stem = resnet.conv_bn_layer(b, 3, 8, 3, 1, 1)
+    blk1, ch = resnet.bottleneck(b, 8, 4, 1)
+    blk2, ch = resnet.bottleneck(b, ch, 8, 2)
+    model = resnet.ResNet(stem, False, [blk1, blk2], 10, ch, b)
+    model.reset_parameters(0)
+    return model
+
+
+def phase_small_resnet(rng):
+    """The small ResNet on the card (B1 in its path) against the same
+    model on the CPU, from the same weights, over 3 Momentum steps; and
+    fused against unfused on the card."""
+    import torch
+    from paddle_tpu_torch import optimizer, trainer
+    img = rng.standard_normal((8, 3, 16, 16), dtype=np.float32)
+    label = rng.integers(0, 10, (8, 1))
+    init = [t.detach().numpy().copy() for t in
+            small_resnet(True, "cpu").reference_tensors().values()]
+    runs = {}
+    for name, fused, dev in (("cpu", True, "cpu"), ("card", True, "cuda"),
+                             ("card unfused", False, "cuda")):
+        model = small_resnet(fused, dev)
+        with torch.no_grad():     # the same slots in the same order
+            for t, v in zip(model.reference_tensors().values(), init):
+                t.copy_(torch.from_numpy(v))
+        opt = optimizer.Momentum(model.reference_parameters(), 0.1, 0.9)
+        x, y = torch.from_numpy(img).to(dev), torch.from_numpy(label).to(dev)
+        reset_launches()
+        losses = [float(trainer.train_step(model, opt, x, y)[0])
+                  for _ in range(3)]
+        launches = read_launches()["conv_bn_stats"]
+        state = {n: t.detach().cpu().numpy()
+                 for n, t in model.reference_tensors().items()}
+        state.update({n: v.cpu().numpy()
+                      for n, v in opt.accumulators().items()})
+        runs[name] = (losses, state, launches)
+    cpu, card, unfused = runs["cpu"], runs["card"], runs["card unfused"]
+    errs = {n: float(np.linalg.norm(card[1][n] - v) /
+                     max(np.linalg.norm(v), 1e-30))
+            for n, v in cpu[1].items()}
+    worst = max(errs, key=errs.get)
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(card[0], cpu[0]))
+    print("[small-resnet] 3 Momentum steps, losses card %s cpu %s unfused "
+          "card %s; card vs CPU: losses rel err %.3g, worst tensor %s rel "
+          "err %.3g (tol %g); B1 launches on the card %d (fused), %d "
+          "(unfused)" % ([round(v, 6) for v in card[0]],
+                         [round(v, 6) for v in cpu[0]],
+                         [round(v, 6) for v in unfused[0]], loss_err, worst,
+                         errs[worst], SMALL_RESNET_RTOL, card[2],
+                         unfused[2]))
+    check(loss_err <= SMALL_RESNET_RTOL and errs[worst] <= SMALL_RESNET_RTOL,
+          "small ResNet on the card disagrees with the CPU")
+    check(card[2] == 3 * SMALL_B1_PER_STEP and unfused[2] == 0,
+          "small ResNet B1 launches %d / %d" % (card[2], unfused[2]))
+    fused_l, unfused_l = np.array(card[0]), np.array(unfused[0])
+    check(np.allclose(fused_l, unfused_l, rtol=FUSED_UNFUSED_RTOL, atol=0),
+          "fused vs unfused losses differ beyond rtol %g: %s %s"
+          % (FUSED_UNFUSED_RTOL, fused_l, unfused_l))
+    check(np.isfinite(fused_l).all() and fused_l[-1] < fused_l[0],
+          "the small ResNet did not train: %s" % fused_l)
+
+
+def phase_train(seed):
+    """ResNet-50 training at bench.py's accelerator configuration in f32
+    with fused_conv_bn on: warm-up steps, then TRAIN_STEPS timed steps
+    (host clock around each step ended by a synchronize), every launch
+    count at 0 just before the timed steps. Returns (model, optimizer,
+    img, label, B1 shape counts per step, launches, stats)."""
+    import torch
+    from paddle_tpu_torch import config, optimizer, trainer
+    from paddle_tpu_torch.models.resnet import resnet_imagenet
+    from paddle_tpu_torch.ops import conv_bn
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    config.set_flags(fused_conv_bn=True)
+    try:
+        model = resnet_imagenet(TRAIN["depth"], TRAIN["class_dim"],
+                                seed=seed, device="cuda")
+    finally:
+        config.set_flags(fused_conv_bn=False)
+    opt = optimizer.Momentum(model.reference_parameters(), TRAIN["lr"],
+                             TRAIN["momentum"])
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    batch, res = TRAIN["batch"], TRAIN["res"]
+    img = torch.randn(batch, 3, res, res, device="cuda", generator=gen)
+    label = torch.randint(0, TRAIN["class_dim"], (batch, 1), device="cuda",
+                          generator=gen)
+    nparam = sum(p.numel() for p in model.reference_parameters().values())
+    # the (C, O, H) of every convolution the fused model routes to B1 in
+    # one step, from forward hooks on its conv layers
+    shapes = {}
+
+    def record(layer, inputs, _output):
+        x = inputs[0]
+        if layer.fused and conv_bn.fusable(x, layer.weight, layer.stride,
+                                           layer.padding):
+            key = (x.shape[1], layer.weight.shape[0], x.shape[2])
+            shapes[key] = shapes.get(key, 0) + 1
+
+    hooks = [m.register_forward_hook(record) for m in model.conv_layers()]
+    t0 = time.perf_counter()
+    losses = [float(trainer.train_step(model, opt, img, label)[0])]
+    first_s = time.perf_counter() - t0
+    for h in hooks:
+        h.remove()
+    for _ in range(TRAIN_WARMUP - 1):
+        losses.append(float(trainer.train_step(model, opt, img, label)[0]))
+    torch.cuda.synchronize()
+    reset_launches()
+    step_ms, accs = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        loss, acc = trainer.train_step(model, opt, img, label)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+        accs.append(float(acc))
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    med = sorted(step_ms)[len(step_ms) // 2]
+    ips = batch / med * 1e3
+    mfu = ips * TRAIN_GFLOP_PER_IMAGE * 1e9 / F32_FLOPS
+    mfu_bench = ips * TRAIN_GMAC_PER_IMAGE * 1e9 / F32_FLOPS
+    print("[train] ResNet-50 f32, fused_conv_bn on, %dx%d, batch %d, "
+          "Momentum(%g, %g), %d parameters; first step %.2f s (B1 shapes "
+          "per step (C, O, H): %s)"
+          % (res, res, batch, TRAIN["lr"], TRAIN["momentum"], nparam,
+             first_s, dict(sorted(shapes.items()))))
+    print("[train] %d timed steps after %d warm-up: median step %.2f ms, "
+          "%.1f images/s, MFU %.4f of %.0f TFLOP/s f32 (%.1f GFLOP per "
+          "image; %.4f at bench.py's count of %.1f G multiply-adds, which "
+          "it labels GFLOP); steps ms %s" % (
+              TRAIN_STEPS, TRAIN_WARMUP, med, ips, mfu, F32_FLOPS / 1e12,
+              TRAIN_GFLOP_PER_IMAGE, mfu_bench, TRAIN_GMAC_PER_IMAGE,
+              [round(t, 2) for t in step_ms]))
+    print("[train] losses %s; accuracy of the timed steps %s; peak memory "
+          "allocated %.2f GB; B1 launches in the timed steps %d (%d per "
+          "step)" % ([round(v, 4) for v in losses], accs, peak / 1e9,
+                     launches["conv_bn_stats"],
+                     launches["conv_bn_stats"] // TRAIN_STEPS))
+    check(np.isfinite(losses).all(), "non-finite training loss")
+    check(sum(shapes.values()) == B1_PER_STEP
+          and sorted(shapes) == sorted((c, o, h) for c, o, h in B1_SHAPES),
+          "B1 shapes of a step %s" % shapes)
+    check(launches["conv_bn_stats"] == B1_PER_STEP * TRAIN_STEPS,
+          "B1 launches %d != %d x %d steps" % (launches["conv_bn_stats"],
+                                               B1_PER_STEP, TRAIN_STEPS))
+    check(all(v == 0 for k, v in launches.items() if k != "conv_bn_stats"),
+          "the training path launched another kernel: %s" % launches)
+    stats = dict(step_ms=med, images_per_s=ips, mfu=mfu,
+                 mfu_bench_count=mfu_bench, peak_bytes=peak)
+    return model, opt, img, label, shapes, launches, stats
+
+
+def phase_profile_train(model, opt, img, label):
+    """torch.profiler over one training step: device-busy share, B1's
+    share of the busy time, top kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from paddle_tpu_torch import trainer
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        uncounted(lambda: trainer.train_step(model, opt, img, label))
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + \
+                e.time_range.elapsed_us()
+    busy = sum(by_name.values())
+    if not busy:
+        print("[profile] training step: the profiler saw no device time "
+              "(not measured)")
+        return
+    b1 = sum(us for n, us in by_name.items()
+             if "conv1x1_stats_kernel" in n or "stats_finish_kernel" in n)
+    print("[profile] ResNet-50 training step: wall %.3f ms, device busy "
+          "%.3f ms (%.1f%%); B1 (both launches) %.3f ms, %.1f%% of busy"
+          % (wall_us / 1e3, busy / 1e3, 100 * busy / wall_us, b1 / 1e3,
+             100 * b1 / busy))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    for name, us in top:
+        print("[profile]   %6.1f%% %9.3f ms  %s"
+              % (100 * us / busy, us / 1e3, name[:110]))
+
+
+def phase_time_conv_bn(launches, errs, shapes):
+    """B1 at each of its path shapes (batch 256) and T1 at the probe's
+    cases: device time (profiler), the plain version's, the library
+    route's (cuDNN F.conv2d plus the two sums for B1), and the bound from
+    the shapes."""
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops import conv_bn
+    rows, events = [], []
+    batch = TRAIN["batch"]
+    for c, o, h in B1_SHAPES:
+        x = torch.randn(batch, c, h, h, device="cuda")
+        wt = torch.randn(o, c, 1, 1, device="cuda") * c ** -0.5
+        kernel = functools.partial(conv_bn.conv_bn_stats_1x1, x, wt)
+        ms, event_ms = uncounted(lambda: (device_ms(kernel, iters=10),
+                                          cuda_ms(kernel, iters=10)))
+        plain_ms = device_ms(lambda: conv_bn.conv_bn_stats_plain(x, wt),
+                             iters=10)
+
+        def library():
+            y = F.conv2d(x, wt)
+            return y, y.sum(dim=(0, 2, 3)), (y * y).sum(dim=(0, 2, 3))
+
+        lib_ms = device_ms(library, iters=10)
+        r = batch * h * h
+        nbytes = 4 * (r * c + o * c + r * o + 2 * o)
+        bound, bound_by = roofline_ms(nbytes, 2 * r * c * o + 3 * r * o)
+        rows.append(dict(
+            name="conv_bn_stats", route="cuda",
+            source="paddle_tpu_torch/csrc/conv_bn_stats.cu",
+            replaces="paddle_tpu/ops/pallas_conv_bn.py:128",
+            launches=launches["conv_bn_stats"],
+            max_abs_err=errs["conv_bn_stats"],
+            max_rel_err=errs["conv_bn_stats_rel"], ms=ms, plain_ms=plain_ms,
+            bound_ms=bound, bound_by=bound_by, library_ms=lib_ms,
+            shape=[batch, c, o, h, h],
+            launches_per_step=shapes.get((c, o, h), 0)))
+        events.append(event_ms)
+        del x, wt
+    for name, r, c, o in T1_CASES:
+        x = torch.randn(r, c, device="cuda").bfloat16()
+        a = (torch.rand(c, device="cuda") + 0.5).bfloat16()
+        b = (torch.randn(c, device="cuda") * 0.1).bfloat16()
+        w = (torch.randn(c, o, device="cuda") * 0.05).bfloat16()
+        kernel = functools.partial(conv_bn.conv1x1_bn_relu, x, a, b, w)
+        ms, event_ms = uncounted(lambda: (device_ms(kernel, iters=10),
+                                          cuda_ms(kernel, iters=10)))
+        plain_ms = device_ms(lambda: conv_bn.conv1x1_bn_relu_plain(
+            x, a, b, w), iters=10)
+        nbytes = 2 * (r * c + 2 * c + c * o + r * o) + 4 * 2 * o
+        # bf16 products with f32 accumulation: the tensor cores' rate
+        bound, bound_by = roofline_ms(nbytes, 2 * r * c * o + 3 * r * c
+                                      + 3 * r * o, peak=BF16_FLOPS)
+        rows.append(dict(
+            name="conv1x1_bn_relu", route="cuda",
+            source="paddle_tpu_torch/csrc/conv_bn_stats.cu",
+            replaces="tools/fused_conv_bn_probe.py:49",
+            launches=launches["conv1x1_bn_relu"],
+            launches_in="not on a path (probe T1)",
+            max_abs_err=errs["conv1x1_bn_relu"], ms=ms, plain_ms=plain_ms,
+            bound_ms=bound, bound_by=bound_by, library_ms=None,
+            shape=[r, c, o], dtype="bfloat16"))
+        events.append(event_ms)
+        del x, a, b, w
+    for r, event_ms in zip(rows, events):
+        lib = "none" if r["library_ms"] is None \
+            else "%.4f ms" % r["library_ms"]
+        print("[time] %s %s: device %.4f ms (bound %.4f ms by %s, plain "
+              "%.4f ms, library %s); back-to-back calls %.4f ms each "
+              "between CUDA events" % (r["name"], r["shape"], r["ms"],
+                                       r["bound_ms"], r["bound_by"],
+                                       r["plain_ms"], lib, event_ms))
+    per_step = sum(r["ms"] * r["launches_per_step"] for r in rows
+                   if r["name"] == "conv_bn_stats")
+    bound_step = sum(r["bound_ms"] * r["launches_per_step"] for r in rows
+                     if r["name"] == "conv_bn_stats")
+    print("[time] B1 per training step (30 launches): device %.3f ms, bound "
+          "%.3f ms" % (per_step, bound_step))
+    print("[time] conv1x1_bn_relu (T1): the bf16 probe's instantiation; "
+          "no single PyTorch call computes it, its plain version is the "
+          "torch path (elementwise prologue, f32 matmul, sums)")
+    return rows
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1176,6 +1617,7 @@ def main(argv=None):
         print("FAIL: no CUDA device", file=sys.stderr)
         return 1
     try:
+        from paddle_tpu_torch import resolve_device
         from paddle_tpu_torch.io import params_from_jax
         from paddle_tpu_torch.models.transformer import \
             transformer_lm_session
@@ -1184,23 +1626,32 @@ def main(argv=None):
         print("FAIL: paddle_tpu_torch not importable: %s" % exc,
               file=sys.stderr)
         return 1
+    # TF32 off for matmuls and cuDNN convolutions before the first one:
+    # the plain versions are held to full f32
+    resolve_device("cuda")
+    torch.manual_seed(args.seed)    # the tensors made on the card
     rng = np.random.default_rng(args.seed)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip().splitlines()
-    print("[device] %s (%d visible), torch %s, CUDA %s"
-          % (torch.cuda.get_device_name(0), torch.cuda.device_count(),
-             torch.__version__, torch.version.cuda))
+    print("[device] %s (%d visible), torch %s, CUDA %s; TF32 matmul %s, "
+          "cuDNN %s" % (torch.cuda.get_device_name(0),
+                        torch.cuda.device_count(), torch.__version__,
+                        torch.version.cuda,
+                        torch.backends.cuda.matmul.allow_tf32,
+                        torch.backends.cudnn.allow_tf32))
     try:
         phase_build()
         errs = phase_compare(rng)
         errs["decode_attention_paged"] = phase_compare_paged(rng)
         errs.update(phase_compare_bf16(rng))
         errs["int8_matmul"] = phase_compare_int8(rng)
+        errs.update(phase_compare_conv_bn(rng))
         phase_small_lm(rng)
         phase_small_lm_paged(rng)
         b4_bf16_launches = phase_small_lm_quant(rng)
+        phase_small_resnet(rng)
         t0 = time.perf_counter()
         named = make_params(FULL, rng)
         params = params_from_jax(named, device="cuda")
@@ -1242,8 +1693,19 @@ def main(argv=None):
                           quant_launches, b4_bf16_launches)
         paged.close()
         quant.close()
-        print("[memory] peak allocated %.2f GB"
+        print("[memory] peak allocated %.2f GB (serving phases)"
               % (torch.cuda.max_memory_allocated() / 1e9))
+        # the LM's weights and caches leave the card before training
+        sess.close()
+        del sess, paged, quant
+        gc.collect()
+        model, opt, img, label, shapes, train_launches, _ = \
+            phase_train(args.seed)
+        phase_profile_train(model, opt, img, label)
+        del model, opt, img, label
+        gc.collect()
+        torch.cuda.empty_cache()
+        rows += phase_time_conv_bn(train_launches, errs, shapes)
     except SmokeFailure as exc:
         print("FAIL: %s" % exc, file=sys.stderr)
         return 1

@@ -41,6 +41,12 @@ _flags = {
     # float32. Read only by transformer_lm_session, and only when its
     # dtype argument is left at "float32"
     "generation_kv_dtype": None,
+    # ResNet: each conv_bn_layer is one conv2d_bn op whose batch
+    # statistics come from the convolution's own pass (ops/conv_bn.py;
+    # kernel B1 for the 1x1 stride-1 f32 convolutions on the card) in
+    # place of conv2d + batch_norm; read when the model is built
+    # (models/resnet.py)
+    "fused_conv_bn": False,
 }
 
 

@@ -3,7 +3,8 @@
 ``paddle_tpu.io.save_params`` writes ``<dir>/params.npz`` (arrays under
 keys v0, v1, ...) and ``<dir>/params.meta.json`` ({key: variable
 name}); :func:`load_params` reads that layout with numpy alone, and
-:func:`params_from_jax` turns the arrays into tensors on a device."""
+:func:`params_from_jax` turns the arrays into tensors on a device (the
+LM's) or copies them into a ResNet and its optimizer by name."""
 
 import json
 import os
@@ -12,6 +13,7 @@ import numpy as np
 import torch
 
 from .models.transformer import check_lm_params, infer_num_layers
+from .optimizer import LR_NAME
 from .place import resolve_device
 
 __all__ = ["load_params", "params_from_jax"]
@@ -26,14 +28,55 @@ def load_params(dirname, filename="params"):
         return {name: data[key] for key, name in meta.items()}
 
 
-def params_from_jax(named, device=None):
-    """{reference name: array} of the transformer LM -> {name: tensor}
-    on ``device`` (default CUDA). Every name of the LM whose layer count
-    the names imply must be present, and no other: a missing or unknown
-    name raises ValueError. An armed reference scope is accepted as it
-    is: the int8 form of a mul weight with its scales under
-    ``<name>@quant.scale`` (``models.transformer.check_lm_params``)."""
-    check_lm_params(named, infer_num_layers(named))
-    device = resolve_device(device)
-    return {name: torch.as_tensor(np.asarray(val)).to(device)
-            for name, val in named.items()}
+def params_from_jax(named, device=None, model=None, optimizer=None):
+    """{reference name: array} -> {name: tensor} on ``device`` (default
+    CUDA).
+
+    Without ``model``: the transformer LM. Every name of the LM whose
+    layer count the names imply must be present, and no other: a missing
+    or unknown name raises ValueError. An armed reference scope is
+    accepted as it is: the int8 form of a mul weight with its scales
+    under ``<name>@quant.scale`` (``models.transformer.check_lm_params``).
+
+    With ``model`` (a ``models.resnet.ResNet``): the reference scope's
+    parameters and running statistics are copied into the model by name
+    (``model.reference_tensors()``), and with ``optimizer`` its
+    accumulators (``<param>_velocity_acc_0``) and ``learning_rate_0``
+    into the optimizer. The names must be exactly those, with the
+    model's shapes: a missing or unknown name, or another shape, raises
+    ValueError before anything is copied. The tensors go to the model's
+    device; ``device`` must then be left out."""
+    if model is None:
+        check_lm_params(named, infer_num_layers(named))
+        device = resolve_device(device)
+        return {name: torch.as_tensor(np.asarray(val)).to(device)
+                for name, val in named.items()}
+    if device is not None:
+        raise ValueError("device is the model's own (%s): leave it out with "
+                         "model" % model.device)
+    targets = dict(model.reference_tensors())
+    if optimizer is not None:
+        targets.update(optimizer.accumulators())
+    lr = {LR_NAME} if optimizer is not None else set()
+    missing = sorted(set(targets) - set(named))
+    unknown = sorted(set(named) - set(targets) - lr)
+    if missing or unknown:
+        raise ValueError("names do not match the model%s: missing %s, "
+                         "unknown %s" % (" and optimizer" if optimizer
+                                         else "", missing, unknown))
+    src = {name: torch.as_tensor(np.asarray(val))
+           for name, val in named.items()}
+    for name, t in src.items():
+        if name not in lr and tuple(t.shape) != tuple(targets[name].shape):
+            raise ValueError("%s: shape %s, expected %s" % (
+                name, tuple(t.shape), tuple(targets[name].shape)))
+    out = {}
+    with torch.no_grad():
+        for name, t in src.items():
+            if name in lr:
+                optimizer.learning_rate = float(t.reshape(-1)[0])
+                out[name] = t.to(model.device)
+                continue
+            targets[name].copy_(t)
+            out[name] = targets[name]
+    return out

@@ -1,0 +1,229 @@
+"""ResNet for ImageNet and CIFAR (reference ``paddle_tpu/models/
+resnet.py``): ``conv_bn_layer``, ``shortcut``, ``basicblock``,
+``bottleneck``, ``layer_warp``, ``DEPTH_CFG``, ``resnet_imagenet`` and
+``resnet_cifar10``, as ``nn.Module``s.
+
+The reference's functions build a program; here ``resnet_imagenet`` and
+``resnet_cifar10`` return a module whose forward takes ``(img, label)``
+and returns the reference's ``(loss, acc, logits)``. The ``fused_conv_bn`` flag (``config.py``),
+read when the model is built as in the reference, makes every
+``conv_bn_layer`` one ``conv2d_bn`` op (``ops/conv_bn.py``): on the card
+its 1x1 stride-1 convolutions run kernel B1 (30 per forward of
+ResNet-50). Parameters and running statistics carry the reference's
+scope names (:meth:`ResNet.reference_tensors`,
+:func:`resnet_scope_names`), so a reference scope loads through
+``io.params_from_jax``."""
+
+import torch
+from torch import nn
+
+from .. import config as _config
+from ..layers.conv import FC, ConvBN, UniqueNames
+from ..ops.loss_ops import mean, softmax_with_cross_entropy
+from ..ops.metric_ops import accuracy
+from ..ops.nn_ops import pool2d
+from ..place import resolve_device
+
+__all__ = ["conv_bn_layer", "shortcut", "basicblock", "bottleneck",
+           "layer_warp", "DEPTH_CFG", "ResNet", "resnet_imagenet",
+           "resnet_cifar10", "resnet_scope_names"]
+
+
+class _Build:
+    """What every layer of one model is built with: the fused flag,
+    is_test, the reference's name counters and the device."""
+
+    def __init__(self, fused, is_test, device):
+        self.fused, self.is_test, self.device = fused, is_test, device
+        self.names = UniqueNames()
+
+
+def conv_bn_layer(b, ch_in, ch_out, filter_size, stride, padding,
+                  act="relu"):
+    return ConvBN(ch_in, ch_out, filter_size, stride, padding, act=act,
+                  fused=b.fused, is_test=b.is_test, names=b.names,
+                  device=b.device)
+
+
+def shortcut(b, ch_in, ch_out, stride):
+    """A 1x1 conv_bn_layer when the channels or the stride change, else
+    None (the identity)."""
+    if ch_in != ch_out or stride != 1:
+        return conv_bn_layer(b, ch_in, ch_out, 1, stride, 0, act=None)
+    return None
+
+
+class _Block(nn.Module):
+    """relu(shortcut(x) + convs(x)), the layers built in the reference's
+    order (shortcut first)."""
+
+    def __init__(self, short, convs):
+        super().__init__()
+        self.short = short
+        self.convs = nn.Sequential(*convs)
+
+    def forward(self, x):
+        s = x if self.short is None else self.short(x)
+        return torch.relu(s + self.convs(x))
+
+
+def basicblock(b, ch_in, ch_out, stride):
+    short = shortcut(b, ch_in, ch_out, stride)
+    conv1 = conv_bn_layer(b, ch_in, ch_out, 3, stride, 1)
+    conv2 = conv_bn_layer(b, ch_out, ch_out, 3, 1, 1, act=None)
+    return _Block(short, [conv1, conv2]), ch_out
+
+
+def bottleneck(b, ch_in, ch_out, stride):
+    short = shortcut(b, ch_in, ch_out * 4, stride)
+    conv1 = conv_bn_layer(b, ch_in, ch_out, 1, stride, 0)
+    conv2 = conv_bn_layer(b, ch_out, ch_out, 3, 1, 1)
+    conv3 = conv_bn_layer(b, ch_out, ch_out * 4, 1, 1, 0, act=None)
+    return _Block(short, [conv1, conv2, conv3]), ch_out * 4
+
+
+def layer_warp(b, block_func, ch_in, ch_out, count, stride):
+    """``count`` blocks, the first with ``stride``: (blocks, channels
+    out)."""
+    blocks = []
+    for i in range(count):
+        blk, ch_in = block_func(b, ch_in, ch_out, stride if i == 0 else 1)
+        blocks.append(blk)
+    return blocks, ch_in
+
+
+DEPTH_CFG = {
+    18: (basicblock, [2, 2, 2, 2]),
+    34: (basicblock, [3, 4, 6, 3]),
+    50: (bottleneck, [3, 4, 6, 3]),
+    101: (bottleneck, [3, 4, 23, 3]),
+    152: (bottleneck, [3, 8, 36, 3]),
+}
+
+
+class ResNet(nn.Module):
+    """A stem, residual stages, a global average pool and an fc layer;
+    ``forward(img, label)`` returns ``(loss, acc, logits)``: the mean
+    softmax cross entropy, the top-1 accuracy of the softmax and the
+    logits. Built by :func:`resnet_imagenet` or :func:`resnet_cifar10`."""
+
+    def __init__(self, stem, max_pool, stages, class_dim, ch, b):
+        super().__init__()
+        self.device = b.device
+        self.stem = stem
+        self.max_pool = max_pool
+        self.stages = nn.Sequential(*stages)
+        self.fc = FC(ch, class_dim, names=b.names, device=b.device)
+
+    def conv_layers(self):
+        """The ConvBN layers in the reference's program order."""
+        return [m for m in self.modules() if isinstance(m, ConvBN)]
+
+    def reference_tensors(self):
+        """{reference scope name: parameter or running-statistic
+        buffer}, in program order: each conv layer's filter, BN scale,
+        BN bias, running mean and running variance, then the fc weight
+        and bias."""
+        out = {}
+        for layer in self.conv_layers() + [self.fc]:
+            for attr, name in layer.ref_names.items():
+                out[name] = getattr(layer, attr)
+        return out
+
+    def reference_parameters(self):
+        """{reference name: trainable parameter}, in program order."""
+        return {n: t for n, t in self.reference_tensors().items()
+                if isinstance(t, nn.Parameter)}
+
+    @torch.no_grad()
+    def reset_parameters(self, seed=0):
+        """Fill every parameter and running statistic with the
+        reference's initializers, drawn from a ``torch.Generator`` on the
+        model's device seeded with ``seed``."""
+        gen = None
+        if self.device.type != "meta":
+            gen = torch.Generator(device=self.device)
+            gen.manual_seed(seed)
+        for layer in self.conv_layers() + [self.fc]:
+            layer.reset_parameters(gen)
+
+    def logits(self, img):
+        h = self.stem(img)
+        if self.max_pool:
+            h = pool2d(h, 3, "max", 2, 1)
+        h = self.stages(h)
+        pool = pool2d(h, h.shape[2:], "avg", global_pooling=True)
+        return self.fc(pool.reshape(-1, pool.shape[1]))
+
+    def forward(self, img, label):
+        logits = self.logits(img)
+        loss, softmax = softmax_with_cross_entropy(logits, label)
+        acc, _, _ = accuracy(softmax, label)
+        return mean(loss), acc, logits
+
+
+def _imagenet(b, depth, class_dim, seed):
+    block, counts = DEPTH_CFG[depth]
+    stem = conv_bn_layer(b, 3, 64, 7, 2, 3)
+    stages, ch = [], 64
+    for ch_out, count, stride in zip((64, 128, 256, 512), counts,
+                                     (1, 2, 2, 2)):
+        blocks, ch = layer_warp(b, block, ch, ch_out, count, stride)
+        stages += blocks
+    model = ResNet(stem, True, stages, class_dim, ch, b)
+    model.reset_parameters(seed)
+    return model
+
+
+def _cifar10(b, depth, class_dim, seed):
+    n = (depth - 2) // 6
+    stem = conv_bn_layer(b, 3, 16, 3, 1, 1)
+    stages, ch = [], 16
+    for ch_out, stride in ((16, 1), (32, 2), (64, 2)):
+        blocks, ch = layer_warp(b, basicblock, ch, ch_out, n, stride)
+        stages += blocks
+    model = ResNet(stem, False, stages, class_dim, ch, b)
+    model.reset_parameters(seed)
+    return model
+
+
+def resnet_imagenet(depth=50, class_dim=1000, is_test=False, recompute=False,
+                    seed=0, device=None):
+    """Reference ``resnet_imagenet`` on 3-channel images: 7x7/2 stem,
+    3x3/2 max pool, four stages, global average pool, fc. Reads the
+    ``fused_conv_bn`` flag. Parameters are initialized from ``seed``.
+    Runs on CUDA unless ``device`` says otherwise."""
+    if recompute:
+        raise NotImplementedError(
+            "recompute (gradient checkpointing of each residual block) is "
+            "not ported yet: ROADMAP Queue A item 9")
+    b = _Build(_config.get_flag("fused_conv_bn"), is_test,
+               resolve_device(device))
+    return _imagenet(b, depth, class_dim, seed)
+
+
+def resnet_cifar10(depth=32, class_dim=10, is_test=False, seed=0,
+                   device=None):
+    """Reference ``resnet_cifar10`` on 3-channel images: 3x3 stem, three
+    basicblock stages of (depth - 2) / 6 blocks, global average pool,
+    fc. Reads the ``fused_conv_bn`` flag."""
+    b = _Build(_config.get_flag("fused_conv_bn"), is_test,
+               resolve_device(device))
+    return _cifar10(b, depth, class_dim, seed)
+
+
+def resnet_scope_names(depth=50, fused_conv_bn=True, class_dim=1000,
+                       cifar=False):
+    """The reference's scope names of a ResNet trained with Momentum and
+    built with the ``fused_conv_bn`` flag as given, in program order:
+    {"parameters": [...], "running_stats": [...], "velocities": [...]}
+    (fused ResNet-50: 161, 106 and 161 names; the scope also holds
+    ``learning_rate_0``). Built on the meta device, so nothing is
+    allocated; the flag itself is not read."""
+    b = _Build(bool(fused_conv_bn), False, resolve_device("meta"))
+    model = (_cifar10 if cifar else _imagenet)(b, depth, class_dim, 0)
+    tensors = model.reference_tensors()
+    params = [n for n, t in tensors.items() if isinstance(t, nn.Parameter)]
+    return {"parameters": params,
+            "running_stats": [n for n in tensors if n not in set(params)],
+            "velocities": [n + "_velocity_acc_0" for n in params]}

@@ -1,0 +1,207 @@
+"""Fused convolution + batch-norm statistics (reference
+``paddle_tpu/ops/pallas_conv_bn.py``): the wrapper of kernel B1, its
+plain version, the autograd Function around both, and the fused
+``conv2d_bn`` op.
+
+:func:`conv_bn_stats` returns ``(y, sum_c, sumsq_c)``: the convolution's
+output and the f32 sums of y and of y * y over every axis but the
+channel. A 1x1, stride-1, unpadded, ungrouped f32 convolution takes
+kernel B1 (``csrc/conv_bn_stats.cu``, wrapper :func:`conv_bn_stats_1x1`),
+which replaces ``_pallas_1x1``; every other geometry takes the plain
+version (``F.conv2d`` plus the two sums) on any device, as the reference
+takes its ``_reference`` there. On CPU tensors the wrapper computes the
+plain version; on CUDA tensors it launches the kernel or raises, and
+counts launches in ``conv_bn_stats_1x1.launches``.
+
+The backward (:class:`ConvBnStats`) is the reference's ``_bwd``: the
+vjp of the plain function with cotangents on all three outputs, i.e.
+the convolution's input and weight gradients of
+``g = g_y + g_s + 2 y g_ss`` (``aten.convolution_backward``). The batch
+norm that follows differentiates through the sums, so g_s and g_ss are
+not zero in training.
+
+:func:`conv1x1_bn_relu` is the second instantiation of B1's source, the
+probe T1 (``tools/fused_conv_bn_probe.py``): bf16 rows with the
+prologue ``relu(x * a + b)``; it is not on a training path.
+"""
+
+import torch
+
+from . import _build
+from .flash_attention import _on_cpu, _require
+from .nn_ops import _pair, conv2d
+
+__all__ = ["conv_bn_stats_plain", "conv_bn_stats_1x1", "fusable",
+           "ConvBnStats", "conv_bn_stats", "conv2d_bn",
+           "conv1x1_bn_relu_plain", "conv1x1_bn_relu"]
+
+TILE = 64   # pixels per CTA of kernel B1: one partial sum per tile
+
+
+def _channel_view(v):
+    return v.reshape(1, -1, 1, 1)
+
+
+def conv_bn_stats_plain(x, w, stride=1, padding=0, dilation=1, groups=1):
+    """The plain version (reference ``_reference``): ``F.conv2d`` on
+    NCHW / OIHW, then the f32 sums of y and y * y per output channel."""
+    y = conv2d(x, w, stride, padding, dilation, groups)
+    ys = y if y.dtype == torch.float32 else y.float()
+    return y, ys.sum(dim=(0, 2, 3)), (ys * ys).sum(dim=(0, 2, 3))
+
+
+def fusable(x, w, stride=1, padding=0, dilation=1, groups=1):
+    """True for the geometry kernel B1 takes: a 1x1, stride-1,
+    unpadded, undilated, ungrouped f32 convolution (reference
+    ``_forward``; the compiled TPU path also asked C and O to be
+    multiples of 128, the kernel here takes any)."""
+    return (w.shape[2] == 1 and w.shape[3] == 1 and _pair(stride) == (1, 1)
+            and _pair(padding) == (0, 0) and _pair(dilation) == (1, 1)
+            and groups == 1 and x.dtype == torch.float32
+            and w.dtype == torch.float32)
+
+
+def conv_bn_stats_1x1(x, w):
+    """Kernel B1: x f32 [N, C, H, W], w f32 [O, C, 1, 1] ->
+    (y f32 [N, O, H, W], sum_c f32 [O], sumsq_c f32 [O]). Any N, C, O,
+    H, W >= 1."""
+    _require(x.dim() == 4 and w.dim() == 4 and w.shape[2:] == (1, 1)
+             and x.shape[1] == w.shape[1],
+             "x [N, C, H, W] and w [O, C, 1, 1] do not chain: %s %s",
+             tuple(x.shape), tuple(w.shape))
+    _require(x.dtype == torch.float32 and w.dtype == torch.float32,
+             "x and w must be float32, got %s %s", x.dtype, w.dtype)
+    if _on_cpu(x, w):
+        return conv_bn_stats_plain(x, w)
+    n, c, h, wd = x.shape
+    o, p = w.shape[0], h * wd
+    _require(n >= 1 and c >= 1 and o >= 1 and p >= 1, "empty conv %s %s",
+             tuple(x.shape), tuple(w.shape))
+    _require(n <= 65535 and o <= 64 * 65535, "grid too large: N %d, O %d",
+             n, o)
+    x, w = x.contiguous(), w.contiguous()
+    y = torch.empty((n, o, h, wd), dtype=torch.float32, device=x.device)
+    tiles = n * -(-p // TILE)
+    part = torch.empty((2, tiles, o), dtype=torch.float32, device=x.device)
+    sums = torch.empty((2, o), dtype=torch.float32, device=x.device)
+    fn = _build.entry("conv_bn_stats_f32")
+    err = fn(x.data_ptr(), w.data_ptr(), y.data_ptr(), part[0].data_ptr(),
+             part[1].data_ptr(), sums[0].data_ptr(), sums[1].data_ptr(),
+             n, c, p, o, _build.stream(x.device))
+    _build.check(err, "conv_bn_stats_f32")
+    conv_bn_stats_1x1.launches += 1
+    return y, sums[0], sums[1]
+
+
+conv_bn_stats_1x1.launches = 0
+
+
+class ConvBnStats(torch.autograd.Function):
+    """(y, sum_c, sumsq_c) of a convolution; B1 for a fusable geometry,
+    the plain version otherwise. Backward: the convolution's input and
+    weight gradients of g_y + g_s + 2 y g_ss."""
+
+    @staticmethod
+    def forward(ctx, x, w, stride, padding, dilation, groups):
+        if fusable(x, w, stride, padding, dilation, groups):
+            y, s, ss = conv_bn_stats_1x1(x, w)
+        else:
+            y, s, ss = conv_bn_stats_plain(x, w, stride, padding, dilation,
+                                           groups)
+        ctx.save_for_backward(x, w, y)
+        ctx.geometry = (list(_pair(stride)), list(_pair(padding)),
+                        list(_pair(dilation)), groups)
+        return y, s, ss
+
+    @staticmethod
+    def backward(ctx, g_y, g_s, g_ss):
+        x, w, y = ctx.saved_tensors
+        stride, padding, dilation, groups = ctx.geometry
+        g = g_y.float() + _channel_view(g_s) \
+            + 2.0 * y.float() * _channel_view(g_ss)
+        g = g.to(y.dtype)
+        gx, gw, _ = torch.ops.aten.convolution_backward(
+            g, x, w, None, stride, padding, dilation, False, [0, 0], groups,
+            [ctx.needs_input_grad[0], ctx.needs_input_grad[1], False])
+        return gx, gw, None, None, None, None
+
+
+def conv_bn_stats(x, w, stride=1, padding=0, dilation=1, groups=1):
+    """``(y, sum_c, sumsq_c)`` of ``conv2d(x, w)`` with its gradient
+    (reference ``conv_bn_stats``; geometry as ints or pairs)."""
+    return ConvBnStats.apply(x, w, stride, padding, dilation, groups)
+
+
+def conv2d_bn(x, w, scale, bias, mean, variance, stride=1, padding=0,
+              dilation=1, groups=1, momentum=0.9, epsilon=1e-5,
+              is_test=False):
+    """conv2d + batch_norm in one op (reference ``_conv2d_bn``).
+
+    Training: the batch mean and biased variance come from the fused
+    sums (``E[y^2] - E[y]^2``, as the reference), and the running
+    statistics ``mean`` and ``variance`` are updated IN PLACE, outside
+    autograd, to ``momentum * old + (1 - momentum) * batch``.
+    ``is_test``: a plain convolution normalized by the running
+    statistics, which stay as they are. Returns ``y * a + b`` with
+    ``a = scale / sqrt(var + eps)`` and ``b = bias - mean * a``."""
+    if is_test:
+        y = conv2d(x, w, stride, padding, dilation, groups)
+        use_mean, use_var = mean, variance
+    else:
+        y, csum, csq = conv_bn_stats(x, w, stride, padding, dilation, groups)
+        count = y.shape[0] * y.shape[2] * y.shape[3]
+        use_mean = csum / count
+        use_var = csq / count - use_mean * use_mean
+        with torch.no_grad():
+            mean.copy_(momentum * mean + (1.0 - momentum) * use_mean)
+            variance.copy_(momentum * variance + (1.0 - momentum) * use_var)
+    inv = torch.rsqrt(use_var + epsilon)
+    a = inv * scale
+    b = bias - use_mean * a
+    return y * _channel_view(a).to(y.dtype) + _channel_view(b).to(y.dtype)
+
+
+def conv1x1_bn_relu_plain(x, a, b, w):
+    """The plain version of the probe T1 (reference ``xla_path``): x
+    [R, C], a and b [C], w [C, O] of one dtype (bf16 in the probe) ->
+    (y [R, O] of x's dtype, sum_c f32 [O], sumsq_c f32 [O]), with
+    ``z = relu(x * a + b)`` in f32 rounded to x's dtype, the product
+    accumulated in f32 and the sums taken of the f32 product."""
+    z = torch.relu(x.float() * a.float() + b.float()).to(x.dtype)
+    y = torch.matmul(z.float(), w.float())
+    return y.to(x.dtype), y.sum(dim=0), (y * y).sum(dim=0)
+
+
+def conv1x1_bn_relu(x, a, b, w):
+    """The probe T1 through B1's source, instantiated for bf16 rows with
+    the BN-apply + ReLU prologue: x bf16 [R, C], a and b bf16 [C], w
+    bf16 [C, O] -> (y bf16 [R, O], sum_c f32 [O], sumsq_c f32 [O]).
+    Counts launches in ``conv1x1_bn_relu.launches``."""
+    _require(x.dim() == 2 and w.dim() == 2 and x.shape[1] == w.shape[0]
+             and a.shape == (x.shape[1],) and b.shape == (x.shape[1],),
+             "x [R, C], a [C], b [C] and w [C, O] do not chain: %s %s %s %s",
+             tuple(x.shape), tuple(a.shape), tuple(b.shape), tuple(w.shape))
+    _require(all(t.dtype == torch.bfloat16 for t in (x, a, b, w)),
+             "x, a, b and w must be bfloat16")
+    if _on_cpu(x, a, b, w):
+        return conv1x1_bn_relu_plain(x, a, b, w)
+    r, c = x.shape
+    o = w.shape[1]
+    _require(r >= 1 and c >= 1 and 1 <= o <= 64 * 65535, "bad shape %s",
+             (r, c, o))
+    x, a, b, w = (t.contiguous() for t in (x, a, b, w))
+    y = torch.empty((r, o), dtype=torch.bfloat16, device=x.device)
+    part = torch.empty((2, -(-r // TILE), o), dtype=torch.float32,
+                       device=x.device)
+    sums = torch.empty((2, o), dtype=torch.float32, device=x.device)
+    fn = _build.entry("conv1x1_bn_relu_bf16")
+    err = fn(x.data_ptr(), a.data_ptr(), b.data_ptr(), w.data_ptr(),
+             y.data_ptr(), part[0].data_ptr(), part[1].data_ptr(),
+             sums[0].data_ptr(), sums[1].data_ptr(), r, c, o,
+             _build.stream(x.device))
+    _build.check(err, "conv1x1_bn_relu_bf16")
+    conv1x1_bn_relu.launches += 1
+    return y, sums[0], sums[1]
+
+
+conv1x1_bn_relu.launches = 0

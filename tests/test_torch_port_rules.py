@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from paddle_tpu_torch import config as port_config
 from paddle_tpu_torch import io as port_io
 from paddle_tpu_torch import place
 from paddle_tpu_torch.models import transformer as port_tf
@@ -128,3 +129,68 @@ def test_model_load_rejects_wrong_shape():
     params["lm_head.w"] = torch.zeros(5, 4)
     with pytest.raises(ValueError, match="lm_head.w: shape"):
         model.load_params(params)
+
+
+def test_resnet_entry_points_raise_without_cuda(monkeypatch):
+    from paddle_tpu_torch.models import resnet as port_resnet
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        port_resnet.resnet_imagenet(18)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        port_resnet.resnet_cifar10(8)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        port_resnet.resnet_imagenet(18, device="cuda")
+
+
+def _resnet_scope(model, opt):
+    named = {n: np.zeros(tuple(t.shape), np.float32)
+             for n, t in model.reference_tensors().items()}
+    named.update({n: np.zeros(tuple(v.shape), np.float32)
+                  for n, v in opt.accumulators().items()})
+    named["learning_rate_0"] = np.float32([0.25])
+    return named
+
+
+@pytest.mark.parametrize("edit", ["missing", "unknown", "velocity",
+                                  "shape", "no_optimizer"])
+def test_params_from_jax_rejects_mismatched_resnet_names(edit):
+    from paddle_tpu_torch import optimizer as port_opt
+    from paddle_tpu_torch.models import resnet as port_resnet
+    port_config.set_flags(fused_conv_bn=True)
+    try:
+        model = port_resnet.resnet_cifar10(8, device="cpu")
+    finally:
+        port_config.set_flags(fused_conv_bn=False)
+    opt = port_opt.Momentum(model.reference_parameters(), 0.1)
+    named = _resnet_scope(model, opt)
+    got = port_io.params_from_jax(dict(named), model=model, optimizer=opt)
+    assert sorted(got) == sorted(named) and opt.learning_rate == 0.25
+    assert not model.stem.scale.any()
+    optimizer = opt
+    named = {n: v + 1 for n, v in named.items()}
+    if edit == "missing":
+        del named["conv2d_bn_3.global_1"]
+    elif edit == "unknown":
+        named["conv2d_bn_99.w_0"] = np.zeros(3, np.float32)
+    elif edit == "velocity":
+        del named["fc_0.w_1_velocity_acc_0"]
+    elif edit == "shape":
+        named["fc_0.w_0"] = np.zeros((10, 64), np.float32)
+    else:
+        optimizer = None
+    with pytest.raises(ValueError, match="missing|unknown|shape"):
+        port_io.params_from_jax(named, model=model, optimizer=optimizer)
+    # refused before anything is copied: the model and the learning rate
+    # keep what the first load gave them, not the ones of the second
+    assert opt.learning_rate == 0.25
+    assert all(not t.any() for t in model.reference_tensors().values())
+
+
+def test_params_from_jax_resnet_refuses_a_device():
+    from paddle_tpu_torch import optimizer as port_opt
+    from paddle_tpu_torch.models import resnet as port_resnet
+    model = port_resnet.resnet_cifar10(8, device="cpu")
+    opt = port_opt.Momentum(model.reference_parameters(), 0.1)
+    with pytest.raises(ValueError, match="device"):
+        port_io.params_from_jax(_resnet_scope(model, opt), device="cpu",
+                                model=model, optimizer=opt)
