@@ -51,7 +51,21 @@ and PyTorch built for CUDA. In order, it:
    fused_conv_bn on, through ``models.resnet.resnet_imagenet`` and
    ``trainer.train_step``: step time, images per second, f32 MFU, peak
    memory, 30 B1 launches per step; profiles one step and times B1 at
-   each of its shapes.
+   each of its shapes;
+10. for the LM's training path: holds the flash kernel's bfloat16
+   instantiation (B2 bf16) against its plain version at the training
+   shape [8, 16, 1024, 128] and off it (head dim 64, segment ids, ragged
+   T; bitwise repeatable), each tile of the block-size sweep (T2) with
+   its time, and the autograd Function's backward against autograd of
+   the plain reference; trains a 2-layer LM on the card against the CPU
+   over 3 Adam steps, amp off and on;
+11. frees ResNet-50, then trains the flagship LM as bench.py does on the
+   accelerator (batch 8, T 1024, amp bfloat16, Adam(1e-4), tokens and
+   labels one draw) through ``TransformerLM``, ``optimizer.Adam`` and
+   ``trainer.train_step``: the median step of 5 windows of 4, tokens per
+   second, MFU at the bf16 peak, peak memory, falling losses, 12 bf16 B2
+   launches per step; profiles one step and times B2 bf16 at the path's
+   shape beside its bound, its plain version and SDPA.
 
 Any failed phase exits nonzero. The line before the last is the card's
 name and power limit from nvidia-smi; the one before that lists the
@@ -162,6 +176,38 @@ FUSED_UNFUSED_RTOL = 1e-4
 # its 1x1 stride-1 convolutions: the first block's shortcut, conv1 and
 # conv3, the second block's conv3
 SMALL_B1_PER_STEP = 4
+# the transformer LM's training step as bench.py runs it on the
+# accelerator (bench_transformer_lm: FULL's widths at T 1024, batch 8,
+# amp bfloat16, Adam(1e-4), tokens and labels one randint(2, vocab)
+# draw): 2 warm-up steps, then 5 windows of 4 steps each closed by a
+# synchronize, the median window; FLOPs a token 6N + 6 L T d
+LM_TRAIN = dict(batch=8, seqlen=1024, lr=1e-4)
+LM_WARMUP, LM_WINDOWS, LM_WINDOW_STEPS = 2, 5, 4
+# B2 bf16 against its plain version: both compute in f32 and round the
+# output to bf16 once; sums in another order can move an element across
+# one rounding boundary: one bf16 step (an ulp, 2^-7 of the output's
+# magnitude)
+BF16_STEP = 2.0 ** -7
+# the training attention shape [B, H, T, D]
+LM_ATTN = (LM_TRAIN["batch"], FULL["num_heads"], LM_TRAIN["seqlen"],
+           FULL["d_model"] // FULL["num_heads"])
+# the Function's backward (the reference's chunked recompute) against
+# autograd of the plain reference over f32-upcast inputs: f32 sums in
+# another order (1e-4 of each gradient's magnitude); bf16 gradients are
+# that f32 value rounded once (one bf16 step)
+FLASH_BWD_TOL = {"float32": 1e-4, "bfloat16": BF16_STEP}
+# the small LM (head dim 128) over 3 Adam(1e-3) steps, card vs CPU from
+# the same weights: losses within rtol 1e-4 (f32) / 1e-2 (amp: bf16
+# products summed in other orders); every parameter within 2 lr a step of
+# the CPU's (Adam moves an element by about lr a step, by lr * sign(g)
+# in its first, so an element whose gradient is near 0 may go either
+# way); SMALL_LM_NEAR[amp] = (near, share): at least that share of each
+# tensor's elements within near lr
+SMALL_LM_CFG = dict(vocab_size=512, d_model=256, num_heads=2, d_ff=512,
+                    num_layers=2)
+SMALL_LM_T, SMALL_LM_BATCH, SMALL_LM_LR, SMALL_LM_STEPS = 256, 4, 1e-3, 3
+SMALL_LM_LOSS_RTOL = {None: 1e-4, "bfloat16": 1e-2}
+SMALL_LM_NEAR = {None: (1e-3, 0.99), "bfloat16": (0.1, 0.90)}
 
 
 class SmokeFailure(RuntimeError):
@@ -222,26 +268,31 @@ def roofline_ms(nbytes, flops, peak=F32_FLOPS):
         "bytes" if t_bytes > t_ops else "operations"
 
 
-def wrappers():
-    """{kernel name: its wrapper}; each wrapper counts its launches."""
+def counters():
+    """{kernel name: (its wrapper, the attribute counting its launches)};
+    B2's wrapper counts every launch and, apart, its bfloat16 ones."""
     from paddle_tpu_torch.ops import conv_bn
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.ops import quant_ops
-    return {"flash_attention": fa.flash_attention,
-            "decode_attention": fa.decode_attention,
-            "decode_attention_paged": fa.decode_attention_paged,
-            "int8_matmul": quant_ops.quant_matmul_2d,
-            "conv_bn_stats": conv_bn.conv_bn_stats_1x1,
-            "conv1x1_bn_relu": conv_bn.conv1x1_bn_relu}
+    return {"flash_attention": (fa.flash_attention, "launches"),
+            "flash_attention bf16": (fa.flash_attention, "launches_bf16"),
+            "flash_attention_tile": (fa.flash_attention_tile, "launches"),
+            "decode_attention": (fa.decode_attention, "launches"),
+            "decode_attention_paged": (fa.decode_attention_paged,
+                                       "launches"),
+            "int8_matmul": (quant_ops.quant_matmul_2d, "launches"),
+            "conv_bn_stats": (conv_bn.conv_bn_stats_1x1, "launches"),
+            "conv1x1_bn_relu": (conv_bn.conv1x1_bn_relu, "launches")}
 
 
 def reset_launches():
-    for fn in wrappers().values():
-        fn.launches = 0
+    for fn, attr in counters().values():
+        setattr(fn, attr, 0)
 
 
 def read_launches():
-    return {name: fn.launches for name, fn in wrappers().items()}
+    return {name: getattr(fn, attr)
+            for name, (fn, attr) in counters().items()}
 
 
 def uncounted(fn):
@@ -251,8 +302,8 @@ def uncounted(fn):
     try:
         return fn()
     finally:
-        for name, w in wrappers().items():
-            w.launches = saved[name]
+        for name, (w, attr) in counters().items():
+            setattr(w, attr, saved[name])
 
 
 def make_params(cfg, rng):
@@ -1489,17 +1540,17 @@ def phase_train(seed):
     return model, opt, img, label, shapes, launches, stats
 
 
-def phase_profile_train(model, opt, img, label):
-    """torch.profiler over one training step: device-busy share, B1's
-    share of the busy time, top kernels."""
+def profile_step(label, fn, kernel, markers, top=10):
+    """torch.profiler over ``fn()`` (one training step): device-busy
+    share, the share of the busy time in the kernels whose names hold one
+    of ``markers`` (``kernel`` names them), top kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from paddle_tpu_torch import trainer
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        uncounted(lambda: trainer.train_step(model, opt, img, label))
+        uncounted(fn)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     by_name = {}
@@ -1509,19 +1560,27 @@ def phase_profile_train(model, opt, img, label):
                 e.time_range.elapsed_us()
     busy = sum(by_name.values())
     if not busy:
-        print("[profile] training step: the profiler saw no device time "
-              "(not measured)")
+        print("[profile] %s: the profiler saw no device time (not "
+              "measured)" % label)
         return
-    b1 = sum(us for n, us in by_name.items()
-             if "conv1x1_stats_kernel" in n or "stats_finish_kernel" in n)
-    print("[profile] ResNet-50 training step: wall %.3f ms, device busy "
-          "%.3f ms (%.1f%%); B1 (both launches) %.3f ms, %.1f%% of busy"
-          % (wall_us / 1e3, busy / 1e3, 100 * busy / wall_us, b1 / 1e3,
-             100 * b1 / busy))
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
-    for name, us in top:
+    mine = sum(us for n, us in by_name.items()
+               if any(m in n for m in markers))
+    print("[profile] %s: wall %.3f ms, device busy %.3f ms (%.1f%%); %s "
+          "%.3f ms, %.1f%% of busy"
+          % (label, wall_us / 1e3, busy / 1e3, 100 * busy / wall_us, kernel,
+             mine / 1e3, 100 * mine / busy))
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
         print("[profile]   %6.1f%% %9.3f ms  %s"
               % (100 * us / busy, us / 1e3, name[:110]))
+
+
+def phase_profile_train(model, opt, img, label):
+    """One ResNet-50 training step under the profiler; B1's share."""
+    from paddle_tpu_torch import trainer
+    profile_step("ResNet-50 training step",
+                 lambda: trainer.train_step(model, opt, img, label),
+                 "B1 (both launches)",
+                 ("conv1x1_stats_kernel", "stats_finish_kernel"))
 
 
 def phase_time_conv_bn(launches, errs, shapes):
@@ -1608,6 +1667,368 @@ def phase_time_conv_bn(launches, errs, shapes):
     return rows
 
 
+def flash_inputs(b, h, t, d, lengths=None, dtype=None):
+    """q, k, v [B, H, T, D] on the card (bfloat16 unless ``dtype``), and
+    int32 segment ids [B, T] marking each row's first ``lengths[i]``
+    positions live, or None."""
+    import torch
+    dtype = dtype or torch.bfloat16
+    q, k, v = (torch.randn(b, h, t, d, device="cuda").to(dtype)
+               for _ in range(3))
+    seg = None
+    if lengths is not None:
+        lens = torch.tensor(lengths, device="cuda")
+        seg = (torch.arange(t, device="cuda")[None] < lens[:, None]) \
+            .to(torch.int32).contiguous()
+    return q, k, v, seg
+
+
+def bf16_err(got, want):
+    """max |got - want| and one bf16 step of max |want|."""
+    want = want.float()
+    return float((got.float() - want).abs().max()), \
+        BF16_STEP * float(want.abs().max())
+
+
+def phase_compare_flash_bf16():
+    """B2's bfloat16 instantiation (the path's tile) against its plain
+    version on the card: the training shape, head dim 64, segment ids
+    with padded rows, ragged T; two launches give the same bits."""
+    import torch
+    from paddle_tpu_torch.ops import flash_attention as fa
+    b, h, t, d = LM_ATTN
+    worst = 0.0
+    for label, shape, causal, lengths in (
+            ("training shape", (b, h, t, d), True, None),
+            ("head dim 64", (b, 2 * h, t, d // 2), True, None),
+            ("segment ids", (2, h, t, d), True, [t, 300]),
+            ("ragged T 100", (2, h, 100, d), True, None),
+            ("ragged T 777, segment ids, not causal", (2, h, 777, d), False,
+             [777, 500])):
+        q, k, v, seg = flash_inputs(*shape, lengths)
+        got = fa.flash_attention(q, k, v, causal, seg)
+        again = fa.flash_attention(q, k, v, causal, seg)
+        want = fa.flash_attention_plain(q, k, v, causal, seg)
+        torch.cuda.synchronize()
+        err, tol = bf16_err(got, want)
+        print("[compare] flash_attention bf16 %s %s causal=%s: max_abs_err "
+              "%.3g (tol one bf16 step %.3g); two launches bitwise equal %s"
+              % (label, list(shape), causal, err, tol,
+                 torch.equal(got, again)))
+        check(got.dtype == torch.bfloat16 and err <= tol,
+              "flash_attention bf16 disagrees at %s: %g" % (label, err))
+        check(torch.equal(got, again),
+              "flash_attention bf16: two launches differ at %s" % label)
+        if lengths is not None:
+            for i, n in enumerate(lengths):
+                check(not got[i, :, n:].any(),
+                      "flash_attention bf16 padded rows not 0")
+        worst = max(worst, err)
+        del q, k, v, got, again, want
+    return worst
+
+
+def phase_compare_flash_sweep():
+    """T2: B2's bfloat16 forward at every tile of the sweep, against the
+    plain version at the training shape, with its time. A tile that does
+    not launch is reported and passed over, as the reference probe does;
+    one that launches and disagrees fails."""
+    import torch
+    from paddle_tpu_torch.ops import flash_attention as fa
+    q, k, v, _ = flash_inputs(*LM_ATTN)
+    want = fa.flash_attention_plain(q, k, v, True)
+    out = {}
+    for bq, bk in fa.SWEEP_TILES:
+        try:
+            got = uncounted(lambda: fa.flash_attention_tile(q, k, v, bq, bk,
+                                                            True))
+            torch.cuda.synchronize()
+        except RuntimeError as exc:
+            print("[compare] flash sweep %dx%d: could not launch: %s"
+                  % (bq, bk, str(exc).splitlines()[0]))
+            out[(bq, bk)] = None
+            continue
+        err, tol = bf16_err(got, want)
+        kernel = functools.partial(fa.flash_attention_tile, q, k, v, bq, bk,
+                                   True)
+        ms, event_ms = uncounted(lambda: (device_ms(kernel, iters=10),
+                                          cuda_ms(kernel, iters=10)))
+        print("[compare] flash sweep %dx%d %s causal: max_abs_err %.3g (tol "
+              "%.3g); device %.4f ms, %.4f ms between CUDA events"
+              % (bq, bk, list(LM_ATTN), err, tol, ms, event_ms))
+        check(err <= tol, "flash sweep %dx%d disagrees: %g" % (bq, bk, err))
+        out[(bq, bk)] = dict(max_abs_err=err, ms=ms, event_ms=event_ms)
+    launched = {t: r for t, r in out.items() if r is not None}
+    path = fa.PATH_TILES[LM_ATTN[3]]
+    check(path in launched, "the path's tile did not launch")
+    best = min(launched, key=lambda t: launched[t]["event_ms"])
+    print("[compare] flash sweep: fastest tile %dx%d (%.4f ms between CUDA "
+          "events), the path's %dx%d (%.4f ms)"
+          % (best + (launched[best]["event_ms"],) + path
+             + (launched[path]["event_ms"],)))
+    return out
+
+
+def phase_compare_flash_backward():
+    """The autograd Function's backward (the reference's chunked
+    recompute, 2 chunks of 128 rows) on the card against autograd of the
+    plain reference over the f32-upcast inputs, float32 and bfloat16, with
+    segment ids and padded rows."""
+    import torch
+    from paddle_tpu_torch.ops import flash_attention as fa
+    b, h, t, d = 2, 4, 256, 128
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, seg = flash_inputs(b, h, t, d, [t, 150], dtype)
+        g = torch.randn(b, h, t, d, device="cuda").to(dtype)
+        qa, ka, va = (x.clone().requires_grad_() for x in (q, k, v))
+        out = fa.flash_attention(qa, ka, va, True, seg, block_q=128)
+        out.backward(g)
+        qr, kr, vr = (x.float().reshape(b * h, t, d).requires_grad_()
+                      for x in (q, k, v))
+        ref = fa._reference(qr, kr, vr, True, fa._bh_segments(seg, b, h, t))
+        ref.backward(g.float().reshape(b * h, t, d))
+        torch.cuda.synchronize()
+        errs = []
+        for name, got, want in (("dq", qa.grad, qr.grad), ("dk", ka.grad,
+                                                            kr.grad),
+                                ("dv", va.grad, vr.grad)):
+            check(got.dtype == dtype, "%s dtype %s" % (name, got.dtype))
+            want = want.reshape(b, h, t, d)
+            errs.append(float((got.float() - want).abs().max()
+                              / want.abs().max()))
+        tol = FLASH_BWD_TOL[str(dtype).split(".")[1]]
+        print("[compare] flash backward %s [%d, %d, %d, %d], segment ids, "
+              "block_q 128: max_abs_err / max|grad| dq %.3g, dk %.3g, dv %.3g "
+              "(tol %g)" % (dtype, b, h, t, d, *errs, tol))
+        check(max(errs) <= tol, "flash backward disagrees in %s" % dtype)
+        worst[dtype] = max(errs)
+    return worst
+
+
+def lm_named(model):
+    """{reference name: numpy copy} of a model's parameters."""
+    return {n: t.detach().cpu().numpy().copy()
+            for n, t in model.reference_tensors().items()}
+
+
+def phase_small_lm_train(rng):
+    """A 2-layer LM (head dim 128, T 256) trained 3 Adam steps on the card
+    (B2 forward, f32 or bf16) against the same LM on the CPU (plain
+    versions), from the same weights and tokens, amp off and on."""
+    import torch
+    from paddle_tpu_torch import config, optimizer, trainer
+    from paddle_tpu_torch.io import params_from_jax
+    from paddle_tpu_torch.models.transformer import TransformerLM
+    v, t, n = SMALL_LM_CFG["vocab_size"], SMALL_LM_T, SMALL_LM_BATCH
+    ids = rng.integers(2, v, (n, t))
+    named = None
+    for amp in (None, "bfloat16"):
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            config.set_flags(amp=amp)
+            try:
+                model = TransformerLM(max_len=t, device=dev, **SMALL_LM_CFG)
+            finally:
+                config.set_flags(amp=None)
+            if named is None:
+                model.reset_parameters(0)
+                named = lm_named(model)
+            else:
+                params_from_jax(named, model=model)
+            opt = optimizer.Adam(model.reference_parameters(), SMALL_LM_LR)
+            toks = torch.from_numpy(ids).to(dev)
+            reset_launches()
+            losses = [float(trainer.train_step(model, opt, toks, toks)[0])
+                      for _ in range(SMALL_LM_STEPS)]
+            launches = read_launches()
+            runs[dev] = (losses, lm_named(model), launches, opt.accumulators())
+        (cpu_l, cpu_p, _, _), (card_l, card_p, launches, accs) = \
+            runs["cpu"], runs["cuda"]
+        loss_err = max(abs(a - b) / abs(b) for a, b in zip(card_l, cpu_l))
+        near, share = SMALL_LM_NEAR[amp]
+        worst_far, worst_share = 0.0, 1.0
+        for name, want in cpu_p.items():
+            diff = np.abs(card_p[name].astype(np.float64) - want)
+            worst_far = max(worst_far, float(diff.max()))
+            worst_share = min(worst_share,
+                              float(np.mean(diff <= near * SMALL_LM_LR)))
+        layers = SMALL_LM_CFG["num_layers"]
+        bf16 = launches["flash_attention bf16"]
+        print("[small-lm-train] amp %s, 3 Adam steps: losses card %s cpu %s "
+              "(rel err %.3g, tol %g); parameters card vs CPU: max %.3g lr "
+              "(tol %d lr), smallest share of a tensor within %g lr %.4f "
+              "(tol %g); B2 launches on the card %d (%d bf16)"
+              % (amp, [round(x, 6) for x in card_l],
+                 [round(x, 6) for x in cpu_l], loss_err,
+                 SMALL_LM_LOSS_RTOL[amp], worst_far / SMALL_LM_LR,
+                 2 * SMALL_LM_STEPS, near, worst_share, share,
+                 launches["flash_attention"], bf16))
+        check(loss_err <= SMALL_LM_LOSS_RTOL[amp],
+              "small LM losses on the card disagree with the CPU (amp %s)"
+              % amp)
+        check(worst_far <= 2 * SMALL_LM_STEPS * SMALL_LM_LR
+              and worst_share >= share,
+              "small LM parameters on the card disagree with the CPU "
+              "(amp %s)" % amp)
+        check(np.isfinite(card_l).all() and card_l[-1] < card_l[0],
+              "the small LM did not train (amp %s): %s" % (amp, card_l))
+        check(launches["flash_attention"] == layers * SMALL_LM_STEPS
+              and bf16 == (launches["flash_attention"] if amp else 0),
+              "small LM B2 launches %s" % launches)
+        check(all(a.dtype == torch.float32 for a in accs.values()),
+              "an accumulator is not float32")
+
+
+def phase_lm_train(seed, rng):
+    """The flagship LM's training step at bench.py's accelerator
+    configuration: warm-up steps, then LM_WINDOWS windows of
+    LM_WINDOW_STEPS steps, each closed by a synchronize, every launch
+    count at 0 just before the windows. Returns (model, optimizer,
+    tokens, launches, stats)."""
+    import torch
+    from paddle_tpu_torch import config, optimizer, trainer
+    from paddle_tpu_torch.models.transformer import TransformerLM
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = {k: v for k, v in FULL.items() if k != "max_len"}
+    t0 = time.perf_counter()
+    config.set_flags(amp="bfloat16")
+    try:
+        model = TransformerLM(max_len=LM_TRAIN["seqlen"], device="cuda",
+                              **cfg)
+    finally:
+        config.set_flags(amp=None)
+    model.reset_parameters(seed)
+    opt = optimizer.Adam(model.reference_parameters(), LM_TRAIN["lr"])
+    b, t = LM_TRAIN["batch"], LM_TRAIN["seqlen"]
+    tokens = torch.from_numpy(rng.integers(2, FULL["vocab_size"],
+                                           (b, t))).cuda()
+    nparam = sum(p.numel() for p in model.reference_parameters().values())
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(LM_WARMUP):
+        losses.append(float(trainer.train_step(model, opt, tokens,
+                                               tokens)[0]))
+    warm_s = time.perf_counter() - t0
+    reset_launches()
+    window_ms = []
+    for _ in range(LM_WINDOWS):
+        t0 = time.perf_counter()
+        for _ in range(LM_WINDOW_STEPS):
+            loss, _ = trainer.train_step(model, opt, tokens, tokens)
+        losses.append(float(loss))          # the read closes the window
+        window_ms.append((time.perf_counter() - t0) * 1e3 / LM_WINDOW_STEPS)
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    steps = LM_WINDOWS * LM_WINDOW_STEPS
+    med = sorted(window_ms)[len(window_ms) // 2]
+    tok_s = b * t / med * 1e3
+    fpt = 6.0 * nparam + 6.0 * FULL["num_layers"] * t * FULL["d_model"]
+    mfu = tok_s * fpt / BF16_FLOPS
+    print("[lm-train] transformer LM, vocab %d, d_model %d, %d heads, d_ff "
+          "%d, %d layers, batch %d x T %d, amp bfloat16, Adam(%g): %d "
+          "parameters (%.2f GB f32); built on the card in %.2f s; %d "
+          "warm-up steps %.2f s" % (FULL["vocab_size"], FULL["d_model"],
+                                    FULL["num_heads"], FULL["d_ff"],
+                                    FULL["num_layers"], b, t,
+                                    LM_TRAIN["lr"], nparam, nparam * 4 / 1e9,
+                                    build_s, LM_WARMUP, warm_s))
+    print("[lm-train] %d windows of %d steps: median %.2f ms a step, %.1f "
+          "tokens/s, MFU %.4f of %.0f TFLOP/s bf16 (%.4g FLOP a token = 6N + "
+          "6LTd, %.2f TFLOP a step); windows ms %s"
+          % (LM_WINDOWS, LM_WINDOW_STEPS, med, tok_s, mfu, BF16_FLOPS / 1e12,
+             fpt, fpt * b * t / 1e12, [round(w, 2) for w in window_ms]))
+    print("[lm-train] losses (warm-up, then each window's last) %s; peak "
+          "memory allocated %.2f GB; launches in the windows %s (%d bf16 B2 "
+          "a step)" % ([round(x, 4) for x in losses], peak / 1e9, launches,
+                       launches["flash_attention bf16"] // steps))
+    per_step = FULL["num_layers"] * steps
+    check(np.isfinite(losses).all() and losses[-1] < losses[0],
+          "the LM's losses do not fall: %s" % losses)
+    check(launches["flash_attention bf16"] == per_step
+          and launches["flash_attention"] == per_step,
+          "B2 bf16 launches %d != %d layers x %d steps"
+          % (launches["flash_attention bf16"], FULL["num_layers"], steps))
+    check(all(v == 0 for k, v in launches.items()
+              if not k.startswith("flash_attention")) and
+          launches["flash_attention_tile"] == 0,
+          "the LM training path launched another kernel: %s" % launches)
+    stats = dict(step_ms=med, tokens_per_s=tok_s, mfu=mfu, peak_bytes=peak,
+                 n_params=nparam)
+    return model, opt, tokens, launches, stats
+
+
+def phase_profile_lm_train(model, opt, tokens):
+    """One LM training step under the profiler; B2's share."""
+    from paddle_tpu_torch import trainer
+    profile_step("LM training step",
+                 lambda: trainer.train_step(model, opt, tokens, tokens),
+                 "B2 bf16", ("flash_fwd_kernel",), top=12)
+
+
+def phase_time_flash_bf16(lm_launches, err, sweep):
+    """B2 bf16 at the path's shape: its time between CUDA events over
+    back-to-back launches (1.5 ms each: the host's gaps do not count) and
+    from the profiler, launches a step, the bound, and the times of the
+    plain version and of F.scaled_dot_product_attention on the same causal
+    bf16 inputs (a yardstick, never on the path), all between events;
+    then a row for each tile of T2."""
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops import flash_attention as fa
+    b, h, t, d = LM_ATTN
+    q, k, v, _ = flash_inputs(*LM_ATTN)
+    kernel = functools.partial(fa.flash_attention, q, k, v, True)
+    ms, profiler_ms = uncounted(lambda: (cuda_ms(kernel, iters=10),
+                                         device_ms(kernel, iters=10)))
+    plain_ms = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, True),
+                       iters=10)
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True), iters=10)
+    pairs = t * (t + 1) // 2           # attendable (query, key) pairs
+    flops = 4 * d * b * h * pairs      # QK^T and PV, 2 flops per MAC
+    nbytes = 2 * 4 * b * h * t * d     # q, k, v read, o written, bf16
+    bound, bound_by = roofline_ms(nbytes, flops, BF16_FLOPS)
+    f32_bound, _ = roofline_ms(nbytes, flops, F32_FLOPS)
+    per_step = lm_launches["flash_attention bf16"] // (LM_WINDOWS
+                                                       * LM_WINDOW_STEPS)
+    print("[time] flash_attention bf16 %s causal, tile %dx%d: %.4f ms "
+          "between CUDA events (profiler kernel sum %.4f ms; bound %.4f ms by "
+          "%s at the bf16 tensor-core peak; %.4f ms at the f32 peak of "
+          "today's SIMT design), plain %.4f ms, "
+          "F.scaled_dot_product_attention %.4f ms; %d launches a step, %.3f "
+          "ms a step" % ((list(LM_ATTN),) + fa.PATH_TILES[d]
+                         + (ms, profiler_ms, bound, bound_by, f32_bound,
+                            plain_ms, lib_ms, per_step, per_step * ms)))
+    source = "paddle_tpu_torch/csrc/flash_attention.cu"
+    rows = [dict(name="flash_attention", route="cuda", source=source,
+                 replaces="paddle_tpu/ops/pallas_attention.py:584",
+                 launches=lm_launches["flash_attention bf16"],
+                 launches_in="[lm-train]", max_abs_err=err, ms=ms,
+                 plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
+                 library_ms=lib_ms, dtype="bfloat16", shape=list(LM_ATTN),
+                 tile=list(fa.PATH_TILES[d]), f32_peak_bound_ms=f32_bound)]
+    for tile, r in sweep.items():
+        on_path = tile == fa.PATH_TILES[d]
+        row = dict(name="flash_attention_tile", route="cuda", source=source,
+                   replaces="tools/transformer_mfu_probe.py:127",
+                   launches=rows[0]["launches"] if on_path else 0,
+                   launches_in="[lm-train], the path's tile" if on_path
+                   else "the sweep only (probes/flash.py)",
+                   max_abs_err=None if r is None else r["max_abs_err"],
+                   ms=None if r is None else r["event_ms"], plain_ms=plain_ms,
+                   bound_ms=bound, bound_by=bound_by, library_ms=lib_ms,
+                   dtype="bfloat16", shape=list(LM_ATTN), tile=list(tile))
+        if r is None:
+            row["error"] = "could not launch"
+        rows.append(row)
+    del q, k, v
+    return rows
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1648,10 +2069,17 @@ def main(argv=None):
         errs.update(phase_compare_bf16(rng))
         errs["int8_matmul"] = phase_compare_int8(rng)
         errs.update(phase_compare_conv_bn(rng))
+        errs["flash_attention bf16"] = phase_compare_flash_bf16()
+        sweep = phase_compare_flash_sweep()
+        phase_compare_flash_backward()
         phase_small_lm(rng)
         phase_small_lm_paged(rng)
         b4_bf16_launches = phase_small_lm_quant(rng)
         phase_small_resnet(rng)
+        # the LM training phases draw from their own stream, so the
+        # serving phases see the inputs they saw before these existed
+        lm_rng = np.random.default_rng(args.seed + 1)
+        phase_small_lm_train(lm_rng)
         t0 = time.perf_counter()
         named = make_params(FULL, rng)
         params = params_from_jax(named, device="cuda")
@@ -1706,6 +2134,15 @@ def main(argv=None):
         gc.collect()
         torch.cuda.empty_cache()
         rows += phase_time_conv_bn(train_launches, errs, shapes)
+        # ResNet-50 has left the card: the LM's training step
+        model, opt, tokens, lm_launches, _ = phase_lm_train(args.seed,
+                                                              lm_rng)
+        phase_profile_lm_train(model, opt, tokens)
+        del model, opt, tokens
+        gc.collect()
+        torch.cuda.empty_cache()
+        rows += phase_time_flash_bf16(lm_launches,
+                                      errs["flash_attention bf16"], sweep)
     except SmokeFailure as exc:
         print("FAIL: %s" % exc, file=sys.stderr)
         return 1

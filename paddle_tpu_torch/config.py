@@ -47,6 +47,10 @@ _flags = {
     # place of conv2d + batch_norm; read when the model is built
     # (models/resnet.py)
     "fused_conv_bn": False,
+    # mixed precision: None, or the dtype name ("bfloat16") that the
+    # WHITE ops' float32 inputs are cast to (amp.py); read when a model is
+    # built (models/transformer.py TransformerLM)
+    "amp": None,
 }
 
 

@@ -4,7 +4,8 @@
 keys v0, v1, ...) and ``<dir>/params.meta.json`` ({key: variable
 name}); :func:`load_params` reads that layout with numpy alone, and
 :func:`params_from_jax` turns the arrays into tensors on a device (the
-LM's) or copies them into a ResNet and its optimizer by name."""
+LM's serving weights) or copies them into a model (a ResNet or a
+transformer LM) and its optimizer by name."""
 
 import json
 import os
@@ -17,6 +18,10 @@ from .optimizer import LR_NAME
 from .place import resolve_device
 
 __all__ = ["load_params", "params_from_jax"]
+
+# the reference scope's random-number state (``core/framework.py``
+# RNG_STATE_VAR): no ported path draws from it
+RNG_STATE = "@RNG_STATE@"
 
 
 def load_params(dirname, filename="params"):
@@ -38,14 +43,20 @@ def params_from_jax(named, device=None, model=None, optimizer=None):
     accepted as it is: the int8 form of a mul weight with its scales
     under ``<name>@quant.scale`` (``models.transformer.check_lm_params``).
 
-    With ``model`` (a ``models.resnet.ResNet``): the reference scope's
-    parameters and running statistics are copied into the model by name
-    (``model.reference_tensors()``), and with ``optimizer`` its
-    accumulators (``<param>_velocity_acc_0``) and ``learning_rate_0``
-    into the optimizer. The names must be exactly those, with the
-    model's shapes: a missing or unknown name, or another shape, raises
-    ValueError before anything is copied. The tensors go to the model's
-    device; ``device`` must then be left out."""
+    With ``model`` (a ``models.resnet.ResNet`` or a
+    ``models.transformer.TransformerLM``): the reference scope's
+    parameters (and a ResNet's running statistics) are copied into the
+    model by name (``model.reference_tensors()``), and with ``optimizer``
+    its accumulators (``optimizer.accumulators()``: Momentum's
+    ``<param>_velocity_acc_0``, Adam's moments and beta powers) and
+    ``learning_rate_0`` into the optimizer. The names must be exactly
+    those, with the model's shapes: a missing or unknown name, or another
+    shape, raises ValueError before anything is copied. The tensors go to
+    the model's device; ``device`` must then be left out.
+
+    Either way a scope's ``@RNG_STATE@`` is dropped: a whole reference
+    scope after ``startup`` loads as it is."""
+    named = {n: v for n, v in named.items() if n != RNG_STATE}
     if model is None:
         check_lm_params(named, infer_num_layers(named))
         device = resolve_device(device)

@@ -1,11 +1,17 @@
-"""Transformer layers with a KV cache, as ``nn.Module``s (reference
-``paddle_tpu/layers/attention.py``: ``multi_head_attention_cached``
-dense and paged branches, ``transformer_encoder_layer``,
-``positional_encoding_window``). Weights keep the reference's [in, out]
-layout; the models' loaders map the reference's parameter names onto
-these modules. A weight consumed only by ``mul`` (the projections and
-the FFN) may be int8, armed for int8 compute: its f32 [out] scales are
-the buffer ``<weight>_scale`` beside it, None while it is float32."""
+"""Transformer layers, as ``nn.Module``s (reference
+``paddle_tpu/layers/attention.py``: ``multi_head_attention``,
+``multi_head_attention_cached`` dense and paged branches,
+``transformer_encoder_layer``, ``positional_encoding`` and
+``positional_encoding_window``). One module holds one set of parameters
+for the uncached (training) attention and the cached (serving) ones, as
+the reference's layers share parameter names, so trained weights serve
+unchanged. Weights keep the reference's [in, out] layout; the models'
+loaders map the reference's parameter names onto these modules. A weight
+consumed only by ``mul`` (the projections and the FFN) may be int8,
+armed for int8 compute: its f32 [out] scales are the buffer
+``<weight>_scale`` beside it, None while it is float32. ``amp`` (a dtype,
+or None) is the mixed-precision dtype of the ``mul`` products
+(``amp.py``), fixed when the model is built."""
 
 import torch
 from torch import nn
@@ -18,7 +24,7 @@ from ..ops.generation_ops import (kv_cache_append, kv_cache_write_rows,
                                   multihead_attention_prefill_paged)
 from ..ops.nn_ops import fc, gather, gelu, layer_norm, mul
 
-__all__ = ["MultiHeadAttentionCached", "TransformerEncoderLayer",
+__all__ = ["MultiHeadAttention", "TransformerEncoderLayer",
            "PositionalEncodingWindow"]
 
 
@@ -33,9 +39,15 @@ def _scales(module, *weights):
         module.register_buffer(name + "_scale", None)
 
 
-class MultiHeadAttentionCached(nn.Module):
-    """q/k/v/o projections with K/V routed through one layer's
-    [slots, cache_len, d_model] cache tensors.
+class MultiHeadAttention(nn.Module):
+    """q/k/v/o projections around multi-head attention.
+
+    * ``full`` — uncached self-attention over x [B, T, D] (the training
+      path; reference ``multi_head_attention`` with queries, keys and
+      values all x), ``key_length`` [B] masking each row's padding.
+
+    The cached modes route K/V through one layer's [slots, cache_len,
+    d_model] cache tensors:
 
     * ``prefill`` — x is one prompt [1, P, D]: its K/V rows are written
       into cache slot ``slot`` at positions [0, P) and attention runs
@@ -57,9 +69,10 @@ class MultiHeadAttentionCached(nn.Module):
       ``table`` [S, MB], writing at the storage ``rows``
       (``paged_append_rows``)."""
 
-    def __init__(self, d_model, num_heads, device=None):
+    def __init__(self, d_model, num_heads, device=None, amp=None):
         super().__init__()
         self.num_heads = num_heads
+        self.amp = amp
         self.wq = _weight(d_model, d_model, device=device)
         self.wk = _weight(d_model, d_model, device=device)
         self.wv = _weight(d_model, d_model, device=device)
@@ -67,12 +80,18 @@ class MultiHeadAttentionCached(nn.Module):
         _scales(self, "wq", "wk", "wv", "wo")
 
     def _qkv(self, x):
-        return (mul(x, self.wq, self.wq_scale),
-                mul(x, self.wk, self.wk_scale),
-                mul(x, self.wv, self.wv_scale))
+        return (mul(x, self.wq, self.wq_scale, self.amp),
+                mul(x, self.wk, self.wk_scale, self.amp),
+                mul(x, self.wv, self.wv_scale, self.amp))
 
     def _out(self, ctx):
-        return mul(ctx, self.wo, self.wo_scale)
+        return mul(ctx, self.wo, self.wo_scale, self.amp)
+
+    def full(self, x, causal=False, key_length=None):
+        q, k, v = self._qkv(x)
+        return self._out(multihead_attention(q, k, v, self.num_heads,
+                                             causal=causal,
+                                             key_length=key_length))
 
     def prefill(self, x, cache_k, cache_v, slot, key_length):
         q, k, v = self._qkv(x)
@@ -107,19 +126,35 @@ class MultiHeadAttentionCached(nn.Module):
         return self._out(ctx)
 
 
-_MODES = ("prefill", "decode", "prefill_paged", "decode_paged")
+_MODES = ("full", "prefill", "decode", "prefill_paged", "decode_paged")
 
 
 class TransformerEncoderLayer(nn.Module):
     """Pre-norm block: x + MHA(LN(x)); x + FFN(LN(x)), FFN = fc + gelu,
-    fc. ``mode`` names the cached attention's method (prefill, decode,
-    prefill_paged, decode_paged) and ``index`` its keyword arguments."""
+    fc. ``mode`` names the attention's method (full, the uncached
+    training path, or a cached one: prefill, decode, prefill_paged,
+    decode_paged) and ``index`` its keyword arguments; ``full`` takes no
+    caches.
 
-    def __init__(self, d_model, num_heads, d_ff, device=None):
+    The reference's ``dropout_prob`` > 0 and ``ring_axis`` are not ported
+    and raise NotImplementedError."""
+
+    def __init__(self, d_model, num_heads, d_ff, device=None, amp=None,
+                 dropout_prob=0.0, ring_axis=None):
         super().__init__()
+        if dropout_prob:
+            raise NotImplementedError(
+                "dropout_prob > 0 is not ported: dropout's random bits "
+                "cannot match the reference's threefry (ROADMAP Queue A "
+                "item 8)")
+        if ring_axis:
+            raise NotImplementedError(
+                "ring_axis (ring attention over a mesh) is not ported: "
+                "ROADMAP Queue A item 12")
+        self.amp = amp
         self.ln1_w = _weight(d_model, device=device)
         self.ln1_b = _weight(d_model, device=device)
-        self.attn = MultiHeadAttentionCached(d_model, num_heads, device)
+        self.attn = MultiHeadAttention(d_model, num_heads, device, amp)
         self.ln2_w = _weight(d_model, device=device)
         self.ln2_b = _weight(d_model, device=device)
         self.ffn1_w = _weight(d_model, d_ff, device=device)
@@ -128,22 +163,25 @@ class TransformerEncoderLayer(nn.Module):
         self.ffn2_b = _weight(d_model, device=device)
         _scales(self, "ffn1_w", "ffn2_w")
 
-    def forward(self, x, cache_k, cache_v, mode, **index):
+    def forward(self, x, cache_k=None, cache_v=None, mode="full", **index):
         if mode not in _MODES:
             raise ValueError("mode must be one of %s, got %r"
                              % (_MODES, mode))
         h = layer_norm(x, self.ln1_w, self.ln1_b)
-        x = x + getattr(self.attn, mode)(h, cache_k, cache_v, **index)
+        caches = () if mode == "full" else (cache_k, cache_v)
+        x = x + getattr(self.attn, mode)(h, *caches, **index)
         h = layer_norm(x, self.ln2_w, self.ln2_b)
         ff = fc(h, self.ffn1_w, self.ffn1_b, act=gelu,
-                w_scale=self.ffn1_w_scale)
+                w_scale=self.ffn1_w_scale, amp=self.amp)
         return x + fc(ff, self.ffn2_w, self.ffn2_b,
-                      w_scale=self.ffn2_w_scale)
+                      w_scale=self.ffn2_w_scale, amp=self.amp)
 
 
 class PositionalEncodingWindow(nn.Module):
     """A window of the learned [max_len, D] position table: rows
-    [0, P) added to a prompt [1, P, D] (``pos=None``), row pos[s]
+    [0, P) added to a prompt [1, P, D] or a training batch [B, P, D]
+    (``pos=None``; reference ``positional_encoding`` when P = max_len),
+    row pos[s]
     added to each slot's token [S, 1, D], or, with ``window_rows``
     (the paged suffix prefill), row pos[i] added to window row i of
     x [1, P, D]."""

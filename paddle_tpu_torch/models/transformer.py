@@ -1,6 +1,7 @@
-"""The causal transformer LM for KV-cached generation (reference
-``paddle_tpu/models/transformer.py``: ``_lm_backbone`` and the greedy
-dense and paged branches of ``transformer_lm_session``).
+"""The causal transformer LM (reference ``paddle_tpu/models/transformer.py``):
+its training forward (``_lm_backbone`` without a cache and
+``transformer_lm``'s loss) and KV-cached generation (the greedy dense and
+paged branches of ``transformer_lm_session``).
 
 Parameters carry the reference's names at the boundary
 (:func:`lm_param_names`), so weights saved by ``paddle_tpu`` load here
@@ -9,23 +10,26 @@ compute (the int8 form of each weight of :func:`lm_mul_weight_names`
 with its scales under ``<name>@quant.scale``)."""
 
 import functools
+import math
 import re
 
 import torch
 from torch import nn
 
 from .. import config as _config
+from ..amp import amp_dtype
 from ..layers.attention import (PositionalEncodingWindow,
                                 TransformerEncoderLayer)
 from ..ops.generation_ops import (kv_block_copy, paged_append_rows,
                                   paged_window_rows)
+from ..ops.loss_ops import mean, softmax_with_cross_entropy
 from ..ops.nn_ops import layer_norm, lookup_table, mul
 from ..ops.quant_ops import SCALE_SUFFIX, scale_var_name
 from ..place import resolve_device
 
-__all__ = ["TransformerLM", "lm_param_names", "lm_mul_weight_names",
-           "check_lm_params", "infer_num_layers", "kv_dtype",
-           "transformer_lm_session"]
+__all__ = ["TransformerLM", "transformer_lm", "lm_param_names",
+           "lm_mul_weight_names", "check_lm_params", "infer_num_layers",
+           "kv_dtype", "transformer_lm_session"]
 
 
 def _name_map(num_layers):
@@ -116,18 +120,29 @@ def infer_num_layers(names):
 
 class TransformerLM(nn.Module):
     """Embedding + learned positions, ``num_layers`` pre-norm blocks, a
-    final layer norm and the LM head, over per-layer KV caches that
-    :meth:`allocate_cache` (dense) or :meth:`allocate_pools` (paged)
-    creates. :meth:`prefill` fills one slot from a prompt,
-    :meth:`prefill_paged` a prompt window through a block table;
-    :meth:`decode` advances every slot by one token."""
+    final layer norm and the LM head.
+
+    Training: :meth:`forward` is the reference's ``_lm_backbone`` without
+    a cache (tokens [B, T] -> logits [B, T, V]), and with labels the loss
+    of :func:`transformer_lm`. The ``amp`` flag, read here when the model
+    is built, makes every ``mul`` a bfloat16 product (``amp.py``);
+    parameters stay float32. The reference's ``dropout_prob`` > 0 and
+    ``ring_axis`` raise NotImplementedError. Parameters are created
+    without gradients; an optimizer over them turns gradients on.
+
+    Generation, over per-layer KV caches that :meth:`allocate_cache`
+    (dense) or :meth:`allocate_pools` (paged) creates: :meth:`prefill`
+    fills one slot from a prompt, :meth:`prefill_paged` a prompt window
+    through a block table; :meth:`decode` advances every slot by one
+    token. Generation under amp is not ported and raises."""
 
     def __init__(self, vocab_size, d_model, num_heads, d_ff, num_layers,
-                 max_len, device=None):
+                 max_len, device=None, dropout_prob=0.0, ring_axis=None):
         super().__init__()
         device = resolve_device(device)
         self.device = device
         self.num_layers = num_layers
+        self.amp = amp_dtype(_config.get_flag("amp"))
 
         def weight(*shape):
             return nn.Parameter(torch.zeros(*shape, device=device),
@@ -136,13 +151,65 @@ class TransformerLM(nn.Module):
         self.tok_embedding = weight(vocab_size, d_model)
         self.pos = PositionalEncodingWindow(max_len, d_model, device)
         self.layers = nn.ModuleList(
-            TransformerEncoderLayer(d_model, num_heads, d_ff, device)
+            TransformerEncoderLayer(d_model, num_heads, d_ff, device,
+                                    self.amp, dropout_prob, ring_axis)
             for _ in range(num_layers))
         self.ln_f_w = weight(d_model)
         self.ln_f_b = weight(d_model)
         self.lm_head = weight(d_model, vocab_size)
         self.register_buffer("lm_head_scale", None)
         self.caches = []
+
+    def reference_tensors(self):
+        """{reference name: parameter}, in the order the reference creates
+        them (``lm_param_names``)."""
+        return {name: getattr(*self._owner(name))
+                for name in _name_map(self.num_layers)}
+
+    def reference_parameters(self):
+        """{reference name: trainable parameter}: every tensor of
+        :meth:`reference_tensors` (the LM keeps no running statistics)."""
+        return self.reference_tensors()
+
+    @torch.no_grad()
+    def reset_parameters(self, seed=0):
+        """Fill every parameter with the reference's initializers, drawn
+        from a ``torch.Generator`` on the model's device seeded with
+        ``seed``: the embedding normal(0, 1/sqrt(d_model)), the position
+        table normal(0, 0.02), fc weights Xavier-uniform (limit
+        sqrt(6 / (in + out))), biases 0, layer-norm scales 1 and
+        shifts 0."""
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(seed)
+        for name, p in self.reference_tensors().items():
+            if name == "tok_embedding":
+                p.normal_(0.0, p.shape[1] ** -0.5, generator=gen)
+            elif name == "pos_encoding_0.w_0":
+                p.normal_(0.0, 0.02, generator=gen)
+            elif name.startswith("layer_norm_"):
+                p.fill_(1.0 if name.endswith(".w_0") else 0.0)
+            elif p.dim() == 1:
+                p.zero_()
+            else:
+                limit = math.sqrt(6.0 / (p.shape[0] + p.shape[1]))
+                p.uniform_(-limit, limit, generator=gen)
+
+    def forward(self, tokens, labels=None, length=None):
+        """tokens [B, T] ints (T at most ``max_len``) -> logits [B, T, V]
+        (bfloat16 under amp). With ``labels`` [B, T], returns
+        :func:`transformer_lm`'s ``(loss, logits)`` instead."""
+        if labels is not None:
+            return transformer_lm(self, tokens, labels, length)
+        x = self.pos(lookup_table(self.tok_embedding, tokens))
+        for layer in self.layers:
+            x = layer(x, mode="full", causal=True)
+        return self._head(x)
+
+    def _serving(self):
+        if self.amp is not None:
+            raise NotImplementedError(
+                "KV-cached generation under amp is not ported: build the "
+                "serving model with the amp flag off")
 
     def _owner(self, name):
         """(module, attribute) of the reference-named parameter."""
@@ -221,7 +288,7 @@ class TransformerLM(nn.Module):
 
     def _head(self, x):
         return mul(layer_norm(x, self.ln_f_w, self.ln_f_b), self.lm_head,
-                   self.lm_head_scale)
+                   self.lm_head_scale, self.amp)
 
     @torch.no_grad()
     def prefill(self, tokens, length, slot):
@@ -229,6 +296,7 @@ class TransformerLM(nn.Module):
         prompt length, slot = cache slot to fill. Writes all P rows of
         the slot in every layer and returns the logits [1, V] at the last
         real position, length - 1."""
+        self._serving()
         x = self.pos(lookup_table(self.tok_embedding, tokens))
         key_length = torch.tensor([length], dtype=torch.int32,
                                   device=self.device)
@@ -245,6 +313,7 @@ class TransformerLM(nn.Module):
         row; table [MB] int block ids. Writes the window's real K/V rows
         through the table in every layer and returns the logits [1, V]
         at window row length - 1."""
+        self._serving()
         nb, bs = self._pool_geometry()
         rows = paged_window_rows(table, hist, length, tokens.shape[1], nb,
                                  bs)
@@ -261,6 +330,7 @@ class TransformerLM(nn.Module):
         Appends one K/V row per slot, active or not, and returns the
         logits [S, V]. Paged caches take ``table`` [S, MB] int32, each
         slot's block-table row; a dead entry drops the slot's write."""
+        self._serving()
         if table is None:
             mode, index = "decode", {"pos": pos}
         else:
@@ -279,6 +349,24 @@ class TransformerLM(nn.Module):
         for ck, cv in self.caches:
             kv_block_copy(ck, src, dst)
             kv_block_copy(cv, src, dst)
+
+
+def transformer_lm(model, tokens, labels, length=None):
+    """Reference ``transformer_lm``'s loss over ``model``'s logits: the
+    per-token ``softmax_with_cross_entropy`` (float32 under amp, a BLACK
+    op) of logits [B, T, V] against labels [B, T], then its mean, or with
+    ``length`` [B] the mean over each row's first ``length`` tokens.
+    Returns ``(loss, logits)``."""
+    logits = model(tokens)
+    b, t, v = logits.shape
+    tok_loss = softmax_with_cross_entropy(
+        logits.reshape(-1, v), labels.reshape(-1, 1), model.amp)[0]
+    tok_loss = tok_loss.reshape(-1, t)
+    if length is None:
+        return mean(tok_loss), logits
+    mask = (torch.arange(t, device=tok_loss.device)[None, :]
+            < length.reshape(-1, 1).to(tok_loss.device)).to(tok_loss.dtype)
+    return (tok_loss * mask).sum() / mask.sum(), logits
 
 
 def kv_dtype(name):

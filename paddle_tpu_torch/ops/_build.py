@@ -28,6 +28,9 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 ENTRY_POINTS = {
     "flash_attention_f32": ("flash_attention",
                             (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P)),
+    "flash_attention_bf16": ("flash_attention",
+                             (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                              _P)),
     "decode_attention_f32": ("decode_attention",
                              (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P)),
     "decode_attention_bf16": ("decode_attention",

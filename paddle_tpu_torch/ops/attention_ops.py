@@ -1,7 +1,11 @@
 """Multi-head attention over packed [B, T, H*D] tensors (reference
 ``paddle_tpu/ops/attention_ops.py`` ``multihead_attention``): the flash
 branch, where queries and keys have one length, and the dense branch
-otherwise. Ring attention and the sharded path are not ported yet."""
+otherwise. Both are differentiable: the flash branch through
+``flash_attention``'s autograd Function (kernel B2 forward, the
+reference's chunked recompute backward), the dense one through torch's
+autograd. Ring attention and the per-shard flash path are not ported yet
+(ROADMAP Queue A item 12)."""
 
 import torch
 
@@ -32,7 +36,9 @@ def multihead_attention(q, k, v, num_heads, causal=False, key_length=None):
                               causal=causal, segment_ids=seg)
         return out.transpose(1, 2).reshape(b, tq, dm)
 
-    s = torch.einsum("bqhd,bkhd->bhqk", qh, kh) * (hd ** -0.5)
+    # f32 scores whatever the inputs' dtype (preferred_element_type there)
+    s = torch.einsum("bqhd,bkhd->bhqk", qh.float(), kh.float()) \
+        * (hd ** -0.5)
     neg = torch.finfo(torch.float32).min
     if causal:
         mask = torch.ones((tq, tk), dtype=torch.bool, device=q.device).tril()

@@ -1,12 +1,17 @@
-"""Flash attention for prefill and decode: the wrappers of the port's
-three CUDA kernels and their plain PyTorch versions.
+"""Flash attention for prefill, training and decode: the wrappers of the
+port's three CUDA kernels and their plain PyTorch versions.
 
 * :func:`flash_attention` replaces the Pallas kernel
-  ``paddle_tpu/ops/pallas_attention.py::flash_attention`` (forward only:
-  the port serves, it does not train yet). Kernel:
-  ``csrc/flash_attention.cu``. On the H100 it is bound by f32
-  operations on the CUDA cores; the kernel keeps the [T, T] scores out
-  of device memory and skips causal tiles above the diagonal.
+  ``paddle_tpu/ops/pallas_attention.py::flash_attention`` with its
+  ``custom_vjp``: the forward is kernel B2 (``csrc/flash_attention.cu``)
+  on float32 or bfloat16 q, k, v, and the backward is the reference's
+  chunked recompute ``_flash_bwd`` in torch ops (the reference leaves it
+  to XLA too: einsums in a ``lax.scan``, not a kernel). On the H100 the
+  forward is bound by f32 operations on the CUDA cores; the kernel keeps
+  the [T, T] scores out of device memory and skips causal tiles above the
+  diagonal. :func:`flash_attention_tile` launches the bf16 kernel at any
+  of its tile instantiations: the port of the block-size sweep
+  ``tools/transformer_mfu_probe.py::bench_kernel`` (T2).
 * :func:`decode_attention` replaces
   ``paddle_tpu/ops/pallas_attention.py::decode_attention``. Kernel:
   ``csrc/decode_attention.cu``. It is bound by device-memory bytes; the
@@ -18,6 +23,13 @@ three CUDA kernels and their plain PyTorch versions.
   with each row addressed through the slot's block table; bound by
   device-memory bytes like it.
 
+bfloat16 flash attention computes what the reference's kernel body does
+on bf16 refs: k and v upcast, scores, probabilities and both products in
+f32, only the output rounded to bf16. The reference's own ``_reference``
+(its fallback at a T with no aligned block) rounds the probabilities to
+bf16 before the PV product; the port's kernel and plain version do not,
+at any T (ROADMAP Queue C).
+
 The decode kernels read float32 or bfloat16 caches (both of one dtype;
 the ``generation_kv_dtype`` flag); q, the output and all arithmetic
 stay float32, the cache upcast at the contraction as the reference
@@ -26,7 +38,8 @@ does. The plain versions upcast the caches before their einsums.
 A wrapper given CPU tensors computes the plain version (the CPU tests
 rely on it). Given CUDA tensors it launches the kernel or raises: there
 is no fallback. Each wrapper counts its kernel launches in
-``<wrapper>.launches``.
+``<wrapper>.launches``; :func:`flash_attention` also counts its bfloat16
+launches in ``flash_attention.launches_bf16``.
 """
 
 import torch
@@ -35,13 +48,26 @@ from . import _build
 
 _NEG = -1e30
 _HEAD_DIMS = (64, 128)
+# B2's element types -> suffix of its C entry points
+_FLASH_ENTRY = {torch.float32: "f32", torch.bfloat16: "bf16"}
+# the tiles the bf16 kernel is instantiated for at head dim 128 (T2's
+# sweep; the TPU's 256-1024 were sized for its VMEM), and the
+# (block_q, block_k) tile of the path's bf16 launches by head dim: at 128
+# the sweep's fastest at the training shape [8, 16, 1024, 128] (1-2% ahead
+# of 64 x 64 in three runs on the H100, PERF.md), at 64 the one
+# instantiation. float32 launches 64 x 64 only.
+SWEEP_TILES = tuple((bq, bk) for bq in (32, 64, 128) for bk in (32, 64, 128))
+PATH_TILES = {64: (64, 64), 128: (128, 128)}
 
 
 def _reference(q, k, v, causal, seg=None):
-    """Plain attention over [BH, T, D]; ``seg`` [BH, T] int32 segment
-    ids, 0 = padding: a key is attendable by a query iff their ids match
-    and the key's id is nonzero. Padded query rows output 0."""
-    s = torch.einsum("bqd,bkd->bqk", q, k) * (q.shape[-1] ** -0.5)
+    """Plain attention over [BH, T, D] (reference ``_reference``); ``seg``
+    [BH, T] int32 segment ids, 0 = padding: a key is attendable by a query
+    iff their ids match and the key's id is nonzero. Padded query rows
+    output 0. The scores are f32 whatever the inputs' dtype; the
+    probabilities take q's dtype before the PV product, as there."""
+    s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) \
+        * (q.shape[-1] ** -0.5)
     t = q.shape[1]
     if causal:
         mask = torch.ones((t, t), dtype=torch.bool, device=q.device).tril()
@@ -110,59 +136,209 @@ def _check_decode_inputs(q, k, v):
     return _KV_ENTRY[k.dtype]
 
 
+def _block_size(t, cap, align=16):
+    """Reference ``_block_size``: the largest divisor of t that is <= cap,
+    >= 128 and ``align``-ed, t itself when t <= cap and aligned, else 0."""
+    if t <= cap:
+        return t if t % align == 0 else 0
+    for b in range(cap, 127, -1):
+        if t % b == 0 and b % align == 0:
+            return b
+    return 0
+
+
+def _bh_segments(segment_ids, b, h, t):
+    """[B, T] segment ids -> [B*H, T] int32, or None."""
+    if segment_ids is None:
+        return None
+    return segment_ids.to(torch.int32)[:, None, :].expand(
+        b, h, t).reshape(b * h, t)
+
+
 def flash_attention_plain(q, k, v, causal=False, segment_ids=None):
-    """The plain version of :func:`flash_attention` on [B, H, T, D]
-    inputs, on any device."""
+    """The plain version of :func:`flash_attention`'s forward on
+    [B, H, T, D] inputs, on any device. bfloat16 inputs are computed in
+    float32 (the reference kernel's promotion) and the output rounded to
+    bfloat16."""
     b, h, t, d = q.shape
-    seg = None
+    seg = _bh_segments(segment_ids, b, h, t)
+    out = _reference(q.reshape(b * h, t, d).float(),
+                     k.reshape(b * h, t, d).float(),
+                     v.reshape(b * h, t, d).float(), causal, seg)
+    return out.reshape(b, h, t, d).to(q.dtype)
+
+
+def _check_flash(q, k, v, segment_ids):
+    """The kernel's preconditions on CUDA inputs."""
+    _require(q.dtype in _FLASH_ENTRY, "q must be float32 or bfloat16, got "
+             "%s", q.dtype)
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        _check_input(name, x, q.dtype)
+    _require(q.shape[-1] in _HEAD_DIMS, "head dim %d not in %s",
+             q.shape[-1], _HEAD_DIMS)
     if segment_ids is not None:
-        seg = segment_ids.to(torch.int32)[:, None, :].expand(
-            b, h, t).reshape(b * h, t)
-    out = _reference(q.reshape(b * h, t, d), k.reshape(b * h, t, d),
-                     v.reshape(b * h, t, d), causal, seg)
-    return out.reshape(b, h, t, d)
+        _require(segment_ids.dtype == torch.int32
+                 and segment_ids.is_contiguous(),
+                 "segment_ids must be contiguous int32")
 
 
-def flash_attention(q, k, v, causal=False, segment_ids=None):
-    """q, k, v: [B, H, T, D] (or [BH, T, D]) -> same-shape output.
-    ``segment_ids``: [B, T] int (0 = padding) — a key is attendable iff
-    its id matches the query's and is nonzero; padded query rows yield
-    zeros."""
+def _launch_flash(q, k, v, segment_ids, causal, tile):
+    """One launch of B2 on checked CUDA [B, H, T, D] inputs; ``tile`` the
+    bf16 (block_q, block_k)."""
+    b, h, t, d = q.shape
+    out = torch.empty_like(q)
+    seg = None if segment_ids is None else segment_ids.data_ptr()
+    stream = _build.stream(q.device)
+    if q.dtype == torch.float32:
+        err = _build.entry("flash_attention_f32")(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), seg, out.data_ptr(),
+            b * h, t, d, h, int(causal), stream)
+    else:
+        err = _build.entry("flash_attention_bf16")(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), seg, out.data_ptr(),
+            b * h, t, d, h, int(causal), tile[0], tile[1], stream)
+    _build.check(err, "flash_attention")
+    return out
+
+
+def _flash_backward(q, k, v, seg, g, causal, block_q):
+    """The reference's ``_flash_bwd`` on [BH, T, D] residuals and
+    cotangent ``g``: the probabilities recomputed one chunk of
+    ``_block_size(T, block_q)`` query rows at a time (align 16, with or
+    without segment ids), never the whole [T, T]; dq cast to q's dtype
+    chunk by chunk, dk and dv summed in f32 and cast at the end. Where T
+    has no aligned chunk, the autograd of :func:`_reference` over the whole
+    sequence. Products of bf16 and f32 operands run in f32 (jnp's
+    promotion; the inputs are upcast explicitly)."""
+    bh, t, d = q.shape
+    bq = _block_size(t, block_q)
+    if not bq:
+        with torch.enable_grad():
+            qa, ka, va = (x.detach().requires_grad_() for x in (q, k, v))
+            out = _reference(qa, ka, va, causal, seg)
+        return torch.autograd.grad(out, (qa, ka, va), g)
+    scale = d ** -0.5
+    k32, v32 = k.float(), v.float()
+    dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
+    dv = torch.zeros_like(dk)
+    dq = torch.empty_like(q)
+    cols = torch.arange(t, device=q.device)
+    for i in range(t // bq):
+        rows = slice(i * bq, (i + 1) * bq)
+        qb, gb = q[:, rows].float(), g[:, rows].float()
+        s = torch.einsum("bqd,bkd->bqk", qb, k32) * scale
+        mask = None
+        if causal:
+            r = torch.arange(i * bq, (i + 1) * bq, device=q.device)
+            mask = (r[:, None] >= cols[None, :])[None]
+        if seg is not None:
+            sm = (seg[:, rows, None] == seg[:, None, :]) & \
+                (seg[:, None, :] != 0)
+            mask = sm if mask is None else mask & sm
+        if mask is not None:
+            s = torch.where(mask, s, _NEG)
+        p = torch.softmax(s, dim=-1)
+        if mask is not None:
+            p = torch.where(mask, p, 0.0)   # fully-masked rows -> 0
+        dp = torch.einsum("bqd,bkd->bqk", gb, v32)
+        ds = (dp - (dp * p).sum(dim=-1, keepdim=True)) * p
+        dq[:, rows] = (torch.einsum("bqk,bkd->bqd", ds, k32)
+                       * scale).to(q.dtype)
+        dk += torch.einsum("bqk,bqd->bkd", ds, qb) * scale
+        dv += torch.einsum("bqk,bqd->bkd", p, gb)
+    return dq, dk.to(k.dtype), dv.to(v.dtype)
+
+
+class _Flash(torch.autograd.Function):
+    """Forward: kernel B2 on CUDA inputs, the plain version on CPU ones;
+    saved for the backward: q, k, v and the segment ids only (reference
+    ``_flash_fwd``), never the probabilities."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, segment_ids, causal, block_q):
+        if _on_cpu(q, k, v, segment_ids):
+            out = flash_attention_plain(q, k, v, causal, segment_ids)
+        else:
+            _check_flash(q, k, v, segment_ids)
+            out = _launch_flash(q, k, v, segment_ids, causal,
+                                PATH_TILES[q.shape[-1]])
+            flash_attention.launches += 1
+            if q.dtype == torch.bfloat16:
+                flash_attention.launches_bf16 += 1
+        ctx.save_for_backward(q, k, v, segment_ids)
+        ctx.causal, ctx.block_q = causal, block_q
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, segment_ids = ctx.saved_tensors
+        b, h, t, d = q.shape
+        grads = _flash_backward(
+            q.reshape(b * h, t, d), k.reshape(b * h, t, d),
+            v.reshape(b * h, t, d), _bh_segments(segment_ids, b, h, t),
+            g.reshape(b * h, t, d), ctx.causal, ctx.block_q)
+        dq, dk, dv = (x.reshape(b, h, t, d) for x in grads)
+        return dq, dk, dv, None, None, None
+
+
+def _flash_args(q, k, v, segment_ids):
+    """[BH, T, D] inputs (with [T] or [B, T] ids) -> [B, H, T, D] ones,
+    checked; and whether to squeeze the batch axis back out."""
     squeeze = q.dim() == 3
     if squeeze:
         q, k, v = q[None], k[None], v[None]
         if segment_ids is not None and segment_ids.dim() == 1:
             segment_ids = segment_ids[None]
-    b, h, t, d = q.shape
+    b, _, t, _ = q.shape
     _require(k.shape == q.shape and v.shape == q.shape,
              "q, k, v shapes differ: %s %s %s", tuple(q.shape),
              tuple(k.shape), tuple(v.shape))
+    _require(k.dtype == q.dtype and v.dtype == q.dtype,
+             "q, k, v dtypes differ: %s %s %s", q.dtype, k.dtype, v.dtype)
     if segment_ids is not None:
         _require(tuple(segment_ids.shape) == (b, t),
                  "segment_ids must be [B, T] = %s, got %s", (b, t),
                  tuple(segment_ids.shape))
-    if _on_cpu(q, k, v, segment_ids):
-        out = flash_attention_plain(q, k, v, causal, segment_ids)
-    else:
-        for name, x in (("q", q), ("k", k), ("v", v)):
-            _check_input(name, x)
-        _require(d in _HEAD_DIMS, "head dim %d not in %s", d, _HEAD_DIMS)
-        if segment_ids is not None:
-            _require(segment_ids.dtype == torch.int32
-                     and segment_ids.is_contiguous(),
-                     "segment_ids must be contiguous int32")
-        out = torch.empty_like(q)
-        fn = _build.entry("flash_attention_f32")
-        stream = _build.stream(q.device)
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                 None if segment_ids is None else segment_ids.data_ptr(),
-                 out.data_ptr(), b * h, t, d, h, int(causal), stream)
-        _build.check(err, "flash_attention")
-        flash_attention.launches += 1
+    return q, k, v, segment_ids, squeeze
+
+
+def flash_attention(q, k, v, causal=False, segment_ids=None, block_q=256):
+    """q, k, v: [B, H, T, D] (or [BH, T, D]) float32 or bfloat16 ->
+    same-shape output, differentiable. ``segment_ids``: [B, T] int (0 =
+    padding) — a key is attendable iff its id matches the query's and is
+    nonzero; padded query rows yield zeros. ``block_q``: the backward's
+    query chunk, as in the reference (the forward's tile is the
+    kernel's own)."""
+    q, k, v, segment_ids, squeeze = _flash_args(q, k, v, segment_ids)
+    out = _Flash.apply(q, k, v, segment_ids, causal, block_q)
     return out[0] if squeeze else out
 
 
 flash_attention.launches = 0
+flash_attention.launches_bf16 = 0
+
+
+def flash_attention_tile(q, k, v, block_q, block_k, causal=False):
+    """B2's bfloat16 forward at the tile ``block_q`` x ``block_k`` (one of
+    :data:`SWEEP_TILES`, head dim 128) with no segment ids: the sweep
+    entry of T2. Not differentiable; CPU inputs take the plain version,
+    which no tile changes."""
+    q, k, v, _, squeeze = _flash_args(q, k, v, None)
+    if _on_cpu(q, k, v):
+        out = flash_attention_plain(q, k, v, causal)
+    else:
+        _check_flash(q, k, v, None)
+        _require(q.dtype == torch.bfloat16 and q.shape[-1] == 128
+                 and (block_q, block_k) in SWEEP_TILES,
+                 "the tile sweep takes bfloat16 at head dim 128 and a tile "
+                 "of %s, got %s, D %d, %s", SWEEP_TILES, q.dtype,
+                 q.shape[-1], (block_q, block_k))
+        out = _launch_flash(q, k, v, None, causal, (block_q, block_k))
+        flash_attention_tile.launches += 1
+    return out[0] if squeeze else out
+
+
+flash_attention_tile.launches = 0
 
 
 def decode_attention_plain(q, k_cache, v_cache, lengths, num_heads):

@@ -4,11 +4,14 @@ activation_ops,math_ops,tensor_ops}.py``). Matrix products of float32
 weights go to ``torch.matmul`` and convolutions to ``F.conv2d``, as the
 reference left them to XLA; an int8 weight (armed for int8 compute,
 ``serving/quant.py``) goes through kernel B3 (``ops/quant_ops.py``).
-The fused convolution + batch norm is ``ops/conv_bn.py``."""
+The fused convolution + batch norm is ``ops/conv_bn.py``. Under amp
+(``amp.py``) ``mul`` is a WHITE op: its float32 operands are cast to the
+amp dtype first."""
 
 import torch
 import torch.nn.functional as F
 
+from ..amp import amp_cast
 from .quant_ops import quant_matmul_2d
 
 __all__ = ["layer_norm", "gelu", "mul", "fc", "lookup_table", "gather",
@@ -30,13 +33,16 @@ def gelu(x):
     return F.gelu(x, approximate="tanh")
 
 
-def mul(x, w, w_scale=None):
+def mul(x, w, w_scale=None, amp=None):
     """x [..., in] times w [in, out] (the reference stores fc weights as
-    [in, out]). An int8 ``w`` takes its f32 [out] ``w_scale``: x is
-    flattened to [-1, in] for :func:`quant_matmul_2d` and the result
-    reshaped back, as the reference's ``_quant_mul`` does."""
+    [in, out]). ``amp`` (a dtype, or None for amp off) casts float32
+    operands to it, as the reference's executor does for this WHITE op:
+    a bfloat16 product, its sums in f32, rounded to bfloat16. An int8
+    ``w`` takes its f32 [out] ``w_scale``: x is flattened to [-1, in] for
+    :func:`quant_matmul_2d` and the result reshaped back, as the
+    reference's ``_quant_mul`` does."""
     if w.dtype != torch.int8:
-        return torch.matmul(x, w)
+        return torch.matmul(amp_cast("mul", x, amp), amp_cast("mul", w, amp))
     if w_scale is None:
         raise ValueError("an int8 weight needs its scales")
     k, n = w.shape
@@ -44,10 +50,11 @@ def mul(x, w, w_scale=None):
     return y.reshape(x.shape[:-1] + (n,))
 
 
-def fc(x, w, b=None, act=None, w_scale=None):
+def fc(x, w, b=None, act=None, w_scale=None, amp=None):
     """The reference ``layers.fc``: mul, then the bias, then the
-    activation."""
-    y = mul(x, w, w_scale)
+    activation. Under amp a bfloat16 product plus a float32 bias is
+    float32 (torch's promotion and ``jnp.add``'s agree for a 1-D bias)."""
+    y = mul(x, w, w_scale, amp)
     if b is not None:
         y = y + b
     return act(y) if act is not None else y

@@ -10,7 +10,9 @@ def resolve_device(device=None):
     """``None`` means the current CUDA device, and raises when there is
     none; anything else is passed to ``torch.device``. A CUDA device
     runs float32 matmuls in full float32 (TF32 off), the precision the
-    port is held to against the reference."""
+    port is held to against the reference, and sums bfloat16 products in
+    float32 (no reduced-precision split-K reductions), as XLA's bfloat16
+    dot does."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
@@ -23,4 +25,6 @@ def resolve_device(device=None):
                                "available" % device)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+            False
     return device

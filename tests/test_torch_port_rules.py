@@ -194,3 +194,89 @@ def test_params_from_jax_resnet_refuses_a_device():
     with pytest.raises(ValueError, match="device"):
         port_io.params_from_jax(_resnet_scope(model, opt), device="cpu",
                                 model=model, optimizer=opt)
+
+
+def test_import_rule_covers_the_training_modules():
+    """The modules of the LM's training path are among those the import
+    rule parses and imports."""
+    mods = _package_modules()
+    for mod in ("paddle_tpu_torch.amp", "paddle_tpu_torch.probes.flash",
+                "paddle_tpu_torch.optimizer", "paddle_tpu_torch.trainer"):
+        assert mod in mods
+
+
+def test_lm_training_entry_points_raise_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        port_tf.TransformerLM(29, 8, 2, 16, 1, 8)
+    from paddle_tpu_torch.probes import flash
+    assert flash.main(["--mode", "sweep"]) == 1
+
+
+def _lm_scope(model, opt):
+    named = {n: np.zeros(tuple(t.shape), np.float32)
+             for n, t in model.reference_tensors().items()}
+    named.update({n: np.zeros(tuple(v.shape), np.float32)
+                  for n, v in opt.accumulators().items()})
+    named["learning_rate_0"] = np.float32([0.5])
+    return named
+
+
+@pytest.mark.parametrize("edit", ["missing", "unknown", "moment", "pow",
+                                  "shape", "no_optimizer"])
+def test_params_from_jax_rejects_mismatched_lm_adam_names(edit):
+    from paddle_tpu_torch import optimizer as port_opt
+    model = port_tf.TransformerLM(29, 8, 2, 16, 2, 8, device="cpu")
+    opt = port_opt.Adam(model.reference_parameters(), 0.1)
+    named = _lm_scope(model, opt)
+    got = port_io.params_from_jax(dict(named), model=model, optimizer=opt)
+    assert sorted(got) == sorted(named) and opt.learning_rate == 0.5
+    optimizer = opt
+    named = {n: v + 1 for n, v in named.items()}
+    if edit == "missing":
+        del named["mha_1.qkv_v.w"]
+    elif edit == "unknown":
+        named["enc_2.ffn1.w"] = np.zeros((8, 16), np.float32)
+    elif edit == "moment":
+        del named["lm_head.w_moment2_acc_0"]
+    elif edit == "pow":
+        named["tok_embedding_beta3_pow_acc_0"] = np.ones(1, np.float32)
+    elif edit == "shape":
+        named["pos_encoding_0.w_0"] = np.zeros((16, 8), np.float32)
+    else:
+        optimizer = None
+    with pytest.raises(ValueError, match="missing|unknown|shape"):
+        port_io.params_from_jax(named, model=model, optimizer=optimizer)
+    # refused before anything is copied
+    assert opt.learning_rate == 0.5
+    assert all(not t.any() for t in model.reference_tensors().values())
+    assert all(not t.any() for n, t in opt.accumulators().items())
+
+
+@pytest.mark.parametrize("kind", ["lm_adam", "resnet_momentum", "lm_serving"])
+def test_params_from_jax_drops_rng_state(kind):
+    """A reference scope's @RNG_STATE@ is dropped, not refused: the whole
+    scope after startup loads as it is."""
+    from paddle_tpu_torch import optimizer as port_opt
+    rng_state = np.arange(2, dtype=np.uint32)
+    if kind == "lm_serving":
+        named = dict(_named(), **{"@RNG_STATE@": rng_state})
+        got = port_io.params_from_jax(named, device="cpu")
+        assert sorted(got) == sorted(_named())
+        return
+    if kind == "lm_adam":
+        model = port_tf.TransformerLM(29, 8, 2, 16, 2, 8, device="cpu")
+        opt = port_opt.Adam(model.reference_parameters(), 0.1)
+        named = _lm_scope(model, opt)
+    else:
+        from paddle_tpu_torch.models import resnet as port_resnet
+        model = port_resnet.resnet_cifar10(8, device="cpu")
+        opt = port_opt.Momentum(model.reference_parameters(), 0.1)
+        named = _resnet_scope(model, opt)
+    named = {n: v + 1 for n, v in named.items()}
+    got = port_io.params_from_jax(dict(named, **{"@RNG_STATE@": rng_state}),
+                                  model=model, optimizer=opt)
+    assert sorted(got) == sorted(named)
+    assert all(bool((t == 1).all())
+               for t in model.reference_tensors().values())
+    assert all(bool((t == 1).all()) for t in opt.accumulators().values())
