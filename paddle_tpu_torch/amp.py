@@ -12,7 +12,9 @@ master weights, as the reference's cast inside ``jax.vjp`` gives."""
 
 import torch
 
-__all__ = ["AMP_WHITE", "AMP_BLACK", "amp_cast", "amp_dtype"]
+from . import config as _config
+
+__all__ = ["AMP_WHITE", "AMP_BLACK", "amp_cast", "amp_dtype", "flag_dtype"]
 
 AMP_WHITE = frozenset({
     "conv2d", "conv3d", "conv2d_transpose", "conv3d_transpose",
@@ -39,6 +41,13 @@ def amp_dtype(flag):
         raise ValueError("amp must be None or a floating dtype name, got %r"
                          % (flag,))
     return dt
+
+
+def flag_dtype():
+    """The dtype of the ``amp`` flag as it is now (None when it is off).
+    Models call it at each forward and loss, as the reference's
+    ``Executor.run`` reads the flag at each run."""
+    return amp_dtype(_config.get_flag("amp"))
 
 
 def amp_cast(op_type, val, amp):

@@ -1,6 +1,8 @@
 """Configuration flags the port reads, with the reference's names and
-defaults (``paddle_tpu/config.py``). Like there, a flag is read only
-when the object that uses it is constructed.
+defaults (``paddle_tpu/config.py``). Each is read when the reference
+reads it: most when the object that uses it is constructed, ``amp`` at
+each call that computes under it (the reference's ``Executor.run`` reads
+it at each run), as each flag's comment below says.
 
 The reference's ``flash_attention`` flag is not carried over: in the
 port a CUDA tensor always takes the attention kernels, which is the
@@ -48,8 +50,9 @@ _flags = {
     # (models/resnet.py)
     "fused_conv_bn": False,
     # mixed precision: None, or the dtype name ("bfloat16") that the
-    # WHITE ops' float32 inputs are cast to (amp.py); read when a model is
-    # built (models/transformer.py TransformerLM)
+    # WHITE ops' float32 inputs are cast to (amp.py); read at each forward
+    # and loss of a model (models/transformer.py, models/resnet.py) and at
+    # each session build and generation call, which refuse it
     "amp": None,
 }
 

@@ -11,7 +11,8 @@ consumed only by ``mul`` (the projections and the FFN) may be int8,
 armed for int8 compute: its f32 [out] scales are the buffer
 ``<weight>_scale`` beside it, None while it is float32. ``amp`` (a dtype,
 or None) is the mixed-precision dtype of the ``mul`` products
-(``amp.py``), fixed when the model is built."""
+(``amp.py``): an argument of each call, never stored, so a model follows
+the flag as its caller reads it."""
 
 import torch
 from torch import nn
@@ -44,7 +45,8 @@ class MultiHeadAttention(nn.Module):
 
     * ``full`` — uncached self-attention over x [B, T, D] (the training
       path; reference ``multi_head_attention`` with queries, keys and
-      values all x), ``key_length`` [B] masking each row's padding.
+      values all x), ``key_length`` [B] masking each row's padding, its
+      products under ``amp`` (a dtype or None) when given.
 
     The cached modes route K/V through one layer's [slots, cache_len,
     d_model] cache tensors:
@@ -69,29 +71,28 @@ class MultiHeadAttention(nn.Module):
       ``table`` [S, MB], writing at the storage ``rows``
       (``paged_append_rows``)."""
 
-    def __init__(self, d_model, num_heads, device=None, amp=None):
+    def __init__(self, d_model, num_heads, device=None):
         super().__init__()
         self.num_heads = num_heads
-        self.amp = amp
         self.wq = _weight(d_model, d_model, device=device)
         self.wk = _weight(d_model, d_model, device=device)
         self.wv = _weight(d_model, d_model, device=device)
         self.wo = _weight(d_model, d_model, device=device)
         _scales(self, "wq", "wk", "wv", "wo")
 
-    def _qkv(self, x):
-        return (mul(x, self.wq, self.wq_scale, self.amp),
-                mul(x, self.wk, self.wk_scale, self.amp),
-                mul(x, self.wv, self.wv_scale, self.amp))
+    def _qkv(self, x, amp=None):
+        return (mul(x, self.wq, self.wq_scale, amp),
+                mul(x, self.wk, self.wk_scale, amp),
+                mul(x, self.wv, self.wv_scale, amp))
 
-    def _out(self, ctx):
-        return mul(ctx, self.wo, self.wo_scale, self.amp)
+    def _out(self, ctx, amp=None):
+        return mul(ctx, self.wo, self.wo_scale, amp)
 
-    def full(self, x, causal=False, key_length=None):
-        q, k, v = self._qkv(x)
+    def full(self, x, causal=False, key_length=None, amp=None):
+        q, k, v = self._qkv(x, amp)
         return self._out(multihead_attention(q, k, v, self.num_heads,
                                              causal=causal,
-                                             key_length=key_length))
+                                             key_length=key_length), amp)
 
     def prefill(self, x, cache_k, cache_v, slot, key_length):
         q, k, v = self._qkv(x)
@@ -134,12 +135,13 @@ class TransformerEncoderLayer(nn.Module):
     fc. ``mode`` names the attention's method (full, the uncached
     training path, or a cached one: prefill, decode, prefill_paged,
     decode_paged) and ``index`` its keyword arguments; ``full`` takes no
-    caches.
+    caches. ``amp`` (a dtype or None) is the mixed-precision dtype of this
+    call's ``mul`` products; the cached modes run without it.
 
     The reference's ``dropout_prob`` > 0 and ``ring_axis`` are not ported
     and raise NotImplementedError."""
 
-    def __init__(self, d_model, num_heads, d_ff, device=None, amp=None,
+    def __init__(self, d_model, num_heads, d_ff, device=None,
                  dropout_prob=0.0, ring_axis=None):
         super().__init__()
         if dropout_prob:
@@ -151,10 +153,9 @@ class TransformerEncoderLayer(nn.Module):
             raise NotImplementedError(
                 "ring_axis (ring attention over a mesh) is not ported: "
                 "ROADMAP Queue A item 12")
-        self.amp = amp
         self.ln1_w = _weight(d_model, device=device)
         self.ln1_b = _weight(d_model, device=device)
-        self.attn = MultiHeadAttention(d_model, num_heads, device, amp)
+        self.attn = MultiHeadAttention(d_model, num_heads, device)
         self.ln2_w = _weight(d_model, device=device)
         self.ln2_b = _weight(d_model, device=device)
         self.ffn1_w = _weight(d_model, d_ff, device=device)
@@ -163,18 +164,21 @@ class TransformerEncoderLayer(nn.Module):
         self.ffn2_b = _weight(d_model, device=device)
         _scales(self, "ffn1_w", "ffn2_w")
 
-    def forward(self, x, cache_k=None, cache_v=None, mode="full", **index):
+    def forward(self, x, cache_k=None, cache_v=None, mode="full", amp=None,
+                **index):
         if mode not in _MODES:
             raise ValueError("mode must be one of %s, got %r"
                              % (_MODES, mode))
         h = layer_norm(x, self.ln1_w, self.ln1_b)
-        caches = () if mode == "full" else (cache_k, cache_v)
-        x = x + getattr(self.attn, mode)(h, *caches, **index)
+        if mode == "full":
+            x = x + self.attn.full(h, amp=amp, **index)
+        else:
+            x = x + getattr(self.attn, mode)(h, cache_k, cache_v, **index)
         h = layer_norm(x, self.ln2_w, self.ln2_b)
         ff = fc(h, self.ffn1_w, self.ffn1_b, act=gelu,
-                w_scale=self.ffn1_w_scale, amp=self.amp)
+                w_scale=self.ffn1_w_scale, amp=amp)
         return x + fc(ff, self.ffn2_w, self.ffn2_b,
-                      w_scale=self.ffn2_w_scale, amp=self.amp)
+                      w_scale=self.ffn2_w_scale, amp=amp)
 
 
 class PositionalEncodingWindow(nn.Module):

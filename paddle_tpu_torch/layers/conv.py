@@ -45,7 +45,9 @@ class ConvBN(nn.Module):
     or None). ``fused`` runs ``conv2d_bn`` (kernel B1 for a 1x1 stride-1
     f32 convolution on the card); otherwise ``conv2d`` then
     ``batch_norm``. ``is_test`` normalizes by the running statistics and
-    leaves them as they are; training updates them in place."""
+    leaves them as they are; training updates them in place. ``amp`` (a
+    dtype or None, given at each call) makes the unfused ``conv2d`` a
+    WHITE op; ``conv2d_bn`` is on neither amp list."""
 
     def __init__(self, ch_in, ch_out, filter_size, stride, padding,
                  act="relu", fused=False, is_test=False, names=None,
@@ -85,13 +87,14 @@ class ConvBN(nn.Module):
         self.mean.zero_()
         self.variance.fill_(1.0)
 
-    def forward(self, x):
+    def forward(self, x, amp=None):
         if self.fused:
             y = conv2d_bn(x, self.weight, self.scale, self.bias, self.mean,
                           self.variance, self.stride, self.padding,
                           is_test=self.is_test)
         else:
-            y = batch_norm(conv2d(x, self.weight, self.stride, self.padding),
+            y = batch_norm(conv2d(x, self.weight, self.stride, self.padding,
+                                  amp=amp),
                            self.scale, self.bias, self.mean, self.variance,
                            is_test=self.is_test)
         if self.act == "relu":
@@ -102,7 +105,8 @@ class ConvBN(nn.Module):
 
 
 class FC(nn.Module):
-    """``layers.fc`` on a 2-D input: x [N, in] @ w [in, out] + b."""
+    """``layers.fc`` on a 2-D input: x [N, in] @ w [in, out] + b; its
+    ``mul`` under ``amp`` (a dtype or None) when given."""
 
     def __init__(self, size_in, size_out, names=None, device=None):
         super().__init__()
@@ -119,5 +123,5 @@ class FC(nn.Module):
         self.weight.uniform_(-limit, limit, generator=generator)
         self.bias.zero_()
 
-    def forward(self, x):
-        return fc(x, self.weight, self.bias)
+    def forward(self, x, amp=None):
+        return fc(x, self.weight, self.bias, amp=amp)

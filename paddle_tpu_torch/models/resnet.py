@@ -9,7 +9,10 @@ and returns the reference's ``(loss, acc, logits)``. The ``fused_conv_bn`` flag 
 read when the model is built as in the reference, makes every
 ``conv_bn_layer`` one ``conv2d_bn`` op (``ops/conv_bn.py``): on the card
 its 1x1 stride-1 convolutions run kernel B1 (30 per forward of
-ResNet-50). Parameters and running statistics carry the reference's
+ResNet-50). The ``amp`` flag is read at each forward, as the reference's
+executor reads it at each run: under it the unfused ``conv2d`` and the
+fc's ``mul`` are bfloat16 products (``amp.py``), the loss float32.
+Parameters and running statistics carry the reference's
 scope names (:meth:`ResNet.reference_tensors`,
 :func:`resnet_scope_names`), so a reference scope loads through
 ``io.params_from_jax``."""
@@ -18,6 +21,7 @@ import torch
 from torch import nn
 
 from .. import config as _config
+from ..amp import flag_dtype
 from ..layers.conv import FC, ConvBN, UniqueNames
 from ..ops.loss_ops import mean, softmax_with_cross_entropy
 from ..ops.metric_ops import accuracy
@@ -62,9 +66,11 @@ class _Block(nn.Module):
         self.short = short
         self.convs = nn.Sequential(*convs)
 
-    def forward(self, x):
-        s = x if self.short is None else self.short(x)
-        return torch.relu(s + self.convs(x))
+    def forward(self, x, amp=None):
+        s = x if self.short is None else self.short(x, amp)
+        for conv in self.convs:
+            x = conv(x, amp)
+        return torch.relu(s + x)
 
 
 def basicblock(b, ch_in, ch_out, stride):
@@ -148,16 +154,20 @@ class ResNet(nn.Module):
             layer.reset_parameters(gen)
 
     def logits(self, img):
-        h = self.stem(img)
+        """The logits of ``img`` under the ``amp`` flag as it is now."""
+        amp = flag_dtype()
+        h = self.stem(img, amp)
         if self.max_pool:
             h = pool2d(h, 3, "max", 2, 1)
-        h = self.stages(h)
+        for block in self.stages:
+            h = block(h, amp)
         pool = pool2d(h, h.shape[2:], "avg", global_pooling=True)
-        return self.fc(pool.reshape(-1, pool.shape[1]))
+        return self.fc(pool.reshape(-1, pool.shape[1]), amp)
 
     def forward(self, img, label):
         logits = self.logits(img)
-        loss, softmax = softmax_with_cross_entropy(logits, label)
+        loss, softmax = softmax_with_cross_entropy(logits, label,
+                                                   flag_dtype())
         acc, _, _ = accuracy(softmax, label)
         return mean(loss), acc, logits
 

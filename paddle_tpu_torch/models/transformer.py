@@ -17,7 +17,7 @@ import torch
 from torch import nn
 
 from .. import config as _config
-from ..amp import amp_dtype
+from ..amp import flag_dtype
 from ..layers.attention import (PositionalEncodingWindow,
                                 TransformerEncoderLayer)
 from ..ops.generation_ops import (kv_block_copy, paged_append_rows,
@@ -124,9 +124,11 @@ class TransformerLM(nn.Module):
 
     Training: :meth:`forward` is the reference's ``_lm_backbone`` without
     a cache (tokens [B, T] -> logits [B, T, V]), and with labels the loss
-    of :func:`transformer_lm`. The ``amp`` flag, read here when the model
-    is built, makes every ``mul`` a bfloat16 product (``amp.py``);
-    parameters stay float32. The reference's ``dropout_prob`` > 0 and
+    of :func:`transformer_lm`. The ``amp`` flag, read at each forward and
+    each loss as the reference's executor reads it at each run, makes
+    every ``mul`` of that call a bfloat16 product (``amp.py``); parameters
+    stay float32, so one model trains under amp and runs without it. The
+    reference's ``dropout_prob`` > 0 and
     ``ring_axis`` raise NotImplementedError. Parameters are created
     without gradients; an optimizer over them turns gradients on.
 
@@ -134,7 +136,8 @@ class TransformerLM(nn.Module):
     (dense) or :meth:`allocate_pools` (paged) creates: :meth:`prefill`
     fills one slot from a prompt, :meth:`prefill_paged` a prompt window
     through a block table; :meth:`decode` advances every slot by one
-    token. Generation under amp is not ported and raises."""
+    token. Generation under amp is not ported: each of these calls raises
+    while the flag is on."""
 
     def __init__(self, vocab_size, d_model, num_heads, d_ff, num_layers,
                  max_len, device=None, dropout_prob=0.0, ring_axis=None):
@@ -142,7 +145,6 @@ class TransformerLM(nn.Module):
         device = resolve_device(device)
         self.device = device
         self.num_layers = num_layers
-        self.amp = amp_dtype(_config.get_flag("amp"))
 
         def weight(*shape):
             return nn.Parameter(torch.zeros(*shape, device=device),
@@ -152,7 +154,7 @@ class TransformerLM(nn.Module):
         self.pos = PositionalEncodingWindow(max_len, d_model, device)
         self.layers = nn.ModuleList(
             TransformerEncoderLayer(d_model, num_heads, d_ff, device,
-                                    self.amp, dropout_prob, ring_axis)
+                                    dropout_prob, ring_axis)
             for _ in range(num_layers))
         self.ln_f_w = weight(d_model)
         self.ln_f_b = weight(d_model)
@@ -196,20 +198,23 @@ class TransformerLM(nn.Module):
 
     def forward(self, tokens, labels=None, length=None):
         """tokens [B, T] ints (T at most ``max_len``) -> logits [B, T, V]
-        (bfloat16 under amp). With ``labels`` [B, T], returns
-        :func:`transformer_lm`'s ``(loss, logits)`` instead."""
+        (bfloat16 when the ``amp`` flag is on at this call). With
+        ``labels`` [B, T], returns :func:`transformer_lm`'s ``(loss,
+        logits)`` instead."""
         if labels is not None:
             return transformer_lm(self, tokens, labels, length)
+        amp = flag_dtype()
         x = self.pos(lookup_table(self.tok_embedding, tokens))
         for layer in self.layers:
-            x = layer(x, mode="full", causal=True)
-        return self._head(x)
+            x = layer(x, mode="full", amp=amp, causal=True)
+        return self._head(x, amp)
 
-    def _serving(self):
-        if self.amp is not None:
+    @staticmethod
+    def _serving():
+        if flag_dtype() is not None:
             raise NotImplementedError(
-                "KV-cached generation under amp is not ported: build the "
-                "serving model with the amp flag off")
+                "KV-cached generation under amp is not ported: turn the "
+                "amp flag off to serve")
 
     def _owner(self, name):
         """(module, attribute) of the reference-named parameter."""
@@ -286,9 +291,9 @@ class TransformerLM(nn.Module):
         storage = self.caches[0][0]
         return storage.shape[0] - 1, storage.shape[1]
 
-    def _head(self, x):
+    def _head(self, x, amp=None):
         return mul(layer_norm(x, self.ln_f_w, self.ln_f_b), self.lm_head,
-                   self.lm_head_scale, self.amp)
+                   self.lm_head_scale, amp)
 
     @torch.no_grad()
     def prefill(self, tokens, length, slot):
@@ -355,12 +360,13 @@ def transformer_lm(model, tokens, labels, length=None):
     """Reference ``transformer_lm``'s loss over ``model``'s logits: the
     per-token ``softmax_with_cross_entropy`` (float32 under amp, a BLACK
     op) of logits [B, T, V] against labels [B, T], then its mean, or with
-    ``length`` [B] the mean over each row's first ``length`` tokens.
-    Returns ``(loss, logits)``."""
+    ``length`` [B] the mean over each row's first ``length`` tokens. The
+    ``amp`` flag is read at this call. Returns ``(loss, logits)``."""
+    amp = flag_dtype()
     logits = model(tokens)
     b, t, v = logits.shape
     tok_loss = softmax_with_cross_entropy(
-        logits.reshape(-1, v), labels.reshape(-1, 1), model.amp)[0]
+        logits.reshape(-1, v), labels.reshape(-1, 1), amp)[0]
     tok_loss = tok_loss.reshape(-1, t)
     if length is None:
         return mean(tok_loss), logits

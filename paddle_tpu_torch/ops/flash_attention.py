@@ -6,9 +6,12 @@ port's three CUDA kernels and their plain PyTorch versions.
   ``custom_vjp``: the forward is kernel B2 (``csrc/flash_attention.cu``)
   on float32 or bfloat16 q, k, v, and the backward is the reference's
   chunked recompute ``_flash_bwd`` in torch ops (the reference leaves it
-  to XLA too: einsums in a ``lax.scan``, not a kernel). On the H100 the
-  forward is bound by f32 operations on the CUDA cores; the kernel keeps
-  the [T, T] scores out of device memory and skips causal tiles above the
+  to XLA too: einsums in a ``lax.scan``, not a kernel), its causal chunks
+  cut to the keys below the diagonal. The bf16 forward runs both products
+  on the tensor cores (``mma.sync``), bound by shared-memory reads and
+  the softmax's exponentials; the f32 forward runs them as f32 FMAs on
+  the CUDA cores (TF32 stays off), bound by those operations. Both keep
+  the [T, T] scores out of device memory and skip causal tiles above the
   diagonal. :func:`flash_attention_tile` launches the bf16 kernel at any
   of its tile instantiations: the port of the block-size sweep
   ``tools/transformer_mfu_probe.py::bench_kernel`` (T2).
@@ -24,11 +27,16 @@ port's three CUDA kernels and their plain PyTorch versions.
   device-memory bytes like it.
 
 bfloat16 flash attention computes what the reference's kernel body does
-on bf16 refs: k and v upcast, scores, probabilities and both products in
-f32, only the output rounded to bf16. The reference's own ``_reference``
-(its fallback at a T with no aligned block) rounds the probabilities to
-bf16 before the PV product; the port's kernel and plain version do not,
-at any T (ROADMAP Queue C).
+on its own chip, where both dots run at ``Precision.DEFAULT``, one bf16
+pass of the matrix unit with f32 sums: the scores are exact products
+summed in f32, scaled in f32; the running max and sum stay f32; the
+probabilities enter the PV product rounded to bf16; the output is
+rounded to bf16. The plain version keeps the probabilities f32 (the
+reference's kernel interpreted on a CPU does too); the two differ by less
+than one bf16 step of the output, the tolerance the card's check holds
+the kernel to. The reference's own ``_reference`` (its fallback at a T
+with no aligned block) rounds the normalized probabilities to bf16; the
+port's plain version does not, at any T (ROADMAP Queue C).
 
 The decode kernels read float32 or bfloat16 caches (both of one dtype;
 the ``generation_kv_dtype`` flag); q, the output and all arithmetic
@@ -53,11 +61,11 @@ _FLASH_ENTRY = {torch.float32: "f32", torch.bfloat16: "bf16"}
 # the tiles the bf16 kernel is instantiated for at head dim 128 (T2's
 # sweep; the TPU's 256-1024 were sized for its VMEM), and the
 # (block_q, block_k) tile of the path's bf16 launches by head dim: at 128
-# the sweep's fastest at the training shape [8, 16, 1024, 128] (1-2% ahead
-# of 64 x 64 in three runs on the H100, PERF.md), at 64 the one
-# instantiation. float32 launches 64 x 64 only.
+# the sweep's fastest at the training shape [8, 16, 1024, 128] (128 x 32,
+# 15% ahead of 128 x 128 on the H100, PERF.md), at 64 the one
+# instantiation. float32 launches its one tile, 32 x 64.
 SWEEP_TILES = tuple((bq, bk) for bq in (32, 64, 128) for bk in (32, 64, 128))
-PATH_TILES = {64: (64, 64), 128: (128, 128)}
+PATH_TILES = {64: (64, 64), 128: (128, 32)}
 
 
 def _reference(q, k, v, causal, seg=None):
@@ -208,8 +216,18 @@ def _flash_backward(q, k, v, seg, g, causal, block_q):
     without segment ids), never the whole [T, T]; dq cast to q's dtype
     chunk by chunk, dk and dv summed in f32 and cast at the end. Where T
     has no aligned chunk, the autograd of :func:`_reference` over the whole
-    sequence. Products of bf16 and f32 operands run in f32 (jnp's
-    promotion; the inputs are upcast explicitly)."""
+    sequence.
+
+    Under ``causal``, chunk i reads only keys [0, (i + 1) bq): past them
+    its probabilities and ``ds`` are exactly 0, so dk and dv take the same
+    sums over that prefix (the reference's scan reads every key). The
+    ``s`` and ``dp`` products take q or g against k or v: on CUDA with
+    bf16 inputs they run as bf16 x bf16 -> f32 products on the tensor
+    cores (``torch.bmm(..., out_dtype=torch.float32)``), the reference's
+    einsums of two bf16 operands with ``preferred_element_type=f32``,
+    exact products with f32 sums; elsewhere the operands are upcast to
+    f32. dq, dk and dv take ``ds`` or ``p`` (f32) against a bf16 operand,
+    which jnp promotes to f32: those products run in f32 everywhere."""
     bh, t, d = q.shape
     bq = _block_size(t, block_q)
     if not bq:
@@ -218,34 +236,52 @@ def _flash_backward(q, k, v, seg, g, causal, block_q):
             out = _reference(qa, ka, va, causal, seg)
         return torch.autograd.grad(out, (qa, ka, va), g)
     scale = d ** -0.5
-    k32, v32 = k.float(), v.float()
+    tensor_cores = q.is_cuda and q.dtype == torch.bfloat16
+    k32 = k.float()
+    v32 = None if tensor_cores else v.float()
     dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
     dv = torch.zeros_like(dk)
     dq = torch.empty_like(q)
-    cols = torch.arange(t, device=q.device)
+    # causal, no segment ids: each chunk's keys below its first row are
+    # live for every row, so only its diagonal block is masked (the
+    # strict upper triangle), and no row is fully masked
+    upper = None
+    if causal and seg is None:
+        upper = torch.ones(bq, bq, dtype=torch.bool,
+                           device=q.device).triu(1)
     for i in range(t // bq):
-        rows = slice(i * bq, (i + 1) * bq)
-        qb, gb = q[:, rows].float(), g[:, rows].float()
-        s = torch.einsum("bqd,bkd->bqk", qb, k32) * scale
-        mask = None
-        if causal:
-            r = torch.arange(i * bq, (i + 1) * bq, device=q.device)
-            mask = (r[:, None] >= cols[None, :])[None]
+        r0, kend = i * bq, ((i + 1) * bq if causal else t)
+        rows = slice(r0, r0 + bq)
+        qb, gb = q[:, rows], g[:, rows]
+        qb32, gb32 = qb.float(), gb.float()
+        if tensor_cores:
+            s = torch.bmm(qb, k[:, :kend].transpose(1, 2),
+                          out_dtype=torch.float32)
+            dp = torch.bmm(gb, v[:, :kend].transpose(1, 2),
+                           out_dtype=torch.float32)
+        else:
+            s = torch.einsum("bqd,bkd->bqk", qb32, k32[:, :kend])
+            dp = torch.einsum("bqd,bkd->bqk", gb32, v32[:, :kend])
+        s.mul_(scale)
+        live = None
         if seg is not None:
-            sm = (seg[:, rows, None] == seg[:, None, :]) & \
-                (seg[:, None, :] != 0)
-            mask = sm if mask is None else mask & sm
-        if mask is not None:
-            s = torch.where(mask, s, _NEG)
+            live = (seg[:, rows, None] == seg[:, None, :kend]) & \
+                (seg[:, None, :kend] != 0)
+            if causal:
+                live = live & (torch.arange(r0, r0 + bq, device=q.device)
+                               [:, None] >= torch.arange(
+                                   kend, device=q.device)[None, :])
+            s.masked_fill_(~live, _NEG)
+        elif causal:
+            s[:, :, r0:].masked_fill_(upper, _NEG)
         p = torch.softmax(s, dim=-1)
-        if mask is not None:
-            p = torch.where(mask, p, 0.0)   # fully-masked rows -> 0
-        dp = torch.einsum("bqd,bkd->bqk", gb, v32)
-        ds = (dp - (dp * p).sum(dim=-1, keepdim=True)) * p
-        dq[:, rows] = (torch.einsum("bqk,bkd->bqd", ds, k32)
+        if live is not None:
+            p.masked_fill_(~live, 0.0)      # fully-masked rows -> 0
+        ds = dp.sub_((dp * p).sum(dim=-1, keepdim=True)).mul_(p)
+        dq[:, rows] = (torch.einsum("bqk,bkd->bqd", ds, k32[:, :kend])
                        * scale).to(q.dtype)
-        dk += torch.einsum("bqk,bqd->bkd", ds, qb) * scale
-        dv += torch.einsum("bqk,bqd->bkd", p, gb)
+        dk[:, :kend] += torch.einsum("bqk,bqd->bkd", ds, qb32) * scale
+        dv[:, :kend] += torch.einsum("bqk,bqd->bkd", p, gb32)
     return dq, dk.to(k.dtype), dv.to(v.dtype)
 
 

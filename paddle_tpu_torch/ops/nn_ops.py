@@ -5,8 +5,9 @@ weights go to ``torch.matmul`` and convolutions to ``F.conv2d``, as the
 reference left them to XLA; an int8 weight (armed for int8 compute,
 ``serving/quant.py``) goes through kernel B3 (``ops/quant_ops.py``).
 The fused convolution + batch norm is ``ops/conv_bn.py``. Under amp
-(``amp.py``) ``mul`` is a WHITE op: its float32 operands are cast to the
-amp dtype first."""
+(``amp.py``) ``mul`` and ``conv2d`` are WHITE ops: their float32
+operands are cast to the amp dtype first (``conv2d_bn`` is on neither
+list and stays float32, as in the reference)."""
 
 import torch
 import torch.nn.functional as F
@@ -76,11 +77,14 @@ def argmax(x, axis=-1):
     return torch.argmax(x, dim=axis)
 
 
-def conv2d(x, w, stride=1, padding=0, dilation=1, groups=1):
+def conv2d(x, w, stride=1, padding=0, dilation=1, groups=1, amp=None):
     """NCHW input, OIHW filter, symmetric padding (reference
-    ``conv2d``)."""
-    return F.conv2d(x, w, None, _pair(stride), _pair(padding),
-                    _pair(dilation), groups)
+    ``conv2d``). ``amp`` (a dtype, or None for amp off) casts float32
+    operands to it, as the reference's executor does for this WHITE op:
+    a bfloat16 convolution with a bfloat16 output."""
+    return F.conv2d(amp_cast("conv2d", x, amp), amp_cast("conv2d", w, amp),
+                    None, _pair(stride), _pair(padding), _pair(dilation),
+                    groups)
 
 
 def pool2d(x, ksize, pool_type="max", strides=1, paddings=0,

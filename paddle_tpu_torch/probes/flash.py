@@ -55,13 +55,10 @@ def flops_per_token(n_params, num_layers, seqlen, d_model):
 
 
 def build_lm(seqlen, seed=0, cfg=FLAGSHIP, device="cuda"):
-    """The LM under amp bf16 with its parameters from ``seed`` on the
-    device, and ``Adam(1e-4)`` over them."""
-    config.set_flags(amp="bfloat16")
-    try:
-        model = TransformerLM(max_len=seqlen, device=device, **cfg)
-    finally:
-        config.set_flags(amp=None)
+    """The LM with its parameters from ``seed`` on the device, and
+    ``Adam(1e-4)`` over them (it computes under the ``amp`` flag as it
+    is at each step)."""
+    model = TransformerLM(max_len=seqlen, device=device, **cfg)
     model.reset_parameters(seed)
     return model, optimizer.Adam(model.reference_parameters(), 1e-4)
 
@@ -73,6 +70,7 @@ def bench_step(batch, seqlen, steps=8, warmup=2, seed=0):
     ids = torch.from_numpy(rs.randint(2, vocab, (batch, seqlen))).cuda()
     n_params = sum(p.numel() for p in model.reference_parameters().values())
     out = {"batch": batch, "T": seqlen, "flash": True, "n_params": n_params}
+    config.set_flags(amp="bfloat16")
     try:
         for _ in range(warmup):
             loss, _ = trainer.train_step(model, opt, ids, ids)
@@ -86,6 +84,7 @@ def bench_step(batch, seqlen, steps=8, warmup=2, seed=0):
         out["err"] = str(exc)[:200]
         return out
     finally:
+        config.set_flags(amp=None)
         del model, opt
         torch.cuda.empty_cache()
     tok_s = batch * seqlen / dt

@@ -44,6 +44,7 @@ import numpy as np
 import torch
 
 from .. import config as _config
+from ..amp import flag_dtype
 from ..models.transformer import kv_dtype
 from ..ops.nn_ops import argmax
 from . import quant as _quant
@@ -121,6 +122,13 @@ class GenerationSession:
     of an armed weight is kept."""
 
     def __init__(self, spec, params, arm_quant=None):
+        # the amp flag is read at each build and each run, as the
+        # reference's executor reads it; generation under amp is not
+        # ported (the model's prefill and decode refuse it too)
+        if flag_dtype() is not None:
+            raise NotImplementedError(
+                "KV-cached generation under amp is not ported: turn the "
+                "amp flag off to build a session")
         self.spec = spec
         self.device = spec.device
         self.model = spec.build_model(params)

@@ -172,3 +172,96 @@ def test_tile_entry_plain_on_cpu_and_checks():
     assert len(port_attn.SWEEP_TILES) == 9
     with pytest.raises(ValueError, match="dtypes differ"):
         port_attn.flash_attention(tens[0], tens[1].float(), tens[2])
+
+
+def _counting_einsum(monkeypatch):
+    """Wrap torch.einsum; returns the list of (equation, key width) of
+    every product the backward's chunks run: the keys are axis 1 of the
+    second operand of "bqd,bkd->bqk" and axis 2 of the first operand of
+    the products that contract over them."""
+    calls = []
+    real = torch.einsum
+
+    def einsum(eq, *ops):
+        keys = ops[1].shape[1] if eq == "bqd,bkd->bqk" else ops[0].shape[2]
+        calls.append((eq, keys))
+        return real(eq, *ops)
+
+    monkeypatch.setattr(torch, "einsum", einsum)
+    return calls
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("padded", [False, True])
+@pytest.mark.parametrize("t,block_q", [(512, 128), (384, 192), (512, 256)])
+def test_causal_chunks_read_only_keys_up_to_the_diagonal(
+        monkeypatch, dtype, padded, t, block_q):
+    """Under causal, chunk i's five products see exactly (i + 1) bq keys
+    (the keys past them carry p = 0 and ds = 0), and the gradients still
+    match ``jax.vjp`` of the reference, whose scan reads every key, at
+    the tolerances above, with and without segment ids and padded
+    rows."""
+    lengths = (t, t // 3) if padded else None
+    tens, arrs, seg = _inputs(t + block_q + padded, 2, 2, t, 16, dtype,
+                              lengths)
+    want = _reference_vjp(arrs, seg, True, block_q, dtype)
+    calls = _counting_einsum(monkeypatch)
+    got = _port(tens, seg, True, block_q)
+    monkeypatch.undo()
+    n = t // block_q
+    # the forward's plain version reads all T keys twice, then the chunks
+    widths = [w for _, w in calls]
+    assert widths == [t, t] + [(i + 1) * block_q for i in range(n)
+                               for _ in range(5)]
+    _close(got, want, TOL[dtype], (dtype, padded, t, block_q))
+    if lengths is not None:
+        assert not got[0][1, :, lengths[1]:].any()
+        assert not got[1][1, :, lengths[1]:].any()
+
+
+def test_non_causal_chunks_read_every_key(monkeypatch):
+    tens, _, _ = _inputs(9, 1, 2, 256, 16, "float32", None)
+    calls = _counting_einsum(monkeypatch)
+    _port(tens, None, False, 128)
+    assert [w for _, w in calls] == [256] * (2 + 10)
+
+
+def _plain_p_bf16(q, k, v, causal, seg=None):
+    """The plain version with the kernel's one change on the card: the
+    unnormalized probabilities exp(s - max) rounded to bf16 before the PV
+    product (the reference kernel's bf16 MXU pass), the row sums and the
+    division in f32. [B, H, T, D] f32 inputs, f32 output."""
+    b, h, t, d = q.shape
+    s = torch.einsum("bhqd,bhkd->bhqk", q, k) * d ** -0.5
+    mask = torch.ones(t, t, dtype=torch.bool)
+    if causal:
+        mask = mask.tril()
+    mask = mask[None, None]
+    if seg is not None:
+        mask = mask & ((seg[:, None, :, None] == seg[:, None, None, :])
+                       & (seg[:, None, None, :] != 0))
+    s = torch.where(mask, s, port_attn._NEG)
+    p = torch.where(mask, torch.exp(s - s.amax(-1, keepdim=True)), 0.0)
+    out = torch.einsum("bhqk,bhkd->bhqd", p.bfloat16().float(), v)
+    return out / p.sum(-1, keepdim=True).clamp_min(1e-30)
+
+
+@pytest.mark.parametrize("shape,causal,lengths", [
+    ((2, 4, 256, 64), True, (256, 90)),
+    ((2, 2, 100, 16), True, None),
+    ((1, 2, 512, 128), False, None),
+])
+def test_p_rounded_to_bf16_stays_within_one_bf16_step(shape, causal,
+                                                      lengths):
+    """The bf16 kernel rounds p to bf16 for its PV product on the tensor
+    cores, where the plain version (and the reference's interpreted
+    kernel) keep p f32: at the test shapes the two differ by less than
+    one bf16 step of the output's magnitude, the tolerance the card's
+    check holds the kernel to."""
+    tens, _, seg = _inputs(sum(shape), *shape, "bfloat16", lengths)
+    q, k, v = (x.float() for x in tens[:3])
+    seg_t = None if seg is None else torch.from_numpy(seg)
+    want = port_attn.flash_attention_plain(q, k, v, causal, seg_t)
+    got = _plain_p_bf16(q, k, v, causal, seg_t)
+    err = float((got - want).abs().max())
+    assert 0 < err <= BF16_STEP * float(want.abs().max())

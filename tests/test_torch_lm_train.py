@@ -50,6 +50,7 @@ from paddle_tpu_torch import trainer
 from paddle_tpu_torch.models import transformer as port_tf
 from paddle_tpu_torch.ops import flash_attention as port_attn
 from paddle_tpu_torch.ops import optimizer_ops
+from paddle_tpu_torch.serving import GenerationSession
 
 NET = dict(vocab_size=100, d_model=64, num_heads=2, d_ff=128, num_layers=2)
 T, B, LR, STEPS = 128, 4, 1e-3, 3
@@ -107,26 +108,29 @@ def _state(scope):
 
 def _port(before, amp, steps=STEPS):
     """The port's LM and Adam loaded from ``before``, trained ``steps``
-    steps on the CPU: (losses, first-step gradients, state after)."""
-    port_config.set_flags(amp=amp)
-    try:
-        model = port_tf.TransformerLM(max_len=T, device="cpu", **NET)
-    finally:
-        port_config.set_flags(amp=None)
+    steps on the CPU with the ``amp`` flag set for the steps (the model
+    reads it at each call): (losses, first-step gradients, state
+    after)."""
+    model = port_tf.TransformerLM(max_len=T, device="cpu", **NET)
     opt = port_opt.Adam(model.reference_parameters(), 0.5)
     port_io.params_from_jax(before, model=model, optimizer=opt)
     assert opt.learning_rate == np.float32(LR)
     toks, lbls = (torch.from_numpy(a) for a in _feeds())
     before_launches = port_attn.flash_attention.launches
     losses, first = [], None
-    for i in range(steps):
-        loss, logits = trainer.train_step(model, opt, toks, lbls)
-        assert loss.dtype == torch.float32
-        assert logits.dtype == (torch.bfloat16 if amp else torch.float32)
-        losses.append(float(loss))
-        if i == 0:
-            first = {n: p.grad.detach().numpy().copy()
-                     for n, p in model.reference_parameters().items()}
+    port_config.set_flags(amp=amp)
+    try:
+        for i in range(steps):
+            loss, logits = trainer.train_step(model, opt, toks, lbls)
+            assert loss.dtype == torch.float32
+            assert logits.dtype == (torch.bfloat16 if amp
+                                    else torch.float32)
+            losses.append(float(loss))
+            if i == 0:
+                first = {n: p.grad.detach().numpy().copy()
+                         for n, p in model.reference_parameters().items()}
+    finally:
+        port_config.set_flags(amp=None)
     assert port_attn.flash_attention.launches == before_launches
     state = {n: t.detach().numpy()
              for n, t in model.reference_tensors().items()}
@@ -255,11 +259,92 @@ def test_length_masked_loss_and_amp_serving_refused():
         logits.reshape(-1, 100), toks.reshape(-1), reduction="none")
     mask = torch.arange(16)[None, :] < length[:, None]
     torch.testing.assert_close(loss, per_tok.reshape(3, 16)[mask].mean())
+    # the flag is read at each generation call and session build: a model
+    # that trained under amp serves once the flag is off
+    model.allocate_cache(1, 16)
     port_config.set_flags(amp="bfloat16")
     try:
-        amp_model = port_tf.TransformerLM(max_len=16, device="cpu", **NET)
+        with pytest.raises(NotImplementedError, match="amp"):
+            model.prefill(toks[:1], 4, 0)
+        with pytest.raises(NotImplementedError, match="amp"):
+            model.decode(toks[:1, :1], torch.tensor([4], dtype=torch.int32))
+        spec = port_tf.transformer_lm_session(max_len=16, device="cpu",
+                                              **NET)
+        with pytest.raises(NotImplementedError, match="amp"):
+            GenerationSession(spec, model.reference_tensors())
     finally:
         port_config.set_flags(amp=None)
-    amp_model.allocate_cache(1, 16)
-    with pytest.raises(NotImplementedError, match="amp"):
-        amp_model.prefill(toks[:1], 4, 0)
+    with torch.no_grad():
+        want = model(toks[:1])[0, 3]
+    got = model.prefill(toks[:1], 4, 0)[0]
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def _reference_forward_runs(flags):
+    """The reference's LM program (forward and loss, no optimizer) from
+    its startup, run once under each ``amp`` flag value of ``flags`` on
+    one executor and scope, the flag set before each run as a user sets
+    it: (the scope after startup, [(loss, logits) per run])."""
+    ptpu.config.set_flags(flash_attention=True)
+    try:
+        with ptpu.unique_name.guard():
+            main, startup = ptpu.Program(), ptpu.Program()
+            main.random_seed = startup.random_seed = 21
+            with ptpu.program_guard(main, startup):
+                toks = layers.data("toks", shape=[T], dtype="int64")
+                lbls = layers.data("lbls", shape=[T], dtype="int64")
+                loss, logits = ref_tf.transformer_lm(toks, lbls, **NET)
+        exe = ptpu.Executor()
+        scope = ptpu.Scope()
+        toks_v, lbls_v = _feeds()
+        runs = []
+        with ptpu.scope_guard(scope):
+            exe.run(startup)
+            before = _state(scope)
+            for amp in flags:
+                ptpu.config.set_flags(amp=amp)
+                out = exe.run(main, feed={"toks": toks_v, "lbls": lbls_v},
+                              fetch_list=[loss, logits], return_numpy=False)
+                runs.append((float(np.asarray(out[0])),
+                             np.asarray(out[1].astype(jnp.float32)),
+                             str(out[1].dtype)))
+    finally:
+        ptpu.config.set_flags(flash_attention=False, amp=None)
+    return before, runs
+
+
+def test_amp_flag_read_at_each_call_like_the_reference():
+    """One port model follows the ``amp`` flag call by call (off, on,
+    off), as the reference's executor reads it at each run of one
+    program and scope: each forward and loss matches the reference's run
+    under the same flag (losses to the amp case's tolerances; logits
+    float32 or bfloat16 as the reference's are, within 1e-4 of their
+    magnitude amp off and 2^-5 amp on, a few bf16 steps through two
+    layers of bf16 products summed in other orders)."""
+    flags = (None, "bfloat16", None)
+    before, ref_runs = _reference_forward_runs(flags)
+    model = port_tf.TransformerLM(max_len=T, device="cpu", **NET)
+    port_io.params_from_jax(before, model=model)
+    toks, lbls = (torch.from_numpy(a) for a in _feeds())
+    got = []
+    try:
+        for amp in flags:
+            port_config.set_flags(amp=amp)
+            with torch.no_grad():
+                loss, logits = model(toks, lbls)
+            got.append((float(loss), logits))
+    finally:
+        port_config.set_flags(amp=None)
+    for amp, (ref_loss, ref_logits, ref_dtype), (loss, logits) in zip(
+            flags, ref_runs, got):
+        assert ref_dtype == ("bfloat16" if amp else "float32")
+        assert logits.dtype == (torch.bfloat16 if amp else torch.float32)
+        np.testing.assert_allclose(loss, ref_loss,
+                                   rtol=1e-2 if amp else 1e-5)
+        tol = (2.0 ** -5 if amp else 1e-4) * np.abs(ref_logits).max()
+        assert np.abs(logits.float().numpy() - ref_logits).max() <= tol
+    # off, on, off: the two runs without amp agree exactly, the amp run
+    # differs from them
+    assert got[0][0] == got[2][0]
+    assert torch.equal(got[0][1], got[2][1])
+    assert not torch.equal(got[0][1], got[1][1].float())

@@ -395,3 +395,62 @@ def test_scope_names_match_reference_program(depth, fused, cifar):
 def test_recompute_is_not_ported():
     with pytest.raises(NotImplementedError, match="Queue A item 9"):
         port_resnet.resnet_imagenet(50, recompute=True, device="cpu")
+
+
+def test_resnet_cifar8_amp_two_momentum_steps():
+    """ResNet-8 for CIFAR, unfused, two Momentum steps under amp bf16
+    against the reference's program run under the flag: its ``conv2d``
+    and the fc's ``mul`` are WHITE ops (bfloat16 products), batch norm
+    takes its moments in f32, the loss is f32. Losses to 1e-2 relative
+    and every parameter within 2 lr a step (the LM's amp tolerances:
+    bf16 products summed in other orders); the port's model reads the
+    flag at each forward, so it is built with the flag off."""
+    rs = np.random.RandomState(4)
+    feeds = (rs.randn(4, 3, 8, 8).astype("float32"),
+             rs.randint(0, 10, (4, 1)).astype("int64"))
+    lr, steps = 0.01, 2
+
+    def build(img, label):
+        return ref_resnet.resnet_cifar10(img, label, depth=8)[0]
+
+    ptpu.config.set_flags(amp="bfloat16")
+    try:
+        before, want, after = _run_reference(
+            build, feeds, False, ptpu.optimizer.Momentum(lr, 0.9), steps)
+    finally:
+        ptpu.config.set_flags(amp=None)
+    model = _port_build(port_resnet.resnet_cifar10, 8, fused=False,
+                        device="cpu")
+    opt = port_opt.Momentum(model.reference_parameters(), 0.5, 0.9)
+    port_io.params_from_jax(before, model=model, optimizer=opt)
+    img, label = (torch.from_numpy(a) for a in feeds)
+    stem_dtypes = []
+    model.stem.register_forward_hook(
+        lambda mod, args, out: stem_dtypes.append(out.dtype))
+    port_config.set_flags(amp="bfloat16")
+    try:
+        got, logits_dtypes = [], []
+        for _ in range(steps):
+            loss, _, logits = model(img, label)
+            logits_dtypes.append(logits.dtype)
+            opt.zero_grad()
+            loss.backward()
+            opt.step()
+            got.append(float(loss.detach()))
+            assert loss.dtype == torch.float32
+    finally:
+        port_config.set_flags(amp=None)
+    np.testing.assert_allclose(got, want, rtol=1e-2)
+    # the convolutions ran in bf16 (the stem's conv, then its batch norm
+    # in the dtype that flows in); the fc's bf16 product plus its f32
+    # bias is f32, as jnp.add gives
+    assert stem_dtypes == [torch.bfloat16] * steps
+    assert logits_dtypes == [torch.float32] * steps
+    state = _port_state(model, opt)
+    for name in model.reference_parameters():
+        diff = np.abs(state[name] - after[name]).max()
+        assert diff <= 2 * lr * steps, (name, diff)
+    # with the flag off again the same model computes f32 convolutions
+    with torch.no_grad():
+        model.logits(img)
+    assert stem_dtypes[-1] == torch.float32
