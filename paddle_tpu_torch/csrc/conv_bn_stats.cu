@@ -6,184 +6,252 @@
 // `_pallas_1x1` (`_conv1x1_bn_kernel`): y = conv2d(x, w) for a 1x1,
 // stride-1, unpadded, ungrouped filter, plus the per-output-channel
 // sums of y and of y * y in the same pass. The TPU kernel transposes x
-// to rows [N*H*W, C] and carries the sums across its sequential grid;
-// here x is read in its native NCHW layout, Y[n] = W[O, C] . X[n][C, P]
-// with P = H * W, so no transpose is needed, and the sums are per-CTA
-// partials added by a second launch.
+// to rows [N*H*W, C] and carries the sums across its sequential grid.
+// Here x stays NCHW: Y[O, R] = W[O, C] . X[C, R] over the R = N * P
+// pixels of all images (P = H * W), the pixel axis flattened across
+// images as the reference's rows are; column j of X is
+// x[(j / P) C P + c P + j % P], and y is written back NCHW. The sums are
+// per-CTA partials added by a last launch.
+//
+// What bounds it on the H100: f32 operations (2 R C O; 0.39 ms at
+// 67 TFLOP/s for most ResNet-50 shapes), except C = O = 64, which is
+// bound by its bytes. TF32 stays off (the port's precision rule), so
+// this is an SIMT SGEMM with a reduction epilogue. Its design:
+//
+// * One C entry, three launches: W [O, C] is transposed once into a
+//   zero-padded scratch Wt [C_pad, O_pad] (O contiguous, so a float4
+//   read gives four output channels); the GEMM; the finish.
+// * The GEMM's CTA computes a BM (channels) x BN (pixels) tile with
+//   BM * BN / 64 threads, each an 8 x 8 register tile (rows 4 ty..+3 and
+//   BM / 2 + 4 ty..+3, columns alike), so every k step reads four float4
+//   from shared memory for 64 FMAs. The tile is chosen per shape in
+//   Python (ops/conv_bn.py `_plan`), from kTiles.
+// * A ring of kStages shared-memory stages, each kBK deep, filled by
+//   cp.async: Wt rows in 16-byte copies; X rows in 16-byte copies when
+//   P % 4 == 0 (a 4-aligned run of pixels never crosses an image), else
+//   in 4-byte copies. Pixels past R and channels past C are zero-filled.
+//   One barrier per k step.
+// * Epilogue: y as float4 stores (4-byte when P % 4 != 0); each row's
+//   sums of y and y * y over the tile's pixels (registers, then a
+//   shuffle tree across the row's threads) into a [pixel tiles, O]
+//   partial buffer, no atomics. Zero-filled pixels add exact zeros. The
+//   finish adds each channel's partials in a fixed order in double, so
+//   two runs give the same bits.
 //
 // The T1 instantiation (tools/fused_conv_bn_probe.py `fused_conv1x1_bn`)
-// takes rows x [R, C] and w [C, O] in bf16 and computes
+// keeps B1's first design: rows x [R, C] and w [C, O] in bf16,
 // y = relu(x * a + b) @ w with the prologue applied as the x tile is
-// loaded; the same GEMM with other strides, chosen at compile time.
-//
-// Design. One CTA of 256 threads per 64 (output channels) x 64 (pixels)
-// tile of one image; grid (pixel tiles, channel tiles, images). The
-// CTA walks C in steps of 16: the next step's W and X elements are
-// loaded into registers (masked to 0 past every edge) while the current
-// step's tiles, in shared memory as f32, feed a 4 x 4 register tile of
-// f32 FMAs per thread (SIMT: TF32 stays off, the port's f32 precision
-// rule). The epilogue stores y and reduces the tile's y and y * y over
-// its 64 pixels per channel (in registers, then across 16 lanes with
-// shuffles) into a [tiles, O] partial buffer; masked pixels hold exact
-// zeros and add nothing. A second launch adds each channel's partials
-// in a fixed order, in double: no atomics, so two runs give the same
-// bits.
-//
-// What bounds it on the H100: at ResNet-50's shapes f32 operations
-// (2 R C O for R = N * P rows, 0.39 ms at 67 TFLOP/s for most shapes)
-// except C = O = 64, which is bound by its bytes. This first version
-// uses neither the tensor cores (TF32 would break the precision rule)
-// nor cp.async/TMA; a 4 x 4 tile per thread reaches a fraction of the
-// f32 peak, which the chip run measures.
+// loaded, 64 x 64 tiles staged through registers.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <cstdint>
 
 namespace {
 
-constexpr int kBM = 64;        // output channels per CTA
-constexpr int kBN = 64;        // pixels (or rows) per CTA
-constexpr int kBK = 16;        // input channels per step
-constexpr int kPad = 4;        // floats of padding per shared row
-constexpr int kThreads = 256;  // 16 x 16 threads, 4 x 4 outputs each
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);   // round to nearest even
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// NCHW: A(o, c) = w[o * C + c], B(c, p) = x[img][c * P + p],
-//       Y(o, p) = y[img][o * P + p]                      (kernel B1)
-// rows: A(o, c) = w[c * O + o], B(c, p) = x[p * C + c],
-//       Y(o, p) = y[p * O + o], one image                 (probe T1)
-template <typename T, bool NCHW, bool PROLOGUE>
-__global__ void __launch_bounds__(kThreads)
-conv1x1_stats_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                     const T* __restrict__ pa, const T* __restrict__ pb,
-                     T* __restrict__ y, float* __restrict__ part_s,
-                     float* __restrict__ part_ss, int C, int P, int O) {
-  __shared__ __align__(16) float As[kBK][kBM + kPad];
-  __shared__ __align__(16) float Bs[kBK][kBN + kPad];
+// 16 (or 4) bytes from global to shared memory, asynchronously; with
+// `ok` false nothing is read and the destination is zero-filled.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
 
-  const int t = threadIdx.x;
-  const int tx = t & 15, ty = t >> 4;
-  const int p0 = blockIdx.x * kBN, o0 = blockIdx.y * kBM;
-  const size_t img = blockIdx.z;
-  const T* xi = x + img * static_cast<size_t>(C) * P;
-  T* yi = y + img * static_cast<size_t>(O) * P;
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
 
-  // Which element of the 64 x 16 tiles each thread loads: consecutive
-  // threads walk the contiguous axis of each operand.
-  //   NCHW: A contiguous in c (o = t / 4, c = 4 (t % 4) + i),
-  //         B contiguous in p (c = t / 16, p = 4 (t % 16) + i);
-  //   rows: A contiguous in o (c = t / 16, o = 4 (t % 16) + i),
-  //         B contiguous in c (p = t / 4, c = 4 (t % 4) + i).
-  const int a_o = NCHW ? (t >> 2) : 4 * (t & 15);
-  const int a_c = NCHW ? 4 * (t & 3) : (t >> 4);
-  const int b_c = NCHW ? (t >> 4) : 4 * (t & 3);
-  const int b_p = NCHW ? 4 * (t & 15) : (t >> 2);
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
 
-  float ra[4], rb[4];
-  auto load = [&](int k0) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int o = o0 + a_o + (NCHW ? 0 : i);
-      const int c = k0 + a_c + (NCHW ? i : 0);
-      float v = 0.f;
-      if (o < O && c < C)
-        v = to_f32(NCHW ? w[static_cast<size_t>(o) * C + c]
-                        : w[static_cast<size_t>(c) * O + o]);
-      ra[i] = v;
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int c = k0 + b_c + (NCHW ? 0 : i);
-      const int p = p0 + b_p + (NCHW ? i : 0);
-      float v = 0.f;
-      if (c < C && p < P) {
-        v = to_f32(NCHW ? xi[static_cast<size_t>(c) * P + p]
-                        : xi[static_cast<size_t>(p) * C + c]);
-        if constexpr (PROLOGUE) {
-          // relu(x * a + b) in f32, one rounding per operation, then
-          // rounded to T as the probe's activations are
-          v = fmaxf(__fadd_rn(__fmul_rn(v, to_f32(pa[c])), to_f32(pb[c])),
-                    0.f);
-          v = to_f32(from_f32<T>(v));
-        }
-      }
-      rb[i] = v;
-    }
-  };
-  auto stash = [&]() {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      As[a_c + (NCHW ? i : 0)][a_o + (NCHW ? 0 : i)] = ra[i];
-      Bs[b_c + (NCHW ? 0 : i)][b_p + (NCHW ? i : 0)] = rb[i];
-    }
-  };
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
 
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+// ---------------------------------------------------------------- B1
 
-  load(0);
-  for (int k0 = 0; k0 < C; k0 += kBK) {
-    stash();
-    __syncthreads();
-    if (k0 + kBK < C) load(k0 + kBK);
+constexpr int kBK = 16;        // input channels per stage; C_pad multiple
+constexpr int kStages = 3;     // shared-memory ring depth
+constexpr int kOAlign = 128;   // O_pad multiple: every tile's BM divides it
+// tile id -> (BM output channels, BN pixels); ops/conv_bn.py B1_TILES
+constexpr int kTiles[][2] = {{64, 128}, {128, 64}};
+
+// Wt[c][o] = w[o][c] for c < C, o < O; 0 elsewhere in [C_pad, O_pad].
+// 32 x 32 tiles through shared memory, reads and writes coalesced.
+__global__ void __launch_bounds__(256)
+w_transpose_kernel(const float* __restrict__ w, float* __restrict__ wt,
+                   int C, int O, int C_pad, int O_pad) {
+  __shared__ float t[32][33];
+  const int o_b = blockIdx.x * 32, c_b = blockIdx.y * 32;
+  const int lx = threadIdx.x & 31, ly = threadIdx.x >> 5;
+  for (int i = ly; i < 32; i += 8) {
+    const int o = o_b + i, c = c_b + lx;
+    t[i][lx] = (o < O && c < C) ? w[static_cast<size_t>(o) * C + c] : 0.f;
+  }
+  __syncthreads();
+  for (int i = ly; i < 32; i += 8) {
+    const int c = c_b + i, o = o_b + lx;
+    if (c < C_pad) wt[static_cast<size_t>(c) * O_pad + o] = t[lx][i];
+  }
+}
+
+template <int BM, int BN, bool VEC>
+__global__ void __launch_bounds__(BM * BN / 64)
+conv1x1_f32_stats_kernel(const float* __restrict__ x,
+                         const float* __restrict__ wt, float* __restrict__ y,
+                         float* __restrict__ part_s,
+                         float* __restrict__ part_ss, int C, int P, int O,
+                         int C_pad, int O_pad, long long R, int o_tiles) {
+  constexpr int TX = BN / 8, TY = BM / 8, NT = TX * TY;
+  constexpr int A_ROW4 = BM / 4, B_ROW4 = BN / 4;   // float4s per k row
+  constexpr int A_KSTEP = NT / A_ROW4, B_KSTEP = NT / B_ROW4;
+  static_assert(NT % A_ROW4 == 0 && NT % B_ROW4 == 0, "tile split");
+  static_assert(kBK % A_KSTEP == 0 && kBK % B_KSTEP == 0, "stage split");
+  static_assert(32 % TX == 0, "a row's threads share a warp");
+
+  extern __shared__ __align__(16) float smem[];
+  float* As = smem;                          // [kStages][kBK][BM]
+  float* Bs = smem + kStages * kBK * BM;     // [kStages][kBK][BN]
+
+  const int tid = threadIdx.x, tx = tid % TX, ty = tid / TX;
+  const int ot = blockIdx.x % o_tiles;
+  const long long pt = blockIdx.x / o_tiles;
+  const int o0 = ot * BM;
+  const long long j0 = pt * BN;
+  const long long CP = static_cast<long long>(C) * P;
+
+  // the loads: this thread's float4 slot of each k row it stages
+  const int a_m = 4 * (tid % A_ROW4), a_k = tid / A_ROW4;
+  const int b_n = 4 * (tid % B_ROW4), b_k = tid / B_ROW4;
+  // offset of x[img][0][p] for this thread's pixel column(s), -1 past R;
+  // the 4-aligned run of VEC lies in one image
+  long long xcol[VEC ? 1 : 4];
 #pragma unroll
-    for (int k = 0; k < kBK; ++k) {
-      const float4 a4 = *reinterpret_cast<const float4*>(&As[k][4 * ty]);
-      const float4 b4 = *reinterpret_cast<const float4*>(&Bs[k][4 * tx]);
-      const float a[4] = {a4.x, a4.y, a4.z, a4.w};
-      const float b[4] = {b4.x, b4.y, b4.z, b4.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
+  for (int q = 0; q < (VEC ? 1 : 4); ++q) {
+    const long long j = j0 + b_n + q;
+    xcol[q] = j < R ? (j / P) * CP + j % P : -1;
   }
 
-  // epilogue: store y, then this tile's per-channel sums of y and y * y
-  const size_t tile = img * gridDim.x + blockIdx.x;
+  auto load_stage = [&](int stage, int k0) {
+    float* as = As + stage * kBK * BM;
+    float* bs = Bs + stage * kBK * BN;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int o = o0 + 4 * ty + i;
+    for (int i = 0; i < kBK / A_KSTEP; ++i) {
+      const int k = a_k + i * A_KSTEP;
+      cp_async16(as + k * BM + a_m,
+                 wt + static_cast<size_t>(k0 + k) * O_pad + o0 + a_m, true);
+    }
+#pragma unroll
+    for (int i = 0; i < kBK / B_KSTEP; ++i) {
+      const int k = b_k + i * B_KSTEP, c = k0 + k;
+      const long long coff = static_cast<long long>(c) * P;
+#pragma unroll
+      for (int q = 0; q < (VEC ? 1 : 4); ++q) {
+        const bool ok = c < C && xcol[q] >= 0;
+        const float* src = ok ? x + xcol[q] + coff : x;
+        if constexpr (VEC)
+          cp_async16(bs + k * BN + b_n, src, ok);
+        else
+          cp_async4(bs + k * BN + b_n + q, src, ok);
+      }
+    }
+  };
+
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+  const int KT = C_pad / kBK;
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < KT) load_stage(s, s * kBK);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < KT; ++kt) {
+    cp_async_wait<kStages - 2>();   // stage kt has landed
+    __syncthreads();                // and stage kt - 1 is free again
+    const int nk = kt + kStages - 1;
+    if (nk < KT) load_stage(nk % kStages, nk * kBK);
+    cp_async_commit();
+    const float* as = As + (kt % kStages) * kBK * BM;
+    const float* bs = Bs + (kt % kStages) * kBK * BN;
+#pragma unroll
+    for (int k = 0; k < kBK; ++k) {
+      const float4 a0 = *reinterpret_cast<const float4*>(as + k * BM + 4 * ty);
+      const float4 a1 =
+          *reinterpret_cast<const float4*>(as + k * BM + BM / 2 + 4 * ty);
+      const float4 b0 = *reinterpret_cast<const float4*>(bs + k * BN + 4 * tx);
+      const float4 b1 =
+          *reinterpret_cast<const float4*>(bs + k * BN + BN / 2 + 4 * tx);
+      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+  }
+  cp_async_wait<0>();
+
+  // epilogue: y, then each row's sums over this tile's pixels
+  const long long OP = static_cast<long long>(O) * P;
+  long long ycol[VEC ? 2 : 8];    // offset of y[img][0][p], -1 past R
+#pragma unroll
+  for (int q = 0; q < (VEC ? 2 : 8); ++q) {
+    const int jl = VEC ? (q ? BN / 2 : 0) + 4 * tx
+                       : (q < 4 ? 0 : BN / 2 - 4) + 4 * tx + q;
+    const long long j = j0 + jl;
+    ycol[q] = j < R ? (j / P) * OP + j % P : -1;
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int o = o0 + (i < 4 ? 4 * ty + i : BM / 2 + 4 * ty + i - 4);
+    if (o < O) {
+      const size_t orow = static_cast<size_t>(o) * P;
+      if constexpr (VEC) {
+#pragma unroll
+        for (int q = 0; q < 2; ++q)
+          if (ycol[q] >= 0)
+            *reinterpret_cast<float4*>(y + ycol[q] + orow) =
+                make_float4(acc[i][4 * q], acc[i][4 * q + 1],
+                            acc[i][4 * q + 2], acc[i][4 * q + 3]);
+      } else {
+#pragma unroll
+        for (int q = 0; q < 8; ++q)
+          if (ycol[q] >= 0) y[ycol[q] + orow] = acc[i][q];
+      }
+    }
     float s = 0.f, ss = 0.f;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int p = p0 + 4 * tx + j;
-      if (o < O && p < P)
-        yi[NCHW ? static_cast<size_t>(o) * P + p
-                : static_cast<size_t>(p) * O + o] = from_f32<T>(acc[i][j]);
+    for (int j = 0; j < 8; ++j) {
       s += acc[i][j];
       ss = fmaf(acc[i][j], acc[i][j], ss);
     }
-    // lanes 0-15 of a warp share ty, as do lanes 16-31: xor 8, 4, 2, 1
-    // stays inside each half
+    // the row's TX threads are TX consecutive lanes of one warp
 #pragma unroll
-    for (int off = 8; off > 0; off >>= 1) {
+    for (int off = TX / 2; off > 0; off >>= 1) {
       s += __shfl_xor_sync(0xffffffffu, s, off);
       ss += __shfl_xor_sync(0xffffffffu, ss, off);
     }
     if (tx == 0 && o < O) {
-      part_s[tile * O + o] = s;
-      part_ss[tile * O + o] = ss;
+      part_s[pt * O + o] = s;
+      part_ss[pt * O + o] = ss;
     }
   }
 }
@@ -219,38 +287,196 @@ stats_finish_kernel(const float* __restrict__ part_s,
   }
 }
 
-template <typename T, bool NCHW, bool PROLOGUE>
-int launch(const T* x, const T* w, const T* pa, const T* pb, T* y,
-           float* part_s, float* part_ss, float* s, float* ss, int n, int c,
-           int p, int o, cudaStream_t stream) {
-  const dim3 grid((p + kBN - 1) / kBN, (o + kBM - 1) / kBM, n);
-  conv1x1_stats_kernel<T, NCHW, PROLOGUE><<<grid, kThreads, 0, stream>>>(
-      x, w, pa, pb, y, part_s, part_ss, c, p, o);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int tiles = n * static_cast<int>(grid.x);
-  stats_finish_kernel<<<(o + 31) / 32, 1024, 0, stream>>>(part_s, part_ss,
-                                                          s, ss, tiles, o);
-  return static_cast<int>(cudaGetLastError());
+template <int BM, int BN, bool VEC>
+cudaError_t launch_b1(const float* x, const float* wt, float* y,
+                      float* part_s, float* part_ss, int c, int p, int o,
+                      int c_pad, int o_pad, long long r, int p_tiles,
+                      cudaStream_t stream) {
+  constexpr size_t smem = sizeof(float) * kStages * kBK * (BM + BN);
+  auto kernel = conv1x1_f32_stats_kernel<BM, BN, VEC>;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (attr != cudaSuccess) return attr;
+  const int o_tiles = (o + BM - 1) / BM;
+  kernel<<<o_tiles * p_tiles, BM * BN / 64, smem, stream>>>(
+      x, wt, y, part_s, part_ss, c, p, o, c_pad, o_pad, r, o_tiles);
+  return cudaGetLastError();
+}
+
+// tile id TILE of kTiles
+template <int TILE>
+cudaError_t launch_tile(bool vec, const float* x, const float* wt, float* y,
+                      float* part_s, float* part_ss, int c, int p, int o,
+                      int c_pad, int o_pad, long long r, int p_tiles,
+                      cudaStream_t stream) {
+  constexpr int BM = kTiles[TILE][0], BN = kTiles[TILE][1];
+  static_assert(kOAlign % BM == 0, "O_pad must hold whole tiles");
+  return vec ? launch_b1<BM, BN, true>(x, wt, y, part_s, part_ss, c, p, o,
+                                       c_pad, o_pad, r, p_tiles, stream)
+             : launch_b1<BM, BN, false>(x, wt, y, part_s, part_ss, c, p, o,
+                                        c_pad, o_pad, r, p_tiles, stream);
+}
+
+// ---------------------------------------------------------------- T1
+
+constexpr int kT1BM = 64;        // output channels per CTA
+constexpr int kT1BN = 64;        // rows per CTA: one partial sum each
+constexpr int kT1BK = 16;        // input channels per step
+constexpr int kT1Pad = 4;        // floats of padding per shared row
+constexpr int kT1Threads = 256;  // 16 x 16 threads, 4 x 4 outputs each
+
+// A(o, c) = w[c * O + o], B(c, p) = x[p * C + c], Y(o, p) = y[p * O + o]:
+// y = relu(x * a + b) @ w in bf16 rows, f32 products and sums.
+__global__ void __launch_bounds__(kT1Threads)
+conv1x1_bn_relu_kernel(const __nv_bfloat16* __restrict__ x,
+                       const __nv_bfloat16* __restrict__ w,
+                       const __nv_bfloat16* __restrict__ pa,
+                       const __nv_bfloat16* __restrict__ pb,
+                       __nv_bfloat16* __restrict__ y,
+                       float* __restrict__ part_s,
+                       float* __restrict__ part_ss, int C, int P, int O) {
+  __shared__ __align__(16) float As[kT1BK][kT1BM + kT1Pad];
+  __shared__ __align__(16) float Bs[kT1BK][kT1BN + kT1Pad];
+
+  const int t = threadIdx.x;
+  const int tx = t & 15, ty = t >> 4;
+  const int p0 = blockIdx.x * kT1BN, o0 = blockIdx.y * kT1BM;
+
+  // Which element of the 64 x 16 tiles each thread loads: consecutive
+  // threads walk the contiguous axis of each operand, A contiguous in o
+  // (c = t / 16, o = 4 (t % 16) + i), B contiguous in c (p = t / 4,
+  // c = 4 (t % 4) + i).
+  const int a_o = 4 * (t & 15), a_c = t >> 4;
+  const int b_c = 4 * (t & 3), b_p = t >> 2;
+
+  float ra[4], rb[4];
+  auto load = [&](int k0) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int o = o0 + a_o + i, c = k0 + a_c;
+      ra[i] = (o < O && c < C)
+                  ? __bfloat162float(w[static_cast<size_t>(c) * O + o])
+                  : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int c = k0 + b_c + i, p = p0 + b_p;
+      float v = 0.f;
+      if (c < C && p < P) {
+        v = __bfloat162float(x[static_cast<size_t>(p) * C + c]);
+        // relu(x * a + b) in f32, one rounding per operation, then
+        // rounded to bf16 as the probe's activations are
+        v = fmaxf(__fadd_rn(__fmul_rn(v, __bfloat162float(pa[c])),
+                            __bfloat162float(pb[c])),
+                  0.f);
+        v = __bfloat162float(__float2bfloat16(v));
+      }
+      rb[i] = v;
+    }
+  };
+  auto stash = [&]() {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      As[a_c][a_o + i] = ra[i];
+      Bs[b_c + i][b_p] = rb[i];
+    }
+  };
+
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+
+  load(0);
+  for (int k0 = 0; k0 < C; k0 += kT1BK) {
+    stash();
+    __syncthreads();
+    if (k0 + kT1BK < C) load(k0 + kT1BK);
+#pragma unroll
+    for (int k = 0; k < kT1BK; ++k) {
+      const float4 a4 = *reinterpret_cast<const float4*>(&As[k][4 * ty]);
+      const float4 b4 = *reinterpret_cast<const float4*>(&Bs[k][4 * tx]);
+      const float a[4] = {a4.x, a4.y, a4.z, a4.w};
+      const float b[4] = {b4.x, b4.y, b4.z, b4.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+
+  // epilogue: store y, then this tile's per-channel sums of y and y * y
+  const size_t tile = blockIdx.x;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int o = o0 + 4 * ty + i;
+    float s = 0.f, ss = 0.f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int p = p0 + 4 * tx + j;
+      if (o < O && p < P)
+        y[static_cast<size_t>(p) * O + o] = __float2bfloat16(acc[i][j]);
+      s += acc[i][j];
+      ss = fmaf(acc[i][j], acc[i][j], ss);
+    }
+    // lanes 0-15 of a warp share ty, as do lanes 16-31: xor 8, 4, 2, 1
+    // stays inside each half
+#pragma unroll
+    for (int off = 8; off > 0; off >>= 1) {
+      s += __shfl_xor_sync(0xffffffffu, s, off);
+      ss += __shfl_xor_sync(0xffffffffu, ss, off);
+    }
+    if (tx == 0 && o < O) {
+      part_s[tile * O + o] = s;
+      part_ss[tile * O + o] = ss;
+    }
+  }
 }
 
 }  // namespace
 
 // Kernel B1. x f32 [n, c, p] (NCHW with p = H * W), w f32 [o, c] ->
-// y f32 [n, o, p], s and ss f32 [o]. part_s and part_ss are scratch of
-// n * ceil(p / 64) * o floats each. Returns a cudaError_t.
+// y f32 [n, o, p], s and ss f32 [o]. `tile` indexes kTiles (BM, BN).
+// Scratch, sized by ops/conv_bn.py `_plan`: wt holds C_pad * O_pad
+// floats (c rounded up to kBK, o to kOAlign); part_s and part_ss hold
+// ceil(n p / BN) * o floats each. Returns a cudaError_t.
 extern "C" int conv_bn_stats_f32(const float* x, const float* w, float* y,
-                                 float* part_s, float* part_ss, float* s,
-                                 float* ss, int n, int c, int p, int o,
-                                 void* stream) {
-  return launch<float, true, false>(x, w, nullptr, nullptr, y, part_s,
-                                    part_ss, s, ss, n, c, p, o,
-                                    static_cast<cudaStream_t>(stream));
+                                 float* wt, float* part_s, float* part_ss,
+                                 float* s, float* ss, int n, int c, int p,
+                                 int o, int tile, void* stream) {
+  constexpr int kNumTiles = sizeof(kTiles) / sizeof(kTiles[0]);
+  if (n <= 0 || c <= 0 || p <= 0 || o <= 0 || tile < 0 || tile >= kNumTiles)
+    return cudaErrorInvalidValue;
+  auto st = static_cast<cudaStream_t>(stream);
+  const int c_pad = (c + kBK - 1) / kBK * kBK;
+  const int o_pad = (o + kOAlign - 1) / kOAlign * kOAlign;
+  w_transpose_kernel<<<dim3(o_pad / 32, (c_pad + 31) / 32), 256, 0, st>>>(
+      w, wt, c, o, c_pad, o_pad);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long r = static_cast<long long>(n) * p;
+  const int bn = kTiles[tile][1];
+  const int p_tiles = static_cast<int>((r + bn - 1) / bn);
+  // 16-byte pixel runs stay in one image and aligned when P % 4 == 0
+  const bool vec = p % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(y) % 16 == 0;
+  static_assert(kNumTiles == 2, "one instantiation per tile");
+  err = tile == 0 ? launch_tile<0>(vec, x, wt, y, part_s, part_ss, c, p, o,
+                                   c_pad, o_pad, r, p_tiles, st)
+                  : launch_tile<1>(vec, x, wt, y, part_s, part_ss, c, p, o,
+                                   c_pad, o_pad, r, p_tiles, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  stats_finish_kernel<<<(o + 31) / 32, 1024, 0, st>>>(part_s, part_ss, s,
+                                                      ss, p_tiles, o);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // Probe T1. x bf16 [r, c] rows, a and b bf16 [c], w bf16 [c, o] ->
 // y = relu(x * a + b) @ w as bf16 [r, o], s and ss f32 [o] of the f32
-// products. part_s and part_ss hold ceil(r / 64) * o floats each.
+// products. part_s and part_ss hold ceil(r / kT1BN) * o floats each.
 extern "C" int conv1x1_bn_relu_bf16(const __nv_bfloat16* x,
                                     const __nv_bfloat16* a,
                                     const __nv_bfloat16* b,
@@ -258,7 +484,13 @@ extern "C" int conv1x1_bn_relu_bf16(const __nv_bfloat16* x,
                                     float* part_s, float* part_ss, float* s,
                                     float* ss, int r, int c, int o,
                                     void* stream) {
-  return launch<__nv_bfloat16, false, true>(
-      x, w, a, b, y, part_s, part_ss, s, ss, 1, c, r, o,
-      static_cast<cudaStream_t>(stream));
+  auto st = static_cast<cudaStream_t>(stream);
+  const dim3 grid((r + kT1BN - 1) / kT1BN, (o + kT1BM - 1) / kT1BM);
+  conv1x1_bn_relu_kernel<<<grid, kT1Threads, 0, st>>>(x, w, a, b, y, part_s,
+                                                      part_ss, c, r, o);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  stats_finish_kernel<<<(o + 31) / 32, 1024, 0, st>>>(
+      part_s, part_ss, s, ss, static_cast<int>(grid.x), o);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -41,9 +41,11 @@ ENTRY_POINTS = {
     "decode_attention_paged_bf16": ("decode_attention_paged",
                                     (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                      _I, _I, _P)),
-    "int8_matmul": ("int8_matmul", (_P, _P, _P, _P, _I, _I, _I, _P)),
+    "int8_matmul": ("int8_matmul", (_P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                    _P)),
     "conv_bn_stats_f32": ("conv_bn_stats",
-                          (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P)),
+                          (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                           _I, _P)),
     "conv1x1_bn_relu_bf16": ("conv_bn_stats",
                              (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                               _P)),

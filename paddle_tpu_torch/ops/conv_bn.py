@@ -25,6 +25,8 @@ probe T1 (``tools/fused_conv_bn_probe.py``): bf16 rows with the
 prologue ``relu(x * a + b)``; it is not on a training path.
 """
 
+import collections
+
 import torch
 
 from . import _build
@@ -35,7 +37,39 @@ __all__ = ["conv_bn_stats_plain", "conv_bn_stats_1x1", "fusable",
            "ConvBnStats", "conv_bn_stats", "conv2d_bn",
            "conv1x1_bn_relu_plain", "conv1x1_bn_relu"]
 
-TILE = 64   # pixels per CTA of kernel B1: one partial sum per tile
+# kernel B1's tiles, (output channels, pixels) per CTA, by the id its C
+# entry takes (``kTiles`` in csrc/conv_bn_stats.cu): the two ``_plan``
+# picks; C is padded to a multiple of B1_BK and O to one of B1_O_ALIGN in
+# its transposed weight
+B1_TILES = ((64, 128), (128, 64))
+B1_BK, B1_O_ALIGN = 16, 128
+# rows per CTA of the probe T1's instantiation: one partial sum each
+T1_TILE = 64
+
+Plan = collections.namedtuple("Plan", "tile bm bn ctas p_tiles c_pad o_pad")
+
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+def _plan(n, c, p, o, tile=None, tiles=B1_TILES):
+    """Kernel B1's launch for x [n, c, p] and w [o, c]: the tile id, its
+    (bm, bn), the CTAs of the grid, the pixel tiles (one partial sum of
+    each channel apiece), and the padded [c_pad, o_pad] of the
+    transposed weight. O <= 64 takes 64 x 128, a whole channel tile;
+    wider O 128 x 64, the fastest of the three tiles swept or within
+    1.5% of it at each such shape of ResNet-50 (``python3 -m
+    paddle_tpu_torch.probes.conv_bn b1``; PERF.md). ``tile`` forces a
+    tile id of ``tiles``, the table of the build launched (the probe's
+    sweep builds edited tables)."""
+    r = n * p
+    if tile is None:
+        tile = 0 if o <= 64 else 1
+    bm, bn = tiles[tile]
+    p_tiles = _cdiv(r, bn)
+    return Plan(tile, bm, bn, p_tiles * _cdiv(o, bm), p_tiles,
+                _cdiv(c, B1_BK) * B1_BK, _cdiv(o, B1_O_ALIGN) * B1_O_ALIGN)
 
 
 def _channel_view(v):
@@ -77,23 +111,41 @@ def conv_bn_stats_1x1(x, w):
     o, p = w.shape[0], h * wd
     _require(n >= 1 and c >= 1 and o >= 1 and p >= 1, "empty conv %s %s",
              tuple(x.shape), tuple(w.shape))
-    _require(n <= 65535 and o <= 64 * 65535, "grid too large: N %d, O %d",
-             n, o)
-    x, w = x.contiguous(), w.contiguous()
-    y = torch.empty((n, o, h, wd), dtype=torch.float32, device=x.device)
-    tiles = n * -(-p // TILE)
-    part = torch.empty((2, tiles, o), dtype=torch.float32, device=x.device)
-    sums = torch.empty((2, o), dtype=torch.float32, device=x.device)
-    fn = _build.entry("conv_bn_stats_f32")
-    err = fn(x.data_ptr(), w.data_ptr(), y.data_ptr(), part[0].data_ptr(),
-             part[1].data_ptr(), sums[0].data_ptr(), sums[1].data_ptr(),
-             n, c, p, o, _build.stream(x.device))
-    _build.check(err, "conv_bn_stats_f32")
+    y, s, ss = _launch(x.contiguous(), w.contiguous(), _plan(n, c, p, o))
     conv_bn_stats_1x1.launches += 1
-    return y, sums[0], sums[1]
+    return y, s, ss
 
 
 conv_bn_stats_1x1.launches = 0
+
+
+def _scratch(x, o, plan):
+    """B1's scratch for ``plan`` on x's device: the transposed weight
+    [c_pad, o_pad] and the partial sums of y and y * y [2, p_tiles, o]."""
+    return (torch.empty((plan.c_pad, plan.o_pad), dtype=torch.float32,
+                        device=x.device),
+            torch.empty((2, plan.p_tiles, o), dtype=torch.float32,
+                        device=x.device))
+
+
+def _launch(x, w, plan, scratch=None, fn=None):
+    """One launch of B1's C entry on contiguous CUDA x and w by ``plan``,
+    on ``scratch`` (as :func:`_scratch` makes it; default: allocated
+    here) through the ctypes entry ``fn`` (default: the build of the
+    source as it is); not counted."""
+    n, c, h, wd = x.shape
+    o, p = w.shape[0], h * wd
+    _require(plan.ctas < 2 ** 31, "grid too large: %d CTAs", plan.ctas)
+    y = torch.empty((n, o, h, wd), dtype=torch.float32, device=x.device)
+    wt, part = _scratch(x, o, plan) if scratch is None else scratch
+    sums = torch.empty((2, o), dtype=torch.float32, device=x.device)
+    fn = fn or _build.entry("conv_bn_stats_f32")
+    err = fn(x.data_ptr(), w.data_ptr(), y.data_ptr(), wt.data_ptr(),
+             part[0].data_ptr(), part[1].data_ptr(), sums[0].data_ptr(),
+             sums[1].data_ptr(), n, c, p, o, plan.tile,
+             _build.stream(x.device))
+    _build.check(err, "conv_bn_stats_f32")
+    return y, sums[0], sums[1]
 
 
 class ConvBnStats(torch.autograd.Function):
@@ -191,7 +243,7 @@ def conv1x1_bn_relu(x, a, b, w):
              (r, c, o))
     x, a, b, w = (t.contiguous() for t in (x, a, b, w))
     y = torch.empty((r, o), dtype=torch.bfloat16, device=x.device)
-    part = torch.empty((2, -(-r // TILE), o), dtype=torch.float32,
+    part = torch.empty((2, _cdiv(r, T1_TILE), o), dtype=torch.float32,
                        device=x.device)
     sums = torch.empty((2, o), dtype=torch.float32, device=x.device)
     fn = _build.entry("conv1x1_bn_relu_bf16")

@@ -23,11 +23,14 @@ the last bit.)
 
 :func:`quant_matmul_2d` replaces the Pallas kernel
 ``paddle_tpu/ops/quant_ops.py::_pallas_int8_matmul``. Kernel:
-``csrc/int8_matmul.cu``, int8 tensor-core MMAs with the row quantize
-fused in. On CPU tensors it computes the plain version; on CUDA tensors
-it launches the kernel or raises, and counts launches in
-``quant_matmul_2d.launches``.
+``csrc/int8_matmul.cu``, int8 tensor-core MMAs: at decode (m <= 16)
+with the row quantize fused in; at prefill a quantize pass into an int8
+scratch, then a tiled GEMM, the tile chosen by :func:`_plan`. On CPU
+tensors it computes the plain version; on CUDA tensors it launches the
+kernel or raises, and counts launches in ``quant_matmul_2d.launches``.
 """
+
+import collections
 
 import torch
 
@@ -44,6 +47,46 @@ INV_127 = float(torch.tensor(1.0, dtype=torch.float32) / 127.0)
 # the per-output-channel f32 scales of an armed weight ``name`` travel
 # as ``name + SCALE_SUFFIX`` (the reference's scope sidecar name)
 SCALE_SUFFIX = "@quant.scale"
+
+
+# kernel B3's prefill tiles (BM, BN) by the id its C entry takes
+# (``kPrefillTiles`` in csrc/int8_matmul.cu): the two ``_plan`` picks; its
+# k is padded to a multiple of PREFILL_BK bytes; m up to DECODE_MAX_M
+# takes the decode path
+PREFILL_TILES = ((64, 128), (32, 64))
+PREFILL_BK = 128
+DECODE_MAX_M = 16
+# the prefill plan takes 64 x 128 where its grid has PREFILL_MIN_CTAS
+# CTAs (about one on each of the H100's 132 SMs), else 32 x 64: the
+# fastest of the five tiles swept at each prefill shape of the path
+# (``python3 -m paddle_tpu_torch.probes.int8 tiles``; PERF.md)
+PREFILL_MIN_CTAS = 128
+
+Plan = collections.namedtuple("Plan", "tile bm bn grid m_pad k_pad "
+                                      "scratch_bytes")
+
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+def _plan(m, k, n, tile=None, tiles=PREFILL_TILES):
+    """Kernel B3's launch for x [m, k] and w [k, n]: the path (tile -1:
+    decode, its 16 x 32 CTAs covering the output; else a prefill tile
+    id, see PREFILL_MIN_CTAS), the tile's (bm, bn), its (n, m) grid, and
+    the prefill scratch: int8 x [m_pad, k_pad] (m up to whole tiles, k
+    to PREFILL_BK) followed by m_pad f32 scales. ``tile`` forces a
+    prefill tile id of ``tiles``, the table of the build launched (the
+    probe's sweep builds edited tables)."""
+    if tile is None and m <= DECODE_MAX_M:
+        return Plan(-1, 16, 32, (_cdiv(n, 32), _cdiv(m, 16)), m, k, 0)
+    if tile is None:
+        tile = 0 if _cdiv(m, 64) * _cdiv(n, 128) >= PREFILL_MIN_CTAS else 1
+    bm, bn = tiles[tile]
+    m_pad = _cdiv(m, bm) * bm
+    k_pad = _cdiv(k, PREFILL_BK) * PREFILL_BK
+    return Plan(tile, bm, bn, (_cdiv(n, bn), m_pad // bm), m_pad, k_pad,
+                m_pad * k_pad + 4 * m_pad)
 
 
 def scale_var_name(name):
@@ -102,14 +145,26 @@ def quant_matmul_2d(x2, wq, w_scale):
              and not (x2.data_ptr() | wq.data_ptr() | w_scale.data_ptr())
              % 16, "x2, wq and w_scale must be contiguous and 16-byte "
              "aligned")
-    out = torch.empty((m, n), dtype=torch.float32, device=x2.device)
-    fn = _build.entry("int8_matmul")
-    stream = _build.stream(x2.device)
-    err = fn(x2.data_ptr(), wq.data_ptr(), w_scale.data_ptr(), out.data_ptr(),
-             m, k, n, stream)
-    _build.check(err, "int8_matmul")
+    out = _launch(x2, wq, w_scale, _plan(m, k, n))
     quant_matmul_2d.launches += 1
     return out
 
 
 quant_matmul_2d.launches = 0
+
+
+def _launch(x2, wq, w_scale, plan):
+    """One launch of B3's C entry by ``plan`` on checked CUDA inputs,
+    its scratch allocated here; not counted."""
+    m, k = x2.shape
+    n = wq.shape[1]
+    out = torch.empty((m, n), dtype=torch.float32, device=x2.device)
+    scratch = torch.empty(plan.scratch_bytes, dtype=torch.uint8,
+                          device=x2.device) if plan.scratch_bytes else None
+    fn = _build.entry("int8_matmul")
+    stream = _build.stream(x2.device)
+    err = fn(x2.data_ptr(), wq.data_ptr(), w_scale.data_ptr(), out.data_ptr(),
+             None if scratch is None else scratch.data_ptr(), m, k, n,
+             plan.tile, stream)
+    _build.check(err, "int8_matmul")
+    return out

@@ -39,7 +39,7 @@ from ..models.transformer import TransformerLM
 from ..ops import _build
 from ..ops import flash_attention as fa
 from ..place import resolve_device
-from .int8 import device_ms
+from .common import device_ms
 
 FLAGSHIP = dict(vocab_size=32768, d_model=2048, num_heads=16, d_ff=8192,
                 num_layers=12)

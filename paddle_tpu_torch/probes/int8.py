@@ -1,7 +1,7 @@
 """Kernel B3 (``csrc/int8_matmul.cu``) on the card: its design variants,
-and the host time of one launch.
+its prefill tiles, and the host time of one launch.
 
-    python3 -m paddle_tpu_torch.probes.int8 [variants] [host]
+    python3 -m paddle_tpu_torch.probes.int8 [variants] [tiles] [host]
 
 ``variants`` builds the kernel's source and edited copies of it, each
 with one decision undone or changed, and times every build at the path's
@@ -19,16 +19,22 @@ output elements that differ from the plain version:
 * ``decode-64-columns``: decode CTAs of 64 columns and 4 k groups
   instead of 32 columns and 8.
 
+``tiles`` runs each prefill tile of the source
+(``quant_ops.PREFILL_TILES``) and each of ``TILES``, built in edited
+copies of it, at each prefill shape of the path (m 128 and 512), and
+times each between CUDA events over queued calls and by the profiler
+(``probes.common``), beside the tile ``quant_ops._plan`` picks, with the
+count of output elements that differ from the plain version.
+
 ``host`` times the host side of the pieces of one B3 launch, and the f32
-``torch.matmul`` that B3 replaces, on the path's decode shape.
+``torch.matmul`` that B3 replaces, on the path's decode shape, and of a
+prefill launch (its plan, its scratch, the C entry's two launches).
 
 Builds go to ``build/probe/`` inside the package. Needs one CUDA card
 and ``nvcc``.
 """
 
 import argparse
-import ctypes
-import os
 import subprocess
 import sys
 import time
@@ -37,10 +43,11 @@ import numpy as np
 import torch
 
 from ..ops import _build, nn_ops, quant_ops
+from .common import build_edited, cuda_ms, device_ms
 
 # (old, new) source edits per variant; each old text must be present
-_UNSKIP = ("(WK == 1 || row0 + r < m)\n" + " " * 31
-           + "? quant4(xa[i], s_scale[r]) : 0u", "quant4(xa[i], s_scale[r])")
+_UNSKIP = ("row0 + r < m ? quant4(xa[i], s_scale[r]) : 0u",
+           "quant4(xa[i], s_scale[r])")
 VARIANTS = {
     "current": (),
     "divide-all-rows": (_UNSKIP,),
@@ -53,6 +60,18 @@ VARIANTS = {
     "no-division": (("rintf(__fdiv_rn(v[i], scale))", "rintf(v[i] * scale)"),),
     "decode-64-columns": (("launch<1, 1, 8>(", "launch<1, 2, 4>("),),
 }
+# tiles the C entry does not instantiate, each built in place of its
+# tile 0 (64 x 128): name -> ((BM, BN), the warp layout WM, WN, MT, NTL)
+TILES = {"128x128": ((128, 128), "2, 4, 4, 4"),
+         "128x64": ((128, 64), "2, 2, 4, 4"),
+         "64x64": ((64, 64), "2, 2, 2, 4")}
+TILE_SWEEP = {"current": ()}
+TILE_SWEEP.update(
+    (name, (("kPrefillTiles[][2] = {{64, 128},",
+             "kPrefillTiles[][2] = {{%d, %d}," % tile),
+            ("launch_prefill<0, 2, 4, 2, 4>(",
+             "launch_prefill<0, %s>(" % warps)))
+    for name, (tile, warps) in TILES.items())
 # decode (m 8, each layer's four (2048, 2048) products, the FFN pair and
 # the LM head), the LM head at prefill (m 1) and one prefill FFN product
 SHAPES = ((8, 2048, 2048), (8, 2048, 8192), (8, 8192, 2048),
@@ -60,58 +79,26 @@ SHAPES = ((8, 2048, 2048), (8, 2048, 8192), (8, 8192, 2048),
 # B3 launches of one decode step per shape: 12 layers
 PER_STEP = {(8, 2048, 2048): 48, (8, 2048, 8192): 12, (8, 8192, 2048): 12,
             (8, 2048, 32768): 1}
+# the prefill products of the path: windows padded to the buckets
+PREFILL_SHAPES = tuple((m, k, n) for m in (128, 512)
+                       for k, n in ((2048, 2048), (2048, 8192),
+                                    (8192, 2048)))
 
 
-def device_ms(fn, iters=20):
-    """Mean summed device time of ``fn()``'s kernels, from
-    torch.profiler."""
-    from torch.profiler import ProfilerActivity, profile
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
-    if not us:
-        raise RuntimeError("the profiler saw no device time")
-    return us / iters / 1e3
+def launcher(fn, x, wq, ws, out, plan, name):
+    """A call of a ctypes ``int8_matmul`` by ``plan``, its scratch made
+    once here."""
+    m, k = x.shape
+    n = wq.shape[1]
+    scratch = torch.empty(max(plan.scratch_bytes, 1), dtype=torch.uint8,
+                          device=x.device)
+    st = _build.stream(x.device)
 
-
-def build_variants():
-    """{variant: ctypes int8_matmul} built in parallel from edited
-    copies of the source."""
-    with open(os.path.join(_build.CSRC, "int8_matmul.cu")) as f:
-        source = f.read()
-    out_dir = os.path.join(_build.BUILD, "probe")
-    os.makedirs(out_dir, exist_ok=True)
-    procs = {}
-    for name, edits in VARIANTS.items():
-        text = source
-        for old, new in edits:
-            if old not in text:
-                raise RuntimeError("variant %s: %r is not in the source"
-                                   % (name, old))
-            text = text.replace(old, new)
-        src = os.path.join(out_dir, name + ".cu")
-        with open(src, "w") as f:
-            f.write(text)
-        lib = os.path.join(out_dir, "lib%s.so" % name)
-        procs[name] = (lib, subprocess.Popen(
-            [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", lib, src],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    fns = {}
-    for name, (lib, proc) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode:
-            raise RuntimeError("nvcc failed for %s:\n%s" % (name, log))
-        fn = ctypes.CDLL(lib).int8_matmul
-        fn.argtypes = list(_build.ENTRY_POINTS["int8_matmul"][1])
-        fn.restype = ctypes.c_int
-        fns[name] = fn
-    return fns
+    def call():
+        _build.check(fn(x.data_ptr(), wq.data_ptr(), ws.data_ptr(),
+                        out.data_ptr(), scratch.data_ptr(), m, k, n,
+                        plan.tile, st), name)
+    return call
 
 
 def quantized(rng, k, n):
@@ -123,7 +110,7 @@ def quantized(rng, k, n):
 
 
 def probe_variants(rng):
-    fns = build_variants()
+    fns = build_edited("int8_matmul", "int8_matmul", VARIANTS)
     step = {name: 0.0 for name in fns}
     for m, k, n in SHAPES:
         x = torch.from_numpy(rng.standard_normal((m, k), dtype=np.float32))
@@ -133,12 +120,8 @@ def probe_variants(rng):
         parts = []
         for name, fn in fns.items():
             out = torch.empty((m, n), device="cuda")
-            st = _build.stream(x.device)
-
-            def call():
-                _build.check(fn(x.data_ptr(), wq.data_ptr(), ws.data_ptr(),
-                                out.data_ptr(), m, k, n, st), name)
-
+            call = launcher(fn, x, wq, ws, out, quant_ops._plan(m, k, n),
+                            name)
             call()
             torch.cuda.synchronize()
             ms = device_ms(call)
@@ -148,6 +131,35 @@ def probe_variants(rng):
         print("[variants] m=%d k=%d n=%d: %s" % (m, k, n, "; ".join(parts)))
     print("[variants] B3 device time of one decode step (73 products): %s"
           % "; ".join("%s %.3f ms" % kv for kv in step.items()))
+
+
+def probe_tiles(rng):
+    fns = build_edited("int8_matmul", "int8_matmul", TILE_SWEEP)
+    for m, k, n in PREFILL_SHAPES:
+        x = torch.from_numpy(rng.standard_normal((m, k), dtype=np.float32))
+        x = x.cuda()
+        wq, ws = quantized(rng, k, n)
+        want = quant_ops.int8_matmul_plain(x, wq, ws)
+        parts = []
+        runs = [(fns["current"], tile, quant_ops.PREFILL_TILES)
+                for tile in range(len(quant_ops.PREFILL_TILES))]
+        runs += [(fns[name], 0, (bm_bn,) + quant_ops.PREFILL_TILES[1:])
+                 for name, (bm_bn, _) in TILES.items()]
+        for fn, tile, tiles in runs:
+            plan = quant_ops._plan(m, k, n, tile=tile, tiles=tiles)
+            out = torch.empty((m, n), device="cuda")
+            call = launcher(fn, x, wq, ws, out, plan, "int8_matmul")
+            call()
+            torch.cuda.synchronize()
+            differ = int((out != want).sum())
+            parts.append("%dx%d (%d CTAs) events %.4f ms, profiler %.4f ms, "
+                         "%d differ" % (plan.bm, plan.bn,
+                                        plan.grid[0] * plan.grid[1],
+                                        cuda_ms(call), device_ms(call),
+                                        differ))
+        chosen = quant_ops._plan(m, k, n)
+        print("[tiles] m=%d k=%d n=%d (plan: %dx%d): %s"
+              % (m, k, n, chosen.bm, chosen.bn, "; ".join(parts)))
 
 
 def host_us(fn, n=2000):
@@ -174,6 +186,12 @@ def probe_host(rng):
     out = torch.empty((8, 2048), device="cuda")
     fn = _build.entry("int8_matmul")
     st = _build.stream(dev)
+    plan = quant_ops._plan(8, 2048, 2048)
+    xp = torch.from_numpy(rng.standard_normal((512, 2048),
+                                              dtype=np.float32)).cuda()
+    pre = quant_ops._plan(512, 2048, 2048)
+    outp = torch.empty((512, 2048), device="cuda")
+    scratch = torch.empty(pre.scratch_bytes, dtype=torch.uint8, device="cuda")
     cases = (
         ("torch.cuda.current_stream(dev).cuda_stream",
          lambda: torch.cuda.current_stream(dev).cuda_stream),
@@ -182,11 +200,23 @@ def probe_host(rng):
          lambda: torch.empty((8, 2048), dtype=torch.float32, device=dev)),
         ("ctypes call and launch alone", lambda: fn(
             x2.data_ptr(), wq.data_ptr(), ws.data_ptr(), out.data_ptr(),
-            8, 2048, 2048, st)),
+            None, 8, 2048, 2048, plan.tile, st)),
         ("quant_matmul_2d [8, 2048] x [2048, 2048]",
          lambda: quant_ops.quant_matmul_2d(x2, wq, ws)),
         ("nn_ops.mul int8 [8, 1, 2048]", lambda: nn_ops.mul(x, wq, ws)),
         ("torch.matmul f32 [8, 1, 2048]", lambda: torch.matmul(x, w32)),
+        ("quant_ops._plan(512, 2048, 2048)",
+         lambda: quant_ops._plan(512, 2048, 2048)),
+        ("torch.empty prefill scratch (%d bytes)" % pre.scratch_bytes,
+         lambda: torch.empty(pre.scratch_bytes, dtype=torch.uint8,
+                             device=dev)),
+        ("ctypes call, prefill [512, 2048] x [2048, 2048]", lambda: fn(
+            xp.data_ptr(), wq.data_ptr(), ws.data_ptr(), outp.data_ptr(),
+            scratch.data_ptr(), 512, 2048, 2048, pre.tile, st)),
+        ("quant_matmul_2d [512, 2048] x [2048, 2048]",
+         lambda: quant_ops.quant_matmul_2d(xp, wq, ws)),
+        ("torch.matmul f32 [512, 2048] x [2048, 2048]",
+         lambda: torch.matmul(xp, w32)),
     )
     for name, f in cases:
         print("[host] %-44s %7.2f us per call" % (name, host_us(f)))
@@ -194,8 +224,9 @@ def probe_host(rng):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("probes", nargs="*", choices=["variants", "host"],
-                    help="default: both")
+    ap.add_argument("probes", nargs="*",
+                    choices=["variants", "tiles", "host"],
+                    help="default: all three")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -207,8 +238,10 @@ def main(argv=None):
     print("[device] %s" % smi)
     rng = np.random.default_rng(args.seed)
     _build.build(["int8_matmul"])
-    for probe in args.probes or ["variants", "host"]:
-        {"variants": probe_variants, "host": probe_host}[probe](rng)
+    probes = {"variants": probe_variants, "tiles": probe_tiles,
+              "host": probe_host}
+    for probe in args.probes or list(probes):
+        probes[probe](rng)
     return 0
 
 
