@@ -13,54 +13,72 @@
 // fast math), so the output is bitwise equal to the plain version for
 // any m, k, n >= 1.
 //
-// What bounds it on the H100: at decode (m = 8) device-memory bytes, the
-// int8 weight read once (two int8 operations per weight byte); at
-// prefill (m = 128, 512) the bytes too (x f32, w int8, out f32), the
-// int8 tensor cores' 1,979 TOP/s being a fifth of that time or less.
-// Two paths, chosen per shape in Python (ops/quant_ops.py `_plan`):
+// What bounds it on the H100: device-memory bytes. At decode (m <= 16)
+// the int8 weight is read once, 2m int8 operations a byte, and the whole
+// of a product is 4-64 MB: at 3.35 TB/s and ~0.7 us of DRAM latency the
+// card needs ~2.3 MB of loads in flight, so the weight's loads must go
+// out all at once across every SM; below 16 MB a product's time is then
+// mostly the fixed cost of its launches and its chain of dependent steps
+// (PERF.md). At prefill (m = 128, 512) the bytes too (x f32, w int8, out
+// f32), the int8 tensor cores' 1,979 TOP/s being a fifth of that time or
+// less. Both paths start with one launch of quantize_rows_kernel, which
+// quantizes each row once (one CTA per row: the amax, then quant4 over
+// the row) into an int8 scratch [m_pad, k_pad] with zero rows past m and
+// zero columns past k, and its scales into an f32 scratch [m_pad].
+// ops/quant_ops.py `_plan` sizes both and picks the path, tile and split
+// count per shape.
 //
-// Decode (m <= 16; int8_matmul_kernel<1, 1, 8>). One CTA per 16 x 32
-// output tile whose 8 warps split k, which keeps 8 independent streams
-// of weight loads in flight per CTA; each warp runs m16n8k32 int8
-// tensor-core MMAs (mma.sync ... .s32.s8.s8.s32) into int32 registers,
-// and the warps' partial sums are added in shared memory, exact in any
-// order. A prologue computes the per-row amax of the CTA's rows from the
-// f32 rows; the x tile is quantized on its way into shared memory (rows
-// past m are stored as 0 without a division), and the w tile [BK, BN] is
-// stored transposed, [BN][BK], with a 4 x 4 byte transpose in registers,
-// because the MMA's column-major B operand wants 4 consecutive k of one
-// column in a 32-bit register. The next tile's global loads are issued
-// into registers before the current tile's MMAs run.
+// Decode (tile -1; int8_gemv_kernel<MR>): split-K. The weight is cut
+// into kDecodeBN-column tiles and each tile's k into `splits` chunks of
+// kc rows (a multiple of kDecodeStageK, at most kDecodeMaxKC), one CTA
+// per (column tile, chunk): 512-1024 CTAs at the path's shapes, where
+// one CTA per column tile gave 64 at n = 2048. A CTA's 4 warps each take
+// 64-row sub-stages of the chunk; a lane loads 4 k rows x 16 columns
+// with 16-byte streaming loads (2 lanes cover a row's 32 bytes),
+// kDecodeDepth sub-stages ahead in registers, so a CTA has up to 32 KB
+// in flight. The loads are issued before the kernel waits for the
+// quantize launch (griddepcontrol.wait: the C entry launches it as a
+// programmatic dependent, so it starts while the quantize pass runs).
+// Each lane transposes its 4 x 4 byte blocks in registers into its
+// warp's shared tile [32 columns][64 k], the MMA's column-major B operand
+// (4 k of one column a word; 20-word rows, the second 16 columns 16
+// words further, free of bank conflicts for the stores and the fragment
+// reads), and the warp runs m16n8k32 int8 tensor-core MMAs (mma.sync
+// ... .s32.s8.s8.s32) with x's quantized slice, copied once into shared
+// memory by cp.async, as A (rows past m are zero; at m <= 8 the upper 8
+// rows are skipped). The warps' int32 sums are added in shared memory.
+// A column tile's CTAs are one thread block cluster (kDecodeMaxSplits at
+// most, the portable size): each CTA but chunk 0's adds its sums into
+// chunk 0's through distributed shared memory, after the cluster's
+// first barrier (chunk 0's sums zeroed), then arrives at the second and
+// leaves; chunk 0's CTA waits at it and applies acc * x_scale * w_scale.
+// Integer sums are exact in any order, and no float is ever added
+// atomically: the output is bitwise the plain version's. No global
+// partials, fences or counters.
 //
-// Prefill (m > 16). Two launches from the one C entry:
-// * quantize_rows_kernel quantizes each row once (one CTA per row: the
-//   amax, then quant4 over the row) into an int8 scratch [m_pad, k_pad]
-//   with zero rows past m and zero columns past k, and its scales into
-//   an f32 scratch [m_pad]. Before, every column CTA re-read and
-//   re-divided its rows over all of k.
-// * int8_gemm_kernel<WM, WN, MT, NTL> computes a BM x BN tile (tiles
-//   from kPrefillTiles, by the id Python passes) with WM x WN warps, each
-//   MT m16 x NTL n8 MMA tiles. k goes in kPBK = 128-byte tiles through
-//   two shared-memory stages: the int8 x tile by 16-byte cp.async, the w
-//   tile through registers (4 k rows x 16 columns a thread, 16-byte
-//   loads) and the same exact 4 x 4 byte transpose into [BN][kPBK]; both
-//   operands reach the MMA fragments by ldmatrix (non-transposed: 8 rows
-//   of 16 bytes are an m16n8k32 fragment's k-contiguous bytes). Rows are
-//   128 bytes of 8 16-byte chunks, the chunk index XORed with
-//   (row ^ row >> 4) & 7, so ldmatrix's 8 rows and the transposed
-//   stores of a warp hit distinct banks. The next tile's copies and
-//   loads are in flight while the current tile's MMAs run; one barrier
-//   per k tile. The weight stays [k, n] in memory: no transposed copy.
+// Prefill (tile >= 0; int8_gemm_kernel<WM, WN, MT, NTL>) computes a
+// BM x BN tile (tiles from kPrefillTiles, by the id Python passes) with
+// WM x WN warps, each MT m16 x NTL n8 MMA tiles. k goes in kPBK = 128-byte
+// tiles through two shared-memory stages: the int8 x tile by 16-byte
+// cp.async, the w tile through registers (4 k rows x 16 columns a thread,
+// 16-byte loads) and the same exact 4 x 4 byte transpose into
+// [BN][kPBK]; both operands reach the MMA fragments by ldmatrix
+// (non-transposed: 8 rows of 16 bytes are an m16n8k32 fragment's
+// k-contiguous bytes). Rows are 128 bytes of 8 16-byte chunks, the chunk
+// index XORed with (row ^ row >> 4) & 7, so ldmatrix's 8 rows and the
+// transposed stores of a warp hit distinct banks. The next tile's copies
+// and loads are in flight while the current tile's MMAs run; one barrier
+// per k tile. The weight stays [k, n] in memory: no transposed copy.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kBK = 64;            // k per tile
-constexpr int kKW = kBK / 4;       // 32-bit words of 4 int8 per tile row
-constexpr int kPad = 4;            // words of padding: conflict-free MMA loads
 constexpr float kInv127 = 1.0f / 127.0f;   // rounded to f32 at compile time
 
 __device__ __forceinline__ uint32_t quant4(const float v[4], float scale) {
@@ -83,204 +101,6 @@ __device__ __forceinline__ void mma_s8(int c[4], const uint32_t a[4],
       : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
-
-template <int WM, int WN, int WK>
-__global__ void __launch_bounds__(WM * WN * WK * 32)
-int8_matmul_kernel(const float* __restrict__ x,
-                   const int8_t* __restrict__ w,
-                   const float* __restrict__ ws, float* __restrict__ out,
-                   int m, int k, int n, bool w_words, bool x_vec) {
-  constexpr int BM = 16 * WM, BN = 32 * WN;
-  constexpr int GT = WM * WN * 32;                // threads per k group
-  constexpr int NT = GT * WK;
-  constexpr int A_ITERS = BM * kKW / GT;          // 4-float groups / thread
-  constexpr int B_ITERS = kKW * (BN / 4) / GT;    // 4x4 byte blocks / thread
-  static_assert(A_ITERS * GT == BM * kKW, "A tile split");
-  static_assert(B_ITERS * GT == kKW * (BN / 4), "B tile split");
-
-  __shared__ float s_scale[BM];
-  __shared__ uint32_t sA[WK][BM][kKW + kPad];   // quantized x, k contiguous
-  __shared__ uint32_t sB[WK][BN][kKW + kPad];   // w transposed, k contiguous
-  __shared__ int s_acc[BM][BN];
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int kg = tid / GT, gt = tid % GT;       // k group, thread in it
-  const int row0 = blockIdx.y * BM, col0 = blockIdx.x * BN;
-
-  // prologue: per-row scale over all of k, one warp per row
-  for (int r = warp; r < BM; r += NT / 32) {
-    const int gr = row0 + r;
-    float amax = 0.f;
-    if (gr < m) {
-      const float* xr = x + static_cast<size_t>(gr) * k;
-      if (x_vec) {
-        const float4* x4 = reinterpret_cast<const float4*>(xr);
-#pragma unroll 8
-        for (int c = lane; c < k / 4; c += 32) {
-          const float4 v = x4[c];
-          amax = fmaxf(amax, fmaxf(fmaxf(fabsf(v.x), fabsf(v.y)),
-                                   fmaxf(fabsf(v.z), fabsf(v.w))));
-        }
-      } else {
-#pragma unroll 4
-        for (int c = lane; c < k; c += 32) amax = fmaxf(amax, fabsf(xr[c]));
-      }
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
-    if (lane == 0) s_scale[r] = amax > 0.f ? __fmul_rn(amax, kInv127) : 1.f;
-  }
-  for (int i = tid; i < BM * BN; i += NT) s_acc[i / BN][i % BN] = 0;
-
-  float xa[A_ITERS][4];
-  uint32_t wb[B_ITERS][4];
-
-  // global -> registers for this group's k tile starting at k0 (past k,
-  // everything loads as 0)
-  auto load_tile = [&](int k0) {
-#pragma unroll
-    for (int i = 0; i < A_ITERS; ++i) {
-      const int g = gt + i * GT;
-      const int r = g / kKW, kk = k0 + (g % kKW) * 4;
-      const int gr = row0 + r;
-      const float* xp = x + static_cast<size_t>(gr) * k + kk;
-      if (x_vec) {
-        // k % 4 == 0: a 4-float group is whole or wholly past k
-        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (gr < m && kk < k) v = *reinterpret_cast<const float4*>(xp);
-        xa[i][0] = v.x; xa[i][1] = v.y; xa[i][2] = v.z; xa[i][3] = v.w;
-      } else {
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          xa[i][j] = (gr < m && kk + j < k) ? xp[j] : 0.f;
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < B_ITERS; ++i) {
-      const int g = gt + i * GT;
-      const int kq = g / (BN / 4), nq = g % (BN / 4);
-      const int c = col0 + nq * 4;
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int kr = k0 + kq * 4 + r;
-        uint32_t v = 0;
-        if (kr < k) {
-          const int8_t* wr = w + static_cast<size_t>(kr) * n;
-          if (w_words) {
-            // n % 4 == 0: a column quad is whole or wholly past n
-            if (c < n) v = *reinterpret_cast<const uint32_t*>(wr + c);
-          } else {
-#pragma unroll
-            for (int j = 0; j < 4; ++j)
-              if (c + j < n)
-                v |= (static_cast<uint32_t>(wr[c + j]) & 0xffu) << (8 * j);
-          }
-        }
-        wb[i][r] = v;   // byte j: w[kr][c + j]
-      }
-    }
-  };
-
-  // registers -> this group's shared tiles: quantize x, transpose w
-  // 4 x 4 bytes
-  auto store_tile = [&]() {
-#pragma unroll
-    for (int i = 0; i < A_ITERS; ++i) {
-      const int g = gt + i * GT;
-      const int r = g / kKW;
-      // rows past m (a tile holds m <= 16 of its 16 rows) are stored as
-      // 0 without a division
-      sA[kg][r][g % kKW] = row0 + r < m ? quant4(xa[i], s_scale[r]) : 0u;
-    }
-#pragma unroll
-    for (int i = 0; i < B_ITERS; ++i) {
-      const int g = gt + i * GT;
-      const int kq = g / (BN / 4), nq = g % (BN / 4);
-      const uint32_t t0 = __byte_perm(wb[i][0], wb[i][1], 0x5140);
-      const uint32_t t1 = __byte_perm(wb[i][0], wb[i][1], 0x7362);
-      const uint32_t t2 = __byte_perm(wb[i][2], wb[i][3], 0x5140);
-      const uint32_t t3 = __byte_perm(wb[i][2], wb[i][3], 0x7362);
-      // word j: k rows kq*4 .. kq*4+3 of column nq*4 + j
-      sB[kg][nq * 4 + 0][kq] = __byte_perm(t0, t2, 0x5410);
-      sB[kg][nq * 4 + 1][kq] = __byte_perm(t0, t2, 0x7632);
-      sB[kg][nq * 4 + 2][kq] = __byte_perm(t1, t3, 0x5410);
-      sB[kg][nq * 4 + 3][kq] = __byte_perm(t1, t3, 0x7632);
-    }
-  };
-
-  const int gw = gt >> 5;                        // warp within the group
-  const int wm = gw / WN, wn = gw % WN;
-  const int g = lane >> 2, t = lane & 3;
-  int acc[4][4];
-#pragma unroll
-  for (int f = 0; f < 4; ++f)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[f][i] = 0;
-
-  // group kg takes the k tiles kg, kg + WK, kg + 2 WK, ... into its own
-  // shared tiles: a one-warp group syncs only itself, so the warps of a
-  // decode CTA stream their k slices independently; a wider group runs
-  // block-wide barriers, every group the same trip count
-  auto group_sync = [] {
-    if constexpr (GT == 32) __syncwarp(); else __syncthreads();
-  };
-  const int iters = ((k + kBK - 1) / kBK + WK - 1) / WK;
-  load_tile(kg * kBK);
-  __syncthreads();   // s_scale, s_acc
-  for (int it = 0; it < iters; ++it) {
-    store_tile();
-    group_sync();
-    if (it + 1 < iters) load_tile(((it + 1) * WK + kg) * kBK);
-#pragma unroll
-    for (int ks = 0; ks < kBK / 32; ++ks) {
-      const int w0 = ks * 8;
-      uint32_t a[4];
-      a[0] = sA[kg][wm * 16 + g][w0 + t];
-      a[1] = sA[kg][wm * 16 + g + 8][w0 + t];
-      a[2] = sA[kg][wm * 16 + g][w0 + 4 + t];
-      a[3] = sA[kg][wm * 16 + g + 8][w0 + 4 + t];
-#pragma unroll
-      for (int f = 0; f < 4; ++f) {
-        const int nn = wn * 32 + f * 8 + g;
-        mma_s8(acc[f], a, sB[kg][nn][w0 + t], sB[kg][nn][w0 + 4 + t]);
-      }
-    }
-    group_sync();
-  }
-
-  // epilogue: the groups' int32 partial sums (integer adds, exact in any
-  // order), then acc * x_scale * w_scale, in the reference's order
-#pragma unroll
-  for (int f = 0; f < 4; ++f)
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      atomicAdd(&s_acc[wm * 16 + g + (i >= 2 ? 8 : 0)]
-                      [wn * 32 + f * 8 + 2 * t + (i & 1)], acc[f][i]);
-  __syncthreads();
-  for (int i = tid; i < BM * BN; i += NT) {
-    const int r = i / BN, gr = row0 + r, gc = col0 + i % BN;
-    if (gr < m && gc < n)
-      out[static_cast<size_t>(gr) * n + gc] = __fmul_rn(
-          __fmul_rn(__int2float_rn(s_acc[r][i % BN]), s_scale[r]), ws[gc]);
-  }
-}
-
-template <int WM, int WN, int WK>
-cudaError_t launch(const float* x, const int8_t* w, const float* ws,
-                   float* out, int m, int k, int n, cudaStream_t stream) {
-  constexpr int BM = 16 * WM, BN = 32 * WN;
-  const dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM);
-  int8_matmul_kernel<WM, WN, WK><<<grid, WM * WN * WK * 32, 0, stream>>>(
-      x, w, ws, out, m, k, n, n % 4 == 0, k % 4 == 0);
-  return cudaGetLastError();
-}
-
-// ----------------------------------------------------------- prefill
-
-constexpr int kPBK = 128;          // prefill k per tile, bytes; k_pad multiple
-// tile id -> (BM, BN); ops/quant_ops.py PREFILL_TILES
-constexpr int kPrefillTiles[][2] = {{64, 128}, {32, 64}};
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -309,9 +129,26 @@ __device__ __forceinline__ void ldsm_x4(uint32_t r[4], const void* p) {
       : "r"(smem_addr(p)));
 }
 
-// byte offset of 16-byte chunk `chunk` of 128-byte row `row`, swizzled
-__device__ __forceinline__ int swz(int row, int chunk) {
-  return row * kPBK + ((chunk ^ ((row ^ (row >> 4)) & 7)) << 4);
+// a thread block cluster's barrier in two halves: arrive (release) and
+// wait (acquire), so that work can go on between them
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// programmatic dependent launch: a dependent grid may start once every
+// CTA of this one has called launch_dependents; its wait returns when
+// this grid has finished and its writes are visible (both no-ops for a
+// grid launched without the attribute)
+__device__ __forceinline__ void griddep_launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void griddep_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
 }
 
 // xq[r] = the row's int8 quantization as 4-byte words, k_pad / 4 of
@@ -320,6 +157,7 @@ __global__ void __launch_bounds__(256)
 quantize_rows_kernel(const float* __restrict__ x, uint32_t* __restrict__ xq,
                      float* __restrict__ xs, int m, int k, int k_pad,
                      bool x_vec) {
+  griddep_launch_dependents();
   __shared__ float s_amax[8];
   const int r = blockIdx.x, tid = threadIdx.x, kw = k_pad / 4;
   uint32_t* qr = xq + static_cast<size_t>(r) * kw;
@@ -332,6 +170,7 @@ quantize_rows_kernel(const float* __restrict__ x, uint32_t* __restrict__ xq,
   float amax = 0.f;
   if (x_vec) {
     const float4* x4 = reinterpret_cast<const float4*>(xr);
+#pragma unroll 8
     for (int c = tid; c < k / 4; c += 256) {
       const float4 v = x4[c];
       amax = fmaxf(amax, fmaxf(fmaxf(fabsf(v.x), fabsf(v.y)),
@@ -348,6 +187,7 @@ quantize_rows_kernel(const float* __restrict__ x, uint32_t* __restrict__ xq,
 #pragma unroll
   for (int i = 0; i < 8; ++i) amax = fmaxf(amax, s_amax[i]);
   const float scale = amax > 0.f ? __fmul_rn(amax, kInv127) : 1.f;
+#pragma unroll 4
   for (int c = tid; c < kw; c += 256) {
     const int kk = 4 * c;
     float v[4];
@@ -362,6 +202,240 @@ quantize_rows_kernel(const float* __restrict__ x, uint32_t* __restrict__ xq,
     qr[c] = quant4(v, scale);
   }
   if (tid == 0) xs[r] = scale;
+}
+
+// ------------------------------------------------------------ decode
+
+constexpr int kDecodeBN = 32;        // output columns per CTA
+constexpr int kDecodeWarps = 4;      // a CTA's warps
+constexpr int kDecodeStageK = 256;   // k rows of one sub-stage: 64 a warp
+constexpr int kDecodeMaxKC = 2048;   // k rows per chunk at most
+constexpr int kDecodeMaxSplits = 8;  // chunks a column tile: its cluster
+constexpr int kDecodeDepth = 4;      // sub-stages of loads a warp keeps ahead
+constexpr int kColW = 20;            // words per column of a warp's tile
+constexpr int kTileW = kDecodeBN * kColW + 16;
+
+// word offset of column c's row in a warp's transposed tile: 16 words of
+// k and 4 of padding a column, columns 16-31 16 words further, so a
+// warp's stores (2 groups x 16 k words) and its fragment reads (8
+// columns x 4 k words) each fall in 32 distinct banks
+__device__ __forceinline__ int col_off(int c) {
+  return c * kColW + ((c >> 4) << 4);
+}
+
+// out[:, col0:col0 + 32] for k chunk blockIdx.y of `kc` rows, from xq
+// [MR, k_pad] (MR = 8 for m <= 8, else 16) and its scales xs [MR], which
+// the quantize launch this one is a programmatic dependent of writes:
+// the CTAs of a column tile (chunks 0 .. splits - 1) are one thread
+// block cluster, which adds their int32 sums through distributed shared
+// memory.
+template <int MR>
+__global__ void __launch_bounds__(kDecodeWarps * 32)
+int8_gemv_kernel(const int8_t* __restrict__ xq, const float* __restrict__ xs,
+                 const int8_t* __restrict__ w, const float* __restrict__ ws,
+                 float* __restrict__ out, int m, int k, int n, int k_pad,
+                 int kc, bool w_vec) {
+  constexpr int NT = kDecodeWarps * 32;
+  extern __shared__ __align__(16) uint8_t sx[];   // [MR][kc + 16]
+  __shared__ uint32_t sw[kDecodeWarps][kTileW];
+  __shared__ int s_acc[MR][kDecodeBN];
+  __shared__ float s_scale[MR];
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int col0 = blockIdx.x * kDecodeBN, split = blockIdx.y;
+  const int splits = gridDim.y;
+  const int k0 = split * kc, kend = min(k0 + kc, k);
+  const int nsub = (kend - k0 + kDecodeStageK - 1) / kDecodeStageK;
+  // this lane's unit of a sub-stage: k rows 4 rq .. 4 rq + 3 of the
+  // warp's 64, columns bc .. bc + 15 (a warp-wide load: 16 rows x 32 B)
+  const int rq = lane >> 1, bc = col0 + 16 * (lane & 1);
+  const cg::cluster_group cluster = cg::this_cluster();
+
+  uint32_t wr[kDecodeDepth][4][4];   // [slot][k row][word of 4 columns]
+  auto load = [&](uint32_t (&r)[4][4], int s) {
+    const int kb = k0 + s * kDecodeStageK + warp * 64 + 4 * rq;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int kr = kb + i;
+      const int8_t* row = w + static_cast<size_t>(kr) * n;
+      if (w_vec) {
+        // n % 16 == 0: a 16-column group is whole or wholly past n
+        uint4 v = make_uint4(0u, 0u, 0u, 0u);
+        if (kr < kend && bc < n)
+          v = __ldcs(reinterpret_cast<const uint4*>(row + bc));
+        r[i][0] = v.x; r[i][1] = v.y; r[i][2] = v.z; r[i][3] = v.w;
+      } else {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          uint32_t word = 0;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int c = bc + 4 * q + j;
+            if (kr < kend && c < n)
+              word |= (static_cast<uint32_t>(row[c]) & 0xffu) << (8 * j);
+          }
+          r[i][q] = word;
+        }
+      }
+    }
+  };
+
+  // the weight's loads go out before the wait for the quantize launch
+#pragma unroll
+  for (int p = 0; p < kDecodeDepth; ++p)
+    if (p < nsub) load(wr[p], p);
+  const int xrow = kc + 16;          // bytes: 4 words of padding a row
+  for (int i = tid; i < MR * kDecodeBN; i += NT)
+    s_acc[i / kDecodeBN][i % kDecodeBN] = 0;
+  __syncthreads();
+  // the cluster's first barrier: chunk 0's sums are zero before another
+  // chunk adds into them; its wait comes after the MMAs
+  cluster_arrive();
+  griddep_wait();
+  for (int i = tid; i < MR * (kc / 16); i += NT) {
+    const int r = i / (kc / 16), ch = i % (kc / 16);
+    cp_async16(sx + r * xrow + 16 * ch,
+               xq + static_cast<size_t>(r) * k_pad + k0 + 16 * ch);
+  }
+  if (tid < MR) s_scale[tid] = xs[tid];
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  const uint32_t* sx32 = reinterpret_cast<const uint32_t*>(sx);
+  const int xw = xrow / 4;
+  const int g = lane >> 2, t = lane & 3;
+  uint32_t* tile = sw[warp];
+  int acc[kDecodeBN / 8][4];
+#pragma unroll
+  for (int f = 0; f < kDecodeBN / 8; ++f)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[f][i] = 0;
+
+  for (int s0 = 0; s0 < nsub; s0 += kDecodeDepth) {
+#pragma unroll
+    for (int p = 0; p < kDecodeDepth; ++p) {
+      const int s = s0 + p;
+      if (s >= nsub) break;
+      // w transposed 4 x 4 bytes: the word of k rows 4 rq .. 4 rq + 3 of
+      // each of the unit's 16 columns
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const uint32_t t0 = __byte_perm(wr[p][0][q], wr[p][1][q], 0x5140);
+        const uint32_t t1 = __byte_perm(wr[p][0][q], wr[p][1][q], 0x7362);
+        const uint32_t t2 = __byte_perm(wr[p][2][q], wr[p][3][q], 0x5140);
+        const uint32_t t3 = __byte_perm(wr[p][2][q], wr[p][3][q], 0x7362);
+        const int c = 16 * (lane & 1) + 4 * q;
+        tile[col_off(c + 0) + rq] = __byte_perm(t0, t2, 0x5410);
+        tile[col_off(c + 1) + rq] = __byte_perm(t0, t2, 0x7632);
+        tile[col_off(c + 2) + rq] = __byte_perm(t1, t3, 0x5410);
+        tile[col_off(c + 3) + rq] = __byte_perm(t1, t3, 0x7632);
+      }
+      __syncwarp();
+      if (s + kDecodeDepth < nsub) load(wr[p], s + kDecodeDepth);
+      const int w0 = (s * kDecodeStageK + warp * 64) / 4;   // x word
+#pragma unroll
+      for (int ks = 0; ks < 2; ++ks) {
+        const int kw = w0 + ks * 8;
+        uint32_t a[4];
+        a[0] = sx32[g * xw + kw + t];
+        a[2] = sx32[g * xw + kw + 4 + t];
+        a[1] = MR == 16 ? sx32[(g + 8) * xw + kw + t] : 0u;
+        a[3] = MR == 16 ? sx32[(g + 8) * xw + kw + 4 + t] : 0u;
+#pragma unroll
+        for (int f = 0; f < kDecodeBN / 8; ++f) {
+          const int o = col_off(f * 8 + g) + ks * 8 + t;
+          mma_s8(acc[f], a, tile[o], tile[o + 4]);
+        }
+      }
+      __syncwarp();
+    }
+  }
+
+  // the warps' int32 sums (exact in any order)
+#pragma unroll
+  for (int f = 0; f < kDecodeBN / 8; ++f) {
+    const int c = f * 8 + 2 * t;
+    atomicAdd(&s_acc[g][c], acc[f][0]);
+    atomicAdd(&s_acc[g][c + 1], acc[f][1]);
+    if (MR == 16) {
+      atomicAdd(&s_acc[g + 8][c], acc[f][2]);
+      atomicAdd(&s_acc[g + 8][c + 1], acc[f][3]);
+    }
+  }
+  // the cluster's chunks: each other CTA adds its sums into chunk 0's
+  // through distributed shared memory (integer adds, exact in any
+  // order), then arrives; chunk 0's CTA waits for all and applies acc *
+  // x_scale * w_scale, in the reference's order, reading the weight
+  // scales before it waits. No CTA reads another's shared memory after
+  // its last arrival, so the others leave at once
+  constexpr int kOut = MR * kDecodeBN / NT;
+  __syncthreads();
+  cluster_wait();
+  if (split > 0) {
+    int* acc0 = cluster.map_shared_rank(&s_acc[0][0], 0);
+    for (int e = tid; e < m * kDecodeBN; e += NT)
+      atomicAdd(acc0 + e, (&s_acc[0][0])[e]);
+  }
+  cluster_arrive();
+  if (split > 0) return;
+  float wsc[kOut];
+#pragma unroll
+  for (int i = 0; i < kOut; ++i) {
+    const int gc = col0 + (tid + i * NT) % kDecodeBN;
+    wsc[i] = gc < n ? ws[gc] : 0.f;
+  }
+  cluster_wait();
+#pragma unroll
+  for (int i = 0; i < kOut; ++i) {
+    const int e = tid + i * NT;
+    const int r = e / kDecodeBN, gc = col0 + e % kDecodeBN;
+    if (r < m && gc < n)
+      out[static_cast<size_t>(r) * n + gc] = __fmul_rn(
+          __fmul_rn(__int2float_rn((&s_acc[0][0])[e]), s_scale[r]), wsc[i]);
+  }
+}
+
+// the split-K launch: a cluster of `splits` CTAs a column tile, and a
+// programmatic dependent of the quantize launch before it on the stream
+template <int MR>
+cudaError_t launch_decode(const int8_t* xq, const float* xs, const int8_t* w,
+                          const float* ws, float* out, int m, int k, int n,
+                          int k_pad, int kc, int splits, cudaStream_t stream) {
+  auto kernel = int8_gemv_kernel<MR>;
+  // x's slice, up to MR x (kDecodeMaxKC + 16) bytes, with the static
+  // tiles past the 48 KB default at MR = 16
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      MR * (kDecodeMaxKC + 16));
+  if (attr != cudaSuccess) return attr;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((n + kDecodeBN - 1) / kDecodeBN, splits);
+  cfg.blockDim = dim3(kDecodeWarps * 32);
+  cfg.dynamicSmemBytes = static_cast<size_t>(MR) * (kc + 16);
+  cfg.stream = stream;
+  cudaLaunchAttribute attrs[2];
+  attrs[0].id = cudaLaunchAttributeClusterDimension;
+  attrs[0].val.clusterDim.x = 1;
+  attrs[0].val.clusterDim.y = splits;
+  attrs[0].val.clusterDim.z = 1;
+  attrs[1].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attrs[1].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attrs;
+  cfg.numAttrs = 2;
+  return cudaLaunchKernelEx(&cfg, kernel, xq, xs, w, ws, out, m, k, n, k_pad,
+                            kc, n % 16 == 0);
+}
+
+// ----------------------------------------------------------- prefill
+
+constexpr int kPBK = 128;          // prefill k per tile, bytes; k_pad multiple
+// tile id -> (BM, BN); ops/quant_ops.py PREFILL_TILES
+constexpr int kPrefillTiles[][2] = {{64, 128}, {32, 64}};
+
+// byte offset of 16-byte chunk `chunk` of 128-byte row `row`, swizzled
+__device__ __forceinline__ int swz(int row, int chunk) {
+  return row * kPBK + ((chunk ^ ((row ^ (row >> 4)) & 7)) << 4);
 }
 
 // out[row0:, col0:] tile of xq [m_pad, k_pad] . w [k, n], scaled. xq's
@@ -556,28 +630,49 @@ cudaError_t launch_prefill(const int8_t* xq, const float* xs,
 
 // x: contiguous f32 [m, k]; w: contiguous int8 [k, n]; w_scale: f32 [n];
 // out: contiguous f32 [m, n]. Every pointer must be 16-byte aligned;
-// m, k, n >= 1 and |acc| <= k * 127 * 127 < 2**31. `tile` < 0 takes the
-// decode path; else it indexes kPrefillTiles (BM, BN), and the scratch
-// xq holds m_pad * k_pad bytes (m rounded up to BM, k to kPBK), then
-// m_pad f32 scales, as ops/quant_ops.py `_plan` sizes it. Returns a
+// m, k, n >= 1 and |acc| <= k * 127 * 127 < 2**31. `tile` -1 takes the
+// decode path (m <= 16) in `splits` <= kDecodeMaxSplits chunks of k of at
+// most kDecodeMaxKC rows; a tile >= 0 indexes kPrefillTiles (BM, BN), and
+// `splits` is 1. The scratch holds xq, m_pad * k_pad bytes (decode: m_pad
+// 8 or 16, k_pad splits * kc; prefill: m rounded up to BM, k to kPBK),
+// then m_pad f32 scales, as ops/quant_ops.py `_plan` sizes it. Returns a
 // cudaError_t.
 extern "C" int int8_matmul(const void* x, const void* w, const void* w_scale,
                            void* out, void* scratch, int m, int k, int n,
-                           int tile, void* stream) {
+                           int tile, int splits, void* stream) {
   constexpr int kNumTiles = sizeof(kPrefillTiles) / sizeof(kPrefillTiles[0]);
-  if (m <= 0 || k <= 0 || n <= 0 || k > 133144 || tile >= kNumTiles)
+  if (m <= 0 || k <= 0 || n <= 0 || k > 133144 || tile >= kNumTiles ||
+      splits < 1)
     return cudaErrorInvalidValue;
   const auto* xf = static_cast<const float*>(x);
   const auto* wq = static_cast<const int8_t*>(w);
   const auto* sf = static_cast<const float*>(w_scale);
   auto* of = static_cast<float*>(out);
   auto st = static_cast<cudaStream_t>(stream);
-  // decode-sized m: a 16 x 32 tile per CTA, its k split over 8 warps
-  if (tile < 0) return launch<1, 1, 8>(xf, wq, sf, of, m, k, n, st);
+  auto* xq = static_cast<int8_t*>(scratch);
+  if (tile < 0) {
+    // kc: the chunk's k rows, whole sub-stages; no chunk may be empty
+    const int kc = (k + splits * kDecodeStageK - 1) /
+                   (splits * kDecodeStageK) * kDecodeStageK;
+    if (m > 16 || tile != -1 || splits > kDecodeMaxSplits ||
+        kc > kDecodeMaxKC || (k + kc - 1) / kc != splits)
+      return cudaErrorInvalidValue;
+    const int m_pad = m <= 8 ? 8 : 16, k_pad = splits * kc;
+    auto* xs = reinterpret_cast<float*>(xq + static_cast<size_t>(m_pad) * k_pad);
+    quantize_rows_kernel<<<m_pad, 256, 0, st>>>(
+        xf, reinterpret_cast<uint32_t*>(xq), xs, m, k, k_pad, k % 4 == 0);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (m_pad == 8)
+      return launch_decode<8>(xq, xs, wq, sf, of, m, k, n, k_pad, kc, splits,
+                              st);
+    return launch_decode<16>(xq, xs, wq, sf, of, m, k, n, k_pad, kc, splits,
+                             st);
+  }
+  if (splits != 1) return cudaErrorInvalidValue;
   const int bm = kPrefillTiles[tile][0];
   const int m_pad = (m + bm - 1) / bm * bm;
   const int k_pad = (k + kPBK - 1) / kPBK * kPBK;
-  auto* xq = static_cast<int8_t*>(scratch);
   auto* xs = reinterpret_cast<float*>(xq + static_cast<size_t>(m_pad) * k_pad);
   quantize_rows_kernel<<<m_pad, 256, 0, st>>>(
       xf, reinterpret_cast<uint32_t*>(xq), xs, m, k, k_pad, k % 4 == 0);

@@ -36,12 +36,12 @@ ENTRY_POINTS = {
     "decode_attention_bf16": ("decode_attention",
                               (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P)),
     "decode_attention_paged_f32": ("decode_attention_paged",
-                                   (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                    _I, _I, _P)),
+                                   (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                    _I, _I, _I, _I, _I, _I, _P)),
     "decode_attention_paged_bf16": ("decode_attention_paged",
-                                    (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                     _I, _I, _P)),
-    "int8_matmul": ("int8_matmul", (_P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                    (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                     _I, _I, _I, _I, _I, _I, _P)),
+    "int8_matmul": ("int8_matmul", (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                     _P)),
     "conv_bn_stats_f32": ("conv_bn_stats",
                           (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
@@ -53,6 +53,9 @@ ENTRY_POINTS = {
 
 _lock = threading.Lock()
 _libs = {}
+# per thread: (device index, raw stream) -> the uint8 scratch the
+# kernels that thread launches on that stream share
+_local = threading.local()
 
 
 def nvcc_path():
@@ -135,6 +138,28 @@ def stream(device):
     uses) skips ``torch.cuda.current_stream(device).cuda_stream``'s
     Stream object, which a launch would otherwise build every time."""
     return torch._C._cuda_getCurrentRawStream(device.index)
+
+
+def scratch(device, stream, nbytes):
+    """A uint8 scratch buffer of at least ``nbytes`` on ``device`` for
+    the calling thread's launches on ``stream``, made once and reused:
+    one thread's calls are enqueued one after another, so its launches
+    on one stream run in the order of its calls, and each kernel writes
+    every scratch byte it reads before it reads it. Each thread has its
+    own: ctypes lets go of the GIL during a C call, so two threads
+    enqueueing on one stream could interleave one call's launches with
+    another's, and one call's quantize pass could overwrite the rows
+    another call's product has yet to read. It grows to the largest
+    request seen."""
+    bufs = getattr(_local, "scratches", None)
+    if bufs is None:
+        bufs = _local.scratches = {}
+    key = (device.index, stream)
+    buf = bufs.get(key)
+    if buf is None or buf.numel() < nbytes:
+        buf = torch.empty(max(nbytes, 1), dtype=torch.uint8, device=device)
+        bufs[key] = buf
+    return buf
 
 
 def check(err, name):

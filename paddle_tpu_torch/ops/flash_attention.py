@@ -22,9 +22,15 @@ port's three CUDA kernels and their plain PyTorch versions.
   copy) and only the rows below each slot's length.
 * :func:`decode_attention_paged` replaces
   ``paddle_tpu/ops/pallas_attention.py::decode_attention_paged``.
-  Kernel: ``csrc/decode_attention_paged.cu``. The dense decode kernel
-  with each row addressed through the slot's block table; bound by
-  device-memory bytes like it.
+  Kernel: ``csrc/decode_attention_paged.cu``, bound by device-memory
+  bytes like the dense one, but over slots of very different lengths.
+  So it splits each slot's keys into chunks of logical rows
+  (flash-decoding): :func:`_paged_plan` sets the chunk and a fixed grid
+  whose CTAs walk the (chunk, slot, head) items, skipping on the card
+  those past a slot's length; each keeps 8 KB of K and V loads in flight
+  a warp and writes a partial (m, l, acc); a second launch combines a
+  slot's chunks in chunk order. Every boundary is a logical row index,
+  so a slot's output depends on its q, live rows and length alone.
 
 bfloat16 flash attention computes what the reference's kernel body does
 on its own chip, where both dots run at ``Precision.DEFAULT``, one bf16
@@ -49,6 +55,9 @@ is no fallback. Each wrapper counts its kernel launches in
 ``<wrapper>.launches``; :func:`flash_attention` also counts its bfloat16
 launches in ``flash_attention.launches_bf16``.
 """
+
+import collections
+import functools
 
 import torch
 
@@ -430,8 +439,38 @@ def decode_attention(q, k_cache, v_cache, lengths, num_heads):
 
 decode_attention.launches = 0
 
-# the kernel keeps a slot's table row in at most 48 KB of shared memory
-_MAX_TABLE_BLOCKS = 48 * 1024 // 4
+# kernel B5's split (``kWarps``, ``kLoads`` in
+# csrc/decode_attention_paged.cu): CTAs of PAGED_WARPS warps, each lane
+# keeping PAGED_LOADS 16-byte loads of K and of V in flight, work items of
+# one head and PAGED_CHUNK logical rows; the grid walks the items with at
+# most PAGED_MAX_CTAS CTAs (eight on each of the H100's 132
+# SMs: at the serving path's width one CTA an item). The chunk and the
+# grid are the fastest of the sweep at the paged cell's lengths, f32 and
+# bf16 (``python3 -m paddle_tpu_torch.probes.decode sweep``; PERF.md)
+PAGED_WARPS = 8
+PAGED_LOADS = 8
+PAGED_CHUNK = 128
+PAGED_MAX_CTAS = 8 * 132
+
+PagedPlan = collections.namedtuple("PagedPlan", "chunk max_chunks ctas "
+                                                "scratch_bytes")
+
+
+@functools.lru_cache(maxsize=1024)
+def _paged_plan(slots, heads, d, bs, mb, chunk=None, ctas=None):
+    """Kernel B5's launch for ``slots`` x ``heads`` queries of head dim
+    ``d`` over tables of ``mb`` blocks of ``bs`` rows: the chunk of
+    logical rows a work item takes, the most chunks a slot can have, the
+    split launch's CTAs, and the scratch for each (slot, head, chunk)'s
+    partial (m, l, acc[d]) in f32. Nothing here depends on the lengths,
+    which stay on the card. ``chunk`` and ``ctas`` serve the probe's
+    sweep."""
+    chunk = PAGED_CHUNK if chunk is None else chunk
+    max_chunks = -(-mb * bs // chunk)
+    items = slots * max_chunks * heads
+    ctas = min(items, PAGED_MAX_CTAS if ctas is None else ctas)
+    return PagedPlan(chunk, max_chunks, ctas,
+                     4 * (2 + d) * slots * heads * max_chunks)
 
 
 def _decode_paged_reference(q, k_pool, v_pool, lengths, tables, num_heads):
@@ -484,17 +523,31 @@ def decode_attention_paged(q, k_pool, v_pool, lengths, tables, num_heads):
     for name, x in (("lengths", lengths), ("tables", tables)):
         _require(x.dtype == torch.int32 and x.is_contiguous(),
                  "%s must be contiguous int32", name)
-    _require(mb <= _MAX_TABLE_BLOCKS, "a table row of %d blocks exceeds "
-             "the kernel's %d", mb, _MAX_TABLE_BLOCKS)
-    out = torch.empty_like(q)
-    fn = _build.entry("decode_attention_paged_" + kind)
-    stream = _build.stream(q.device)
-    err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-             lengths.data_ptr(), tables.data_ptr(), out.data_ptr(), s,
-             num_heads, d, nb, bs, mb, stream)
-    _build.check(err, "decode_attention_paged")
+    plan = _paged_plan(s, num_heads, d, bs, mb)
+    out = _launch_paged(q, k_pool, v_pool, lengths, tables, num_heads, plan,
+                        _build.entry("decode_attention_paged_" + kind))
     decode_attention_paged.launches += 1
     return out
 
 
 decode_attention_paged.launches = 0
+
+
+def _launch_paged(q, k_pool, v_pool, lengths, tables, num_heads, plan, fn,
+                  work=None):
+    """One call of B5's C entry ``fn`` (its split and combine launches)
+    by ``plan`` on checked CUDA inputs; not counted. ``work``, an int32
+    [2] on the card, gains the split's CTAs that took a work item and the
+    items they took."""
+    s, hd = q.shape
+    nb, bs, _ = k_pool.shape
+    out = torch.empty_like(q)
+    stream = _build.stream(q.device)
+    scratch = _build.scratch(q.device, stream, plan.scratch_bytes)
+    err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+             lengths.data_ptr(), tables.data_ptr(), out.data_ptr(),
+             scratch.data_ptr(), None if work is None else work.data_ptr(),
+             s, num_heads, hd // num_heads, nb, bs,
+             tables.shape[1], plan.chunk, plan.ctas, stream)
+    _build.check(err, "decode_attention_paged")
+    return out

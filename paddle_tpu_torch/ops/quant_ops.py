@@ -23,14 +23,25 @@ the last bit.)
 
 :func:`quant_matmul_2d` replaces the Pallas kernel
 ``paddle_tpu/ops/quant_ops.py::_pallas_int8_matmul``. Kernel:
-``csrc/int8_matmul.cu``, int8 tensor-core MMAs: at decode (m <= 16)
-with the row quantize fused in; at prefill a quantize pass into an int8
-scratch, then a tiled GEMM, the tile chosen by :func:`_plan`. On CPU
-tensors it computes the plain version; on CUDA tensors it launches the
-kernel or raises, and counts launches in ``quant_matmul_2d.launches``.
+``csrc/int8_matmul.cu``, int8 tensor-core MMAs after a quantize pass
+that writes x's int8 rows and scales into a scratch once per call. Both
+paths are bound by device-memory bytes. At decode (m <= 16) the weight
+(4-64 MB on the serving path) must be read at once across the card, so
+the product is split over k: :func:`_plan` cuts each 32-column tile's k
+into chunks until the grid has at least DECODE_MIN_CTAS CTAs (two on
+each of the H100's 132 SMs), each CTA keeps up to 32 KB of 16-byte
+weight loads in flight, and a column tile's CTAs, one thread block
+cluster, add their exact int32 sums through distributed shared memory
+before the f32 epilogue, so the output stays bitwise the plain
+version's. At prefill a tiled GEMM, the tile chosen by :func:`_plan`.
+The scratch is allocated once per device and stream and reused
+(``_build.scratch``). On CPU tensors it computes the plain version; on
+CUDA tensors it launches the kernel or raises, and counts launches in
+``quant_matmul_2d.launches``.
 """
 
 import collections
+import functools
 
 import torch
 
@@ -61,32 +72,86 @@ DECODE_MAX_M = 16
 # fastest of the five tiles swept at each prefill shape of the path
 # (``python3 -m paddle_tpu_torch.probes.int8 tiles``; PERF.md)
 PREFILL_MIN_CTAS = 128
+# the decode path (``kDecode*`` in csrc/int8_matmul.cu): 32-column tiles,
+# k in chunks of whole 256-row sub-stages (64 rows for each of a CTA's 4
+# warps), at most 2048 rows (x's slice sits in shared memory) and at most
+# 8 chunks (a portable thread block cluster); the plan splits k until the
+# grid has DECODE_MIN_CTAS CTAs. Decode-sized m with a larger k takes a
+# prefill tile.
+DECODE_BN = 32
+DECODE_STAGE_K = 256
+DECODE_MAX_KC = 2048
+DECODE_MAX_SPLITS = 8
+DECODE_MIN_CTAS = 2 * 132
 
 Plan = collections.namedtuple("Plan", "tile bm bn grid m_pad k_pad "
-                                      "scratch_bytes")
+                                      "scratch_bytes splits kc")
 
 
 def _cdiv(a, b):
     return -(-a // b)
 
 
-def _plan(m, k, n, tile=None, tiles=PREFILL_TILES):
+# a plan is a pure function of its arguments, worked out on the host at
+# every launch (73 a decode step): cached
+@functools.lru_cache(maxsize=1024)
+def _plan(m, k, n, tile=None, tiles=PREFILL_TILES, splits=None):
     """Kernel B3's launch for x [m, k] and w [k, n]: the path (tile -1:
-    decode, its 16 x 32 CTAs covering the output; else a prefill tile
-    id, see PREFILL_MIN_CTAS), the tile's (bm, bn), its (n, m) grid, and
-    the prefill scratch: int8 x [m_pad, k_pad] (m up to whole tiles, k
-    to PREFILL_BK) followed by m_pad f32 scales. ``tile`` forces a
-    prefill tile id of ``tiles``, the table of the build launched (the
-    probe's sweep builds edited tables)."""
-    if tile is None and m <= DECODE_MAX_M:
-        return Plan(-1, 16, 32, (_cdiv(n, 32), _cdiv(m, 16)), m, k, 0)
+    decode; else a prefill tile id, see PREFILL_MIN_CTAS), the CTA's
+    (bm, bn) output tile, the grid, the scratch, and the k split.
+
+    Decode (tile -1; m <= DECODE_MAX_M, k up to DECODE_MAX_SPLITS
+    chunks): CTAs of all m_pad rows (8, or 16 for m > 8) by DECODE_BN
+    columns, grid (column tiles, splits), each CTA taking kc rows of k, a
+    column tile's CTAs one cluster; ``splits`` forces the split count (the
+    probe's sweep), which must leave no chunk empty, none over
+    DECODE_MAX_KC rows and at most DECODE_MAX_SPLITS. Scratch: int8 x
+    [m_pad, k_pad = splits * kc], then m_pad f32 scales.
+
+    Prefill: grid (n tiles, m tiles); scratch int8 x [m_pad, k_pad] (m
+    up to whole tiles, k to PREFILL_BK) followed by m_pad f32 scales.
+    ``tile`` forces a prefill tile id of ``tiles``, the table of the
+    build launched (the probe's sweep builds edited tables)."""
+    if tile is None and m <= DECODE_MAX_M \
+            and k <= DECODE_MAX_SPLITS * DECODE_MAX_KC:
+        return _decode_plan(m, k, n, splits)
     if tile is None:
         tile = 0 if _cdiv(m, 64) * _cdiv(n, 128) >= PREFILL_MIN_CTAS else 1
     bm, bn = tiles[tile]
     m_pad = _cdiv(m, bm) * bm
     k_pad = _cdiv(k, PREFILL_BK) * PREFILL_BK
     return Plan(tile, bm, bn, (_cdiv(n, bn), m_pad // bm), m_pad, k_pad,
-                m_pad * k_pad + 4 * m_pad)
+                m_pad * k_pad + 4 * m_pad, 1, k_pad)
+
+
+def _decode_plan(m, k, n, splits):
+    tiles = _cdiv(n, DECODE_BN)
+    stages = _cdiv(k, DECODE_STAGE_K)
+    if splits is None:
+        splits = 1
+        while splits < min(stages, DECODE_MAX_SPLITS) and (
+                tiles * splits < DECODE_MIN_CTAS
+                or _cdiv(stages, splits) * DECODE_STAGE_K > DECODE_MAX_KC):
+            splits *= 2
+        splits = min(splits, DECODE_MAX_SPLITS)
+    # no chunk empty: the count the chunk size gives, and the chunk size
+    # the C entry derives from it
+    splits = _cdiv(stages, _cdiv(stages, splits))
+    kc = _decode_kc(k, splits)
+    if kc > DECODE_MAX_KC or splits > DECODE_MAX_SPLITS:
+        raise ValueError("B3 cannot split k = %d into %d chunks of at most "
+                         "%d rows, at most %d chunks" % (
+                             k, splits, DECODE_MAX_KC, DECODE_MAX_SPLITS))
+    m_pad = 8 if m <= 8 else 16
+    k_pad = splits * kc
+    return Plan(-1, m_pad, DECODE_BN, (tiles, splits), m_pad, k_pad,
+                m_pad * k_pad + 4 * m_pad, splits, kc)
+
+
+def _decode_kc(k, splits):
+    """The k rows of each of ``splits`` decode chunks, as the C entry
+    computes them: whole sub-stages."""
+    return _cdiv(k, splits * DECODE_STAGE_K) * DECODE_STAGE_K
 
 
 def scale_var_name(name):
@@ -154,17 +219,15 @@ quant_matmul_2d.launches = 0
 
 
 def _launch(x2, wq, w_scale, plan):
-    """One launch of B3's C entry by ``plan`` on checked CUDA inputs,
-    its scratch allocated here; not counted."""
+    """One launch of B3's C entry by ``plan`` on checked CUDA inputs;
+    not counted."""
     m, k = x2.shape
     n = wq.shape[1]
     out = torch.empty((m, n), dtype=torch.float32, device=x2.device)
-    scratch = torch.empty(plan.scratch_bytes, dtype=torch.uint8,
-                          device=x2.device) if plan.scratch_bytes else None
     fn = _build.entry("int8_matmul")
     stream = _build.stream(x2.device)
+    scratch = _build.scratch(x2.device, stream, plan.scratch_bytes)
     err = fn(x2.data_ptr(), wq.data_ptr(), w_scale.data_ptr(), out.data_ptr(),
-             None if scratch is None else scratch.data_ptr(), m, k, n,
-             plan.tile, stream)
+             scratch.data_ptr(), m, k, n, plan.tile, plan.splits, stream)
     _build.check(err, "int8_matmul")
     return out

@@ -1,21 +1,28 @@
-"""The launch plans of kernels B1 (``ops/conv_bn.py`` ``_plan``) and B3
-(``ops/quant_ops.py`` ``_plan``), which the wrappers size their scratch
-by and whose tile id the C entries take, on the CPU: at every shape of
-the ResNet-50 step and of the int8 serving path, and at ragged shapes,
-the grid covers each output element exactly once, the scratch holds
-every partial sum, transposed weight and quantized row the kernels
-touch, the grid fills the H100's SMs where the tiles allow it, and the
-tile constants hard-coded in the CUDA sources agree with Python's."""
+"""The launch plans of kernels B1 (``ops/conv_bn.py`` ``_plan``), B3
+(``ops/quant_ops.py`` ``_plan``) and B5 (``ops/flash_attention.py``
+``_paged_plan``), which the wrappers size their scratch by and whose
+tile id, split count, chunk and grid the C entries take, on the CPU: at
+every shape of the ResNet-50 step and of the int8 serving path, and at
+ragged shapes, the grid covers each output element (B3 at decode: each
+row, column and k) exactly once, B5's work items cover each live row of
+each (slot, head) exactly once, the scratch holds every partial sum,
+transposed weight and quantized row the kernels touch, the grid fills
+the H100's SMs where the tiles allow it, and the constants hard-coded in
+the CUDA sources agree with Python's."""
 
+import ctypes
 import os
 import re
+import threading
 
 import numpy as np
 import pytest
 import torch
 
-from paddle_tpu_torch.ops import conv_bn, quant_ops
+from paddle_tpu_torch.ops import _build, conv_bn, quant_ops
+from paddle_tpu_torch.ops import flash_attention as fa
 from paddle_tpu_torch.probes import conv_bn as b1_probe
+from paddle_tpu_torch.probes import decode as b5_probe
 from paddle_tpu_torch.probes import int8 as b3_probe
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -130,11 +137,13 @@ def test_b3_plan_covers_each_output_once_and_sizes_its_scratch(shape):
     m, k, n = shape
     plan = quant_ops._plan(m, k, n)
     gx, gy = plan.grid
+    if m <= quant_ops.DECODE_MAX_M:
+        # a decode CTA (column tile bx, k chunk by) covers all m rows
+        assert plan.tile == -1 and plan.m_pad >= m
+        _decode_covers_each_row_column_and_k_once(m, k, n, plan)
+        return
     blocks = [(by, bx) for by in range(gy) for bx in range(gx)]
     _covers_once(blocks, m, n, plan.bm, plan.bn)
-    if m <= quant_ops.DECODE_MAX_M:
-        assert plan.tile == -1 and plan.scratch_bytes == 0
-        return
     assert (plan.bm, plan.bn) == quant_ops.PREFILL_TILES[plan.tile]
     # the quantize pass writes m_pad rows of k_pad bytes, then m_pad
     # scales; the GEMM's CTAs read rows < gy * bm and k tiles < k_pad
@@ -144,6 +153,154 @@ def test_b3_plan_covers_each_output_once_and_sizes_its_scratch(shape):
     assert plan.scratch_bytes == plan.m_pad * plan.k_pad + 4 * plan.m_pad
     # the scales start 16-byte aligned after the int8 rows
     assert (plan.m_pad * plan.k_pad) % 16 == 0
+
+
+def _decode_covers_each_row_column_and_k_once(m, k, n, plan):
+    """B3's decode launch as the kernel walks it: CTA (column tile, k
+    chunk), its 4 warps' 64-row parts of each 256-row sub-stage, masked
+    at the chunk's end; every (column, k) once, all m rows in each CTA;
+    at most DECODE_MAX_SPLITS chunks (one cluster); and the scratch as
+    the C entry lays it out."""
+    tiles, splits = plan.grid
+    assert (plan.bm, plan.bn) == (plan.m_pad, quant_ops.DECODE_BN)
+    assert plan.m_pad == (8 if m <= 8 else 16)
+    assert plan.splits == splits and plan.kc == quant_ops._decode_kc(k,
+                                                                     splits)
+    assert plan.kc % quant_ops.DECODE_STAGE_K == 0
+    assert plan.kc <= quant_ops.DECODE_MAX_KC
+    assert splits <= quant_ops.DECODE_MAX_SPLITS
+    hits = np.zeros(k, np.int64)
+    for j in range(splits):
+        k0 = j * plan.kc
+        kend = min(k0 + plan.kc, k)
+        assert k0 < kend, "an empty chunk"
+        nsub = -(-(kend - k0) // quant_ops.DECODE_STAGE_K)
+        for sub in range(nsub):
+            for warp in range(4):
+                lo = k0 + sub * quant_ops.DECODE_STAGE_K + warp * 64
+                hits[lo:min(lo + 64, kend)] += 1
+    assert (hits == 1).all()
+    cols = np.zeros(n, np.int64)
+    for bx in range(tiles):
+        cols[bx * plan.bn:(bx + 1) * plan.bn] += 1
+    assert (cols == 1).all() and (tiles - 1) * plan.bn < n
+    # xq [m_pad, k_pad] (every chunk's x slice in bounds), the scales
+    assert plan.k_pad == splits * plan.kc >= k
+    assert plan.scratch_bytes == plan.m_pad * plan.k_pad + 4 * plan.m_pad
+    assert (plan.m_pad * plan.k_pad) % 16 == 0
+
+
+@pytest.mark.parametrize("splits", b3_probe.SPLITS + (3, 7, 16))
+@pytest.mark.parametrize("shape", [s for s in B3_PATH if s[0] <= 16]
+                         + [(3, 1000, 2001), (16, 8200, 130), (1, 1, 1),
+                            (16, 257, 16), (8, 16384, 64)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_b3_decode_forced_splits_cover_k_once(shape, splits):
+    """Each split count the probe sweeps (and others), where its chunks
+    fit DECODE_MAX_KC rows and a cluster: no chunk empty, the count the
+    C entry derives from the chunk."""
+    m, k, n = shape
+    try:
+        plan = quant_ops._plan(m, k, n, splits=splits)
+    except ValueError:
+        stages = -(-k // quant_ops.DECODE_STAGE_K)
+        used = -(-stages // -(-stages // splits))
+        assert used > quant_ops.DECODE_MAX_SPLITS or \
+            -(-stages // splits) * quant_ops.DECODE_STAGE_K \
+            > quant_ops.DECODE_MAX_KC
+        return
+    assert plan.splits <= splits
+    assert -(-k // plan.kc) == plan.splits
+    _decode_covers_each_row_column_and_k_once(m, k, n, plan)
+
+
+@pytest.mark.parametrize("shape", [s for s in B3_PATH if s[0] <= 16],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_b3_decode_grid_fills_the_card(shape):
+    """Two CTAs for each of the 132 SMs at every decode shape of the
+    path: 512 at (8, 2048, 2048), where one CTA a 16 x 32 tile gave 64;
+    a k past DECODE_MAX_SPLITS chunks takes a prefill tile."""
+    m, k, n = shape
+    plan = quant_ops._plan(m, k, n)
+    assert plan.grid[0] * plan.grid[1] >= quant_ops.DECODE_MIN_CTAS == 2 * SMS
+    assert plan.tile == -1
+    if shape == (8, 2048, 2048):
+        assert plan.grid == (64, 8) and plan.kc == 256
+    big = quant_ops.DECODE_MAX_SPLITS * quant_ops.DECODE_MAX_KC
+    assert quant_ops._plan(m, big, n).tile == -1
+    assert quant_ops._plan(m, big + 1, n).tile >= 0
+
+
+def _b5_rows(lens, heads, plan, bs, mb, d, itemsize):
+    """{(slot, head, row): visits} as B5's split kernel walks its work
+    items: CTA b takes items b, b + ctas, ... of (chunk, slot, head),
+    chunk-major, skipping a chunk past its slot's length; an item is
+    split over the CTA's warps in batches of PAGED_LOADS warp-wide loads
+    of 32 / (lanes a row) rows."""
+    rows_a_load = 32 // (d // (16 // itemsize))
+    warps = fa.PAGED_WARPS
+    rb = rows_a_load * fa.PAGED_LOADS
+    slots = len(lens)
+    live = [min(max(n, 0), mb * bs) for n in lens]
+    items = plan.max_chunks * slots * heads
+    seen = {}
+    for b in range(plan.ctas):
+        for item in range(b, items, plan.ctas):
+            j, s, h = (item // (slots * heads), item // heads % slots,
+                       item % heads)
+            c0 = j * plan.chunk
+            c1 = min(c0 + plan.chunk, live[s])
+            for warp in range(warps):
+                for base in range(c0 + warp * rb, c1, warps * rb):
+                    for r in range(rb):
+                        if base + r < c1:
+                            key = (s, h, base + r)
+                            seen[key] = seen.get(key, 0) + 1
+    return seen, live
+
+
+@pytest.mark.parametrize("cfg", [
+    dict(heads=2, d=64, bs=8, mb=6, itemsize=4, chunk=None, ctas=None),
+    dict(heads=2, d=128, bs=3, mb=9, itemsize=2, chunk=5, ctas=7),
+    dict(heads=4, d=64, bs=1, mb=40, itemsize=2, chunk=16, ctas=3),
+    dict(heads=2, d=128, bs=16, mb=4, itemsize=4, chunk=24, ctas=None)],
+    ids=lambda c: "d%d-bs%d-%s" % (c["d"], c["bs"], c["chunk"]))
+def test_b5_plan_covers_each_live_row_once(cfg):
+    """At every length 1 .. MB * BS (beside a slot at the full width
+    and one at 1), each live row of each (slot, head) is read by exactly
+    one lane group of one warp of one item, and no row past a length."""
+    heads, d, bs, mb = cfg["heads"], cfg["d"], cfg["bs"], cfg["mb"]
+    plan = fa._paged_plan(3, heads, d, bs, mb, chunk=cfg["chunk"],
+                          ctas=cfg["ctas"])
+    assert plan.max_chunks == -(-mb * bs // plan.chunk)
+    assert plan.scratch_bytes == 4 * (2 + d) * 3 * heads * plan.max_chunks
+    for n in range(1, mb * bs + 1):
+        lens = [n, mb * bs, 1]
+        seen, live = _b5_rows(lens, heads, plan, bs, mb, d, cfg["itemsize"])
+        want = {(s, h, c): 1 for s, length in enumerate(live)
+                for h in range(heads) for c in range(length)}
+        assert seen == want, n
+        # every chunk's partial has its slot in the scratch
+        assert all(-(-length // plan.chunk) <= plan.max_chunks
+                   for length in live)
+
+
+def test_b5_plan_at_the_path():
+    """The paged cell (8 slots, 16 heads of 128, BS 16, 64 blocks):
+    128-row chunks (two batches of a head's 8 warps in f32, one in bf16),
+    a CTA for each of the 1024 items: a grid that depends on no length;
+    in f32 and bf16, at the plan's grid and at each of the probe's grid
+    sizes, each live row is read once."""
+    plan = fa._paged_plan(8, 16, 128, 16, 64)
+    assert (plan.chunk, plan.max_chunks) == (128, 8)
+    assert plan.ctas == 8 * 8 * 16 <= fa.PAGED_MAX_CTAS
+    lens = [259, 331, 531, 259, 131, 1, 1, 1]
+    for itemsize in (4, 2):
+        for ctas in (None,) + b5_probe.PAGED_CTAS:
+            plan = fa._paged_plan(8, 16, 128, 16, 64, ctas=ctas)
+            seen, live = _b5_rows(lens, 16, plan, 16, 64, 128, itemsize)
+            assert seen == {(s, h, c): 1 for s, n in enumerate(live)
+                            for h in range(16) for c in range(n)}
 
 
 @pytest.mark.parametrize("shape", [s for s in B3_PATH if s[0] > 16],
@@ -207,3 +364,65 @@ def test_cuda_tile_constants_agree_with_the_plans():
     b3 = _source("int8_matmul.cu")
     assert _tile_table(b3, "kPrefillTiles") == quant_ops.PREFILL_TILES
     assert _int_const(b3, "kPBK") == quant_ops.PREFILL_BK
+
+
+def test_cuda_decode_constants_agree_with_the_plans():
+    """B3's decode tile, sub-stage and chunk limit, and B5's warps and
+    loads in flight, as the plans assume them."""
+    b3 = _source("int8_matmul.cu")
+    assert _int_const(b3, "kDecodeBN") == quant_ops.DECODE_BN
+    assert _int_const(b3, "kDecodeStageK") == quant_ops.DECODE_STAGE_K
+    assert _int_const(b3, "kDecodeMaxKC") == quant_ops.DECODE_MAX_KC
+    assert _int_const(b3, "kDecodeMaxSplits") == quant_ops.DECODE_MAX_SPLITS
+    # a sub-stage is 64 rows for each warp
+    assert _int_const(b3, "kDecodeWarps") * 64 == quant_ops.DECODE_STAGE_K
+    b5 = _source("decode_attention_paged.cu")
+    assert _int_const(b5, "kWarps") == fa.PAGED_WARPS
+    assert _int_const(b5, "kLoads") == fa.PAGED_LOADS
+
+
+def test_b5_probe_edits_apply_to_the_source():
+    """Each build of the decode probe applies to the source, and each
+    but ``current`` changes it; ``loads-4`` sets kLoads to 4."""
+    source = _source("decode_attention_paged.cu")
+    for name, pairs in b5_probe.BUILDS.items():
+        text = source
+        for old, new in pairs:
+            assert old in text, (name, old)
+            text = text.replace(old, new)
+        assert (text == source) == (name == "current"), name
+    text = source
+    for old, new in b5_probe.BUILDS["loads-4"]:
+        text = text.replace(old, new)
+    assert _int_const(text, "kLoads") == 4
+
+
+@pytest.mark.parametrize("name", sorted(_build.ENTRY_POINTS))
+def test_c_entry_signatures_agree_with_their_argtypes(name):
+    """Each C entry point's parameters in its source, pointer or int, in
+    the order and number of the argtypes ctypes calls it with."""
+    stem, argtypes = _build.ENTRY_POINTS[name]
+    source = _source(stem + ".cu")
+    sig = re.search(r'extern "C" int %s\(([^)]*)\)' % name, source)
+    assert sig, name
+    kinds = [ctypes.c_void_p if "*" in p else ctypes.c_int
+             for p in sig.group(1).split(",")]
+    assert kinds == list(argtypes)
+
+
+def test_scratch_is_reused_by_a_thread_and_never_shared_between_threads():
+    """One thread's calls on one stream reuse one buffer, which grows to
+    the largest request; another thread on the same stream gets its own,
+    so two threads' launches never write each other's scratch."""
+    dev = torch.device("cpu")
+    a = _build.scratch(dev, 7, 64)
+    assert _build.scratch(dev, 7, 32) is a
+    assert _build.scratch(dev, 8, 32) is not a
+    grown = _build.scratch(dev, 7, 128)
+    assert grown.numel() >= 128 and _build.scratch(dev, 7, 64) is grown
+    seen = []
+    worker = threading.Thread(
+        target=lambda: seen.append(_build.scratch(dev, 7, 64)))
+    worker.start()
+    worker.join()
+    assert seen[0] is not grown and seen[0].numel() >= 64
