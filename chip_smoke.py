@@ -12,10 +12,11 @@ and PyTorch built for CUDA. In order, it:
 2. holds each kernel against its plain PyTorch version on the card, at
    the shapes the serving path gives it (the int8 kernel exactly, the
    decode kernels on float32 and bfloat16 caches) and at the boundaries
-   of the decode kernels' splits (the int8 kernel's k chunks, the paged
-   kernel's key chunks), and small LMs on the card against the same LMs
-   on the CPU (float32; int8 weights with bfloat16 caches, dense and
-   paged);
+   of the decode kernels' splits (the int8 kernel's k chunks, the dense
+   and paged kernels' key chunks; the dense kernel bitwise equal to the
+   paged one on the same logical rows, repeatable, its counters left at
+   0), and small LMs on the card against the same LMs on the CPU
+   (float32; int8 weights with bfloat16 caches, dense and paged);
 3. makes full-width weights of the flagship LM (vocab 32768, d_model
    2048, 16 heads, d_ff 8192, 12 layers, 1024 positions) with numpy from
    the seed and loads them by their reference names through
@@ -51,8 +52,8 @@ and PyTorch built for CUDA. In order, it:
 8. holds the fused 1x1 conv + BN-statistics kernel (B1) against its plain
    version at every shape of the ResNet-50 path and at ragged shapes
    (bitwise repeatable on scratch that held NaN, with a gradient check),
-   and its bf16
-   instantiation with a BN-apply + ReLU prologue (the probe T1); trains a
+   and the probe T1 (a bf16 1x1 convolution on the tensor cores with a
+   BN-apply + ReLU prologue) at its three cases and ragged ones; trains a
    small bottleneck ResNet on the card against the CPU, fused against
    unfused, and unfused under amp (bf16 convolutions) against the CPU;
 9. frees the LM, then trains ResNet-50 as bench.py does on the
@@ -190,6 +191,10 @@ T1_CASES = (("stage2 28x28 128->512", 256 * 28 * 28, 128, 512),
             ("stage3 14x14 256->1024", 256 * 14 * 14, 256, 1024),
             ("stage1 56x56 64->256", 256 * 56 * 56, 64, 256))
 T1_SUM_RTOL = 1e-5
+# T1 off the probe's cases (R, C, O), from a torch stream of their own:
+# ragged R, C and O (element-wise copies and stores), more channels than
+# a z tile holds (256-channel chunks), a single row
+T1_RAGGED = ((1000, 72, 136), (333, 37, 21), (700, 600, 264), (1, 8, 8))
 # the small bottleneck ResNet, card vs CPU over 3 Momentum steps (f32,
 # B1 and cuDNN on the card, the plain versions on the CPU): losses,
 # parameters, velocities and running statistics within SMALL_RESNET_RTOL
@@ -451,11 +456,12 @@ def paged_case(rng, lens, heads, d, nb, bs, mb, poison=True, dtype=None):
 
 
 def phase_compare_paged(rng):
-    """The paged decode kernel against its plain version, and against the
-    dense decode kernel on the same logical cache, at the path's shape
-    (S 8, H 16, D 128, BS 16, MB 64, NB 512) and at D 64, BS 8. The last
-    slot's table row is all dead: its output is left out of the
-    comparison, but its launch must not fault."""
+    """The paged decode kernel against its plain version, and bitwise
+    against the dense decode kernel on the same logical cache (the two
+    share the split-key body), at the path's shape (S 8, H 16, D 128, BS
+    16, MB 64, NB 512) and at D 64, BS 8. The last slot's table row is
+    all dead: its output is left out of the comparison, but its launch
+    must not fault."""
     import torch
     from paddle_tpu_torch.ops import flash_attention as fa
     h, d = FULL["num_heads"], FULL["d_model"] // FULL["num_heads"]
@@ -480,14 +486,16 @@ def phase_compare_paged(rng):
         check(bool(torch.isfinite(got[:-1]).all()),
               "decode_attention_paged read a poisoned block")
         err = float((got[:-1] - want[:-1]).abs().max())
-        err_dense = float((got[:-1] - dense[:-1]).abs().max())
         print("[compare] decode_attention_paged S=%d H=%d D=%d BS=%d MB=%d "
-              "NB=%d lengths %s: max_abs_err vs plain %.3g, vs "
-              "decode_attention %.3g (tol %g)"
-              % (s, hh, hd, bs, cmb, nb, lens[:-1], err, err_dense,
-                 KERNEL_ATOL))
-        check(err <= KERNEL_ATOL and err_dense <= KERNEL_ATOL,
-              "decode_attention_paged disagrees: %g / %g" % (err, err_dense))
+              "NB=%d lengths %s: max_abs_err vs plain %.3g (tol %g); "
+              "bitwise equal to decode_attention on the gathered cache"
+              % (s, hh, hd, bs, cmb, nb, lens[:-1], err, KERNEL_ATOL))
+        check(err <= KERNEL_ATOL,
+              "decode_attention_paged disagrees with its plain version: %g"
+              % err)
+        check(torch.equal(got[:-1], dense[:-1]),
+              "decode_attention_paged and decode_attention differ on the "
+              "same logical rows")
         if hh == h:
             worst = err
     return worst
@@ -499,9 +507,9 @@ def phase_compare_paged_splits(rng):
     chunk - 1, chunk and chunk + 1 (with 2 chunks + 1 and 1), and one slot
     at the table's whole width with the others at 1; NaN-poisoned
     unreferenced blocks and an all-dead last row, as
-    :func:`phase_compare_paged`; against the plain version and against
-    B4 on the gathered cache. Each case runs again with the same logical
-    rows in other blocks (the pool's blocks permuted, the tables
+    :func:`phase_compare_paged`; against the plain version and, bitwise,
+    against B4 on the gathered cache. Each case runs again with the same
+    logical rows in other blocks (the pool's blocks permuted, the tables
     renumbered to match): the live slots' outputs must be bitwise equal,
     as the split cuts and combines by logical row alone. Returns the
     worst error per dtype."""
@@ -546,17 +554,77 @@ def phase_compare_paged_splits(rng):
                 check(bool(torch.isfinite(got[:-1]).all()),
                       "decode_attention_paged %s read a poisoned block" % kind)
                 err = float((got[:-1] - want[:-1]).abs().max())
-                err_dense = float((got[:-1] - dense[:-1]).abs().max())
                 print("[compare] decode_attention_paged %s H=%d D=%d BS=%d "
-                      "chunk %d lengths %s: max_abs_err vs plain %.3g, vs "
-                      "decode_attention %.3g (tol %g); bitwise equal with "
-                      "the blocks permuted"
-                      % (kind, hh, hd, bs, chunk, lens[:-1], err, err_dense,
+                      "chunk %d lengths %s: max_abs_err vs plain %.3g (tol "
+                      "%g); bitwise equal with the blocks permuted and to "
+                      "decode_attention on the gathered cache"
+                      % (kind, hh, hd, bs, chunk, lens[:-1], err,
                          KERNEL_ATOL))
-                check(err <= KERNEL_ATOL and err_dense <= KERNEL_ATOL,
+                check(err <= KERNEL_ATOL,
                       "decode_attention_paged %s disagrees at its split "
-                      "boundaries: %g / %g" % (kind, err, err_dense))
+                      "boundaries: %g" % (kind, err))
+                check(torch.equal(got[:-1], dense[:-1]),
+                      "decode_attention_paged %s and decode_attention differ "
+                      "on the same logical rows" % kind)
                 worst[kind] = max(worst[kind], err)
+    return worst
+
+
+def phase_compare_dense_splits(rng):
+    """B4's split boundaries: per cache dtype (float32, bfloat16) and
+    (heads, D) of (16, 128) and (4, 64), lengths at the plan's chunk - 1,
+    chunk and chunk + 1 (with 2 chunks + 1, 1, 7, 300), and one slot at
+    the cache's whole width with the others at 1; the last slot at length
+    0 must come out exactly 0 (the plain version gives V's mean there).
+    The live slots against the plain version; a second call, on a scratch
+    filled with NaN, bitwise equal to the first (each partial the combine
+    reads is written in the call); the counters read back 0 after each
+    call. Returns the worst error per dtype."""
+    import torch
+    from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.ops import flash_attention as fa
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    dev = torch.device("cuda", torch.cuda.current_device())
+    for dtype in (torch.float32, torch.bfloat16):
+        kind = str(dtype)[6:]
+        for hh, hd in ((FULL["num_heads"], FULL["d_model"] // FULL["num_heads"]),
+                       (4, 64)):
+            plan = fa._split_plan(SLOTS, hh, hd, CACHE_LEN)
+            chunk = plan.chunk
+            for lens in ([chunk - 1, chunk, chunk + 1, 2 * chunk + 1, 1, 7,
+                          300, 0], [CACHE_LEN] + [1] * (SLOTS - 2) + [0]):
+                q = torch.from_numpy(rng.standard_normal(
+                    (SLOTS, hh * hd), dtype=np.float32)).cuda()
+                kc, vc = (torch.from_numpy(rng.standard_normal(
+                    (SLOTS, CACHE_LEN, hh * hd), dtype=np.float32)).cuda()
+                    .to(dtype) for _ in range(2))
+                lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+                got = fa.decode_attention(q, kc, vc, lengths, hh)
+                stream = _build.stream(dev)
+                counters = _build.counters(dev, stream, plan.counters)
+                torch.cuda.synchronize()
+                clear = not counters[:plan.counters].any()
+                _build.scratch(dev, stream, plan.scratch_bytes).fill_(255)
+                again = fa.decode_attention(q, kc, vc, lengths, hh)
+                want = fa.decode_attention_plain(q, kc, vc, lengths, hh)
+                torch.cuda.synchronize()
+                clear = clear and not counters[:plan.counters].any()
+                err = float((got[:-1] - want[:-1]).abs().max())
+                print("[compare] decode_attention %s H=%d D=%d chunk %d "
+                      "lengths %s: max_abs_err vs plain %.3g (tol %g); the "
+                      "length-0 slot exactly 0; a second call on a NaN "
+                      "scratch bitwise equal; counters 0 after each call"
+                      % (kind, hh, hd, chunk, lens, err, KERNEL_ATOL))
+                check(err <= KERNEL_ATOL,
+                      "decode_attention %s disagrees at its split boundaries:"
+                      " %g" % (kind, err))
+                check(not got[-1].any(),
+                      "decode_attention gave a length-0 slot a nonzero output")
+                check(torch.equal(got, again),
+                      "decode_attention: two calls differ")
+                check(clear, "decode_attention left a counter nonzero")
+                worst[kind] = max(worst[kind], err)
+                del kc, vc
     return worst
 
 
@@ -1142,39 +1210,49 @@ def phase_profile(sess, rng, paged, system, quant):
             fn()
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
-        by_name = {}
+        by_name, count = {}, {}
         for e in prof.events():
             if e.device_type == torch.autograd.DeviceType.CUDA:
                 by_name[e.name] = by_name.get(e.name, 0.0) + \
                     e.time_range.elapsed_us()
+                count[e.name] = count.get(e.name, 0) + 1
         busy = sum(by_name.values())
         if not busy:
             print("[profile] %s: the profiler saw no device time (not "
                   "measured)" % label)
-            return
+            return None
         print("[profile] %s: wall %.3f ms, device busy %.3f ms (%.1f%%)"
               % (label, wall_us / 1e3, busy / 1e3, 100 * busy / wall_us))
+        launched = {}
         for kernel, names in markers:
             mine = sum(us for n, us in by_name.items()
                        if any(m in n for m in names))
-            print("[profile]   %s %.3f ms, %.1f%% of busy"
-                  % (kernel, mine / 1e3, 100 * mine / busy))
+            launched[kernel] = sum(k for n, k in count.items()
+                                   if any(m in n for m in names))
+            print("[profile]   %s %.3f ms, %.1f%% of busy, %d launches"
+                  % (kernel, mine / 1e3, 100 * mine / busy,
+                     launched[kernel]))
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
         for name, us in top:
             print("[profile]   %6.1f%% %9.3f ms  %s"
                   % (100 * us / busy, us / 1e3, name[:110]))
+        return launched
 
     b3 = ("B3 (quantize pass, split-K decode kernel, prefill GEMM)",
           ("quantize_rows_kernel", "int8_gemv_kernel", "int8_gemm_kernel"))
-    b4 = ("B4 (decode_kernel)", ("decode_kernel",))
+    b4 = ("B4 (dense_decode_kernel)", ("dense_decode_kernel",))
     b5 = ("B5 (split and combine)", ("paged_split_kernel",
                                      "paged_combine_kernel"))
     prompt = rng.integers(2, FULL["vocab_size"], BUCKETS[-1])
     window("prefill 512", lambda: sess.retire(sess.admit(prompt)[0]))
     for i in range(SLOTS):
         sess.admit(rng.integers(2, FULL["vocab_size"], 64 + 56 * i))
-    window("4 decode steps, %d slots" % SLOTS,
-           lambda: [sess.step() for _ in range(4)], (b4,))
+    launched = window("4 decode steps, %d slots" % SLOTS,
+                      lambda: [sess.step() for _ in range(4)], (b4,))
+    # B4 makes one launch a call: one a layer and step
+    check(launched is None or launched[b4[0]] == 4 * FULL["num_layers"],
+          "the dense decode window launched %s B4 kernels, not one a layer "
+          "and step" % (launched or {}).get(b4[0]))
     for s in range(SLOTS):
         sess.retire(s)
     for label, ps, markers in (("paged", paged, (b5,)),
@@ -1273,6 +1351,17 @@ def phase_time(rng, launches, errs, final_lengths, paged_final,
         nbytes = live + 2 * s * h * d * 4 + 4 * s
         bound, bound_by = roofline_ms(nbytes, 4 * total * h * d)
         bf16 = dt == torch.bfloat16
+        # the CTAs that took a work item, counted on the card by one more
+        # launch (not a path launch) at the dense cell's final lengths
+        plan = fa._split_plan(s, h, d, c)
+        fn = _build.entry("decode_attention_" + ("bf16" if bf16 else "f32"))
+        working, items = split_work(lambda work: fa._launch_dense(
+            q, kc, vc, lens, h, plan, fn, work))
+        want_items = h * sum(-(-int(n) // plan.chunk) for n in lens_dense)
+        check(items == want_items and 0 < working <= plan.ctas,
+              "decode_attention took %d work items in %d CTAs; the lengths "
+              "give %d items, the grid %d CTAs"
+              % (items, working, want_items, plan.ctas))
         rows.append(dict(
             name="decode_attention", route="cuda",
             source="paddle_tpu_torch/csrc/decode_attention.cu",
@@ -1283,7 +1372,12 @@ def phase_time(rng, launches, errs, final_lengths, paged_final,
             # SDPA over all-bf16 inputs is printed as a yardstick
             library_ms=None if bf16 else sdpa_ms,
             kv_dtype="bfloat16" if bf16 else "float32",
-            warm_ms=warm_ms, profiler_ms=profiler_ms))
+            warm_ms=warm_ms, profiler_ms=profiler_ms, chunk=plan.chunk,
+            ctas=plan.ctas, ctas_with_work=working))
+        notes.append("decode_attention %s split: chunks of %d rows, %d CTAs "
+                     "launched, %d took work (%d work items of one head, "
+                     "counted on the card), one launch a call"
+                     % (str(dt)[6:], plan.chunk, plan.ctas, working, items))
         if bf16:
             rows[-1]["launches_in"] = "[small-lm] dense int8/bf16"
             notes.append("decode_attention bf16: no single PyTorch call "
@@ -1337,10 +1431,10 @@ def phase_time(rng, launches, errs, final_lengths, paged_final,
         # the split's CTAs that took a work item, counted on the card by
         # one more launch (not a path launch) at the path's final lengths
         plan = fa._paged_plan(s, h, d, BLOCK_SIZE, mb)
-        working, items = split_work(
-            q, pk, pv, lens, tables, h, plan,
-            _build.entry("decode_attention_paged_"
-                         + ("bf16" if dt == torch.bfloat16 else "f32")))
+        fn = _build.entry("decode_attention_paged_"
+                          + ("bf16" if dt == torch.bfloat16 else "f32"))
+        working, items = split_work(lambda work: fa._launch_paged(
+            q, pk, pv, lens, tables, h, plan, fn, work))
         want_items = h * sum(-(-int(n) // plan.chunk) for n in lens_host)
         check(items == want_items and 0 < working <= plan.ctas,
               "decode_attention_paged's split took %d work items in %d "
@@ -1545,8 +1639,9 @@ def phase_compare_conv_bn(rng):
     path (batch 256) and at ragged shapes; a second launch, on scratch
     that held NaN, gives the same bits; its autograd Function against
     autograd of the plain version with cotangents on y, sum and sumsq;
-    and B1's bf16 instantiation with the BN-apply + ReLU prologue (the
-    probe T1) against its plain version at the probe's three cases."""
+    and the probe T1 (the BN-apply + ReLU prologue, bf16, the tensor
+    cores) against its plain version at the probe's three cases and at
+    ragged ones, bitwise repeatable on partial sums that held NaN."""
     import torch
     from paddle_tpu_torch.ops import conv_bn
     batch = TRAIN["batch"]
@@ -1596,27 +1691,42 @@ def phase_compare_conv_bn(rng):
     check(max(errs) <= B1_RTOL, "conv_bn_stats gradient disagrees")
     del x, wt, cts, grads
     t1 = 0.0
-    for name, r, c, o in T1_CASES:
-        x = torch.randn(r, c, device="cuda").bfloat16()
-        a = (torch.rand(c, device="cuda") + 0.5).bfloat16()
-        b = (torch.randn(c, device="cuda") * 0.1).bfloat16()
-        w = (torch.randn(c, o, device="cuda") * 0.05).bfloat16()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(T1_RAGGED[0][0])
+    cases = [(name, r, c, o, None) for name, r, c, o in T1_CASES] + \
+        [("ragged", r, c, o, gen) for r, c, o in T1_RAGGED]
+    for name, r, c, o, g in cases:
+        x = torch.randn(r, c, device="cuda", generator=g).bfloat16()
+        a = (torch.rand(c, device="cuda", generator=g) + 0.5).bfloat16()
+        b = (torch.randn(c, device="cuda", generator=g) * 0.1).bfloat16()
+        w = (torch.randn(c, o, device="cuda", generator=g) * 0.05).bfloat16()
         y, s, ss = conv_bn.conv1x1_bn_relu(x, a, b, w)
+        # a second call on partial sums that held NaN: a partial the
+        # kernel fails to write shows in the sums
+        plan = conv_bn._t1_plan(r, c, o)
+        nan = torch.full((2, plan.row_tiles, o), float("nan"), device="cuda")
+        again = conv_bn._launch_t1(x, a, b, w, plan, part=nan)
         wy, ws, wss = conv_bn.conv1x1_bn_relu_plain(x, a, b, w)
         torch.cuda.synchronize()
         yf, wyf = y.float(), wy.float()
         scale = float(wyf.abs().max())
         ey = float((yf - wyf).abs().max())
-        es = float(((s - ws).abs() / wyf.abs().sum(0)).max())
-        ess = float(((ss - wss).abs() / wss).max())
+        es = float(((s - ws).abs() / wyf.abs().sum(0).clamp(min=1e-30))
+                   .max())
+        ess = float(((ss - wss).abs() / wss.clamp(min=1e-30)).max())
+        label = "%s R=%d C=%d O=%d (tile %dx%d)" % (name, r, c, o, plan.bm,
+                                                   plan.bn)
         print("[compare] conv1x1_bn_relu bf16 %s: max_abs_err y %.3g "
               "(max|y| %.3g, tol one bf16 step %.3g), sum %.3g, sumsq %.3g "
-              "(relative; tol %g)" % (name, ey, scale, scale * 2 ** -7, es,
-                                      ess, T1_SUM_RTOL))
+              "(relative; tol %g); a second call on NaN partials bitwise "
+              "equal" % (label, ey, scale, scale * 2 ** -7, es, ess,
+                         T1_SUM_RTOL))
         check(ey <= scale * 2 ** -7 and es <= T1_SUM_RTOL
-              and ess <= T1_SUM_RTOL, "conv1x1_bn_relu disagrees at " + name)
+              and ess <= T1_SUM_RTOL, "conv1x1_bn_relu disagrees at " + label)
+        check(all(torch.equal(p, q) for p, q in zip((y, s, ss), again)),
+              "conv1x1_bn_relu: two calls differ at " + label)
         t1 = max(t1, ey)
-        del x, a, b, w, y, s, ss, wy, ws, wss, yf, wyf
+        del x, a, b, w, y, s, ss, wy, ws, wss, yf, wyf, nan, again
     return {"conv_bn_stats": worst, "conv_bn_stats_rel": worst_rel,
             "conv1x1_bn_relu": t1}
 
@@ -1877,11 +1987,13 @@ def phase_profile_train(model, opt, img, label):
 def phase_time_conv_bn(launches, errs, shapes):
     """B1 at each of its path shapes (batch 256) and T1 at the probe's
     cases: the kernel's time, the plain version's and the library
-    route's (cuDNN F.conv2d plus the two sums for B1), each by the
-    profiler and between CUDA events, and the bound from the shapes."""
+    route's (cuDNN F.conv2d plus the two sums for B1, the torch route for
+    T1), each by the profiler and between CUDA events, and the bound from
+    the shapes."""
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.ops import conv_bn
+    from paddle_tpu_torch.probes.conv_bn import torch_route
     rows = []
     batch = TRAIN["batch"]
     print("[time] conv_bn_stats, conv1x1_bn_relu: each time between CUDA "
@@ -1926,20 +2038,26 @@ def phase_time_conv_bn(launches, errs, shapes):
             conv_bn.conv1x1_bn_relu, x, a, b, w))
         plain_ms, plain_profiler_ms = two_clocks(
             lambda: conv_bn.conv1x1_bn_relu_plain(x, a, b, w))
+        lib_ms, lib_profiler_ms = two_clocks(
+            lambda: torch_route(x, a, b, w))
         nbytes = 2 * (r * c + 2 * c + c * o + r * o) + 4 * 2 * o
         # bf16 products with f32 accumulation: the tensor cores' rate
         bound, bound_by = roofline_ms(nbytes, 2 * r * c * o + 3 * r * c
                                       + 3 * r * o, peak=BF16_FLOPS)
+        plan = conv_bn._t1_plan(r, c, o)
         rows.append(dict(
             name="conv1x1_bn_relu", route="cuda",
-            source="paddle_tpu_torch/csrc/conv_bn_stats.cu",
+            source="paddle_tpu_torch/csrc/conv1x1_bn_relu.cu",
             replaces="tools/fused_conv_bn_probe.py:49",
             launches=launches["conv1x1_bn_relu"],
             launches_in="not on a path (probe T1)",
             max_abs_err=errs["conv1x1_bn_relu"], ms=ms, plain_ms=plain_ms,
-            bound_ms=bound, bound_by=bound_by, library_ms=None,
-            shape=[r, c, o], dtype="bfloat16", profiler_ms=profiler_ms,
-            plain_profiler_ms=plain_profiler_ms))
+            bound_ms=bound, bound_by=bound_by, library_ms=lib_ms,
+            library_route="torch route: bf16 prologue, torch.mm(z, w, "
+            "out_dtype=torch.float32), the cast, the two sums",
+            shape=[r, c, o], tile=[plan.bm, plan.bn], dtype="bfloat16",
+            profiler_ms=profiler_ms, plain_profiler_ms=plain_profiler_ms,
+            library_profiler_ms=lib_profiler_ms))
         del x, a, b, w
     for r in rows:
         tile = " (tile %dx%d)" % tuple(r["tile"]) if "tile" in r else ""
@@ -1956,9 +2074,10 @@ def phase_time_conv_bn(launches, errs, shapes):
           "%.3f), bound %.3f ms; plain %.3f ms; cuDNN + sums %.3f ms"
           % (per_step("ms"), per_step("profiler_ms"), per_step("bound_ms"),
              per_step("plain_ms"), per_step("library_ms")))
-    print("[time] conv1x1_bn_relu (T1): the bf16 probe's instantiation; "
-          "no single PyTorch call computes it, its plain version is the "
-          "torch path (elementwise prologue, f32 matmul, sums)")
+    print("[time] conv1x1_bn_relu (T1): no single PyTorch call computes "
+          "it; its library figure is the torch route (the reference probe's "
+          "xla_path: the prologue in bf16 ops, torch.mm with out_dtype "
+          "float32, the cast, the sums; probes/conv_bn.py torch_route)")
     return rows
 
 
@@ -2355,6 +2474,13 @@ def main(argv=None):
             errs["decode_attention_paged"], splits["float32"])
         errs["decode_attention_paged bf16"] = max(
             errs["decode_attention_paged bf16"], splits["bfloat16"])
+        # and B4's, from another
+        dense = phase_compare_dense_splits(
+            np.random.default_rng(args.seed + 5))
+        errs["decode_attention"] = max(errs["decode_attention"],
+                                       dense["float32"])
+        errs["decode_attention bf16"] = max(errs["decode_attention bf16"],
+                                            dense["bfloat16"])
         errs["int8_matmul"] = phase_compare_int8(
             rng, np.random.default_rng(args.seed + 3))
         errs.update(phase_compare_conv_bn(rng))

@@ -1,6 +1,4 @@
-// Fused 1x1 convolution + BN statistics (kernel B1) for Hopper (sm_90a),
-// and its bf16 instantiation with a BN-apply + ReLU prologue (the probe
-// T1).
+// Fused 1x1 convolution + BN statistics (kernel B1) for Hopper (sm_90a).
 //
 // Replaces the Pallas kernel paddle_tpu/ops/pallas_conv_bn.py
 // `_pallas_1x1` (`_conv1x1_bn_kernel`): y = conv2d(x, w) for a 1x1,
@@ -35,19 +33,16 @@
 //   sums of y and y * y over the tile's pixels (registers, then a
 //   shuffle tree across the row's threads) into a [pixel tiles, O]
 //   partial buffer, no atomics. Zero-filled pixels add exact zeros. The
-//   finish adds each channel's partials in a fixed order in double, so
-//   two runs give the same bits.
-//
-// The T1 instantiation (tools/fused_conv_bn_probe.py `fused_conv1x1_bn`)
-// keeps B1's first design: rows x [R, C] and w [C, O] in bf16,
-// y = relu(x * a + b) @ w with the prologue applied as the x tile is
-// loaded, 64 x 64 tiles staged through registers.
+//   finish (csrc/stats_finish.cuh, shared with T1) adds each channel's
+//   partials in a fixed order in double, so two runs give the same bits.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
 #include <cstdint>
+
+#include "stats_finish.cuh"
 
 namespace {
 
@@ -256,37 +251,6 @@ conv1x1_f32_stats_kernel(const float* __restrict__ x,
   }
 }
 
-// s[o] = sum over tiles of part_s[tile, o] (and ss alike), in a fixed
-// order: 32 channels per CTA, 32 warps each summing every 32nd tile in
-// double, then warp 0 adds the 32 partials in order.
-__global__ void __launch_bounds__(1024)
-stats_finish_kernel(const float* __restrict__ part_s,
-                    const float* __restrict__ part_ss, float* __restrict__ s,
-                    float* __restrict__ ss, int tiles, int O) {
-  __shared__ double sh_s[32][33], sh_ss[32][33];
-  const int lane = threadIdx.x & 31, g = threadIdx.x >> 5;
-  const int o = blockIdx.x * 32 + lane;
-  double a = 0.0, q = 0.0;
-  if (o < O) {
-    for (int t = g; t < tiles; t += 32) {
-      a += part_s[static_cast<size_t>(t) * O + o];
-      q += part_ss[static_cast<size_t>(t) * O + o];
-    }
-  }
-  sh_s[g][lane] = a;
-  sh_ss[g][lane] = q;
-  __syncthreads();
-  if (g == 0 && o < O) {
-    double ta = 0.0, tq = 0.0;
-    for (int k = 0; k < 32; ++k) {
-      ta += sh_s[k][lane];
-      tq += sh_ss[k][lane];
-    }
-    s[o] = static_cast<float>(ta);
-    ss[o] = static_cast<float>(tq);
-  }
-}
-
 template <int BM, int BN, bool VEC>
 cudaError_t launch_b1(const float* x, const float* wt, float* y,
                       float* part_s, float* part_ss, int c, int p, int o,
@@ -316,124 +280,6 @@ cudaError_t launch_tile(bool vec, const float* x, const float* wt, float* y,
                                        c_pad, o_pad, r, p_tiles, stream)
              : launch_b1<BM, BN, false>(x, wt, y, part_s, part_ss, c, p, o,
                                         c_pad, o_pad, r, p_tiles, stream);
-}
-
-// ---------------------------------------------------------------- T1
-
-constexpr int kT1BM = 64;        // output channels per CTA
-constexpr int kT1BN = 64;        // rows per CTA: one partial sum each
-constexpr int kT1BK = 16;        // input channels per step
-constexpr int kT1Pad = 4;        // floats of padding per shared row
-constexpr int kT1Threads = 256;  // 16 x 16 threads, 4 x 4 outputs each
-
-// A(o, c) = w[c * O + o], B(c, p) = x[p * C + c], Y(o, p) = y[p * O + o]:
-// y = relu(x * a + b) @ w in bf16 rows, f32 products and sums.
-__global__ void __launch_bounds__(kT1Threads)
-conv1x1_bn_relu_kernel(const __nv_bfloat16* __restrict__ x,
-                       const __nv_bfloat16* __restrict__ w,
-                       const __nv_bfloat16* __restrict__ pa,
-                       const __nv_bfloat16* __restrict__ pb,
-                       __nv_bfloat16* __restrict__ y,
-                       float* __restrict__ part_s,
-                       float* __restrict__ part_ss, int C, int P, int O) {
-  __shared__ __align__(16) float As[kT1BK][kT1BM + kT1Pad];
-  __shared__ __align__(16) float Bs[kT1BK][kT1BN + kT1Pad];
-
-  const int t = threadIdx.x;
-  const int tx = t & 15, ty = t >> 4;
-  const int p0 = blockIdx.x * kT1BN, o0 = blockIdx.y * kT1BM;
-
-  // Which element of the 64 x 16 tiles each thread loads: consecutive
-  // threads walk the contiguous axis of each operand, A contiguous in o
-  // (c = t / 16, o = 4 (t % 16) + i), B contiguous in c (p = t / 4,
-  // c = 4 (t % 4) + i).
-  const int a_o = 4 * (t & 15), a_c = t >> 4;
-  const int b_c = 4 * (t & 3), b_p = t >> 2;
-
-  float ra[4], rb[4];
-  auto load = [&](int k0) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int o = o0 + a_o + i, c = k0 + a_c;
-      ra[i] = (o < O && c < C)
-                  ? __bfloat162float(w[static_cast<size_t>(c) * O + o])
-                  : 0.f;
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int c = k0 + b_c + i, p = p0 + b_p;
-      float v = 0.f;
-      if (c < C && p < P) {
-        v = __bfloat162float(x[static_cast<size_t>(p) * C + c]);
-        // relu(x * a + b) in f32, one rounding per operation, then
-        // rounded to bf16 as the probe's activations are
-        v = fmaxf(__fadd_rn(__fmul_rn(v, __bfloat162float(pa[c])),
-                            __bfloat162float(pb[c])),
-                  0.f);
-        v = __bfloat162float(__float2bfloat16(v));
-      }
-      rb[i] = v;
-    }
-  };
-  auto stash = [&]() {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      As[a_c][a_o + i] = ra[i];
-      Bs[b_c + i][b_p] = rb[i];
-    }
-  };
-
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  load(0);
-  for (int k0 = 0; k0 < C; k0 += kT1BK) {
-    stash();
-    __syncthreads();
-    if (k0 + kT1BK < C) load(k0 + kT1BK);
-#pragma unroll
-    for (int k = 0; k < kT1BK; ++k) {
-      const float4 a4 = *reinterpret_cast<const float4*>(&As[k][4 * ty]);
-      const float4 b4 = *reinterpret_cast<const float4*>(&Bs[k][4 * tx]);
-      const float a[4] = {a4.x, a4.y, a4.z, a4.w};
-      const float b[4] = {b4.x, b4.y, b4.z, b4.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-  // epilogue: store y, then this tile's per-channel sums of y and y * y
-  const size_t tile = blockIdx.x;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int o = o0 + 4 * ty + i;
-    float s = 0.f, ss = 0.f;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int p = p0 + 4 * tx + j;
-      if (o < O && p < P)
-        y[static_cast<size_t>(p) * O + o] = __float2bfloat16(acc[i][j]);
-      s += acc[i][j];
-      ss = fmaf(acc[i][j], acc[i][j], ss);
-    }
-    // lanes 0-15 of a warp share ty, as do lanes 16-31: xor 8, 4, 2, 1
-    // stays inside each half
-#pragma unroll
-    for (int off = 8; off > 0; off >>= 1) {
-      s += __shfl_xor_sync(0xffffffffu, s, off);
-      ss += __shfl_xor_sync(0xffffffffu, ss, off);
-    }
-    if (tx == 0 && o < O) {
-      part_s[tile * O + o] = s;
-      part_ss[tile * O + o] = ss;
-    }
-  }
 }
 
 }  // namespace
@@ -471,26 +317,5 @@ extern "C" int conv_bn_stats_f32(const float* x, const float* w, float* y,
   if (err != cudaSuccess) return static_cast<int>(err);
   stats_finish_kernel<<<(o + 31) / 32, 1024, 0, st>>>(part_s, part_ss, s,
                                                       ss, p_tiles, o);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// Probe T1. x bf16 [r, c] rows, a and b bf16 [c], w bf16 [c, o] ->
-// y = relu(x * a + b) @ w as bf16 [r, o], s and ss f32 [o] of the f32
-// products. part_s and part_ss hold ceil(r / kT1BN) * o floats each.
-extern "C" int conv1x1_bn_relu_bf16(const __nv_bfloat16* x,
-                                    const __nv_bfloat16* a,
-                                    const __nv_bfloat16* b,
-                                    const __nv_bfloat16* w, __nv_bfloat16* y,
-                                    float* part_s, float* part_ss, float* s,
-                                    float* ss, int r, int c, int o,
-                                    void* stream) {
-  auto st = static_cast<cudaStream_t>(stream);
-  const dim3 grid((r + kT1BN - 1) / kT1BN, (o + kT1BM - 1) / kT1BM);
-  conv1x1_bn_relu_kernel<<<grid, kT1Threads, 0, st>>>(x, w, a, b, y, part_s,
-                                                      part_ss, c, r, o);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  stats_finish_kernel<<<(o + 31) / 32, 1024, 0, st>>>(
-      part_s, part_ss, s, ss, static_cast<int>(grid.x), o);
   return static_cast<int>(cudaGetLastError());
 }

@@ -7,199 +7,144 @@
 // (slot, head) attends cache rows c < length[slot] with an online
 // softmax; rows at or past the length are neither read nor computed.
 //
-// Design. The cache is read in its native [S, C, H * D] layout with the
-// head as a column offset (the indexing the paged TPU kernel's index map
-// uses), so no [S, C, H, D] -> [S, H, C, D] copy of the cache is ever
-// made. One block of 8 warps per (head, slot). Warp w takes the rows
-// c = w, w + 8, ...; each lane holds D / 32 consecutive elements of q, K
-// and V, so one row is one coalesced 512-byte read per warp at D = 128.
-// Four rows are loaded before their dot products are reduced, to keep
-// more loads in flight. Each warp keeps its own running max, sum and
-// accumulator; the 8 partial states are combined in shared memory at the
-// end. The loop bound is the slot's length, so a step reads O(length)
-// bytes of cache, not O(C). A bf16 cache is upcast to f32 as it is
-// loaded (the reference upcasts at the contraction), so bf16 halves the
-// bytes read and changes nothing else.
+// What bounds it on the H100: device-memory bytes, each live K and V row
+// read once (two flops a byte): 25 MB (f32) or 12 MB (bf16) a call at the
+// dense cell's lengths, 7.5 or 3.7 us at 3.35 TB/s, over 8 slots of very
+// different lengths. One CTA per (slot, head) walking all of its rows
+// left the card idle while the longest slot's CTAs finished.
 //
-// What bounds it on the H100: device-memory bytes (each live K and V row
-// is read once, two flops per byte loaded). At the slice's shapes
-// (S * H = 128 pairs) one block per pair leaves 4 of 132 SMs idle and
-// gives each SM one block of 8 warps; splitting the keys across blocks
-// (flash-decoding) is the known next step.
+// Design: B5's split-key body (csrc/decode_split.cuh) through DenseRows,
+// in one launch. The cache is read in its native [S, C, H * D] layout
+// (row c of slot s at s * C + c, the head a column offset), so no
+// transpose copy is made. The work items (chunk, slot, head) of a grid
+// fixed by C each make a chunk's partial (m, l, acc); a slot of one live
+// chunk writes its output at once (finish_one), a slot of length 0 gets
+// zeros from the CTA that takes its chunk 0, and otherwise each item
+// stores its partial in the scratch and adds 1 to its (slot, head)'s
+// counter after a fence: the CTA that sees the last count combines the
+// slot's chunks in chunk order (combine_warp) and sets the counter back
+// to 0, so every counter is 0 between calls. The counters live in a
+// zeroed buffer of their own (ops/_build.py `counters`), never in the
+// scratch that other kernels share. Chunks, batches and rows are cut by
+// logical row and the combine is B5's, so on the same logical rows B4's
+// output is bitwise equal to B5's.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cmath>
+#include <cstdint>
+
+#include "decode_split.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kUnroll = 4;      // rows in flight per warp
-constexpr float kNeg = -1e30f;  // the masking constant of the TPU kernel
+using namespace decode_split;
 
-// V consecutive cache elements (float or bf16) -> V floats in registers
-template <typename T, int V>
-struct Vec;
-template <>
-struct Vec<float, 4> {
-  static __device__ __forceinline__ void load(const float* p, float* r) {
-    const float4 x = *reinterpret_cast<const float4*>(p);
-    r[0] = x.x; r[1] = x.y; r[2] = x.z; r[3] = x.w;
-  }
-};
-template <>
-struct Vec<float, 2> {
-  static __device__ __forceinline__ void load(const float* p, float* r) {
-    const float2 x = *reinterpret_cast<const float2*>(p);
-    r[0] = x.x; r[1] = x.y;
-  }
-};
-template <>
-struct Vec<__nv_bfloat16, 4> {
-  static __device__ __forceinline__ void load(const __nv_bfloat16* p,
-                                              float* r) {
-    const uint2 x = *reinterpret_cast<const uint2*>(p);
-    const float2 lo = __bfloat1622float2(
-        *reinterpret_cast<const __nv_bfloat162*>(&x.x));
-    const float2 hi = __bfloat1622float2(
-        *reinterpret_cast<const __nv_bfloat162*>(&x.y));
-    r[0] = lo.x; r[1] = lo.y; r[2] = hi.x; r[3] = hi.y;
-  }
-};
-template <>
-struct Vec<__nv_bfloat16, 2> {
-  static __device__ __forceinline__ void load(const __nv_bfloat16* p,
-                                              float* r) {
-    const float2 x = __bfloat1622float2(
-        *reinterpret_cast<const __nv_bfloat162*>(p));
-    r[0] = x.x; r[1] = x.y;
-  }
-};
-
+// partials of chunk j of (slot s, head h) at index (s * heads + h) * nc + j:
+// pm, pl [slots * heads * nc], pacc [slots * heads * nc, D]; counters
+// [slots * heads], 0 on entry and on exit
 template <int D, typename T>
-__global__ void __launch_bounds__(kWarps * 32)
-decode_kernel(const float* __restrict__ q, const T* __restrict__ kc,
-              const T* __restrict__ vc, const int* __restrict__ lengths,
-              float* __restrict__ o, int heads, int C, float scale) {
-  constexpr int V = D / 32;
-  __shared__ float sm[kWarps], sl[kWarps];
-  __shared__ float sacc[kWarps][D];
-
-  const int h = blockIdx.x, s = blockIdx.y;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+__global__ void __launch_bounds__(kWarps * 32, kCtasAnSm)
+dense_decode_kernel(const float* __restrict__ q, const T* __restrict__ kc,
+                    const T* __restrict__ vc, const int* __restrict__ lengths,
+                    float* __restrict__ o, float* __restrict__ pm,
+                    float* __restrict__ pl, float* __restrict__ pacc,
+                    int* __restrict__ counters, int* __restrict__ work,
+                    int slots, int heads, int c, int chunk, int nc,
+                    float scale) {
+  __shared__ Shared<D> sh;
+  __shared__ int last;
+  const int tid = threadIdx.x;
   const int hd = heads * D;
-  const int len = min(lengths[s], C);
-  const size_t col = static_cast<size_t>(h) * D + lane * V;
-
-  float qv[V];
-  Vec<float, V>::load(q + static_cast<size_t>(s) * hd + col, qv);
-  const T* kbase = kc + static_cast<size_t>(s) * C * hd + col;
-  const T* vbase = vc + static_cast<size_t>(s) * C * hd + col;
-
-  float m = kNeg, l = 0.f, acc[V];
-#pragma unroll
-  for (int i = 0; i < V; ++i) acc[i] = 0.f;
-
-  for (int c0 = warp; c0 < len; c0 += kWarps * kUnroll) {
-    float kr[kUnroll][V], sc[kUnroll];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int c = c0 + u * kWarps;
-      if (c < len) {
-        Vec<T, V>::load(kbase + static_cast<size_t>(c) * hd, kr[u]);
-      } else {
-#pragma unroll
-        for (int i = 0; i < V; ++i) kr[u][i] = 0.f;
+  const DenseRows rows{c};
+  const int items = nc * slots * heads;
+  int done = 0;
+  for (int item = blockIdx.x; item < items; item += gridDim.x) {
+    const int j = item / (slots * heads);
+    const int s = item / heads % slots;
+    const int h = item % heads;
+    const int pair = s * heads + h;
+    const int len = live_rows(lengths, s, c);
+    const int c0 = j * chunk;
+    const int c1 = min(c0 + chunk, len);
+    float* out = o + static_cast<size_t>(pair) * D;
+    if (c0 >= c1) {
+      if (len == 0 && j == 0 && tid < D) out[tid] = 0.f;
+      continue;
+    }
+    ++done;
+    float m, l, a;
+    item_partial<D, T>(q, kc, vc, rows, s, h, c0, c1, hd, scale, sh, m, l, a);
+    const int n = (len + chunk - 1) / chunk;
+    if (n == 1) {
+      if (tid < D) out[tid] = finish_one(m, l, a);
+      __syncthreads();
+      continue;
+    }
+    const size_t pi = static_cast<size_t>(pair) * nc + j;
+    if (tid < D) {
+      pacc[pi * D + tid] = a;
+      if (tid == 0) {
+        pm[pi] = m;
+        pl[pi] = l;
       }
+      __threadfence();   // the partial is visible before the count
     }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      float d = 0.f;
-#pragma unroll
-      for (int i = 0; i < V; ++i) d = fmaf(qv[i], kr[u][i], d);
-      sc[u] = d;
+    __syncthreads();
+    if (tid == 0) last = atomicAdd(counters + pair, 1) == n - 1;
+    __syncthreads();
+    if (last) {
+      __threadfence();   // the other chunks' partials, seen after the count
+      if (tid < 32)
+        combine_warp<D>(pm, pl, pacc, static_cast<size_t>(pair) * nc, n, out,
+                        tid);
+      if (tid == 0) counters[pair] = 0;
     }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u)
-        sc[u] += __shfl_xor_sync(0xffffffffu, sc[u], off);
-    float mx = kNeg;
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      sc[u] = c0 + u * kWarps < len ? sc[u] * scale : kNeg;
-      mx = fmaxf(mx, sc[u]);
-    }
-    const float m_new = fmaxf(m, mx);
-    const float alpha = expf(m - m_new);
-    l *= alpha;
-#pragma unroll
-    for (int i = 0; i < V; ++i) acc[i] *= alpha;
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int c = c0 + u * kWarps;
-      if (c < len) {
-        const float p = expf(sc[u] - m_new);
-        float vr[V];
-        Vec<T, V>::load(vbase + static_cast<size_t>(c) * hd, vr);
-        l += p;
-#pragma unroll
-        for (int i = 0; i < V; ++i) acc[i] = fmaf(p, vr[i], acc[i]);
-      }
-    }
-    m = m_new;
+    __syncthreads();
   }
-
-  if (lane == 0) {
-    sm[warp] = m;
-    sl[warp] = l;
-  }
-#pragma unroll
-  for (int i = 0; i < V; ++i) sacc[warp][lane * V + i] = acc[i];
-  __syncthreads();
-
-  for (int t = threadIdx.x; t < D; t += kWarps * 32) {
-    float mall = kNeg;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) mall = fmaxf(mall, sm[w]);
-    float lsum = 0.f, a = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      const float f = expf(sm[w] - mall);
-      lsum = fmaf(sl[w], f, lsum);
-      a = fmaf(sacc[w][t], f, a);
-    }
-    o[static_cast<size_t>(s) * hd + static_cast<size_t>(h) * D + t] =
-        a / fmaxf(lsum, 1e-30f);
-  }
+  count_work(work, done);
 }
 
 template <int D, typename T>
 cudaError_t launch(const float* q, const T* k, const T* v,
-                   const int* lengths, float* o, int slots, int heads, int c,
-                   cudaStream_t stream) {
+                   const int* lengths, float* o, float* scratch,
+                   int* counters, int* work, int slots, int heads, int c,
+                   int chunk, int ctas, cudaStream_t stream) {
   const float scale = static_cast<float>(1.0 / std::sqrt(static_cast<double>(D)));
-  decode_kernel<D, T><<<dim3(heads, slots), kWarps * 32, 0, stream>>>(
-      q, k, v, lengths, o, heads, c, scale);
+  const int nc = (c + chunk - 1) / chunk;
+  const size_t parts = static_cast<size_t>(slots) * heads * nc;
+  float* pm = scratch;
+  float* pl = pm + parts;
+  float* pacc = pl + parts;
+  dense_decode_kernel<D, T><<<ctas, kWarps * 32, 0, stream>>>(
+      q, k, v, lengths, o, pm, pl, pacc, counters, work, slots, heads, c,
+      chunk, nc, scale);
   return cudaGetLastError();
 }
 
 template <typename T>
 int dispatch(const void* q, const void* k, const void* v, const void* lengths,
-             void* o, int slots, int heads, int d, int c, void* stream) {
+             void* o, void* scratch, void* counters, void* work, int slots,
+             int heads, int d, int c, int chunk, int ctas, void* stream) {
   if (slots <= 0 || heads <= 0) return cudaSuccess;
+  if (c <= 0 || chunk <= 0 || ctas <= 0) return cudaErrorInvalidValue;
   const auto* qf = static_cast<const float*>(q);
   const auto* kt = static_cast<const T*>(k);
   const auto* vt = static_cast<const T*>(v);
   const auto* ln = static_cast<const int*>(lengths);
   auto* of = static_cast<float*>(o);
+  auto* sc = static_cast<float*>(scratch);
+  auto* cn = static_cast<int*>(counters);
+  auto* wk = static_cast<int*>(work);
   auto st = static_cast<cudaStream_t>(stream);
   switch (d) {
     case 64:
-      return launch<64, T>(qf, kt, vt, ln, of, slots, heads, c, st);
+      return launch<64, T>(qf, kt, vt, ln, of, sc, cn, wk, slots, heads, c,
+                           chunk, ctas, st);
     case 128:
-      return launch<128, T>(qf, kt, vt, ln, of, slots, heads, c, st);
+      return launch<128, T>(qf, kt, vt, ln, of, sc, cn, wk, slots, heads, c,
+                            chunk, ctas, st);
     default:
       return cudaErrorInvalidValue;
   }
@@ -210,18 +155,28 @@ int dispatch(const void* q, const void* k, const void* v, const void* lengths,
 // q, o: contiguous f32 [slots, heads * d]; k, v: contiguous [slots, c,
 // heads * d] caches, f32 (decode_attention_f32) or bf16
 // (decode_attention_bf16); lengths: int32 [slots], live cache rows per
-// slot. Every pointer must be 16-byte aligned. Returns a cudaError_t.
+// slot (clamped into [0, c]; a slot of length 0 gets zeros). q, o, k and
+// v must be 16-byte aligned. `chunk` rows a work item, `ctas` the grid;
+// scratch: f32 [2 + d] * slots * heads * ceil(c / chunk), as
+// ops/flash_attention.py `_split_plan` sizes it; counters: int32
+// [slots * heads], all 0 (the kernel leaves them 0); work: null, or int32
+// [2] to which the kernel adds its CTAs that took an item and the items
+// they took. One launch. Returns a cudaError_t.
 extern "C" int decode_attention_f32(const void* q, const void* k,
                                     const void* v, const void* lengths,
-                                    void* o, int slots, int heads, int d,
-                                    int c, void* stream) {
-  return dispatch<float>(q, k, v, lengths, o, slots, heads, d, c, stream);
+                                    void* o, void* scratch, void* counters,
+                                    void* work, int slots, int heads, int d,
+                                    int c, int chunk, int ctas, void* stream) {
+  return dispatch<float>(q, k, v, lengths, o, scratch, counters, work, slots,
+                         heads, d, c, chunk, ctas, stream);
 }
 
 extern "C" int decode_attention_bf16(const void* q, const void* k,
                                      const void* v, const void* lengths,
-                                     void* o, int slots, int heads, int d,
-                                     int c, void* stream) {
-  return dispatch<__nv_bfloat16>(q, k, v, lengths, o, slots, heads, d, c,
-                                 stream);
+                                     void* o, void* scratch, void* counters,
+                                     void* work, int slots, int heads, int d,
+                                     int c, int chunk, int ctas,
+                                     void* stream) {
+  return dispatch<__nv_bfloat16>(q, k, v, lengths, o, scratch, counters, work,
+                                 slots, heads, d, c, chunk, ctas, stream);
 }

@@ -20,36 +20,16 @@
 // design splits the keys (flash-decoding) and issues each chunk's loads
 // at once.
 //
-// Split (paged_split_kernel). Each slot's logical rows are cut into
-// chunks of `chunk` rows (from ops/flash_attention.py `_paged_plan`); a
-// work item is one (chunk, slot, head), and the `ctas` CTAs of the grid
-// take items blockIdx.x, + gridDim.x, ..., of every chunk the table width
-// allows, skipping those past the slot's length as soon as it arrives (so
-// the grid is fixed by the table width, never by host-side lengths, and
-// an item's table entries are read alongside its length). In an item,
-// the kWarps warps take batches of rows; a lane loads
-// 16 bytes of a row of K and of V (4 f32 or 8 bf16 elements, so one row
-// is a warp at f32 D = 128, half a warp at bf16), kLoads rows of each in
-// flight before any is used: K and V of a batch go out together, 8 KB a
-// warp. The dot products are reduced across a row's lanes, the batch's
-// max across the warp, and each warp keeps an online softmax (m, l,
-// acc[D]); the warps are combined in shared memory in warp order into
-// the chunk's partial (m, l, acc), written to a scratch [slot, head,
-// chunk]. Given a counter (the probes' and chip_smoke.py's reading of the
-// split), each CTA that took an item adds 1 to work[0] and its items to
-// work[1].
-//
-// Combine (paged_combine_kernel, launched from the same C entry as a
-// programmatic dependent, so it is resident before the split ends): one
-// warp per (slot, head) reads its live chunks' partials in chunk order,
-// m = max m_j, l = sum l_j exp(m_j - m), acc likewise, and writes
-// acc / max(l, 1e-30), the reference's _finish. No float is added
-// atomically and every boundary (chunk, batch, row within a batch)
-// depends only on the logical row index, so a slot's output depends on
-// its q, its live rows and its length alone: not on its block ids, its
-// slot number or the other slots. Any BS >= 1 works: a row's block is
-// c / BS. A bf16 pool is upcast to f32 as it is loaded, as the reference
-// upcasts at the contraction.
+// Split (paged_split_kernel) and combine (paged_combine_kernel, launched
+// from the same C entry as a programmatic dependent, so it is resident
+// before the split ends): the body csrc/decode_split.cuh shares with B4,
+// through PagedRows. The split writes each live chunk's partial to a
+// scratch [slot, head, chunk]; the combine gives a warp to each
+// (slot, head). Any BS >= 1 works: a row's block is c / BS. A bf16 pool
+// is upcast to f32 as it is loaded, as the reference upcasts at the
+// contraction. B4 makes the same partials and combines them in the same
+// order inside its one launch; for B5 that design measured no faster
+// than these two launches with PDL (PERF.md), so B5 keeps them.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -57,38 +37,11 @@
 #include <cmath>
 #include <cstdint>
 
+#include "decode_split.cuh"
+
 namespace {
 
-constexpr int kWarps = 8;       // warps a CTA
-constexpr int kLoads = 8;       // 16-byte K and V loads a lane keeps in flight
-constexpr int kCombineBatch = 8;  // chunks' partials a combine warp loads at once
-constexpr float kNeg = -1e30f;  // the masking constant of the TPU kernel
-
-// 16 bytes of a pool row (4 f32 or 8 bf16) -> E floats
-template <typename T>
-struct Pack;
-template <>
-struct Pack<float> {
-  static constexpr int E = 4;
-  static __device__ __forceinline__ void unpack(const uint4& u, float* r) {
-    r[0] = __uint_as_float(u.x); r[1] = __uint_as_float(u.y);
-    r[2] = __uint_as_float(u.z); r[3] = __uint_as_float(u.w);
-  }
-};
-template <>
-struct Pack<__nv_bfloat16> {
-  static constexpr int E = 8;
-  static __device__ __forceinline__ void unpack(const uint4& u, float* r) {
-    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(
-          *reinterpret_cast<const __nv_bfloat162*>(&w[i]));
-      r[2 * i] = f.x;
-      r[2 * i + 1] = f.y;
-    }
-  }
-};
+using namespace decode_split;
 
 __device__ __forceinline__ void griddep_launch_dependents() {
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
@@ -98,32 +51,21 @@ __device__ __forceinline__ void griddep_wait() {
   asm volatile("griddepcontrol.wait;\n" ::: "memory");
 }
 
-__device__ __forceinline__ int live_rows(const int* lengths, int s, int cap) {
-  return min(max(lengths[s], 0), cap);
-}
-
 // partials of chunk j of (slot s, head h) at index (s * heads + h) * nc + j:
 // pm, pl [slots * heads * nc], pacc [slots * heads * nc, D]
 template <int D, typename T>
-__global__ void __launch_bounds__(kWarps * 32)
+__global__ void __launch_bounds__(kWarps * 32, kCtasAnSm)
 paged_split_kernel(const float* __restrict__ q, const T* __restrict__ kp,
                    const T* __restrict__ vp, const int* __restrict__ lengths,
                    const int* __restrict__ tables, float* __restrict__ pm,
                    float* __restrict__ pl, float* __restrict__ pacc,
                    int* __restrict__ work, int slots, int heads, int nb,
                    int bs, int mb, int chunk, int nc, float scale) {
-  constexpr int E = Pack<T>::E;          // elements a lane loads of a row
-  constexpr int LPR = D / E;             // lanes a row
-  constexpr int RPL = 32 / LPR;          // rows a warp-wide load
-  constexpr int RB = RPL * kLoads;       // rows a warp's batch
-  static_assert(D <= kWarps * 32, "the warps' combine takes a thread a column");
-  __shared__ float sm[kWarps], sl[kWarps];
-  __shared__ float sacc[kWarps][D];
-
+  __shared__ Shared<D> sh;
   griddep_launch_dependents();
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int tid = threadIdx.x;
   const int cap = mb * bs, hd = heads * D;
-  const int row_in = lane / LPR, col = (lane % LPR) * E;
+  const PagedRows rows{tables, nb, bs, mb};
   // item (chunk j, slot s, head h), chunk-major; an item past its slot's
   // length is skipped, so its slot, chunk and table entries are known
   // before the length arrives
@@ -137,128 +79,24 @@ paged_split_kernel(const float* __restrict__ q, const T* __restrict__ kp,
     const int c1 = min(c0 + chunk, live_rows(lengths, s, cap));
     if (c0 >= c1) continue;
     ++done;
-    const int* trow = tables + static_cast<size_t>(s) * mb;
-
-    float qv[E];
-    {
-      const float4* q4 = reinterpret_cast<const float4*>(
-          q + static_cast<size_t>(s) * hd + static_cast<size_t>(h) * D + col);
-#pragma unroll
-      for (int i = 0; i < E / 4; ++i) {
-        const float4 f = q4[i];
-        qv[4 * i] = f.x; qv[4 * i + 1] = f.y;
-        qv[4 * i + 2] = f.z; qv[4 * i + 3] = f.w;
-      }
-    }
-    float m = kNeg, l = 0.f, acc[E];
-#pragma unroll
-    for (int e = 0; e < E; ++e) acc[e] = 0.f;
-
-    for (int base = c0 + warp * RB; base < c1; base += kWarps * RB) {
-      uint4 kr[kLoads], vr[kLoads];
-#pragma unroll
-      for (int u = 0; u < kLoads; ++u) {
-        const int c = base + u * RPL + row_in;
-        kr[u] = vr[u] = make_uint4(0u, 0u, 0u, 0u);
-        if (c < c1) {
-          const int b = min(max(__ldg(trow + c / bs), 0), nb - 1);
-          const size_t off =
-              (static_cast<size_t>(b) * bs + c % bs) * hd +
-              static_cast<size_t>(h) * D + col;
-          kr[u] = __ldcs(reinterpret_cast<const uint4*>(kp + off));
-          vr[u] = __ldcs(reinterpret_cast<const uint4*>(vp + off));
-        }
-      }
-      float sc[kLoads];
-#pragma unroll
-      for (int u = 0; u < kLoads; ++u) {
-        float kf[E];
-        Pack<T>::unpack(kr[u], kf);
-        float d = 0.f;
-#pragma unroll
-        for (int e = 0; e < E; ++e) d = fmaf(qv[e], kf[e], d);
-        sc[u] = d;
-      }
-#pragma unroll
-      for (int off = LPR / 2; off > 0; off >>= 1)
-#pragma unroll
-        for (int u = 0; u < kLoads; ++u)
-          sc[u] += __shfl_xor_sync(0xffffffffu, sc[u], off);
-      float mx = kNeg;
-#pragma unroll
-      for (int u = 0; u < kLoads; ++u) {
-        sc[u] = base + u * RPL + row_in < c1 ? sc[u] * scale : kNeg;
-        mx = fmaxf(mx, sc[u]);
-      }
-#pragma unroll
-      for (int off = LPR; off < 32; off <<= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m, mx);
-      const float alpha = expf(m - m_new);
-      l *= alpha;
-#pragma unroll
-      for (int e = 0; e < E; ++e) acc[e] *= alpha;
-#pragma unroll
-      for (int u = 0; u < kLoads; ++u) {
-        if (base + u * RPL + row_in < c1) {
-          const float p = expf(sc[u] - m_new);
-          float vf[E];
-          Pack<T>::unpack(vr[u], vf);
-          l += p;
-#pragma unroll
-          for (int e = 0; e < E; ++e) acc[e] = fmaf(p, vf[e], acc[e]);
-        }
-      }
-      m = m_new;
-    }
-    // the warp's rows: add the row groups' sums (m is the warp's own)
-#pragma unroll
-    for (int off = LPR; off < 32; off <<= 1) {
-      l += __shfl_xor_sync(0xffffffffu, l, off);
-#pragma unroll
-      for (int e = 0; e < E; ++e)
-        acc[e] += __shfl_xor_sync(0xffffffffu, acc[e], off);
-    }
-    if (lane < LPR) {
-#pragma unroll
-      for (int e = 0; e < E; ++e) sacc[warp][col + e] = acc[e];
-    }
-    if (lane == 0) {
-      sm[warp] = m;
-      sl[warp] = l;
-    }
-    __syncthreads();
-    // the warps, in warp order (D <= the CTA's threads)
+    float m, l, a;
+    item_partial<D, T>(q, kp, vp, rows, s, h, c0, c1, hd, scale, sh, m, l,
+                       a);
     if (tid < D) {
-      float mall = kNeg;
-#pragma unroll
-      for (int w = 0; w < kWarps; ++w) mall = fmaxf(mall, sm[w]);
-      float lsum = 0.f, a = 0.f;
-#pragma unroll
-      for (int w = 0; w < kWarps; ++w) {
-        const float f = expf(sm[w] - mall);
-        lsum = fmaf(sl[w], f, lsum);
-        a = fmaf(sacc[w][tid], f, a);
-      }
       const size_t pi = (static_cast<size_t>(s) * heads + h) * nc + j;
       pacc[pi * D + tid] = a;
       if (tid == 0) {
-        pm[pi] = mall;
-        pl[pi] = lsum;
+        pm[pi] = m;
+        pl[pi] = l;
       }
     }
     __syncthreads();
   }
-  if (work != nullptr && tid == 0 && done > 0) {
-    atomicAdd(work, 1);
-    atomicAdd(work + 1, done);
-  }
+  count_work(work, done);
 }
 
 // o[s, h] from the live chunks' partials of (s, h), in chunk order; a
-// warp per (slot, head). The chunks' maxima are read a lane a chunk and
-// the sums kCombineBatch chunks at a time, so a slot of many chunks
-// costs a few L2 round trips, not one a chunk.
+// warp per (slot, head)
 template <int D>
 __global__ void __launch_bounds__(128)
 paged_combine_kernel(const float* __restrict__ pm,
@@ -266,46 +104,13 @@ paged_combine_kernel(const float* __restrict__ pm,
                      const float* __restrict__ pacc,
                      const int* __restrict__ lengths, float* __restrict__ o,
                      int slots, int heads, int cap, int chunk, int nc) {
-  constexpr int V = D / 32;
   griddep_wait();
   const int pair = blockIdx.x * 4 + (threadIdx.x >> 5), lane = threadIdx.x & 31;
   if (pair >= slots * heads) return;
   const int s = pair / heads;
   const int n = (live_rows(lengths, s, cap) + chunk - 1) / chunk;
-  const size_t base = static_cast<size_t>(pair) * nc;
-  float mall = kNeg;
-  for (int j = lane; j < n; j += 32) mall = fmaxf(mall, __ldcg(pm + base + j));
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    mall = fmaxf(mall, __shfl_xor_sync(0xffffffffu, mall, off));
-  float lsum = 0.f, a[V];
-#pragma unroll
-  for (int i = 0; i < V; ++i) a[i] = 0.f;
-  for (int j0 = 0; j0 < n; j0 += kCombineBatch) {
-    float mj[kCombineBatch], lj[kCombineBatch], aj[kCombineBatch][V];
-#pragma unroll
-    for (int u = 0; u < kCombineBatch; ++u) {
-      const size_t j = base + j0 + u;
-      const bool live = j0 + u < n;
-      mj[u] = live ? __ldcg(pm + j) : kNeg;
-      lj[u] = live ? __ldcg(pl + j) : 0.f;
-#pragma unroll
-      for (int i = 0; i < V; ++i)
-        aj[u][i] = live ? __ldcg(pacc + j * D + lane * V + i) : 0.f;
-    }
-#pragma unroll
-    for (int u = 0; u < kCombineBatch; ++u) {
-      if (j0 + u < n) {
-        const float f = expf(mj[u] - mall);
-        lsum = fmaf(lj[u], f, lsum);
-#pragma unroll
-        for (int i = 0; i < V; ++i) a[i] = fmaf(aj[u][i], f, a[i]);
-      }
-    }
-  }
-  float* out = o + static_cast<size_t>(pair) * D + lane * V;
-#pragma unroll
-  for (int i = 0; i < V; ++i) out[i] = a[i] / fmaxf(lsum, 1e-30f);
+  combine_warp<D>(pm, pl, pacc, static_cast<size_t>(pair) * nc, n,
+                  o + static_cast<size_t>(pair) * D, lane);
 }
 
 template <int D, typename T>

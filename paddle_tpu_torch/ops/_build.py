@@ -4,11 +4,15 @@ Each ``csrc/<name>.cu`` has a plain C interface and is compiled by
 ``nvcc`` into ``build/lib<name>.so`` inside the package, at first use,
 then loaded with ``ctypes``. Nothing here includes PyTorch's headers, so a
 build takes seconds, not minutes. Sources are compiled in parallel, one
-``nvcc`` process each. A library newer than its source is reused.
+``nvcc`` process each. A library newer than its source and than every
+``csrc/*.cuh`` the source includes (``#include "..."``, followed through
+the headers) is reused; a header shared by two sources makes both
+stale.
 """
 
 import ctypes
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -32,9 +36,11 @@ ENTRY_POINTS = {
                              (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                               _P)),
     "decode_attention_f32": ("decode_attention",
-                             (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P)),
+                             (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                              _I, _I, _P)),
     "decode_attention_bf16": ("decode_attention",
-                              (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P)),
+                              (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                               _I, _I, _P)),
     "decode_attention_paged_f32": ("decode_attention_paged",
                                    (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                     _I, _I, _I, _I, _I, _I, _P)),
@@ -46,7 +52,7 @@ ENTRY_POINTS = {
     "conv_bn_stats_f32": ("conv_bn_stats",
                           (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                            _I, _P)),
-    "conv1x1_bn_relu_bf16": ("conv_bn_stats",
+    "conv1x1_bn_relu_bf16": ("conv1x1_bn_relu",
                              (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                               _P)),
 }
@@ -74,11 +80,32 @@ def _lib_path(stem):
     return os.path.join(BUILD, "lib%s.so" % stem)
 
 
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def sources(stem):
+    """The paths of ``csrc/<stem>.cu`` and of every file under ``csrc/``
+    it includes with quotes, followed through the headers."""
+    todo, seen = [os.path.join(CSRC, stem + ".cu")], []
+    while todo:
+        path = todo.pop()
+        if path in seen:
+            continue
+        seen.append(path)
+        with open(path) as f:
+            for name in _INCLUDE.findall(f.read()):
+                dep = os.path.join(os.path.dirname(path), name)
+                if os.path.exists(dep):
+                    todo.append(dep)
+    return seen
+
+
 def _stale(stem):
     lib = _lib_path(stem)
-    src = os.path.join(CSRC, stem + ".cu")
-    return not os.path.exists(lib) or \
-        os.path.getmtime(lib) < os.path.getmtime(src)
+    if not os.path.exists(lib):
+        return True
+    built = os.path.getmtime(lib)
+    return any(built < os.path.getmtime(src) for src in sources(stem))
 
 
 def build(stems=None, force=False):
@@ -140,6 +167,19 @@ def stream(device):
     return torch._C._cuda_getCurrentRawStream(device.index)
 
 
+def _buffers(device, stream):
+    """The calling thread's [scratch, counters] for launches on ``stream``
+    on ``device`` (None until first asked for)."""
+    bufs = getattr(_local, "buffers", None)
+    if bufs is None:
+        bufs = _local.buffers = {}
+    key = (device.index, stream)
+    pair = bufs.get(key)
+    if pair is None:
+        pair = bufs[key] = [None, None]
+    return pair
+
+
 def scratch(device, stream, nbytes):
     """A uint8 scratch buffer of at least ``nbytes`` on ``device`` for
     the calling thread's launches on ``stream``, made once and reused:
@@ -151,15 +191,35 @@ def scratch(device, stream, nbytes):
     another's, and one call's quantize pass could overwrite the rows
     another call's product has yet to read. It grows to the largest
     request seen."""
-    bufs = getattr(_local, "scratches", None)
-    if bufs is None:
-        bufs = _local.scratches = {}
-    key = (device.index, stream)
-    buf = bufs.get(key)
-    if buf is None or buf.numel() < nbytes:
-        buf = torch.empty(max(nbytes, 1), dtype=torch.uint8, device=device)
-        bufs[key] = buf
-    return buf
+    pair = _buffers(device, stream)
+    if pair[0] is None or pair[0].numel() < nbytes:
+        pair[0] = torch.empty(max(nbytes, 1), dtype=torch.uint8,
+                              device=device)
+    return pair[0]
+
+
+def counters(device, stream, n):
+    """An int32 buffer of at least ``n`` zeros on ``device`` for the
+    calling thread's launches on ``stream``, made once and reused, kept
+    apart from :func:`scratch`: a kernel that counts in it (B4's last-CTA
+    combine) sets every entry it counted back to 0 before it ends, so the
+    next launch finds zeros, while other kernels' partials in the scratch
+    could never overwrite a count. Per thread, as :func:`scratch`; it
+    grows to the largest request seen (a new zeroed buffer)."""
+    pair = _buffers(device, stream)
+    if pair[1] is None or pair[1].numel() < n:
+        pair[1] = torch.zeros(max(n, 1), dtype=torch.int32, device=device)
+    return pair[1]
+
+
+def split_buffers(device, stream, nbytes, n):
+    """(:func:`scratch` of ``nbytes``, :func:`counters` of ``n``) in one
+    lookup: B4's launch path."""
+    pair = _buffers(device, stream)
+    if pair[0] is None or pair[0].numel() < nbytes or \
+            pair[1] is None or pair[1].numel() < n:
+        return scratch(device, stream, nbytes), counters(device, stream, n)
+    return pair[0], pair[1]
 
 
 def check(err, name):

@@ -20,9 +20,10 @@ the convolution's input and weight gradients of
 norm that follows differentiates through the sums, so g_s and g_ss are
 not zero in training.
 
-:func:`conv1x1_bn_relu` is the second instantiation of B1's source, the
-probe T1 (``tools/fused_conv_bn_probe.py``): bf16 rows with the
-prologue ``relu(x * a + b)``; it is not on a training path.
+:func:`conv1x1_bn_relu` is the probe T1 (``tools/fused_conv_bn_probe.py``,
+kernel ``csrc/conv1x1_bn_relu.cu``): a 1x1 convolution over bf16 rows
+with the prologue ``relu(x * a + b)`` and its output's sums in the
+epilogue, on the tensor cores; it is not on a training path.
 """
 
 import collections
@@ -43,10 +44,15 @@ __all__ = ["conv_bn_stats_plain", "conv_bn_stats_1x1", "fusable",
 # its transposed weight
 B1_TILES = ((64, 128), (128, 64))
 B1_BK, B1_O_ALIGN = 16, 128
-# rows per CTA of the probe T1's instantiation: one partial sum each
-T1_TILE = 64
+# T1's tile, (rows, output columns) per CTA (``kT1BM``, ``kT1BN`` in
+# csrc/conv1x1_bn_relu.cu): a CTA keeps its rows' z tile and walks every
+# column tile, one partial sum a row tile; the fastest of the tiles swept
+# at each of the probe's cases (``python3 -m
+# paddle_tpu_torch.probes.conv_bn t1``; PERF.md)
+T1_TILE = (128, 64)
 
 Plan = collections.namedtuple("Plan", "tile bm bn ctas p_tiles c_pad o_pad")
+T1Plan = collections.namedtuple("T1Plan", "bm bn row_tiles o_tiles")
 
 
 def _cdiv(a, b):
@@ -224,11 +230,20 @@ def conv1x1_bn_relu_plain(x, a, b, w):
     return y.to(x.dtype), y.sum(dim=0), (y * y).sum(dim=0)
 
 
+def _t1_plan(r, c, o, tile=T1_TILE):
+    """T1's launch for x [r, c] and w [c, o] at ``tile`` (bm rows, bn
+    columns; the build's own, or a probe's edited build's): the row tiles
+    (the grid: a CTA each, one partial sum of each column apiece) and the
+    column tiles each CTA walks."""
+    bm, bn = tile
+    return T1Plan(bm, bn, _cdiv(r, bm), _cdiv(o, bn))
+
+
 def conv1x1_bn_relu(x, a, b, w):
-    """The probe T1 through B1's source, instantiated for bf16 rows with
-    the BN-apply + ReLU prologue: x bf16 [R, C], a and b bf16 [C], w
-    bf16 [C, O] -> (y bf16 [R, O], sum_c f32 [O], sumsq_c f32 [O]).
-    Counts launches in ``conv1x1_bn_relu.launches``."""
+    """The probe T1 on the tensor cores: x bf16 [R, C], a and b bf16
+    [C], w bf16 [C, O] -> (y bf16 [R, O], sum_c f32 [O], sumsq_c f32
+    [O]). Any R, C, O >= 1. Counts launches in
+    ``conv1x1_bn_relu.launches``."""
     _require(x.dim() == 2 and w.dim() == 2 and x.shape[1] == w.shape[0]
              and a.shape == (x.shape[1],) and b.shape == (x.shape[1],),
              "x [R, C], a [C], b [C] and w [C, O] do not chain: %s %s %s %s",
@@ -239,21 +254,35 @@ def conv1x1_bn_relu(x, a, b, w):
         return conv1x1_bn_relu_plain(x, a, b, w)
     r, c = x.shape
     o = w.shape[1]
-    _require(r >= 1 and c >= 1 and 1 <= o <= 64 * 65535, "bad shape %s",
-             (r, c, o))
+    _require(r >= 1 and c >= 1 and o >= 1, "bad shape %s", (r, c, o))
     x, a, b, w = (t.contiguous() for t in (x, a, b, w))
+    out = _launch_t1(x, a, b, w, _t1_plan(r, c, o))
+    conv1x1_bn_relu.launches += 1
+    return out
+
+
+conv1x1_bn_relu.launches = 0
+
+
+def _launch_t1(x, a, b, w, plan, part=None, fn=None):
+    """One call of T1's C entry (the product, then the finish of the
+    sums) on contiguous CUDA inputs by ``plan``, with the partial sums in
+    ``part`` (f32 [2, row_tiles, O]; default: allocated here) through the
+    ctypes entry ``fn`` (default: the build of the source as it is); not
+    counted."""
+    r, c = x.shape
+    o = w.shape[1]
+    _require(plan.row_tiles < 2 ** 31, "grid too large: %d CTAs",
+             plan.row_tiles)
     y = torch.empty((r, o), dtype=torch.bfloat16, device=x.device)
-    part = torch.empty((2, _cdiv(r, T1_TILE), o), dtype=torch.float32,
-                       device=x.device)
+    if part is None:
+        part = torch.empty((2, plan.row_tiles, o), dtype=torch.float32,
+                           device=x.device)
     sums = torch.empty((2, o), dtype=torch.float32, device=x.device)
-    fn = _build.entry("conv1x1_bn_relu_bf16")
+    fn = fn or _build.entry("conv1x1_bn_relu_bf16")
     err = fn(x.data_ptr(), a.data_ptr(), b.data_ptr(), w.data_ptr(),
              y.data_ptr(), part[0].data_ptr(), part[1].data_ptr(),
              sums[0].data_ptr(), sums[1].data_ptr(), r, c, o,
              _build.stream(x.device))
     _build.check(err, "conv1x1_bn_relu_bf16")
-    conv1x1_bn_relu.launches += 1
     return y, sums[0], sums[1]
-
-
-conv1x1_bn_relu.launches = 0

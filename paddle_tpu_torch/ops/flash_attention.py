@@ -17,20 +17,24 @@ port's three CUDA kernels and their plain PyTorch versions.
   ``tools/transformer_mfu_probe.py::bench_kernel`` (T2).
 * :func:`decode_attention` replaces
   ``paddle_tpu/ops/pallas_attention.py::decode_attention``. Kernel:
-  ``csrc/decode_attention.cu``. It is bound by device-memory bytes; the
-  kernel reads the cache in its native [S, C, H*D] layout (no transpose
-  copy) and only the rows below each slot's length.
+  ``csrc/decode_attention.cu``, bound by device-memory bytes over slots
+  of very different lengths. It reads the cache in its native [S, C,
+  H*D] layout (no transpose copy) through the split-key body it shares
+  with B5 (``csrc/decode_split.cuh``): :func:`_split_plan` cuts each
+  slot's logical rows into chunks and sets a fixed grid whose CTAs walk
+  the (chunk, slot, head) items, skipping on the card those past a
+  slot's length; each keeps 16-byte loads of K and V in flight
+  (:data:`SPLIT_LOADS` a lane, by cache dtype) and makes a partial (m,
+  l, acc). In one launch, the last CTA to finish a (slot, head) combines
+  its chunks in chunk order, counting in a zeroed buffer of its own
+  (``_build.counters``).
 * :func:`decode_attention_paged` replaces
   ``paddle_tpu/ops/pallas_attention.py::decode_attention_paged``.
-  Kernel: ``csrc/decode_attention_paged.cu``, bound by device-memory
-  bytes like the dense one, but over slots of very different lengths.
-  So it splits each slot's keys into chunks of logical rows
-  (flash-decoding): :func:`_paged_plan` sets the chunk and a fixed grid
-  whose CTAs walk the (chunk, slot, head) items, skipping on the card
-  those past a slot's length; each keeps 8 KB of K and V loads in flight
-  a warp and writes a partial (m, l, acc); a second launch combines a
-  slot's chunks in chunk order. Every boundary is a logical row index,
-  so a slot's output depends on its q, live rows and length alone.
+  Kernel: ``csrc/decode_attention_paged.cu``: the same body through the
+  block table, the partials combined by a second launch. Every boundary
+  is a logical row index and the two kernels combine alike, so a slot's
+  output depends on its q, live rows and length alone, and B4 on a dense
+  cache is bitwise equal to B5 on a pool holding the same logical rows.
 
 bfloat16 flash attention computes what the reference's kernel body does
 on its own chip, where both dots run at ``Precision.DEFAULT``, one bf16
@@ -427,50 +431,78 @@ def decode_attention(q, k_cache, v_cache, lengths, num_heads):
     _require(d in _HEAD_DIMS, "head dim %d not in %s", d, _HEAD_DIMS)
     _require(lengths.dtype == torch.int32 and lengths.is_contiguous(),
              "lengths must be contiguous int32")
-    out = torch.empty_like(q)
-    fn = _build.entry("decode_attention_" + kind)
-    stream = _build.stream(q.device)
-    err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-             lengths.data_ptr(), out.data_ptr(), s, num_heads, d, c, stream)
-    _build.check(err, "decode_attention")
+    out = _launch_dense(q, k_cache, v_cache, lengths, num_heads,
+                        _split_plan(s, num_heads, d, c),
+                        _build.entry("decode_attention_" + kind))
     decode_attention.launches += 1
     return out
 
 
 decode_attention.launches = 0
 
-# kernel B5's split (``kWarps``, ``kLoads`` in
-# csrc/decode_attention_paged.cu): CTAs of PAGED_WARPS warps, each lane
-# keeping PAGED_LOADS 16-byte loads of K and of V in flight, work items of
-# one head and PAGED_CHUNK logical rows; the grid walks the items with at
-# most PAGED_MAX_CTAS CTAs (eight on each of the H100's 132
-# SMs: at the serving path's width one CTA an item). The chunk and the
-# grid are the fastest of the sweep at the paged cell's lengths, f32 and
-# bf16 (``python3 -m paddle_tpu_torch.probes.decode sweep``; PERF.md)
-PAGED_WARPS = 8
-PAGED_LOADS = 8
-PAGED_CHUNK = 128
-PAGED_MAX_CTAS = 8 * 132
 
-PagedPlan = collections.namedtuple("PagedPlan", "chunk max_chunks ctas "
-                                                "scratch_bytes")
+def _launch_dense(q, k_cache, v_cache, lengths, num_heads, plan, fn,
+                  work=None):
+    """One launch of B4 through its C entry ``fn`` by ``plan`` on checked
+    CUDA inputs; not counted. The partials go to the thread's shared
+    scratch, the counters to a zeroed buffer of their own, which the
+    kernel leaves zeroed. ``work``, an int32 [2] on the card, gains the
+    CTAs that took a work item and the items they took."""
+    s, hd = q.shape
+    out = torch.empty_like(q)
+    dev = q.device
+    stream = _build.stream(dev)
+    scratch, counters = _build.split_buffers(dev, stream, plan.scratch_bytes,
+                                             plan.counters)
+    err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+             lengths.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+             counters.data_ptr(), None if work is None else work.data_ptr(),
+             s, num_heads, hd // num_heads, k_cache.shape[1], plan.chunk,
+             plan.ctas, stream)
+    _build.check(err, "decode_attention")
+    return out
+
+
+# the split-key body both decode kernels share (``kWarps``, ``kLoadsF32``,
+# ``kLoadsBF16`` in csrc/decode_split.cuh): CTAs of SPLIT_WARPS warps,
+# each lane keeping SPLIT_LOADS[cache dtype] 16-byte loads of K and of V
+# in flight, work items of one head and SPLIT_CHUNK logical rows; the grid
+# walks the items with at most SPLIT_MAX_CTAS CTAs (eight on each of the
+# H100's 132 SMs: at the serving path's width one CTA an item). The
+# chunk, the grid and the loads are the fastest of the sweep at the
+# probe's three sets of lengths (``python3 -m
+# paddle_tpu_torch.probes.decode sweep``; PERF.md)
+SPLIT_WARPS = 8
+SPLIT_LOADS = {torch.float32: 8, torch.bfloat16: 4}
+SPLIT_CHUNK = 128
+SPLIT_MAX_CTAS = 8 * 132
+
+SplitPlan = collections.namedtuple("SplitPlan", "chunk max_chunks ctas "
+                                                "scratch_bytes counters")
 
 
 @functools.lru_cache(maxsize=1024)
-def _paged_plan(slots, heads, d, bs, mb, chunk=None, ctas=None):
-    """Kernel B5's launch for ``slots`` x ``heads`` queries of head dim
-    ``d`` over tables of ``mb`` blocks of ``bs`` rows: the chunk of
-    logical rows a work item takes, the most chunks a slot can have, the
-    split launch's CTAs, and the scratch for each (slot, head, chunk)'s
-    partial (m, l, acc[d]) in f32. Nothing here depends on the lengths,
-    which stay on the card. ``chunk`` and ``ctas`` serve the probe's
-    sweep."""
-    chunk = PAGED_CHUNK if chunk is None else chunk
-    max_chunks = -(-mb * bs // chunk)
+def _split_plan(slots, heads, d, cap, chunk=None, ctas=None):
+    """The launch of a split-key decode kernel for ``slots`` x ``heads``
+    queries of head dim ``d`` over ``cap`` logical rows a slot (B4: the
+    cache's C; B5: the table's MB * BS): the chunk of logical rows a work
+    item takes, the most chunks a slot can have, the CTAs of the grid,
+    the scratch for each (slot, head, chunk)'s partial (m, l, acc[d]) in
+    f32, and the int32 counters B4 needs, one a (slot, head). Nothing
+    here depends on the lengths, which stay on the card. ``chunk`` and
+    ``ctas`` serve the probe's sweep."""
+    chunk = SPLIT_CHUNK if chunk is None else chunk
+    max_chunks = -(-cap // chunk)
     items = slots * max_chunks * heads
-    ctas = min(items, PAGED_MAX_CTAS if ctas is None else ctas)
-    return PagedPlan(chunk, max_chunks, ctas,
-                     4 * (2 + d) * slots * heads * max_chunks)
+    ctas = min(items, SPLIT_MAX_CTAS if ctas is None else ctas)
+    return SplitPlan(chunk, max_chunks, ctas,
+                     4 * (2 + d) * slots * heads * max_chunks, slots * heads)
+
+
+def _paged_plan(slots, heads, d, bs, mb, chunk=None, ctas=None):
+    """Kernel B5's launch over tables of ``mb`` blocks of ``bs`` rows:
+    :func:`_split_plan` at MB * BS logical rows a slot."""
+    return _split_plan(slots, heads, d, mb * bs, chunk, ctas)
 
 
 def _decode_paged_reference(q, k_pool, v_pool, lengths, tables, num_heads):

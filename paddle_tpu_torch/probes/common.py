@@ -9,6 +9,7 @@ import ctypes
 import itertools
 import os
 import subprocess
+import tempfile
 import time
 
 import torch
@@ -103,42 +104,74 @@ def device_ms(fn, iters=30, warmup=3):
 
 def build_edited(stem, entry, variants):
     """{variant: ctypes ``entry``} built by nvcc, in parallel, from
-    copies of ``csrc/<stem>.cu`` with each variant's (old, new) text
-    edits applied in turn (no edits: the source as it is), into
-    ``build/probe/``. Each old text must be present. A tuple of entry
-    names gives {variant: (one ctypes function each)}."""
-    with open(os.path.join(_build.CSRC, stem + ".cu")) as f:
-        source = f.read()
-    out_dir = os.path.join(_build.BUILD, "probe")
-    os.makedirs(out_dir, exist_ok=True)
+    copies of ``csrc/<stem>.cu`` and the headers it includes, with each
+    variant's (old, new) text edits applied in turn to the file that
+    holds the old text (no edits: the sources as they are), into
+    a new directory ``build/probe/<stem>-<variant>-*/`` (a library loaded
+    in this process is never written over). Each old text must be
+    present. A tuple of entry names gives {variant: (one ctypes function
+    each)}."""
+    texts = {}
+    for path in _build.sources(stem):
+        with open(path) as f:
+            texts[os.path.basename(path)] = f.read()
     procs = {}
     for name, edits in variants.items():
-        text = source
+        edited = dict(texts)
         for old, new in edits:
-            if old not in text:
-                raise RuntimeError("variant %s: %r is not in %s.cu"
-                                   % (name, old, stem))
-            text = text.replace(old, new)
-        src = os.path.join(out_dir, "%s-%s.cu" % (stem, name))
-        with open(src, "w") as f:
-            f.write(text)
-        lib = os.path.join(out_dir, "lib%s-%s.so" % (stem, name))
-        procs[name] = (lib, subprocess.Popen(
-            [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", lib, src],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    fns = {}
-    for name, (lib, proc) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode:
-            raise RuntimeError("nvcc failed for %s:\n%s" % (name, log))
-        handles = []
-        for e in (entry,) if isinstance(entry, str) else entry:
-            fn = getattr(ctypes.CDLL(lib), e)
-            fn.argtypes = list(_build.ENTRY_POINTS[e][1])
-            fn.restype = ctypes.c_int
-            handles.append(fn)
-        fns[name] = handles[0] if isinstance(entry, str) else tuple(handles)
-    return fns
+            holder = next((f for f, t in edited.items() if old in t), None)
+            if holder is None:
+                raise RuntimeError("variant %s: %r is not in %s.cu or its "
+                                   "headers" % (name, old, stem))
+            edited[holder] = edited[holder].replace(old, new)
+        probe_dir = os.path.join(_build.BUILD, "probe")
+        os.makedirs(probe_dir, exist_ok=True)
+        out_dir = tempfile.mkdtemp(prefix="%s-%s-" % (stem, name),
+                                   dir=probe_dir)
+        for fname, text in edited.items():
+            with open(os.path.join(out_dir, fname), "w") as f:
+                f.write(text)
+        procs[name] = _nvcc(os.path.join(out_dir, stem + ".cu"),
+                            os.path.join(out_dir, "lib%s.so" % stem))
+    names = (entry,) if isinstance(entry, str) else entry
+    argtypes = {e: _build.ENTRY_POINTS[e][1] for e in names}
+    return {name: _bind(lib, proc, entry, argtypes)
+            for name, (lib, proc) in procs.items()}
+
+
+def build_baseline(path, entries):
+    """The C entries ``entries`` ({name: argtypes}) of the source file at
+    ``path`` (an earlier version of a kernel, with its own signatures),
+    built by nvcc into a new directory ``build/probe/baseline-*/``:
+    {name: ctypes function}."""
+    base = os.path.splitext(os.path.basename(path))[0]
+    probe_dir = os.path.join(_build.BUILD, "probe")
+    os.makedirs(probe_dir, exist_ok=True)
+    out_dir = tempfile.mkdtemp(prefix="baseline-", dir=probe_dir)
+    lib, proc = _nvcc(path, os.path.join(out_dir, "lib%s.so" % base))
+    return dict(zip(entries, _bind(lib, proc, tuple(entries), entries)))
+
+
+def _nvcc(src, lib):
+    """(lib, the nvcc process building ``src`` into it)."""
+    return lib, subprocess.Popen(
+        [_build.nvcc_path(), *_build.NVCC_FLAGS, "-I", _build.CSRC, "-o", lib,
+         src], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def _bind(lib, proc, entry, argtypes):
+    """Wait for ``proc`` and bind ``entry`` (a name or a tuple of names)
+    of ``lib`` with its argtypes from ``argtypes`` ({name: argtypes})."""
+    log, _ = proc.communicate()
+    if proc.returncode:
+        raise RuntimeError("nvcc failed for %s:\n%s" % (lib, log))
+    handles = []
+    for e in (entry,) if isinstance(entry, str) else entry:
+        fn = getattr(ctypes.CDLL(lib), e)
+        fn.argtypes = list(argtypes[e])
+        fn.restype = ctypes.c_int
+        handles.append(fn)
+    return handles[0] if isinstance(entry, str) else tuple(handles)
 
 
 def host_us(fn, n=2000):

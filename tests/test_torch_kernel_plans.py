@@ -1,14 +1,17 @@
-"""The launch plans of kernels B1 (``ops/conv_bn.py`` ``_plan``), B3
-(``ops/quant_ops.py`` ``_plan``) and B5 (``ops/flash_attention.py``
+"""The launch plans of kernels B1 (``ops/conv_bn.py`` ``_plan``), T1
+(``ops/conv_bn.py`` ``_t1_plan``), B3 (``ops/quant_ops.py`` ``_plan``)
+and B4 and B5 (``ops/flash_attention.py`` ``_split_plan``,
 ``_paged_plan``), which the wrappers size their scratch by and whose
 tile id, split count, chunk and grid the C entries take, on the CPU: at
 every shape of the ResNet-50 step and of the int8 serving path, and at
 ragged shapes, the grid covers each output element (B3 at decode: each
-row, column and k) exactly once, B5's work items cover each live row of
-each (slot, head) exactly once, the scratch holds every partial sum,
-transposed weight and quantized row the kernels touch, the grid fills
-the H100's SMs where the tiles allow it, and the constants hard-coded in
-the CUDA sources agree with Python's."""
+row, column and k) exactly once, B4's and B5's work items cover each
+live row of each (slot, head) exactly once, the scratch holds every
+partial sum, transposed weight and quantized row the kernels touch, B4's
+counters sit in a buffer of their own, the grid fills the H100's SMs
+where the tiles allow it, the constants hard-coded in the CUDA sources
+agree with Python's, and a changed header makes the libraries of the
+sources that include it stale."""
 
 import ctypes
 import os
@@ -232,14 +235,16 @@ def test_b3_decode_grid_fills_the_card(shape):
 
 
 def _b5_rows(lens, heads, plan, bs, mb, d, itemsize):
-    """{(slot, head, row): visits} as B5's split kernel walks its work
-    items: CTA b takes items b, b + ctas, ... of (chunk, slot, head),
+    """{(slot, head, row): visits} as B4's and B5's split body walks its
+    work items (``bs * mb`` logical rows a slot: B5's table, B4's cache
+    width): CTA b takes items b, b + ctas, ... of (chunk, slot, head),
     chunk-major, skipping a chunk past its slot's length; an item is
-    split over the CTA's warps in batches of PAGED_LOADS warp-wide loads
-    of 32 / (lanes a row) rows."""
+    split over the CTA's warps in batches of SPLIT_LOADS[dtype]
+    warp-wide loads of 32 / (lanes a row) rows."""
     rows_a_load = 32 // (d // (16 // itemsize))
-    warps = fa.PAGED_WARPS
-    rb = rows_a_load * fa.PAGED_LOADS
+    warps = fa.SPLIT_WARPS
+    rb = rows_a_load * fa.SPLIT_LOADS[{4: torch.float32,
+                                       2: torch.bfloat16}[itemsize]]
     slots = len(lens)
     live = [min(max(n, 0), mb * bs) for n in lens]
     items = plan.max_chunks * slots * heads
@@ -293,7 +298,7 @@ def test_b5_plan_at_the_path():
     sizes, each live row is read once."""
     plan = fa._paged_plan(8, 16, 128, 16, 64)
     assert (plan.chunk, plan.max_chunks) == (128, 8)
-    assert plan.ctas == 8 * 8 * 16 <= fa.PAGED_MAX_CTAS
+    assert plan.ctas == 8 * 8 * 16 <= fa.SPLIT_MAX_CTAS
     lens = [259, 331, 531, 259, 131, 1, 1, 1]
     for itemsize in (4, 2):
         for ctas in (None,) + b5_probe.PAGED_CTAS:
@@ -360,7 +365,20 @@ def test_cuda_tile_constants_agree_with_the_plans():
     assert _tile_table(b1, "kTiles") == conv_bn.B1_TILES
     assert _int_const(b1, "kBK") == conv_bn.B1_BK
     assert _int_const(b1, "kOAlign") == conv_bn.B1_O_ALIGN
-    assert _int_const(b1, "kT1BN") == conv_bn.T1_TILE
+    t1 = _source("conv1x1_bn_relu.cu")
+    assert (_int_const(t1, "kT1BM"), _int_const(t1, "kT1BN")) == \
+        conv_bn.T1_TILE
+    # the probe's T1 tile sweep: each edited build has its tile
+    for name, edits in b1_probe.T1_TILE_SWEEP.items():
+        text = t1
+        for old, new in edits:
+            assert old in text, (name, old)
+            text = text.replace(old, new)
+        assert (_int_const(text, "kT1BM"), _int_const(text, "kT1BN")) == \
+            b1_probe.T1_TILES[name]
+    for name, edits in b1_probe.T1_VARIANTS.items():
+        for old, _ in edits:
+            assert old in t1, (name, old)
     b3 = _source("int8_matmul.cu")
     assert _tile_table(b3, "kPrefillTiles") == quant_ops.PREFILL_TILES
     assert _int_const(b3, "kPBK") == quant_ops.PREFILL_BK
@@ -376,25 +394,39 @@ def test_cuda_decode_constants_agree_with_the_plans():
     assert _int_const(b3, "kDecodeMaxSplits") == quant_ops.DECODE_MAX_SPLITS
     # a sub-stage is 64 rows for each warp
     assert _int_const(b3, "kDecodeWarps") * 64 == quant_ops.DECODE_STAGE_K
-    b5 = _source("decode_attention_paged.cu")
-    assert _int_const(b5, "kWarps") == fa.PAGED_WARPS
-    assert _int_const(b5, "kLoads") == fa.PAGED_LOADS
+    # B4's and B5's shared body: its warps and its loads in flight for
+    # each cache dtype, which both sources include
+    body = _source("decode_split.cuh")
+    assert _int_const(body, "kWarps") == fa.SPLIT_WARPS
+    assert _int_const(body, "kLoadsF32") == fa.SPLIT_LOADS[torch.float32]
+    assert _int_const(body, "kLoadsBF16") == fa.SPLIT_LOADS[torch.bfloat16]
+    for stem in ("decode_attention", "decode_attention_paged"):
+        assert os.path.join(CSRC, "decode_split.cuh") in _build.sources(stem)
+        assert "kLoads" not in _source(stem + ".cu").replace(
+            "Pack<T>::kLoads", "")
 
 
 def test_b5_probe_edits_apply_to_the_source():
-    """Each build of the decode probe applies to the source, and each
-    but ``current`` changes it; ``loads-4`` sets kLoads to 4."""
-    source = _source("decode_attention_paged.cu")
-    for name, pairs in b5_probe.BUILDS.items():
-        text = source
-        for old, new in pairs:
-            assert old in text, (name, old)
+    """Each build of the decode probe applies to B4's and to B5's sources
+    (the edits fall on the body they share), and each but ``current``
+    changes them; ``f32-loads-4`` and ``bf16-loads-8`` swap the loads in
+    flight of one dtype."""
+    for stem in ("decode_attention", "decode_attention_paged"):
+        source = "".join(_source(os.path.basename(p))
+                         for p in _build.sources(stem))
+        for name, pairs in b5_probe.BUILDS.items():
+            text = source
+            for old, new in pairs:
+                assert old in text, (name, old)
+                text = text.replace(old, new)
+            assert (text == source) == (name == "current"), name
+    body = _source("decode_split.cuh")
+    for name, const, want in (("f32-loads-4", "kLoadsF32", 4),
+                              ("bf16-loads-8", "kLoadsBF16", 8)):
+        text = body
+        for old, new in b5_probe.BUILDS[name]:
             text = text.replace(old, new)
-        assert (text == source) == (name == "current"), name
-    text = source
-    for old, new in b5_probe.BUILDS["loads-4"]:
-        text = text.replace(old, new)
-    assert _int_const(text, "kLoads") == 4
+        assert _int_const(text, const) == want
 
 
 @pytest.mark.parametrize("name", sorted(_build.ENTRY_POINTS))
@@ -426,3 +458,95 @@ def test_scratch_is_reused_by_a_thread_and_never_shared_between_threads():
     worker.start()
     worker.join()
     assert seen[0] is not grown and seen[0].numel() >= 64
+
+
+@pytest.mark.parametrize("cfg", [
+    dict(s=8, heads=16, d=128, c=1024, itemsize=4),
+    dict(s=8, heads=16, d=128, c=1024, itemsize=2),
+    dict(s=3, heads=4, d=64, c=300, itemsize=4),
+    dict(s=2, heads=2, d=64, c=1, itemsize=2)],
+    ids=lambda c: "s%d-c%d-%d" % (c["s"], c["c"], c["itemsize"]))
+def test_b4_plan_grid_scratch_and_counters(cfg):
+    """B4's plan is a function of the shapes alone (the grid never reads
+    a length); at every length up to C its items read each live row of
+    each (slot, head) once; the scratch holds (m, l, acc) for every
+    (slot, head, chunk), and the counters are one int32 a (slot, head),
+    in a zeroed buffer of their own, never the scratch other kernels
+    share."""
+    s, heads, d, c = cfg["s"], cfg["heads"], cfg["d"], cfg["c"]
+    plan = fa._split_plan(s, heads, d, c)
+    assert plan.chunk == fa.SPLIT_CHUNK
+    assert plan.max_chunks == -(-c // plan.chunk)
+    assert plan.ctas == min(s * heads * plan.max_chunks, fa.SPLIT_MAX_CTAS)
+    assert plan.scratch_bytes == 4 * (2 + d) * s * heads * plan.max_chunks
+    assert plan.counters == s * heads
+    # B5 over a table of the same width plans the same split
+    assert fa._paged_plan(s, heads, d, 1, c) == plan
+    for n in sorted({1, plan.chunk - 1, plan.chunk, plan.chunk + 1, c // 2,
+                     c} & set(range(1, c + 1))):
+        lens = [n] + [c] * (s > 1) + [1] * max(s - 2, 0)
+        seen, live = _b5_rows(lens, heads, plan, c, 1, d, cfg["itemsize"])
+        assert seen == {(si, h, r): 1 for si, m in enumerate(live)
+                        for h in range(heads) for r in range(m)}, n
+    dev = torch.device("cpu")
+    counters = _build.counters(dev, 11, plan.counters)
+    scratch = _build.scratch(dev, 11, plan.scratch_bytes)
+    assert counters.dtype == torch.int32 and not counters.any()
+    assert counters.numel() >= plan.counters
+    assert counters.untyped_storage().data_ptr() != \
+        scratch.untyped_storage().data_ptr()
+    assert _build.counters(dev, 11, plan.counters) is counters
+
+
+@pytest.mark.parametrize("shape", [(802816, 64, 256), (200704, 128, 512),
+                                   (50176, 256, 1024), (1000, 72, 136),
+                                   (333, 37, 21), (700, 600, 264), (1, 8, 8),
+                                   (129, 1, 1)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_t1_plan_covers_each_output_once(shape):
+    """At T1's tile and each the probe sweeps: the CTAs' row tiles and
+    each CTA's column tiles cover every (row, column) of y once, and
+    there is one partial sum of each column per row tile (the CTA's), so
+    the sums' buffer has row_tiles rows."""
+    r, c, o = shape
+    assert conv_bn._t1_plan(r, c, o)[:2] == conv_bn.T1_TILE
+    for tile in b1_probe.T1_TILES.values():
+        plan = conv_bn._t1_plan(r, c, o, tile=tile)
+        assert (plan.bm, plan.bn) == tile
+        assert plan.row_tiles == -(-r // plan.bm)
+        assert plan.o_tiles == -(-o // plan.bn)
+        if r * o <= 10 ** 6:
+            blocks = [(i, j) for i in range(plan.row_tiles)
+                      for j in range(plan.o_tiles)]
+            _covers_once(blocks, r, o, plan.bm, plan.bn)
+        # each row lies in exactly one row tile: one partial a row tile
+        assert (plan.row_tiles - 1) * plan.bm < r <= plan.row_tiles * plan.bm
+
+
+def test_a_changed_header_makes_its_libraries_stale(tmp_path, monkeypatch):
+    """In a scratch CSRC and BUILD: two sources include one header (one
+    through another header), a third includes none; with every library
+    newer than its sources none is stale, and touching the shared header
+    makes exactly the two that include it stale."""
+    csrc, build = tmp_path / "csrc", tmp_path / "build"
+    csrc.mkdir()
+    build.mkdir()
+    (csrc / "shared.cuh").write_text("#pragma once\n")
+    (csrc / "inner.cuh").write_text('#pragma once\n#include "shared.cuh"\n')
+    (csrc / "a.cu").write_text('#include <cuda_runtime.h>\n'
+                               '#include "shared.cuh"\n')
+    (csrc / "b.cu").write_text('  #  include "inner.cuh"\n')
+    (csrc / "c.cu").write_text("#include <cstdint>\n")
+    monkeypatch.setattr(_build, "CSRC", str(csrc))
+    monkeypatch.setattr(_build, "BUILD", str(build))
+    assert sorted(os.path.basename(p) for p in _build.sources("b")) == \
+        ["b.cu", "inner.cuh", "shared.cuh"]
+    assert all(_build._stale(stem) for stem in "abc")    # not built yet
+    for stem in "abc":
+        (build / ("lib%s.so" % stem)).write_bytes(b"")
+        os.utime(build / ("lib%s.so" % stem), (2000, 2000))
+    for f in csrc.iterdir():
+        os.utime(f, (1000, 1000))
+    assert not any(_build._stale(stem) for stem in "abc")
+    os.utime(csrc / "shared.cuh", (3000, 3000))
+    assert [_build._stale(stem) for stem in "abc"] == [True, True, False]
