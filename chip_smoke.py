@@ -15,7 +15,8 @@ and PyTorch built for CUDA. In order, it:
    of the decode kernels' splits (the int8 kernel's k chunks, the dense
    and paged kernels' key chunks; the dense kernel bitwise equal to the
    paged one on the same logical rows, repeatable, its counters left at
-   0), and small LMs on the card against the same LMs on the CPU
+   0; the paged kernel at the speculative verify's shape, each row
+   bitwise equal to the same row alone), and small LMs on the card against the same LMs on the CPU
    (float32; int8 weights with bfloat16 caches, dense and paged);
 3. makes full-width weights of the flagship LM (vocab 32768, d_model
    2048, 16 heads, d_ff 8192, 12 layers, 1024 positions) with numpy from
@@ -37,10 +38,28 @@ and PyTorch built for CUDA. In order, it:
    went through the int8 kernel and every decode through the paged
    kernel, the prefix counters, the pool's bytes per block, and prints
    its tokens' agreement with the float32 session's;
-7. times prefill and decode steps end to end (dense, paged, and the
-   int8/bf16 session beside them), profiles the three with
+7. runs the decode policies at that width, each session on the weights
+   of one above by reference: the sampler on the card against the CPU
+   (keys, random bits and uniforms bitwise, the Gumbel noise within 4
+   ulp, tokens equal); the five requests sampled with fixed seeds
+   (repeatable, seed-dependent, a replay of prompt + 16 tokens continuing
+   the stream); speculative rounds (k 4) greedy and sampled with the
+   1-layer self-draft, greedy on the int8/bf16 session, and with the
+   whole target as the draft (which accepts, so later verify rows decide
+   tokens) greedy on f32 and on int8/bf16 and sampled from the top two,
+   against plain decoding (equal, or a
+   first difference only at a near-tie), with the draft's launch counts
+   and, armed, every product of target and draft through the int8
+   kernel; a number-list grammar over the full vocabulary, greedy and
+   sampled (every token legal), and a grammar that dies (its requests
+   resolve with ConstraintDeadEnd);
+8. times prefill and decode steps end to end (dense, paged, and the
+   int8/bf16 session beside them; sampled steps against greedy ones, the
+   sampling alone, speculative rounds per emitted token at 8 active
+   slots and at 1), profiles the three with
    torch.profiler (device-busy share, top kernels, the shares of the
-   int8 and decode attention kernels), and times each kernel on the
+   int8 and decode attention kernels; a sampled step against the
+   sampling alone), and times each kernel on the
    device by both clocks (CUDA events over calls queued behind a sleep
    kernel, which the kernels line reports, and the profiler's kernel
    sums; the int8 kernel and its two other routes also summed per
@@ -49,27 +68,27 @@ and PyTorch built for CUDA. In order, it:
    function; the decode kernels (the int8 kernel at m <= 16 and its
    routes, both decode attention kernels) on a cold L2 too, over copies
    of their weights or caches, the warm time beside;
-8. holds the fused 1x1 conv + BN-statistics kernel (B1) against its plain
+9. holds the fused 1x1 conv + BN-statistics kernel (B1) against its plain
    version at every shape of the ResNet-50 path and at ragged shapes
    (bitwise repeatable on scratch that held NaN, with a gradient check),
    and the probe T1 (a bf16 1x1 convolution on the tensor cores with a
    BN-apply + ReLU prologue) at its three cases and ragged ones; trains a
    small bottleneck ResNet on the card against the CPU, fused against
    unfused, and unfused under amp (bf16 convolutions) against the CPU;
-9. frees the LM, then trains ResNet-50 as bench.py does on the
+10. frees the LM, then trains ResNet-50 as bench.py does on the
    accelerator (224 x 224, batch 256, Momentum(0.1, 0.9)) in float32 with
    fused_conv_bn on, through ``models.resnet.resnet_imagenet`` and
    ``trainer.train_step``: step time, images per second, f32 MFU, peak
    memory, 30 B1 launches per step; profiles one step and times B1 at
    each of its shapes by both clocks, and per step;
-10. for the LM's training path: holds the flash kernel's bfloat16
+11. for the LM's training path: holds the flash kernel's bfloat16
    instantiation (B2 bf16) against its plain version at the training
    shape [8, 16, 1024, 128] and off it (head dim 64, segment ids, ragged
    T; bitwise repeatable), each tile of the block-size sweep (T2) with
    its time, and the autograd Function's backward against autograd of
    the plain reference; trains a 2-layer LM on the card against the CPU
    over 3 Adam steps, amp off and on;
-11. frees ResNet-50, then trains the flagship LM as bench.py does on the
+12. frees ResNet-50, then trains the flagship LM as bench.py does on the
    accelerator (batch 8, T 1024, amp bfloat16, Adam(1e-4), tokens and
    labels one draw) through ``TransformerLM``, ``optimizer.Adam`` and
    ``trainer.train_step``: the median step of 5 windows of 4, tokens per
@@ -153,6 +172,42 @@ LM_INT8_STEPS = 4
 # host-clock latencies spread by tens of percent between rounds (the
 # step is host-bound): medians of this many rounds, every round printed
 LATENCY_ROUNDS = 7
+# decode policies on the paged cell's traffic: sampling at temperature
+# 0.8, top-k 50, top-p 0.95 with fixed request seeds; a replay re-admits
+# prompt + the first REPLAY_CUT tokens; speculative rounds of SPEC_K
+# drafts from the default 1-layer self-draft. A speculative stream equals
+# the plain one or first differs where the target's top two scores lie
+# within NEAR_TIE (the 12-layer logit tolerance: verify and decode are
+# two codes)
+SAMPLE_KNOBS = dict(temperature=0.8, top_k=50, top_p=0.95)
+# the sampled cell whose draft is the whole target: the draft is greedy,
+# so a draft is accepted when the target's draw is its argmax; on random
+# weights the top 50 scores lie close and SAMPLE_KNOBS' draw is rarely
+# the argmax. A draw between the top two at temperature 1 takes it about
+# half the time, so verify rows past the first decide sampled tokens,
+# and the key of each row still decides the draw
+SPEC_SAMPLE_KNOBS = dict(temperature=1.0, top_k=2)
+SAMPLE_SEEDS = (11, 12, 13, 14, 15)
+REPLAY_CUT = 16
+SPEC_K = 4
+NEAR_TIE = PAGED_LOGITS_ATOL
+# [compare] B5 at the verify forward's shape: histories whose window of
+# SPEC_K + 1 lengths crosses a block boundary, stays inside one block,
+# and ends at the table's whole width; the phase adds one whose window
+# crosses the split's chunk boundary
+VERIFY_HISTS = (2 * BLOCK_SIZE - 2, 5 * BLOCK_SIZE + 4,
+                CACHE_LEN - (SPEC_K + 1))
+# [compare] sample: the sampler card vs CPU at [8, vocab] logits over 64
+# (seed, step) pairs under four settings (the last with mask rows); the
+# Gumbel noise within 4 ulp at max(|g|, 1) (its error is absolute near
+# g = 0, where the outer log's argument is near 1), though computed in
+# float64 and rounded once it is expected bitwise equal
+SAMPLE_PAIRS = 64
+GUMBEL_ULPS = 4
+SAMPLE_GRID = (("t1", dict(), False),
+               ("t0.8 k50", dict(temperature=0.8, top_k=50), False),
+               ("t0.8 p0.95", dict(temperature=0.8, top_p=0.95), False),
+               ("k50 p0.9 mask", dict(top_k=50, top_p=0.9), True))
 # ResNet-50 training as bench.py trains it on the accelerator
 # (resnet_imagenet depth 50, 224 x 224, 1000 classes, batch 256,
 # Momentum(0.1, 0.9), random images and labels from a seed), in float32
@@ -570,6 +625,62 @@ def phase_compare_paged_splits(rng):
     return worst
 
 
+def phase_compare_paged_verify(rng):
+    """B5 at the speculative verify forward's shape (``MultiHeadAttention.
+    verify_paged``): W = SPEC_K + 1 queries of one sequence, its table row
+    repeated W times, lengths L + 1 ... L + W, for L = the plan's chunk - 3
+    (the window across a chunk boundary) and each L of VERIFY_HISTS
+    (across a block boundary, inside one block, ending at the table's
+    whole width), on float32 and
+    bfloat16 pools at the path's (H, D, BS, MB) with NaN-poisoned
+    unreferenced blocks: against the plain version at KERNEL_ATOL, and
+    each row bitwise equal to B5 called for that row alone (S = 1), the
+    arithmetic of a decode step for a sequence at that length. Returns
+    the worst error per dtype."""
+    import torch
+    from paddle_tpu_torch.ops import flash_attention as fa
+    h, d = FULL["num_heads"], FULL["d_model"] // FULL["num_heads"]
+    bs, w = BLOCK_SIZE, SPEC_K + 1
+    mb = CACHE_LEN // bs
+    nb = SLOTS * mb
+    chunk = fa._paged_plan(w, h, d, bs, mb).chunk
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    for dtype in (None, torch.bfloat16):
+        kind = "bfloat16" if dtype else "float32"
+        for hist in (chunk - 3,) + VERIFY_HISTS:
+            _, pk, pv, _, table = paged_case(rng, [hist + w], h, d, nb, bs,
+                                             mb, dtype=dtype)
+            q = torch.from_numpy(rng.standard_normal(
+                (w, h * d), dtype=np.float32)).cuda()
+            lengths = torch.arange(hist + 1, hist + w + 1, dtype=torch.int32,
+                                   device="cuda")
+            tables = table.expand(w, -1).contiguous()
+            got = fa.decode_attention_paged(q, pk, pv, lengths, tables, h)
+            alone = torch.cat([fa.decode_attention_paged(
+                q[i:i + 1], pk, pv, lengths[i:i + 1], table, h)
+                for i in range(w)])
+            want = fa._decode_paged_reference(q, pk.nan_to_num(),
+                                              pv.nan_to_num(), lengths,
+                                              tables, h)
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(got).all()),
+                  "decode_attention_paged %s verify read a poisoned block"
+                  % kind)
+            err = float((got - want).abs().max())
+            print("[compare] decode_attention_paged %s verify shape: %d "
+                  "queries of one table row, lengths %d..%d: max_abs_err vs "
+                  "plain %.3g (tol %g); every row bitwise equal to B5 on "
+                  "that row alone: %s"
+                  % (kind, w, hist + 1, hist + w, err, KERNEL_ATOL,
+                     torch.equal(got, alone)))
+            check(err <= KERNEL_ATOL, "decode_attention_paged %s disagrees "
+                  "at the verify shape: %g" % (kind, err))
+            check(torch.equal(got, alone), "decode_attention_paged %s: a "
+                  "verify row differs from the same row alone" % kind)
+            worst[kind] = max(worst[kind], err)
+    return worst
+
+
 def phase_compare_dense_splits(rng):
     """B4's split boundaries: per cache dtype (float32, bfloat16) and
     (heads, D) of (16, 128) and (4, 64), lengths at the plan's chunk - 1,
@@ -939,15 +1050,18 @@ def paged_prompts(rng):
     return system, prompts
 
 
-def serve_paged(sess, prompts, tag):
+def serve_paged(sess, prompts, tag, seeds=None, plain=True):
     """Serve ``prompts`` through the scheduler with every launch count at
-    0 just before. All are queued before the dispatcher starts, so they
-    are admitted in order: the first and the unrelated prompt miss the
-    prefix cache; the other two suffixes share the system prompt's 12
-    blocks; the repeat shares the first request's 227 tokens (the match
-    stops at n - 1) and copies its partial last block. Checks what does
-    not depend on the weights' dtype and returns (launches, outputs,
-    decode steps)."""
+    0 just before, request i keyed by ``seeds[i]`` when given. All are
+    queued before the dispatcher starts, so they are admitted in order:
+    the first and the unrelated prompt miss the prefix cache; the other
+    two suffixes share the system prompt's 12 blocks; the repeat shares
+    the first request's 227 tokens (the match stops at n - 1) and copies
+    its partial last block. Checks what does not depend on the weights'
+    dtype (with ``plain``, also that every decode step went through the
+    paged kernel and no dense kernel ran; a speculative session's caller
+    checks its own counts) and returns (launches, outputs, decode
+    steps)."""
     import torch
     from paddle_tpu_torch.serving import GenerationScheduler
     sched = GenerationScheduler(sess, autostart=False)
@@ -956,8 +1070,9 @@ def serve_paged(sess, prompts, tag):
     reset_launches()
     prefills0, steps0 = sess.prefills, sess.steps
     t0 = time.perf_counter()
-    futs = [sched.submit(p, max_new_tokens=NEW_TOKENS, eos_id=-1)
-            for p in prompts]
+    futs = [sched.submit(p, max_new_tokens=NEW_TOKENS, eos_id=-1,
+                         seed=None if seeds is None else seeds[i])
+            for i, p in enumerate(prompts)]
     sched.start()
     outs = [f.result(timeout=600) for f in futs]
     sched.drain(timeout=60)
@@ -984,11 +1099,12 @@ def serve_paged(sess, prompts, tag):
     check(stats["hits"] == 3 and stats["misses"] == 2
           and stats["shared_tokens"] == 611 and stats["cows"] >= 1,
           "prefix counters %s" % stats)
-    check(launches["decode_attention_paged"] == FULL["num_layers"] * steps
-          > 0, "paged decode launches %d != %d x %d steps"
+    check(not plain or launches["decode_attention_paged"] ==
+          FULL["num_layers"] * steps > 0,
+          "paged decode launches %d != %d x %d steps"
           % (launches["decode_attention_paged"], FULL["num_layers"], steps))
-    check(launches["flash_attention"] == 0
-          and launches["decode_attention"] == 0,
+    check(not plain or (launches["flash_attention"] == 0
+                        and launches["decode_attention"] == 0),
           "the paged path launched a dense kernel: %s" % launches)
     try:
         sess.check_pool_invariant()
@@ -1044,7 +1160,7 @@ def phase_quant_serve(quant, f32, prompts, f32_outs):
              int(round(agree * len(prompts) * NEW_TOKENS)),
              len(prompts) * NEW_TOKENS, b16, b32))
     final = [p.size + NEW_TOKENS - 1 for p in prompts]
-    return launches, final
+    return launches, final, outs
 
 
 def phase_paged_logits(paged, dense, system, rng):
@@ -1150,6 +1266,550 @@ def phase_paged_latency(paged, dense, system, rng, quant):
              LATENCY_ROUNDS, med["paged step"], med["int8 step"],
              med["dense step"],
              {k: [round(x, 3) for x in t] for k, t in runs.items()}))
+
+
+def policy_sessions(sess, paged, quant, paged_kw):
+    """The decode-policy sessions of the flagship LM, each on the weights
+    of an existing session by reference (no copy; the int8 one on the
+    armed session's int8 tensors): sampled dense and paged, speculative
+    greedy and sampled (the default 1-layer self-draft), speculative
+    greedy on int8 weights with bf16 caches, and three constrained ones
+    (the number-list grammar, greedy and sampled; a grammar that dies);
+    and, so that full width exercises the accepting branch, speculative
+    sessions whose draft is the whole target (all its layers, shared):
+    greedy on f32 and on int8/bf16, and sampled by SPEC_SAMPLE_KNOBS
+    beside a plain session sampled by them."""
+    from paddle_tpu_torch.models.transformer import transformer_lm_session
+    from paddle_tpu_torch.serving import GenerationSession
+    from paddle_tpu_torch.serving.decoding import DecodePolicy, DFAConstraint
+    v = FULL["vocab_size"]
+    dense_kw = {k: paged_kw[k] for k in ("slots", "cache_len",
+                                         "prompt_buckets", "eos_id",
+                                         "device")}
+    dense_kw.update(FULL)
+
+    def build(base, policy, arm=False, **kw):
+        spec = transformer_lm_session(decode_policy=policy, **dict(
+            paged_kw if base is not sess else dense_kw, **kw))
+        return GenerationSession(spec, base.model.reference_state(),
+                                 arm_quant=arm, share=True)
+
+    grammar, dead = number_grammar(v)
+    return {
+        "sample dense": build(sess, DecodePolicy("sample", **SAMPLE_KNOBS)),
+        "sample": build(paged, DecodePolicy("sample", **SAMPLE_KNOBS)),
+        "spec": build(paged, DecodePolicy(speculate_k=SPEC_K)),
+        "spec sample": build(paged, DecodePolicy(
+            "sample", speculate_k=SPEC_K, **SAMPLE_KNOBS)),
+        "spec full draft": build(paged, DecodePolicy(
+            speculate_k=SPEC_K, draft=dict(num_layers=FULL["num_layers"]))),
+        "spec int8": build(quant, DecodePolicy(speculate_k=SPEC_K), arm=True,
+                           dtype="bfloat16"),
+        "spec int8 full draft": build(quant, DecodePolicy(
+            speculate_k=SPEC_K, draft=dict(num_layers=FULL["num_layers"])),
+            arm=True, dtype="bfloat16"),
+        "sample top2": build(paged, DecodePolicy("sample",
+                                                 **SPEC_SAMPLE_KNOBS)),
+        "spec sample full draft": build(paged, DecodePolicy(
+            "sample", speculate_k=SPEC_K,
+            draft=dict(num_layers=FULL["num_layers"]), **SPEC_SAMPLE_KNOBS)),
+        "constrain": build(paged, DecodePolicy(constraint=grammar)),
+        "constrain sample": build(paged, DecodePolicy(
+            "sample", constraint=grammar, **SAMPLE_KNOBS)),
+        "dead end": build(paged, DecodePolicy(
+            constraint=DFAConstraint(dead))),
+    }
+
+
+def number_grammar(v):
+    """A number-list grammar over the full vocabulary, as a DFA, and a
+    grammar that dies after its first token (transitions only). Token
+    classes: 10 open brackets, 100 digits, 10 commas, 10 spaces, 10
+    close brackets, EOS (id 1). ``[`` then numbers of 1 to 3 digits
+    separated by a comma (and optionally a space), ``]``, then EOS
+    repeated; 9 states with 10 to 120 legal tokens each (EOS alone after
+    the list)."""
+    from paddle_tpu_torch.serving.decoding import DFAConstraint
+    cls = {name: range(lo, lo + n) for name, lo, n in (
+        ("open", 100, 10), ("digit", 1000, 100), ("comma", 200, 10),
+        ("space", 300, 10), ("close", 400, 10))}
+    check(max(r[-1] for r in cls.values()) < v, "grammar past the vocab")
+
+    def to(state, *names):
+        return {t: state for n in names for t in cls[n]}
+    eos = {1: 9}
+    t = {8: to(0, "open"),                    # start: "["
+         0: to(1, "digit"),                   # a number's first digit
+         1: {**to(2, "digit"), **to(4, "comma"), **to(7, "close")},
+         2: {**to(3, "digit"), **to(4, "comma"), **to(7, "close")},
+         3: {**to(4, "comma"), **to(7, "close")},
+         4: {**to(1, "digit"), **to(5, "space")},
+         5: to(1, "digit"),
+         7: eos, 9: eos}
+    return DFAConstraint(t, start=8), {0: {tok: 1 for tok in cls["digit"]},
+                                      1: {}}
+
+
+def gap_at(sess, history, seed=None, knobs=SAMPLE_KNOBS):
+    """The top-two gap of what the policy compares at the token after
+    ``history``: the logits (greedy), or the logits filtered and tempered
+    by ``knobs`` plus the token's Gumbel noise (sampled, keyed by
+    ``seed``), from a prefill of the whole
+    history on the paged session ``sess`` in windows of the largest
+    bucket (its blocks taken from the pool and handed back)."""
+    import torch
+    from paddle_tpu_torch.ops import decoding_ops, random_ops
+    spec = sess.spec
+    n, big = history.size, BUCKETS[-1]
+    blocks = [sess.pool.alloc() for _ in range(-(-n // BLOCK_SIZE))]
+    tab = np.full(spec.max_blocks, spec.num_blocks, np.int32)
+    tab[:len(blocks)] = blocks
+    try:
+        for start in range(0, n, big):
+            w = min(big, n - start)
+            padded = np.full((1, big), 1, np.int64)
+            padded[0, :w] = history[start:start + w]
+            pix = np.clip(start + np.arange(big), 0, spec.max_len - 1)
+            logits = sess.model.prefill_paged(
+                torch.from_numpy(padded).cuda(), w, start,
+                torch.from_numpy(pix).cuda(), torch.from_numpy(tab).cuda())
+    finally:
+        for b in blocks:
+            sess.pool.decref(b)
+    x = logits.float()
+    if seed is not None:
+        x = decoding_ops.filtered_logits(x, **knobs)
+        key = random_ops.decoding_key(torch.tensor([seed]), torch.tensor([n]),
+                                      device=x.device)
+        x = x + random_ops.gumbel(key, x.shape[1])
+    top = torch.topk(x[0], 2).values
+    return float(top[0] - top[1])
+
+
+def near_tie_rule(tag, base, outs, prompts, gap_sess, seeds=None,
+                  knobs=SAMPLE_KNOBS):
+    """Streams ``outs`` against ``base``: equal, or first differing at a
+    position whose top-two gap (``gap_at``) is within NEAR_TIE. Returns
+    the number of equal streams and prints every divergence."""
+    same = 0
+    for i, (p, a, b) in enumerate(zip(prompts, outs, base)):
+        if np.array_equal(a, b):
+            same += 1
+            continue
+        pos = int(np.flatnonzero(np.asarray(a) != np.asarray(b))[0])
+        hist = np.concatenate([p, np.asarray(b[:pos], np.int64)])
+        gap = gap_at(gap_sess, hist, None if seeds is None else seeds[i],
+                     knobs)
+        print("[%s] request %d diverges at token %d (sequence index %d): "
+              "top-two gap %.3g (near-tie limit %g)"
+              % (tag, i, pos, hist.size, gap, NEAR_TIE))
+        check(gap <= NEAR_TIE, "%s: request %d diverges at token %d with "
+              "a top-two gap of %.3g" % (tag, i, pos, gap))
+    return same
+
+
+def phase_compare_sample(rng):
+    """``sample_from_logits`` on the card against the same function on
+    the CPU at [8, V] logits from the seed, over SAMPLE_PAIRS (seed,
+    step) pairs, 8 a call, under each of SAMPLE_GRID's settings: the key
+    words, random bits and uniforms bitwise, the Gumbel noise within
+    GUMBEL_ULPS ulp at max(|g|, 1), the tokens equal, both with the keys
+    derived on the card and with keys derived on the host and sent (the
+    sessions' route, ``sample_from_keys``). Launches nothing counted (no
+    kernel: the sampling is torch ops)."""
+    import torch
+    from paddle_tpu_torch.ops import decoding_ops, random_ops
+    v = FULL["vocab_size"]
+    logits = torch.from_numpy(2.0 * rng.standard_normal((SLOTS, v),
+                                                        dtype=np.float32))
+    mask = np.where(rng.random((SLOTS, v)) < 0.5, decoding_ops.NEG_INF,
+                    0.0).astype(np.float32)
+    mask = torch.from_numpy(mask)
+    seeds = rng.integers(0, 2 ** 31, SAMPLE_PAIRS)
+    steps = rng.integers(0, 2 * FULL["max_len"], SAMPLE_PAIRS)
+    counts = {"keys": 0, "bits": 0, "uniform": 0}
+    gumbel_equal = 0
+    gumbel_ulps, tokens = 0.0, {name: 0 for name, _, _ in SAMPLE_GRID}
+    for c in range(0, SAMPLE_PAIRS, SLOTS):
+        sd = torch.from_numpy(seeds[c:c + SLOTS])
+        st = torch.from_numpy(steps[c:c + SLOTS])
+        kc = random_ops.decoding_key(sd, st)
+        kg = random_ops.decoding_key(sd.cuda(), st.cuda())
+        counts["keys"] += int((kg.cpu() == kc).all(-1).sum())
+        counts["bits"] += int((random_ops.random_bits(kg, v).cpu() ==
+                               random_ops.random_bits(kc, v)).all(-1).sum())
+        uc = random_ops.uniform(kc, v, minval=random_ops.F32_TINY)
+        ug = random_ops.uniform(kg, v, minval=random_ops.F32_TINY).cpu()
+        counts["uniform"] += int((ug.view(torch.int32) ==
+                                  uc.view(torch.int32)).all(-1).sum())
+        gc = random_ops.gumbel(kc, v).double()
+        gg = random_ops.gumbel(kg, v).cpu().double()
+        gumbel_ulps = max(gumbel_ulps, float(
+            ((gg - gc).abs() / (2.0 ** -23 * gc.abs().clamp(min=1.0)))
+            .max()))
+        gumbel_equal += int((gg == gc).all(-1).sum())
+        for name, knobs, masked in SAMPLE_GRID:
+            m = mask if masked else None
+            want = decoding_ops.decode_sample(logits, sd, st, m, **knobs)
+            got = decoding_ops.decode_sample(
+                logits.cuda(), sd.cuda(), st.cuda(),
+                None if m is None else m.cuda(), **knobs).cpu()
+            # the sessions' route: keys derived on the host, sent
+            lg = logits.cuda() if m is None else (logits + m).cuda()
+            hosted = decoding_ops.sample_from_keys(
+                lg, kc.cuda(), **knobs).cpu()
+            tokens[name] += int(((got == want) & (hosted == want)).sum())
+            if masked:
+                check(bool((m[torch.arange(SLOTS), want] == 0).all()),
+                      "a masked draw took a banned token")
+    print("[compare] sample: %d (seed, step) pairs at [%d, %d]: key words "
+          "%d, random bits %d, uniforms %d rows bitwise equal card to CPU; "
+          "Gumbel noise (float64, rounded once) %d rows bitwise equal, max "
+          "%.3g ulp at max(|g|, 1) (limit %d); tokens equal, keys on the "
+          "card and keys from the host, %s of %d each"
+          % (SAMPLE_PAIRS, SLOTS, v, counts["keys"], counts["bits"],
+             counts["uniform"], gumbel_equal, gumbel_ulps, GUMBEL_ULPS,
+             tokens, SAMPLE_PAIRS))
+    check(all(n == SAMPLE_PAIRS for n in counts.values()),
+          "random bits differ card to CPU: %s" % counts)
+    check(gumbel_ulps <= GUMBEL_ULPS, "Gumbel noise %.3g ulp" % gumbel_ulps)
+    check(all(n == SAMPLE_PAIRS for n in tokens.values()),
+          "sampled tokens differ card to CPU: %s" % tokens)
+
+
+def serve_seeded(sess, prompts, seeds, new=NEW_TOKENS):
+    """Serve ``prompts`` through a scheduler, request i keyed by
+    ``seeds[i]``; returns the outputs."""
+    from paddle_tpu_torch.serving import GenerationScheduler
+    sched = GenerationScheduler(sess, autostart=False)
+    futs = [sched.submit(p, max_new_tokens=new, eos_id=-1, seed=s)
+            for p, s in zip(prompts, seeds)]
+    sched.start()
+    outs = [f.result(timeout=600) for f in futs]
+    sched.drain(timeout=60)
+    return outs
+
+
+def phase_sample_serve(sess, prompts):
+    """The paged cell's five requests on the sampled f32 paged session
+    (SAMPLE_KNOBS), keyed by SAMPLE_SEEDS: every decode step through B5
+    and no other kernel; a second pass with the same seeds gives the same
+    streams; another seed another stream; prompt + the first REPLAY_CUT
+    tokens re-admitted with the stream's seed continues it token for
+    token (the replay contract). Returns the outputs."""
+    launches, outs, steps = serve_paged(sess, prompts, "sample-serve",
+                                        seeds=SAMPLE_SEEDS)
+    check(launches["int8_matmul"] == 0, "the f32 path launched int8_matmul")
+    again = serve_seeded(sess, prompts, SAMPLE_SEEDS)
+    repeat = sum(bool(np.array_equal(a, b)) for a, b in zip(outs, again))
+    other = serve_seeded(sess, prompts[:1], (SAMPLE_SEEDS[0] + 1000,))[0]
+    replayed = []
+    for i in (0, 2):
+        hist = np.concatenate([prompts[i], outs[i][:REPLAY_CUT]])
+        slot, first = sess.admit(hist, seed=SAMPLE_SEEDS[i])
+        cont = [first]
+        while len(cont) < NEW_TOKENS - REPLAY_CUT:
+            cont.append(sess.step()[slot])
+        sess.retire(slot)
+        replayed.append(bool(np.array_equal(cont, outs[i][REPLAY_CUT:])))
+    print("[sample-serve] policy %s, seeds %s: second pass identical %d of "
+          "%d; seed %d differs from seed %d: %s; replays of prompt + %d "
+          "tokens continue the stream: %s; first tokens %s"
+          % (sess.policy.fingerprint(), SAMPLE_SEEDS, repeat, len(prompts),
+             SAMPLE_SEEDS[0] + 1000, SAMPLE_SEEDS[0],
+             not np.array_equal(other, outs[0]), REPLAY_CUT, replayed,
+             [o[:6].tolist() for o in outs]))
+    check(repeat == len(prompts), "a second pass with the same seeds "
+          "gave another stream")
+    check(not np.array_equal(other, outs[0]),
+          "another seed gave the same stream")
+    check(all(replayed), "a replay did not continue its stream: %s"
+          % replayed)
+    sess.check_pool_invariant()
+    return outs
+
+
+def phase_spec_serve(spec, prompts, base, gap_sess, tag, seeds=None,
+                     int8=False, knobs=SAMPLE_KNOBS, accepting=False):
+    """The paged cell's five requests on a speculative session: the
+    streams against the plain session's ``base`` under the near-tie rule;
+    the pool's books; drafted, accepted and verify counts; the draft's B2
+    and B4 launches against its admissions and steps, the target's B5
+    against its plain steps and verify forwards (each attends through
+    B5), and with ``int8`` every armed product of the
+    target (73 an admission, a plain step and a verify forward) and of
+    the draft (7 an admission and a step for the 1-layer self-draft, 73
+    for the whole target) through B3, the draft holding the target's int8
+    tensors and no float32 copy of them. ``knobs`` are the sampled
+    policy's, for the near-tie gaps; with ``accepting``, some draft must
+    be accepted, so that verify rows past the first decide tokens."""
+    import torch
+    from paddle_tpu_torch.models.transformer import lm_mul_weight_names
+    d = spec.draft
+    dl = d.model.num_layers
+    d0 = (d.prefills, d.steps)
+    v0 = (spec.verifies, spec.spec_drafted, spec.spec_accepted,
+          spec.spec_rounds)
+    launches, outs, steps = serve_paged(spec, prompts, tag, seeds=seeds,
+                                        plain=False)
+    dpre, dsteps = d.prefills - d0[0], d.steps - d0[1]
+    verifies, drafted, accepted, rounds = (
+        a - b for a, b in zip((spec.verifies, spec.spec_drafted,
+                               spec.spec_accepted, spec.spec_rounds), v0))
+    same = near_tie_rule(tag, base, outs, prompts, gap_sess, seeds, knobs)
+    print("[%s] %d rounds, %d verify forwards, %d drafted, %d accepted "
+          "(accept rate %.4f), %d plain steps; draft: %d layer(s), %d "
+          "admissions, %d steps; streams equal to plain decoding: %d of %d"
+          % (tag, rounds, verifies, drafted, accepted,
+             accepted / max(drafted, 1), steps, dl, dpre, dsteps, same,
+             len(prompts)))
+    check(verifies > 0 and drafted == SPEC_K * verifies,
+          "%d verifies, %d drafted" % (verifies, drafted))
+    check(accepted > 0 or not accepting, "%s: no draft accepted, so no "
+          "verify row past the first decided a token" % tag)
+    check(dpre == len(prompts) and dsteps >= (SPEC_K + 1) * rounds,
+          "draft admissions %d, steps %d" % (dpre, dsteps))
+    check(launches["flash_attention"] == dl * dpre > 0,
+          "B2 launches %d != %d x %d draft admissions"
+          % (launches["flash_attention"], dl, dpre))
+    check(launches["decode_attention"] == dl * dsteps > 0,
+          "B4 launches %d != %d x %d draft steps"
+          % (launches["decode_attention"], dl, dsteps))
+    check(launches["decode_attention_paged"] ==
+          FULL["num_layers"] * (steps + verifies),
+          "B5 launches %d != %d x (%d plain steps + %d verifies)"
+          % (launches["decode_attention_paged"], FULL["num_layers"], steps,
+             verifies))
+    per_draft = len(lm_mul_weight_names(dl))
+    want_b3 = (INT8_PER_PASS * (len(prompts) + steps + verifies)
+               + per_draft * (dpre + dsteps)) if int8 else 0
+    check(launches["int8_matmul"] == want_b3,
+          "int8 launches %d != %d" % (launches["int8_matmul"], want_b3))
+    if int8:
+        ours = spec.model.reference_state()
+        for name in lm_mul_weight_names(dl):
+            w, scale = d.model.mul_weight(name)
+            check(w.dtype == torch.int8 and scale is not None
+                  and w.data_ptr() == ours[name].data_ptr(),
+                  "the draft's %s is not the target's int8 tensor" % name)
+        print("[%s] B3: %d launches = %d x (%d admissions + %d plain steps "
+              "+ %d verifies) + %d x (%d draft admissions + %d draft "
+              "steps); the draft's %d armed weights are the target's int8 "
+              "tensors" % (tag, launches["int8_matmul"], INT8_PER_PASS,
+                           len(prompts), steps, verifies, per_draft, dpre,
+                           dsteps, per_draft))
+    return launches
+
+
+def phase_constrain_serve(greedy, sampled, dead, prompts):
+    """The number-list grammar over the full vocabulary, greedy and
+    sampled: the paged cell's five requests, every emitted token legal in
+    its state, every decode step through B5; then a grammar that dies
+    after its first token: each request resolves with ConstraintDeadEnd,
+    and the dispatcher serves on."""
+    from paddle_tpu_torch.serving import GenerationScheduler
+    from paddle_tpu_torch.serving.decoding import ConstraintDeadEnd
+    c = greedy.policy.constraint
+    for tag, sess, seeds in (("greedy", greedy, None),
+                             ("sample", sampled, SAMPLE_SEEDS)):
+        reset_launches()
+        steps0 = sess.steps
+        outs = serve_seeded(sess, prompts, seeds or [None] * len(prompts))
+        launches = read_launches()
+        steps = sess.steps - steps0
+        visited = set()
+        for out in outs:
+            check(len(out) == NEW_TOKENS, "a constrained request returned "
+                  "%d tokens" % len(out))
+            state = c.start
+            for t in out:
+                try:
+                    state = c.advance(state, int(t))
+                except ValueError as exc:
+                    raise SmokeFailure("constrain-serve %s: %s"
+                                       % (tag, exc)) from None
+                visited.add(state)
+        print("[constrain-serve] %s: %d requests of %d tokens, every token "
+              "legal; %d of the grammar's %d states visited; %d decode "
+              "steps, B5 launches %d; first tokens %s"
+              % (tag, len(outs), NEW_TOKENS, len(visited), c.num_states,
+                 steps, launches["decode_attention_paged"],
+                 [o[:8].tolist() for o in outs[:2]]))
+        check(launches["decode_attention_paged"] ==
+              FULL["num_layers"] * steps > 0, "B5 launches %s"
+              % launches["decode_attention_paged"])
+        sess.check_pool_invariant()
+    sched = GenerationScheduler(dead)
+    futs = [sched.submit(p, max_new_tokens=NEW_TOKENS) for p in prompts[:2]]
+    errors = []
+    for f in futs:
+        try:
+            f.result(timeout=120)
+        except ConstraintDeadEnd as exc:
+            errors.append((exc.state, exc.position))
+    # the dispatcher lives on: one more request after the dead ends
+    try:
+        sched.submit(prompts[2], max_new_tokens=NEW_TOKENS).result(
+            timeout=120)
+    except ConstraintDeadEnd as exc:
+        errors.append((exc.state, exc.position))
+    sched.drain(timeout=60)
+    print("[constrain-serve] dead grammar: %d requests resolved with "
+          "ConstraintDeadEnd (state, position) %s; dispatcher stopped: %s; "
+          "slots active after: %d"
+          % (len(errors), errors, sched._thread is None,
+             int(dead.active.sum())))
+    check(len(errors) == 3 and sched._thread is None
+          and not dead.active.any(), "dead ends: %s" % errors)
+    dead.check_pool_invariant()
+
+
+def phase_policy_latency(dense, paged, pol, rng):
+    """Host clock, in turns: the decode step with 8 active slots, greedy
+    and sampled, dense and paged (16 steps a round, median of
+    LATENCY_ROUNDS), and the sampling alone (the keys derived on the
+    host and sent, then ``policy_epilogue`` on the step's [8, V] logits,
+    ended by its tokens read back); then, with 8
+    active slots and with 1, the time per emitted token over rounds of 4
+    steps of the plain paged session and of the speculative ones (greedy,
+    the 1-layer self-draft and the whole target as the draft), with their
+    accept rates."""
+    import torch
+    from paddle_tpu_torch.models.transformer import policy_epilogue
+    from paddle_tpu_torch.ops.random_ops import decoding_key
+    v = FULL["vocab_size"]
+    stepped = (("dense", dense), ("dense sampled", pol["sample dense"]),
+               ("paged", paged), ("paged sampled", pol["sample"]))
+    for i, (_, sess) in enumerate(stepped):
+        for j in range(SLOTS):
+            sess.admit(rng.integers(2, v, 64 + 56 * j), seed=100 + j)
+        for _ in range(3):
+            sess.step()
+    logits = torch.from_numpy(rng.standard_normal(
+        (SLOTS, v), dtype=np.float32)).cuda()
+    seeds = torch.arange(SLOTS)
+    steps = torch.full((SLOTS,), 300)
+    runs = {name: [] for name, _ in stepped}
+    runs["sampling alone"] = []
+    for _ in range(LATENCY_ROUNDS):
+        for name, sess in stepped:
+            t0 = time.perf_counter()
+            for _ in range(16):
+                sess.step()
+            runs[name].append((time.perf_counter() - t0) * 1e3 / 16)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(16):
+            # the keys derived on the host and sent, as a session does
+            keys = decoding_key(seeds, steps).cuda()
+            policy_epilogue(logits, pol["sample"].policy, keys).cpu()
+        runs["sampling alone"].append((time.perf_counter() - t0) * 1e3 / 16)
+    for _, sess in stepped:
+        for s in range(SLOTS):
+            sess.retire(s)
+    # speculative rounds against plain steps, in turns, at 8 active slots
+    # and at 1 (the low-batch regime speculation is for): ms per emitted
+    # token over 4 steps a round, and the accept rates
+    per_token, rates = {}, {}
+    specs = (("paged", paged), ("spec", pol["spec"]),
+             ("spec full draft", pol["spec full draft"]))
+    for active in (SLOTS, 1):
+        for _, sess in specs:
+            for j in range(active):
+                sess.admit(rng.integers(2, v, 64 + 56 * j))
+            for _ in range(2):
+                sess.step()
+        for name, _ in specs:
+            per_token[name, active], rates[name, active] = [], []
+        for _ in range(LATENCY_ROUNDS):
+            for name, sess in specs:
+                d0, a0 = sess.spec_drafted, sess.spec_accepted
+                emitted = 0
+                t0 = time.perf_counter()
+                for _ in range(4):
+                    emitted += sum(len(t) if isinstance(t, list) else 1
+                                   for t in sess.step().values())
+                per_token[name, active].append(
+                    (time.perf_counter() - t0) * 1e3 / emitted)
+                if sess.speculative:
+                    rates[name, active].append(
+                        (sess.spec_accepted - a0) / (sess.spec_drafted - d0))
+        for _, sess in specs:
+            for s in range(active):
+                sess.retire(s)
+    med = {k: sorted(t)[len(t) // 2] for k, t in runs.items()}
+    tok = {k: sorted(t)[len(t) // 2] for k, t in per_token.items()}
+    print("[latency] decode step with %d active slots ms (median of %d "
+          "rounds of 16, in turns): dense greedy %.3f, dense sampled %.3f "
+          "(+%.3f), paged greedy %.3f, paged sampled %.3f (+%.3f); the "
+          "sampling alone (%s at [%d, %d], tokens read back) %.3f ms; all "
+          "runs %s"
+          % (SLOTS, LATENCY_ROUNDS, med["dense"], med["dense sampled"],
+             med["dense sampled"] - med["dense"], med["paged"],
+             med["paged sampled"], med["paged sampled"] - med["paged"],
+             pol["sample"].policy.fingerprint(), SLOTS, v,
+             med["sampling alone"],
+             {k: [round(x, 3) for x in t] for k, t in runs.items()}))
+    for active in (SLOTS, 1):
+        print("[latency] %d active slot(s), ms per emitted token (median of "
+              "%d rounds of 4 steps, in turns): plain paged greedy %.3f; "
+              "speculative greedy (k %d), 1-layer self-draft %.3f (accept "
+              "rates %s), %d-layer draft (the whole target) %.3f (accept "
+              "rates %s); all runs %s"
+              % (active, LATENCY_ROUNDS, tok["paged", active], SPEC_K,
+                 tok["spec", active],
+                 [round(r, 4) for r in rates["spec", active]],
+                 FULL["num_layers"], tok["spec full draft", active],
+                 [round(r, 4) for r in rates["spec full draft", active]],
+                 {k[0]: [round(x, 3) for x in t]
+                  for k, t in per_token.items() if k[1] == active}))
+
+
+def phase_profile_sampling(sess, rng):
+    """torch.profiler over 4 sampled paged decode steps with every slot
+    active, then over 4 calls of the sampling alone on [8, V] logits: the
+    sampling's share of a sampled step's device time and wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from paddle_tpu_torch.models.transformer import policy_epilogue
+    from paddle_tpu_torch.ops.random_ops import decoding_key
+    v = FULL["vocab_size"]
+    for j in range(SLOTS):
+        sess.admit(rng.integers(2, v, 64 + 56 * j), seed=j)
+    sess.step()
+    logits = torch.from_numpy(rng.standard_normal(
+        (SLOTS, v), dtype=np.float32)).cuda()
+    seeds = torch.arange(SLOTS)
+    steps = torch.full((SLOTS,), 300)
+    out = {}
+    for label, fn in (
+            ("4 sampled paged decode steps",
+             lambda: [sess.step() for _ in range(4)]),
+            ("4 calls of the sampling alone",
+             lambda: [policy_epilogue(logits, sess.policy, decoding_key(
+                 seeds, steps).cuda()).cpu() for _ in range(4)])):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        busy, launches = 0.0, 0
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                busy += e.time_range.elapsed_us() / 1e3
+                launches += 1
+        out[label] = (wall, busy, launches)
+        print("[profile] %s: wall %.3f ms, device busy %.3f ms, %d device "
+              "events" % (label, wall, busy, launches))
+    for s in range(SLOTS):
+        sess.retire(s)
+    (sw, sb, _), (aw, ab, _) = out.values()
+    if sb:
+        print("[profile] the sampling's share of a sampled paged step: "
+              "%.1f%% of its wall time, %.1f%% of its device time"
+              % (100 * aw / sw, 100 * ab / sb))
 
 
 def phase_latency(sess, rng):
@@ -2474,6 +3134,13 @@ def main(argv=None):
             errs["decode_attention_paged"], splits["float32"])
         errs["decode_attention_paged bf16"] = max(
             errs["decode_attention_paged bf16"], splits["bfloat16"])
+        # and B5 at the verify forward's shape, from another
+        verify = phase_compare_paged_verify(
+            np.random.default_rng(args.seed + 7))
+        errs["decode_attention_paged"] = max(
+            errs["decode_attention_paged"], verify["float32"])
+        errs["decode_attention_paged bf16"] = max(
+            errs["decode_attention_paged bf16"], verify["bfloat16"])
         # and B4's, from another
         dense = phase_compare_dense_splits(
             np.random.default_rng(args.seed + 5))
@@ -2527,12 +3194,43 @@ def main(argv=None):
                                                                     prompts)
         launches["decode_attention_paged"] = \
             paged_launches["decode_attention_paged"]
-        quant_launches, _ = phase_quant_serve(quant, paged, prompts,
-                                              paged_outs)
+        quant_launches, _, quant_outs = phase_quant_serve(
+            quant, paged, prompts, paged_outs)
         phase_paged_logits(paged, sess, system, rng)
+        # the decode policies draw from a stream of their own, so the
+        # phases after see the inputs they saw before these existed
+        pol_rng = np.random.default_rng(args.seed + 6)
+        phase_compare_sample(pol_rng)
+        pol = policy_sessions(sess, paged, quant, paged_kw)
+        sample_outs = phase_sample_serve(pol["sample"], prompts)
+        phase_spec_serve(pol["spec"], prompts, paged_outs, paged,
+                         "spec-serve")
+        phase_spec_serve(pol["spec sample"], prompts, sample_outs, paged,
+                         "spec-serve sample", seeds=SAMPLE_SEEDS)
+        phase_spec_serve(pol["spec full draft"], prompts, paged_outs, paged,
+                         "spec-serve full draft", accepting=True)
+        phase_spec_serve(pol["spec int8"], prompts, quant_outs, quant,
+                         "spec-serve int8", int8=True)
+        phase_spec_serve(pol["spec int8 full draft"], prompts, quant_outs,
+                         quant, "spec-serve int8 full draft", int8=True,
+                         accepting=True)
+        _, top2_outs, _ = serve_paged(pol["sample top2"], prompts,
+                                      "sample-serve top-2",
+                                      seeds=SAMPLE_SEEDS)
+        phase_spec_serve(pol["spec sample full draft"], prompts, top2_outs,
+                         paged, "spec-serve sample full draft",
+                         seeds=SAMPLE_SEEDS, knobs=SPEC_SAMPLE_KNOBS,
+                         accepting=True)
+        phase_constrain_serve(pol["constrain"], pol["constrain sample"],
+                              pol["dead end"], prompts)
         phase_latency(sess, rng)
         phase_paged_latency(paged, sess, system, rng, quant)
+        phase_policy_latency(sess, paged, pol, pol_rng)
         phase_profile(sess, rng, paged, system, quant)
+        phase_profile_sampling(pol["sample"], pol_rng)
+        for p in pol.values():
+            p.close()
+        del pol
         rows = phase_time(rng, launches, errs, final, paged_final,
                           quant_launches, b4_bf16_launches)
         paged.close()

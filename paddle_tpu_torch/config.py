@@ -49,6 +49,16 @@ _flags = {
     # place of conv2d + batch_norm; read when the model is built
     # (models/resnet.py)
     "fused_conv_bn": False,
+    # decode policy (serving/decoding): read only at session build, by
+    # DecodePolicy.from_flags; the all-defaults combination resolves to
+    # no policy object at all, so greedy sessions stay as they were
+    "decode_policy": "greedy",
+    "decode_temperature": 1.0,
+    "decode_top_k": 0,
+    "decode_top_p": 1.0,
+    "decode_speculate_k": 0,
+    "decode_draft_model": None,
+    "decode_constraint": None,
     # mixed precision: None, or the dtype name ("bfloat16") that the
     # WHITE ops' float32 inputs are cast to (amp.py); read at each forward
     # and loss of a model (models/transformer.py, models/resnet.py) and at

@@ -69,7 +69,13 @@ class MultiHeadAttention(nn.Module):
       ``table``.
     * ``decode_paged`` — as ``decode``, through per-slot table rows
       ``table`` [S, MB], writing at the storage ``rows``
-      (``paged_append_rows``)."""
+      (``paged_append_rows``).
+    * ``verify_paged`` — a speculative window [1, W, D] at logical
+      position ``hist``, written as ``prefill_paged`` writes, each row i
+      attending rows [0, hist + i] through ``table`` [MB] as the decode
+      step at that position would: W queries of the paged decode
+      attention (kernel B5), so a row's arithmetic is the decode
+      step's."""
 
     def __init__(self, d_model, num_heads, device=None):
         super().__init__()
@@ -118,6 +124,17 @@ class MultiHeadAttention(nn.Module):
                                                 hist, self.num_heads)
         return self._out(ctx)
 
+    def verify_paged(self, x, cache_k, cache_v, table, hist, rows):
+        q, k, v = self._qkv(x)
+        kv_cache_write_rows(cache_k, k[0], rows)
+        kv_cache_write_rows(cache_v, v[0], rows)
+        w, dm = x.shape[1], x.shape[2]
+        pos = int(hist) + torch.arange(w, device=x.device)
+        ctx = multihead_attention_decode_paged(
+            q.reshape(w, 1, dm), cache_k, cache_v, pos,
+            table.reshape(1, -1).expand(w, -1), self.num_heads)
+        return self._out(ctx.reshape(1, w, dm))
+
     def decode_paged(self, x, cache_k, cache_v, pos, table, rows):
         q, k, v = self._qkv(x)
         kv_cache_write_rows(cache_k, k[:, 0], rows)
@@ -127,16 +144,18 @@ class MultiHeadAttention(nn.Module):
         return self._out(ctx)
 
 
-_MODES = ("full", "prefill", "decode", "prefill_paged", "decode_paged")
+_MODES = ("full", "prefill", "decode", "prefill_paged", "decode_paged",
+          "verify_paged")
 
 
 class TransformerEncoderLayer(nn.Module):
     """Pre-norm block: x + MHA(LN(x)); x + FFN(LN(x)), FFN = fc + gelu,
     fc. ``mode`` names the attention's method (full, the uncached
     training path, or a cached one: prefill, decode, prefill_paged,
-    decode_paged) and ``index`` its keyword arguments; ``full`` takes no
-    caches. ``amp`` (a dtype or None) is the mixed-precision dtype of this
-    call's ``mul`` products; the cached modes run without it.
+    decode_paged, verify_paged) and ``index`` its keyword arguments;
+    ``full`` takes no caches. ``amp`` (a dtype or None) is the
+    mixed-precision dtype of this call's ``mul`` products; the cached
+    modes run without it.
 
     The reference's ``dropout_prob`` > 0 and ``ring_axis`` are not ported
     and raise NotImplementedError."""

@@ -1,7 +1,8 @@
 """The causal transformer LM (reference ``paddle_tpu/models/transformer.py``):
 its training forward (``_lm_backbone`` without a cache and
-``transformer_lm``'s loss) and KV-cached generation (the greedy dense and
-paged branches of ``transformer_lm_session``).
+``transformer_lm``'s loss) and KV-cached generation (the dense and paged
+branches of ``transformer_lm_session``, with its decode policies:
+sampling, speculative decoding with a draft, constrained output).
 
 Parameters carry the reference's names at the boundary
 (:func:`lm_param_names`), so weights saved by ``paddle_tpu`` load here
@@ -20,16 +21,17 @@ from .. import config as _config
 from ..amp import flag_dtype
 from ..layers.attention import (PositionalEncodingWindow,
                                 TransformerEncoderLayer)
+from ..ops.decoding_ops import sample_from_keys
 from ..ops.generation_ops import (kv_block_copy, paged_append_rows,
                                   paged_window_rows)
 from ..ops.loss_ops import mean, softmax_with_cross_entropy
-from ..ops.nn_ops import layer_norm, lookup_table, mul
+from ..ops.nn_ops import argmax, layer_norm, lookup_table, mul
 from ..ops.quant_ops import SCALE_SUFFIX, scale_var_name
 from ..place import resolve_device
 
 __all__ = ["TransformerLM", "transformer_lm", "lm_param_names",
            "lm_mul_weight_names", "check_lm_params", "infer_num_layers",
-           "kv_dtype", "transformer_lm_session"]
+           "kv_dtype", "policy_epilogue", "transformer_lm_session"]
 
 
 def _name_map(num_layers):
@@ -135,9 +137,11 @@ class TransformerLM(nn.Module):
     Generation, over per-layer KV caches that :meth:`allocate_cache`
     (dense) or :meth:`allocate_pools` (paged) creates: :meth:`prefill`
     fills one slot from a prompt, :meth:`prefill_paged` a prompt window
-    through a block table; :meth:`decode` advances every slot by one
-    token. Generation under amp is not ported: each of these calls raises
-    while the flag is on."""
+    through a block table, :meth:`verify_paged` a speculative window (the
+    logits of every row); :meth:`decode` advances every slot by one token.
+    A model may share another's tensors (:meth:`bind_params`). Generation
+    under amp is not ported: each of these calls raises while the flag is
+    on."""
 
     def __init__(self, vocab_size, d_model, num_heads, d_ff, num_layers,
                  max_len, device=None, dropout_prob=0.0, ring_axis=None):
@@ -265,6 +269,42 @@ class TransformerLM(nn.Module):
             else:
                 dst.copy_(src)
 
+    def reference_state(self):
+        """{reference name: tensor} of every parameter, and the scales of
+        the armed weights under ``<name>@quant.scale``: what
+        :meth:`bind_params` shares."""
+        state = {}
+        for name, t in self.reference_tensors().items():
+            state[name] = t
+            mod, attr = self._owner(name)
+            scale = getattr(mod, attr + "_scale", None)
+            if scale is not None:
+                state[scale_var_name(name)] = scale
+        return state
+
+    @torch.no_grad()
+    def bind_params(self, state, device):
+        """Take the tensors of ``state`` (a :meth:`reference_state`, or any
+        superset of this model's names) as this model's own, by reference
+        name and without a copy, and move the model to ``device``, where
+        they must lie: a model sharing another's weights (the
+        speculative self-draft, a truncation whose names are a subset of
+        the target's). An armed weight comes with its scales."""
+        for name in _name_map(self.num_layers):
+            mod, attr = self._owner(name)
+            src, old = state[name], getattr(mod, attr)
+            if tuple(src.shape) != tuple(old.shape):
+                raise ValueError("%s: shape %s, expected %s"
+                                 % (name, tuple(src.shape),
+                                    tuple(old.shape)))
+            if not isinstance(src, nn.Parameter):
+                src = nn.Parameter(src, requires_grad=False)
+            setattr(mod, attr, src)
+            if hasattr(mod, attr + "_scale"):
+                setattr(mod, attr + "_scale",
+                        state.get(scale_var_name(name)))
+        self.device = torch.device(device)
+
     def allocate_cache(self, slots, cache_len, dtype=torch.float32):
         """Zeroed [slots, cache_len, d_model] K and V tensors of
         ``dtype`` (float32 or bfloat16) per layer."""
@@ -309,6 +349,18 @@ class TransformerLM(nn.Module):
             x = layer(x, ck, cv, "prefill", slot=slot, key_length=key_length)
         return self._head(x[:, length - 1])
 
+    def _window_paged(self, tokens, length, hist, pos_idx, table,
+                      mode="prefill_paged"):
+        self._serving()
+        nb, bs = self._pool_geometry()
+        rows = paged_window_rows(table, hist, length, tokens.shape[1], nb,
+                                 bs)
+        x = self.pos(lookup_table(self.tok_embedding, tokens), pos_idx,
+                     window_rows=True)
+        for layer, (ck, cv) in zip(self.layers, self.caches):
+            x = layer(x, ck, cv, mode, table=table, hist=hist, rows=rows)
+        return x
+
     @torch.no_grad()
     def prefill_paged(self, tokens, length, hist, pos_idx, table):
         """The paged suffix prefill. tokens [1, P]: a prompt window
@@ -318,16 +370,25 @@ class TransformerLM(nn.Module):
         row; table [MB] int block ids. Writes the window's real K/V rows
         through the table in every layer and returns the logits [1, V]
         at window row length - 1."""
-        self._serving()
-        nb, bs = self._pool_geometry()
-        rows = paged_window_rows(table, hist, length, tokens.shape[1], nb,
-                                 bs)
-        x = self.pos(lookup_table(self.tok_embedding, tokens), pos_idx,
-                     window_rows=True)
-        for layer, (ck, cv) in zip(self.layers, self.caches):
-            x = layer(x, ck, cv, "prefill_paged", table=table, hist=hist,
-                      rows=rows)
+        x = self._window_paged(tokens, length, hist, pos_idx, table)
         return self._head(x[:, length - 1])
+
+    @torch.no_grad()
+    def verify_paged(self, tokens, hist, pos_idx, table):
+        """The speculative verify forward: the paged suffix-window forward
+        of a W-row window, unpadded (tokens [1, W]: the pending token and
+        the W - 1 drafts, the first at logical position ``hist``; pos_idx
+        [W], table [MB] as in :meth:`prefill_paged`). Writes the W K/V
+        rows and returns the logits of every row, [W, V]: row i scores
+        the token at sequence index hist + i + 1. Each row attends as the
+        decode step at its position does, through the paged decode
+        attention (kernel B5) with its own length, where the reference
+        runs its prefill attention: the same function, and row for row
+        the decode step's arithmetic (with int8 weights every product is
+        exact per row too), so a speculative stream is the plain one."""
+        x = self._window_paged(tokens, tokens.shape[1], hist, pos_idx,
+                               table, "verify_paged")
+        return self._head(x[0])
 
     @torch.no_grad()
     def decode(self, tokens, pos, table=None):
@@ -385,11 +446,37 @@ def kv_dtype(name):
 
 
 def _build_model(params, vocab_size, d_model, num_heads, d_ff, num_layers,
-                 max_len, device):
+                 max_len, device, share=False):
+    """The spec's model over ``params``: copied in
+    (:meth:`TransformerLM.load_params`), or with ``share`` taken by
+    reference from another model's :meth:`~TransformerLM.reference_state`
+    (:meth:`~TransformerLM.bind_params`; nothing is allocated for the
+    weights)."""
+    if share:
+        model = TransformerLM(vocab_size, d_model, num_heads, d_ff,
+                              num_layers, max_len, "meta")
+        model.bind_params(params, device)
+        return model
     model = TransformerLM(vocab_size, d_model, num_heads, d_ff, num_layers,
                           max_len, device)
     model.load_params(params)
     return model
+
+
+def policy_epilogue(logits, policy, keys=None, mask=None):
+    """Next tokens of ``logits`` [N, V] under the decode ``policy`` (None:
+    greedy), the reference's ``_policy_epilogue``: a constraint's
+    additive ``mask`` [N, V] is added first, then the policy samples
+    (``ops.decoding_ops.sample_from_keys`` under ``keys`` [N, 2], the
+    rows' ``decoding_key(seed, step)``) or takes the argmax. Returns [N]
+    int64."""
+    if mask is not None:
+        logits = logits + mask.to(logits.dtype)
+    if policy is not None and policy.sampled:
+        return sample_from_keys(logits, keys,
+                                temperature=policy.temperature,
+                                top_k=policy.top_k, top_p=policy.top_p)
+    return argmax(logits, -1)
 
 
 def transformer_lm_session(vocab_size, d_model=128, num_heads=4, d_ff=256,
@@ -397,8 +484,8 @@ def transformer_lm_session(vocab_size, d_model=128, num_heads=4, d_ff=256,
                            cache_len=None, prompt_buckets=None, eos_id=1,
                            device=None, dtype="float32", paged=None,
                            block_size=None, num_blocks=None,
-                           prefix_cache=None):
-    """The KV-cached generation spec of the causal LM, greedy. Defaults
+                           prefix_cache=None, decode_policy="flags"):
+    """The KV-cached generation spec of the causal LM. Defaults
     for ``slots`` / ``cache_len`` / ``prompt_buckets`` come from the
     ``generation_slots`` / ``generation_cache_buckets`` /
     ``generation_prompt_buckets`` flags, resolved as the reference does.
@@ -419,10 +506,27 @@ def transformer_lm_session(vocab_size, d_model=128, num_heads=4, d_ff=256,
     ``prefix_cache`` (default: the ``generation_prefix_cache`` flag)
     shares prompt blocks between admissions.
 
+    ``decode_policy`` (default ``"flags"``: the ``decode_*`` flags through
+    ``DecodePolicy.from_flags``, the only place they are read; None
+    forces greedy; or a ``DecodePolicy``) makes the next token a policy:
+    sampling keyed by (seed, position), a constraint's additive mask rows,
+    and with ``speculate_k`` > 0 (paged only) speculative rounds: a dense
+    greedy draft spec, by default a 1-layer truncation whose parameter
+    names are the target's own (so the session shares the target's
+    tensors), proposes k tokens a round and one verify forward of the
+    target scores them. ``decode_draft_model`` overrides the draft's
+    ``d_model``, ``num_heads``, ``d_ff`` or ``num_layers``. The
+    all-defaults flags resolve to no policy: greedy as before.
+
     Returns a :class:`~paddle_tpu_torch.serving.generation.GenerationSpec`
     for ``GenerationSession(spec, params)``."""
+    from ..serving.decoding import DecodePolicy
     from ..serving.generation import GenerationSpec
 
+    if decode_policy == "flags":
+        decode_policy = DecodePolicy.from_flags()
+    policy = decode_policy
+    spec_k = 0 if policy is None else policy.speculate_k
     device = resolve_device(device)
     if slots is None:
         slots = int(_config.get_flag("generation_slots"))
@@ -460,12 +564,32 @@ def transformer_lm_session(vocab_size, d_model=128, num_heads=4, d_ff=256,
             prefix_cache = bool(_config.get_flag("generation_prefix_cache"))
     else:
         block_size, num_blocks, prefix_cache = 0, 0, False
+    if spec_k and not paged:
+        raise ValueError("decode_speculate_k needs the paged KV layout "
+                         "(generation_paged_kv / paged=True): the verify "
+                         "pass is a suffix-window prefill and rollback is "
+                         "block decref")
+    draft_spec = None
+    if spec_k:
+        dkw = dict(d_model=d_model, num_heads=num_heads, d_ff=d_ff,
+                   num_layers=1)
+        if policy.draft:
+            unknown = set(policy.draft) - set(dkw)
+            if unknown:
+                raise ValueError("decode_draft_model keys %r not in %r"
+                                 % (sorted(unknown), sorted(dkw)))
+            dkw.update(policy.draft)
+        draft_spec = transformer_lm_session(
+            vocab_size, max_len=max_len, slots=slots, cache_len=cache_len,
+            prompt_buckets=prompt_buckets, eos_id=eos_id, device=device,
+            dtype=dtype, paged=False, decode_policy=None, **dkw)
     return GenerationSpec(
         slots=slots, cache_len=cache_len, max_len=max_len,
         prompt_buckets=prompt_buckets, eos_id=eos_id, device=device,
         dtype=str(dtype), paged=bool(paged), block_size=block_size,
         num_blocks=num_blocks, max_blocks=max_blocks,
-        prefix_cache=bool(prefix_cache),
+        prefix_cache=bool(prefix_cache), vocab_size=vocab_size,
+        policy=policy, draft_spec=draft_spec,
         build_model=functools.partial(
             _build_model, vocab_size=vocab_size, d_model=d_model,
             num_heads=num_heads, d_ff=d_ff, num_layers=num_layers,

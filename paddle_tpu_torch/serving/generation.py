@@ -1,17 +1,27 @@
 """Autoregressive generation serving: KV-cache sessions and a
 continuous-batching scheduler (reference
-``paddle_tpu/serving/generation.py``, greedy, core only).
+``paddle_tpu/serving/generation.py``, core only).
 
 * :class:`GenerationSession` owns one decode batch: ``spec.slots``
   sequences over a model whose per-layer K/V caches stay on the device
   between steps. ``admit()`` prefills a prompt into one free slot and
-  returns its first greedy token; ``step()`` decodes one token for every
+  returns its first token; ``step()`` decodes one token for every
   active slot, each at its own depth, so sequences admitted at different
   times decode together. The caches are dense ([slots, cache_len,
   d_model] per layer) or, with ``spec.paged``, block pools addressed
   through per-sequence block tables (``serving/paged_cache.py``), with
   copy-on-write sharing of cached prompt prefixes when
   ``spec.prefix_cache`` is on.
+* The next token is the spec's decode policy (``serving/decoding``):
+  greedy, or sampled under the key ``decoding_key(seed, position)`` of
+  the request's seed and the token's sequence index (so a stream
+  replays token for token from its seed and journal), optionally
+  through a constraint's mask rows; with ``speculate_k`` > 0 (paged) a
+  step is a speculative round: a dense greedy draft session, kept slot
+  for slot in step with this one, proposes k tokens, one verify forward
+  of the target re-decides every window position with the target's own
+  policy and keys, and each slot emits the accepted prefix plus the
+  target's token after it, the tokens plain steps would have emitted.
 * :class:`GenerationScheduler` is the front door: ``submit(prompt) ->
   Future``. A bounded queue (``ServingOverloadError`` when ``submit``
   times out on it), one dispatcher thread that admits waiting requests
@@ -26,7 +36,13 @@ Not ported yet: breakers, token replay (so pool starvation finishes a
 sequence at its current length, the reference's behaviour with
 ``generation_replay_attempts`` 0), preemption, session rebuild and step
 timeouts; shedding on projected queue wait; ``swap_weights``; tracing
-and metrics; decode policies.
+and metrics. Of the decode policies, what waits for those: the fault
+sites ``decode_draft_mismatch`` and ``decode_constraint_dead_end``
+(fault injection), the speculative counters
+``paddle_generation_speculative_{drafted,accepted}_total`` (kept here as
+the integers ``spec_drafted`` / ``spec_accepted``) and the
+``generationVerify`` span; the scheduler's refusal of step timeouts on
+speculative sessions comes with the step timeouts.
 
 Threads: the dispatcher thread is the only caller of its sessions, and
 so the only thread that launches their device work or touches a block
@@ -45,14 +61,25 @@ import torch
 
 from .. import config as _config
 from ..amp import flag_dtype
-from ..models.transformer import kv_dtype
-from ..ops.nn_ops import argmax
+from ..models.transformer import kv_dtype, policy_epilogue
+from ..ops.decoding_ops import decode_verify
+from ..ops.random_ops import decoding_key
 from . import quant as _quant
+from .decoding import ConstraintDeadEnd, mint_seed
+from .decoding.policy import GREEDY_FINGERPRINT
 from .paged_cache import BlockPool, PoolExhausted, PrefixIndex
 
 __all__ = ["GenerationSpec", "GenerationSession", "GenerationScheduler",
            "ServingOverloadError", "ServingDeadlineError",
            "ServingUnavailableError"]
+
+
+# a step's phase 1 for its phase 2: the active slots and the starved
+# ones, then either the plain step's feeds (tokens, positions, table rows,
+# the policy's keys and mask) or, when ``speculative``, each speculating
+# slot's (length, table row) in ``windows``
+_Prepared = collections.namedtuple(
+    "_Prepared", "speculative act starved tokens pos table feed windows")
 
 
 class ServingOverloadError(RuntimeError):
@@ -90,14 +117,18 @@ class GenerationSpec:
     ``build_model(params)``, which returns a module with
     ``allocate_cache``, ``prefill`` and ``decode`` (dense) and
     ``allocate_pools``, ``prefill_paged``, ``decode(..., table)`` and
-    ``copy_block`` (paged). The paged fields default to the dense
-    layout."""
+    ``copy_block`` (paged), and ``verify_paged`` (speculative). The
+    paged fields default to the dense layout; the decode-policy fields
+    (``vocab_size``, ``policy``: a ``DecodePolicy`` or None for greedy,
+    ``draft_spec``: the speculative draft's spec) to greedy."""
 
     __slots__ = ("slots", "cache_len", "max_len", "prompt_buckets",
                  "eos_id", "device", "build_model", "dtype", "paged",
-                 "block_size", "num_blocks", "max_blocks", "prefix_cache")
+                 "block_size", "num_blocks", "max_blocks", "prefix_cache",
+                 "vocab_size", "policy", "draft_spec")
     _DEFAULTS = {"dtype": "float32", "paged": False, "block_size": 0,
-                 "num_blocks": 0, "max_blocks": 0, "prefix_cache": False}
+                 "num_blocks": 0, "max_blocks": 0, "prefix_cache": False,
+                 "vocab_size": 0, "policy": None, "draft_spec": None}
 
     def __init__(self, **kwargs):
         for name, value in self._DEFAULTS.items():
@@ -119,9 +150,20 @@ class GenerationSession:
     here only) quantizes the model's mul weights to int8 in place
     (``serving/quant.py``); their products then run through kernel B3.
     ``_quant_armed`` lists the armed reference names; no float32 copy
-    of an armed weight is kept."""
+    of an armed weight is kept.
 
-    def __init__(self, spec, params, arm_quant=None):
+    A speculative spec gets ``self.draft``, a dense greedy session over
+    ``spec.draft_spec`` that mirrors this one slot for slot. Without
+    ``draft_params`` it shares this model's tensors by reference name
+    (the self-draft: embedding, positions, its layers, the norm of its
+    name and the head), and this session's arming arms the draft's
+    products in the same call; with ``draft_params`` (a draft of other
+    widths) it holds its own weights and arms itself. ``share`` takes
+    ``params`` by reference (another model's ``reference_state()``),
+    the self-draft's way."""
+
+    def __init__(self, spec, params, arm_quant=None, draft_params=None,
+                 share=False):
         # the amp flag is read at each build and each run, as the
         # reference's executor reads it; generation under amp is not
         # ported (the model's prefill and decode refuse it too)
@@ -131,12 +173,32 @@ class GenerationSession:
                 "amp flag off to build a session")
         self.spec = spec
         self.device = spec.device
-        self.model = spec.build_model(params)
+        self.model = spec.build_model(params, share=True) if share \
+            else spec.build_model(params)
         if arm_quant is None:
             arm_quant = bool(_config.get_flag("serving_quant_compute"))
+        policy = spec.policy
+        self.policy = policy
+        self.sampled = policy is not None and policy.sampled
+        self.constrained = policy is not None and \
+            policy.constraint is not None
+        self.speculative = policy is not None and policy.speculate_k > 0
+        self.draft = None
+        shared = ()
+        if draft_params is not None and not self.speculative:
+            raise ValueError("draft_params without a speculative policy")
+        if self.speculative:
+            if draft_params is None:
+                self.draft = GenerationSession(
+                    spec.draft_spec, self.model.reference_state(),
+                    arm_quant=False, share=True)
+                shared = (self.draft.model,)
+            else:
+                self.draft = GenerationSession(spec.draft_spec, draft_params,
+                                               arm_quant=arm_quant)
         self._quant_armed = []
         if arm_quant:
-            self._quant_armed = _quant.arm_quant_compute(self.model)
+            self._quant_armed = _quant.arm_quant_compute(self.model, shared)
         n = spec.slots
         self.lengths = np.zeros(n, np.int64)     # cached rows per slot
         self.last_token = np.zeros(n, np.int64)  # next token to decode
@@ -166,10 +228,32 @@ class GenerationSession:
             self.prefill_log = []
         else:
             self.model.allocate_cache(spec.slots, spec.cache_len, kv)
+        # per-slot request seed and constraint-automaton state, set at
+        # admission and recomputable from the journal (the replay
+        # contract); the mask table on the device with a zero row last,
+        # the row of slots that have no state
+        self.seeds = np.zeros(n, np.int64)
+        self.cstate = [None] * n
+        self._mask_rows = None
+        if self.constrained:
+            table = policy.constraint.mask_table(spec.vocab_size)
+            self._mask_rows = torch.from_numpy(np.concatenate(
+                [table, np.zeros((1, table.shape[1]), np.float32)])).to(
+                    self.device)
+        # speculative rounds (``steps`` counts the plain decode steps
+        # only), verify forwards, drafted and accepted tokens (the
+        # reference's paddle_generation_speculative_* counts)
+        self.spec_rounds = 0
+        self.verifies = 0
+        self.spec_drafted = 0
+        self.spec_accepted = 0
 
     # -- slot bookkeeping ------------------------------------------------
     def free_slots(self):
         return [int(i) for i in np.flatnonzero(~self.active)]
+
+    def active_slots(self):
+        return [int(i) for i in np.flatnonzero(self.active)]
 
     def capacity_left(self, slot):
         """Decode steps ``slot`` can still take before its cache or the
@@ -288,7 +372,11 @@ class GenerationSession:
     def close(self):
         """Free the caches; the session must not be used after. Paged:
         every block reference (slot tables and prefix pins) returns to
-        the pool first, and the books are checked to balance at zero."""
+        the pool first, and the books are checked to balance at zero. The
+        draft closes with it."""
+        if self.draft is not None:
+            self.draft.close()
+            self.draft = None
         if self.paged:
             for slot in range(self.spec.slots):
                 self._release_table(slot)
@@ -301,11 +389,80 @@ class GenerationSession:
         self.model.release_cache()
         self.active[:] = False
 
+    # -- decode-policy plumbing ------------------------------------------
+    def _prefill_token(self, logits, n, seed, cstate):
+        """The admission's first token under the policy, and the
+        constraint state after it. ``n`` is the TOTAL history length, the
+        sequence index of the token emitted (the counter of its key), so
+        a replay prefilling prompt + journal draws with the key the
+        original decode used at that position. Raises ValueError (from
+        the constraint) when the token is illegal: a dead start state."""
+        keys = mask = None
+        if self.sampled:
+            keys = decoding_key(torch.tensor([seed]), torch.tensor([n]))
+        state = None
+        if self.constrained:
+            c = self.policy.constraint
+            state = c.start if cstate is None else cstate
+            mask = self._mask_rows[c.state_index(state)].reshape(1, -1)
+        first = int(policy_epilogue(logits, self.policy, keys, mask)[0])
+        if self.constrained:
+            state = self.policy.constraint.advance(state, first)
+        return first, state
+
+    def _policy_admitted(self, slot, seed, state):
+        self.seeds[slot] = int(seed)
+        self.cstate[slot] = state
+
+    def _draft_admit(self, prompt, slot, first):
+        """Mirror an admission into the draft session (the same slot, by
+        lockstep), then pin its pending token to the TARGET's emission:
+        the draft guesses continuations of the target's trajectory, never
+        its own."""
+        if self.draft is None:
+            return
+        try:
+            dslot, _ = self.draft.admit(prompt)
+        except BaseException:
+            self.retire(slot)
+            raise
+        if dslot != slot:
+            self.retire(slot)
+            raise RuntimeError(
+                "draft session desynchronized: target slot %d, draft slot "
+                "%d" % (slot, dslot))
+        self.draft.last_token[slot] = int(first)
+
+    def _decode_feed(self):
+        """The decode step's policy inputs on the device: when sampling,
+        each slot's key words ``decoding_key(seed, step)`` (step = length +
+        1: a slot at length L emits the token at sequence index L + 1),
+        derived on the host from the host's seeds and lengths, so only
+        the [slots, 2] words cross; the [slots, V] mask rows of each
+        active slot's constraint state (zeros elsewhere)."""
+        dev = self.device
+        keys = mask = None
+        if self.sampled:
+            keys = decoding_key(torch.from_numpy(self.seeds.copy()),
+                                torch.from_numpy(self.lengths + 1)).to(dev)
+        if self.constrained:
+            c = self.policy.constraint
+            zero = self._mask_rows.shape[0] - 1
+            idx = np.full(self.spec.slots, zero, np.int64)
+            for s in np.flatnonzero(self.active):
+                state = self.cstate[int(s)]
+                if state is not None:
+                    idx[s] = c.state_index(state)
+            mask = self._mask_rows[torch.from_numpy(idx).to(dev)]
+        return keys, mask
+
     # -- execution -------------------------------------------------------
-    def admit(self, prompt):
+    def admit(self, prompt, seed=0, cstate=None):
         """Prefill ``prompt`` (1-D int ids) into a free slot and return
-        ``(slot, first greedy token)``. Raises RuntimeError when no slot
-        is free and ValueError when the prompt fits no bucket.
+        ``(slot, first token)`` under the decode policy: ``seed`` keys a
+        sampled draw, ``cstate`` is the constraint state to resume from
+        (None: the start state). Raises RuntimeError when no slot is free
+        and ValueError when the prompt fits no bucket.
 
         Paged: storage comes from the block pool through a fresh table;
         with the prefix cache on, the longest cached prefix is shared
@@ -317,7 +474,7 @@ class GenerationSession:
         if n < 1:
             raise ValueError("empty prompt")
         if self.paged:
-            return self._admit_paged(prompt)
+            return self._admit_paged(prompt, seed, cstate)
         bucket = self.prompt_bucket(n)
         if bucket is None:
             raise ValueError(
@@ -332,14 +489,16 @@ class GenerationSession:
         padded[0, :n] = prompt
         tokens = torch.from_numpy(padded).to(self.device)
         logits = self.model.prefill(tokens, n, slot)
-        first = int(argmax(logits, -1)[0])
+        first, state = self._prefill_token(logits, n, seed, cstate)
         self.prefills += 1
         self.lengths[slot] = n
         self.last_token[slot] = first
         self.active[slot] = True
+        self._policy_admitted(slot, seed, state)
+        self._draft_admit(prompt, slot, first)
         return slot, first
 
-    def _admit_paged(self, prompt):
+    def _admit_paged(self, prompt, seed=0, cstate=None):
         """Match the cached prefix, reference its blocks, allocate the
         rest, prefill only the unshared window, then register the
         prompt's blocks. Every reference taken here is returned if
@@ -386,7 +545,9 @@ class GenerationSession:
             logits = self.model.prefill_paged(
                 torch.from_numpy(padded).to(dev), w, matched,
                 torch.from_numpy(pix).to(dev), torch.from_numpy(tab).to(dev))
-            first = int(argmax(logits, -1)[0])
+            # the emitted token's index is the TOTAL length n (= matched +
+            # w), prefix sharing included
+            first, state = self._prefill_token(logits, n, seed, cstate)
         except BaseException:
             for block in table:
                 self.pool.decref(block)
@@ -398,10 +559,12 @@ class GenerationSession:
         self.lengths[slot] = n
         self.last_token[slot] = first
         self.active[slot] = True
+        self._policy_admitted(slot, seed, state)
         self._starved.discard(slot)
         self.prefill_log.append((bucket, matched, w))
         if len(self.prefill_log) > 4096:
             del self.prefill_log[:2048]
+        self._draft_admit(prompt, slot, first)
         return slot, first
 
     def step(self):
@@ -415,7 +578,12 @@ class GenerationSession:
         Paged: a slot whose next row needs a block the pool cannot give
         (even after evicting cold prefix entries) is left out of the
         result; it neither advances nor writes, and the caller finishes
-        it at its current length."""
+        it at its current length.
+
+        Speculative: a round emits a LIST per slot, the accepted drafts
+        and the target's token after them (1 to k + 1 tokens); slots
+        within k + 1 rows of their capacity make every slot take plain
+        single-token steps until they retire."""
         prepared = self.step_prepare()
         if prepared is None:
             return {}
@@ -433,12 +601,23 @@ class GenerationSession:
             raise RuntimeError(
                 "slots %s are at cache capacity %d — retire before "
                 "stepping" % (over, self.max_pos))
+        if self.speculative:
+            w = self.policy.speculate_k + 1
+            if all(self.capacity_left(int(s)) >= w for s in act):
+                windows = self._prepare_spec(act)
+                return _Prepared(True, act, frozenset(self._starved), None,
+                                 None, None, None, windows)
+            # near capacity: a window write would overrun the cache, so
+            # plain single-token rounds finish these slots (speculation
+            # resumes once they retire)
         table, starved = None, frozenset()
         if self.paged:
             table = self._prepare_paged(act)
             starved = frozenset(self._starved)
-        return (act, starved, self.last_token.reshape(-1, 1).copy(),
-                self.lengths.astype(np.int32), table)
+        return _Prepared(False, act, starved,
+                         self.last_token.reshape(-1, 1).copy(),
+                         self.lengths.astype(np.int32), table,
+                         self._decode_feed(), None)
 
     def _prepare_paged(self, act):
         """Grow or copy-on-write each active slot's write block and
@@ -466,14 +645,50 @@ class GenerationSession:
                 tab[s, :len(self.tables[s])] = self.tables[s]
         return tab
 
+    def _prepare_spec(self, act):
+        """Speculative phase 1: extend each active slot's block table to
+        cover the verify window's rows [L, L + W), copying on write the
+        shared blocks the window writes into. A slot the pool cannot
+        cover sits the round out (starved), its growth of this round
+        handed back. Returns {slot: (L, table row)} of the slots that
+        speculate."""
+        bs = self.spec.block_size
+        w = self.policy.speculate_k + 1
+        self._starved.clear()
+        info = {}
+        for s in act:
+            s = int(s)
+            length = int(self.lengths[s])
+            tbl = self.tables[s]
+            held = len(tbl)
+            need = (length + w - 1) // bs + 1
+            try:
+                for bi in range(length // bs, min(held, need)):
+                    self._ensure_writable(tbl, bi)
+                while len(tbl) < need:
+                    tbl.append(self._alloc_block())
+            except PoolExhausted:
+                self.pool.truncate_table(tbl, held)
+                self._starved.add(s)
+                continue
+            tab = np.full(self.spec.max_blocks, self.pool.num_blocks,
+                          np.int32)
+            tab[:len(tbl)] = tbl
+            info[s] = (length, tab)
+        return info
+
     def step_run(self, prepared):
         """Phase 2: the device step and the result's application."""
-        act, starved, tokens, pos, table = prepared
+        if prepared.speculative:
+            return self._step_run_spec(prepared)
+        act, starved, table = prepared.act, prepared.starved, prepared.table
+        tokens, pos = prepared.tokens, prepared.pos
+        keys, mask = prepared.feed
         dev = self.device
         logits = self.model.decode(
             torch.from_numpy(tokens).to(dev), torch.from_numpy(pos).to(dev),
             None if table is None else torch.from_numpy(table).to(dev))
-        nxt = argmax(logits, -1).cpu().numpy()
+        nxt = policy_epilogue(logits, self.policy, keys, mask).cpu().numpy()
         self.steps += 1
         result = {}
         for s in act:
@@ -483,6 +698,90 @@ class GenerationSession:
             self.lengths[s] += 1
             self.last_token[s] = int(nxt[s])
             result[s] = int(nxt[s])
+            if self.constrained:
+                self.cstate[s] = self.policy.constraint.advance(
+                    self.cstate[s], int(nxt[s]))
+        if self.draft is not None and result:
+            self._draft_mirror_plain(result)
+        return result
+
+    def _draft_mirror_plain(self, result):
+        """A plain round of a speculative session (the near-capacity
+        fallback): the draft appends the pending token's K/V row too, so
+        it steps once, its own token dropped, and its pending token is
+        pinned to the target's."""
+        self.draft.step()
+        for s in self.draft.active_slots():
+            if s in result:
+                self.draft.last_token[s] = result[s]
+            else:
+                # the target starved this slot while the draft advanced:
+                # mirror the target's unchanged state back
+                self.draft.lengths[s] = int(self.lengths[s])
+                self.draft.last_token[s] = int(self.last_token[s])
+
+    def _step_run_spec(self, prepared):
+        """Speculative phase 2: k + 1 batched greedy draft steps, then one
+        verify forward per speculating slot re-deciding the window with
+        the TARGET's policy and keys, the emission of the accepted prefix
+        and the target's next token, and the rollback of the window rows
+        past it (blocks returned to the pool; the draft's length cut).
+        Returns {slot: [token, ...]}."""
+        info = prepared.windows
+        starved = prepared.starved
+        k = self.policy.speculate_k
+        w = k + 1
+        bs = self.spec.block_size
+        dev = self.device
+        pol = self.policy
+        # starved slots sit the round out on the target, but the batched
+        # draft advances them anyway: put them back after
+        restore = {s: (int(self.draft.lengths[s]),
+                       int(self.draft.last_token[s])) for s in starved}
+        # k proposals a slot, and one more step so the draft's cache holds
+        # a row for every window position a full accept confirms
+        drafts = {s: [] for s in info}
+        for i in range(w):
+            out = self.draft.step()
+            if i < k:
+                for s in drafts:
+                    drafts[s].append(out[s])
+        result = {}
+        for s, (length, tab) in sorted(info.items()):
+            window = np.empty((1, w), np.int64)
+            window[0, 0] = self.last_token[s]
+            window[0, 1:] = drafts[s]
+            pix = np.clip(length + np.arange(w), 0, self.spec.max_len - 1)
+            win = torch.from_numpy(window).to(dev)
+            logits = self.model.verify_paged(
+                win, length, torch.from_numpy(pix).to(dev),
+                torch.from_numpy(tab).to(dev))
+            toks, accept = decode_verify(
+                logits, win[0], self.seeds[s], length, kind=pol.kind,
+                temperature=pol.temperature, top_k=pol.top_k,
+                top_p=pol.top_p)
+            self.verifies += 1
+            self.spec_drafted += k
+            self.spec_accepted += accept
+            emitted = [int(t) for t in toks[:accept + 1].cpu()]
+            new_len = length + accept + 1
+            self.lengths[s] = new_len
+            self.last_token[s] = emitted[-1]
+            # window rows past the confirmed prefix: blocks beyond the new
+            # length go back to the pool (prepare diverged every shared
+            # block the window wrote); rows left in a kept block lie past
+            # the length and are overwritten by later writes
+            self.pool.truncate_table(self.tables[s],
+                                     (new_len - 1) // bs + 1)
+            # the draft's rows sit at fixed positions: rollback is a
+            # length cut
+            self.draft.lengths[s] = new_len
+            self.draft.last_token[s] = emitted[-1]
+            result[s] = emitted
+        for s, (dl, dt) in restore.items():
+            self.draft.lengths[s] = dl
+            self.draft.last_token[s] = dt
+        self.spec_rounds += 1
         return result
 
     def retire(self, slot):
@@ -494,17 +793,21 @@ class GenerationSession:
         self.active[slot] = False
         self.lengths[slot] = 0
         self.last_token[slot] = 0
+        self.seeds[slot] = 0
+        self.cstate[slot] = None
+        if self.draft is not None:
+            self.draft.retire(slot)
         if self.paged:
             self._release_table(slot)
             self._starved.discard(slot)
 
-    def generate(self, prompt, max_new_tokens=None, eos_id=None):
-        """Synchronous single-sequence convenience: the greedy
-        continuation of ``prompt``, stopping at ``eos_id``,
-        ``max_new_tokens`` or an exhausted paged pool, as a list of ids
-        (EOS excluded)."""
+    def generate(self, prompt, max_new_tokens=None, eos_id=None, seed=0):
+        """Synchronous single-sequence convenience: the policy's
+        continuation of ``prompt`` (greedy by default, ``seed`` keying a
+        sampled one), stopping at ``eos_id``, ``max_new_tokens`` or an
+        exhausted paged pool, as a list of ids (EOS excluded)."""
         eos = self.spec.eos_id if eos_id is None else eos_id
-        slot, first = self.admit(prompt)
+        slot, first = self.admit(prompt, seed=seed)
         # prefill produced one token; each step writes one more K/V
         # row, so capacity + 1 tokens fit the slot
         cap = self.capacity_left(slot)
@@ -516,7 +819,14 @@ class GenerationSession:
                 nxt = self.step()
                 if slot not in nxt:
                     break   # paged pool exhausted: finish at length
-                tokens.append(nxt[slot])
+                got = nxt[slot]
+                # a speculative round emits a list: the tokens past EOS or
+                # the budget are dropped (the round could not know the
+                # sequence would end inside its window)
+                for t in (got if isinstance(got, list) else [got]):
+                    tokens.append(t)
+                    if t == eos or len(tokens) >= limit:
+                        break
         finally:
             self.retire(slot)
         if tokens[-1] == eos:
@@ -529,10 +839,16 @@ _STOP = object()
 
 class _GenRequest:
     __slots__ = ("prompt", "max_new", "explicit_budget", "eos_id",
-                 "future", "deadline", "tokens", "slot", "session_index")
+                 "future", "deadline", "tokens", "slot", "session_index",
+                 "seed")
 
-    def __init__(self, prompt, max_new, explicit_budget, eos_id, deadline):
+    def __init__(self, prompt, max_new, explicit_budget, eos_id, deadline,
+                 seed=0):
         self.prompt = prompt
+        # the request's decode seed, minted once at the front door: with
+        # the prompt + tokens journal it makes a sampled stream as
+        # replayable as a greedy one
+        self.seed = seed
         self.max_new = max_new
         # True when the caller asked for max_new tokens: placement must
         # find a session able to serve them all
@@ -544,13 +860,21 @@ class _GenRequest:
         self.slot = None
         self.session_index = None
 
+    def history(self):
+        """The journal: the prompt and every token generated so far."""
+        if not self.tokens:
+            return self.prompt
+        return np.concatenate([self.prompt,
+                               np.asarray(self.tokens, np.int64)])
+
 
 class GenerationScheduler:
     """Continuous-batching front door over one or more
     :class:`GenerationSession` replicas.
 
     ``submit(prompt) -> Future`` resolves to the generated ids as an
-    int64 array (greedy continuation, EOS excluded). The dispatcher
+    int64 array (the sessions' decode policy, EOS excluded). The
+    dispatcher
     thread admits queued requests into free cache slots (prefill) and
     runs one decode step for every session with active slots, over and
     over; sequences retire slot by slot.
@@ -560,6 +884,12 @@ class GenerationScheduler:
     the queue or mid-generation resolves with
     :class:`ServingDeadlineError`. A session whose step or admission
     raises fails the requests it holds with that exception.
+
+    Every session must have the same decode-policy fingerprint (a
+    journal resumes bit for bit only where the next-token decisions are
+    the same); ``policy_fingerprint()`` reports it. A constrained request
+    whose automaton reaches a state with no legal token resolves with
+    :class:`~.decoding.ConstraintDeadEnd` (a ValueError: the client's).
     """
 
     def __init__(self, sessions, max_queue=256, deadline_ms=None,
@@ -569,6 +899,15 @@ class GenerationScheduler:
         if not sessions:
             raise ValueError("need at least one GenerationSession")
         self.sessions = list(sessions)
+        fps = {(s.policy.fingerprint() if s.policy is not None
+                else GREEDY_FINGERPRINT) for s in self.sessions}
+        if len(fps) > 1:
+            raise ValueError(
+                "sessions disagree on decode policy (%s): a replay journal "
+                "is only re-drivable across sessions that make identical "
+                "next-token decisions" % sorted(fps))
+        self._policy_fp = fps.pop()
+        self._sampled = any(s.sampled for s in self.sessions)
         self._q = queue.Queue(maxsize=max_queue)
         # dispatcher-local, order-preserving: requests parked while no
         # slot is free (consumed before the queue)
@@ -593,15 +932,22 @@ class GenerationScheduler:
             self._thread.start()
         return self
 
+    def policy_fingerprint(self):
+        """The decode-policy fingerprint every session here shares
+        (``"greedy"`` with no policy)."""
+        return self._policy_fp
+
     # -- admission -------------------------------------------------------
     def submit(self, prompt, max_new_tokens=None, eos_id=None,
-               deadline_ms=None, timeout=None):
+               deadline_ms=None, timeout=None, seed=None):
         """Enqueue one prompt; returns a Future of its generated ids.
 
         ``max_new_tokens`` is capped by the slot capacity left after the
         prompt. ``deadline_ms`` (default: the scheduler's) bounds the
         WHOLE generation. ``timeout``: seconds to wait on a full queue
-        before :class:`ServingOverloadError`."""
+        before :class:`ServingOverloadError`. ``seed`` keys a sampled
+        policy's draws; None mints one (``mint_seed``) when the sessions
+        sample, 0 otherwise."""
         if self._closed:
             raise RuntimeError("scheduler is closed")
         prompt = np.asarray(prompt, np.int64).reshape(-1)
@@ -636,7 +982,10 @@ class GenerationScheduler:
                     "deadline budget %.1f ms already spent"
                     % float(deadline_ms))
             deadline = time.monotonic() + float(deadline_ms) / 1e3
-        item = _GenRequest(prompt, max_new, explicit, eos_id, deadline)
+        if seed is None:
+            seed = mint_seed() if self._sampled else 0
+        item = _GenRequest(prompt, max_new, explicit, eos_id, deadline,
+                           seed=int(seed))
         try:
             self._q.put(item, block=True, timeout=timeout)
         except queue.Full:
@@ -699,7 +1048,13 @@ class GenerationScheduler:
     def _admit_item(self, item, si):
         sess = self.sessions[si]
         try:
-            slot, first = sess.admit(item.prompt)
+            cstate = None
+            if sess.constrained:
+                # the automaton state is journal-derived, as the cache is
+                c = sess.policy.constraint
+                cstate = c.advance_many(c.start, item.tokens)
+            slot, first = sess.admit(item.history(), seed=item.seed,
+                                     cstate=cstate)
         except Exception as exc:  # noqa: BLE001 — the request's outcome
             _resolve(item.future, exception=exc)
             return
@@ -709,7 +1064,29 @@ class GenerationScheduler:
         item.session_index = si
         item.tokens.append(first)
         self._active[(si, slot)] = item
-        self._finish_if_done(item)
+        # EOS or the budget can end it at its first token; a constrained
+        # request may already stand in a dead state
+        if not self._finish_if_done(item):
+            self._check_dead_end(sess, item)
+
+    def _check_dead_end(self, sess, item):
+        """A constrained request whose last token advanced its automaton
+        into a state that bans every next token resolves with
+        ConstraintDeadEnd, a client error, and leaves its slot: never a
+        hang. Returns True when it left."""
+        if not sess.constrained:
+            return False
+        key = (item.session_index, item.slot)
+        if key not in self._active:
+            return False
+        state = sess.cstate[item.slot]
+        if not sess.policy.constraint.dead(state):
+            return False
+        sess.retire(item.slot)
+        del self._active[key]
+        _resolve(item.future, exception=ConstraintDeadEnd(
+            state, len(item.tokens)))
+        return True
 
     def _finish_if_done(self, item):
         """Retire and resolve on EOS, budget, capacity or deadline."""
@@ -762,8 +1139,16 @@ class GenerationScheduler:
                     _resolve(it.future,
                              result=np.asarray(it.tokens, np.int64))
                     continue
-                it.tokens.append(toks[slot])
-                self._finish_if_done(it)
+                got = toks[slot]
+                # a speculative round emits a list: the accepted drafts
+                # and the target's next token; plain rounds one int
+                for tok in (got if isinstance(got, list) else [got]):
+                    it.tokens.append(tok)
+                    if self._finish_if_done(it) or \
+                            self._check_dead_end(sess, it):
+                        # EOS, budget or dead end inside the window: the
+                        # rest of the list is dropped, the slot retired
+                        break
 
     def _fill_slots(self):
         """Admit waiting requests into free slots without blocking.

@@ -16,9 +16,14 @@ structural: the model names its mul weights
 list against the reference's selection. Quantization runs in numpy, so
 int8 weights and scales are bitwise the reference's.
 
+A speculative session's self-draft shares the target's tensors by
+reference name; it is armed in the same call as the target (the
+reference's one-scope rule: one scope, one selection), by binding the
+draft to the target's int8 tensors and scales, so no float32 copy of an
+armed weight survives in either model.
+
 Not ported yet: artifact-load arming (``install_quant_compute``,
-``quant.json``, ``quantize_model_dir``) and the draft's shared-scope
-arming.
+``quant.json``, ``quantize_model_dir``).
 """
 
 import numpy as np
@@ -64,13 +69,15 @@ def dequantize_array(q, scales, axis):
     return q.astype(np.float32) * scales.reshape(shape)
 
 
-def arm_quant_compute(model):
+def arm_quant_compute(model, shared=()):
     """Quantize ``model``'s mul weights in place (a
     ``models.transformer.TransformerLM``) and return their sorted
     reference names, the reference session's ``_quant_armed``.
     Idempotent: a weight that is already int8 (it came armed, and the
     model takes int8 weights only with their scales) is kept as it
-    is."""
+    is. Each model of ``shared`` (one whose tensors are ``model``'s by
+    reference name, the self-draft) is bound to the armed tensors in the
+    same call."""
     axis = QUANT_OPS["mul"][1]
     names = lm_mul_weight_names(model.num_layers)
     for name in names:
@@ -79,4 +86,6 @@ def arm_quant_compute(model):
             q, s = quantize_array(w.detach().cpu().numpy(), axis)
             model.set_int8_weight(name, torch.from_numpy(q),
                                   torch.from_numpy(s))
+    for other in shared:
+        other.bind_params(model.reference_state(), model.device)
     return names

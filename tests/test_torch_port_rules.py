@@ -5,6 +5,7 @@ all."""
 
 import ast
 import os
+import re
 import subprocess
 import sys
 
@@ -280,3 +281,71 @@ def test_params_from_jax_drops_rng_state(kind):
     assert all(bool((t == 1).all())
                for t in model.reference_tensors().values())
     assert all(bool((t == 1).all()) for t in opt.accumulators().values())
+
+
+SERVING = os.path.join(PKG, "serving")
+# torch's own generators: a draw from any of them would make a decode
+# stream depend on execution history, not on (seed, position)
+_TORCH_RNG = re.compile(r"\btorch\s*\.\s*(rand\w*|multinomial|Generator|"
+                        r"manual_seed|seed|initial_seed|bernoulli|"
+                        r"normal|poisson)\b|\.(uniform_|normal_|"
+                        r"random_|exponential_|bernoulli_)\(")
+
+
+def _serving_sources():
+    return sorted(os.path.join(dp, f) for dp, _d, fs in os.walk(SERVING)
+                  for f in fs if f.endswith(".py"))
+
+
+def test_no_torch_rng_in_serving():
+    """The counterpart of the reference's
+    ``test_decoding.py::test_no_jax_prngkey_in_serving``: nothing under
+    ``paddle_tpu_torch/serving/`` draws from torch's generators, and
+    every decode-side key comes from ``ops.random_ops.decoding_key``."""
+    offenders = []
+    for path in _serving_sources():
+        with open(path) as f:
+            for i, line in enumerate(f, 1):
+                if _TORCH_RNG.search(line.split("#")[0]):
+                    offenders.append("%s:%d: %s" % (path, i, line.strip()))
+    assert not offenders, offenders
+    # the key primitives are reached only through decoding_key: no serving
+    # module (nor the sampling ops) builds a key another way
+    prim = re.compile(r"\b(prng_key|fold_in|threefry2x32|random_bits)\b")
+    for path in _serving_sources() + [
+            os.path.join(PKG, "ops", "decoding_ops.py"),
+            os.path.join(PKG, "models", "transformer.py")]:
+        with open(path) as f:
+            src = f.read()
+        assert not prim.search(src), path
+    with open(os.path.join(PKG, "ops", "decoding_ops.py")) as f:
+        assert "decoding_key(" in f.read()
+
+
+def test_the_rng_lint_catches_a_draw():
+    for line in ("x = torch.rand(3)", "g = torch.Generator()",
+                 "torch.manual_seed(0)", "torch.multinomial(p, 1)",
+                 "w.uniform_(-1, 1)", "torch.randint(0, 5, (2,))"):
+        assert _TORCH_RNG.search(line), line
+    assert not _TORCH_RNG.search("keys = decoding_key(seeds, steps)")
+
+
+def test_decode_policy_sessions_raise_without_cuda(monkeypatch):
+    from paddle_tpu_torch.serving.decoding import DecodePolicy
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for pol in (DecodePolicy("sample", temperature=0.8),
+                DecodePolicy(speculate_k=2)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            port_tf.transformer_lm_session(
+                29, max_len=8, slots=1, cache_len=8, prompt_buckets=(4,),
+                paged=True, block_size=4, decode_policy=pol)
+
+
+def test_import_rule_covers_the_decode_policy_modules():
+    mods = _package_modules()
+    for mod in ("paddle_tpu_torch.ops.random_ops",
+                "paddle_tpu_torch.ops.decoding_ops",
+                "paddle_tpu_torch.serving.decoding",
+                "paddle_tpu_torch.serving.decoding.policy",
+                "paddle_tpu_torch.serving.decoding.constrain"):
+        assert mod in mods
