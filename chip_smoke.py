@@ -53,7 +53,16 @@ and PyTorch built for CUDA. In order, it:
    kernel; a number-list grammar over the full vocabulary, greedy and
    sampled (every token legal), and a grammar that dies (its requests
    resolve with ConstraintDeadEnd);
-8. times prefill and decode steps end to end (dense, paged, and the
+8. drives the scheduler's resilience at that width (``[failover]``):
+   a step failure mid-decode replays the five requests from their
+   journals on a second session over the same weights, token for token
+   equal to the fault-free run (greedy, sampled, int8/bf16, and a
+   speculative pair against plain decoding); the failed session is
+   rebuilt and serves again; a wedge past the step timeout is
+   quarantined and rebuilt; a weight swap serves what a fresh session on
+   the new weights serves; with the time per token with step timeouts
+   off and on, the time to recover, to rebuild and to swap;
+9. times prefill and decode steps end to end (dense, paged, and the
    int8/bf16 session beside them; sampled steps against greedy ones, the
    sampling alone, speculative rounds per emitted token at 8 active
    slots and at 1), profiles the three with
@@ -68,27 +77,27 @@ and PyTorch built for CUDA. In order, it:
    function; the decode kernels (the int8 kernel at m <= 16 and its
    routes, both decode attention kernels) on a cold L2 too, over copies
    of their weights or caches, the warm time beside;
-9. holds the fused 1x1 conv + BN-statistics kernel (B1) against its plain
+10. holds the fused 1x1 conv + BN-statistics kernel (B1) against its plain
    version at every shape of the ResNet-50 path and at ragged shapes
    (bitwise repeatable on scratch that held NaN, with a gradient check),
    and the probe T1 (a bf16 1x1 convolution on the tensor cores with a
    BN-apply + ReLU prologue) at its three cases and ragged ones; trains a
    small bottleneck ResNet on the card against the CPU, fused against
    unfused, and unfused under amp (bf16 convolutions) against the CPU;
-10. frees the LM, then trains ResNet-50 as bench.py does on the
+11. frees the LM, then trains ResNet-50 as bench.py does on the
    accelerator (224 x 224, batch 256, Momentum(0.1, 0.9)) in float32 with
    fused_conv_bn on, through ``models.resnet.resnet_imagenet`` and
    ``trainer.train_step``: step time, images per second, f32 MFU, peak
    memory, 30 B1 launches per step; profiles one step and times B1 at
    each of its shapes by both clocks, and per step;
-11. for the LM's training path: holds the flash kernel's bfloat16
+12. for the LM's training path: holds the flash kernel's bfloat16
    instantiation (B2 bf16) against its plain version at the training
    shape [8, 16, 1024, 128] and off it (head dim 64, segment ids, ragged
    T; bitwise repeatable), each tile of the block-size sweep (T2) with
    its time, and the autograd Function's backward against autograd of
    the plain reference; trains a 2-layer LM on the card against the CPU
    over 3 Adam steps, amp off and on;
-12. frees ResNet-50, then trains the flagship LM as bench.py does on the
+13. frees ResNet-50, then trains the flagship LM as bench.py does on the
    accelerator (batch 8, T 1024, amp bfloat16, Adam(1e-4), tokens and
    labels one draw) through ``TransformerLM``, ``optimizer.Adam`` and
    ``trainer.train_step``: the median step of 5 windows of 4, tokens per
@@ -203,6 +212,18 @@ VERIFY_HISTS = (2 * BLOCK_SIZE - 2, 5 * BLOCK_SIZE + 4,
 # g = 0, where the outer log's argument is near 1), though computed in
 # float64 and rounded once it is expected bitwise equal
 SAMPLE_PAIRS = 64
+# the [failover] phase: the scheduler's recovery flags (replay, breakers
+# of one failure with a minute's cooldown, one rebuild a session); the
+# fault lands on session 0's FAIL_AT_STEP-th decode step; a wedge sleeps
+# WEDGE_SLEEP_S past a WEDGE_TIMEOUT_MS step timeout (a full-width step
+# at 8 slots takes ~5 ms); the time per token with timeouts off and on
+# over TIMING_ROUNDS rounds in turns
+FAILOVER_FLAGS = dict(replay_attempts=4, breaker_failures=1,
+                      breaker_cooldown_ms=60000.0, rebuild_limit=1)
+FAIL_AT_STEP = 8
+WEDGE_TIMEOUT_MS = 1000.0
+WEDGE_SLEEP_S = 4.0
+TIMING_ROUNDS = 3
 GUMBEL_ULPS = 4
 SAMPLE_GRID = (("t1", dict(), False),
                ("t0.8 k50", dict(temperature=0.8, top_k=50), False),
@@ -1662,6 +1683,348 @@ def phase_constrain_serve(greedy, sampled, dead, prompts):
     check(len(errors) == 3 and sched._thread is None
           and not dead.active.any(), "dead ends: %s" % errors)
     dead.check_pool_invariant()
+
+
+class StepFault:
+    """A ``generation_step_fail`` callback: raises on its ``at``-th call
+    (session 0's ``at``-th decode step: mid-decode) and records when;
+    every other call returns. With ``sleep`` it sleeps that long instead
+    (a ``generation_session_wedge`` callback)."""
+
+    def __init__(self, at, sleep=None):
+        self.at, self.sleep = at, sleep
+        self.calls = 0
+        self.fired_at = None
+
+    def __call__(self):
+        self.calls += 1
+        if self.calls != self.at:
+            return
+        self.fired_at = time.perf_counter()
+        if self.sleep is not None:
+            time.sleep(self.sleep)
+            return
+        from paddle_tpu_torch.resilience.faults import InjectedFault
+        raise InjectedFault("injected step failure at session 0, step %d"
+                            % self.at)
+
+
+def failover_pair(base, paged_kw, policy=None, arm=False, **kw):
+    """Two paged sessions of the flagship LM over ``base``'s weights by
+    reference (``share=True``: one set of weights; arm=True takes the
+    armed int8 tensors as they are)."""
+    from paddle_tpu_torch.models.transformer import transformer_lm_session
+    from paddle_tpu_torch.serving import GenerationSession
+    return [GenerationSession(
+        transformer_lm_session(decode_policy=policy, **dict(paged_kw, **kw)),
+        base.model.reference_state(), arm_quant=arm, share=True)
+        for _ in range(2)]
+
+
+def registry_value(name, **labels):
+    from paddle_tpu_torch.observability import metrics
+    return sum(s["value"] for s in metrics.REGISTRY.dump().get(
+        name, {}).get("samples", ()) if all(
+            s["labels"].get(k) == v for k, v in labels.items()))
+
+
+def chaos_serve(pair, prompts, base, tag, seeds=None, gap_sess=None,
+                wedge=False, keep=False, at=FAIL_AT_STEP):
+    """The five requests through a scheduler over ``pair``
+    (FAILOVER_FLAGS; with ``wedge`` a step timeout too), all admitted
+    into session 0, whose ``at``-th decode step fails (or, with
+    ``wedge``, sleeps WEDGE_SLEEP_S past the timeout). Every stream must
+    equal ``base`` (or, given ``gap_sess``, differ only at a near-tie),
+    the failover and replayed-token counters rise, session 0's breaker
+    opens. Returns (scheduler, seconds from the fault until every
+    affected request resolved); the scheduler keeps serving with
+    ``keep``."""
+    from paddle_tpu_torch.resilience import faults
+    from paddle_tpu_torch.serving import GenerationScheduler
+    kw = dict(FAILOVER_FLAGS)
+    if wedge:
+        kw["step_timeout_ms"] = WEDGE_TIMEOUT_MS
+    sched = GenerationScheduler(pair, autostart=False, **kw)
+    f0 = registry_value("paddle_generation_failover_total")
+    r0 = registry_value("paddle_generation_replayed_tokens_total")
+    t0 = registry_value("paddle_generation_step_timeouts_total")
+    fault = StepFault(at, WEDGE_SLEEP_S if wedge else None)
+    faults.arm("generation_session_wedge" if wedge else
+               "generation_step_fail", at=0, times=None,
+               action="callback", callback=fault)
+    resolved = []
+    try:
+        futs = [sched.submit(p, max_new_tokens=NEW_TOKENS, eos_id=-1,
+                             seed=None if seeds is None else seeds[i])
+                for i, p in enumerate(prompts)]
+        for f in futs:
+            f.add_done_callback(lambda _f: resolved.append(
+                time.perf_counter()))
+        sched.start()
+        outs = [f.result(timeout=600) for f in futs]
+    finally:
+        faults.disarm()
+    recover_s = max(resolved) - fault.fired_at
+    failovers = registry_value("paddle_generation_failover_total") - f0
+    replayed = registry_value("paddle_generation_replayed_tokens_total") - r0
+    timeouts = registry_value("paddle_generation_step_timeouts_total") - t0
+    if gap_sess is None:
+        same = sum(bool(np.array_equal(a, b)) for a, b in zip(outs, base))
+    else:
+        same = near_tie_rule("failover " + tag, base, outs, prompts,
+                             gap_sess)
+    print("[failover] %s: %s at session 0's decode step %d; %d of %d "
+          "streams equal the fault-free run; failovers +%d, replayed "
+          "tokens +%d, step timeouts +%d; session health %s; fault -> "
+          "every affected request resolved %.3f s"
+          % (tag, "a wedge of %.1f s past a %.0f ms step timeout"
+             % (WEDGE_SLEEP_S, WEDGE_TIMEOUT_MS) if wedge else "a failure",
+             at, same, len(prompts), failovers, replayed,
+             timeouts, sched.session_health(), recover_s))
+    check(fault.fired_at is not None, "%s: the fault never fired" % tag)
+    check(gap_sess is not None or same == len(prompts),
+          "%s: %d of %d replayed streams equal the fault-free run"
+          % (tag, same, len(prompts)))
+    check(failovers >= len(prompts) and replayed > 0,
+          "%s: failovers +%d, replayed tokens +%d"
+          % (tag, failovers, replayed))
+    check(not wedge or timeouts == 1, "%s: step timeouts +%d"
+          % (tag, timeouts))
+    check(sched.session_health()[0] == "open" or sched._rebuilding or
+          sched.sessions[0] is not pair[0],
+          "%s: session 0 is not quarantined" % tag)
+    if not keep:
+        sched.drain(timeout=120)
+    return sched, recover_s
+
+
+def await_rebuild(sched, old, timeout=180.0):
+    """Wait until session 0 of ``sched`` is no longer ``old``: the
+    rebuild built, warmed and was swapped in. Returns the seconds it
+    took."""
+    t0 = time.perf_counter()
+    while sched.sessions[0] is old or sched._rebuilding:
+        check(time.perf_counter() - t0 < timeout,
+              "session 0 was not rebuilt within %.0f s" % timeout)
+        time.sleep(0.005)
+    return time.perf_counter() - t0
+
+
+def serve_rebuilt(sched, prompt, want, tag):
+    """One more request after a rebuild: admitted into the rebuilt
+    session 0 and equal to plain decoding."""
+    new = sched.sessions[0]
+    before = new.prefills
+    out = sched.submit(prompt, max_new_tokens=NEW_TOKENS,
+                       eos_id=-1).result(timeout=600)
+    print("[failover] %s: session 0 rebuilt (breaker %s, %d warm-up "
+          "admissions), served one more request: equal to plain decoding "
+          "%s" % (tag, sched.session_health()[0], before,
+                  bool(np.array_equal(out, want))))
+    check(new.prefills == before + 1, "%s: the request did not land on "
+          "the rebuilt session" % tag)
+    check(np.array_equal(out, want), "%s: the rebuilt session's stream "
+          "differs from plain decoding" % tag)
+
+
+def token_ms(pair, prompts, route):
+    """One fault-free round of SLOTS requests of NEW_TOKENS through a
+    scheduler over ``pair`` (all admitted into session 0 at once, so
+    every decode step has SLOTS active), its steps by ``route``:
+    "inline" (step timeouts off), "worker" (on, at WEDGE_TIMEOUT_MS: the
+    port's one long-lived step thread a session) or "fresh" (on, each
+    step on a thread of its own through ``resilience.run_bounded``, the
+    reference's route, patched in here to measure it). Returns the mean
+    decode step's ms per emitted token (the scheduler's own step clock,
+    ``paddle_request_decode_step_ms``: phase 1, the device step and its
+    hand-off to a thread when timed)."""
+    from paddle_tpu_torch.observability import request_trace
+    from paddle_tpu_torch.serving import GenerationScheduler
+    from paddle_tpu_torch.serving import resilience
+    sched = GenerationScheduler(
+        pair, autostart=False,
+        step_timeout_ms=0 if route == "inline" else WEDGE_TIMEOUT_MS)
+    if route == "fresh":
+        sched._step_timed = lambda si, sess, prepared: \
+            resilience.run_bounded(
+                lambda: sched._step_session(si, sess, prepared),
+                sched.step_timeout, name="generation-step-%d" % si)
+    h = request_trace.DECODE_STEP_MS._default()
+    n0, s0 = h.count, h.sum
+    futs = [sched.submit(p, max_new_tokens=NEW_TOKENS, eos_id=-1)
+            for p in prompts]
+    sched.start()
+    for f in futs:
+        check(len(f.result(timeout=600)) == NEW_TOKENS, "a timing request "
+              "was cut short")
+    sched.drain(timeout=60)
+    return (h.sum - s0) / (h.count - n0) / SLOTS
+
+
+def phase_failover(paged, quant, prompts, paged_outs, sample_outs,
+                   quant_outs, paged_kw, smi):
+    """Scheduler resilience at full width, on sessions over the f32
+    paged and the int8/bf16 cells' weights by reference, with replay
+    (FAILOVER_FLAGS): a step failure mid-decode on session 0 replays the
+    five requests on session 1 equal to the fault-free run, greedy,
+    sampled (SAMPLE_SEEDS) and int8/bf16 greedy; session 0 is rebuilt and
+    serves one more request; a wedge past the step timeout quarantines
+    and rebuilds session 0, its requests replayed equal; a speculative
+    pair (the whole target as the draft) keeps its greedy streams equal
+    to plain decoding through a step failure; the time per emitted token
+    at SLOTS active with step timeouts off and on; a swap to another
+    weight set (seed 1) on an idle scheduler serves what a fresh session
+    on those weights serves, and the swap back, made mid-decode, with
+    its wall time and the longest gap between two decode steps around
+    it. Returns the phase's launch counts."""
+    import torch
+    from paddle_tpu_torch.models.transformer import transformer_lm_session
+    from paddle_tpu_torch.serving import GenerationSession
+    from paddle_tpu_torch.serving.decoding import DecodePolicy
+    card = smi[0] if smi else "nvidia-smi: no output"
+    reset_launches()
+    pair = failover_pair(paged, paged_kw)
+    sched, greedy_s = chaos_serve(pair, prompts, paged_outs, "f32 greedy",
+                                  keep=True)
+    # session 0's breaker is open, its cooldown a minute: the rebuild a
+    # wedge would start, started now
+    t0 = time.perf_counter()
+    sched._maybe_rebuild(0, force=True)
+    await_rebuild(sched, pair[0])
+    rebuild_s = time.perf_counter() - t0
+    serve_rebuilt(sched, prompts[0], paged_outs[0], "f32 greedy")
+    sched.drain(timeout=120)
+    pair = list(sched.sessions)
+    for sess in pair:
+        sess.check_pool_invariant()
+    sampled = failover_pair(paged, paged_kw, DecodePolicy(
+        "sample", **SAMPLE_KNOBS))
+    _, sample_s = chaos_serve(sampled, prompts, sample_outs, "f32 sampled",
+                              seeds=SAMPLE_SEEDS)
+    for sess in sampled:
+        sess.close()
+    armed = failover_pair(quant, paged_kw, arm=True, dtype="bfloat16")
+    _, int8_s = chaos_serve(armed, prompts, quant_outs, "int8/bf16 greedy")
+    for sess in armed:
+        sess.close()
+    spec = failover_pair(paged, paged_kw, DecodePolicy(
+        speculate_k=SPEC_K, draft=dict(num_layers=FULL["num_layers"])))
+    # a round of the whole-target draft emits up to SPEC_K + 1 tokens:
+    # its third round is mid-decode
+    _, spec_s = chaos_serve(spec, prompts, paged_outs,
+                            "speculative (whole-target draft) greedy",
+                            gap_sess=paged, at=3)
+    for sess in spec:
+        sess.close()
+    sched, wedge_s = chaos_serve(pair, prompts, paged_outs, "f32 greedy",
+                                 wedge=True, keep=True)
+    await_rebuild(sched, pair[0])
+    serve_rebuilt(sched, prompts[0], paged_outs[0], "wedge")
+    sched.drain(timeout=120)
+    pair = list(sched.sessions)
+    # the time per emitted token with step timeouts off and on, in turns
+    extra = [np.concatenate([prompts[4], prompts[i][:8]]) for i in range(3)]
+    eight = list(prompts) + extra
+    per_token = {"inline": [], "worker": [], "fresh": []}
+    for _ in range(TIMING_ROUNDS):
+        for route in per_token:
+            per_token[route].append(token_ms(pair, eight, route))
+    med = {k: sorted(v)[len(v) // 2] for k, v in per_token.items()}
+    # a swap to another weight set (seed 1) on an idle scheduler
+    from paddle_tpu_torch.serving import GenerationScheduler
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    old_state = paged.model.reference_state()
+    new_weights = {n: (t.clone() if t.dim() == 1 else torch.randn(
+        t.shape, generator=gen, device="cuda") * 0.02)
+        for n, t in old_state.items()}
+    fresh = GenerationSession(transformer_lm_session(**paged_kw),
+                              new_weights)
+    fresh_outs = serve_seeded(fresh, prompts, [None] * len(prompts))
+    fresh.close()
+    del fresh
+    # no dispatcher yet: the swap installs on this thread, and the five
+    # requests are admitted in order as the fresh session's were (the
+    # same prefix sharing)
+    sched = GenerationScheduler(pair, autostart=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    version = sched.swap_weights(new_weights)
+    torch.cuda.synchronize()
+    swap_idle_s = time.perf_counter() - t0
+    del new_weights
+    futs = [sched.submit(p, max_new_tokens=NEW_TOKENS, eos_id=-1)
+            for p in prompts]
+    sched.start()
+    outs = [f.result(timeout=600) for f in futs]
+    swapped_same = sum(bool(np.array_equal(a, b))
+                       for a, b in zip(outs, fresh_outs))
+    differs = sum(not np.array_equal(a, b) for a, b in zip(outs, paged_outs))
+    # the swap back, made while the five requests decode: its wall time
+    # and the longest gap between two decode steps around it
+    stamps = []
+    futs = [sched.submit(p, max_new_tokens=NEW_TOKENS, eos_id=-1,
+                         on_token=(lambda t: stamps.append(
+                             time.perf_counter())) if i == 0 else None)
+            for i, p in enumerate(prompts)]
+    while len(stamps) < NEW_TOKENS // 4:
+        time.sleep(0.001)
+    t0 = time.perf_counter()
+    version_back = sched.swap_weights(old_state)
+    swap_busy_s = time.perf_counter() - t0
+    mid = [f.result(timeout=600) for f in futs]
+    gaps = np.diff(stamps) * 1e3
+    back = sched.submit(prompts[0], max_new_tokens=NEW_TOKENS,
+                        eos_id=-1).result(timeout=600)
+    sched.drain(timeout=120)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    for sess in pair:
+        sess.check_pool_invariant()
+        sess.close()
+    print("[failover] swap to seed-1 weights on an idle scheduler: version "
+          "%d in %.3f s; %d of %d streams equal a fresh session on those "
+          "weights (%d differ from the seed-%d streams); swapped back "
+          "mid-decode (version %d) in %.3f s, the longest gap between two "
+          "decode steps around it %.3f ms (median gap %.3f ms), %d "
+          "requests of %d tokens; after it request 0 equals the first "
+          "weights' stream: %s"
+          % (version, swap_idle_s, swapped_same, len(prompts), differs, 0,
+             version_back, swap_busy_s, gaps.max(), float(np.median(gaps)),
+             len(mid), NEW_TOKENS, bool(np.array_equal(back,
+                                                        paged_outs[0]))))
+    print("[failover] timings (%s): time per emitted token at %d active "
+          "slots, step timeouts off %.4f ms, at %.0f ms %.4f ms on the "
+          "session's step thread, %.4f ms on a fresh thread a step (the "
+          "reference's route; median of %d rounds in turns; all %s); fault "
+          "-> every affected request "
+          "resolved: f32 greedy %.3f s, f32 sampled %.3f s, int8/bf16 "
+          "%.3f s, speculative %.3f s, wedge %.3f s (timeout %.0f ms, "
+          "sleep %.1f s); rebuild (construct, warm buckets %s and a decode "
+          "step, hand-over) %.3f s; swap of the f32 weights %.3f s idle, "
+          "%.3f s mid-decode; launches %s"
+          % (card, SLOTS, med["inline"], WEDGE_TIMEOUT_MS, med["worker"],
+             med["fresh"], TIMING_ROUNDS, {k: [round(x, 4) for x in v]
+                             for k, v in per_token.items()},
+             greedy_s, sample_s, int8_s, spec_s, wedge_s, WEDGE_TIMEOUT_MS,
+             WEDGE_SLEEP_S, BUCKETS, rebuild_s, swap_idle_s, swap_busy_s,
+             launches))
+    check(version == 1 and version_back == 2, "weights versions %d, %d"
+          % (version, version_back))
+    check(swapped_same == len(prompts), "%d of %d streams on the swapped "
+          "weights equal a fresh session's" % (swapped_same, len(prompts)))
+    check(differs == len(prompts), "the swapped weights served the first "
+          "weights' streams")
+    check(all(len(o) == NEW_TOKENS and ((o >= 0) & (o < FULL["vocab_size"]))
+              .all() for o in mid), "a request across the swap back failed")
+    check(np.array_equal(back, paged_outs[0]), "after the swap back the "
+          "stream differs from the first weights'")
+    for name in ("decode_attention_paged", "int8_matmul", "flash_attention",
+                 "decode_attention"):
+        check(launches[name] > 0, "[failover] launched no %s" % name)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
 
 
 def phase_policy_latency(dense, paged, pol, rng):
@@ -3223,6 +3586,8 @@ def main(argv=None):
                          accepting=True)
         phase_constrain_serve(pol["constrain"], pol["constrain sample"],
                               pol["dead end"], prompts)
+        phase_failover(paged, quant, prompts, paged_outs, sample_outs,
+                       quant_outs, paged_kw, smi)
         phase_latency(sess, rng)
         phase_paged_latency(paged, sess, system, rng, quant)
         phase_policy_latency(sess, paged, pol, pol_rng)

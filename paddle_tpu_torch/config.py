@@ -64,7 +64,37 @@ _flags = {
     # and loss of a model (models/transformer.py, models/resnet.py) and at
     # each session build and generation call, which refuse it
     "amp": None,
+    # metric hooks and host spans (observability/tracing.py: synced into
+    # the tracer by the observability package's change hook)
+    "telemetry": False,
+    # serving breakers (serving/resilience.py ReplicaBreaker): read only
+    # when a GenerationScheduler is constructed; 0 failures = no breakers
+    "serving_breaker_failures": 0,
+    "serving_breaker_cooldown_ms": 1000.0,
+    # the fault-injection master switch (resilience/faults.py): hook
+    # sites are one flag check while it is off; arm()/disarm() flip it
+    "fault_injection": False,
+    # stateful-generation resilience (serving/generation.py): token
+    # replay, session rebuild and the step timeout, read only at
+    # scheduler construction; the defaults keep the dispatcher's hot path
+    # and failure behaviour as they were
+    "generation_replay_attempts": 0,
+    "generation_rebuild_limit": 0,
+    "generation_step_timeout_ms": 0,
+    # request-scoped tracing, the flight recorder and live introspection
+    # (observability/request_trace.py, flight.py): synced into module
+    # state by the observability package's change hook, never read per
+    # request; a nonzero telemetry_port raises, as its HTTP server is not
+    # ported yet
+    "request_tracing": False,
+    "trace_sample_rate": 1.0,
+    "telemetry_port": 0,
+    "flight_dir": None,
 }
+
+# Observers called with the flag dict after every set_flags (the
+# observability package arms and disarms its tracers through this).
+_on_change = []
 
 
 def set_flags(**kwargs):
@@ -72,6 +102,8 @@ def set_flags(**kwargs):
         if k not in _flags:
             raise KeyError("unknown flag %r (have %s)" % (k, sorted(_flags)))
         _flags[k] = v
+    for cb in list(_on_change):
+        cb(_flags)
 
 
 def get_flag(name):

@@ -165,13 +165,15 @@ class TransformerEncoderLayer(nn.Module):
         super().__init__()
         if dropout_prob:
             raise NotImplementedError(
-                "dropout_prob > 0 is not ported: dropout's random bits "
-                "cannot match the reference's threefry (ROADMAP Queue A "
-                "item 8)")
+                "dropout_prob > 0 is not ported: dropout's mask is drawn "
+                "under the executor's per-op key split, which is not "
+                "ported yet (ROADMAP Queue A, \"IR, registry, "
+                "serialization, executor and backward\")")
         if ring_axis:
             raise NotImplementedError(
                 "ring_axis (ring attention over a mesh) is not ported: "
-                "ROADMAP Queue A item 12")
+                "ROADMAP Queue A, \"Distribution and the input "
+                "pipeline\"")
         self.ln1_w = _weight(d_model, device=device)
         self.ln1_b = _weight(d_model, device=device)
         self.attn = MultiHeadAttention(d_model, num_heads, device)

@@ -206,7 +206,8 @@ def resnet_imagenet(depth=50, class_dim=1000, is_test=False, recompute=False,
     if recompute:
         raise NotImplementedError(
             "recompute (gradient checkpointing of each residual block) is "
-            "not ported yet: ROADMAP Queue A item 9")
+            "not ported yet: ROADMAP Queue A, \"ResNet-50 as bench.py "
+            "runs it, plus the training left-outs of PRs 4-5\"")
     b = _Build(_config.get_flag("fused_conv_bn"), is_test,
                resolve_device(device))
     return _imagenet(b, depth, class_dim, seed)

@@ -11,6 +11,7 @@ compute (the int8 form of each weight of :func:`lm_mul_weight_names`
 with its scales under ``<name>@quant.scale``)."""
 
 import functools
+import itertools
 import math
 import re
 
@@ -374,7 +375,7 @@ class TransformerLM(nn.Module):
         return self._head(x[:, length - 1])
 
     @torch.no_grad()
-    def verify_paged(self, tokens, hist, pos_idx, table):
+    def verify_paged(self, tokens, hist, pos_idx, table, last=False):
         """The speculative verify forward: the paged suffix-window forward
         of a W-row window, unpadded (tokens [1, W]: the pending token and
         the W - 1 drafts, the first at logical position ``hist``; pos_idx
@@ -385,10 +386,12 @@ class TransformerLM(nn.Module):
         attention (kernel B5) with its own length, where the reference
         runs its prefill attention: the same function, and row for row
         the decode step's arithmetic (with int8 weights every product is
-        exact per row too), so a speculative stream is the plain one."""
+        exact per row too), so a speculative stream is the plain one.
+        With ``last``, only the last row's logits, [1, V]: a replay
+        admission re-running a journal's generated tokens."""
         x = self._window_paged(tokens, tokens.shape[1], hist, pos_idx,
                                table, "verify_paged")
-        return self._head(x[0])
+        return self._head(x[0, -1:] if last else x[0])
 
     @torch.no_grad()
     def decode(self, tokens, pos, table=None):
@@ -436,6 +439,10 @@ def transformer_lm(model, tokens, labels, length=None):
     return (tok_loss * mask).sum() / mask.sum(), logits
 
 
+# the cache namespaces of transformer_lm_session's specs
+_CACHE_NS = itertools.count()
+
+
 def kv_dtype(name):
     """The torch dtype of a cache dtype name ("float32", "bfloat16",
     ...); raises ValueError for a name that is not a floating dtype."""
@@ -481,9 +488,9 @@ def policy_epilogue(logits, policy, keys=None, mask=None):
 
 def transformer_lm_session(vocab_size, d_model=128, num_heads=4, d_ff=256,
                            num_layers=2, max_len=16, slots=None,
-                           cache_len=None, prompt_buckets=None, eos_id=1,
-                           device=None, dtype="float32", paged=None,
-                           block_size=None, num_blocks=None,
+                           cache_len=None, prompt_buckets=None, bos_id=0,
+                           eos_id=1, device=None, dtype="float32",
+                           paged=None, block_size=None, num_blocks=None,
                            prefix_cache=None, decode_policy="flags"):
     """The KV-cached generation spec of the causal LM. Defaults
     for ``slots`` / ``cache_len`` / ``prompt_buckets`` come from the
@@ -517,6 +524,13 @@ def transformer_lm_session(vocab_size, d_model=128, num_heads=4, d_ff=256,
     target scores them. ``decode_draft_model`` overrides the draft's
     ``d_model``, ``num_heads``, ``d_ff`` or ``num_layers``. The
     all-defaults flags resolve to no policy: greedy as before.
+
+    Each spec names its caches under a namespace of its own
+    (``cache_vars``: "kv_session_<n>.l<i>.k" / ".v", as the reference
+    names its cache variables); ``spec.rebuild()`` returns the same spec
+    under a new namespace, reading no flag (every value is resolved
+    here), which is what a session rebuild builds its replacement from.
+    ``bos_id`` is the token a rebuild's warm-up prompts are made of.
 
     Returns a :class:`~paddle_tpu_torch.serving.generation.GenerationSpec`
     for ``GenerationSession(spec, params)``."""
@@ -581,16 +595,29 @@ def transformer_lm_session(vocab_size, d_model=128, num_heads=4, d_ff=256,
             dkw.update(policy.draft)
         draft_spec = transformer_lm_session(
             vocab_size, max_len=max_len, slots=slots, cache_len=cache_len,
-            prompt_buckets=prompt_buckets, eos_id=eos_id, device=device,
-            dtype=dtype, paged=False, decode_policy=None, **dkw)
-    return GenerationSpec(
-        slots=slots, cache_len=cache_len, max_len=max_len,
-        prompt_buckets=prompt_buckets, eos_id=eos_id, device=device,
-        dtype=str(dtype), paged=bool(paged), block_size=block_size,
-        num_blocks=num_blocks, max_blocks=max_blocks,
-        prefix_cache=bool(prefix_cache), vocab_size=vocab_size,
-        policy=policy, draft_spec=draft_spec,
-        build_model=functools.partial(
-            _build_model, vocab_size=vocab_size, d_model=d_model,
-            num_heads=num_heads, d_ff=d_ff, num_layers=num_layers,
-            max_len=max_len, device=device))
+            prompt_buckets=prompt_buckets, bos_id=bos_id, eos_id=eos_id,
+            device=device, dtype=dtype, paged=False, decode_policy=None,
+            **dkw)
+    rows = (num_blocks + 1, block_size) if paged else (slots, cache_len)
+
+    def make():
+        # a fresh cache namespace per spec; the rebuild factory is this
+        # function again, over the values resolved above
+        ns = "kv_session_%d" % next(_CACHE_NS)
+        return GenerationSpec(
+            slots=slots, cache_len=cache_len, max_len=max_len,
+            prompt_buckets=prompt_buckets, bos_id=bos_id, eos_id=eos_id,
+            device=device, dtype=str(dtype), paged=bool(paged),
+            block_size=block_size, num_blocks=num_blocks,
+            max_blocks=max_blocks, prefix_cache=bool(prefix_cache),
+            vocab_size=vocab_size, policy=policy, draft_spec=draft_spec,
+            cache_vars=tuple(("%s.l%d.%s" % (ns, i, kv),
+                              rows + (d_model,), str(dtype))
+                             for i in range(num_layers)
+                             for kv in ("k", "v")),
+            rebuild=make,
+            build_model=functools.partial(
+                _build_model, vocab_size=vocab_size, d_model=d_model,
+                num_heads=num_heads, d_ff=d_ff, num_layers=num_layers,
+                max_len=max_len, device=device))
+    return make()

@@ -5,7 +5,7 @@ otherwise. Both are differentiable: the flash branch through
 ``flash_attention``'s autograd Function (kernel B2 forward, the
 reference's chunked recompute backward), the dense one through torch's
 autograd. Ring attention and the per-shard flash path are not ported yet
-(ROADMAP Queue A item 12)."""
+(ROADMAP Queue A, "Distribution and the input pipeline")."""
 
 import torch
 

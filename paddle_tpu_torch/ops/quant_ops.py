@@ -45,6 +45,7 @@ import functools
 
 import torch
 
+from ..observability import metrics as _metrics
 from . import _build
 from .flash_attention import _on_cpu, _require
 
@@ -58,6 +59,19 @@ INV_127 = float(torch.tensor(1.0, dtype=torch.float32) / 127.0)
 # the per-output-channel f32 scales of an armed weight ``name`` travel
 # as ``name + SCALE_SUFFIX`` (the reference's scope sidecar name)
 SCALE_SUFFIX = "@quant.scale"
+
+# the reference's trace-time counter, one count per armed op per
+# compiled program. The port compiles no programs: a generation session
+# counts once per armed product the first time it runs each of its
+# program shapes (a prefill bucket, the decode step, the verify forward;
+# ``serving.generation.GenerationSession``). The path is "pallas" for
+# kernel B3 (a CUDA tensor), "dense" for its plain version (the CPU)
+QUANT_COMPUTE_OPS = _metrics.REGISTRY.counter(
+    "paddle_quant_compute_ops_total",
+    "Quantized-compute op lowerings traced, by op type and path "
+    "(dense XLA int8 / fused Pallas kernel). Incremented at trace "
+    "time only: one count per armed op per compiled program",
+    labelnames=("op", "path"))
 
 
 # kernel B3's prefill tiles (BM, BN) by the id its C entry takes

@@ -17,18 +17,58 @@ scheduler's dispatcher thread is the only caller, as for the session.
   one index pin each, and pin-only entries are evicted LRU under pool
   pressure.
 
-The reference's Prometheus counters and gauge, and its request-trace
-events, are not ported yet: the same quantities are plain integers on
-the :class:`PrefixIndex` (``hits``, ``misses``, ``shared_tokens``,
-``cows``, ``evictions``), read through ``stats()``.
+Metrics, under the reference's names and help text:
+``paddle_generation_prefix_hits_total``, ``_prefix_misses_total``,
+``_prefix_shared_tokens_total``, ``_kv_block_cows_total`` (counted by
+the session's copy-on-write), ``_kv_pool_evictions_total``,
+``_kv_spec_rollback_blocks_total`` (counted by the speculative rollback)
+and the gauge ``_kv_blocks_in_use{pool}``; request-trace events
+``poolExhausted`` and ``prefixEvict`` (and the session's ``blockCOW``).
+One index's own counts are also plain integers on the
+:class:`PrefixIndex` (``hits``, ``misses``, ``shared_tokens``, ``cows``,
+``evictions``), read through ``stats()``.
 """
 
 import collections
 import hashlib
+import itertools
 
 import numpy as np
 
+from ..observability import metrics as _metrics
+from ..observability import request_trace as _rtrace
+
 __all__ = ["BlockPool", "PrefixIndex", "PoolExhausted"]
+
+PREFIX_HITS = _metrics.REGISTRY.counter(
+    "paddle_generation_prefix_hits_total",
+    "Admissions that reused at least one cached prefix block")
+PREFIX_MISSES = _metrics.REGISTRY.counter(
+    "paddle_generation_prefix_misses_total",
+    "Admissions that found no cached prefix block")
+PREFIX_SHARED_TOKENS = _metrics.REGISTRY.counter(
+    "paddle_generation_prefix_shared_tokens_total",
+    "Prompt tokens served from cached prefix blocks instead of being "
+    "re-prefilled")
+BLOCK_COWS = _metrics.REGISTRY.counter(
+    "paddle_generation_kv_block_cows_total",
+    "Copy-on-write block copies (a sequence wrote into a shared "
+    "block)")
+POOL_EVICTIONS = _metrics.REGISTRY.counter(
+    "paddle_generation_kv_pool_evictions_total",
+    "Cached prefix blocks reclaimed under pool pressure (LRU, "
+    "pin-only entries)")
+BLOCKS_IN_USE = _metrics.REGISTRY.gauge(
+    "paddle_generation_kv_blocks_in_use",
+    "Referenced blocks in one session's pool (labelled per pool — "
+    "sessions side by side must not overwrite each other)",
+    labelnames=("pool",))
+SPEC_ROLLBACKS = _metrics.REGISTRY.counter(
+    "paddle_generation_kv_spec_rollback_blocks_total",
+    "Blocks returned by speculative-decoding rollbacks (window rows "
+    "past the accepted draft prefix)")
+
+_POOL_SEQ = itertools.count()
 
 
 class PoolExhausted(RuntimeError):
@@ -52,6 +92,9 @@ class BlockPool:
         self.block_size = int(block_size)
         self._free = collections.deque(range(self.num_blocks))
         self._ref = [0] * self.num_blocks
+        self._label = "p%d" % next(_POOL_SEQ)
+        self._gauge = BLOCKS_IN_USE.labels(pool=self._label)
+        self._gauge.set(0)
 
     def free_count(self):
         return len(self._free)
@@ -65,11 +108,17 @@ class BlockPool:
     def alloc(self):
         """One fresh block with refcount 1 (the caller's)."""
         if not self._free:
+            # pool pressure decides a request's fate (starve, preempt,
+            # park): annotate the active request's trace
+            _rtrace.global_event("poolExhausted",
+                                 num_blocks=self.num_blocks,
+                                 block_size=self.block_size)
             raise PoolExhausted(
                 "all %d blocks referenced (%d-row blocks)"
                 % (self.num_blocks, self.block_size))
         block = self._free.popleft()
         self._ref[block] = 1
+        self._gauge.set(self.used_count())
         return block
 
     def incref(self, block):
@@ -84,6 +133,7 @@ class BlockPool:
         self._ref[block] -= 1
         if self._ref[block] == 0:
             self._free.append(block)
+            self._gauge.set(self.used_count())
             return True
         return False
 
@@ -98,6 +148,11 @@ class BlockPool:
         for block in surplus:
             self.decref(block)
         return len(surplus)
+
+    def close(self):
+        """Retire this pool's gauge child (label hygiene on session
+        teardown)."""
+        BLOCKS_IN_USE.remove(pool=self._label)
 
     def check_invariant(self, tables, index=None):
         """Assert the books balance: every block's refcount equals the
@@ -232,8 +287,11 @@ class PrefixIndex:
         if matched:
             self.hits += 1
             self.shared_tokens += matched
+            PREFIX_HITS.inc()
+            PREFIX_SHARED_TOKENS.inc(matched)
         else:
             self.misses += 1
+            PREFIX_MISSES.inc()
         return matched, blocks
 
     def register(self, tokens, table):
@@ -289,6 +347,8 @@ class PrefixIndex:
             if block is not None and self.pool.refcount(block) == 1:
                 self._drop(key)
                 self.evictions += 1
+                POOL_EVICTIONS.inc()
+                _rtrace.global_event("prefixEvict", block=int(block))
                 return True
         return False
 

@@ -241,10 +241,11 @@ def test_adam_op_matches_reference_over_three_steps(attrs):
 
 
 def test_lm_forward_dropout_and_ring_raise():
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NotImplementedError, match="per-op key split"):
         port_tf.TransformerLM(max_len=8, device="cpu", dropout_prob=0.1,
                               **NET)
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(NotImplementedError,
+                       match="Distribution and the input pipeline"):
         port_tf.TransformerLM(max_len=8, device="cpu", ring_axis="sp", **NET)
 
 

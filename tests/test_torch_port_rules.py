@@ -349,3 +349,38 @@ def test_import_rule_covers_the_decode_policy_modules():
                 "paddle_tpu_torch.serving.decoding.policy",
                 "paddle_tpu_torch.serving.decoding.constrain"):
         assert mod in mods
+
+
+# a ROADMAP queue item cited by number goes stale when the queue moves;
+# the package names items by title
+_ITEM_NUMBER = re.compile(r"Queue\s+[A-D]\s+item\s+\d+")
+
+
+def _item_numbers(src):
+    """ROADMAP item numbers cited in ``src``: in its string literals (the
+    parser joins adjacent ones, so a citation split across two literals
+    is whole again) and in its comments and docstrings, lines joined."""
+    hits = []
+    for node in ast.walk(ast.parse(src)):
+        if isinstance(node, ast.Constant) and isinstance(node.value, str):
+            hits += _ITEM_NUMBER.findall(node.value)
+    hits += _ITEM_NUMBER.findall(re.sub(r"\s*\n\s*#?\s*", " ", src))
+    return hits
+
+
+@pytest.mark.parametrize("path", sorted(
+    [os.path.relpath(os.path.join(dp, f), ROOT)
+     for dp, _d, fs in os.walk(PKG) for f in fs if f.endswith(".py")]
+    + ["chip_smoke.py"]))
+def test_no_roadmap_item_number_in_source(path):
+    with open(os.path.join(ROOT, path)) as f:
+        assert not _item_numbers(f.read()), path
+
+
+def test_the_item_number_lint_joins_split_literals():
+    split = ('raise NotImplementedError(\n'
+             '    "cannot match the threefry (ROADMAP Queue A "\n'
+             '    "item 8)")\n')
+    assert _item_numbers(split)
+    assert _item_numbers("# see ROADMAP Queue C\n# item 2 for this\n")
+    assert not _item_numbers('x = "ROADMAP Queue A, \\"Long tail\\""\n')

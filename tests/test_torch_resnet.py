@@ -393,7 +393,8 @@ def test_scope_names_match_reference_program(depth, fused, cifar):
 
 
 def test_recompute_is_not_ported():
-    with pytest.raises(NotImplementedError, match="Queue A item 9"):
+    with pytest.raises(NotImplementedError,
+                       match="ResNet-50 as bench.py runs it"):
         port_resnet.resnet_imagenet(50, recompute=True, device="cpu")
 
 
