@@ -97,7 +97,21 @@ and PyTorch built for CUDA. In order, it:
    its time, and the autograd Function's backward against autograd of
    the plain reference; trains a 2-layer LM on the card against the CPU
    over 3 Adam steps, amp off and on;
-13. frees ResNet-50, then trains the flagship LM as bench.py does on the
+13. runs ResNet-50 through the program path, as bench.py builds and
+   runs it: the front end (``layers``, ``models.resnet.resnet_imagenet``
+   given Variables), ``optimizer.Momentum(0.1, 0.9).minimize`` and
+   ``core.Executor``, the startup program drawing the weights on the card
+   from the seed: f32 with fused_conv_bn on (one step from the same
+   weights against the nn.Module route, then timed steps beside
+   ``[train]``'s, 30 B1 launches a step through the ``conv2d_bn`` op);
+   under amp bfloat16 with fused_conv_bn off, bench.py's configuration
+   (5 warm-up and 30 timed runs, images per second, bf16 MFU, peak
+   memory, falling loss); and with each residual block recomputed (the
+   first step's loss and running statistics equal to the plain
+   program's, step time and peak memory beside it); and, after the small
+   ResNets, ResNet-8 as a serialized program on the card against the
+   CPU, amp off and on;
+14. frees ResNet-50, then trains the flagship LM as bench.py does on the
    accelerator (batch 8, T 1024, amp bfloat16, Adam(1e-4), tokens and
    labels one draw) through ``TransformerLM``, ``optimizer.Adam`` and
    ``trainer.train_step``: the median step of 5 windows of 4, tokens per
@@ -285,6 +299,33 @@ SMALL_RESNET_AMP_RTOL = 1e-2
 # its 1x1 stride-1 convolutions: the first block's shortcut, conv1 and
 # conv3, the second block's conv3
 SMALL_B1_PER_STEP = 4
+# ResNet-50 through the program path (front end, Momentum.minimize,
+# Executor.run) as bench.py's bench_resnet runs it on the accelerator:
+# TRAIN's configuration, amp bfloat16 (bench.py:2088), fused_conv_bn off,
+# the startup program's weights from seed 0, bench.py's feed
+# (RandomState(0) images, int labels in [0, 1000)) on the card once; 5
+# warm-up and 30 timed Executor.run calls closed by one synchronize; the
+# MFU at the bf16 peak, a FLOP one multiply or one add (24.6 GFLOP an
+# image)
+PROGRAM_WARMUP, PROGRAM_STEPS = 5, 30
+# the same program f32 with fused_conv_bn on (B1, 30 launches a step
+# through the executor's conv2d_bn op): 3 warm-up and 8 timed steps, each
+# ended by a synchronize as [train]'s; and with each residual block
+# recomputed: 2 warm-up and 10 timed steps
+PROGRAM_FUSED_WARMUP, PROGRAM_FUSED_STEPS = 3, 8
+PROGRAM_RECOMPUTE_WARMUP, PROGRAM_RECOMPUTE_STEPS = 2, 10
+# one step from the same weights: the executor against the nn.Module
+# route (f32, fused), and recompute against no recompute (bf16): losses
+# and running statistics within this relative distance
+PROGRAM_ROUTE_RTOL = 1e-5
+# ResNet-8 for CIFAR as a serialized program, card vs CPU over 2
+# Momentum steps (batch 32, 16 x 16): f32 within SMALL_RESNET_RTOL of each
+# tensor's norm; under amp the small-ResNet amp tolerances (losses
+# SMALL_RESNET_AMP_RTOL, parameters within 2 lr a step). At batch 8 the
+# second step's gradients of this net are ill-conditioned in f32 (on the
+# CPU alone, f32 against float64 moves some velocities by more than the
+# tolerance): batch 32 holds f32 to its rounding
+SMALL_PROGRAM = dict(depth=8, res=16, batch=32, lr=0.1, steps=2)
 # the transformer LM's training step as bench.py runs it on the
 # accelerator (bench_transformer_lm: FULL's widths at T 1024, batch 8,
 # amp bfloat16, Adam(1e-4), tokens and labels one randint(2, vocab)
@@ -3104,6 +3145,341 @@ def phase_time_conv_bn(launches, errs, shapes):
     return rows
 
 
+def resnet_program(depth, res, class_dim, lr, momentum, fused=False,
+                   recompute=False, cifar=False):
+    """(main, startup, loss name, names of the running statistics) of the
+    ResNet bench.py builds, through the port's front end: ``resnet_imagenet``
+    (or ``resnet_cifar10``) and ``Momentum(lr, momentum).minimize``, built
+    under the ``fused_conv_bn`` flag as given."""
+    from paddle_tpu_torch import config, core, layers, optimizer
+    from paddle_tpu_torch.models import resnet
+    config.set_flags(fused_conv_bn=fused)
+    try:
+        main, startup = core.Program(), core.Program()
+        with core.unique_name.guard(), core.program_guard(main, startup):
+            img = layers.data("img", shape=[3, res, res])
+            label = layers.data("label", shape=[1], dtype="int64")
+            build = resnet.resnet_cifar10 if cifar else \
+                resnet.resnet_imagenet
+            loss = build(img, label, depth=depth, class_dim=class_dim,
+                         recompute=recompute)[0]
+            optimizer.Momentum(lr, momentum).minimize(loss, startup)
+    finally:
+        config.set_flags(fused_conv_bn=False)
+    stats = sorted(n for n, v in main.global_block().vars.items()
+                   if v.persistable and n.endswith((".global_0", ".global_1")))
+    return main, startup, loss.name, stats
+
+
+def bench_feed(batch, res, classes, device):
+    """bench.py's feed: RandomState(0) images, then int32 labels in
+    [0, 1000), put on ``device`` once."""
+    import torch
+    rs = np.random.RandomState(0)
+    img = rs.randn(batch, 3, res, res).astype("float32")
+    label = rs.randint(0, 1000, (batch, 1)).astype(np.int32) % classes
+    return {"img": torch.from_numpy(img).to(device),
+            "label": torch.from_numpy(label).to(device)}
+
+
+def scope_copy(scope, device="cuda"):
+    """A new Scope holding a copy of each tensor of ``scope``."""
+    from paddle_tpu_torch import core
+    out = core.Scope()
+    for n, v in scope.items():
+        out.set_var(n, v.detach().to(device).clone())
+    return out
+
+
+def rel_dist(a, b):
+    """||a - b|| / ||b|| in float64."""
+    a, b = a.double(), b.double()
+    return float((a - b).norm() / max(float(b.norm()), 1e-30))
+
+
+def timed_steps(exe, main, feed, loss, scope, steps):
+    """``steps`` Executor.run calls, each ended by a synchronize: (the
+    host time of each in ms, the losses)."""
+    import torch
+    times, losses = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        out, = exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
+                       return_numpy=False)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(out))
+    return times, losses
+
+
+def phase_small_program(seed):
+    """ResNet-8 for CIFAR built by the front end, serialized to JSON and
+    loaded back, run from one set of weights on the card and on the CPU
+    for 2 Momentum steps, amp off and on."""
+    import torch
+    from paddle_tpu_torch import core
+    from paddle_tpu_torch.core import serialization
+    cfg = SMALL_PROGRAM
+    main, startup, loss, _ = resnet_program(
+        cfg["depth"], cfg["res"], 10, cfg["lr"], 0.9, cifar=True)
+    text = json.dumps(serialization.program_to_dict(main))
+    main = serialization.program_from_dict(json.loads(text))
+    startup.random_seed = seed
+    init = core.Scope()
+    core.Executor(device="cpu").run(startup, scope=init)
+    feed = bench_feed(cfg["batch"], cfg["res"], 10, "cpu")
+    for amp in (None, "bfloat16"):
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            scope = scope_copy(init, dev)
+            exe = core.Executor(device=dev)
+            with amp_flag(amp):
+                losses = [float(exe.run(main, feed=feed, fetch_list=[loss],
+                                        scope=scope)[0])
+                          for _ in range(cfg["steps"])]
+            runs[dev] = (losses, {n: v.cpu() for n, v in scope.items()})
+        (cpu_l, cpu_s), (card_l, card_s) = runs["cpu"], runs["cuda"]
+        loss_err = max(abs(a - b) / abs(b) for a, b in zip(card_l, cpu_l))
+        floats = [n for n, v in cpu_s.items() if v.is_floating_point()]
+        errs = {n: rel_dist(card_s[n], cpu_s[n]) for n in floats}
+        worst = max(errs, key=errs.get)
+        params = [n for n in floats if ".w_" in n and "_acc_" not in n]
+        far = max(float((card_s[n] - cpu_s[n]).abs().max()) for n in params)
+        print("[small-program] ResNet-8 program (%d KB of JSON), amp %s, %d "
+              "Momentum steps: losses card %s cpu %s (rel err %.3g); worst "
+              "tensor %s rel err %.3g; parameters card vs CPU max %.3g lr"
+              % (len(text) // 1024, amp, cfg["steps"],
+                 [round(v, 6) for v in card_l], [round(v, 6) for v in cpu_l],
+                 loss_err, worst, errs[worst], far / cfg["lr"]))
+        if amp is None:
+            check(loss_err <= SMALL_RESNET_RTOL and
+                  errs[worst] <= SMALL_RESNET_RTOL,
+                  "the small program on the card disagrees with the CPU")
+        else:
+            check(loss_err <= SMALL_RESNET_AMP_RTOL and
+                  far <= 2 * cfg["steps"] * cfg["lr"],
+                  "the small program under amp on the card disagrees with "
+                  "the CPU")
+        check(np.isfinite(card_l).all() and
+              not all(torch.equal(card_s[n], init.find_var(n).cpu())
+                      for n in params),
+              "the small program did not train: %s" % card_l)
+
+
+def phase_program_train_fused(seed, module_stats):
+    """ResNet-50 f32 with fused_conv_bn on through the program path: one
+    step from the startup program's weights against the nn.Module route
+    from the same weights (loss and running statistics within
+    PROGRAM_ROUTE_RTOL), then warm-up and PROGRAM_FUSED_STEPS timed steps
+    with every count at 0 just before them: B1 launches 30 times a step
+    through the executor's conv2d_bn op, and nothing else."""
+    import torch
+    from paddle_tpu_torch import config, core, io, optimizer, trainer
+    from paddle_tpu_torch.models.resnet import resnet_imagenet
+    torch.cuda.empty_cache()
+    cfg = TRAIN
+    main, startup, loss, stats = resnet_program(
+        cfg["depth"], cfg["res"], cfg["class_dim"], cfg["lr"],
+        cfg["momentum"], fused=True)
+    startup.random_seed = seed
+    exe = core.Executor(device="cuda")
+    init = core.Scope()
+    exe.run(startup, scope=init)
+    feed = bench_feed(cfg["batch"], cfg["res"], cfg["class_dim"], "cuda")
+    config.set_flags(fused_conv_bn=True)
+    try:
+        model = resnet_imagenet(cfg["depth"], cfg["class_dim"],
+                                device="cuda")
+    finally:
+        config.set_flags(fused_conv_bn=False)
+    opt = optimizer.Momentum(model.reference_parameters(), 1.0,
+                             cfg["momentum"])
+    io.params_from_jax({n: v.cpu().numpy() for n, v in init.items()},
+                       model=model, optimizer=opt)
+    mod_loss = float(trainer.train_step(model, opt, feed["img"],
+                                        feed["label"])[0])
+    mod_stats = {n: t.detach().clone()
+                 for n, t in model.reference_tensors().items() if n in stats}
+    del model, opt
+    scope = scope_copy(init)
+    del init
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    times, losses = timed_steps(exe, main, feed, loss, scope, 1)
+    loss_err = abs(losses[0] - mod_loss) / abs(mod_loss)
+    stat_err = max(rel_dist(scope.find_var(n), mod_stats[n]) for n in stats)
+    print("[program-train fused] ResNet-50 f32, fused_conv_bn on, program of "
+          "%d ops (%d conv2d_bn); one step from the startup program's "
+          "weights: loss executor %.6f, nn.Module %.6f (rel err %.3g), "
+          "running statistics rel err %.3g (tol %g)"
+          % (len(main.global_block().ops),
+             sum(op.type == "conv2d_bn" for op in main.global_block().ops),
+             losses[0], mod_loss, loss_err, stat_err, PROGRAM_ROUTE_RTOL))
+    check(loss_err <= PROGRAM_ROUTE_RTOL and stat_err <= PROGRAM_ROUTE_RTOL,
+          "the executor and the nn.Module route disagree on one step")
+    timed_steps(exe, main, feed, loss, scope, PROGRAM_FUSED_WARMUP - 1)
+    reset_launches()
+    times, more = timed_steps(exe, main, feed, loss, scope,
+                              PROGRAM_FUSED_STEPS)
+    launches = read_launches()
+    losses += more
+    peak = torch.cuda.max_memory_allocated()
+    med = sorted(times)[len(times) // 2]
+    print("[program-train fused] %d timed steps after %d warm-up: median "
+          "step %.2f ms (%.1f images/s) beside the nn.Module [train] step "
+          "%.2f ms of this run: the executor costs %.2f ms a step more; "
+          "peak memory allocated %.2f GB ([train] %.2f GB); B1 launches in "
+          "the timed steps %d (%d per step); steps ms %s; losses %s"
+          % (PROGRAM_FUSED_STEPS, PROGRAM_FUSED_WARMUP, med,
+             cfg["batch"] / med * 1e3, module_stats["step_ms"],
+             med - module_stats["step_ms"], peak / 1e9,
+             module_stats["peak_bytes"] / 1e9, launches["conv_bn_stats"],
+             launches["conv_bn_stats"] // PROGRAM_FUSED_STEPS,
+             [round(t, 2) for t in times], [round(v, 4) for v in losses]))
+    check(np.isfinite(losses).all(), "non-finite loss on the program path")
+    check(launches["conv_bn_stats"] == B1_PER_STEP * PROGRAM_FUSED_STEPS,
+          "B1 launches through conv2d_bn %d != %d x %d steps"
+          % (launches["conv_bn_stats"], B1_PER_STEP, PROGRAM_FUSED_STEPS))
+    check(all(v == 0 for k, v in launches.items() if k != "conv_bn_stats"),
+          "the program path launched another kernel: %s" % launches)
+    return dict(step_ms=med, peak_bytes=peak, launches=launches)
+
+
+def phase_program_train(seed):
+    """ResNet-50 as bench.py trains it on the accelerator, through the
+    program path under amp bf16 with fused_conv_bn off: 5 warm-up and 30
+    timed Executor.run calls, one synchronize closing the window. Returns
+    what [program-train recompute] compares with: the weights after
+    startup, the first step's loss and running statistics, the step time
+    and peak memory."""
+    import torch
+    from paddle_tpu_torch import core
+    torch.cuda.empty_cache()
+    cfg = TRAIN
+    t0 = time.perf_counter()
+    main, startup, loss, stats = resnet_program(
+        cfg["depth"], cfg["res"], cfg["class_dim"], cfg["lr"],
+        cfg["momentum"])
+    build_s = time.perf_counter() - t0
+    startup.random_seed = seed
+    exe = core.Executor(device="cuda")
+    scope = core.Scope()
+    t0 = time.perf_counter()
+    exe.run(startup, scope=scope)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init = scope_copy(scope)
+    feed = bench_feed(cfg["batch"], cfg["res"], cfg["class_dim"], "cuda")
+    nparam = sum(int(np.prod(p.shape)) for p in main.all_parameters())
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    with amp_flag("bfloat16"):
+        t0 = time.perf_counter()
+        first = float(exe.run(main, feed=feed, fetch_list=[loss],
+                              scope=scope, return_numpy=False)[0])
+        first_s = time.perf_counter() - t0
+        first_stats = {n: scope.find_var(n).clone() for n in stats}
+        for _ in range(PROGRAM_WARMUP - 1):
+            outs = exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
+                           return_numpy=False)
+        float(outs[0])
+        t0 = time.perf_counter()
+        for _ in range(PROGRAM_STEPS):
+            outs = exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
+                           return_numpy=False)
+        final = float(outs[0])   # one sync closes the window
+        dt = time.perf_counter() - t0
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    ips = cfg["batch"] * PROGRAM_STEPS / dt
+    ms = dt / PROGRAM_STEPS * 1e3
+    mfu = ips * TRAIN_GFLOP_PER_IMAGE * 1e9 / BF16_FLOPS
+    ops = main.global_block().ops
+    print("[program-train] ResNet-50 program as bench.py builds it: %d ops "
+          "(%d conv2d, %d batch_norm, %d vjp_grad, %d momentum), %d "
+          "parameters; built in %.2f s, startup on the card %.2f s (seed "
+          "%d), first step %.2f s" % (
+              len(ops), sum(o.type == "conv2d" for o in ops),
+              sum(o.type == "batch_norm" for o in ops),
+              sum(o.type == "vjp_grad" for o in ops),
+              sum(o.type == "momentum" for o in ops), nparam, build_s,
+              init_s, seed, first_s))
+    print("[program-train] amp bfloat16, fused_conv_bn off, %dx%d, batch "
+          "%d, Momentum(%g, %g): %d warm-up and %d timed Executor.run, one "
+          "synchronize: %.2f ms/step, %.1f images/s, bf16 MFU %.4f (%.1f "
+          "GFLOP an image at %.0f TFLOP/s); peak memory allocated %.2f GB; "
+          "loss first %.4f, final %.4f; kernel launches %s"
+          % (cfg["res"], cfg["res"], cfg["batch"], cfg["lr"],
+             cfg["momentum"], PROGRAM_WARMUP, PROGRAM_STEPS, ms, ips, mfu,
+             TRAIN_GFLOP_PER_IMAGE, BF16_FLOPS / 1e12, peak / 1e9, first,
+             final, {k: v for k, v in launches.items() if v}))
+    check(np.isfinite(final) and final < first,
+          "the program did not train: loss %s then %s" % (first, final))
+    check(all(v == 0 for v in launches.values()),
+          "the unfused bf16 program launched a port kernel: %s" % launches)
+    with amp_flag("bfloat16"):
+        profile_step("[program-train] one Executor.run",
+                     lambda: exe.run(main, feed=feed, fetch_list=[loss],
+                                     scope=scope, return_numpy=False),
+                     "torch's elementwise and reduction passes",
+                     ("elementwise_kernel", "reduce_kernel"))
+    del scope
+    return dict(init=init, first=first, first_stats=first_stats,
+                stats=stats, ms=ms, peak_bytes=peak, images_per_s=ips,
+                mfu=mfu)
+
+
+def phase_program_train_recompute(seed, plain):
+    """[program-train] with each residual block recomputed for its
+    gradient (16 recompute_block ops): one step from the same weights
+    gives the plain program's loss and running statistics (updated once),
+    then the step time and peak memory beside [program-train]'s."""
+    import torch
+    from paddle_tpu_torch import core
+    torch.cuda.empty_cache()
+    cfg = TRAIN
+    main, _, loss, stats = resnet_program(
+        cfg["depth"], cfg["res"], cfg["class_dim"], cfg["lr"],
+        cfg["momentum"], recompute=True)
+    check(stats == plain["stats"], "recompute changed the statistics' names")
+    exe = core.Executor(device="cuda")
+    scope = plain.pop("init")
+    feed = bench_feed(cfg["batch"], cfg["res"], cfg["class_dim"], "cuda")
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    with amp_flag("bfloat16"):
+        _, first = timed_steps(exe, main, feed, loss, scope, 1)
+        loss_err = abs(first[0] - plain["first"]) / abs(plain["first"])
+        stat_err = max(rel_dist(scope.find_var(n), plain["first_stats"][n])
+                       for n in stats)
+        timed_steps(exe, main, feed, loss, scope,
+                    PROGRAM_RECOMPUTE_WARMUP - 1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(PROGRAM_RECOMPUTE_STEPS):
+            outs = exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
+                           return_numpy=False)
+        final = float(outs[0])
+        ms = (time.perf_counter() - t0) / PROGRAM_RECOMPUTE_STEPS * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    print("[program-train recompute] %d recompute_block ops: first step "
+          "loss %.6f vs %.6f without (rel err %.3g), running statistics "
+          "after it rel err %.3g (tol %g); %d timed steps: %.2f ms/step "
+          "(%.1f images/s) beside %.2f ms without; peak memory allocated "
+          "%.2f GB beside %.2f GB without; final loss %.4f"
+          % (sum(op.type == "recompute_block"
+                 for op in main.global_block().ops), first[0],
+             plain["first"], loss_err, stat_err, PROGRAM_ROUTE_RTOL,
+             PROGRAM_RECOMPUTE_STEPS, ms, cfg["batch"] / ms * 1e3,
+             plain["ms"], peak / 1e9, plain["peak_bytes"] / 1e9, final))
+    check(loss_err <= PROGRAM_ROUTE_RTOL and stat_err <= PROGRAM_ROUTE_RTOL,
+          "recompute changed the step's loss or running statistics")
+    check(np.isfinite(final), "non-finite loss with recompute")
+    check(all(v == 0 for v in read_launches().values()),
+          "the recomputed bf16 program launched a port kernel")
+    return dict(ms=ms, peak_bytes=peak)
+
+
 def flash_inputs(b, h, t, d, lengths=None, dtype=None):
     """q, k, v [B, H, T, D] on the card (bfloat16 unless ``dtype``), and
     int32 segment ids [B, T] marking each row's first ``lengths[i]``
@@ -3522,6 +3898,7 @@ def main(argv=None):
         b4_bf16_launches = phase_small_lm_quant(rng)
         phase_small_resnet(rng)
         phase_small_resnet_amp(np.random.default_rng(args.seed + 2))
+        phase_small_program(args.seed)
         # the LM training phases draw from their own stream, so the
         # serving phases see the inputs they saw before these existed
         lm_rng = np.random.default_rng(args.seed + 1)
@@ -3606,13 +3983,22 @@ def main(argv=None):
         sess.close()
         del sess, paged, quant
         gc.collect()
-        model, opt, img, label, shapes, train_launches, _ = \
+        model, opt, img, label, shapes, train_launches, train_stats = \
             phase_train(args.seed)
         phase_profile_train(model, opt, img, label)
         del model, opt, img, label
         gc.collect()
         torch.cuda.empty_cache()
         rows += phase_time_conv_bn(train_launches, errs, shapes)
+        # the program path: ResNet-50 as bench.py builds and runs it
+        phase_program_train_fused(args.seed, train_stats)
+        gc.collect()
+        plain = phase_program_train(args.seed)
+        gc.collect()
+        phase_program_train_recompute(args.seed, plain)
+        del plain
+        gc.collect()
+        torch.cuda.empty_cache()
         # ResNet-50 has left the card: the LM's training step, amp bf16
         with amp_flag("bfloat16"):
             model, opt, tokens, lm_launches, _ = phase_lm_train(args.seed,

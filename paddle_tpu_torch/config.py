@@ -61,9 +61,16 @@ _flags = {
     "decode_constraint": None,
     # mixed precision: None, or the dtype name ("bfloat16") that the
     # WHITE ops' float32 inputs are cast to (amp.py); read at each forward
-    # and loss of a model (models/transformer.py, models/resnet.py) and at
-    # each session build and generation call, which refuse it
+    # and loss of a model (models/transformer.py, models/resnet.py), at
+    # each Executor.run, and at each session build and generation call,
+    # which refuse it
     "amp": None,
+    # the executor (core/executor.py), read at each run: check_nan_inf
+    # raises FloatingPointError naming every op whose output is not
+    # finite; nonfinite_guard leaves the state unchanged when a fetched
+    # float is not finite (the RNG key still advances)
+    "check_nan_inf": False,
+    "nonfinite_guard": False,
     # metric hooks and host spans (observability/tracing.py: synced into
     # the tracer by the observability package's change hook)
     "telemetry": False,

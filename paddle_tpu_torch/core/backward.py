@@ -1,0 +1,193 @@
+"""IR-level autodiff: append backward ops to a Program (reference
+``paddle_tpu/core/backward.py``, ported close to verbatim: a program
+whose backward either package appended runs in the other).
+
+Backward is symbolic at the IR level (grad ops are visible like any
+other op) but *generic* at the kernel level: each appended ``vjp_grad``
+op references its forward op, and the executor answers it with autograd
+through the graph the forward op recorded when it ran — nothing is
+recomputed and no op has grad code of its own.
+
+Gradient accumulation (a var consumed by N ops) follows the reference's
+"sum" insertion (``backward.cc: MakeOpGrad`` dedup logic): contributions get
+unique names and a ``sum`` op folds them right before first use.
+"""
+
+import numpy as np
+
+from . import registry
+from .framework import Parameter
+from .executor import EMPTY_VAR
+
+GRAD_SUFFIX = "@GRAD"
+
+__all__ = ["append_backward", "grad_var_name", "GRAD_SUFFIX"]
+
+# Ops that never propagate gradients (metrics, IO, optimizer updates...).
+NO_GRAD_OP_TYPES = {
+    "sgd", "momentum", "adam", "adamax", "adagrad", "adadelta", "rmsprop",
+    "decayed_adagrad", "ftrl", "proximal_gd", "proximal_adagrad",
+    "accuracy", "auc", "print", "increment", "assign_value",
+    "fill_constant", "gaussian_random", "uniform_random",
+}
+
+
+def grad_var_name(name):
+    return name + GRAD_SUFFIX
+
+
+def _float_like(block, name):
+    var = block.var_or_none(name)
+    if var is None:
+        return True
+    try:
+        kind = np.dtype(var.dtype).kind
+    except TypeError:
+        return True  # bfloat16 scalar type
+    return kind == "f"
+
+
+def append_backward(loss, parameter_list=None, no_grad_set=None):
+    """Append grad ops for ``loss``; return [(Parameter, grad Variable)].
+
+    The backward ops land in the same block as the forward ops, so one
+    Executor.run of the program performs fwd+bwd (+optimizer ops if
+    appended).
+    """
+    block = loss.block
+    program = block.program
+    if block.idx != 0:
+        raise NotImplementedError("append_backward on sub-blocks not yet "
+                                  "supported")
+    no_grad = set(no_grad_set or ())
+
+    if parameter_list is not None:
+        param_names = set(p.name if isinstance(p, Parameter) else p
+                          for p in parameter_list)
+    else:
+        param_names = set(p.name for p in block.all_parameters()
+                          if p.trainable)
+    param_names -= no_grad
+
+    # Forward pass: which var names require grad.
+    req = set(param_names)
+    fwd_ops = list(block.ops)
+    for op in fwd_ops:
+        if op.type in NO_GRAD_OP_TYPES or op.type == "vjp_grad":
+            continue
+        if any(n in req for n in op.input_names()):
+            for n in op.output_names():
+                if n == EMPTY_VAR or n in no_grad:
+                    continue
+                var = block.var_or_none(n)
+                if var is not None and var.stop_gradient:
+                    continue
+                if not _float_like(block, n):
+                    continue
+                req.add(n)
+
+    if loss.name not in req:
+        raise ValueError(
+            "loss %r does not depend on any trainable parameter" % loss.name)
+
+    # grad bookkeeping: var name -> {"contribs": [grad names], "final": name}
+    grads = {}
+    _contrib_counts = {}  # survives grads.pop on non-SSA overwrites
+
+    def add_contrib(name):
+        entry = grads.setdefault(name, {"contribs": [], "final": None})
+        k = _contrib_counts.get(name, 0)
+        _contrib_counts[name] = k + 1
+        gname = grad_var_name(name) if k == 0 else \
+            "%s%s@%d" % (name, GRAD_SUFFIX, k)
+        src = block.var(name)
+        block.create_var(name=gname, shape=src.shape, dtype=src.dtype,
+                         stop_gradient=True)
+        entry["contribs"].append(gname)
+        return gname
+
+    def final_grad(name):
+        entry = grads.get(name)
+        if entry is None or not entry["contribs"]:
+            return None
+        if entry["final"] is None:
+            if len(entry["contribs"]) == 1:
+                entry["final"] = entry["contribs"][0]
+            else:
+                out = "%s%s@SUM" % (name, GRAD_SUFFIX)
+                src = block.var(name)
+                block.create_var(name=out, shape=src.shape, dtype=src.dtype,
+                                 stop_gradient=True)
+                block.append_op("sum", inputs={"X": entry["contribs"]},
+                                outputs={"Out": [out]}, infer_shape=False)
+                entry["final"] = out
+        return entry["final"]
+
+    # The reference's sparse (SelectedRows) gradients of is_sparse and
+    # distributed embedding tables are not ported: their lookup ops are
+    # not registered here, so such a program fails when it is built.
+
+    # Seed: d loss / d loss = ones.
+    seed = add_contrib(loss.name)
+    block.append_op("fill_like", inputs={"X": [loss.name]},
+                    outputs={"Out": [seed]}, attrs={"value": 1.0},
+                    infer_shape=False)
+
+    for i in range(len(fwd_ops) - 1, -1, -1):
+        op = fwd_ops[i]
+        if op.type in NO_GRAD_OP_TYPES or op.type == "vjp_grad":
+            continue
+        out_slots = registry.flat_output_slots(op)
+        in_slots = registry.flat_input_slots(op)
+        if not out_slots or not in_slots:
+            continue
+        out_names = [op.outputs[slot][j] for slot, j in out_slots]
+        if not any(n in grads and grads[n]["contribs"] for n in out_names):
+            continue
+        in_names = [op.inputs[slot][j] for slot, j in in_slots]
+        need = []
+        for n in in_names:
+            var = block.var_or_none(n)
+            need.append(n != EMPTY_VAR and n in req and var is not None
+                        and not var.stop_gradient and _float_like(block, n))
+        if not any(need):
+            continue
+
+        out_grad_names = []
+        for n in out_names:
+            g = final_grad(n)
+            out_grad_names.append(g if g is not None else EMPTY_VAR)
+        # Consume the written vars' grad state BEFORE adding input
+        # contributions: an op that overwrites a var it also reads (the
+        # While carry pattern — non-SSA) must not let its own input
+        # contribution alias the already-consumed output gradient.
+        for n in set(out_names):
+            grads.pop(n, None)
+        in_grad_names = []
+        for n, ok in zip(in_names, need):
+            in_grad_names.append(add_contrib(n) if ok else EMPTY_VAR)
+
+        block.append_op(
+            "vjp_grad",
+            inputs={"OutGrads": out_grad_names},
+            outputs={"InGrads": in_grad_names},
+            attrs={"fwd_op": op, "fwd_op_type": op.type},
+            infer_shape=False)
+
+    params_and_grads = []
+    for pname in sorted(param_names):
+        param = block.var(pname)
+        g = final_grad(pname)
+        if g is None:
+            # Unused parameter: gradient is zeros (reference raises; we keep
+            # training robust and let the optimizer apply a zero update).
+            g = grad_var_name(pname)
+            if block.var_or_none(g) is None:
+                block.create_var(name=g, shape=param.shape,
+                                 dtype=param.dtype, stop_gradient=True)
+                block.append_op("fill_like", inputs={"X": [pname]},
+                                outputs={"Out": [g]}, attrs={"value": 0.0},
+                                infer_shape=False)
+        gvar = block.var(g)
+        params_and_grads.append((param, gvar))
+    return params_and_grads

@@ -5,7 +5,8 @@ keys v0, v1, ...) and ``<dir>/params.meta.json`` ({key: variable
 name}); :func:`load_params` reads that layout with numpy alone, and
 :func:`params_from_jax` turns the arrays into tensors on a device (the
 LM's serving weights) or copies them into a model (a ResNet or a
-transformer LM) and its optimizer by name."""
+transformer LM) and its optimizer by name. :func:`scope_from_jax` puts
+them into a ``core.Scope``, from which the Executor runs a program."""
 
 import json
 import os
@@ -13,11 +14,12 @@ import os
 import numpy as np
 import torch
 
+from .core.scope import Scope
 from .models.transformer import check_lm_params, infer_num_layers
 from .optimizer import LR_NAME
 from .place import resolve_device
 
-__all__ = ["load_params", "params_from_jax"]
+__all__ = ["load_params", "params_from_jax", "scope_from_jax"]
 
 # the reference scope's random-number state (``core/framework.py``
 # RNG_STATE_VAR): no ported path draws from it
@@ -91,3 +93,19 @@ def params_from_jax(named, device=None, model=None, optimizer=None):
             targets[name].copy_(t)
             out[name] = targets[name]
     return out
+
+
+def scope_from_jax(named, device=None):
+    """{reference scope name: array} -> a new ``core.Scope`` holding a
+    copy of each as a tensor on ``device`` (default CUDA), under its own
+    name and dtype (the executor updates state in place; the caller's
+    arrays stay as they are): int8 weights with their ``@quant.scale``
+    sidecars stay as they are, and only ``@RNG_STATE@`` is dropped, as
+    :func:`params_from_jax` drops it (the port's executor seeds its own
+    key from the program's ``random_seed``)."""
+    device = resolve_device(device)
+    scope = Scope()
+    for name, val in named.items():
+        if name != RNG_STATE:
+            scope.set_var(name, torch.tensor(np.asarray(val), device=device))
+    return scope

@@ -15,7 +15,9 @@ reference's initializers: filters He normal (std sqrt(2 / fan_in)), BN
 scales 1 and biases 0, running means 0 and variances 1, the fc weight
 Xavier uniform and its bias 0."""
 
+import contextlib
 import math
+import threading
 
 import torch
 from torch import nn
@@ -23,7 +25,22 @@ from torch import nn
 from ..ops.conv_bn import conv2d_bn
 from ..ops.nn_ops import batch_norm, conv2d, fc
 
-__all__ = ["UniqueNames", "ConvBN", "FC"]
+__all__ = ["UniqueNames", "ConvBN", "FC", "recomputing"]
+
+_recompute = threading.local()
+
+
+@contextlib.contextmanager
+def recomputing():
+    """Inside: a checkpointed forward runs again for its gradient
+    (``torch.utils.checkpoint``); its first run already updated the
+    running statistics, so a ConvBN leaves them as they are."""
+    prev = getattr(_recompute, "on", False)
+    _recompute.on = True
+    try:
+        yield
+    finally:
+        _recompute.on = prev
 
 
 class UniqueNames:
@@ -47,7 +64,8 @@ class ConvBN(nn.Module):
     ``batch_norm``. ``is_test`` normalizes by the running statistics and
     leaves them as they are; training updates them in place. ``amp`` (a
     dtype or None, given at each call) makes the unfused ``conv2d`` a
-    WHITE op; ``conv2d_bn`` is on neither amp list."""
+    WHITE op; ``conv2d_bn`` is on neither amp list. Under
+    :func:`recomputing` the running statistics are not updated again."""
 
     def __init__(self, ch_in, ch_out, filter_size, stride, padding,
                  act="relu", fused=False, is_test=False, names=None,
@@ -88,15 +106,16 @@ class ConvBN(nn.Module):
         self.variance.fill_(1.0)
 
     def forward(self, x, amp=None):
+        update = not getattr(_recompute, "on", False)
         if self.fused:
             y = conv2d_bn(x, self.weight, self.scale, self.bias, self.mean,
                           self.variance, self.stride, self.padding,
-                          is_test=self.is_test)
+                          is_test=self.is_test, update_stats=update)
         else:
             y = batch_norm(conv2d(x, self.weight, self.stride, self.padding,
                                   amp=amp),
                            self.scale, self.bias, self.mean, self.variance,
-                           is_test=self.is_test)
+                           is_test=self.is_test, update_stats=update)
         if self.act == "relu":
             y = torch.relu(y)
         elif self.act is not None:

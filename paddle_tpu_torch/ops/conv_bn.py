@@ -9,9 +9,11 @@ channel. A 1x1, stride-1, unpadded, ungrouped f32 convolution takes
 kernel B1 (``csrc/conv_bn_stats.cu``, wrapper :func:`conv_bn_stats_1x1`),
 which replaces ``_pallas_1x1``; every other geometry takes the plain
 version (``F.conv2d`` plus the two sums) on any device, as the reference
-takes its ``_reference`` there. On CPU tensors the wrapper computes the
-plain version; on CUDA tensors it launches the kernel or raises, and
-counts launches in ``conv_bn_stats_1x1.launches``.
+takes its ``_reference`` there. On CPU tensors, and on meta tensors
+(a program's shape inference), the wrapper computes the plain version;
+on CUDA tensors it launches the kernel or raises, and counts launches in
+``conv_bn_stats_1x1.launches``. The program op ``conv2d_bn`` is
+registered here.
 
 The backward (:class:`ConvBnStats`) is the reference's ``_bwd``: the
 vjp of the plain function with cotangents on all three outputs, i.e.
@@ -31,11 +33,12 @@ import collections
 import torch
 
 from . import _build
+from ..core.registry import register_op
 from .flash_attention import _on_cpu, _require
 from .nn_ops import _pair, conv2d
 
 __all__ = ["conv_bn_stats_plain", "conv_bn_stats_1x1", "fusable",
-           "ConvBnStats", "conv_bn_stats", "conv2d_bn",
+           "ConvBnStats", "conv_bn_stats", "conv2d_bn", "conv2d_bn_stats",
            "conv1x1_bn_relu_plain", "conv1x1_bn_relu"]
 
 # kernel B1's tiles, (output channels, pixels) per CTA, by the id its C
@@ -78,6 +81,15 @@ def _plan(n, c, p, o, tile=None, tiles=B1_TILES):
                 _cdiv(c, B1_BK) * B1_BK, _cdiv(o, B1_O_ALIGN) * B1_O_ALIGN)
 
 
+def _plain_route(*tensors):
+    """True for tensors that take the plain version: CPU tensors, and
+    meta tensors (a program's shape inference, which needs shapes and no
+    data); False for CUDA tensors (``flash_attention._on_cpu``)."""
+    if all(t.is_meta for t in tensors):
+        return True
+    return _on_cpu(*tensors)
+
+
 def _channel_view(v):
     return v.reshape(1, -1, 1, 1)
 
@@ -86,7 +98,7 @@ def conv_bn_stats_plain(x, w, stride=1, padding=0, dilation=1, groups=1):
     """The plain version (reference ``_reference``): ``F.conv2d`` on
     NCHW / OIHW, then the f32 sums of y and y * y per output channel."""
     y = conv2d(x, w, stride, padding, dilation, groups)
-    ys = y if y.dtype == torch.float32 else y.float()
+    ys = y if y.dtype in (torch.float32, torch.float64) else y.float()
     return y, ys.sum(dim=(0, 2, 3)), (ys * ys).sum(dim=(0, 2, 3))
 
 
@@ -111,7 +123,7 @@ def conv_bn_stats_1x1(x, w):
              tuple(x.shape), tuple(w.shape))
     _require(x.dtype == torch.float32 and w.dtype == torch.float32,
              "x and w must be float32, got %s %s", x.dtype, w.dtype)
-    if _on_cpu(x, w):
+    if _plain_route(x, w):
         return conv_bn_stats_plain(x, w)
     n, c, h, wd = x.shape
     o, p = w.shape[0], h * wd
@@ -190,33 +202,67 @@ def conv_bn_stats(x, w, stride=1, padding=0, dilation=1, groups=1):
     return ConvBnStats.apply(x, w, stride, padding, dilation, groups)
 
 
-def conv2d_bn(x, w, scale, bias, mean, variance, stride=1, padding=0,
-              dilation=1, groups=1, momentum=0.9, epsilon=1e-5,
-              is_test=False):
-    """conv2d + batch_norm in one op (reference ``_conv2d_bn``).
+def conv2d_bn_stats(x, w, scale, bias, mean, variance, stride=1,
+                    padding=0, dilation=1, groups=1, momentum=0.9,
+                    epsilon=1e-5, is_test=False):
+    """conv2d + batch_norm in one op (reference ``_conv2d_bn``) as a
+    function: ``(y, mean_out, variance_out, saved_mean, saved_inv)``.
 
     Training: the batch mean and biased variance come from the fused
-    sums (``E[y^2] - E[y]^2``, as the reference), and the running
-    statistics ``mean`` and ``variance`` are updated IN PLACE, outside
-    autograd, to ``momentum * old + (1 - momentum) * batch``.
-    ``is_test``: a plain convolution normalized by the running
-    statistics, which stay as they are. Returns ``y * a + b`` with
-    ``a = scale / sqrt(var + eps)`` and ``b = bias - mean * a``."""
+    sums (``E[y^2] - E[y]^2``, as the reference), the running statistics
+    out are ``momentum * old + (1 - momentum) * batch``. ``is_test``: a
+    plain convolution normalized by the running statistics, returned as
+    they are. ``y * a + b`` with ``a = scale / sqrt(var + eps)`` and
+    ``b = bias - mean * a``; ``saved_inv`` is ``1 / sqrt(var + eps)``."""
     if is_test:
         y = conv2d(x, w, stride, padding, dilation, groups)
         use_mean, use_var = mean, variance
+        new_mean, new_var = mean, variance
     else:
         y, csum, csq = conv_bn_stats(x, w, stride, padding, dilation, groups)
         count = y.shape[0] * y.shape[2] * y.shape[3]
         use_mean = csum / count
         use_var = csq / count - use_mean * use_mean
-        with torch.no_grad():
-            mean.copy_(momentum * mean + (1.0 - momentum) * use_mean)
-            variance.copy_(momentum * variance + (1.0 - momentum) * use_var)
+        new_mean = momentum * mean + (1.0 - momentum) * use_mean
+        new_var = momentum * variance + (1.0 - momentum) * use_var
     inv = torch.rsqrt(use_var + epsilon)
     a = inv * scale
     b = bias - use_mean * a
-    return y * _channel_view(a).to(y.dtype) + _channel_view(b).to(y.dtype)
+    out = y * _channel_view(a).to(y.dtype) + _channel_view(b).to(y.dtype)
+    return out, new_mean, new_var, use_mean, inv
+
+
+def conv2d_bn(x, w, scale, bias, mean, variance, stride=1, padding=0,
+              dilation=1, groups=1, momentum=0.9, epsilon=1e-5,
+              is_test=False, update_stats=True):
+    """:func:`conv2d_bn_stats` with the running statistics ``mean`` and
+    ``variance`` updated IN PLACE, outside autograd, unless ``is_test``
+    or not ``update_stats`` (a recomputed forward); returns y."""
+    y, new_mean, new_var, _, _ = conv2d_bn_stats(
+        x, w, scale, bias, mean, variance, stride, padding, dilation,
+        groups, momentum, epsilon, is_test)
+    if update_stats and not is_test:
+        with torch.no_grad():
+            mean.copy_(new_mean)
+            variance.copy_(new_var)
+    return y
+
+
+@register_op("conv2d_bn")
+def _conv2d_bn(ctx):
+    """The reference's ``conv2d_bn`` op: batch_norm's slots and outputs
+    plus the convolution's Input and Filter; B1 for a 1x1 stride-1 f32
+    convolution on the card. The running statistics come out as new
+    tensors, which the executor writes to the scope."""
+    y, mean, var, saved_mean, inv = conv2d_bn_stats(
+        ctx.input("Input"), ctx.input("Filter"), ctx.input("Scale"),
+        ctx.input("Bias"), ctx.input("Mean"), ctx.input("Variance"),
+        ctx.attr("strides", [1, 1]), ctx.attr("paddings", [0, 0]),
+        ctx.attr("dilations", [1, 1]), int(ctx.attr("groups", 1) or 1),
+        ctx.attr("momentum", 0.9), ctx.attr("epsilon", 1e-5),
+        ctx.attr("is_test", False))
+    return {"Y": y, "MeanOut": mean, "VarianceOut": var,
+            "SavedMean": saved_mean, "SavedVariance": inv}
 
 
 def conv1x1_bn_relu_plain(x, a, b, w):

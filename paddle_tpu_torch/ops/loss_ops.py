@@ -1,9 +1,11 @@
 """Loss ops of the ResNet path (reference ``paddle_tpu/ops/loss_ops.py``
-``softmax_with_cross_entropy`` and ``math_ops.py`` ``mean``)."""
+``softmax_with_cross_entropy`` and ``math_ops.py`` ``mean``), and their
+program ops."""
 
 import torch
 
 from ..amp import amp_cast
+from ..core.registry import register_op
 
 __all__ = ["softmax_with_cross_entropy", "mean"]
 
@@ -25,3 +27,19 @@ def softmax_with_cross_entropy(logits, label, amp=None):
 def mean(x):
     """Mean of every element, as a 0-d tensor."""
     return x.mean()
+
+
+@register_op("softmax_with_cross_entropy")
+def _softmax_with_cross_entropy(ctx):
+    if ctx.attr("soft_label", False):
+        raise NotImplementedError(
+            "soft_label is not ported yet: ROADMAP Queue A, \"LeNet-5/MNIST "
+            "slice\"")
+    loss, softmax = softmax_with_cross_entropy(ctx.input("Logits"),
+                                               ctx.input("Label"))
+    return {"Softmax": softmax, "Loss": loss}
+
+
+@register_op("mean")
+def _mean(ctx):
+    return {"Out": mean(ctx.input("X"))}

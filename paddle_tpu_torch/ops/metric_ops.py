@@ -1,8 +1,10 @@
 """Metric ops of the ResNet path (reference ``paddle_tpu/ops/
 metric_ops.py`` ``accuracy`` after ``top_k``, as ``layers.accuracy``
-chains them)."""
+chains them), and the program op ``accuracy``."""
 
 import torch
+
+from ..core.registry import register_op
 
 __all__ = ["accuracy"]
 
@@ -18,3 +20,16 @@ def accuracy(input, label, k=1):
         total = torch.tensor(idx.shape[0], dtype=torch.int32,
                              device=input.device)
         return correct.float() / total.float(), correct, total
+
+
+@register_op("accuracy")
+def _accuracy(ctx):
+    """Top-k indices [N, k] (from ``top_k``) against the labels: the hit
+    ratio, and the hits and rows as int32."""
+    idx = ctx.input("Indices")
+    label = ctx.input("Label").reshape(-1, 1)
+    hit = (idx == label.to(idx.dtype)).any(dim=1)
+    total = torch.tensor(idx.shape[0], dtype=torch.int32, device=idx.device)
+    correct = hit.sum().to(torch.int32)
+    return {"Accuracy": correct.float() / total.float(),
+            "Correct": correct, "Total": total}

@@ -7,16 +7,24 @@ reference left them to XLA; an int8 weight (armed for int8 compute,
 The fused convolution + batch norm is ``ops/conv_bn.py``. Under amp
 (``amp.py``) ``mul`` and ``conv2d`` are WHITE ops: their float32
 operands are cast to the amp dtype first (``conv2d_bn`` is on neither
-list and stays float32, as in the reference)."""
+list and stays float32, as in the reference).
+
+The program ops ``mul``, ``conv2d``, ``pool2d`` and ``batch_norm`` are
+registered here with the reference's slots and attributes (its
+``ops/nn_ops.py`` and ``math_ops.py``); the executor casts their inputs
+under amp before the call."""
+
+import math
 
 import torch
 import torch.nn.functional as F
 
 from ..amp import amp_cast
+from ..core.registry import register_op
 from .quant_ops import quant_matmul_2d
 
 __all__ = ["layer_norm", "gelu", "mul", "fc", "lookup_table", "gather",
-           "argmax", "conv2d", "pool2d", "batch_norm"]
+           "argmax", "conv2d", "pool2d", "batch_norm", "batch_norm_stats"]
 
 
 def _pair(v):
@@ -111,28 +119,96 @@ def pool2d(x, ksize, pool_type="max", strides=1, paddings=0,
     return summed / counts
 
 
-def batch_norm(x, scale, bias, mean, variance, momentum=0.9, epsilon=1e-5,
-               is_test=False):
-    """Reference ``batch_norm`` over NCHW: in training the batch mean and
-    the biased variance ``E[x^2] - E[x]^2`` (moments in f32), with the
-    running statistics ``mean`` and ``variance`` updated IN PLACE, outside
-    autograd, to ``momentum * old + (1 - momentum) * batch`` (torch's
+def batch_norm_stats(x, scale, bias, mean, variance, momentum=0.9,
+                     epsilon=1e-5, is_test=False, channel_axis=1):
+    """Reference ``batch_norm`` as a function: ``(y, mean_out,
+    variance_out, saved_mean, saved_inv)``. In training the batch mean
+    and the biased variance ``E[x^2] - E[x]^2`` (moments in f32), and the
+    running statistics ``momentum * old + (1 - momentum) * batch`` (torch's
     ``F.batch_norm`` weights the other way and keeps an unbiased running
-    variance); ``is_test`` normalizes by the running statistics. Returns
-    ``x * a + b`` with ``a = scale / sqrt(var + eps)`` and
-    ``b = bias - mean * a``."""
-    shape = (1, -1) + (1,) * (x.dim() - 2)
+    variance); ``is_test`` normalizes by the running statistics and
+    returns them as they are. ``y = x * a + b`` with
+    ``a = scale / sqrt(var + eps)`` and ``b = bias - mean * a``;
+    ``saved_inv`` is ``1 / sqrt(var + eps)``."""
+    shape = [1] * x.dim()
+    shape[channel_axis] = -1
     if is_test:
         use_mean, use_var = mean, variance
+        new_mean, new_var = mean, variance
     else:
-        xs = x if x.dtype == torch.float32 else x.float()
-        axes = (0,) + tuple(range(2, x.dim()))
+        # moments in f32 at least (a float64 input keeps float64)
+        xs = x if x.dtype in (torch.float32, torch.float64) else x.float()
+        axes = tuple(i for i in range(x.dim()) if i != channel_axis)
         use_mean = xs.mean(dim=axes)
         use_var = (xs * xs).mean(dim=axes) - use_mean * use_mean
-        with torch.no_grad():
-            mean.copy_(momentum * mean + (1.0 - momentum) * use_mean)
-            variance.copy_(momentum * variance + (1.0 - momentum) * use_var)
+        new_mean = momentum * mean + (1.0 - momentum) * use_mean
+        new_var = momentum * variance + (1.0 - momentum) * use_var
     inv = torch.rsqrt(use_var + epsilon)
     a = inv * scale
     b = bias - use_mean * a
-    return x * a.reshape(shape).to(x.dtype) + b.reshape(shape).to(x.dtype)
+    y = x * a.reshape(shape).to(x.dtype) + b.reshape(shape).to(x.dtype)
+    return y, new_mean, new_var, use_mean, inv
+
+
+def batch_norm(x, scale, bias, mean, variance, momentum=0.9, epsilon=1e-5,
+               is_test=False, update_stats=True):
+    """:func:`batch_norm_stats` over NCHW with the running statistics
+    ``mean`` and ``variance`` updated IN PLACE, outside autograd, unless
+    ``is_test`` or not ``update_stats`` (a recomputed forward); returns
+    y."""
+    y, new_mean, new_var, _, _ = batch_norm_stats(
+        x, scale, bias, mean, variance, momentum, epsilon, is_test)
+    if update_stats and not is_test:
+        with torch.no_grad():
+            mean.copy_(new_mean)
+            variance.copy_(new_var)
+    return y
+
+
+@register_op("mul")
+def _mul(ctx):
+    """Flattening matmul (reference mul_op.cc): X flattened to 2D at
+    x_num_col_dims, Y at y_num_col_dims."""
+    x, y = ctx.input("X"), ctx.input("Y")
+    xd = ctx.attr("x_num_col_dims", 1)
+    yd = ctx.attr("y_num_col_dims", 1)
+    xs, ys = tuple(x.shape), tuple(y.shape)
+    x2 = x.reshape(math.prod(xs[:xd]), math.prod(xs[xd:]))
+    y2 = y.reshape(math.prod(ys[:yd]), math.prod(ys[yd:]))
+    return {"Out": torch.matmul(x2, y2).reshape(xs[:xd] + ys[yd:])}
+
+
+@register_op("conv2d")
+def _conv2d(ctx):
+    return {"Output": conv2d(ctx.input("Input"), ctx.input("Filter"),
+                             ctx.attr("strides", [1, 1]),
+                             ctx.attr("paddings", [0, 0]),
+                             ctx.attr("dilations", [1, 1]),
+                             ctx.attr("groups", 1) or 1)}
+
+
+@register_op("pool2d")
+def _pool2d(ctx):
+    return {"Out": pool2d(ctx.input("X"), ctx.attr("ksize"),
+                          ctx.attr("pooling_type", "max"),
+                          ctx.attr("strides", [1, 1]),
+                          ctx.attr("paddings", [0, 0]),
+                          ctx.attr("global_pooling", False),
+                          ctx.attr("ceil_mode", False),
+                          ctx.attr("exclusive", True))}
+
+
+@register_op("batch_norm")
+def _batch_norm(ctx):
+    """Reference batch_norm_op.cc semantics: the running statistics come
+    out as new tensors (MeanOut, VarianceOut), which the executor writes
+    to the scope; SavedVariance is the inverse standard deviation."""
+    x = ctx.input("X")
+    channel_axis = 1 if ctx.attr("data_layout", "NCHW") == "NCHW" \
+        else x.dim() - 1
+    y, mean, var, saved_mean, inv = batch_norm_stats(
+        x, ctx.input("Scale"), ctx.input("Bias"), ctx.input("Mean"),
+        ctx.input("Variance"), ctx.attr("momentum", 0.9),
+        ctx.attr("epsilon", 1e-5), ctx.attr("is_test", False), channel_axis)
+    return {"Y": y, "MeanOut": mean, "VarianceOut": var,
+            "SavedMean": saved_mean, "SavedVariance": inv}

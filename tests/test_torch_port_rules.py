@@ -384,3 +384,106 @@ def test_the_item_number_lint_joins_split_literals():
     assert _item_numbers(split)
     assert _item_numbers("# see ROADMAP Queue C\n# item 2 for this\n")
     assert not _item_numbers('x = "ROADMAP Queue A, \\"Long tail\\""\n')
+
+
+def test_program_entry_points_raise_without_cuda(monkeypatch):
+    from paddle_tpu_torch import core as pc
+    from paddle_tpu_torch import io as pio
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pc.Executor()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        pc.Executor("cuda")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pio.scope_from_jax({"w": np.zeros(2, np.float32)})
+    assert pc.Executor(device="cpu").device == torch.device("cpu")
+
+
+def test_registered_ops_are_the_reference_ones():
+    """Every op type the port registers is one the reference registers,
+    with the same needs_rng flag (the executor splits the key before
+    exactly the ops the reference splits it before)."""
+    import paddle_tpu.ops  # noqa: F401  (registers the reference's ops)
+    from paddle_tpu.core import registry as ref_registry
+    from paddle_tpu_torch.core import registry
+    for op_type in registry.registered_ops():
+        ours, theirs = registry.get_op_def(op_type), \
+            ref_registry.get_op_def(op_type)
+        assert (ours.needs_rng, ours.skip_eval_shape) == \
+            (theirs.needs_rng, theirs.skip_eval_shape), op_type
+
+
+def _slot_programs():
+    """Port-built programs holding every registered op: ResNet-8 for
+    CIFAR plain, fused and recomputed with Momentum, and an fc net with
+    SGD and one with Adam; each with its startup program."""
+    from paddle_tpu_torch import core as pc
+    from paddle_tpu_torch import layers, optimizer
+    from paddle_tpu_torch.models import resnet
+    out = []
+    for kind in ("plain", "fused", "recompute", "sgd", "adam"):
+        port_config.set_flags(fused_conv_bn=kind == "fused")
+        try:
+            main, startup = pc.Program(), pc.Program()
+            with pc.unique_name.guard(), pc.program_guard(main, startup):
+                img = layers.data("img", shape=[3, 8, 8])
+                label = layers.data("label", shape=[1], dtype="int64")
+                if kind in ("sgd", "adam"):
+                    logits = layers.fc(layers.reshape(img, [-1, 192]), 10)
+                    loss = layers.mean(layers.softmax_with_cross_entropy(
+                        logits, label))
+                    opt = optimizer.SGD(0.1) if kind == "sgd" \
+                        else optimizer.Adam(0.1)
+                else:
+                    loss = resnet.resnet_cifar10(
+                        img, label, depth=8,
+                        recompute=kind == "recompute")[0]
+                    opt = optimizer.Momentum(0.1, 0.9)
+                opt.minimize(loss, startup)
+        finally:
+            port_config.set_flags(fused_conv_bn=False)
+        out.append((main, startup, loss.name))
+    return out
+
+
+def _record_slots(monkeypatch, registry_mod):
+    seen = {}
+    real = registry_mod.normalize_outputs
+
+    def record(op, result):
+        seen.setdefault(op.type, set()).update(result)
+        return real(op, result)
+    monkeypatch.setattr(registry_mod, "normalize_outputs", record)
+    return seen
+
+
+def test_output_slots_equal_reference_on_one_program(monkeypatch):
+    """Run on the same programs (the port's, and the reference's loaded
+    from their JSON), each op's compute returns the reference's output
+    slot names."""
+    import json
+    from paddle_tpu.core import registry as ref_registry
+    from paddle_tpu.core import serialization as ref_ser
+    import paddle_tpu as ptpu
+    from paddle_tpu_torch import core as pc
+    from paddle_tpu_torch.core import registry
+    from paddle_tpu_torch.core import serialization as port_ser
+    programs = _slot_programs()
+    feed = {"img": np.random.RandomState(0).randn(2, 3, 8, 8)
+            .astype(np.float32), "label": np.array([[1], [7]])}
+    ours = _record_slots(monkeypatch, registry)
+    for main, startup, loss in programs:
+        exe, scope = pc.Executor(device="cpu"), pc.Scope()
+        exe.run(startup, scope=scope)
+        exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+    theirs = _record_slots(monkeypatch, ref_registry)
+    for main, startup, loss in programs:
+        load = lambda p: ref_ser.program_from_dict(  # noqa: E731
+            json.loads(json.dumps(port_ser.program_to_dict(p))))
+        exe = ptpu.Executor()
+        with ptpu.scope_guard(ptpu.Scope()):
+            exe.run(load(startup))
+            exe.run(load(main), feed=feed, fetch_list=[loss])
+    assert sorted(ours) == registry.registered_ops()
+    assert {t: sorted(s) for t, s in ours.items()} == \
+        {t: sorted(theirs[t]) for t in ours}

@@ -392,10 +392,33 @@ def test_scope_names_match_reference_program(depth, fused, cifar):
         assert tuple(t.shape) == want[name], name
 
 
-def test_recompute_is_not_ported():
-    with pytest.raises(NotImplementedError,
-                       match="ResNet-50 as bench.py runs it"):
-        port_resnet.resnet_imagenet(50, recompute=True, device="cpu")
+@pytest.mark.parametrize("fused", [False, True])
+def test_recompute_matches_no_recompute(fused):
+    """``recompute=True`` runs each residual block under
+    torch.utils.checkpoint: the same loss, gradients and running
+    statistics as without it (the statistics updated once, not again
+    when the block is recomputed for its gradient)."""
+    rs = np.random.RandomState(6)
+    img = torch.from_numpy(rs.randn(4, 3, 16, 16).astype("float32"))
+    label = torch.from_numpy(rs.randint(0, 10, (4, 1)))
+    got = []
+    for recompute in (False, True):
+        model = _port_build(port_resnet.resnet_cifar10, 8, fused=fused,
+                            device="cpu", recompute=recompute)
+        loss = model(img, label)[0]
+        loss.backward()
+        got.append((loss.item(), {n: p.grad.clone() for n, p in
+                                  model.reference_parameters().items()},
+                    {n: t.clone() for n, t in
+                     model.reference_tensors().items()}))
+    assert got[1][0] == got[0][0]
+    for n, g in got[0][1].items():
+        torch.testing.assert_close(got[1][1][n], g, rtol=0, atol=0)
+    for n, t in got[0][2].items():
+        torch.testing.assert_close(got[1][2][n], t, rtol=0, atol=0)
+    # the statistics moved once from their initial 0 and 1
+    stem = [n for n in got[0][2] if n.endswith(".global_0")][0]
+    assert got[1][2][stem].abs().max() > 0
 
 
 def test_resnet_cifar8_amp_two_momentum_steps():
