@@ -125,6 +125,7 @@ kernels as JSON; the last line is ``{"ok": true, "device": ...}``.
 """
 
 import argparse
+import collections
 import contextlib
 import functools
 import gc
@@ -361,6 +362,39 @@ SMALL_LM_CFG = dict(vocab_size=512, d_model=256, num_heads=2, d_ff=512,
 SMALL_LM_T, SMALL_LM_BATCH, SMALL_LM_LR, SMALL_LM_STEPS = 256, 4, 1e-3, 3
 SMALL_LM_LOSS_RTOL = {None: 1e-4, "bfloat16": 1e-2}
 SMALL_LM_NEAR = {None: (1e-3, 0.99), "bfloat16": (0.1, 0.90)}
+# the LM's program route (the front end's transformer_lm given
+# Variables, Adam(1e-4).minimize, Executor.run) as bench.py's
+# bench_transformer_lm runs it: LM_TRAIN's configuration and windows, the
+# weights from the startup program on the card (seed 0), bench.py's feed
+# (RandomState(0).randint(2, vocab) for tokens and labels) on the card
+# once; B2 bf16 12 a step and no other kernel; one step from the
+# startup weights against the nn.Module route: the loss within
+# PROGRAM_LM_LOSS_RTOL relative, every parameter within 2 lr (PERF.md
+# §2's small-LM bound at full width) once the rounding of the two updated
+# values is taken off, and Adam's moments, which hold the gradients, each
+# leaf within PROGRAM_LM_GRAD_RTOL of its largest magnitude (the second
+# moment, a square, twice that); the peak memory within
+# PROGRAM_LM_PEAK of [lm-train]'s
+PROGRAM_LM_LOSS_RTOL = 1e-4
+PROGRAM_LM_GRAD_RTOL = 1e-4
+PROGRAM_LM_PEAK = 0.10
+# the LM's forward program (is_test) at batch 1 x T 512 armed by
+# arm_quant_compute([program], scope): 6 products a layer and the head
+# through B3 a run; the logits against the nn.Module int8 route on the
+# same int8 weights within LM_INT8_STEPS head quantization steps;
+# PROGRAM_INT8_RUNS timed runs each, armed and f32, the median
+PROGRAM_INT8_T, PROGRAM_INT8_RUNS = 512, 5
+# the program's (m, k, n) that the serving path does not run: the LM head
+# at m = T, held bitwise against the plain version and timed, from a
+# stream of its own
+PROGRAM_INT8_SHAPES = ((PROGRAM_INT8_T, FULL["d_model"], FULL["vocab_size"]),)
+# the LM program at a small width (one head: B2 takes head dims 64 and
+# 128), serialized and loaded, card vs CPU over SMALL_LM_STEPS Adam
+# steps at SMALL_LM_LR, amp off and on, to SMALL_LM_LOSS_RTOL and 2 lr a
+# step; with dropout 0.1 the masks torch.equal card to CPU
+SMALL_PROGRAM_LM = dict(vocab_size=512, d_model=64, num_heads=1, d_ff=128,
+                        num_layers=2)
+SMALL_PROGRAM_LM_T, SMALL_PROGRAM_LM_BATCH = 64, 4
 
 
 class SmokeFailure(RuntimeError):
@@ -430,8 +464,10 @@ def counters():
 
 
 def reset_launches():
+    from paddle_tpu_torch.ops import quant_ops
     for fn, attr in counters().values():
         setattr(fn, attr, 0)
+    quant_ops.quant_matmul_2d.launches_by_shape.clear()
 
 
 def read_launches():
@@ -439,15 +475,26 @@ def read_launches():
             for name, (fn, attr) in counters().items()}
 
 
+def read_int8_shapes():
+    """B3's launches by (m, k, n), counted by its wrapper at the launch."""
+    from paddle_tpu_torch.ops import quant_ops
+    return dict(quant_ops.quant_matmul_2d.launches_by_shape)
+
+
 def uncounted(fn):
     """Call ``fn()`` and leave every launch count as it was: the launches
     of comparisons and timings are not the main path's."""
+    from paddle_tpu_torch.ops import quant_ops
     saved = read_launches()
+    by_shape = quant_ops.quant_matmul_2d.launches_by_shape
+    saved_shapes = dict(by_shape)
     try:
         return fn()
     finally:
         for name, (w, attr) in counters().items():
             setattr(w, attr, saved[name])
+        by_shape.clear()
+        by_shape.update(saved_shapes)
 
 
 def make_params(cfg, rng):
@@ -814,16 +861,18 @@ def quantized(rng, k, n):
 
 def phase_compare_int8(rng, wide_rng):
     """The int8 kernel against its plain version on the same card inputs,
-    at every (m, k, n) of the path and at ragged shapes, each x with an
-    all-zero row: the contract is bitwise equality. INT8_RAGGED_WIDE
-    draws from ``wide_rng``, so the phases after this one see the inputs
+    at every (m, k, n) of the serving and program paths and at ragged
+    shapes, each x with an all-zero row: the contract is bitwise
+    equality. INT8_RAGGED_WIDE, INT8_SPLIT_EDGES and PROGRAM_INT8_SHAPES
+    draw from ``wide_rng``, so the phases after this one see the inputs
     they saw before those shapes were added."""
     import torch
     from paddle_tpu_torch.ops import quant_ops
     worst = 0.0
     cases = [(shape, rng) for shape in INT8_SHAPES + INT8_RAGGED] \
         + [(shape, wide_rng)
-           for shape in INT8_RAGGED_WIDE + INT8_SPLIT_EDGES]
+           for shape in INT8_RAGGED_WIDE + INT8_SPLIT_EDGES
+           + PROGRAM_INT8_SHAPES]
     for (m, k, n), gen in cases:
         x = torch.from_numpy(gen.standard_normal((m, k), dtype=np.float32))
         x = x.cuda()
@@ -2334,11 +2383,12 @@ def phase_profile(sess, rng, paged, system, quant):
 
 
 def phase_time(rng, launches, errs, final_lengths, paged_final,
-               quant_launches, b4_bf16_launches):
+               quant_launches, b4_bf16_launches, program_rng):
     """Each kernel at the path's shapes: its time, its plain version's,
     the library call's, and its bound from this run's inputs. The decode
     kernels on float32 and bfloat16 caches; the int8 kernel at each
-    (m, k, n) of the path."""
+    (m, k, n) of the serving path, and at PROGRAM_INT8_SHAPES from
+    ``program_rng``."""
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.ops import flash_attention as fa
@@ -2547,10 +2597,11 @@ def phase_time(rng, launches, errs, final_lengths, paged_final,
     # find it
     from paddle_tpu_torch.ops import quant_ops
     int8_rows = []
-    for m, k, n in INT8_SHAPES:
-        x = torch.from_numpy(rng.standard_normal((m, k), dtype=np.float32))
+    for (m, k, n), gen in [(shape, rng) for shape in INT8_SHAPES] + [
+            (shape, program_rng) for shape in PROGRAM_INT8_SHAPES]:
+        x = torch.from_numpy(gen.standard_normal((m, k), dtype=np.float32))
         x = x.cuda()
-        wq, ws = quantized(rng, k, n)
+        wq, ws = quantized(gen, k, n)
         ms, profiler_ms = two_clocks(functools.partial(
             quant_ops.quant_matmul_2d, x, wq, ws))
         plain_ms, plain_profiler_ms = two_clocks(
@@ -3768,6 +3819,445 @@ def phase_profile_lm_train(model, opt, tokens):
                  "B2 bf16", ("flash_fwd_bf16_kernel",), top=12)
 
 
+def lm_program(cfg, t, lr=None, dropout_prob=0.0, is_test=False):
+    """(main, startup, loss name, logits name) of the transformer LM as
+    bench.py builds it, through the port's front end: ``transformer_lm``
+    given Variables and, with ``lr``, ``Adam(lr).minimize``."""
+    from paddle_tpu_torch import core, layers, optimizer
+    from paddle_tpu_torch.models import transformer
+    main, startup = core.Program(), core.Program()
+    with core.unique_name.guard(), core.program_guard(main, startup):
+        toks = layers.data("toks", shape=[t], dtype="int64")
+        lbls = layers.data("lbls", shape=[t], dtype="int64")
+        loss, logits = transformer.transformer_lm(
+            toks, lbls, dropout_prob=dropout_prob, is_test=is_test, **cfg)
+        if lr is not None:
+            optimizer.Adam(lr).minimize(loss, startup)
+    return main, startup, loss.name, logits.name
+
+
+def lm_feed(batch, t, vocab, device):
+    """bench.py's LM feed: one RandomState(0).randint(2, vocab) draw for
+    tokens and labels, int32, put on ``device`` once."""
+    import torch
+    ids = np.random.RandomState(0).randint(2, vocab, (batch, t))
+    ids = torch.from_numpy(ids.astype(np.int32)).to(device)
+    return {"toks": ids, "lbls": ids}
+
+
+def phase_small_program_lm(seed):
+    """The LM program at a small width (SMALL_PROGRAM_LM), serialized to
+    JSON and loaded, run from one set of startup weights on the card and
+    on the CPU for SMALL_LM_STEPS Adam steps, amp off and on; and with
+    dropout 0.1, whose first step's masks must be torch.equal card to
+    CPU (both executors split one key)."""
+    import torch
+    from paddle_tpu_torch import core
+    from paddle_tpu_torch.core import serialization
+    cfg, t, b = SMALL_PROGRAM_LM, SMALL_PROGRAM_LM_T, SMALL_PROGRAM_LM_BATCH
+    lr, steps = SMALL_LM_LR, SMALL_LM_STEPS
+    for dropout, amps in ((0.0, (None, "bfloat16")), (0.1, (None,))):
+        main, startup, loss, _ = lm_program(cfg, t, lr, dropout_prob=dropout)
+        text = json.dumps(serialization.program_to_dict(main))
+        main = serialization.program_from_dict(json.loads(text))
+        startup.random_seed = seed
+        init = core.Scope()
+        core.Executor(device="cpu").run(startup, scope=init)
+        masks = [op.outputs["Mask"][0] for op in main.global_block().ops
+                 if op.type == "dropout"]
+        params = [p.name for p in main.all_parameters()]
+        for amp in amps:
+            runs = {}
+            for dev in ("cpu", "cuda"):
+                scope = scope_copy(init, dev)
+                exe = core.Executor(device=dev)
+                feed = lm_feed(b, t, cfg["vocab_size"], dev)
+                losses, first = [], []
+                reset_launches()
+                with amp_flag(amp):
+                    for i in range(steps):
+                        outs = exe.run(main, feed=feed, scope=scope,
+                                       fetch_list=[loss] + (
+                                           masks if i == 0 else []),
+                                       return_numpy=False)
+                        losses.append(float(outs[0]))
+                        first += [m.cpu() for m in outs[1:]]
+                runs[dev] = (losses, {n: scope.find_var(n).cpu()
+                                      for n in params}, first,
+                             read_launches())
+            (cpu_l, cpu_p, cpu_m, _), (card_l, card_p, card_m, launches) = \
+                runs["cpu"], runs["cuda"]
+            loss_err = max(abs(x - y) / abs(y) for x, y in zip(card_l, cpu_l))
+            far = max(float((card_p[n] - cpu_p[n]).abs().max())
+                      for n in params)
+            equal = sum(torch.equal(x, y) for x, y in zip(card_m, cpu_m))
+            print("[small-program-lm] LM program (%d KB of JSON, %d ops), "
+                  "width %d, %d layers, T %d, dropout %g, amp %s, %d Adam "
+                  "steps: losses card %s cpu %s (rel err %.3g, tol %g); "
+                  "parameters card vs CPU max %.3g lr (tol %d lr); dropout "
+                  "masks torch.equal card to CPU %d of %d; B2 launches on "
+                  "the card %d (%d bf16)"
+                  % (len(text) // 1024, len(main.global_block().ops),
+                     cfg["d_model"], cfg["num_layers"], t, dropout, amp,
+                     steps, [round(x, 6) for x in card_l],
+                     [round(x, 6) for x in cpu_l], loss_err,
+                     SMALL_LM_LOSS_RTOL[amp], far / lr, 2 * steps,
+                     equal, len(masks), launches["flash_attention"],
+                     launches["flash_attention bf16"]))
+            check(loss_err <= SMALL_LM_LOSS_RTOL[amp]
+                  and far <= 2 * steps * lr,
+                  "the small LM program on the card disagrees with the CPU "
+                  "(dropout %g, amp %s)" % (dropout, amp))
+            check(equal == len(masks) == len(cpu_m)
+                  == 2 * cfg["num_layers"] * (dropout > 0),
+                  "dropout masks differ card to CPU")
+            check(np.isfinite(card_l).all() and card_l[-1] < card_l[0],
+                  "the small LM program did not train: %s" % card_l)
+            per_run = cfg["num_layers"] * steps
+            check(launches["flash_attention"] == per_run and
+                  launches["flash_attention bf16"] == (per_run if amp else 0)
+                  and all(v == 0 for k, v in launches.items()
+                          if not k.startswith("flash_attention")
+                          or k == "flash_attention_tile"),
+                  "small LM program launches %s" % launches)
+
+
+def phase_small_program_int8(seed):
+    """[small-program], armed: the ResNet-8 forward program (is_test)
+    armed for int8 compute by ``arm_quant_compute([program], scope)`` on
+    the card and on the CPU from one set of startup weights. Each int8
+    conv2d of the card, given the CPU run's input, must be torch.equal
+    to the CPU's output (the integer convolution is exact on both), and
+    so must the fc's armed product, B3 on the card, given the CPU run's
+    fc input (B3 is bitwise its plain version). The logits are held to a
+    quarter of the int8 forward's own distance from the float32 forward
+    (CPU): an f32 op before a convolution (the batch norm's rsqrt, the
+    pooling's sums) rounds an ulp apart on the card now and then, and
+    where that moves a sample's amax or crosses a rounding boundary an
+    int8 code moves by a quantization step, far more than
+    SMALL_RESNET_RTOL (0.00215 of the logits' norm on an NVIDIA H100
+    80GB HBM3 at 700 W)."""
+    import torch
+    from paddle_tpu_torch import core, layers
+    from paddle_tpu_torch.models import resnet
+    from paddle_tpu_torch.ops import quant_ops
+    from paddle_tpu_torch.serving.quant import arm_quant_compute
+    cfg = SMALL_PROGRAM
+    main, startup = core.Program(), core.Program()
+    with core.unique_name.guard(), core.program_guard(main, startup):
+        img = layers.data("img", shape=[3, cfg["res"], cfg["res"]])
+        label = layers.data("label", shape=[1], dtype="int64")
+        logits = resnet.resnet_cifar10(img, label, depth=cfg["depth"],
+                                       is_test=True)[2].name
+    startup.random_seed = seed
+    init = core.Scope()
+    core.Executor(device="cpu").run(startup, scope=init)
+    convs = [op for op in main.global_block().ops if op.type == "conv2d"]
+    fcs = [op for op in main.global_block().ops if op.type == "mul"]
+    names = [logits] + [n for op in convs
+                        for n in (op.inputs["Input"][0],
+                                  op.outputs["Output"][0])] \
+        + [n for op in fcs for n in (op.inputs["X"][0], op.outputs["Out"][0])]
+    f32 = core.Executor(device="cpu").run(
+        main, feed=bench_feed(cfg["batch"], cfg["res"], 10, "cpu"),
+        scope=scope_copy(init, "cpu"), fetch_list=[logits],
+        return_numpy=False)[0]
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        scope = scope_copy(init, dev)
+        armed = arm_quant_compute([main], scope)
+        feed = bench_feed(cfg["batch"], cfg["res"], 10, dev)
+        reset_launches()
+        outs = core.Executor(device=dev).run(main, feed=feed, scope=scope,
+                                             fetch_list=names,
+                                             return_numpy=False)
+        runs[dev] = (armed, dict(zip(names, outs)), read_launches(), scope)
+    (armed, cpu, _, _), (card_armed, card, launches, scope) = \
+        runs["cpu"], runs["cuda"]
+    same = 0
+    for op in convs:
+        got = quant_ops.quant_conv2d(
+            cpu[op.inputs["Input"][0]].cuda(),
+            scope.find_var(op.inputs["Filter"][0]),
+            scope.find_var(quant_ops.scale_var_name(op.inputs["Filter"][0])),
+            op.attrs["strides"], op.attrs["paddings"], op.attrs["dilations"],
+            op.attrs["groups"]).cpu()
+        same += torch.equal(got, cpu[op.outputs["Output"][0]])
+    fc_same = 0
+    for op in fcs:
+        w = op.inputs["Y"][0]
+        got = uncounted(lambda: quant_ops._quant_mul(
+            op, cpu[op.inputs["X"][0]].cuda(), scope.find_var(w),
+            scope.find_var(quant_ops.scale_var_name(w)))["Out"]).cpu()
+        fc_same += torch.equal(got, cpu[op.outputs["Out"][0]])
+    in_run = sum(torch.equal(card[op.outputs["Output"][0]].cpu(),
+                             cpu[op.outputs["Output"][0]]) for op in convs)
+    err = rel_dist(card[logits].cpu(), cpu[logits])
+    quant_err = rel_dist(cpu[logits], f32)
+    print("[small-program] ResNet-8 forward armed int8 (%d names: %d conv2d "
+          "filters and the fc): each int8 conv2d on the card from the CPU "
+          "run's input torch.equal to the CPU's output %d of %d (in the "
+          "card's own run %d of %d); the fc's armed product through B3 from the CPU "
+          "run's input torch.equal to the CPU's %d of %d; B3 launches %d; "
+          "logits card vs CPU rel err %.3g (tol %.3g: a quarter of int8 vs "
+          "float32 on the CPU, %.3g)"
+          % (len(armed), len(convs), same, len(convs), in_run, len(convs),
+             fc_same, len(fcs), launches["int8_matmul"], err,
+             quant_err / 4, quant_err))
+    check(armed == card_armed and len(armed) == len(convs) + 1,
+          "armed names %s / %s" % (armed, card_armed))
+    check(same == len(convs), "an int8 conv2d differs card to CPU")
+    check(len(fcs) == 1 and fc_same == 1,
+          "the fc's armed product differs card to CPU")
+    check(launches["int8_matmul"] == 1 and all(
+        v == 0 for k, v in launches.items() if k != "int8_matmul"),
+          "the armed ResNet-8 launched %s" % launches)
+    check(err <= quant_err / 4, "armed ResNet-8 logits card vs CPU")
+
+
+def phase_program_lm_train(seed, module_stats):
+    """The flagship LM through the program path as bench.py's
+    bench_transformer_lm runs it (LM_TRAIN's configuration, amp
+    bfloat16, Adam(1e-4).minimize, Executor.run): one step from the
+    startup program's weights against the nn.Module route from the same
+    weights, then warm-up and LM_WINDOWS windows of LM_WINDOW_STEPS
+    Executor.run calls, each closed by reading the loss, every launch
+    count at 0 just before the windows; the median window beside
+    [lm-train]'s nn.Module step of this run."""
+    import torch
+    from paddle_tpu_torch import core, optimizer, trainer
+    from paddle_tpu_torch.models.transformer import TransformerLM
+    torch.cuda.empty_cache()
+    cfg = {k: v for k, v in FULL.items() if k != "max_len"}
+    b, t, lr = LM_TRAIN["batch"], LM_TRAIN["seqlen"], LM_TRAIN["lr"]
+    t0 = time.perf_counter()
+    main, startup, loss, _ = lm_program(cfg, t, lr)
+    build_s = time.perf_counter() - t0
+    startup.random_seed = seed
+    exe, scope = core.Executor(device="cuda"), core.Scope()
+    t0 = time.perf_counter()
+    exe.run(startup, scope=scope)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    feed = lm_feed(b, t, cfg["vocab_size"], "cuda")
+    nparam = sum(int(np.prod(p.shape)) for p in main.all_parameters())
+    # one step of the nn.Module route from the startup weights
+    model = TransformerLM(max_len=t, device="cuda", **cfg)
+    with torch.no_grad():
+        for n, p in model.reference_tensors().items():
+            p.copy_(scope.find_var(n))
+    opt = optimizer.Adam(model.reference_parameters(), lr)
+    with amp_flag("bfloat16"):
+        mod_loss = float(trainer.train_step(model, opt, feed["toks"],
+                                            feed["lbls"])[0])
+        accs = opt.accumulators()
+        del opt
+        for p in model.parameters():
+            p.grad = None
+        t0 = time.perf_counter()
+        first = float(exe.run(main, feed=feed, fetch_list=[loss],
+                              scope=scope, return_numpy=False)[0])
+        first_s = time.perf_counter() - t0
+    loss_err = abs(first - mod_loss) / abs(mod_loss)
+    # Adam's first step moves an element by at most lr, so the routes
+    # part by at most 2 lr, plus the rounding of each updated value
+    # (an ulp of the tensor's largest magnitude each)
+    far = 0.0
+    for n, p in model.reference_tensors().items():
+        p = p.detach()
+        ulp = float(np.spacing(np.float32(float(p.abs().max()))))
+        far = max(far, float((scope.find_var(n) - p).abs().max()) - 2 * ulp)
+    # that bound holds whatever the gradients; the moments hold them:
+    # after one step the first is (1 - beta1) g and the second (1 -
+    # beta2) g^2, each leaf's largest difference over its largest
+    # magnitude within PROGRAM_LM_GRAD_RTOL (the second, squared, twice)
+    moment_err = {"moment1": 0.0, "moment2": 0.0}
+    bitwise = 0
+    for n, a in accs.items():
+        kind = n.rsplit("_", 3)[-3]
+        if kind not in moment_err:
+            continue
+        got = scope.find_var(n)
+        bitwise += torch.equal(got, a)
+        moment_err[kind] = max(moment_err[kind], float(
+            (got - a).abs().max()) / max(float(a.abs().max()), 1e-30))
+    del model, accs
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts = dict(collections.Counter(
+        op.type for op in main.global_block().ops).most_common())
+    print("[program-lm-train] LM program as bench.py builds it: %d ops %s; "
+          "%d parameters; built in %.2f s, startup on the card %.2f s (seed "
+          "%d), first step %.2f s" % (len(main.global_block().ops), counts,
+                                      nparam, build_s, init_s, seed,
+                                      first_s))
+    print("[program-lm-train] one step from the startup weights: loss "
+          "executor %.6f, nn.Module %.6f (rel err %.3g, tol %g); parameters "
+          "max %.4f lr apart, less two roundings (tol 2 lr); Adam moments "
+          "worst leaf rel err %s (tol %g, moment2 %g), %d of %d moments "
+          "bitwise" % (first, mod_loss, loss_err, PROGRAM_LM_LOSS_RTOL,
+                       far / lr, moment_err, PROGRAM_LM_GRAD_RTOL,
+                       2 * PROGRAM_LM_GRAD_RTOL, bitwise,
+                       2 * len(main.all_parameters())))
+    check(loss_err <= PROGRAM_LM_LOSS_RTOL and far <= 2 * lr,
+          "the LM program and the nn.Module route disagree on one step")
+    check(moment_err["moment1"] <= PROGRAM_LM_GRAD_RTOL and
+          moment_err["moment2"] <= 2 * PROGRAM_LM_GRAD_RTOL,
+          "the LM program's gradients differ from the nn.Module route's: "
+          "%s" % moment_err)
+    torch.cuda.reset_peak_memory_stats()
+    losses = [first]
+    with amp_flag("bfloat16"):
+        for _ in range(LM_WARMUP - 1):
+            outs = exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
+                           return_numpy=False)
+            losses.append(float(outs[0]))
+        reset_launches()
+        window_ms = []
+        for _ in range(LM_WINDOWS):
+            t0 = time.perf_counter()
+            for _ in range(LM_WINDOW_STEPS):
+                outs = exe.run(main, feed=feed, fetch_list=[loss],
+                               scope=scope, return_numpy=False)
+            losses.append(float(outs[0]))     # the read closes the window
+            window_ms.append((time.perf_counter() - t0) * 1e3
+                             / LM_WINDOW_STEPS)
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    steps = LM_WINDOWS * LM_WINDOW_STEPS
+    med = sorted(window_ms)[len(window_ms) // 2]
+    tok_s = b * t / med * 1e3
+    fpt = 6.0 * nparam + 6.0 * FULL["num_layers"] * t * FULL["d_model"]
+    mfu = tok_s * fpt / BF16_FLOPS
+    print("[program-lm-train] amp bfloat16, batch %d x T %d, Adam(%g): %d "
+          "windows of %d Executor.run: median %.2f ms a step, %.1f tokens/s, "
+          "MFU %.4f of %.0f TFLOP/s bf16 (%.4g FLOP a token = 6N + 6LTd); "
+          "beside [lm-train]'s nn.Module step %.2f ms of this run: the "
+          "executor costs %.2f ms a step; windows ms %s"
+          % (b, t, lr, LM_WINDOWS, LM_WINDOW_STEPS, med, tok_s, mfu,
+             BF16_FLOPS / 1e12, fpt, module_stats["step_ms"],
+             med - module_stats["step_ms"], [round(w, 2) for w in window_ms]))
+    print("[program-lm-train] peak memory allocated %.2f GB ([lm-train] %.2f "
+          "GB, %+.1f%%); losses (warm-up, then each window's last) %s; "
+          "launches in the windows %s (%d bf16 B2 a step)"
+          % (peak / 1e9, module_stats["peak_bytes"] / 1e9,
+             100 * (peak / module_stats["peak_bytes"] - 1),
+             [round(x, 4) for x in losses],
+             {k: v for k, v in launches.items() if v},
+             launches["flash_attention bf16"] // steps))
+    per_step = FULL["num_layers"] * steps
+    check(np.isfinite(losses).all() and losses[-1] < losses[0],
+          "the LM program's losses do not fall: %s" % losses)
+    check(launches["flash_attention bf16"] == per_step
+          and launches["flash_attention"] == per_step,
+          "B2 bf16 launches %d != %d layers x %d steps"
+          % (launches["flash_attention bf16"], FULL["num_layers"], steps))
+    check(all(v == 0 for k, v in launches.items()
+              if not k.startswith("flash_attention")) and
+          launches["flash_attention_tile"] == 0,
+          "the LM program launched another kernel: %s" % launches)
+    check(abs(peak / module_stats["peak_bytes"] - 1) <= PROGRAM_LM_PEAK,
+          "the LM program's peak memory %.2f GB is not within %d%% of "
+          "[lm-train]'s %.2f GB" % (peak / 1e9, 100 * PROGRAM_LM_PEAK,
+                                    module_stats["peak_bytes"] / 1e9))
+    with amp_flag("bfloat16"):
+        profile_step("[program-lm-train] one Executor.run",
+                     lambda: exe.run(main, feed=feed, fetch_list=[loss],
+                                     scope=scope, return_numpy=False),
+                     "B2 bf16", ("flash_fwd_bf16_kernel",), top=12)
+    del scope
+    return dict(step_ms=med, tokens_per_s=tok_s, mfu=mfu, peak_bytes=peak,
+                launches=launches)
+
+
+def phase_program_lm_int8(seed):
+    """The LM's forward program (is_test) at FULL's widths, batch 1 x T
+    PROGRAM_INT8_T, from its startup program's weights on the card, run
+    float32, then armed by ``arm_quant_compute([program], scope)``: the
+    73 armed names are lm_mul_weight_names(12), B3 launches 73 a run, and
+    the logits equal the nn.Module int8 route's on the same int8 weights
+    and tokens within LM_INT8_STEPS head quantization steps. Returns B3's
+    launches in one armed run by (m, k, n), as its wrapper counted them:
+    4 a layer at (T, d, d), 1 at (T, d, d_ff) and at (T, d_ff, d), and
+    the head at (T, d, vocab)."""
+    import torch
+    from paddle_tpu_torch import core
+    from paddle_tpu_torch.io import params_from_jax
+    from paddle_tpu_torch.models.transformer import (TransformerLM,
+                                                     lm_mul_weight_names)
+    from paddle_tpu_torch.serving.quant import arm_quant_compute
+    torch.cuda.empty_cache()
+    cfg = {k: v for k, v in FULL.items() if k != "max_len"}
+    t = PROGRAM_INT8_T
+    main, startup, _, logits = lm_program(cfg, t, is_test=True)
+    startup.random_seed = seed
+    exe, scope = core.Executor(device="cuda"), core.Scope()
+    exe.run(startup, scope=scope)
+    feed = lm_feed(1, t, cfg["vocab_size"], "cuda")
+
+    def timed():
+        ms = []
+        for _ in range(PROGRAM_INT8_RUNS):
+            t0 = time.perf_counter()
+            out = exe.run(main, feed=feed, fetch_list=[logits], scope=scope,
+                          return_numpy=False)[0]
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return sorted(ms)[len(ms) // 2], out
+
+    uncounted(lambda: exe.run(main, feed=feed, fetch_list=[logits],
+                              scope=scope))
+    f32_ms, _ = uncounted(timed)
+    t0 = time.perf_counter()
+    armed = arm_quant_compute([main], scope)
+    arm_s = time.perf_counter() - t0
+    want = sorted(lm_mul_weight_names(cfg["num_layers"]))
+    reset_launches()
+    out = exe.run(main, feed=feed, fetch_list=[logits], scope=scope,
+                  return_numpy=False)[0]
+    launches = read_launches()
+    by_shape = read_int8_shapes()
+    int8_ms, _ = uncounted(timed)
+    model = TransformerLM(max_len=t, device="cuda", **cfg)
+    model.load_params(params_from_jax(
+        {n: v.cpu().numpy() for n, v in scope.items()}, device="cuda"))
+    with torch.no_grad():
+        mod = uncounted(lambda: model(feed["toks"].long()))
+    amax = (cfg["d_model"] - 1) ** 0.5 * float(model.ln_f_w.abs().max()) \
+        + float(model.ln_f_b.abs().max())
+    tol = LM_INT8_STEPS * amax * float(model.lm_head_scale.max())
+    diff = float((out - mod).abs().max())
+    print("[program-lm-int8] LM forward program, batch 1 x T %d, armed by "
+          "arm_quant_compute([program], scope) in %.2f s: %d names (the "
+          "nn.Module route's lm_mul_weight_names: %s); one armed run launched "
+          "%s, B3 by (m, k, n) %s; median of %d runs %.2f ms armed, %.2f "
+          "ms float32; logits "
+          "against the nn.Module int8 route on the same int8 weights: max "
+          "abs diff %.3g (tol %.3g = %d head quantization steps), bitwise "
+          "%s" % (t, arm_s, len(armed), armed == want,
+                  {k: v for k, v in launches.items() if v}, by_shape,
+                  PROGRAM_INT8_RUNS, int8_ms, f32_ms, diff, tol,
+                  LM_INT8_STEPS, torch.equal(out, mod)))
+    per_run = len(want)
+    check(armed == want and len(armed) == 6 * cfg["num_layers"] + 1,
+          "armed names differ from lm_mul_weight_names")
+    d, f, L = cfg["d_model"], cfg["d_ff"], cfg["num_layers"]
+    want_shapes = {(t, d, d): 4 * L, (t, d, f): L, (t, f, d): L,
+                   (t, d, cfg["vocab_size"]): 1}
+    check(launches["int8_matmul"] == per_run,
+          "B3 launches %d != %d a run" % (launches["int8_matmul"], per_run))
+    check(by_shape == want_shapes,
+          "B3 launches by shape %s != %s" % (by_shape, want_shapes))
+    check(launches["flash_attention"] == cfg["num_layers"] and
+          all(v == 0 for k, v in launches.items()
+              if k not in ("int8_matmul", "flash_attention")),
+          "the armed program launched %s" % launches)
+    check(diff <= tol and bool(torch.isfinite(out).all()),
+          "armed program logits vs the nn.Module int8 route")
+    del model, scope
+    return by_shape
+
+
 def phase_time_flash_bf16(lm_launches, err, sweep):
     """B2 bf16 at the path's shape: its time between CUDA events over
     queued calls and from the profiler, launches a step, the bound, and
@@ -3899,6 +4389,8 @@ def main(argv=None):
         phase_small_resnet(rng)
         phase_small_resnet_amp(np.random.default_rng(args.seed + 2))
         phase_small_program(args.seed)
+        phase_small_program_int8(args.seed)
+        phase_small_program_lm(args.seed)
         # the LM training phases draw from their own stream, so the
         # serving phases see the inputs they saw before these existed
         lm_rng = np.random.default_rng(args.seed + 1)
@@ -3974,7 +4466,8 @@ def main(argv=None):
             p.close()
         del pol
         rows = phase_time(rng, launches, errs, final, paged_final,
-                          quant_launches, b4_bf16_launches)
+                          quant_launches, b4_bf16_launches,
+                          np.random.default_rng(args.seed + 8))
         paged.close()
         quant.close()
         print("[memory] peak allocated %.2f GB (serving phases)"
@@ -4001,14 +4494,34 @@ def main(argv=None):
         torch.cuda.empty_cache()
         # ResNet-50 has left the card: the LM's training step, amp bf16
         with amp_flag("bfloat16"):
-            model, opt, tokens, lm_launches, _ = phase_lm_train(args.seed,
-                                                                  lm_rng)
+            model, opt, tokens, lm_launches, lm_stats = phase_lm_train(
+                args.seed, lm_rng)
             phase_profile_lm_train(model, opt, tokens)
         del model, opt, tokens
         gc.collect()
         torch.cuda.empty_cache()
+        # the LM through the program path, as bench.py runs it
+        prog_lm = phase_program_lm_train(args.seed, lm_stats)
+        gc.collect()
+        torch.cuda.empty_cache()
+        int8_shapes = phase_program_lm_int8(args.seed)
+        gc.collect()
+        torch.cuda.empty_cache()
         rows += phase_time_flash_bf16(lm_launches,
                                       errs["flash_attention bf16"], sweep)
+        for row in rows:
+            if row["name"] == "flash_attention" and \
+                    row.get("dtype") == "bfloat16":
+                row.update(program_launches=prog_lm["launches"][
+                    "flash_attention bf16"],
+                    program_launches_in="[program-lm-train]")
+            elif row["name"] == "int8_matmul" and \
+                    row["shape"][0] == PROGRAM_INT8_T:
+                # the armed run's launches of this shape, as B3's wrapper
+                # counted them
+                row.update(program_launches=int8_shapes.get(
+                    tuple(row["shape"]), 0),
+                    program_launches_in="[program-lm-int8], one run")
     except SmokeFailure as exc:
         print("FAIL: %s" % exc, file=sys.stderr)
         return 1

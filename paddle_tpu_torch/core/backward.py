@@ -124,8 +124,15 @@ def append_backward(loss, parameter_list=None, no_grad_set=None):
         return entry["final"]
 
     # The reference's sparse (SelectedRows) gradients of is_sparse and
-    # distributed embedding tables are not ported: their lookup ops are
-    # not registered here, so such a program fails when it is built.
+    # distributed embedding tables are not ported: a distributed table's
+    # lookup op is not registered here, and an is_sparse lookup_table
+    # (whose gradient would come out dense) is refused.
+    for op in block.ops:
+        if op.type == "lookup_table" and op.attrs.get("is_sparse"):
+            raise NotImplementedError(
+                "the sparse gradient of an is_sparse lookup_table is not "
+                "ported yet: ROADMAP Queue A, \"Distribution and the input "
+                "pipeline\"")
 
     # Seed: d loss / d loss = ones.
     seed = add_contrib(loss.name)

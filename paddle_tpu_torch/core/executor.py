@@ -24,6 +24,14 @@ reference gets from XLA, this executor does by hand:
   op whose output names its input (``momentum``'s ``ParamOut``) writes
   into the scope's tensor in place, the reference's donated buffer,
   unless ``nonfinite_guard`` needs the old value.
+* int8 compute: a program armed by ``serving/quant.py``
+  ``arm_quant_compute(programs, scope)`` carries its tag in
+  ``program._quant_compute``, read at each run as the reference reads
+  it; an armed ``mul``, ``matmul`` or ``conv2d`` that is not
+  differentiated runs on its int8 weight and the weight's scales
+  (``<name>@quant.scale``, read from the scope beside the block's
+  state) through ``ops/quant_ops.maybe_quant_compute``: kernel B3 for
+  the products on the card.
 
 Not ported: the narrow-wire ingest prologue, the compile cache and AOT
 (``lower``, ``cache_digest``, ``prime_aot``), ``as_jax_function`` and
@@ -43,7 +51,7 @@ from .framework import (Program, Variable, default_main_program,
 from .scope import global_scope
 from .. import config as _config
 from ..amp import amp_cast, amp_dtype
-from ..ops import random_ops
+from ..ops import quant_ops, random_ops
 from ..place import resolve_device
 
 EMPTY_VAR = "@EMPTY@"
@@ -51,9 +59,13 @@ EMPTY_VAR = "@EMPTY@"
 __all__ = ["Executor", "EMPTY_VAR", "run_block"]
 
 
+# the ROADMAP Queue A items that bring what this executor refuses
+_INGEST = 'ROADMAP Queue A, "Ingest, the compile cache and AOT"'
+_DISTRIBUTION = 'ROADMAP Queue A, "Distribution and the input pipeline"'
+
+
 def _not_ported(what, item):
-    raise NotImplementedError(
-        "%s is not ported yet: ROADMAP Queue A, \"%s\"" % (what, item))
+    raise NotImplementedError("%s is not ported yet: %s" % (what, item))
 
 
 def _lookup(env, name, op, block):
@@ -86,11 +98,16 @@ class _TraceState:
     mode instead. ``drops`` maps an op index to the names that leave the
     environment after it. ``nan_guards`` collects per-op finiteness
     predicates under ``check_nan_inf``. ``device`` is where ops without
-    inputs (``fill_constant``) put their outputs."""
+    inputs (``fill_constant``) put their outputs. ``quant`` is an armed
+    program's tag (None otherwise) and ``quant_seen`` the armed ops
+    already counted."""
 
     def __init__(self, needs_vjp=None, nan_guards=None, amp=None,
-                 inplace=False, autograd=False, drops=None, device=None):
+                 inplace=False, autograd=False, drops=None, device=None,
+                 quant=None, quant_seen=None):
         self.device = device
+        self.quant = quant
+        self.quant_seen = quant_seen if quant_seen is not None else set()
         self.anchor = torch.zeros((), requires_grad=True)
         self.vjp_cache = {}
         self.needs_vjp = needs_vjp or {}
@@ -143,7 +160,16 @@ def _execute_forward_op(op, env, block, trace):
         mode = contextlib.nullcontext() if trace.autograd \
             else torch.no_grad()
         with mode:
-            result = _compute(opdef, op, values, rng_key, block, trace)
+            result = None
+            if trace.quant is not None and \
+                    op.type in quant_ops.QUANT_COMPUTE_TYPES:
+                # before the amp cast, as the reference routes it
+                result = quant_ops.maybe_quant_compute(op, values, env,
+                                                       trace)
+            if result is None:
+                result = _compute(opdef, op, values, rng_key, block, trace)
+            else:
+                result = registry.normalize_outputs(op, result)
         _write_outputs(op, env, result)
         return
 
@@ -159,11 +185,16 @@ def _execute_forward_op(op, env, block, trace):
             else:
                 inputs.append(None)
         result = _compute(opdef, op, values, rng_key, block, trace)
+    # an output no gradient reaches (its OutGrads entry is empty) keeps
+    # no edge: the edge would hold its node, and what the node saved, to
+    # the gradient (softmax_with_cross_entropy's Softmax: the exp node
+    # and its [N, V] result)
+    has_grad = [n != EMPTY_VAR for n in vjp_op.inputs.get("OutGrads", [])]
     roots = []
-    for slot, i in registry.flat_output_slots(op):
+    for (slot, i), grad in zip(registry.flat_output_slots(op), has_grad):
         vals = result.get(slot, [])
         val = vals[i] if i < len(vals) else None
-        roots.append(_grad_root(val))
+        roots.append(_grad_root(val) if grad else None)
         names = op.outputs.get(slot, [])
         if i < len(names) and val is not None and names[i] != EMPTY_VAR:
             env[names[i]] = val.detach()
@@ -274,13 +305,19 @@ def _block_io(block):
 
 
 class _Plan:
-    """What a run of one program version with one fetch list needs: the
-    block's persistable reads and writes, its RNG need, the forward ops
-    that a ``vjp_grad`` op differentiates, and after which op each
-    temporary is read for the last time."""
+    """What a run of one program version with one fetch list (and int8
+    tag) needs: the block's persistable reads and writes (with an armed
+    program's scale sidecars, which are not block variables), its RNG
+    need, the forward ops that a ``vjp_grad`` op differentiates, and
+    after which op each temporary is read for the last time; and the
+    armed ops counted so far."""
 
-    def __init__(self, block, fetch_names):
+    def __init__(self, block, fetch_names, quant=None):
         self.read, self.written, self.needs_rng = _block_io(block)
+        if quant:
+            self.read.update(quant_ops.scale_var_name(n)
+                             for n in quant["vars"])
+        self.quant_seen = set()
         if self.needs_rng:
             self.written.add(RNG_STATE_VAR)
         self.needs_vjp = {id(op.attrs["fwd_op"]): op for op in block.ops
@@ -313,8 +350,7 @@ class Executor:
 
     def __init__(self, place=None, strategy=None, device=None):
         if strategy is not None:
-            _not_ported("A distribution strategy",
-                        "Distribution and the input pipeline")
+            _not_ported("A distribution strategy", _DISTRIBUTION)
         self.device = resolve_device(device if device is not None
                                      else place)
         self._cache = {}
@@ -327,19 +363,16 @@ class Executor:
         return {"entries": len(self._cache), "compiles": self._compiles}
 
     def lower(self, *args, **kwargs):
-        _not_ported("Executor.lower (AOT lowering)",
-                    "Resilience, deploy, observability")
+        _not_ported("Executor.lower (AOT lowering)", _INGEST)
 
     def cache_digest(self, *args, **kwargs):
-        _not_ported("The persistent compile cache",
-                    "Resilience, deploy, observability")
+        _not_ported("The persistent compile cache", _INGEST)
 
     def prime_aot(self, *args, **kwargs):
-        _not_ported("AOT executables", "Resilience, deploy, observability")
+        _not_ported("AOT executables", _INGEST)
 
     def as_jax_function(self, *args, **kwargs):
-        _not_ported("Exporting a program as a function",
-                    "Resilience, deploy, observability")
+        _not_ported("Exporting a program as a function", _INGEST)
 
     def _tensor(self, value, dtype=None):
         if isinstance(value, torch.Tensor):
@@ -366,8 +399,7 @@ class Executor:
                             % (program,))
         feed = {} if feed is None else feed
         if not isinstance(feed, dict):
-            _not_ported("A packed feed (the ingest prologue)",
-                        "Distribution and the input pipeline")
+            _not_ported("A packed feed (the ingest prologue)", _INGEST)
         fetch_list = fetch_list or []
         scope = scope or global_scope()
         block = program.global_block()
@@ -377,12 +409,15 @@ class Executor:
         check_nan_inf = bool(_config.get_flag("check_nan_inf"))
         nonfinite_guard = bool(_config.get_flag("nonfinite_guard"))
         amp = amp_dtype(_config.get_flag("amp"))
+        # an armed program carries its int8 tag (serving/quant.py)
+        quant = getattr(program, "_quant_compute", None)
 
-        key = (program._uid, program._version, tuple(fetch_names))
+        key = (program._uid, program._version, tuple(fetch_names),
+               quant["key"] if quant else None)
         plan = self._cache.get(key)
         if plan is None:
             self._compiles += 1
-            plan = self._cache[key] = _Plan(block, fetch_names)
+            plan = self._cache[key] = _Plan(block, fetch_names, quant)
 
         state_rw, env = {}, {}
         for n in plan.written:
@@ -408,7 +443,8 @@ class Executor:
                             nan_guards={} if check_nan_inf else None,
                             amp=amp,
                             inplace=bool(donate_state) and not nonfinite_guard,
-                            drops=plan.drops, device=self.device)
+                            drops=plan.drops, device=self.device,
+                            quant=quant, quant_seen=plan.quant_seen)
         run_block(block, env, trace)
         new_state = {n: env[n] for n in plan.written if n in env}
         fetches = [_lookup(env, n, None, block) for n in fetch_names]

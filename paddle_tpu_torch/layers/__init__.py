@@ -1,19 +1,20 @@
 """Layers of the port.
 
 The program front end, a flat namespace like the reference's
-``paddle_tpu.layers`` (``io``, ``nn``, ``tensor``, ``ops``,
+``paddle_tpu.layers`` (``io``, ``nn``, ``tensor``, ``ops``, ``sequence``,
 ``control_flow``): each function appends ops to the current program.
-Beside it, ``attention`` and ``conv`` hold the ``nn.Module`` layers of
-the LM and the ResNet.
+Beside it, ``attention`` holds the LM's layers (program forms and
+``nn.Module``s) and ``conv`` the ResNet's ``nn.Module`` layers.
 """
 
 from .io import *        # noqa: F401,F403
 from .nn import *        # noqa: F401,F403
 from .tensor import *    # noqa: F401,F403
 from .ops import *       # noqa: F401,F403
+from .sequence import *  # noqa: F401,F403
 from .control_flow import *  # noqa: F401,F403
 
-from . import io, nn, tensor, ops, control_flow  # noqa: F401
+from . import io, nn, tensor, ops, sequence, control_flow  # noqa: F401
 
 __all__ = (io.__all__ + nn.__all__ + tensor.__all__ + ops.__all__ +
-           control_flow.__all__)
+           sequence.__all__ + control_flow.__all__)

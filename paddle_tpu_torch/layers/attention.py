@@ -1,22 +1,37 @@
-"""Transformer layers, as ``nn.Module``s (reference
-``paddle_tpu/layers/attention.py``: ``multi_head_attention``,
+"""Transformer layers (reference ``paddle_tpu/layers/attention.py``), in
+two forms.
+
+Program forms, which append ops to the current program as the
+reference's do, with its parameter names (``mha_N.qkv_{q,k,v}.w``,
+``mha_N.o.w``, ``enc_N.ffn{1,2}.{w,b}``, the layer norms' and the
+position table's unique names): :func:`multi_head_attention`,
+:func:`transformer_encoder_layer` (uncached) and
+:func:`positional_encoding`. The cached generation programs
+(``multi_head_attention_cached``, ``positional_encoding_window``, the
+``kv_cache_*`` ops) are not ported: ``cache=`` raises, and the port
+serves through the ``nn.Module``s below.
+
+``nn.Module`` forms, for the ``multi_head_attention``,
 ``multi_head_attention_cached`` dense and paged branches,
 ``transformer_encoder_layer``, ``positional_encoding`` and
-``positional_encoding_window``). One module holds one set of parameters
-for the uncached (training) attention and the cached (serving) ones, as
-the reference's layers share parameter names, so trained weights serve
-unchanged. Weights keep the reference's [in, out] layout; the models'
-loaders map the reference's parameter names onto these modules. A weight
-consumed only by ``mul`` (the projections and the FFN) may be int8,
-armed for int8 compute: its f32 [out] scales are the buffer
-``<weight>_scale`` beside it, None while it is float32. ``amp`` (a dtype,
-or None) is the mixed-precision dtype of the ``mul`` products
-(``amp.py``): an argument of each call, never stored, so a model follows
-the flag as its caller reads it."""
+``positional_encoding_window`` computations. One module holds one set of
+parameters for the uncached (training) attention and the cached
+(serving) ones, as the reference's layers share parameter names, so
+trained weights serve unchanged. Weights keep the reference's [in, out]
+layout; the models' loaders map the reference's parameter names onto
+these modules. A weight consumed only by ``mul`` (the projections and
+the FFN) may be int8, armed for int8 compute: its f32 [out] scales are
+the buffer ``<weight>_scale`` beside it, None while it is float32.
+``amp`` (a dtype, or None) is the mixed-precision dtype of the ``mul``
+products (``amp.py``): an argument of each call, never stored, so a
+model follows the flag as its caller reads it."""
 
 import torch
 from torch import nn
 
+from ..core import unique_name
+from ..initializer import NormalInitializer
+from ..layer_helper import LayerHelper
 from ..ops.attention_ops import multihead_attention
 from ..ops.generation_ops import (kv_cache_append, kv_cache_write_rows,
                                   kv_cache_write_slot,
@@ -24,9 +39,89 @@ from ..ops.generation_ops import (kv_cache_append, kv_cache_write_rows,
                                   multihead_attention_decode_paged,
                                   multihead_attention_prefill_paged)
 from ..ops.nn_ops import fc, gather, gelu, layer_norm, mul
+from . import nn as _nn
 
-__all__ = ["MultiHeadAttention", "TransformerEncoderLayer",
-           "PositionalEncodingWindow"]
+__all__ = ["multi_head_attention", "transformer_encoder_layer",
+           "positional_encoding", "MultiHeadAttention",
+           "TransformerEncoderLayer", "PositionalEncodingWindow"]
+
+def multi_head_attention(queries, keys, values, d_model, num_heads,
+                         causal=False, key_length=None, ring_axis=None,
+                         param_attr=None, name=None, **kwargs):
+    """Full MHA with input/output projections (program form).
+    queries/keys/values: [B, T, D]; ``key_length`` [B] masks padded
+    keys. ``ring_axis`` is kept in the op's attributes; the op raises on
+    it (ring attention is not ported)."""
+    helper = LayerHelper("multi_head_attention", name=name, **kwargs)
+    prefix = name or unique_name.generate("mha")
+
+    def attr(suffix):
+        return param_attr if param_attr is not None else \
+            "%s.%s.w" % (prefix, suffix)
+    q = _nn.fc(queries, d_model, num_flatten_dims=2, bias_attr=False,
+               param_attr=attr("qkv_q"), **kwargs)
+    k = _nn.fc(keys, d_model, num_flatten_dims=2, bias_attr=False,
+               param_attr=attr("qkv_k"), **kwargs)
+    v = _nn.fc(values, d_model, num_flatten_dims=2, bias_attr=False,
+               param_attr=attr("qkv_v"), **kwargs)
+    inputs = {"Q": [q.name], "K": [k.name], "V": [v.name]}
+    if key_length is not None:
+        inputs["KeyLength"] = [key_length.name]
+    ctx_out = helper.create_tmp_variable(queries.dtype)
+    helper.append_op(type="multihead_attention", inputs=inputs,
+                     outputs={"Out": [ctx_out.name]},
+                     attrs={"num_heads": num_heads, "causal": causal,
+                            "ring_axis": ring_axis})
+    return _nn.fc(ctx_out, d_model, num_flatten_dims=2, bias_attr=False,
+                  param_attr=attr("o"), **kwargs)
+
+
+def transformer_encoder_layer(x, d_model, num_heads, d_ff, causal=False,
+                              key_length=None, ring_axis=None,
+                              dropout_prob=0.0, is_test=False, name=None,
+                              cache=None, **kwargs):
+    """Pre-norm transformer block (program form): x + MHA(LN(x)); x +
+    FFN(LN(x)), FFN = fc + gelu, fc; dropout after the attention and
+    after the FFN when ``dropout_prob``. ``cache`` (the KV-cached
+    variant) raises."""
+    if cache is not None:
+        raise NotImplementedError(
+            "KV-cached generation programs (cache=) are not ported yet: "
+            "ROADMAP Queue A, \"Ingest, the compile cache and AOT\"; the "
+            "port serves through models.transformer.transformer_lm_session")
+    ln1 = _nn.layer_norm(x, begin_norm_axis=2, **kwargs)
+    att = multi_head_attention(ln1, ln1, ln1, d_model, num_heads,
+                               causal=causal, key_length=key_length,
+                               ring_axis=ring_axis, **kwargs)
+    if dropout_prob:
+        att = _nn.dropout(att, dropout_prob, is_test=is_test, **kwargs)
+    x = _nn.elementwise_add(x, att, **kwargs)
+    ln2 = _nn.layer_norm(x, begin_norm_axis=2, **kwargs)
+    prefix = name or unique_name.generate("enc")
+    ff = _nn.fc(ln2, d_ff, num_flatten_dims=2, act="gelu",
+                param_attr="%s.ffn1.w" % prefix,
+                bias_attr="%s.ffn1.b" % prefix, **kwargs)
+    ff = _nn.fc(ff, d_model, num_flatten_dims=2,
+                param_attr="%s.ffn2.w" % prefix,
+                bias_attr="%s.ffn2.b" % prefix, **kwargs)
+    if dropout_prob:
+        ff = _nn.dropout(ff, dropout_prob, is_test=is_test, **kwargs)
+    return _nn.elementwise_add(x, ff, **kwargs)
+
+
+def positional_encoding(x, max_len=None, name=None, **kwargs):
+    """Learned positional embedding added to [B, T, D] input (program
+    form): a [T, D] table initialized normal(0, 0.02)."""
+    helper = LayerHelper("pos_encoding", name=name, **kwargs)
+    t, d = x.shape[1], x.shape[2]
+    pos = helper.create_parameter(
+        None, shape=[t, d], dtype=x.dtype,
+        default_initializer=NormalInitializer(0.0, 0.02))
+    out = helper.create_tmp_variable(x.dtype)
+    helper.append_op(type="elementwise_add",
+                     inputs={"X": [x.name], "Y": [pos.name]},
+                     outputs={"Out": [out.name]}, attrs={"axis": 1})
+    return out
 
 
 def _weight(*shape, device):
@@ -157,18 +252,21 @@ class TransformerEncoderLayer(nn.Module):
     mixed-precision dtype of this call's ``mul`` products; the cached
     modes run without it.
 
-    The reference's ``dropout_prob`` > 0 and ``ring_axis`` are not ported
-    and raise NotImplementedError."""
+    ``dropout_prob`` > 0 raises NotImplementedError here: dropout runs
+    on the program route, where each mask comes from its op's key; and
+    ``ring_axis`` raises (not ported)."""
 
     def __init__(self, d_model, num_heads, d_ff, device=None,
                  dropout_prob=0.0, ring_axis=None):
         super().__init__()
         if dropout_prob:
             raise NotImplementedError(
-                "dropout_prob > 0 is not ported: dropout's mask is drawn "
-                "under the executor's per-op key split, which is not "
-                "ported yet (ROADMAP Queue A, \"IR, registry, "
-                "serialization, executor and backward\")")
+                "dropout_prob > 0 runs on the program route, not on this "
+                "nn.Module: each dropout op draws its mask from the key "
+                "that the executor's per-op key split takes from the "
+                "scope's @RNG_STATE@, which a module has none of; build "
+                "the program with models.transformer.transformer_lm given "
+                "Variables and run it with core.Executor")
         if ring_axis:
             raise NotImplementedError(
                 "ring_axis (ring attention over a mesh) is not ported: "

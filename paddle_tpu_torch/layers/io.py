@@ -16,7 +16,7 @@ def data(name, shape, dtype="float32", append_batch_size=True,
     if any(v is not None for v in (wire_dtype, scale, mean, std)):
         raise NotImplementedError(
             "narrow-wire feeds are not ported yet: ROADMAP Queue A, "
-            "\"Distribution and the input pipeline\"")
+            "\"Ingest, the compile cache and AOT\"")
     program = main_program or default_main_program()
     shape = list(shape)
     if append_batch_size:

@@ -1,8 +1,9 @@
 """Core NN layers of the program front end (reference
-``paddle_tpu/layers/nn.py``): the ones ResNet programs use, ``fc``,
-``conv2d``, ``pool2d``, ``batch_norm``, ``fused_conv_bn``,
-``softmax_with_cross_entropy``, ``accuracy``, ``mean`` and
-``elementwise_add``.
+``paddle_tpu/layers/nn.py``): the ones ResNet and transformer LM
+programs use, ``fc``, ``embedding``, ``conv2d``, ``pool2d``,
+``batch_norm``, ``fused_conv_bn``, ``layer_norm``, ``dropout``,
+``softmax_with_cross_entropy``, ``accuracy``, ``matmul``, ``mul``,
+``reduce_sum``, ``mean`` and ``elementwise_add``, ``_mul`` and ``_div``.
 
 Each layer appends ops to the current program; output shapes and dtypes
 are inferred by running the op's torch compute on meta tensors
@@ -16,9 +17,11 @@ from ..layer_helper import LayerHelper
 from ..param_attr import ParamAttr
 from ..initializer import ConstantInitializer, NormalInitializer
 
-__all__ = ["fc", "conv2d", "pool2d", "batch_norm", "fused_conv_bn",
-           "softmax_with_cross_entropy", "accuracy", "mean",
-           "elementwise_add"]
+__all__ = ["fc", "embedding", "conv2d", "pool2d", "batch_norm",
+           "fused_conv_bn", "layer_norm", "dropout",
+           "softmax_with_cross_entropy", "accuracy", "matmul", "mul",
+           "reduce_sum", "mean", "elementwise_add", "elementwise_mul",
+           "elementwise_div"]
 
 
 def _single(helper, op_type, inputs, attrs=None, out_slot="Out", dtype=None,
@@ -64,6 +67,32 @@ def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
                                     if bias_attr is not None else
                                     ParamAttr(), dim_start=num_flatten_dims)
     return helper.append_activation(pre_act)
+
+
+def embedding(input, size, is_sparse=False, padding_idx=None,
+              param_attr=None, dtype="float32", name=None,
+              keep_dims=False, is_distributed=False, **kwargs):
+    """Embedding lookup (reference lookup_table_op): a [vocab, dim] table
+    initialized normal(0, 1/sqrt(dim)), its gradient a dense scatter-add.
+    The reference's sharded table (``is_distributed``) is not ported and
+    raises; an ``is_sparse`` table builds, and ``append_backward`` refuses
+    its sparse gradient."""
+    if is_distributed:
+        raise NotImplementedError(
+            "a distributed embedding table is not ported yet: ROADMAP "
+            "Queue A, \"Distribution and the input pipeline\"")
+    helper = LayerHelper("embedding", name=name, **kwargs)
+    w = helper.create_parameter(param_attr, shape=list(size), dtype=dtype,
+                                default_initializer=NormalInitializer(
+                                    0.0, 1.0 / np.sqrt(size[1])))
+    out = helper.create_tmp_variable(dtype)
+    helper.append_op(type="lookup_table",
+                     inputs={"W": [w.name], "Ids": [input.name]},
+                     outputs={"Out": [out.name]},
+                     attrs={"padding_idx": padding_idx,
+                            "is_sparse": bool(is_sparse),
+                            "keep_dims": bool(keep_dims)})
+    return out
 
 
 def conv2d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
@@ -220,6 +249,43 @@ def fused_conv_bn(input, num_filters, filter_size, stride=1, padding=0,
     return helper.append_activation(out)
 
 
+def layer_norm(input, scale=True, shift=True, begin_norm_axis=1,
+               epsilon=1e-5, param_attr=None, bias_attr=None, act=None,
+               name=None, **kwargs):
+    helper = LayerHelper("layer_norm", act=act, name=name, **kwargs)
+    norm_shape = list(input.shape[begin_norm_axis:])
+    inputs = {"X": [input.name]}
+    if scale:
+        s = helper.create_parameter(
+            param_attr, shape=norm_shape, dtype=input.dtype,
+            default_initializer=ConstantInitializer(1.0))
+        inputs["Scale"] = [s.name]
+    if shift:
+        b = helper.create_parameter(bias_attr, shape=norm_shape,
+                                    dtype=input.dtype, is_bias=True)
+        inputs["Bias"] = [b.name]
+    out = helper.create_tmp_variable(input.dtype)
+    mean = helper.create_tmp_variable(input.dtype, stop_gradient=True)
+    var = helper.create_tmp_variable(input.dtype, stop_gradient=True)
+    helper.append_op(type="layer_norm", inputs=inputs,
+                     outputs={"Y": [out.name], "Mean": [mean.name],
+                              "Variance": [var.name]},
+                     attrs={"epsilon": epsilon,
+                            "begin_norm_axis": begin_norm_axis})
+    return helper.append_activation(out)
+
+
+def dropout(x, dropout_prob=0.5, is_test=False, name=None, **kwargs):
+    helper = LayerHelper("dropout", name=name, **kwargs)
+    out = helper.create_tmp_variable(x.dtype)
+    mask = helper.create_tmp_variable(x.dtype, stop_gradient=True)
+    helper.append_op(type="dropout", inputs={"X": [x.name]},
+                     outputs={"Out": [out.name], "Mask": [mask.name]},
+                     attrs={"dropout_prob": dropout_prob,
+                            "is_test": is_test})
+    return out
+
+
 def softmax_with_cross_entropy(logits, label, soft_label=False, name=None,
                                **kwargs):
     helper = LayerHelper("softmax_with_cross_entropy", name=name, **kwargs)
@@ -256,6 +322,28 @@ def accuracy(input, label, k=1, name=None, **kwargs):
     return acc
 
 
+def matmul(x, y, transpose_x=False, transpose_y=False, alpha=1.0, name=None,
+           **kwargs):
+    helper = LayerHelper("matmul", name=name, **kwargs)
+    return _single(helper, "matmul", {"X": [x.name], "Y": [y.name]},
+                   {"transpose_X": transpose_x, "transpose_Y": transpose_y,
+                    "alpha": alpha})
+
+
+def mul(x, y, x_num_col_dims=1, y_num_col_dims=1, name=None, **kwargs):
+    helper = LayerHelper("mul", name=name, **kwargs)
+    return _single(helper, "mul", {"X": [x.name], "Y": [y.name]},
+                   {"x_num_col_dims": x_num_col_dims,
+                    "y_num_col_dims": y_num_col_dims})
+
+
+def reduce_sum(input, dim=None, keep_dim=False, name=None, **kwargs):
+    helper = LayerHelper("reduce_sum", name=name, **kwargs)
+    return _single(helper, "reduce_sum", {"X": [input.name]},
+                   {"dim": dim, "keep_dim": keep_dim,
+                    "reduce_all": dim is None})
+
+
 def mean(x, name=None, **kwargs):
     helper = LayerHelper("mean", name=name, **kwargs)
     return _single(helper, "mean", {"X": [x.name]})
@@ -271,5 +359,6 @@ def _make_elementwise(op_name):
     return layer
 
 
-
 elementwise_add = _make_elementwise("elementwise_add")
+elementwise_mul = _make_elementwise("elementwise_mul")
+elementwise_div = _make_elementwise("elementwise_div")

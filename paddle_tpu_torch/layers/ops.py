@@ -1,10 +1,10 @@
 """Unary layer wrappers of the program front end (reference
 ``paddle_tpu/layers/ops.py``, which generates them for its activations):
-``relu`` and ``softmax``."""
+``relu``, ``gelu`` and ``softmax``."""
 
 from ..layer_helper import LayerHelper
 
-_ACTIVATIONS = ["relu", "softmax"]
+_ACTIVATIONS = ["relu", "gelu", "softmax"]
 
 __all__ = list(_ACTIVATIONS)
 

@@ -4,6 +4,12 @@ its training forward (``_lm_backbone`` without a cache and
 branches of ``transformer_lm_session``, with its decode policies:
 sampling, speculative decoding with a draft, constrained output).
 
+:func:`transformer_lm` takes two forms: given program Variables it
+builds the reference's program (the front end's ops, the reference's
+parameter names, ``dropout_prob`` and ``length`` included), which
+``core.Executor`` runs; given a :class:`TransformerLM` it computes the
+same loss on the ``nn.Module`` route.
+
 Parameters carry the reference's names at the boundary
 (:func:`lm_param_names`), so weights saved by ``paddle_tpu`` load here
 through ``io.params_from_jax``, float32 or already armed for int8
@@ -19,9 +25,13 @@ import torch
 from torch import nn
 
 from .. import config as _config
+from .. import layers as _layers
 from ..amp import flag_dtype
+from ..core.framework import Variable
 from ..layers.attention import (PositionalEncodingWindow,
-                                TransformerEncoderLayer)
+                                TransformerEncoderLayer,
+                                positional_encoding,
+                                transformer_encoder_layer)
 from ..ops.decoding_ops import sample_from_keys
 from ..ops.generation_ops import (kv_block_copy, paged_append_rows,
                                   paged_window_rows)
@@ -130,9 +140,9 @@ class TransformerLM(nn.Module):
     of :func:`transformer_lm`. The ``amp`` flag, read at each forward and
     each loss as the reference's executor reads it at each run, makes
     every ``mul`` of that call a bfloat16 product (``amp.py``); parameters
-    stay float32, so one model trains under amp and runs without it. The
-    reference's ``dropout_prob`` > 0 and
-    ``ring_axis`` raise NotImplementedError. Parameters are created
+    stay float32, so one model trains under amp and runs without it.
+    ``dropout_prob`` > 0 raises NotImplementedError (dropout runs on the
+    program route) and so does ``ring_axis`` (not ported). Parameters are created
     without gradients; an optimizer over them turns gradients on.
 
     Generation, over per-layer KV caches that :meth:`allocate_cache`
@@ -420,7 +430,63 @@ class TransformerLM(nn.Module):
             kv_block_copy(cv, src, dst)
 
 
-def transformer_lm(model, tokens, labels, length=None):
+def _lm_backbone(tokens, vocab_size, d_model, num_heads, d_ff, num_layers,
+                 ring_axis=None, dropout_prob=0.0, is_test=False):
+    """The reference's ``_lm_backbone`` without a cache (program form):
+    tokens [B, T] -> logits [B, T, V] Variables."""
+    emb = _layers.embedding(tokens, size=[vocab_size, d_model],
+                            param_attr="tok_embedding")
+    x = positional_encoding(emb)
+    for _ in range(num_layers):
+        x = transformer_encoder_layer(
+            x, d_model, num_heads, d_ff, causal=True, ring_axis=ring_axis,
+            dropout_prob=dropout_prob, is_test=is_test)
+    x = _layers.layer_norm(x, begin_norm_axis=2)
+    return _layers.fc(x, vocab_size, num_flatten_dims=2, bias_attr=False,
+                      param_attr="lm_head.w")
+
+
+def _transformer_lm_program(tokens, labels, vocab_size, d_model=128,
+                            num_heads=4, d_ff=256, num_layers=2,
+                            ring_axis=None, dropout_prob=0.0, is_test=False,
+                            length=None):
+    """Reference ``transformer_lm`` (program form): tokens/labels [B, T]
+    id Variables, ``length`` an optional [B] Variable. Returns (loss,
+    logits) Variables."""
+    logits = _lm_backbone(tokens, vocab_size, d_model, num_heads, d_ff,
+                          num_layers, ring_axis=ring_axis,
+                          dropout_prob=dropout_prob, is_test=is_test)
+    t = tokens.shape[1]
+    flat_logits = _layers.reshape(logits, [-1, vocab_size])
+    flat_labels = _layers.reshape(labels, [-1, 1])
+    tok_loss = _layers.softmax_with_cross_entropy(flat_logits, flat_labels)
+    tok_loss = _layers.reshape(tok_loss, [-1, t])
+    if length is not None:
+        mask = _layers.sequence_mask(length, maxlen=t)
+        masked = _layers.elementwise_mul(tok_loss, mask)
+        loss = _layers.elementwise_div(_layers.reduce_sum(masked),
+                                       _layers.reduce_sum(mask))
+    else:
+        loss = _layers.mean(tok_loss)
+    return loss, logits
+
+
+def transformer_lm(*args, **kwargs):
+    """Two forms, by the first argument. Given a program Variable,
+    ``transformer_lm(tokens, labels, vocab_size, d_model=128,
+    num_heads=4, d_ff=256, num_layers=2, ring_axis=None,
+    dropout_prob=0.0, is_test=False, length=None)`` builds the
+    reference's program into the current program and returns its (loss,
+    logits) Variables. Given a :class:`TransformerLM`,
+    ``transformer_lm(model, tokens, labels, length=None)`` computes the
+    loss below on the nn.Module route."""
+    first = args[0] if args else kwargs.get("tokens")
+    if isinstance(first, Variable):
+        return _transformer_lm_program(*args, **kwargs)
+    return _transformer_lm_module(*args, **kwargs)
+
+
+def _transformer_lm_module(model, tokens, labels, length=None):
     """Reference ``transformer_lm``'s loss over ``model``'s logits: the
     per-token ``softmax_with_cross_entropy`` (float32 under amp, a BLACK
     op) of logits [B, T, V] against labels [B, T], then its mean, or with

@@ -5,10 +5,19 @@ otherwise. Both are differentiable: the flash branch through
 ``flash_attention``'s autograd Function (kernel B2 forward, the
 reference's chunked recompute backward), the dense one through torch's
 autograd. Ring attention and the per-shard flash path are not ported yet
-(ROADMAP Queue A, "Distribution and the input pipeline")."""
+(ROADMAP Queue A, "Distribution and the input pipeline").
+
+The program op ``multihead_attention`` (the reference's slots ``Q``,
+``K``, ``V``, optional ``KeyLength``, ``Out``; attributes ``num_heads``,
+``causal``, ``ring_axis``) is registered here. Under the executor a
+differentiated op runs ``flash_attention`` with autograd recording, and
+its ``vjp_grad`` takes the gradient through the autograd Function's
+backward, the reference's chunked recompute: the forward is not run
+again at the gradient."""
 
 import torch
 
+from ..core.registry import register_op
 from .flash_attention import flash_attention
 
 __all__ = ["multihead_attention"]
@@ -50,3 +59,22 @@ def multihead_attention(q, k, v, num_heads, causal=False, key_length=None):
     p = torch.softmax(s, dim=-1).to(q.dtype)
     out = torch.einsum("bhqk,bkhd->bqhd", p, vh)
     return out.reshape(b, tq, dm)
+
+
+@register_op("multihead_attention")
+def _multihead_attention(ctx):
+    """Q, K, V [B, T, H*D] packed; ``KeyLength`` [B] masks padded keys.
+    A CUDA tensor with Tq == Tk takes kernel B2, a CPU one its plain
+    version. On ``meta`` tensors (shape inference) the output's shape
+    and dtype are q's."""
+    if ctx.attr("ring_axis"):
+        raise NotImplementedError(
+            "ring_axis (ring attention over a mesh) is not ported yet: "
+            "ROADMAP Queue A, \"Distribution and the input pipeline\"")
+    q = ctx.input("Q")
+    if q.device.type == "meta":
+        return {"Out": torch.empty_like(q)}
+    return {"Out": multihead_attention(
+        q, ctx.input("K"), ctx.input("V"), ctx.attr("num_heads"),
+        causal=ctx.attr("causal", False),
+        key_length=ctx.input("KeyLength"))}

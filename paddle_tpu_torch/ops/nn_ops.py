@@ -9,10 +9,10 @@ The fused convolution + batch norm is ``ops/conv_bn.py``. Under amp
 operands are cast to the amp dtype first (``conv2d_bn`` is on neither
 list and stays float32, as in the reference).
 
-The program ops ``mul``, ``conv2d``, ``pool2d`` and ``batch_norm`` are
-registered here with the reference's slots and attributes (its
-``ops/nn_ops.py`` and ``math_ops.py``); the executor casts their inputs
-under amp before the call."""
+The program ops ``mul``, ``conv2d``, ``pool2d``, ``batch_norm``,
+``layer_norm`` and ``dropout`` are registered here with the reference's
+slots and attributes (its ``ops/nn_ops.py`` and ``math_ops.py``); the
+executor casts their inputs under amp before the call."""
 
 import math
 
@@ -22,6 +22,7 @@ import torch.nn.functional as F
 from ..amp import amp_cast
 from ..core.registry import register_op
 from .quant_ops import quant_matmul_2d
+from .random_ops import uniform
 
 __all__ = ["layer_norm", "gelu", "mul", "fc", "lookup_table", "gather",
            "argmax", "conv2d", "pool2d", "batch_norm", "batch_norm_stats"]
@@ -212,3 +213,58 @@ def _batch_norm(ctx):
         ctx.attr("epsilon", 1e-5), ctx.attr("is_test", False), channel_axis)
     return {"Y": y, "MeanOut": mean, "VarianceOut": var,
             "SavedMean": saved_mean, "SavedVariance": inv}
+
+
+@register_op("layer_norm")
+def _layer_norm(ctx):
+    """Reference ``layer_norm`` over the axes from ``begin_norm_axis`` on:
+    ``(x - mean) * rsqrt(var + eps)`` with ``var`` the mean of the
+    squared deviation, then the optional scale and bias, reshaped to
+    those axes. One ``torch.native_layer_norm`` call (the kernel of the
+    nn.Module LM's :func:`layer_norm`, one fused pass each way that saves
+    only x and its row statistics for the gradient) gives Y, the row
+    means and rsqrt(var + eps); ``Mean`` is those means and ``Variance``
+    ``rstd**-2 - eps`` (the leading axes' shape, x's dtype, no gradient).
+    The reference writes the same function as separate passes, so Y and
+    Mean differ from its in the last bits, and Variance by a few ulps of
+    ``var + eps``."""
+    x = ctx.input("X")
+    eps = ctx.attr("epsilon", 1e-5)
+    begin = ctx.attr("begin_norm_axis", 1)
+    norm = tuple(x.shape[begin:])
+    scale, bias = ctx.input("Scale"), ctx.input("Bias")
+    y, mean, rstd = torch.native_layer_norm(
+        x, norm, None if scale is None else scale.reshape(norm),
+        None if bias is None else bias.reshape(norm), eps)
+    lead = x.shape[:begin]
+    with torch.no_grad():
+        var = rstd.reshape(lead).pow(-2) - eps
+    return {"Y": y, "Mean": mean.detach().reshape(lead).to(x.dtype),
+            "Variance": var.to(x.dtype)}
+
+
+def bernoulli(key, p, shape):
+    """``jax.random.bernoulli(key, p, shape)`` for a Python float ``p``:
+    ``uniform(key, shape, float32) < float32(p)``, bitwise JAX's (the
+    uniform is, ``ops/random_ops.py``). A bool tensor on the key's
+    device."""
+    n = math.prod(shape)
+    return (uniform(key, n) < torch.tensor(p, dtype=torch.float32)) \
+        .reshape(tuple(shape))
+
+
+@register_op("dropout", needs_rng=True)
+def _dropout(ctx):
+    """Reference ``dropout``: in training a mask kept with probability 1
+    - p, drawn from the op's own key (the executor splits the scope's key
+    before the op, as the reference's does), so the masks are the
+    reference's bit for bit; ``is_test`` scales by (1 - p), the constant
+    rounded to x's dtype first as JAX's weak typing rounds it, and the
+    mask is all ones."""
+    x = ctx.input("X")
+    p = ctx.attr("dropout_prob", 0.5)
+    if ctx.attr("is_test", False):
+        return {"Out": x * torch.tensor(1.0 - p, dtype=x.dtype),
+                "Mask": torch.ones_like(x)}
+    mask = bernoulli(ctx.rng_key, 1.0 - p, x.shape).to(x.dtype)
+    return {"Out": x * mask, "Mask": mask}

@@ -37,20 +37,37 @@ version's. At prefill a tiled GEMM, the tile chosen by :func:`_plan`.
 The scratch is allocated once per device and stream and reused
 (``_build.scratch``). On CPU tensors it computes the plain version; on
 CUDA tensors it launches the kernel or raises, and counts launches in
-``quant_matmul_2d.launches``.
+``quant_matmul_2d.launches``, and apart by ``(m, k, n)`` in
+``quant_matmul_2d.launches_by_shape``.
+
+The executor's armed-program hook :func:`maybe_quant_compute` (a program
+tagged by ``serving/quant.py`` ``arm_quant_compute(programs, scope)``)
+runs an armed ``mul`` or ``matmul`` through :func:`quant_matmul_2d` and
+an armed ``conv2d`` through :func:`quant_conv2d`, the reference's integer
+convolution, which has no Pallas kernel and is plain torch on both
+devices.
 """
 
 import collections
 import functools
+import math
 
 import torch
+import torch.nn.functional as F
 
 from ..observability import metrics as _metrics
 from . import _build
 from .flash_attention import _on_cpu, _require
 
-__all__ = ["SCALE_SUFFIX", "scale_var_name", "quantize_rows",
-           "int8_matmul_plain", "quant_matmul_2d"]
+__all__ = ["QUANT_COMPUTE_TYPES", "SCALE_SUFFIX", "scale_var_name",
+           "quantize_rows", "int8_matmul_plain", "quant_matmul_2d",
+           "quant_conv2d", "maybe_quant_compute"]
+
+# op types the executor consults this module for, on armed programs only
+QUANT_COMPUTE_TYPES = ("mul", "matmul", "conv2d")
+
+# the weight slot of each (serving/quant.py QUANT_OPS)
+_WEIGHT_SLOT = {"mul": "Y", "matmul": "Y", "conv2d": "Filter"}
 
 # f32(1 / 127), the reciprocal XLA folds ``amax / 127.0`` into; exact
 # as a Python float
@@ -64,8 +81,11 @@ SCALE_SUFFIX = "@quant.scale"
 # compiled program. The port compiles no programs: a generation session
 # counts once per armed product the first time it runs each of its
 # program shapes (a prefill bucket, the decode step, the verify forward;
-# ``serving.generation.GenerationSession``). The path is "pallas" for
-# kernel B3 (a CUDA tensor), "dense" for its plain version (the CPU)
+# ``serving.generation.GenerationSession``), the executor once per armed
+# op the first time it runs each program version with one fetch list and
+# tag (:func:`maybe_quant_compute`). The path is "pallas" for kernel B3
+# (a CUDA tensor), "dense" for its plain version (the CPU) and for every
+# int8 conv2d
 QUANT_COMPUTE_OPS = _metrics.REGISTRY.counter(
     "paddle_quant_compute_ops_total",
     "Quantized-compute op lowerings traced, by op type and path "
@@ -226,10 +246,12 @@ def quant_matmul_2d(x2, wq, w_scale):
              "aligned")
     out = _launch(x2, wq, w_scale, _plan(m, k, n))
     quant_matmul_2d.launches += 1
+    quant_matmul_2d.launches_by_shape[m, k, n] += 1
     return out
 
 
 quant_matmul_2d.launches = 0
+quant_matmul_2d.launches_by_shape = collections.Counter()
 
 
 def _launch(x2, wq, w_scale, plan):
@@ -245,3 +267,83 @@ def _launch(x2, wq, w_scale, plan):
              scratch.data_ptr(), m, k, n, plan.tile, plan.splits, stream)
     _build.check(err, "int8_matmul")
     return out
+
+
+def quant_conv2d(x, wq, w_scale, strides=1, paddings=0, dilations=1,
+                 groups=1):
+    """The reference's int8 ``conv2d`` (``_quant_conv2d``): NCHW
+    activations quantized per sample (amax over C, H, W; ``scale = amax
+    * f32(1 / 127)``, as its compiled program scales, 1.0 for an all-zero
+    sample), the OIHW int8 filter, zero padding (which quantizes to
+    zero), the integer convolution, then one f32 epilogue ``acc * scale *
+    w_scale`` in that order. The integer sums are exact: the convolution
+    runs on the int8 values in float64, whose sums of at most C·kh·kw
+    products of |q| <= 127 are integers far below 2**53 whatever the
+    order, and are rounded to the integer once more (a convolution
+    algorithm that transforms its operands would leave a residue far
+    below 0.5). Plain torch on any device; the result is the same bits
+    on the CPU and the card."""
+    if x.dtype != torch.float32:
+        x = x.to(torch.float32)
+    amax = x.abs().amax(dim=(1, 2, 3), keepdim=True)
+    scale = torch.where(amax > 0.0, amax * INV_127, torch.ones_like(amax))
+    xq = torch.clamp(torch.round(x / scale), -127.0, 127.0)
+    acc = F.conv2d(xq.to(torch.float64), wq.to(torch.float64), None,
+                   strides, paddings, dilations, groups)
+    return torch.round(acc).to(torch.float32) * scale \
+        * w_scale.to(torch.float32).reshape(1, -1, 1, 1)
+
+
+def _quant_mul(op, x, wq, w_scale):
+    """``mul`` armed for a 2-D weight with ``y_num_col_dims`` 1: x
+    flattened at ``x_num_col_dims`` to [m, k]."""
+    xd = op.attrs.get("x_num_col_dims", 1)
+    xs = tuple(x.shape)
+    x2 = x.reshape(math.prod(xs[:xd]), math.prod(xs[xd:])).contiguous()
+    out = quant_matmul_2d(x2, wq, w_scale)
+    return {"Out": out.reshape(xs[:xd] + tuple(wq.shape[1:]))}
+
+
+def _quant_matmul(op, x, wq, w_scale):
+    """``matmul`` armed for a 2-D weight without ``transpose_Y``;
+    ``transpose_X`` and ``alpha`` as in the float32 op."""
+    if op.attrs.get("transpose_X", False) and x.dim() > 1:
+        x = x.transpose(-1, -2)
+    xs = tuple(x.shape)
+    n = wq.shape[1]
+    out = quant_matmul_2d(x.reshape(-1, xs[-1]).contiguous(), wq, w_scale)
+    out = out.reshape(xs[:-1] + (n,))
+    alpha = op.attrs.get("alpha", 1.0)
+    return {"Out": out * alpha if alpha != 1.0 else out}
+
+
+def maybe_quant_compute(op, values, env, trace):
+    """The executor's hook for an armed program: ``op`` (one of
+    QUANT_COMPUTE_TYPES) on its int8 weight when the program's tag
+    (``trace.quant``) covers the weight and the weight is int8 with its
+    scales in ``env``; else None, and the float32 op runs. Counts
+    ``paddle_quant_compute_ops_total`` once per op in ``trace.quant_seen``
+    (the executor's plan of this program version)."""
+    slot = _WEIGHT_SLOT.get(op.type)
+    names = op.inputs.get(slot) or ()
+    if not names or names[0] not in trace.quant["vars"]:
+        return None
+    wq = values[slot][0]
+    if wq is None or wq.dtype != torch.int8:
+        return None
+    w_scale = env.get(scale_var_name(names[0]))
+    if w_scale is None:
+        return None
+    if id(op) not in trace.quant_seen:
+        trace.quant_seen.add(id(op))
+        QUANT_COMPUTE_OPS.labels(
+            op=op.type, path="pallas" if wq.is_cuda and op.type != "conv2d"
+            else "dense").inc()
+    if op.type == "mul":
+        return _quant_mul(op, values["X"][0], wq, w_scale)
+    if op.type == "matmul":
+        return _quant_matmul(op, values["X"][0], wq, w_scale)
+    return {"Output": quant_conv2d(
+        values["Input"][0], wq, w_scale, op.attrs.get("strides", [1, 1]),
+        op.attrs.get("paddings", [0, 0]), op.attrs.get("dilations", [1, 1]),
+        op.attrs.get("groups", 1) or 1)}

@@ -1,6 +1,6 @@
-"""Tensor plumbing ops of the ResNet program (reference
+"""Tensor plumbing ops of the ResNet and LM programs (reference
 ``paddle_tpu/ops/tensor_ops.py`` ``top_k``, ``reshape``,
-``fill_constant`` and ``fill_like``)."""
+``fill_constant``, ``fill_like`` and ``lookup_table``)."""
 
 import torch
 
@@ -33,3 +33,23 @@ def _fill_constant(ctx):
 @register_op("fill_like")
 def _fill_like(ctx):
     return {"Out": torch.full_like(ctx.input("X"), ctx.attr("value", 0.0))}
+
+
+@register_op("lookup_table")
+def _lookup_table(ctx):
+    """Embedding lookup (reference ``lookup_table``): the rows of W at
+    the flattened ids, zero at ``padding_idx``; a trailing ids axis of 1
+    is squeezed unless ``keep_dims``. Its gradient is a dense scatter-add
+    into W (``index_select``'s backward), as the reference's vjp of
+    ``take``."""
+    w, ids = ctx.input("W"), ctx.input("Ids")
+    flat = ids.reshape(-1)
+    emb = w.index_select(0, flat)
+    pad = ctx.attr("padding_idx")
+    if pad is not None:
+        emb = torch.where((flat == pad)[:, None],
+                          torch.zeros((), dtype=emb.dtype), emb)
+    shape = tuple(ids.shape)
+    if not ctx.attr("keep_dims", False) and shape and shape[-1] == 1:
+        shape = shape[:-1]
+    return {"Out": emb.reshape(shape + (w.shape[1],))}

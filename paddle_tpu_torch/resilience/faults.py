@@ -202,8 +202,8 @@ def poison_feed(feed, step):
     (in a copy) when armed for ``step``, so a non-finite loss flows
     through the unmodified train computation. Only a plain feed dict is
     handled: the reference's packed batches (``core/ingest.py``) are not
-    ported yet (ROADMAP Queue A, "Distribution and the input
-    pipeline"), and any other feed raises NotImplementedError."""
+    ported yet (ROADMAP Queue A, "Ingest, the compile cache and AOT"),
+    and any other feed raises NotImplementedError."""
     import numpy as np
     if should_fire("nan_loss", step) is None:
         return feed
@@ -212,7 +212,7 @@ def poison_feed(feed, step):
     if not isinstance(feed, collections.abc.Mapping):
         raise NotImplementedError(
             "poison_feed of a %s: only a feed dict is ported (packed "
-            "batches wait for the input pipeline)" % type(feed).__name__)
+            "batches wait for the ingest prologue)" % type(feed).__name__)
     out = dict(feed)
     for name, v in out.items():
         arr = np.asarray(v)

@@ -1,43 +1,69 @@
-"""int8 weight compute for serving: the port's copy of what a
-generation session needs from the reference's ``paddle_tpu/serving/
-quant.py``.
+"""int8 weight compute: the port's copy of the reference's
+``paddle_tpu/serving/quant.py`` live arming, for generation sessions and
+for programs.
 
-:func:`arm_quant_compute` quantizes a model's weights in place, the
-live-session arming of the reference: symmetric per-output-channel int8
-(``scale_c = max|w_c| / 127``) on axis 1 of each [in, out] weight the
-model consumes only through ``mul``, the int8 weight replacing the
-float32 one and its f32 scales beside it. The products of those weights
-then run int8 x int8 -> int32 through kernel B3 (``ops/quant_ops.py``).
+:func:`arm_quant_compute` quantizes weights in place: symmetric
+per-output-channel int8 (``scale_c = max|w_c| / 127``), the int8 weight
+replacing the float32 one and its f32 scales beside it. The products of
+those weights then run int8 x int8 -> int32 through kernel B3
+(``ops/quant_ops.py``), a convolution's through the integer convolution
+``quant_ops.quant_conv2d``. Quantization runs in numpy, so int8 weights
+and scales are bitwise the reference's. It takes one of two forms:
 
-The reference selects the weights from its Program IR
-(``select_compute_vars``); the port has none, so the selection is
-structural: the model names its mul weights
-(``models.transformer.lm_mul_weight_names``), and a test holds that
-list against the reference's selection. Quantization runs in numpy, so
-int8 weights and scales are bitwise the reference's.
+* ``arm_quant_compute(programs, scope, fallback_ops, pallas)``, the
+  reference's: the weights come from the Program IR
+  (:func:`select_compute_vars`), a var is armed only where every program
+  that reads it selects it on the same axis, the scope's float32 tensor
+  is replaced by the int8 one and ``<name>@quant.scale``, and each
+  program is tagged (``program._quant_compute``, which the executor reads
+  at each run). Idempotent: an int8 var whose scales are in the scope is
+  tagged as it is.
+* ``arm_quant_compute(model, shared)``, for a ``models.transformer.
+  TransformerLM`` served by a session, which has no IR: the model names
+  its mul weights (``models.transformer.lm_mul_weight_names``), and a
+  test holds that list against the reference's selection. A speculative
+  session's self-draft shares the target's tensors by reference name; it
+  is armed in the same call as the target (the reference's one-scope
+  rule: one scope, one selection), by binding the draft to the target's
+  int8 tensors and scales, so no float32 copy of an armed weight
+  survives in either model.
 
-A speculative session's self-draft shares the target's tensors by
-reference name; it is armed in the same call as the target (the
-reference's one-scope rule: one scope, one selection), by binding the
-draft to the target's int8 tensors and scales, so no float32 copy of an
-armed weight survives in either model.
+The tag keeps the reference's ``pallas`` entry (False unless given: the
+port has no ``quant_pallas`` flag), which routes nothing: a CUDA tensor
+always takes B3.
 
 Not ported yet: artifact-load arming (``install_quant_compute``,
-``quant.json``, ``quantize_model_dir``).
+``quant.json``, ``quantize_model_dir``; ROADMAP Queue A, "Inference
+export and the serving engine").
 """
+
+from collections.abc import Sequence
 
 import numpy as np
 import torch
 
+from ..core.framework import Parameter, Program
 from ..models.transformer import lm_mul_weight_names
 from ..ops.quant_ops import SCALE_SUFFIX, scale_var_name
 
-__all__ = ["QUANT_OPS", "SCALE_SUFFIX", "scale_var_name", "quantize_array",
-           "dequantize_array", "arm_quant_compute"]
+__all__ = ["QUANT_OPS", "DEFAULT_FALLBACK_OPS", "SCALE_SUFFIX",
+           "scale_var_name", "quantize_array", "dequantize_array",
+           "select_quant_vars", "select_compute_vars", "arm_quant_compute"]
 
-# op type -> (weight input slot, per-output-channel axis of that weight):
-# the reference's table, cut to the one op the port's models arm
-QUANT_OPS = {"mul": ("Y", -1)}
+# op type -> (weight input slot, per-output-channel axis of that weight)
+QUANT_OPS = {
+    "mul": ("Y", -1),
+    "matmul": ("Y", -1),
+    "conv2d": ("Filter", 0),
+}
+
+# parameters consumed by any of these stay high precision (the
+# reference's list: sensitive reductions and normalizers)
+DEFAULT_FALLBACK_OPS = frozenset({
+    "softmax", "layer_norm", "batch_norm", "lookup_table",
+    "cross_entropy", "softmax_with_cross_entropy",
+    "sigmoid_cross_entropy_with_logits",
+})
 
 
 def quantize_array(w, axis):
@@ -69,7 +95,137 @@ def dequantize_array(q, scales, axis):
     return q.astype(np.float32) * scales.reshape(shape)
 
 
-def arm_quant_compute(model, shared=()):
+def select_quant_vars(program, fallback_ops=DEFAULT_FALLBACK_OPS):
+    """{parameter name: per-output-channel axis} of every float32
+    parameter of ``program`` with at least 2 axes that is consumed only
+    through the weight slot of a QUANT_OPS op, on one axis, and by no op
+    of ``fallback_ops`` (reference ``select_quant_vars``)."""
+    block = program.global_block()
+    consumers = {}
+    for op in block.ops:
+        for slot, names in op.inputs.items():
+            for n in names:
+                if isinstance(block.var_or_none(n), Parameter):
+                    consumers.setdefault(n, []).append((op.type, slot))
+    out = {}
+    for name, uses in consumers.items():
+        var = block.var(name)
+        if str(var.dtype) != "float32" or var.shape is None \
+                or len(var.shape) < 2:
+            continue
+        if any(op_type in fallback_ops for op_type, _ in uses):
+            continue
+        axes = set()
+        for op_type, slot in uses:
+            spec = QUANT_OPS.get(op_type)
+            if spec is None or spec[0] != slot:
+                break
+            axes.add(spec[1] % len(var.shape))
+        else:
+            if len(axes) == 1:
+                out[name] = axes.pop()
+    return out
+
+
+def select_compute_vars(program, fallback_ops=DEFAULT_FALLBACK_OPS):
+    """The part of :func:`select_quant_vars` the int8 compute path can
+    serve, its scaled axis out of every contraction (reference
+    ``select_compute_vars``): 2-D weights of ``mul`` and ``matmul``,
+    ``y_num_col_dims`` 1, no ``transpose_Y``, 4-D ``conv2d`` filters."""
+    targets = select_quant_vars(program, fallback_ops=fallback_ops)
+    block = program.global_block()
+    bad = set()
+    for op in block.ops:
+        spec = QUANT_OPS.get(op.type)
+        if spec is None:
+            continue
+        for n in op.inputs.get(spec[0], []):
+            if n not in targets:
+                continue
+            nd = len(block.var(n).shape)
+            if op.type in ("mul", "matmul") and nd != 2:
+                bad.add(n)
+            elif op.type == "mul" and \
+                    op.attrs.get("y_num_col_dims", 1) != 1:
+                bad.add(n)
+            elif op.type == "matmul" and \
+                    op.attrs.get("transpose_Y", False):
+                bad.add(n)
+            elif op.type == "conv2d" and nd != 4:
+                bad.add(n)
+    return {n: a for n, a in targets.items() if n not in bad}
+
+
+def _tag_program(program, vars_, pallas):
+    """Attach the tag the executor reads at each run; its ``key`` (order
+    stable) keys the executor's plan, so arming again with the same vars
+    reuses it."""
+    vars_ = dict(vars_)
+    program._quant_compute = {
+        "vars": vars_,
+        "pallas": bool(pallas),
+        "key": (tuple(sorted(vars_.items())), bool(pallas)),
+    }
+
+
+def _arm_programs(programs, scope, fallback_ops=DEFAULT_FALLBACK_OPS,
+                  pallas=None):
+    """The reference's ``arm_quant_compute(programs, scope)``; returns
+    the sorted armed names. A scope tensor is quantized on the host and
+    put back on its device."""
+    programs = [p for p in programs if p is not None]
+    if not programs:
+        return []
+    selections = [select_compute_vars(p, fallback_ops=fallback_ops)
+                  for p in programs]
+    referenced = [{n for op in p.global_block().ops
+                   for names in op.inputs.values() for n in names}
+                  for p in programs]
+    candidates = {}
+    for sel in selections:
+        candidates.update(sel)
+    armed = {}
+    for name, axis in candidates.items():
+        if any(name in refs and sel.get(name) != axis
+               for refs, sel in zip(referenced, selections)):
+            continue
+        w = scope.find_var(name)
+        if w is None:
+            continue
+        device = w.device if isinstance(w, torch.Tensor) else None
+        if str(w.dtype) in ("int8", "torch.int8"):
+            if scope.find_var(scale_var_name(name)) is None:
+                continue    # a foreign int8 var without scales
+        else:
+            host = w.detach().cpu().numpy() if device is not None \
+                else np.asarray(w)
+            q, scales = quantize_array(host, axis)
+            scope.set_var(name, torch.from_numpy(q).to(device) if device
+                          is not None else q)
+            scope.set_var(scale_var_name(name),
+                          torch.from_numpy(scales).to(device) if device
+                          is not None else scales)
+        armed[name] = axis
+    for p, sel in zip(programs, selections):
+        tag = {n: a for n, a in sel.items() if n in armed}
+        if tag:
+            _tag_program(p, tag, pallas)
+    return sorted(armed)
+
+
+def arm_quant_compute(target, *args, **kwargs):
+    """Arm for int8 compute, by the first argument's kind: a sequence of
+    Programs (None entries skipped) takes ``(programs, scope,
+    fallback_ops=DEFAULT_FALLBACK_OPS, pallas=None)``, the reference's
+    live arming of a scope; anything else is a ``TransformerLM`` and
+    takes ``(model, shared=())``. Both return the sorted armed names."""
+    if isinstance(target, Sequence) and not isinstance(target, str) and \
+            all(p is None or isinstance(p, Program) for p in target):
+        return _arm_programs(target, *args, **kwargs)
+    return _arm_model(target, *args, **kwargs)
+
+
+def _arm_model(model, shared=()):
     """Quantize ``model``'s mul weights in place (a
     ``models.transformer.TransformerLM``) and return their sorted
     reference names, the reference session's ``_quant_armed``.

@@ -372,6 +372,37 @@ def test_temporaries_leave_after_their_last_reader():
                        for op in ops[i + 1:])
 
 
+def test_no_edge_kept_for_an_output_without_gradient(monkeypatch):
+    """A differentiated op's output that no gradient reaches keeps no
+    autograd edge to its ``vjp_grad``: ``softmax_with_cross_entropy``'s
+    Softmax (the edge would hold the exp node and its [N, V] result);
+    its Loss keeps one."""
+    main, startup = pc.Program(), pc.Program()
+    with pc.program_guard(main, startup):
+        x = layers.data("x", shape=[6])
+        label = layers.data("label", shape=[1], dtype="int64")
+        loss = layers.mean(layers.softmax_with_cross_entropy(
+            layers.fc(x, 5), label))
+        port_opt.SGD(0.1).minimize(loss, startup)
+    seen = {}
+    real = port_exe._execute_vjp_grad
+
+    def spy(op, env, block, trace):
+        fwd = op.attrs["fwd_op"]
+        if fwd.type == "softmax_with_cross_entropy":
+            roots, _ = trace.vjp_cache[id(fwd)]
+            seen.update(zip(("Loss", "Softmax"), roots))
+        return real(op, env, block, trace)
+    monkeypatch.setattr(port_exe, "_execute_vjp_grad", spy)
+    exe, scope = _exe(), pc.Scope()
+    exe.run(startup, scope=scope)
+    feed = {"x": np.random.RandomState(0).randn(4, 6).astype(np.float32),
+            "label": np.array([[0], [4], [2], [1]])}
+    out, = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+    assert np.isfinite(out)
+    assert seen["Loss"] is not None and seen["Softmax"] is None
+
+
 def test_what_is_not_ported_raises():
     exe = _exe()
     for call in (exe.lower, exe.cache_digest, exe.prime_aot,

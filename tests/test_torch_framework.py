@@ -116,7 +116,11 @@ def test_the_port_registers_the_slice():
         "elementwise_add", "relu", "softmax", "softmax_with_cross_entropy",
         "accuracy", "top_k", "reshape", "fill_constant", "fill_like", "sgd",
         "momentum", "adam", "gaussian_random", "uniform_random",
-        "recompute_block"])
+        "recompute_block",
+        # the transformer LM's program and int8 matmul
+        "layer_norm", "lookup_table", "gelu", "multihead_attention",
+        "dropout", "matmul", "elementwise_mul", "elementwise_div",
+        "reduce_sum", "sequence_mask"])
     with pytest.raises(NotImplementedError, match="no op registered"):
         registry.get_op_def("lstm")
 
@@ -165,6 +169,34 @@ SHAPE_CASES = {
     "reshape": ({"X": [((-1, 4, 1, 1), F)]}, {"shape": [-1, 4]},
                 {"Out": 1}),
     "fill_like": ({"X": [((-1, 3), F)]}, {"value": 1.0}, {"Out": 1}),
+    "layer_norm": ({"X": [((-1, 5, 8), F)], "Scale": [((8,), F)],
+                    "Bias": [((8,), F)]},
+                   {"epsilon": 1e-5, "begin_norm_axis": 2},
+                   {"Y": 1, "Mean": 1, "Variance": 1}),
+    "lookup_table": ({"W": [((11, 6), F)], "Ids": [((-1, 5, 1), I)]},
+                     {"padding_idx": None, "is_sparse": False,
+                      "keep_dims": False}, {"Out": 1}),
+    "gelu": ({"X": [((-1, 4), F)]}, {}, {"Out": 1}),
+    "multihead_attention": ({"Q": [((-1, 16, 64), F)],
+                             "K": [((-1, 16, 64), F)],
+                             "V": [((-1, 16, 64), F)]},
+                            {"num_heads": 2, "causal": True,
+                             "ring_axis": None}, {"Out": 1}),
+    "dropout": ({"X": [((-1, 4, 3), F)]},
+                {"dropout_prob": 0.1, "is_test": False},
+                {"Out": 1, "Mask": 1}),
+    "matmul": ({"X": [((-1, 4, 6), F)], "Y": [((3, 6), F)]},
+               {"transpose_X": False, "transpose_Y": True, "alpha": 0.5},
+               {"Out": 1}),
+    "elementwise_mul": ({"X": [((-1, 4, 3), F)], "Y": [((4,), F)]},
+                        {"axis": 1}, {"Out": 1}),
+    "elementwise_div": ({"X": [((-1, 4), F)], "Y": [((-1, 4), F)]},
+                        {"axis": -1}, {"Out": 1}),
+    "reduce_sum": ({"X": [((-1, 4, 5), F)]},
+                   {"dim": None, "keep_dim": False, "reduce_all": True},
+                   {"Out": 1}),
+    "sequence_mask": ({"Length": [((-1, 1), I)]},
+                      {"maxlen": 7, "dtype": "float32"}, {"Out": 1}),
     "sgd": ({"Param": [((4, 3), F)], "Grad": [((4, 3), F)],
              "LearningRate": [((1,), F)]}, {}, {"ParamOut": 1}),
     "momentum": ({"Param": [((4, 3), F)], "Grad": [((4, 3), F)],

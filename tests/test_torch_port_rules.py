@@ -4,10 +4,12 @@ fall back to the CPU on their own, and weights cross by name or not at
 all."""
 
 import ast
+import io
 import os
 import re
 import subprocess
 import sys
+import tokenize
 
 import numpy as np
 import pytest
@@ -386,6 +388,58 @@ def test_the_item_number_lint_joins_split_literals():
     assert not _item_numbers('x = "ROADMAP Queue A, \\"Long tail\\""\n')
 
 
+# a ROADMAP Queue A item cited by title: ROADMAP Queue A, "<title>"
+_CITATION = re.compile(r'ROADMAP\s+Queue\s+A,\s*"([^"]+)"')
+
+
+def _citations(src):
+    """Queue A titles cited in ``src``'s string literals (the parser
+    joins adjacent ones) and comments, whitespace collapsed."""
+    texts = [node.value for node in ast.walk(ast.parse(src))
+             if isinstance(node, ast.Constant) and isinstance(node.value, str)]
+    texts.append(" ".join(
+        tok.string.lstrip("#") for tok in tokenize.generate_tokens(
+            io.StringIO(src).readline) if tok.type == tokenize.COMMENT))
+    return {re.sub(r"\s+", " ", m).strip()
+            for t in texts for m in _CITATION.findall(
+                re.sub(r"\s+", " ", t))}
+
+
+def _queue_a_titles():
+    with open(os.path.join(ROOT, "ROADMAP.md")) as f:
+        text = f.read()
+    section = text.split("### Queue A")[1].split("### Queue B")[0]
+    return [re.sub(r"\s+", " ", t).strip() for t in re.findall(
+        r"^\d+\.\s+\*\*(.+?)\*\*", section, re.M | re.S)]
+
+
+@pytest.mark.parametrize("path", sorted(
+    [os.path.relpath(os.path.join(dp, f), ROOT)
+     for dp, _d, fs in os.walk(PKG) for f in fs if f.endswith(".py")]
+    + ["chip_smoke.py"]))
+def test_cited_queue_a_titles_exist(path):
+    """Every ``ROADMAP Queue A, "<title>"`` of the package names an item
+    of ROADMAP.md's Queue A as it stands (the start of its bold title)."""
+    titles = _queue_a_titles()
+    with open(os.path.join(ROOT, path)) as f:
+        cited = _citations(f.read())
+    stale = sorted(c for c in cited
+                   if not any(t.startswith(c) for t in titles))
+    assert not stale, (path, stale, titles)
+
+
+def test_the_citation_lint_reads_literals_and_comments():
+    src = ('x = ("not ported: ROADMAP Queue A, "\n'
+           '     "\\"IR, registry, serialization\\"")\n'
+           '# see ROADMAP Queue A, "Long\n# tail"\n')
+    assert _citations(src) == {"IR, registry, serialization", "Long tail"}
+    titles = _queue_a_titles()
+    assert any(t.startswith("Long tail") for t in titles)
+    # the title the dropout message cited until it went stale
+    assert not any(t.startswith("IR, registry, serialization")
+                   for t in titles)
+
+
 def test_program_entry_points_raise_without_cuda(monkeypatch):
     from paddle_tpu_torch import core as pc
     from paddle_tpu_torch import io as pio
@@ -414,27 +468,47 @@ def test_registered_ops_are_the_reference_ones():
 
 
 def _slot_programs():
-    """Port-built programs holding every registered op: ResNet-8 for
-    CIFAR plain, fused and recomputed with Momentum, and an fc net with
-    SGD and one with Adam; each with its startup program."""
+    """Port-built programs holding every registered op, each with its
+    startup program and feed: ResNet-8 for CIFAR plain, fused and
+    recomputed with Momentum; an fc net whose logits come through a
+    ``matmul`` and a ``reduce_sum``, with SGD, and one with Adam; and the
+    transformer LM with dropout and its ``length`` mask, with Adam."""
     from paddle_tpu_torch import core as pc
     from paddle_tpu_torch import layers, optimizer
-    from paddle_tpu_torch.models import resnet
+    from paddle_tpu_torch.models import resnet, transformer
+    img_feed = {"img": np.random.RandomState(0).randn(2, 3, 8, 8)
+                .astype(np.float32), "label": np.array([[1], [7]])}
+    ids = np.random.RandomState(1).randint(2, 20, (2, 8))
+    lm_feed = {"toks": ids, "lbls": ids, "len": np.array([[8], [3]])}
     out = []
-    for kind in ("plain", "fused", "recompute", "sgd", "adam"):
+    for kind in ("plain", "fused", "recompute", "sgd", "adam", "lm"):
         port_config.set_flags(fused_conv_bn=kind == "fused")
         try:
             main, startup = pc.Program(), pc.Program()
             with pc.unique_name.guard(), pc.program_guard(main, startup):
-                img = layers.data("img", shape=[3, 8, 8])
-                label = layers.data("label", shape=[1], dtype="int64")
+                if kind == "lm":
+                    toks = layers.data("toks", shape=[8], dtype="int64")
+                    lbls = layers.data("lbls", shape=[8], dtype="int64")
+                    length = layers.data("len", shape=[1], dtype="int64")
+                    loss = transformer.transformer_lm(
+                        toks, lbls, 20, d_model=16, num_heads=2, d_ff=32,
+                        num_layers=1, dropout_prob=0.1, length=length)[0]
+                    opt = optimizer.Adam(0.1)
+                    feed = lm_feed
+                else:
+                    img = layers.data("img", shape=[3, 8, 8])
+                    label = layers.data("label", shape=[1], dtype="int64")
+                    feed = img_feed
                 if kind in ("sgd", "adam"):
-                    logits = layers.fc(layers.reshape(img, [-1, 192]), 10)
+                    h = layers.fc(layers.reshape(img, [-1, 192]), 10)
+                    logits = layers.reduce_sum(layers.matmul(
+                        layers.reshape(h, [-1, 10, 1]),
+                        layers.reshape(h, [-1, 1, 10]), alpha=0.5), dim=2)
                     loss = layers.mean(layers.softmax_with_cross_entropy(
                         logits, label))
                     opt = optimizer.SGD(0.1) if kind == "sgd" \
                         else optimizer.Adam(0.1)
-                else:
+                elif kind != "lm":
                     loss = resnet.resnet_cifar10(
                         img, label, depth=8,
                         recompute=kind == "recompute")[0]
@@ -442,7 +516,7 @@ def _slot_programs():
                 opt.minimize(loss, startup)
         finally:
             port_config.set_flags(fused_conv_bn=False)
-        out.append((main, startup, loss.name))
+        out.append((main, startup, loss.name, feed))
     return out
 
 
@@ -469,15 +543,13 @@ def test_output_slots_equal_reference_on_one_program(monkeypatch):
     from paddle_tpu_torch.core import registry
     from paddle_tpu_torch.core import serialization as port_ser
     programs = _slot_programs()
-    feed = {"img": np.random.RandomState(0).randn(2, 3, 8, 8)
-            .astype(np.float32), "label": np.array([[1], [7]])}
     ours = _record_slots(monkeypatch, registry)
-    for main, startup, loss in programs:
+    for main, startup, loss, feed in programs:
         exe, scope = pc.Executor(device="cpu"), pc.Scope()
         exe.run(startup, scope=scope)
         exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
     theirs = _record_slots(monkeypatch, ref_registry)
-    for main, startup, loss in programs:
+    for main, startup, loss, feed in programs:
         load = lambda p: ref_ser.program_from_dict(  # noqa: E731
             json.loads(json.dumps(port_ser.program_to_dict(p))))
         exe = ptpu.Executor()
