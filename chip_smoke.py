@@ -119,6 +119,20 @@ and PyTorch built for CUDA. In order, it:
    launches per step; profiles one step and times B2 bf16 at the path's
    shape beside its bound, its plain version and SDPA.
 
+15. serves through the generation programs
+   (``GenerationSession(spec, scope)``): a small LM on the card against
+   the CPU, greedy and sampled, dense, paged and speculative (after the
+   small program phases, ``[small-program-serve]``); after the paged
+   logits, the flagship LM's dense, f32 paged, int8/bf16 paged and
+   speculative traffic on the module sessions' weights by reference,
+   its tokens against the nn.Module route's, the launches of B2, B4, B5
+   and B3 under program ops, TTFT, the decode step at 8 slots and one
+   profiled step's device-busy share in turns with the nn.Module route,
+   and the paged cell's peak beside the module cell's
+   (``[program-serve]``); and ``bench.py``'s ``bench_generation``
+   configuration, f32 and int8, 2 compiles each
+   (``[program-generation]``).
+
 Any failed phase exits nonzero. The line before the last is the card's
 name and power limit from nvidia-smi; the one before that lists the
 kernels as JSON; the last line is ``{"ok": true, "device": ...}``.
@@ -395,6 +409,31 @@ PROGRAM_INT8_SHAPES = ((PROGRAM_INT8_T, FULL["d_model"], FULL["vocab_size"]),)
 SMALL_PROGRAM_LM = dict(vocab_size=512, d_model=64, num_heads=1, d_ff=128,
                         num_layers=2)
 SMALL_PROGRAM_LM_T, SMALL_PROGRAM_LM_BATCH = 64, 4
+# [small-program-serve]: the CPU tests' small LM
+# (tests/test_torch_program_generation.py) served through the generation
+# programs on the card and on the CPU, standard-normal weights from the
+# seed: greedy dense, greedy paged with the prefix cache, sampled dense
+# and speculative paged (the whole target as the draft), tokens equal
+# card to CPU. Its width is 128, not the tests' 32: two heads of 64, the
+# least head dimension kernels B2, B4 and B5 are built for
+SMALL_SERVE = dict(vocab_size=64, d_model=128, num_heads=2, d_ff=64,
+                   num_layers=2, max_len=32)
+SMALL_SERVE_KW = dict(slots=4, prompt_buckets=(8, 16), eos_id=1,
+                      block_size=4)
+SMALL_SERVE_PROMPTS = ([0, 5, 7], [2, 3, 4, 5, 6, 7, 8, 9, 10],
+                       [2, 3, 4, 5, 6, 7, 8, 9, 11], [9, 3, 2, 11, 4])
+SMALL_SERVE_NEW = 10
+# [program-serve]: the program-served paged cell's peak (its weights, its
+# pools and the peak allocation above them while it serves) within this
+# share of the module-served cell's
+PROGRAM_PEAK_RTOL = 0.02
+# [program-generation]: bench.py's bench_generation on the accelerator
+# (vocab 1024, d_model 512, 8 heads, d_ff 2048, 4 layers, 8 slots, prompt
+# bucket 8, 64 steps, max_len 128), weights from the transformer_lm
+# program's startup
+PROGRAM_GENERATION = dict(vocab_size=1024, d_model=512, num_heads=8,
+                          d_ff=2048, num_layers=4)
+PROGRAM_GENERATION_SLOTS, PROGRAM_GENERATION_STEPS = 8, 64
 
 
 class SmokeFailure(RuntimeError):
@@ -1108,7 +1147,8 @@ def phase_small_lm_quant(rng):
 
 def phase_serve(sess, rng):
     """Serve the requests through the scheduler with every launch count
-    at 0 just before; returns the counts and the served lengths."""
+    at 0 just before; returns the counts, the served lengths, the prompts
+    and the outputs."""
     import torch
     from paddle_tpu_torch.serving import GenerationScheduler
     prompts = [rng.integers(2, FULL["vocab_size"], n) for n in PROMPT_LENS]
@@ -1145,7 +1185,7 @@ def phase_serve(sess, rng):
           and launches["int8_matmul"] == 0,
           "the dense f32 path launched the paged decode or int8 kernel")
     final = [p.size + NEW_TOKENS - 1 for p in prompts]
-    return launches, final
+    return launches, final, prompts, outs
 
 
 def paged_prompts(rng):
@@ -1224,16 +1264,30 @@ def serve_paged(sess, prompts, tag, seeds=None, plain=True):
     return launches, outs, steps
 
 
+def peak_above(fn):
+    """``fn()``'s result and the card's peak allocation while it ran
+    above what was allocated before it (bytes)."""
+    import torch
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() - base
+
+
 def phase_paged_serve(sess, prompts):
     """The paged cell's five requests on the float32 session: no int8
     launch, and the repeat's tokens equal the first request's. Returns
-    the counts, the outputs and the served lengths."""
-    launches, outs, _ = serve_paged(sess, prompts, "paged-serve")
+    the counts, the outputs, the served lengths and the cell's peak
+    allocation above what was allocated before it."""
+    (launches, outs, _), peak = peak_above(
+        lambda: serve_paged(sess, prompts, "paged-serve"))
     check((outs[3] == outs[0]).all(),
           "the repeated request's tokens differ from the first's")
     check(launches["int8_matmul"] == 0, "the f32 path launched int8_matmul")
     final = [p.size + NEW_TOKENS - 1 for p in prompts]
-    return launches, outs, final
+    return launches, outs, final, peak
 
 
 def phase_quant_serve(quant, f32, prompts, f32_outs):
@@ -2302,6 +2356,51 @@ def phase_latency(sess, rng):
              step_ms / SLOTS, [round(r, 3) for r in rounds]))
 
 
+def profile_window(label, fn, markers=()):
+    """torch.profiler over ``fn()``: prints the window's wall time, its
+    device-busy share (kernel time over wall time; one stream, so kernels
+    do not overlap), the share and launches of each of ``markers``
+    ((label, kernel-name fragments)) and the top kernels. Returns
+    {marker label: launches, "busy_share": the busy share}, or None when
+    the profiler saw no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    by_name, count = {}, {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + \
+                e.time_range.elapsed_us()
+            count[e.name] = count.get(e.name, 0) + 1
+    busy = sum(by_name.values())
+    if not busy:
+        print("[profile] %s: the profiler saw no device time (not "
+              "measured)" % label)
+        return None
+    print("[profile] %s: wall %.3f ms, device busy %.3f ms (%.1f%%)"
+          % (label, wall_us / 1e3, busy / 1e3, 100 * busy / wall_us))
+    launched = {"busy_share": busy / wall_us}
+    for kernel, names in markers:
+        mine = sum(us for n, us in by_name.items()
+                   if any(m in n for m in names))
+        launched[kernel] = sum(k for n, k in count.items()
+                               if any(m in n for m in names))
+        print("[profile]   %s %.3f ms, %.1f%% of busy, %d launches"
+              % (kernel, mine / 1e3, 100 * mine / busy,
+                 launched[kernel]))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    for name, us in top:
+        print("[profile]   %6.1f%% %9.3f ms  %s"
+              % (100 * us / busy, us / 1e3, name[:110]))
+    return launched
+
+
 def phase_profile(sess, rng, paged, system, quant):
     """Where device time goes: torch.profiler over one 512-token
     admission, then over 4 decode steps with every slot active; on the
@@ -2312,56 +2411,19 @@ def phase_profile(sess, rng, paged, system, quant):
     one stream, so kernels do not overlap), its top kernels and the
     shares of the busy time of B4 (dense decode), B5 (paged decode) and,
     on the int8 session, B3."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    def window(label, fn, markers=()):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
-        by_name, count = {}, {}
-        for e in prof.events():
-            if e.device_type == torch.autograd.DeviceType.CUDA:
-                by_name[e.name] = by_name.get(e.name, 0.0) + \
-                    e.time_range.elapsed_us()
-                count[e.name] = count.get(e.name, 0) + 1
-        busy = sum(by_name.values())
-        if not busy:
-            print("[profile] %s: the profiler saw no device time (not "
-                  "measured)" % label)
-            return None
-        print("[profile] %s: wall %.3f ms, device busy %.3f ms (%.1f%%)"
-              % (label, wall_us / 1e3, busy / 1e3, 100 * busy / wall_us))
-        launched = {}
-        for kernel, names in markers:
-            mine = sum(us for n, us in by_name.items()
-                       if any(m in n for m in names))
-            launched[kernel] = sum(k for n, k in count.items()
-                                   if any(m in n for m in names))
-            print("[profile]   %s %.3f ms, %.1f%% of busy, %d launches"
-                  % (kernel, mine / 1e3, 100 * mine / busy,
-                     launched[kernel]))
-        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-        for name, us in top:
-            print("[profile]   %6.1f%% %9.3f ms  %s"
-                  % (100 * us / busy, us / 1e3, name[:110]))
-        return launched
-
     b3 = ("B3 (quantize pass, split-K decode kernel, prefill GEMM)",
           ("quantize_rows_kernel", "int8_gemv_kernel", "int8_gemm_kernel"))
     b4 = ("B4 (dense_decode_kernel)", ("dense_decode_kernel",))
     b5 = ("B5 (split and combine)", ("paged_split_kernel",
                                      "paged_combine_kernel"))
     prompt = rng.integers(2, FULL["vocab_size"], BUCKETS[-1])
-    window("prefill 512", lambda: sess.retire(sess.admit(prompt)[0]))
+    profile_window("prefill 512",
+                   lambda: sess.retire(sess.admit(prompt)[0]))
     for i in range(SLOTS):
         sess.admit(rng.integers(2, FULL["vocab_size"], 64 + 56 * i))
-    launched = window("4 decode steps, %d slots" % SLOTS,
-                      lambda: [sess.step() for _ in range(4)], (b4,))
+    launched = profile_window("4 decode steps, %d slots" % SLOTS,
+                              lambda: [sess.step() for _ in range(4)],
+                              (b4,))
     # B4 makes one launch a call: one a layer and step
     check(launched is None or launched[b4[0]] == 4 * FULL["num_layers"],
           "the dense decode window launched %s B4 kernels, not one a layer "
@@ -2372,12 +2434,13 @@ def phase_profile(sess, rng, paged, system, quant):
                                ("int8/bf16 paged", quant, (b3, b5))):
         hit = np.concatenate([system,
                               rng.integers(2, FULL["vocab_size"], 108)])
-        window("%s prefill, 192-token prefix hit, window 108" % label,
-               lambda: ps.retire(ps.admit(hit)[0]), markers)
+        profile_window("%s prefill, 192-token prefix hit, window 108"
+                       % label, lambda: ps.retire(ps.admit(hit)[0]),
+                       markers)
         for i in range(SLOTS):
             ps.admit(rng.integers(2, FULL["vocab_size"], 64 + 56 * i))
-        window("4 %s decode steps, %d slots" % (label, SLOTS),
-               lambda: [ps.step() for _ in range(4)], markers)
+        profile_window("4 %s decode steps, %d slots" % (label, SLOTS),
+                       lambda: [ps.step() for _ in range(4)], markers)
         for s in range(SLOTS):
             ps.retire(s)
 
@@ -4258,6 +4321,381 @@ def phase_program_lm_int8(seed):
     return by_shape
 
 
+def phase_small_program_serve(seed):
+    """[small-program-serve]: SMALL_SERVE served through its generation
+    programs (``GenerationSession(spec, scope)``) on the card and on the
+    CPU, each configuration of SMALL_SERVE_KW's cells; the tokens must be
+    equal card to CPU. Prints the card's kernel launches."""
+    from paddle_tpu_torch.io import scope_from_jax
+    from paddle_tpu_torch.models.transformer import transformer_lm_session
+    from paddle_tpu_torch.serving import GenerationSession
+    from paddle_tpu_torch.serving.decoding import DecodePolicy
+    rng = np.random.default_rng(seed + 9)
+    named = {n: rng.standard_normal(v.shape, dtype=np.float32)
+             for n, v in make_params(SMALL_SERVE, rng).items()}
+    paged = dict(paged=True, prefix_cache=True)
+    cells = (("greedy dense", dict(paged=False), None, (0,)),
+             ("greedy paged", paged, None, (0,)),
+             ("sampled dense", dict(paged=False),
+              DecodePolicy("sample", **SAMPLE_KNOBS), SAMPLE_SEEDS[:2]),
+             ("speculative paged", paged, DecodePolicy(
+                 speculate_k=3,
+                 draft=dict(num_layers=SMALL_SERVE["num_layers"])), (0,)))
+    reset_launches()
+    for label, kw, policy, seeds in cells:
+        outs, stats = {}, {}
+        for dev in ("cpu", "cuda"):
+            spec = transformer_lm_session(
+                device=dev, decode_policy=policy,
+                **dict(SMALL_SERVE, **SMALL_SERVE_KW, **kw))
+            sess = GenerationSession(spec, scope_from_jax(named, device=dev))
+            outs[dev] = [sess.generate(p, max_new_tokens=SMALL_SERVE_NEW,
+                                       eos_id=-1, seed=sd)
+                         for p in SMALL_SERVE_PROMPTS for sd in seeds]
+            stats[dev] = (sess.compile_stats(), sess.prefix_stats()["hits"],
+                          sess.spec_accepted)
+            sess.close()
+        same = sum(a == b for a, b in zip(outs["cuda"], outs["cpu"]))
+        print("[small-program-serve] %s: %d streams of %d tokens, equal "
+              "card to CPU %d; card compile stats %s, prefix hits %d, "
+              "accepted drafts %d" % (label, len(outs["cuda"]),
+                                      SMALL_SERVE_NEW, same,
+                                      *stats["cuda"]))
+        check(same == len(outs["cpu"]),
+              "small program serve (%s): tokens differ card to CPU" % label)
+        check(stats["cuda"] == stats["cpu"],
+              "small program serve (%s): stats %s on the card, %s on the "
+              "CPU" % (label, stats["cuda"], stats["cpu"]))
+    launches = read_launches()
+    print("[small-program-serve] launches on the card: %s" % launches)
+    check(all(launches[k] > 0 for k in ("flash_attention",
+                                        "decode_attention",
+                                        "decode_attention_paged")),
+          "small program serve launches %s" % launches)
+
+
+def program_scope(session):
+    """A Scope holding ``session``'s model tensors under their reference
+    names by reference, no copy (an armed model's int8 weights with their
+    scales): the program route on the module route's weights."""
+    from paddle_tpu_torch import core
+    scope = core.Scope()
+    for name, t in session.model.reference_state().items():
+        scope.set_var(name, t)
+    return scope
+
+
+def program_streams(tag, outs, base, prompts, gap_sess):
+    """The program route's streams against the module route's on the same
+    prompts: equal, or first differing at a near-tie (``near_tie_rule``;
+    the two routes compute a prefill's LM head over other row counts, the
+    reference's program over every window row)."""
+    same = near_tie_rule(tag, base, outs, prompts, gap_sess)
+    print("[%s] streams equal to the nn.Module route's: %d of %d"
+          % (tag, same, len(prompts)))
+
+
+def phase_program_serve(sess, paged, quant, dense_prompts, dense_outs,
+                        prompts, paged_outs, quant_outs, paged_peak, rng):
+    """[program-serve]: the flagship LM served through the generation
+    programs on the module sessions' weights by reference: the dense
+    cell's requests, the paged cell's five (f32, and int8 weights with
+    bfloat16 pools) and a speculative paged session (the verify
+    program), each with every launch count at 0 just before. Tokens
+    against the module route's; B2 (12 a dense admission), B4 (12 a dense
+    step), B5 (12 a paged step and a verify) and B3 (73 an armed
+    admission and step) under program ops; the paged cell's peak beside
+    the module cell's; TTFT per bucket and the decode step at 8 slots in
+    turns with the module route; one profiled decode step of each.
+    Returns the launch counts for the kernels line."""
+    import torch
+    from paddle_tpu_torch.models.transformer import transformer_lm_session
+    from paddle_tpu_torch.serving import (GenerationScheduler,
+                                          GenerationSession)
+    from paddle_tpu_torch.serving.decoding import DecodePolicy
+    layers, v = FULL["num_layers"], FULL["vocab_size"]
+    dense_kw = dict(slots=SLOTS, cache_len=CACHE_LEN, prompt_buckets=BUCKETS,
+                    eos_id=1, device="cuda", decode_policy=None, **FULL)
+    paged_kw = dict(dense_kw, paged=True, block_size=BLOCK_SIZE,
+                    num_blocks=0, prefix_cache=True)
+    t0 = time.perf_counter()
+    specs = {"dense": transformer_lm_session(**dense_kw),
+             "paged": transformer_lm_session(**paged_kw),
+             "int8": transformer_lm_session(dtype="bfloat16", **paged_kw)}
+    build_s = time.perf_counter() - t0
+    pdense = GenerationSession(specs["dense"], program_scope(sess))
+    ppaged = GenerationSession(specs["paged"], program_scope(paged))
+    pquant = GenerationSession(specs["int8"], program_scope(quant),
+                               arm_quant=True)
+    ops = {k: len(sp.decode_program.global_block().ops)
+           for k, sp in specs.items()}
+    print("[program-serve] three specs built in %.2f s (decode program "
+          "ops: %s; prefill 512: %d ops); the int8 one armed %d weights "
+          "of the module session's int8 tensors"
+          % (build_s, ops, len(specs["dense"].prefill_programs[
+              BUCKETS[-1]].global_block().ops), len(pquant._quant_armed)))
+    check(pquant._quant_armed == sorted(quant._quant_armed)
+          and len(pquant._quant_armed) == INT8_PER_PASS,
+          "the program session armed %s" % pquant._quant_armed)
+    out = {}
+
+    # the dense cell: the dense phase's requests through the scheduler
+    sched = GenerationScheduler(pdense, autostart=False)
+    reset_launches()
+    pre0, st0 = pdense.prefills, pdense.steps
+    t0 = time.perf_counter()
+    futs = [sched.submit(p, max_new_tokens=NEW_TOKENS, eos_id=-1)
+            for p in dense_prompts]
+    sched.start()
+    outs = [f.result(timeout=600) for f in futs]
+    sched.drain(timeout=60)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    adm, steps = pdense.prefills - pre0, pdense.steps - st0
+    print("[program-serve] dense: %d requests, %d admissions, %d decode "
+          "steps in %.2f s; launches %s; B2 f32 %d per admission, B4 %d "
+          "per step; compile stats %s"
+          % (len(outs), adm, steps, time.perf_counter() - t0, launches,
+             launches["flash_attention"] // max(adm, 1),
+             launches["decode_attention"] // max(steps, 1),
+             pdense.compile_stats()))
+    check(adm == len(dense_prompts) and
+          launches["flash_attention"] == layers * adm and
+          launches["decode_attention"] == layers * steps > 0 and
+          launches["decode_attention_paged"] == 0 and
+          launches["int8_matmul"] == 0,
+          "program dense launches %s for %d admissions, %d steps"
+          % (launches, adm, steps))
+    check(pdense.compile_stats()["compiles"] == len(BUCKETS) + 1,
+          "program dense compile stats %s" % pdense.compile_stats())
+    program_streams("program-serve dense", outs, dense_outs, dense_prompts,
+                    paged)
+    out["flash_attention"] = launches["flash_attention"]
+    out["decode_attention"] = launches["decode_attention"]
+
+    # the paged cell, f32: its peak beside the module-served cell's
+    (launches, outs, steps), peak = peak_above(
+        lambda: serve_paged(ppaged, prompts, "program-serve paged"))
+    check(launches["int8_matmul"] == 0,
+          "the f32 program path launched int8_matmul")
+    program_streams("program-serve paged", outs, paged_outs, prompts, paged)
+    weights = sum(t.numel() * t.element_size()
+                  for t in paged.model.reference_state().values())
+    pools = sum(c.numel() * c.element_size()
+                for pair in paged.model.caches for c in pair)
+    mine = sum(ppaged.scope.find_var(n).numel() *
+               ppaged.scope.find_var(n).element_size()
+               for n, _, _ in ppaged.spec.cache_vars)
+    m_cell, p_cell = weights + pools + paged_peak, weights + mine + peak
+    print("[program-serve] paged cell peak: program route %.3f GB "
+          "(weights %.3f GB, pools %.3f GB, %.1f MB above them while "
+          "serving), module route %.3f GB (%.1f MB above); ratio %.4f "
+          "(limit %.2f); B5 %d per step"
+          % (p_cell / 1e9, weights / 1e9, mine / 1e9, peak / 1e6,
+             m_cell / 1e9, paged_peak / 1e6, p_cell / m_cell,
+             1 + PROGRAM_PEAK_RTOL,
+             launches["decode_attention_paged"] // max(steps, 1)))
+    check(mine == pools, "program pools %d bytes, module pools %d"
+          % (mine, pools))
+    check(p_cell <= (1 + PROGRAM_PEAK_RTOL) * m_cell,
+          "the program-served paged cell's peak %.3f GB passes the module "
+          "cell's %.3f GB by more than %g"
+          % (p_cell / 1e9, m_cell / 1e9, PROGRAM_PEAK_RTOL))
+    out["decode_attention_paged"] = launches["decode_attention_paged"]
+
+    # the paged cell, int8 weights and bf16 pools
+    launches, outs, steps = serve_paged(pquant, prompts,
+                                        "program-serve int8/bf16")
+    shapes = read_int8_shapes()
+    print("[program-serve] int8/bf16: B3 %d launches = %d x (%d "
+          "admissions + %d steps); by (m, k, n) %s"
+          % (launches["int8_matmul"], INT8_PER_PASS, len(prompts), steps,
+             sorted(shapes.items())))
+    check(launches["int8_matmul"] == INT8_PER_PASS * (len(prompts) + steps),
+          "program int8 launches %d != %d x (%d + %d)"
+          % (launches["int8_matmul"], INT8_PER_PASS, len(prompts), steps))
+    program_streams("program-serve int8/bf16", outs, quant_outs, prompts,
+                    quant)
+    out["decode_attention_paged bf16"] = launches["decode_attention_paged"]
+    out["int8_matmul"] = launches["int8_matmul"]
+
+    # speculative rounds through the verify program (the default 1-layer
+    # self-draft, a dense program session on the same scope)
+    pspec = GenerationSession(transformer_lm_session(
+        **dict(paged_kw, decode_policy=DecodePolicy(speculate_k=SPEC_K))),
+        program_scope(paged))
+    d = pspec.draft
+    d0 = (d.prefills, d.steps)
+    launches, outs, steps = serve_paged(pspec, prompts,
+                                        "program-serve speculative",
+                                        plain=False)
+    dpre, dsteps = d.prefills - d0[0], d.steps - d0[1]
+    print("[program-serve] speculative: %d rounds, %d verifies, %d "
+          "drafted, %d accepted, %d plain steps; draft %d admissions, %d "
+          "steps; B5 %d = %d x (%d + %d), B2 %d, B4 %d"
+          % (pspec.spec_rounds, pspec.verifies, pspec.spec_drafted,
+             pspec.spec_accepted, steps, dpre, dsteps,
+             launches["decode_attention_paged"], layers, steps,
+             pspec.verifies, launches["flash_attention"],
+             launches["decode_attention"]))
+    check(pspec.verifies > 0 and launches["decode_attention_paged"] ==
+          layers * (steps + pspec.verifies) and
+          launches["flash_attention"] == dpre == len(prompts) and
+          launches["decode_attention"] == dsteps > 0,
+          "program speculative launches %s" % launches)
+    program_streams("program-serve speculative", outs, paged_outs, prompts,
+                    paged)
+    out["verifies"] = pspec.verifies
+    pspec.close()
+
+    # TTFT per bucket and the decode step at 8 slots, in turns
+    routes = (("module", sess), ("program", pdense))
+    ttft = {name: {} for name, _ in routes}
+    for p in BUCKETS:
+        times = {name: [] for name, _ in routes}
+        for _ in range(3):
+            prompt = rng.integers(2, v, p)
+            for name, s in routes:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                slot, _ = s.admit(prompt)
+                times[name].append((time.perf_counter() - t0) * 1e3)
+                s.retire(slot)
+        for name in times:
+            ttft[name][p] = sorted(times[name])[1]
+    for i in range(SLOTS):
+        prompt = rng.integers(2, v, 64 + 56 * i)
+        for _, s in routes:
+            s.admit(prompt)
+    for _, s in routes:
+        for _ in range(3):
+            s.step()
+    rounds = {name: [] for name, _ in routes}
+    for _ in range(LATENCY_ROUNDS):
+        for name, s in routes:
+            t0 = time.perf_counter()
+            for _ in range(16):
+                s.step()
+            rounds[name].append((time.perf_counter() - t0) * 1e3 / 16)
+    step_ms = {name: float(np.median(r)) for name, r in rounds.items()}
+    print("[program-serve] ttft_ms (idle server, median of 3, in turns) "
+          "module %s, program %s; decode step at %d slots (median of %d "
+          "rounds of 16, in turns): module %.3f ms, program %.3f ms (+%.3f "
+          "ms, x%.2f); rounds module %s, program %s"
+          % ({k: round(x, 3) for k, x in ttft["module"].items()},
+             {k: round(x, 3) for k, x in ttft["program"].items()}, SLOTS,
+             LATENCY_ROUNDS, step_ms["module"], step_ms["program"],
+             step_ms["program"] - step_ms["module"],
+             step_ms["program"] / step_ms["module"],
+             [round(r, 3) for r in rounds["module"]],
+             [round(r, 3) for r in rounds["program"]]))
+    b4 = ("B4 (dense_decode_kernel)", ("dense_decode_kernel",))
+    busy = {}
+    for name, s in routes:
+        got = profile_window("%s route: 1 decode step, %d slots"
+                             % (name, SLOTS), s.step, (b4,))
+        busy[name] = None if got is None else got["busy_share"]
+        check(got is None or got[b4[0]] == layers,
+              "%s route's decode step launched %s B4 kernels"
+              % (name, (got or {}).get(b4[0])))
+    print("[program-serve] one decode step's device-busy share: module "
+          "%s, program %s" % (busy["module"], busy["program"]))
+    for _, s in routes:
+        for slot in s.active_slots():
+            s.retire(slot)
+    out.update(ttft=ttft, step_ms=step_ms, busy=busy)
+    for s in (pdense, ppaged, pquant):
+        s.close()
+    return out
+
+
+def phase_program_generation(seed):
+    """[program-generation]: bench.py's ``bench_generation`` on the
+    accelerator through the port's program route: PROGRAM_GENERATION's
+    weights from its ``transformer_lm`` program's startup on the card,
+    ``transformer_lm_session`` (8 slots, max_len and cache 128, prompt
+    bucket 8) and ``GenerationSession(spec, scope)``: 8 prompts of 4
+    tokens, a warm step, TTFT of ``[0]`` (median of 5), then 64 timed
+    steps; then the same weights armed for int8 compute (the scope
+    quantized in place) and the steps again. Checks 2 compiles for each
+    (one bucket and the decode shape) and the launches per admission and
+    step."""
+    import torch
+    from paddle_tpu_torch import core
+    from paddle_tpu_torch.models.transformer import (lm_param_names,
+                                                     transformer_lm_session)
+    from paddle_tpu_torch.serving import GenerationSession
+    cfg = PROGRAM_GENERATION
+    slots, steps = PROGRAM_GENERATION_SLOTS, PROGRAM_GENERATION_STEPS
+    max_len, vocab = 2 * steps, cfg["vocab_size"]
+    _, startup, _, _ = lm_program(cfg, max_len, is_test=True)
+    startup.random_seed = seed
+    scope = core.Scope()
+    core.Executor(device="cuda").run(startup, scope=scope)
+    check(set(lm_param_names(cfg["num_layers"])) <= set(scope.var_names()),
+          "the startup made %s" % sorted(scope.var_names()))
+    per_step = {"float32": {"decode_attention": cfg["num_layers"]},
+                "int8": {"decode_attention": cfg["num_layers"],
+                         "int8_matmul": 6 * cfg["num_layers"] + 1}}
+    got = {}
+    for dtype, arm in (("float32", False), ("int8", True)):
+        spec = transformer_lm_session(
+            max_len=max_len, slots=slots, cache_len=max_len,
+            prompt_buckets=(8,), device="cuda", decode_policy=None, **cfg)
+        sess = GenerationSession(spec, scope, arm_quant=arm)
+        rs = np.random.RandomState(0)
+
+        def fill():
+            return [sess.admit(list(rs.randint(2, vocab, 4)))[0]
+                    for _ in range(slots - len(sess.active_slots()))]
+        fill()
+        sess.step()
+        ttft = []
+        if not arm:
+            for s in sess.active_slots():
+                sess.retire(s)
+            for _ in range(5):
+                t0 = time.perf_counter()
+                slot, _ = sess.admit([0])
+                ttft.append((time.perf_counter() - t0) * 1e3)
+                sess.retire(slot)
+            fill()
+        reset_launches()
+        step_ms = []
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            t1 = time.perf_counter()
+            sess.step()
+            step_ms.append((time.perf_counter() - t1) * 1e3)
+        dt = time.perf_counter() - t0
+        launches = read_launches()
+        stats = sess.compile_stats()
+        got[dtype] = dict(tokens_per_sec=slots * steps / dt,
+                          inter_token_ms=float(np.median(step_ms)),
+                          ttft_ms=float(np.median(ttft)) if ttft else None,
+                          compiles=stats["compiles"])
+        print("[program-generation] %s: decode_tokens_per_sec %.1f, "
+              "inter_token_ms %.3f%s; compile stats %s; launches over %d "
+              "steps %s; armed %d weights"
+              % (dtype, got[dtype]["tokens_per_sec"],
+                 got[dtype]["inter_token_ms"],
+                 "" if not ttft else ", time_to_first_token_ms %.3f"
+                 % got[dtype]["ttft_ms"], stats, steps, launches,
+                 len(sess._quant_armed)))
+        check(stats["compiles"] == 2,
+              "%s generation shape set not closed: %d compiles for 1 prompt "
+              "bucket + 1 decode shape" % (dtype, stats["compiles"]))
+        want = {k: n * steps for k, n in per_step[dtype].items()}
+        check(all(launches[k] == want.get(k, 0) for k in launches),
+              "%s launches %s over %d steps, expected %s"
+              % (dtype, launches, steps, want))
+        check(not arm or len(sess._quant_armed) ==
+              per_step["int8"]["int8_matmul"],
+              "int8 compute armed %d weights" % len(sess._quant_armed))
+        sess.close()
+    return got
+
+
 def phase_time_flash_bf16(lm_launches, err, sweep):
     """B2 bf16 at the path's shape: its time between CUDA events over
     queued calls and from the profiler, launches a step, the bound, and
@@ -4391,6 +4829,7 @@ def main(argv=None):
         phase_small_program(args.seed)
         phase_small_program_int8(args.seed)
         phase_small_program_lm(args.seed)
+        phase_small_program_serve(args.seed)
         # the LM training phases draw from their own stream, so the
         # serving phases see the inputs they saw before these existed
         lm_rng = np.random.default_rng(args.seed + 1)
@@ -4420,15 +4859,24 @@ def main(argv=None):
               "a dense, a paged and an int8/bf16 paged session in %.1f s "
               "(building and arming the int8 one: %.1f s)"
               % (nparam, nparam * 4 / 1e9, time.perf_counter() - t0, arm_s))
-        launches, final = phase_serve(sess, rng)
+        launches, final, dense_prompts, dense_outs = phase_serve(sess, rng)
         system, prompts = paged_prompts(rng)
-        paged_launches, paged_outs, paged_final = phase_paged_serve(paged,
-                                                                    prompts)
+        paged_launches, paged_outs, paged_final, paged_peak = \
+            phase_paged_serve(paged, prompts)
         launches["decode_attention_paged"] = \
             paged_launches["decode_attention_paged"]
         quant_launches, _, quant_outs = phase_quant_serve(
             quant, paged, prompts, paged_outs)
         phase_paged_logits(paged, sess, system, rng)
+        # serving through the programs, on the same weights; its timing
+        # prompts from a stream of its own
+        prog_serve = phase_program_serve(
+            sess, paged, quant, dense_prompts, dense_outs, prompts,
+            paged_outs, quant_outs, paged_peak,
+            np.random.default_rng(args.seed + 10))
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_program_generation(args.seed)
         # the decode policies draw from a stream of their own, so the
         # phases after see the inputs they saw before these existed
         pol_rng = np.random.default_rng(args.seed + 6)
@@ -4515,7 +4963,17 @@ def main(argv=None):
                 row.update(program_launches=prog_lm["launches"][
                     "flash_attention bf16"],
                     program_launches_in="[program-lm-train]")
-            elif row["name"] == "int8_matmul" and \
+            if row["name"] in ("flash_attention", "decode_attention",
+                               "decode_attention_paged",
+                               "int8_matmul") and \
+                    row.get("dtype", "float32") == "float32":
+                # the same kernels under the generation programs' ops
+                key = row["name"] + (
+                    " bf16" if row.get("kv_dtype") == "bfloat16" else "")
+                if key in prog_serve:
+                    row.update(serve_program_launches=prog_serve[key],
+                               serve_program_launches_in="[program-serve]")
+            if row["name"] == "int8_matmul" and \
                     row["shape"][0] == PROGRAM_INT8_T:
                 # the armed run's launches of this shape, as B3's wrapper
                 # counted them

@@ -29,9 +29,9 @@ _DIM_PLACEHOLDER = 8191
 
 # the modules whose import registers the port's ops
 OP_MODULES = ("activation_ops", "attention_ops", "conv_bn",
-              "control_flow_ops", "loss_ops", "math_ops", "metric_ops",
-              "nn_ops", "optimizer_ops", "random_ops", "sequence_ops",
-              "tensor_ops")
+              "control_flow_ops", "decoding_ops", "generation_ops",
+              "loss_ops", "math_ops", "metric_ops", "nn_ops",
+              "optimizer_ops", "random_ops", "sequence_ops", "tensor_ops")
 
 _registry = {}
 _loaded = []

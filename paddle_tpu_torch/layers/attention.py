@@ -5,11 +5,11 @@ Program forms, which append ops to the current program as the
 reference's do, with its parameter names (``mha_N.qkv_{q,k,v}.w``,
 ``mha_N.o.w``, ``enc_N.ffn{1,2}.{w,b}``, the layer norms' and the
 position table's unique names): :func:`multi_head_attention`,
-:func:`transformer_encoder_layer` (uncached) and
-:func:`positional_encoding`. The cached generation programs
-(``multi_head_attention_cached``, ``positional_encoding_window``, the
-``kv_cache_*`` ops) are not ported: ``cache=`` raises, and the port
-serves through the ``nn.Module``s below.
+:func:`multi_head_attention_cached` (the KV-cached attention of the
+generation programs: the ``kv_cache_*`` ops and the decode and prefill
+attentions of ``ops/generation_ops.py``, dense and paged),
+:func:`transformer_encoder_layer` (``cache=`` takes the cached one),
+:func:`positional_encoding` and :func:`positional_encoding_window`.
 
 ``nn.Module`` forms, for the ``multi_head_attention``,
 ``multi_head_attention_cached`` dense and paged branches,
@@ -37,12 +37,14 @@ from ..ops.generation_ops import (kv_cache_append, kv_cache_write_rows,
                                   kv_cache_write_slot,
                                   multihead_attention_decode,
                                   multihead_attention_decode_paged,
-                                  multihead_attention_prefill_paged)
+                                  multihead_attention_prefill_paged,
+                                  multihead_attention_verify_paged)
 from ..ops.nn_ops import fc, gather, gelu, layer_norm, mul
 from . import nn as _nn
 
-__all__ = ["multi_head_attention", "transformer_encoder_layer",
-           "positional_encoding", "MultiHeadAttention",
+__all__ = ["multi_head_attention", "multi_head_attention_cached",
+           "transformer_encoder_layer", "positional_encoding",
+           "positional_encoding_window", "MultiHeadAttention",
            "TransformerEncoderLayer", "PositionalEncodingWindow"]
 
 def multi_head_attention(queries, keys, values, d_model, num_heads,
@@ -76,23 +78,121 @@ def multi_head_attention(queries, keys, values, d_model, num_heads,
                   param_attr=attr("o"), **kwargs)
 
 
+def _cache_op(helper, op_type, cvar, **inputs):
+    """A cache write: ``Out`` names the cache variable ``cvar``, so the
+    executor writes it in place (the reference's donated state)."""
+    slots = {"Cache": [cvar.name]}
+    slots.update({k: [v.name] for k, v in inputs.items()})
+    helper.append_op(type=op_type, inputs=slots,
+                     outputs={"Out": [cvar.name]})
+
+
+def multi_head_attention_cached(x, cache, d_model, num_heads,
+                                key_length=None, param_attr=None,
+                                name=None, **kwargs):
+    """KV-cached MHA (program form): the projections and parameter names
+    of :func:`multi_head_attention`, with K/V written into persistable
+    per-layer cache variables (``cache["k"]``, ``cache["v"]``) and read
+    back from them. ``cache["mode"]``:
+
+    * ``"prefill"`` — x is one prompt [1, P, D]: its K/V rows go into
+      slot ``cache["slot"]`` at positions [0, P), and the attention is
+      causal within the prompt (``key_length`` masks right-padding).
+    * ``"decode"`` — x is one token per slot [S, 1, D]: K/V rows go to
+      per-slot positions ``cache["pos"]`` and each query attends its
+      slot's rows [0, pos].
+
+    With ``cache["layout"] == "paged"`` the caches are block pools
+    addressed through ``cache["table"]``: prefill is a suffix-window
+    prefill at cached depth ``cache["hist"]`` (the window attends the
+    cached prefix and itself causally), decode gathers each slot's
+    rows through its table row."""
+    helper = LayerHelper("multi_head_attention", name=name, **kwargs)
+    prefix = name or unique_name.generate("mha")
+
+    def attr(suffix):
+        return param_attr if param_attr is not None else \
+            "%s.%s.w" % (prefix, suffix)
+    q = _nn.fc(x, d_model, num_flatten_dims=2, bias_attr=False,
+               param_attr=attr("qkv_q"), **kwargs)
+    k = _nn.fc(x, d_model, num_flatten_dims=2, bias_attr=False,
+               param_attr=attr("qkv_k"), **kwargs)
+    v = _nn.fc(x, d_model, num_flatten_dims=2, bias_attr=False,
+               param_attr=attr("qkv_v"), **kwargs)
+    ck, cv = cache["k"], cache["v"]
+    ctx_out = helper.create_tmp_variable(x.dtype)
+    mode = cache["mode"]
+    if mode not in ("prefill", "decode"):
+        raise ValueError("cache mode must be 'prefill' or 'decode', "
+                         "got %r" % (mode,))
+    attn = {"Q": [q.name], "CacheK": [ck.name], "CacheV": [cv.name]}
+    if cache.get("layout") == "paged":
+        table = cache["table"]
+        if mode == "prefill":
+            hist = cache["hist"]
+            for cvar, proj in ((ck, k), (cv, v)):
+                _cache_op(helper, "kv_cache_write_paged", cvar, New=proj,
+                          Table=table, Hist=hist, Len=key_length)
+            op_type = "multihead_attention_prefill_paged"
+            attn.update(Table=[table.name], Hist=[hist.name],
+                        Len=[key_length.name])
+        else:
+            pos = cache["pos"]
+            for cvar, proj in ((ck, k), (cv, v)):
+                _cache_op(helper, "kv_cache_append_paged", cvar, New=proj,
+                          Pos=pos, Table=table)
+            op_type = "multihead_attention_decode_paged"
+            attn.update(Pos=[pos.name], Table=[table.name])
+        helper.append_op(type=op_type, inputs=attn,
+                         outputs={"Out": [ctx_out.name]},
+                         attrs={"num_heads": num_heads})
+    elif mode == "prefill":
+        for cvar, proj in ((ck, k), (cv, v)):
+            _cache_op(helper, "kv_cache_write_slot", cvar, New=proj,
+                      Slot=cache["slot"])
+        inputs = {"Q": [q.name], "K": [k.name], "V": [v.name]}
+        if key_length is not None:
+            inputs["KeyLength"] = [key_length.name]
+        helper.append_op(type="multihead_attention", inputs=inputs,
+                         outputs={"Out": [ctx_out.name]},
+                         attrs={"num_heads": num_heads, "causal": True,
+                                "ring_axis": None})
+    else:
+        pos = cache["pos"]
+        for cvar, proj in ((ck, k), (cv, v)):
+            _cache_op(helper, "kv_cache_append", cvar, New=proj, Pos=pos)
+        attn["Pos"] = [pos.name]
+        helper.append_op(type="multihead_attention_decode", inputs=attn,
+                         outputs={"Out": [ctx_out.name]},
+                         attrs={"num_heads": num_heads})
+    return _nn.fc(ctx_out, d_model, num_flatten_dims=2, bias_attr=False,
+                  param_attr=attr("o"), **kwargs)
+
+
 def transformer_encoder_layer(x, d_model, num_heads, d_ff, causal=False,
                               key_length=None, ring_axis=None,
                               dropout_prob=0.0, is_test=False, name=None,
                               cache=None, **kwargs):
     """Pre-norm transformer block (program form): x + MHA(LN(x)); x +
     FFN(LN(x)), FFN = fc + gelu, fc; dropout after the attention and
-    after the FFN when ``dropout_prob``. ``cache`` (the KV-cached
-    variant) raises."""
-    if cache is not None:
-        raise NotImplementedError(
-            "KV-cached generation programs (cache=) are not ported yet: "
-            "ROADMAP Queue A, \"Ingest, the compile cache and AOT\"; the "
-            "port serves through models.transformer.transformer_lm_session")
+    after the FFN when ``dropout_prob``. ``cache`` (see
+    :func:`multi_head_attention_cached`) takes the KV-cached attention;
+    every parameter name is unchanged."""
     ln1 = _nn.layer_norm(x, begin_norm_axis=2, **kwargs)
-    att = multi_head_attention(ln1, ln1, ln1, d_model, num_heads,
-                               causal=causal, key_length=key_length,
-                               ring_axis=ring_axis, **kwargs)
+    if cache is not None:
+        if ring_axis:
+            raise ValueError(
+                "cache= is incompatible with ring_axis (the cached "
+                "decode path is single-mesh; ring attention shards "
+                "the sequence dim the cache keeps local)")
+        if not causal:
+            raise ValueError("cached attention is causal-only")
+        att = multi_head_attention_cached(ln1, cache, d_model, num_heads,
+                                          key_length=key_length, **kwargs)
+    else:
+        att = multi_head_attention(ln1, ln1, ln1, d_model, num_heads,
+                                   causal=causal, key_length=key_length,
+                                   ring_axis=ring_axis, **kwargs)
     if dropout_prob:
         att = _nn.dropout(att, dropout_prob, is_test=is_test, **kwargs)
     x = _nn.elementwise_add(x, att, **kwargs)
@@ -121,6 +221,48 @@ def positional_encoding(x, max_len=None, name=None, **kwargs):
     helper.append_op(type="elementwise_add",
                      inputs={"X": [x.name], "Y": [pos.name]},
                      outputs={"Out": [out.name]}, attrs={"axis": 1})
+    return out
+
+
+def positional_encoding_window(x, max_len, pos=None, window_rows=False,
+                               name=None, **kwargs):
+    """A window of the learned [max_len, D] position table of
+    :func:`positional_encoding` (the same parameter name under the same
+    ``unique_name`` sequence), added to x (program form): rows [0, P) to
+    a prompt [1, P, D] (``pos=None``); row pos[s] to each slot's token
+    [S, 1, D]; or, with ``window_rows`` (the paged suffix prefill), row
+    pos[i] to window row i of x [1, P, D]."""
+    helper = LayerHelper("pos_encoding", name=name, **kwargs)
+    d = x.shape[2]
+    table = helper.create_parameter(
+        None, shape=[max_len, d], dtype=x.dtype,
+        default_initializer=NormalInitializer(0.0, 0.02))
+    out = helper.create_tmp_variable(x.dtype)
+    if pos is None:
+        t = x.shape[1]
+        if t > max_len:
+            raise ValueError("prefill window %d exceeds the position "
+                             "table length %d" % (t, max_len))
+        win = helper.create_tmp_variable(x.dtype)
+        helper.append_op(type="slice", inputs={"Input": [table.name]},
+                         outputs={"Out": [win.name]},
+                         attrs={"axes": [0], "starts": [0], "ends": [t]})
+        helper.append_op(type="elementwise_add",
+                         inputs={"X": [x.name], "Y": [win.name]},
+                         outputs={"Out": [out.name]}, attrs={"axis": 1})
+    else:
+        rows = helper.create_tmp_variable(x.dtype)
+        helper.append_op(type="gather",
+                         inputs={"X": [table.name], "Index": [pos.name]},
+                         outputs={"Out": [rows.name]})
+        rows3 = helper.create_tmp_variable(x.dtype)
+        helper.append_op(type="reshape", inputs={"X": [rows.name]},
+                         outputs={"Out": [rows3.name]},
+                         attrs={"shape": [1, -1, d] if window_rows
+                                else [-1, 1, d]})
+        helper.append_op(type="elementwise_add",
+                         inputs={"X": [x.name], "Y": [rows3.name]},
+                         outputs={"Out": [out.name]}, attrs={})
     return out
 
 
@@ -223,12 +365,8 @@ class MultiHeadAttention(nn.Module):
         q, k, v = self._qkv(x)
         kv_cache_write_rows(cache_k, k[0], rows)
         kv_cache_write_rows(cache_v, v[0], rows)
-        w, dm = x.shape[1], x.shape[2]
-        pos = int(hist) + torch.arange(w, device=x.device)
-        ctx = multihead_attention_decode_paged(
-            q.reshape(w, 1, dm), cache_k, cache_v, pos,
-            table.reshape(1, -1).expand(w, -1), self.num_heads)
-        return self._out(ctx.reshape(1, w, dm))
+        return self._out(multihead_attention_verify_paged(
+            q, cache_k, cache_v, table, hist, self.num_heads))
 
     def decode_paged(self, x, cache_k, cache_v, pos, table, rows):
         q, k, v = self._qkv(x)

@@ -27,14 +27,16 @@ from torch import nn
 from .. import config as _config
 from .. import layers as _layers
 from ..amp import flag_dtype
-from ..core.framework import Variable
+from ..core import unique_name
+from ..core.framework import Program, Variable, program_guard
 from ..layers.attention import (PositionalEncodingWindow,
                                 TransformerEncoderLayer,
                                 positional_encoding,
+                                positional_encoding_window,
                                 transformer_encoder_layer)
 from ..ops.decoding_ops import sample_from_keys
-from ..ops.generation_ops import (kv_block_copy, paged_append_rows,
-                                  paged_window_rows)
+from ..ops.generation_ops import (VERIFY_TAG, kv_block_copy,
+                                  paged_append_rows, paged_window_rows)
 from ..ops.loss_ops import mean, softmax_with_cross_entropy
 from ..ops.nn_ops import argmax, layer_norm, lookup_table, mul
 from ..ops.quant_ops import SCALE_SUFFIX, scale_var_name
@@ -356,6 +358,7 @@ class TransformerLM(nn.Module):
         x = self.pos(lookup_table(self.tok_embedding, tokens))
         key_length = torch.tensor([length], dtype=torch.int32,
                                   device=self.device)
+        slot = torch.tensor([slot], device=self.device)
         for layer, (ck, cv) in zip(self.layers, self.caches):
             x = layer(x, ck, cv, "prefill", slot=slot, key_length=key_length)
         return self._head(x[:, length - 1])
@@ -425,22 +428,52 @@ class TransformerLM(nn.Module):
     def copy_block(self, src, dst):
         """Copy-on-write of paged caches: block ``src`` -> ``dst`` in
         every layer's K and V pool, on the device."""
+        src, dst = (torch.tensor([i], device=self.device) for i in (src, dst))
         for ck, cv in self.caches:
             kv_block_copy(ck, src, dst)
             kv_block_copy(cv, src, dst)
 
 
 def _lm_backbone(tokens, vocab_size, d_model, num_heads, d_ff, num_layers,
-                 ring_axis=None, dropout_prob=0.0, is_test=False):
-    """The reference's ``_lm_backbone`` without a cache (program form):
-    tokens [B, T] -> logits [B, T, V] Variables."""
+                 ring_axis=None, dropout_prob=0.0, is_test=False,
+                 cache_ctx=None):
+    """The reference's ``_lm_backbone`` (program form): tokens [B, T] ->
+    logits [B, T, V] Variables. ``cache_ctx`` (the cached generation
+    programs of :func:`transformer_lm_session`): ``mode`` ('prefill' or
+    'decode'), ``caches`` ([(k, v) cache Variables per layer]),
+    ``max_len`` (the position table's length) and the mode's index feeds
+    (``slot``/``key_length`` for prefill, ``pos`` for decode); with
+    ``layout='paged'`` also ``table``, and for prefill ``hist`` and
+    ``pos_idx`` (each window row's position). Every parameter name is
+    the uncached build's, so the cached programs serve a trained
+    scope."""
     emb = _layers.embedding(tokens, size=[vocab_size, d_model],
-                            param_attr="tok_embedding")
-    x = positional_encoding(emb)
-    for _ in range(num_layers):
+                            param_attr="tok_embedding",
+                            keep_dims=cache_ctx is not None)
+    if cache_ctx is None:
+        x = positional_encoding(emb)
+    elif cache_ctx.get("pos_idx") is not None:
+        x = positional_encoding_window(emb, cache_ctx["max_len"],
+                                       pos=cache_ctx["pos_idx"],
+                                       window_rows=True)
+    else:
+        x = positional_encoding_window(emb, cache_ctx["max_len"],
+                                       pos=cache_ctx.get("pos"))
+    for i in range(num_layers):
+        cache = key_length = None
+        if cache_ctx is not None:
+            ck, cv = cache_ctx["caches"][i]
+            cache = {"k": ck, "v": cv, "mode": cache_ctx["mode"],
+                     "slot": cache_ctx.get("slot"),
+                     "pos": cache_ctx.get("pos"),
+                     "layout": cache_ctx.get("layout"),
+                     "table": cache_ctx.get("table"),
+                     "hist": cache_ctx.get("hist")}
+            key_length = cache_ctx.get("key_length")
         x = transformer_encoder_layer(
-            x, d_model, num_heads, d_ff, causal=True, ring_axis=ring_axis,
-            dropout_prob=dropout_prob, is_test=is_test)
+            x, d_model, num_heads, d_ff, causal=True,
+            key_length=key_length, ring_axis=ring_axis,
+            dropout_prob=dropout_prob, is_test=is_test, cache=cache)
     x = _layers.layer_norm(x, begin_norm_axis=2)
     return _layers.fc(x, vocab_size, num_flatten_dims=2, bias_attr=False,
                       param_attr="lm_head.w")
@@ -552,17 +585,172 @@ def policy_epilogue(logits, policy, keys=None, mask=None):
     return argmax(logits, -1)
 
 
+def _generation_programs(ns, vocab_size, d_model, num_heads, d_ff,
+                         num_layers, max_len, slots, prompt_buckets, dtype,
+                         paged, max_blocks, cache_shape, policy):
+    """The reference's cached generation programs under the cache
+    namespace ``ns`` (its ``transformer_lm_session`` body): {field of
+    ``GenerationSpec``: value} for the prefill programs (one per bucket),
+    the decode program, the block-copy program (paged) and the verify
+    program (speculative), with their feed and fetch names. Each is
+    built under ``unique_name.guard()``, so its parameter names are
+    those of the ``transformer_lm`` program."""
+    sampled = policy is not None and policy.sampled
+    constraint = None if policy is None else policy.constraint
+    spec_k = 0 if policy is None else policy.speculate_k
+
+    def make_cache_vars(program):
+        block = program.global_block()
+        return [tuple(block.create_var(name="%s.l%d.%s" % (ns, i, kv),
+                                       shape=cache_shape, dtype=dtype,
+                                       persistable=True, stop_gradient=True)
+                      for kv in ("k", "v"))
+                for i in range(num_layers)]
+
+    def policy_epilogue(row, seed=None, step=None, mask=None):
+        if mask is not None:
+            row = _layers.elementwise_add(row, mask)
+        if sampled:
+            return _layers.decode_sample(
+                row, seed, step, temperature=policy.temperature,
+                top_k=policy.top_k, top_p=policy.top_p)
+        return _layers.argmax(row, axis=-1)
+
+    def policy_feeds(prefix, n):
+        seed = step = mask = None
+        names = []
+        if sampled:
+            seed = _layers.data(prefix + "seed", shape=[n], dtype="int64",
+                                append_batch_size=False)
+            step = _layers.data(prefix + "step", shape=[n], dtype="int32",
+                                append_batch_size=False)
+            names += [prefix + "seed", prefix + "step"]
+        if constraint is not None:
+            mask = _layers.data(prefix + "mask", shape=[n, vocab_size],
+                                dtype="float32", append_batch_size=False)
+            names.append(prefix + "mask")
+        return seed, step, mask, tuple(names)
+
+    def data(name, shape, dtype="int32"):
+        return _layers.data(name, shape=shape, dtype=dtype,
+                            append_batch_size=False)
+
+    def backbone(tokens, cache_ctx):
+        return _lm_backbone(tokens, vocab_size, d_model, num_heads, d_ff,
+                            num_layers, is_test=True, cache_ctx=cache_ctx)
+
+    out = {"prefill_programs": {}}
+    prefill_extra = ()
+    for p in prompt_buckets:
+        prog = Program()
+        with unique_name.guard(), program_guard(prog, Program()):
+            toks = data("gen.ptok", [1, p], "int64")
+            plen = data("gen.plen", [1])
+            ppos = data("gen.ppos", [1])
+            if paged:
+                cache_ctx = {"mode": "prefill", "layout": "paged",
+                             "table": None, "hist": data("gen.phist", [1]),
+                             "pos_idx": data("gen.ppix", [p]),
+                             "key_length": plen, "max_len": max_len}
+                cache_ctx["table"] = data("gen.ptab", [max_blocks])
+            else:
+                cache_ctx = {"mode": "prefill", "slot": data("gen.slot", [1]),
+                             "key_length": plen, "max_len": max_len}
+            pseed, pstep, pmask, prefill_extra = policy_feeds("gen.p", 1)
+            cache_ctx["caches"] = make_cache_vars(prog)
+            logits = backbone(toks, cache_ctx)
+            at = _layers.gather(_layers.transpose(logits, [1, 0, 2]), ppos)
+            nxt = policy_epilogue(_layers.reshape(at, [1, vocab_size]),
+                                  seed=pseed, step=pstep, mask=pmask)
+        out["prefill_programs"][p] = prog
+        out["prefill_fetch"] = nxt.name
+    out["prefill_feeds"] = (("gen.ptok", "gen.plen", "gen.ppos", "gen.phist",
+                             "gen.ppix", "gen.ptab") if paged
+                            else ("gen.ptok", "gen.plen", "gen.ppos",
+                                  "gen.slot")) + prefill_extra
+
+    prog = Program()
+    with unique_name.guard(), program_guard(prog, Program()):
+        toks = data("gen.dtok", [slots, 1], "int64")
+        dpos = data("gen.dpos", [slots])
+        cache_ctx = {"mode": "decode", "pos": dpos, "max_len": max_len}
+        if paged:
+            cache_ctx.update(layout="paged",
+                             table=data("gen.dtab", [slots, max_blocks]))
+        dseed, dstep, dmask, decode_extra = policy_feeds("gen.d", slots)
+        cache_ctx["caches"] = make_cache_vars(prog)
+        logits = backbone(toks, cache_ctx)
+        nxt = policy_epilogue(_layers.reshape(logits, [slots, vocab_size]),
+                              seed=dseed, step=dstep, mask=dmask)
+    out.update(decode_program=prog, decode_fetch=nxt.name,
+               decode_feeds=(("gen.dtok", "gen.dpos", "gen.dtab") if paged
+                             else ("gen.dtok", "gen.dpos")) + decode_extra)
+
+    if paged:
+        # copy-on-write: block Src -> Dst in every layer's K and V pool
+        prog = Program()
+        with unique_name.guard(), program_guard(prog, Program()):
+            csrc, cdst = data("gen.csrc", [1]), data("gen.cdst", [1])
+            block = prog.global_block()
+            for pair in make_cache_vars(prog):
+                for cvar in pair:
+                    block.append_op(type="kv_block_copy",
+                                    inputs={"Cache": [cvar.name],
+                                            "Src": [csrc.name],
+                                            "Dst": [cdst.name]},
+                                    outputs={"Out": [cvar.name]})
+        out.update(copy_program=prog, copy_feeds=("gen.csrc", "gen.cdst"))
+
+    if spec_k:
+        # one suffix-window forward at window W = k + 1 whose epilogue
+        # re-decides every window position with the target's logits; its
+        # attention is tagged to run as W decode queries (VERIFY_TAG)
+        w = spec_k + 1
+        prog = Program()
+        with unique_name.guard(), program_guard(prog, Program()):
+            vtok = data("gen.vtok", [1, w], "int64")
+            vlen, vhist = data("gen.vlen", [1]), data("gen.vhist", [1])
+            vpix = data("gen.vpix", [w])
+            vtab = data("gen.vtab", [max_blocks])
+            vseed = data("gen.vseed", [1], "int64")
+            cache_ctx = {"mode": "prefill", "layout": "paged",
+                         "caches": make_cache_vars(prog), "table": vtab,
+                         "hist": vhist, "pos_idx": vpix, "key_length": vlen,
+                         "max_len": max_len}
+            logits = backbone(vtok, cache_ctx)
+            vtoks, vaccept = _layers.decode_verify(
+                logits, vtok, vseed, vhist, kind=policy.kind,
+                temperature=policy.temperature, top_k=policy.top_k,
+                top_p=policy.top_p)
+        setattr(prog, VERIFY_TAG, True)
+        out.update(verify_program=prog,
+                   verify_feeds=("gen.vtok", "gen.vlen", "gen.vhist",
+                                 "gen.vpix", "gen.vtab", "gen.vseed"),
+                   verify_fetch=(vtoks.name, vaccept.name))
+    return out
+
+
 def transformer_lm_session(vocab_size, d_model=128, num_heads=4, d_ff=256,
                            num_layers=2, max_len=16, slots=None,
                            cache_len=None, prompt_buckets=None, bos_id=0,
-                           eos_id=1, device=None, dtype="float32",
-                           paged=None, block_size=None, num_blocks=None,
-                           prefix_cache=None, decode_policy="flags"):
+                           eos_id=1, cache_ns=None, device=None,
+                           dtype="float32", paged=None, block_size=None,
+                           num_blocks=None, prefix_cache=None,
+                           decode_policy="flags"):
     """The KV-cached generation spec of the causal LM. Defaults
     for ``slots`` / ``cache_len`` / ``prompt_buckets`` come from the
     ``generation_slots`` / ``generation_cache_buckets`` /
     ``generation_prompt_buckets`` flags, resolved as the reference does.
     ``device`` defaults to CUDA and raises when there is none.
+
+    The spec carries both of the port's serving routes. Its programs are
+    the reference's, op for op and name for name (each built under
+    ``unique_name.guard()``): a prefill program per prompt bucket, the
+    decode program, with ``paged`` the block-copy program, and with
+    speculation the verify program; ``GenerationSession(spec, scope)``
+    runs them through ``core.Executor`` over a scope holding the
+    ``transformer_lm`` program's parameters. ``build_model`` gives the
+    ``nn.Module`` route, ``GenerationSession(spec, params)``.
 
     ``dtype`` is the K/V cache storage, dense rows and paged pools both
     ("float32" or "bfloat16"; weights and activations stay float32).
@@ -591,15 +779,17 @@ def transformer_lm_session(vocab_size, d_model=128, num_heads=4, d_ff=256,
     ``d_model``, ``num_heads``, ``d_ff`` or ``num_layers``. The
     all-defaults flags resolve to no policy: greedy as before.
 
-    Each spec names its caches under a namespace of its own
-    (``cache_vars``: "kv_session_<n>.l<i>.k" / ".v", as the reference
-    names its cache variables); ``spec.rebuild()`` returns the same spec
-    under a new namespace, reading no flag (every value is resolved
-    here), which is what a session rebuild builds its replacement from.
-    ``bos_id`` is the token a rebuild's warm-up prompts are made of.
+    Each spec names its caches under a namespace of its own, ``cache_ns``
+    (default: a new "kv_session_<n>" of a process-wide count; the
+    reference draws it from ``unique_name``), as ``cache_vars``
+    ("<cache_ns>.l<i>.k" / ".v" with the reference's declared shapes: a
+    paged session's storage holds one sink block past them).
+    ``spec.rebuild()`` returns the same spec, its draft's too, under new
+    namespaces, reading no flag (every value is resolved here), which is
+    what a session rebuild builds its replacement from. ``bos_id`` is the
+    token a rebuild's warm-up prompts are made of.
 
-    Returns a :class:`~paddle_tpu_torch.serving.generation.GenerationSpec`
-    for ``GenerationSession(spec, params)``."""
+    Returns a :class:`~paddle_tpu_torch.serving.generation.GenerationSpec`."""
     from ..serving.decoding import DecodePolicy
     from ..serving.generation import GenerationSpec
 
@@ -642,14 +832,16 @@ def transformer_lm_session(vocab_size, d_model=128, num_heads=4, d_ff=256,
         num_blocks = int(num_blocks) or slots * max_blocks
         if prefix_cache is None:
             prefix_cache = bool(_config.get_flag("generation_prefix_cache"))
+        cache_shape = (num_blocks, block_size, d_model)
     else:
         block_size, num_blocks, prefix_cache = 0, 0, False
+        cache_shape = (slots, cache_len, d_model)
     if spec_k and not paged:
         raise ValueError("decode_speculate_k needs the paged KV layout "
                          "(generation_paged_kv / paged=True): the verify "
                          "pass is a suffix-window prefill and rollback is "
                          "block decref")
-    draft_spec = None
+    dkw = None
     if spec_k:
         dkw = dict(d_model=d_model, num_heads=num_heads, d_ff=d_ff,
                    num_layers=1)
@@ -659,17 +851,16 @@ def transformer_lm_session(vocab_size, d_model=128, num_heads=4, d_ff=256,
                 raise ValueError("decode_draft_model keys %r not in %r"
                                  % (sorted(unknown), sorted(dkw)))
             dkw.update(policy.draft)
-        draft_spec = transformer_lm_session(
+
+    def make(ns=None):
+        # a fresh cache namespace per spec (its draft's too); the rebuild
+        # factory is this function again, over the values resolved above
+        ns = ns or "kv_session_%d" % next(_CACHE_NS)
+        draft_spec = None if dkw is None else transformer_lm_session(
             vocab_size, max_len=max_len, slots=slots, cache_len=cache_len,
             prompt_buckets=prompt_buckets, bos_id=bos_id, eos_id=eos_id,
             device=device, dtype=dtype, paged=False, decode_policy=None,
             **dkw)
-    rows = (num_blocks + 1, block_size) if paged else (slots, cache_len)
-
-    def make():
-        # a fresh cache namespace per spec; the rebuild factory is this
-        # function again, over the values resolved above
-        ns = "kv_session_%d" % next(_CACHE_NS)
         return GenerationSpec(
             slots=slots, cache_len=cache_len, max_len=max_len,
             prompt_buckets=prompt_buckets, bos_id=bos_id, eos_id=eos_id,
@@ -677,13 +868,17 @@ def transformer_lm_session(vocab_size, d_model=128, num_heads=4, d_ff=256,
             block_size=block_size, num_blocks=num_blocks,
             max_blocks=max_blocks, prefix_cache=bool(prefix_cache),
             vocab_size=vocab_size, policy=policy, draft_spec=draft_spec,
-            cache_vars=tuple(("%s.l%d.%s" % (ns, i, kv),
-                              rows + (d_model,), str(dtype))
+            cache_vars=tuple(("%s.l%d.%s" % (ns, i, kv), cache_shape,
+                              str(dtype))
                              for i in range(num_layers)
                              for kv in ("k", "v")),
             rebuild=make,
             build_model=functools.partial(
                 _build_model, vocab_size=vocab_size, d_model=d_model,
                 num_heads=num_heads, d_ff=d_ff, num_layers=num_layers,
-                max_len=max_len, device=device))
-    return make()
+                max_len=max_len, device=device),
+            **_generation_programs(
+                ns, vocab_size, d_model, num_heads, d_ff, num_layers,
+                max_len, slots, prompt_buckets, str(dtype), paged,
+                max_blocks, cache_shape, policy))
+    return make(cache_ns)

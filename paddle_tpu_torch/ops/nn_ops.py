@@ -232,11 +232,16 @@ def _layer_norm(ctx):
     eps = ctx.attr("epsilon", 1e-5)
     begin = ctx.attr("begin_norm_axis", 1)
     norm = tuple(x.shape[begin:])
+    lead = x.shape[:begin]
+    if x.device.type == "meta":
+        # shape inference: the shapes alone (torch's meta layer norm
+        # decomposes the whole computation, milliseconds an op)
+        stats = torch.empty(lead, dtype=x.dtype, device="meta")
+        return {"Y": torch.empty_like(x), "Mean": stats, "Variance": stats}
     scale, bias = ctx.input("Scale"), ctx.input("Bias")
     y, mean, rstd = torch.native_layer_norm(
         x, norm, None if scale is None else scale.reshape(norm),
         None if bias is None else bias.reshape(norm), eps)
-    lead = x.shape[:begin]
     with torch.no_grad():
         var = rstd.reshape(lead).pow(-2) - eps
     return {"Y": y, "Mean": mean.detach().reshape(lead).to(x.dtype),

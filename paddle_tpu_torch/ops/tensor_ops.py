@@ -1,16 +1,47 @@
-"""Tensor plumbing ops of the ResNet and LM programs (reference
-``paddle_tpu/ops/tensor_ops.py`` ``top_k``, ``reshape``,
-``fill_constant``, ``fill_like`` and ``lookup_table``)."""
+"""Tensor plumbing ops of the ResNet and LM programs and of the cached
+generation programs (reference ``paddle_tpu/ops/tensor_ops.py``
+``top_k``, ``reshape``, ``transpose``, ``gather``, ``slice``,
+``arg_max``, ``fill_constant``, ``fill_like`` and ``lookup_table``)."""
 
 import torch
 
 from ..core.framework import torch_dtype
 from ..core.registry import register_op
+from .nn_ops import argmax, gather
 
 
 @register_op("reshape")
 def _reshape(ctx):
     return {"Out": ctx.input("X").reshape(list(ctx.attr("shape")))}
+
+
+@register_op("transpose")
+def _transpose(ctx):
+    return {"Out": ctx.input("X").permute(*ctx.attr("axis"))}
+
+
+@register_op("gather")
+def _gather(ctx):
+    """Rows ``Index`` (flattened) of X along axis 0."""
+    return {"Out": gather(ctx.input("X"), ctx.input("Index"))}
+
+
+@register_op("slice")
+def _slice(ctx):
+    x = ctx.input("Input")
+    index = [slice(None)] * x.dim()
+    for ax, st, en in zip(ctx.attr("axes"), ctx.attr("starts"),
+                          ctx.attr("ends")):
+        index[ax] = slice(st, en)
+    return {"Out": x[tuple(index)]}
+
+
+@register_op("arg_max")
+def _arg_max(ctx):
+    """The first maximum's index along ``axis``, int32 as the
+    reference's."""
+    return {"Out": argmax(ctx.input("X"), ctx.attr("axis", -1)).to(
+        torch.int32)}
 
 
 @register_op("top_k")

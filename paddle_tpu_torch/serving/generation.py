@@ -100,6 +100,7 @@ import queue
 import threading
 import time
 import weakref
+from collections.abc import Mapping
 from concurrent.futures import Future
 from concurrent.futures import TimeoutError as FutureTimeoutError
 
@@ -109,6 +110,8 @@ import torch
 from .. import config as _config
 from .. import io as _io
 from ..amp import flag_dtype
+from ..core.executor import Executor
+from ..core.scope import global_scope
 from ..models.transformer import (kv_dtype, lm_mul_weight_names,
                                   policy_epilogue)
 from ..observability import flight as _flight
@@ -205,31 +208,52 @@ class GenerationSpec:
     """The contract between a model's session builder (e.g.
     ``models.transformer.transformer_lm_session``) and the session:
     shapes, token ids, the device, the cache layout and its dtype name
-    (``dtype``, "float32" or "bfloat16"), and
-    ``build_model(params)``, which returns a module with
-    ``allocate_cache``, ``prefill`` and ``decode`` (dense) and
-    ``allocate_pools``, ``prefill_paged``, ``decode(..., table)`` and
-    ``copy_block`` (paged), and ``verify_paged`` (speculative). The
-    paged fields default to the dense layout; the decode-policy fields
-    (``vocab_size``, ``policy``: a ``DecodePolicy`` or None for greedy,
-    ``draft_spec``: the speculative draft's spec) to greedy.
+    (``dtype``, "float32" or "bfloat16"), and one field set per route.
 
-    ``cache_vars`` names the session's cache tensors as the reference
-    names its cache variables, ((name, shape, dtype name), ...) under one
-    namespace per spec: ``swap_weights`` refuses those names. ``rebuild``
-    (optional) is a zero-arg factory of an equivalent spec under a new
-    namespace, what a session rebuild constructs the replacement from;
-    ``bos_id`` is the token its warm-up prompts are made of."""
+    * The program route (the reference's fields): ``prefill_programs``
+      ({prompt bucket: Program}), ``decode_program``, ``copy_program``
+      (paged) and ``verify_program`` (speculative), each with its feed
+      names (``prefill_feeds``, ``decode_feeds``, ``copy_feeds``,
+      ``verify_feeds``) and fetch names (``prefill_fetch``,
+      ``decode_fetch``, ``verify_fetch``).
+    * The ``nn.Module`` route: ``build_model(params)``, which returns a
+      module with ``allocate_cache``, ``prefill`` and ``decode`` (dense)
+      and ``allocate_pools``, ``prefill_paged``, ``decode(..., table)``
+      and ``copy_block`` (paged), and ``verify_paged`` (speculative).
+
+    The paged fields default to the dense layout; the decode-policy
+    fields (``vocab_size``, ``policy``: a ``DecodePolicy`` or None for
+    greedy, ``draft_spec``: the speculative draft's spec) to greedy.
+
+    ``cache_vars`` names the session's cache variables as the reference
+    declares them, ((name, shape, dtype name), ...) under one namespace
+    per spec: a program session materializes them in its scope (a paged
+    pool with one sink block past its declared shape), and
+    ``swap_weights`` refuses those names. ``rebuild`` (optional) is a
+    zero-arg factory of an equivalent spec under a new namespace, what a
+    session rebuild constructs the replacement from; ``bos_id`` is the
+    token its warm-up prompts are made of."""
 
     __slots__ = ("slots", "cache_len", "max_len", "prompt_buckets",
                  "bos_id", "eos_id", "device", "build_model", "dtype",
                  "paged", "block_size", "num_blocks", "max_blocks",
                  "prefix_cache", "vocab_size", "policy", "draft_spec",
-                 "cache_vars", "rebuild")
-    _DEFAULTS = {"bos_id": 0, "dtype": "float32", "paged": False,
-                 "block_size": 0, "num_blocks": 0, "max_blocks": 0,
-                 "prefix_cache": False, "vocab_size": 0, "policy": None,
-                 "draft_spec": None, "cache_vars": (), "rebuild": None}
+                 "cache_vars", "rebuild", "prefill_programs",
+                 "prefill_feeds", "prefill_fetch", "decode_program",
+                 "decode_feeds", "decode_fetch", "copy_program",
+                 "copy_feeds", "verify_program", "verify_feeds",
+                 "verify_fetch")
+    _DEFAULTS = {"bos_id": 0, "device": None, "build_model": None,
+                 "dtype": "float32", "paged": False, "block_size": 0,
+                 "num_blocks": 0, "max_blocks": 0, "prefix_cache": False,
+                 "vocab_size": 0, "policy": None, "draft_spec": None,
+                 "cache_vars": (), "rebuild": None,
+                 "prefill_programs": None, "prefill_feeds": None,
+                 "prefill_fetch": None, "decode_program": None,
+                 "decode_feeds": None, "decode_fetch": None,
+                 "copy_program": None, "copy_feeds": None,
+                 "verify_program": None, "verify_feeds": None,
+                 "verify_fetch": None}
 
     def __init__(self, **kwargs):
         for name, value in self._DEFAULTS.items():
@@ -241,30 +265,51 @@ class GenerationSpec:
                             % sorted(kwargs))
 
 
+# scope -> the cache-variable names a live program session drives on it:
+# two sessions writing one cache would corrupt each other's rows, so a
+# second claim of a name is refused (the reference's rule)
+_CACHE_CLAIMS = weakref.WeakKeyDictionary()
+
+
 class GenerationSession:
-    """One decode batch of ``spec.slots`` cache slots over the model
-    built from ``params`` ({reference parameter name: tensor}). Methods
-    are single-threaded by contract: the scheduler's dispatcher thread
-    is the only caller in a serving deployment.
+    """One decode batch of ``spec.slots`` cache slots. Methods are
+    single-threaded by contract: the scheduler's dispatcher thread is the
+    only caller in a serving deployment.
+
+    Two routes, by the second argument, over the same host side (slots,
+    block pool, prefix index, decode policies, the draft):
+
+    * A ``Scope``, or None for ``core.global_scope()`` (the reference's
+      signature ``(spec, scope=None, place=None, draft_scope=None,
+      arm_quant=None)``): the spec's programs, run by a
+      ``core.Executor`` on ``place`` (default: the spec's device) over
+      the scope's parameters. The session materializes ``cache_vars`` in
+      the scope as device zeros, which the cache ops write in place, and
+      refuses a cache name another live session on the scope claims;
+      ``close()`` releases them. ``compile_stats()`` is the executor's.
+    * A mapping ``{reference parameter name: tensor}``: the ``nn.Module``
+      route, over the model ``spec.build_model`` builds from it (copied,
+      or with ``share`` taken by reference: another model's
+      ``reference_state()``, the self-draft's way and a rebuild's).
 
     ``arm_quant`` (default: the ``serving_quant_compute`` flag, read
-    here only) quantizes the model's mul weights to int8 in place
-    (``serving/quant.py``); their products then run through kernel B3.
+    here only) quantizes the mul weights to int8 in place
+    (``serving/quant.py``): the scope's, with the programs tagged, or
+    the model's; their products then run through kernel B3.
     ``_quant_armed`` lists the armed reference names; no float32 copy
     of an armed weight is kept.
 
     A speculative spec gets ``self.draft``, a dense greedy session over
-    ``spec.draft_spec`` that mirrors this one slot for slot. Without
-    ``draft_params`` it shares this model's tensors by reference name
-    (the self-draft: embedding, positions, its layers, the norm of its
-    name and the head), and this session's arming arms the draft's
-    products in the same call; with ``draft_params`` (a draft of other
-    widths) it holds its own weights and arms itself. ``share`` takes
-    ``params`` (and ``draft_params``) by reference (another model's
-    ``reference_state()``), the self-draft's way and a rebuild's."""
+    ``spec.draft_spec`` that mirrors this one slot for slot. On the
+    program route it runs over this scope (the self-draft shares its
+    parameters by name, and its programs are armed in this session's
+    arming call) unless ``draft_scope`` gives it its own. On the module
+    route, without ``draft_params`` it shares this model's tensors by
+    reference name and is armed in the same call; with ``draft_params``
+    (a draft of other widths) it holds its own weights and arms itself."""
 
-    def __init__(self, spec, params, arm_quant=None, draft_params=None,
-                 share=False):
+    def __init__(self, spec, scope=None, place=None, draft_scope=None,
+                 arm_quant=None, draft_params=None, share=False):
         # the amp flag is read at each build and each run, as the
         # reference's executor reads it; generation under amp is not
         # ported (the model's prefill and decode refuse it too)
@@ -273,9 +318,6 @@ class GenerationSession:
                 "KV-cached generation under amp is not ported: turn the "
                 "amp flag off to build a session")
         self.spec = spec
-        self.device = spec.device
-        self.model = spec.build_model(params, share=True) if share \
-            else spec.build_model(params)
         if arm_quant is None:
             arm_quant = bool(_config.get_flag("serving_quant_compute"))
         policy = spec.policy
@@ -285,6 +327,87 @@ class GenerationSession:
             policy.constraint is not None
         self.speculative = policy is not None and policy.speculate_k > 0
         self.draft = None
+        self.exe = self.scope = self.model = None
+        self._quant_armed = []
+        n = spec.slots
+        self.paged = bool(spec.paged)
+        if isinstance(scope, Mapping):
+            if place is not None or draft_scope is not None:
+                raise TypeError("place and draft_scope take the program "
+                                "route: pass a Scope, not parameters")
+            self._init_module(scope, arm_quant, draft_params, share)
+        else:
+            if draft_params is not None or share:
+                raise TypeError("draft_params and share take the "
+                                "nn.Module route: pass parameters, not a "
+                                "Scope")
+            self._init_programs(scope, place, draft_scope, arm_quant)
+        self.lengths = np.zeros(n, np.int64)     # cached rows per slot
+        self.last_token = np.zeros(n, np.int64)  # next token to decode
+        self.active = np.zeros(n, bool)
+        # the deepest position any sequence may WRITE: bounded by the
+        # cache and by the learned position table
+        self.max_pos = min(spec.cache_len, spec.max_len)
+        self.prefills = 0   # admissions run
+        self.steps = 0      # decode steps run
+        self.pool = None
+        self.prefix = None
+        if self.paged:
+            self.pool = BlockPool(spec.num_blocks, spec.block_size)
+            if spec.prefix_cache:
+                self.prefix = PrefixIndex(self.pool)
+            # host block table per slot: the physical block ids backing
+            # logical rows [0, lengths[slot])
+            self.tables = [[] for _ in range(n)]
+            # slots whose next write found no block this step: left out
+            # of the step's result, finished at their current length
+            self._starved = set()
+            # (bucket, hist, window) per admission: hist is the shared
+            # prefix that was NOT prefilled; bounded in _admit_paged
+            self.prefill_log = []
+        # per-slot request seed and constraint-automaton state, set at
+        # admission and recomputable from the journal (the replay
+        # contract). The constraint's mask table: on the module route on
+        # the device with a zero row last, the row of slots that have no
+        # state; on the program route on the host, fed as the reference
+        # feeds it
+        self.seeds = np.zeros(n, np.int64)
+        self.cstate = [None] * n
+        self._mask_rows = self._mask_table = None
+        if self.constrained:
+            table = policy.constraint.mask_table(spec.vocab_size)
+            if self.exe is not None:
+                self._mask_table = table
+            else:
+                self._mask_rows = torch.from_numpy(np.concatenate(
+                    [table, np.zeros((1, table.shape[1]), np.float32)])).to(
+                        self.device)
+        # speculative rounds (``steps`` counts the plain decode steps
+        # only), verify forwards, and this session's drafted and
+        # accepted tokens (its share of the registry's
+        # paddle_generation_speculative_* counters)
+        self.spec_rounds = 0
+        self.verifies = 0
+        self._drafted = 0
+        self._accepted = 0
+        # program shapes run so far: paddle_quant_compute_ops_total
+        # counts an armed product once per shape (ops/quant_ops.py)
+        self._quant_traced = set()
+        if self.speculative and self.exe is not None:
+            # built last: the draft mirrors this session's slots
+            self.draft = GenerationSession(
+                spec.draft_spec,
+                scope=self.scope if draft_scope is None else draft_scope,
+                place=self.place,
+                arm_quant=False if draft_scope is None else None)
+
+    def _init_module(self, params, arm_quant, draft_params, share):
+        """The ``nn.Module`` route: the model, its draft, its arming and
+        its caches."""
+        spec = self.spec
+        self.device = spec.device
+        self.model = spec.build_model(params, share=True) if share \
+            else spec.build_model(params)
         shared = ()
         if draft_params is not None and not self.speculative:
             raise ValueError("draft_params without a speculative policy")
@@ -301,61 +424,48 @@ class GenerationSession:
         # a draft of its own weights (not the target's tensors): what a
         # rebuild hands over by reference too
         self._own_draft = draft_params is not None
-        self._quant_armed = []
         if arm_quant:
             self._quant_armed = _quant.arm_quant_compute(self.model, shared)
-        n = spec.slots
-        self.lengths = np.zeros(n, np.int64)     # cached rows per slot
-        self.last_token = np.zeros(n, np.int64)  # next token to decode
-        self.active = np.zeros(n, bool)
-        # the deepest position any sequence may WRITE: bounded by the
-        # cache and by the learned position table
-        self.max_pos = min(spec.cache_len, spec.max_len)
-        self.prefills = 0   # admissions run
-        self.steps = 0      # decode steps run
-        self.paged = bool(spec.paged)
-        self.pool = None
-        self.prefix = None
         kv = kv_dtype(spec.dtype)
         if self.paged:
             self.model.allocate_pools(spec.num_blocks, spec.block_size, kv)
-            self.pool = BlockPool(spec.num_blocks, spec.block_size)
-            if spec.prefix_cache:
-                self.prefix = PrefixIndex(self.pool)
-            # host block table per slot: the physical block ids backing
-            # logical rows [0, lengths[slot])
-            self.tables = [[] for _ in range(n)]
-            # slots whose next write found no block this step: left out
-            # of the step's result, finished at their current length
-            self._starved = set()
-            # (bucket, hist, window) per admission: hist is the shared
-            # prefix that was NOT prefilled; bounded in _admit_paged
-            self.prefill_log = []
         else:
             self.model.allocate_cache(spec.slots, spec.cache_len, kv)
-        # per-slot request seed and constraint-automaton state, set at
-        # admission and recomputable from the journal (the replay
-        # contract); the mask table on the device with a zero row last,
-        # the row of slots that have no state
-        self.seeds = np.zeros(n, np.int64)
-        self.cstate = [None] * n
-        self._mask_rows = None
-        if self.constrained:
-            table = policy.constraint.mask_table(spec.vocab_size)
-            self._mask_rows = torch.from_numpy(np.concatenate(
-                [table, np.zeros((1, table.shape[1]), np.float32)])).to(
-                    self.device)
-        # speculative rounds (``steps`` counts the plain decode steps
-        # only), verify forwards, and this session's drafted and
-        # accepted tokens (its share of the registry's
-        # paddle_generation_speculative_* counters)
-        self.spec_rounds = 0
-        self.verifies = 0
-        self._drafted = 0
-        self._accepted = 0
-        # program shapes run so far: paddle_quant_compute_ops_total
-        # counts an armed product once per shape (ops/quant_ops.py)
-        self._quant_traced = set()
+
+    def _init_programs(self, scope, place, draft_scope, arm_quant):
+        """The program route: the executor, the arming of the spec's
+        programs (a shared-scope draft's in the same call, the
+        reference's one-scope rule), the cache claim and the caches."""
+        spec = self.spec
+        self.scope = scope if scope is not None else global_scope()
+        self.place = place if place is not None else spec.device
+        self.exe = Executor(place=self.place)
+        self.device = self.exe.device
+        self._own_draft = False
+        if arm_quant:
+            progs = list(spec.prefill_programs.values())
+            progs += [spec.decode_program, spec.verify_program]
+            if spec.draft_spec is not None and draft_scope is None:
+                progs += list(spec.draft_spec.prefill_programs.values())
+                progs.append(spec.draft_spec.decode_program)
+            self._quant_armed = _quant.arm_quant_compute(progs, self.scope)
+        names = {name for name, _, _ in spec.cache_vars}
+        claimed = _CACHE_CLAIMS.setdefault(self.scope, set())
+        overlap = sorted(claimed & names)
+        if overlap:
+            raise ValueError(
+                "cache variables %s on this scope are already driven by "
+                "another GenerationSession: build a fresh spec "
+                "(transformer_lm_session names each spec's caches anew), "
+                "or close() the old session" % overlap)
+        claimed |= names
+        self._claimed = names
+        for name, shape, dtype in spec.cache_vars:
+            if not self.scope.has_var(name):
+                if self.paged:
+                    shape = (shape[0] + 1,) + tuple(shape[1:])   # the sink
+                self.scope.set_var(name, torch.zeros(
+                    shape, dtype=kv_dtype(dtype), device=self.device))
 
     @property
     def spec_drafted(self):
@@ -381,8 +491,9 @@ class GenerationSession:
     def _trace_quant(self, shape):
         """The first run of a program ``shape`` counts each of the
         model's int8 products once in ``paddle_quant_compute_ops_total``
-        (the reference counts them once per compiled program)."""
-        if shape in self._quant_traced:
+        (the reference counts them once per compiled program; on the
+        program route the executor counts them)."""
+        if self.model is None or shape in self._quant_traced:
             return
         self._quant_traced.add(shape)
         n = sum(1 for name in lm_mul_weight_names(self.model.num_layers)
@@ -409,6 +520,12 @@ class GenerationSession:
             if n <= p:
                 return p
         return None
+
+    def compile_stats(self):
+        """The program route's executor counts (``entries``, ``compiles``:
+        one plan per program, fetch list and int8 tag, the reference's
+        one compile per program shape); None on the module route."""
+        return None if self.exe is None else self.exe.compile_stats()
 
     # -- paged-pool surface (trivial on the dense layout) ----------------
     def admit_ok(self, n_tokens):
@@ -459,12 +576,13 @@ class GenerationSession:
         carry is not counted."""
         if not self.paged:
             return None
-        pool = self.model.caches[0][0]
+        _, shape, dtype = self.spec.cache_vars[0]
+        itemsize = torch.empty((), dtype=kv_dtype(dtype)).element_size()
         return {"blocks_in_use": self.pool.used_count(),
                 "num_blocks": self.pool.num_blocks,
                 "block_size": self.spec.block_size,
-                "bytes_per_block": self.spec.block_size * pool.shape[2]
-                * pool.element_size() * 2 * self.model.num_layers}
+                "bytes_per_block": self.spec.block_size * shape[2]
+                * itemsize * len(self.spec.cache_vars)}
 
     def prefix_stats(self):
         """Prefix-cache counters (zeros when the cache is off)."""
@@ -505,7 +623,7 @@ class GenerationSession:
         new = self._alloc_block()
         t0 = time.perf_counter()
         try:
-            self.model.copy_block(old, new)
+            self._copy_block(old, new)
             self._device_call("copy", t0)
         except BaseException:
             self.pool.decref(new)
@@ -520,11 +638,25 @@ class GenerationSession:
         # have no single owner and reach only the flight ring
         _rtrace.global_event("blockCOW", src=int(old), dst=int(new))
 
+    def _copy_block(self, src, dst):
+        """Block ``src`` -> ``dst`` in every layer's K and V pool, on the
+        device: the block-copy program, or the model's ``copy_block``."""
+        if self.exe is None:
+            self.model.copy_block(src, dst)
+            return
+        f_src, f_dst = self.spec.copy_feeds
+        self.exe.run(self.spec.copy_program,
+                     feed={f_src: np.asarray([src], np.int32),
+                           f_dst: np.asarray([dst], np.int32)},
+                     fetch_list=[], scope=self.scope)
+
     def close(self):
         """Free the caches; the session must not be used after. Paged:
         every block reference (slot tables and prefix pins) returns to
         the pool first, and the books are checked to balance at zero. The
-        draft closes with it. Idempotent."""
+        draft closes with it. A program session releases its cache claim
+        and erases its caches from the scope, so a later session may take
+        the names. Idempotent."""
         if self.draft is not None:
             self.draft.close()
             self.draft = None
@@ -538,7 +670,15 @@ class GenerationSession:
                 "closed session leaked %d blocks" % self.pool.used_count()
             self.pool.close()
             self.paged = False
-        self.model.release_cache()
+        if self.model is not None:
+            self.model.release_cache()
+        else:
+            claimed = _CACHE_CLAIMS.get(self.scope)
+            if claimed is not None:
+                claimed -= self._claimed
+            for name in self._claimed:
+                self.scope.erase(name)
+            self._claimed = set()
         self.active[:] = False
 
     # -- decode-policy plumbing ------------------------------------------
@@ -565,6 +705,52 @@ class GenerationSession:
     def _policy_admitted(self, slot, seed, state):
         self.seeds[slot] = int(seed)
         self.cstate[slot] = state
+
+    def _run_prefill(self, bucket, feed, n, seed, cstate):
+        """The program route's admission: the policy feeds added to
+        ``feed`` (the reference's: ``n`` is the total history length,
+        the emitted token's sequence index), the bucket's prefill
+        program run, and ``(first token, constraint state after it)``."""
+        state = None
+        if self.sampled:
+            feed["gen.pseed"] = np.asarray([seed], np.int64)
+            feed["gen.pstep"] = np.asarray([n], np.int32)
+        if self.constrained:
+            c = self.policy.constraint
+            state = c.start if cstate is None else cstate
+            feed["gen.pmask"] = self._mask_table[
+                c.state_index(state)].reshape(1, -1)
+        outs = self.exe.run(self.spec.prefill_programs[bucket], feed=feed,
+                            fetch_list=[self.spec.prefill_fetch],
+                            scope=self.scope)
+        first = int(np.asarray(outs[0]).reshape(-1)[0])
+        if self.constrained:
+            state = self.policy.constraint.advance(state, first)
+        return first, state
+
+    def _program_decode_feed(self, tokens, pos, table):
+        """The program route's decode feeds, the reference's: tokens,
+        positions and (paged) the table rows, then when sampling each
+        slot's seed and step (length + 1), and when constrained the
+        [slots, V] mask rows of each active slot's state (zeros
+        elsewhere)."""
+        names = self.spec.decode_feeds
+        feed = {names[0]: tokens, names[1]: pos}
+        if table is not None:
+            feed[names[2]] = table
+        if self.sampled:
+            feed["gen.dseed"] = self.seeds.copy()
+            feed["gen.dstep"] = (self.lengths + 1).astype(np.int32)
+        if self.constrained:
+            c = self.policy.constraint
+            mask = np.zeros((self.spec.slots, self.spec.vocab_size),
+                            np.float32)
+            for s in np.flatnonzero(self.active):
+                state = self.cstate[int(s)]
+                if state is not None:
+                    mask[int(s)] = self._mask_table[c.state_index(state)]
+            feed["gen.dmask"] = mask
+        return feed
 
     def _draft_admit(self, prompt, slot, first):
         """Mirror an admission into the draft session (the same slot, by
@@ -624,8 +810,8 @@ class GenerationSession:
         fault-free run's: bit for bit with int8 weights, where a prefill
         attention's other rounding moves an activation across an int8
         step. The prompt's rows are prefilled as an admission prefills
-        them. Dense sessions re-prefill the whole journal, as the
-        reference does.
+        them. Dense sessions and program sessions re-prefill the whole
+        journal, as the reference does.
 
         Paged: storage comes from the block pool through a fresh table;
         with the prefix cache on, the longest cached prefix is shared
@@ -650,12 +836,21 @@ class GenerationSession:
         slot = free[0]
         padded = np.full((1, bucket), self.spec.eos_id, np.int64)
         padded[0, :n] = prompt
-        tokens = torch.from_numpy(padded).to(self.device)
         self._trace_quant(("prefill", bucket))
         t0 = time.perf_counter()
         with _tracing.span("generationPrefill", bucket=bucket):
-            logits = self.model.prefill(tokens, n, slot)
-            first, state = self._prefill_token(logits, n, seed, cstate)
+            if self.exe is None:
+                logits = self.model.prefill(
+                    torch.from_numpy(padded).to(self.device), n, slot)
+                first, state = self._prefill_token(logits, n, seed, cstate)
+            else:
+                f_tok, f_len, f_pos, f_slot = self.spec.prefill_feeds[:4]
+                first, state = self._run_prefill(
+                    bucket, {f_tok: padded,
+                             f_len: np.asarray([n], np.int32),
+                             f_pos: np.asarray([n - 1], np.int32),
+                             f_slot: np.asarray([slot], np.int32)},
+                    n, seed, cstate)
             self._device_call("prefill/%d" % bucket, t0)
         self.prefills += 1
         self.lengths[slot] = n
@@ -705,35 +900,31 @@ class GenerationSession:
             tab = np.full(self.spec.max_blocks, self.pool.num_blocks,
                           np.int32)
             tab[:len(table)] = table
-            dev = self.device
-            tab = torch.from_numpy(tab).to(dev)
-            # rows [matched, split) are prompt rows, prefilled; a replay's
-            # generated rows [split, n) take the decode step's arithmetic
-            split = max(matched, n - decoded) if decoded else n
-            pre = split - matched
             self._trace_quant(("prefill", bucket))
             t0 = time.perf_counter()
             with _tracing.span("generationPrefill", bucket=bucket,
                                hist=matched):
-                if pre:
-                    pb = self.prompt_bucket(pre)
-                    padded = np.full((1, pb), self.spec.eos_id, np.int64)
-                    padded[0, :pre] = suffix[:pre]
-                    pix = np.clip(matched + np.arange(pb), 0,
-                                  self.spec.max_len - 1)
-                    logits = self.model.prefill_paged(
-                        torch.from_numpy(padded).to(dev), pre, matched,
-                        torch.from_numpy(pix).to(dev), tab)
-                if split < n:
-                    pix = np.clip(split + np.arange(n - split), 0,
-                                  self.spec.max_len - 1)
-                    logits = self.model.verify_paged(
-                        torch.from_numpy(prompt[split:].reshape(1, -1)).to(
-                            dev), split, torch.from_numpy(pix).to(dev), tab,
-                        last=True)
-                # the emitted token's index is the TOTAL length n (=
-                # matched + w), prefix sharing included
-                first, state = self._prefill_token(logits, n, seed, cstate)
+                if self.exe is None:
+                    logits = self._module_prefill_paged(
+                        prompt, matched, decoded, tab)
+                    # the emitted token's index is the TOTAL length n (=
+                    # matched + w), prefix sharing included
+                    first, state = self._prefill_token(logits, n, seed,
+                                                       cstate)
+                else:
+                    padded = np.full((1, bucket), self.spec.eos_id,
+                                     np.int64)
+                    padded[0, :w] = suffix
+                    pix = np.clip(matched + np.arange(bucket), 0,
+                                  self.spec.max_len - 1).astype(np.int32)
+                    f_tok, f_len, f_pos, f_hist, f_pix, f_tab = \
+                        self.spec.prefill_feeds[:6]
+                    first, state = self._run_prefill(
+                        bucket, {f_tok: padded,
+                                 f_len: np.asarray([w], np.int32),
+                                 f_pos: np.asarray([w - 1], np.int32),
+                                 f_hist: np.asarray([matched], np.int32),
+                                 f_pix: pix, f_tab: tab}, n, seed, cstate)
                 self._device_call("prefill/%d" % bucket, t0)
         except BaseException:
             for block in table:
@@ -754,6 +945,33 @@ class GenerationSession:
         self._draft_admit(prompt, slot, first)
         _PREFILLS.labels(bucket=bucket).inc()
         return slot, first
+
+    def _module_prefill_paged(self, prompt, matched, decoded, tab):
+        """The module route's paged admission forward over the window
+        past ``matched`` cached rows, through the table row ``tab``: the
+        prompt rows [matched, split) prefilled, a replay's generated rows
+        [split, n) through the decode step's arithmetic; the last row's
+        logits."""
+        n = prompt.size
+        dev = self.device
+        tab = torch.from_numpy(tab).to(dev)
+        split = max(matched, n - decoded) if decoded else n
+        pre = split - matched
+        if pre:
+            pb = self.prompt_bucket(pre)
+            padded = np.full((1, pb), self.spec.eos_id, np.int64)
+            padded[0, :pre] = prompt[matched:split]
+            pix = np.clip(matched + np.arange(pb), 0, self.spec.max_len - 1)
+            logits = self.model.prefill_paged(
+                torch.from_numpy(padded).to(dev), pre, matched,
+                torch.from_numpy(pix).to(dev), tab)
+        if split < n:
+            pix = np.clip(split + np.arange(n - split), 0,
+                          self.spec.max_len - 1)
+            logits = self.model.verify_paged(
+                torch.from_numpy(prompt[split:].reshape(1, -1)).to(dev),
+                split, torch.from_numpy(pix).to(dev), tab, last=True)
+        return logits
 
     def step(self):
         """One decode step for EVERY active slot: each slot's pending
@@ -810,10 +1028,11 @@ class GenerationSession:
         if self.paged:
             table = self._prepare_paged(act)
             starved = frozenset(self._starved)
-        return _Prepared(False, act, starved,
-                         self.last_token.reshape(-1, 1).copy(),
-                         self.lengths.astype(np.int32), table,
-                         self._decode_feed(), None)
+        tokens = self.last_token.reshape(-1, 1).copy()
+        pos = self.lengths.astype(np.int32)
+        feed = self._decode_feed() if self.exe is None \
+            else self._program_decode_feed(tokens, pos, table)
+        return _Prepared(False, act, starved, tokens, pos, table, feed, None)
 
     def _prepare_paged(self, act):
         """Grow or copy-on-write each active slot's write block and
@@ -884,17 +1103,24 @@ class GenerationSession:
             return self._step_run_spec(prepared)
         act, starved, table = prepared.act, prepared.starved, prepared.table
         tokens, pos = prepared.tokens, prepared.pos
-        keys, mask = prepared.feed
         dev = self.device
         self._trace_quant(("decode",))
         t0 = time.perf_counter()
         with _tracing.span("generationStep", active=int(act.size)):
-            logits = self.model.decode(
-                torch.from_numpy(tokens).to(dev),
-                torch.from_numpy(pos).to(dev),
-                None if table is None else torch.from_numpy(table).to(dev))
-            nxt = policy_epilogue(logits, self.policy, keys,
-                                  mask).cpu().numpy()
+            if self.exe is None:
+                keys, mask = prepared.feed
+                logits = self.model.decode(
+                    torch.from_numpy(tokens).to(dev),
+                    torch.from_numpy(pos).to(dev),
+                    None if table is None
+                    else torch.from_numpy(table).to(dev))
+                nxt = policy_epilogue(logits, self.policy, keys,
+                                      mask).cpu().numpy()
+            else:
+                nxt = np.asarray(self.exe.run(
+                    self.spec.decode_program, feed=prepared.feed,
+                    fetch_list=[self.spec.decode_fetch],
+                    scope=self.scope)[0]).reshape(-1)
             self._device_call("decode", t0)
         self.steps += 1
         result = {}
@@ -959,18 +1185,32 @@ class GenerationSession:
             window[0, 0] = self.last_token[s]
             window[0, 1:] = drafts[s]
             pix = np.clip(length + np.arange(w), 0, self.spec.max_len - 1)
-            win = torch.from_numpy(window).to(dev)
             self._trace_quant(("verify", w))
             t0 = time.perf_counter()
             with _tracing.span("generationVerify", window=w):
-                logits = self.model.verify_paged(
-                    win, length, torch.from_numpy(pix).to(dev),
-                    torch.from_numpy(tab).to(dev))
-                toks, accept = decode_verify(
-                    logits, win[0], self.seeds[s], length, kind=pol.kind,
-                    temperature=pol.temperature, top_k=pol.top_k,
-                    top_p=pol.top_p)
-                toks = toks.cpu()
+                if self.exe is None:
+                    win = torch.from_numpy(window).to(dev)
+                    logits = self.model.verify_paged(
+                        win, length, torch.from_numpy(pix).to(dev),
+                        torch.from_numpy(tab).to(dev))
+                    toks, accept = decode_verify(
+                        logits, win[0], self.seeds[s], length,
+                        kind=pol.kind, temperature=pol.temperature,
+                        top_k=pol.top_k, top_p=pol.top_p)
+                    toks = toks.cpu()
+                else:
+                    names = self.spec.verify_feeds
+                    toks, accept = self.exe.run(
+                        self.spec.verify_program,
+                        feed=dict(zip(names, (
+                            window, np.asarray([w], np.int32),
+                            np.asarray([length], np.int32),
+                            pix.astype(np.int32), tab,
+                            np.asarray([self.seeds[s]], np.int64)))),
+                        fetch_list=list(self.spec.verify_fetch),
+                        scope=self.scope)
+                    toks = np.asarray(toks).reshape(-1)
+                    accept = int(np.asarray(accept).reshape(-1)[0])
                 self._device_call("verify/%d" % w, t0)
             if _faults.should_fire("decode_draft_mismatch",
                                    index=s) is not None:
@@ -1055,32 +1295,45 @@ class GenerationSession:
 
 def _install_weights(sessions, params):
     """Swap ``params`` ({reference name: array or tensor}) into every
-    model of ``sessions`` (their drafts included), validating against
-    every session before any changes (a scope's ``@RNG_STATE@`` is
-    dropped): a cache tensor's name, an unknown name, a shape or dtype
-    unlike the live tensor's, an int8 weight without its scales or
-    scales without their weight reject the push. The paged sessions'
-    prefix indexes are emptied after.
+    session (their drafts included): the models of module sessions, the
+    scopes of program sessions. Every holder is validated before any
+    changes (a scope's ``@RNG_STATE@`` is dropped): a cache variable's
+    name, an unknown name, a shape or dtype unlike the live tensor's, an
+    int8 weight without its scales or scales without their weight reject
+    the push. The paged sessions' prefix indexes are emptied after.
 
     The design is rebinding, not an in-place ``copy_``: each live tensor
     a pushed name replaces gets one new tensor (a copy of the pushed
     value on its device, in its dtype), and every model holding the old
-    one, by identity, is rebound to it (``TransformerLM.bind_params``).
-    So a self-draft and a second session sharing the weights follow, the
-    sharing survives (one new tensor, not one a holder), and sessions
-    outside this scheduler that share the old tensors keep them. An
-    in-place copy would change those too, and would race a step left
-    behind past its timeout, which reads the weights on another thread;
-    a rebind never writes a tensor such a step reads (it may read some
-    layers' old and some new weights, but its session is quarantined
-    and its output thrown away)."""
+    one, by identity, is rebound to it (``TransformerLM.bind_params``);
+    a scope gets the new tensor under the name (``Scope.set_var``), the
+    reference's pointer install. So a self-draft and a second session
+    sharing the weights follow, the sharing survives (one new tensor, not
+    one a holder), and sessions outside this scheduler that share the old
+    tensors keep them. An in-place copy would change those too, and would
+    race a step left behind past its timeout, which reads the weights on
+    another thread; a rebind never writes a tensor such a step reads (it
+    may read some layers' old and some new weights, but its session is
+    quarantined and its output thrown away)."""
     # a whole reference scope pushes as it is: its @RNG_STATE@ is
     # dropped, as params_from_jax drops it
     pushed = {name: (val if isinstance(val, torch.Tensor)
                      else torch.as_tensor(np.asarray(val)))
               for name, val in params.items() if name != _io.RNG_STATE}
-    cache_names = {name for s in sessions for name, _, _ in s.spec.cache_vars}
-    states = [s.model.reference_state() for s in sessions]
+    cache_names = {name for s in sessions
+                   for sess in (s, s.draft) if sess is not None
+                   for name, _, _ in sess.spec.cache_vars}
+    scopes = []
+    for s in sessions:
+        for sess in (s, s.draft):
+            if sess is not None and sess.scope is not None and \
+                    all(sess.scope is not o for o in scopes):
+                scopes.append(sess.scope)
+    states = [s.model.reference_state() for s in sessions
+              if s.model is not None]
+    states += [{n: torch.as_tensor(np.asarray(v)) if not
+                isinstance(v, torch.Tensor) else v
+                for n, v in scope.items()} for scope in scopes]
     suffix = _quant_ops.SCALE_SUFFIX
     for state in states:
         for name, val in pushed.items():
@@ -1122,6 +1375,9 @@ def _install_weights(sessions, params):
         if any(id(t) in fresh for t in state.values()):
             m.bind_params({n: fresh.get(id(t), t) for n, t in state.items()},
                           m.device)
+    for scope, state in zip(scopes, states[len(states) - len(scopes):]):
+        for name in pushed:
+            scope.set_var(name, fresh[id(state[name])])
     # cached prompt blocks hold K/V rows the old weights computed: a later
     # admission must not share them (the reference keeps its prefix index
     # across a swap; the port drops every index pin, and a block a live
@@ -2141,21 +2397,30 @@ class GenerationScheduler:
 
     @staticmethod
     def _build_replacement(old):
-        """The replacement of session ``old``: a new spec (a new cache
-        namespace) and a session over the same weights by reference
-        (``share=True``: no copy; an int8-armed session's int8 weights
-        and scales as they are, with no second quantization; a
-        speculative session's draft on the same tensors), then every
-        prompt bucket, the decode step and, paged, the block copy warmed
-        with the prefix index detached (a later bucket's warm prompt
-        would otherwise match an earlier one's prefix and run a smaller
-        window)."""
+        """The replacement of session ``old``: a new spec (new cache
+        namespaces) and a session over the same weights: a program
+        session over the same scope (its cache zeros materialized under
+        the new names), a module session by reference (``share=True``: no
+        copy); an int8-armed session's int8 weights and scales as they
+        are, with no second quantization; a speculative session's draft
+        on the same tensors. Then every prompt bucket, the decode step
+        and, paged, the block copy warmed with the prefix index detached
+        (a later bucket's warm prompt would otherwise match an earlier
+        one's prefix and run a smaller window)."""
         spec = old.spec.rebuild()
-        draft_params = old.draft.model.reference_state() \
-            if old._own_draft else None
-        new = GenerationSession(spec, old.model.reference_state(),
-                                arm_quant=bool(old._quant_armed),
-                                draft_params=draft_params, share=True)
+        if old.exe is not None:
+            draft_scope = None
+            if old.draft is not None and old.draft.scope is not old.scope:
+                draft_scope = old.draft.scope
+            new = GenerationSession(spec, scope=old.scope, place=old.place,
+                                    draft_scope=draft_scope,
+                                    arm_quant=bool(old._quant_armed))
+        else:
+            draft_params = old.draft.model.reference_state() \
+                if old._own_draft else None
+            new = GenerationSession(spec, old.model.reference_state(),
+                                    arm_quant=bool(old._quant_armed),
+                                    draft_params=draft_params, share=True)
         try:
             prefix, new.prefix = new.prefix, None
             try:
@@ -2168,7 +2433,7 @@ class GenerationScheduler:
                 new.retire(slot)
                 if new.paged:
                     # block 0 onto itself: an identity copy
-                    new.model.copy_block(0, 0)
+                    new._copy_block(0, 0)
             finally:
                 new.prefix = prefix
         except BaseException:

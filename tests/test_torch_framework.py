@@ -120,12 +120,18 @@ def test_the_port_registers_the_slice():
         # the transformer LM's program and int8 matmul
         "layer_norm", "lookup_table", "gelu", "multihead_attention",
         "dropout", "matmul", "elementwise_mul", "elementwise_div",
-        "reduce_sum", "sequence_mask"])
+        "reduce_sum", "sequence_mask",
+        # the cached generation programs
+        "kv_cache_write_slot", "kv_cache_append", "kv_cache_write_paged",
+        "kv_cache_append_paged", "kv_block_copy",
+        "multihead_attention_decode", "multihead_attention_decode_paged",
+        "multihead_attention_prefill_paged", "decode_sample",
+        "decode_verify", "transpose", "gather", "slice", "arg_max"])
     with pytest.raises(NotImplementedError, match="no op registered"):
         registry.get_op_def("lstm")
 
 
-F, I = "float32", "int64"
+F, I, I32 = "float32", "int64", "int32"
 # op -> ({slot: [(shape, dtype), ...]}, attrs, {slot: n outputs})
 SHAPE_CASES = {
     "conv2d": ({"Input": [((-1, 3, 9, 7), F)], "Filter": [((8, 3, 3, 3), F)]},
@@ -197,6 +203,49 @@ SHAPE_CASES = {
                    {"Out": 1}),
     "sequence_mask": ({"Length": [((-1, 1), I)]},
                       {"maxlen": 7, "dtype": "float32"}, {"Out": 1}),
+    # the cached generation programs: dense caches [S, C, D], paged pools
+    # [NB, BS, D] as the programs declare them
+    "kv_cache_write_slot": ({"Cache": [((3, 12, 8), F)],
+                             "New": [((1, 5, 8), F)],
+                             "Slot": [((1,), I32)]}, {}, {"Out": 1}),
+    "kv_cache_append": ({"Cache": [((3, 12, 8), F)], "New": [((3, 1, 8), F)],
+                         "Pos": [((3,), I32)]}, {}, {"Out": 1}),
+    "kv_cache_write_paged": ({"Cache": [((6, 4, 8), F)],
+                              "New": [((1, 8, 8), F)],
+                              "Table": [((3,), I32)], "Hist": [((1,), I32)],
+                              "Len": [((1,), I32)]}, {}, {"Out": 1}),
+    "kv_cache_append_paged": ({"Cache": [((6, 4, 8), F)],
+                               "New": [((3, 1, 8), F)],
+                               "Pos": [((3,), I32)],
+                               "Table": [((3, 3), I32)]}, {}, {"Out": 1}),
+    "kv_block_copy": ({"Cache": [((6, 4, 8), F)], "Src": [((1,), I32)],
+                       "Dst": [((1,), I32)]}, {}, {"Out": 1}),
+    "multihead_attention_decode": (
+        {"Q": [((3, 1, 8), F)], "CacheK": [((3, 12, 8), F)],
+         "CacheV": [((3, 12, 8), F)], "Pos": [((3,), I32)]},
+        {"num_heads": 2}, {"Out": 1}),
+    "multihead_attention_decode_paged": (
+        {"Q": [((3, 1, 8), F)], "CacheK": [((6, 4, 8), F)],
+         "CacheV": [((6, 4, 8), F)], "Pos": [((3,), I32)],
+         "Table": [((3, 3), I32)]}, {"num_heads": 2}, {"Out": 1}),
+    "multihead_attention_prefill_paged": (
+        {"Q": [((1, 8, 8), F)], "CacheK": [((6, 4, 8), F)],
+         "CacheV": [((6, 4, 8), F)], "Table": [((3,), I32)],
+         "Hist": [((1,), I32)], "Len": [((1,), I32)]},
+        {"num_heads": 2}, {"Out": 1}),
+    "decode_sample": ({"Logits": [((5, 29), F)], "Seed": [((5,), I)],
+                       "Step": [((5,), I32)]},
+                      {"temperature": 0.8, "top_k": 4, "top_p": 0.9},
+                      {"Out": 1}),
+    "decode_verify": ({"Logits": [((1, 4, 29), F)], "Window": [((1, 4), I)],
+                       "Seed": [((1,), I)], "Hist": [((1,), I32)]},
+                      {"kind": "greedy", "temperature": 1.0, "top_k": 0,
+                       "top_p": 1.0}, {"Tokens": 1, "Accept": 1}),
+    "transpose": ({"X": [((-1, 4, 5), F)]}, {"axis": [1, 0, 2]}, {"Out": 1}),
+    "gather": ({"X": [((7, 5), F)], "Index": [((3,), I32)]}, {}, {"Out": 1}),
+    "slice": ({"Input": [((9, 6), F)]},
+              {"axes": [0], "starts": [0], "ends": [4]}, {"Out": 1}),
+    "arg_max": ({"X": [((-1, 10), F)]}, {"axis": -1}, {"Out": 1}),
     "sgd": ({"Param": [((4, 3), F)], "Grad": [((4, 3), F)],
              "LearningRate": [((1,), F)]}, {}, {"ParamOut": 1}),
     "momentum": ({"Param": [((4, 3), F)], "Grad": [((4, 3), F)],

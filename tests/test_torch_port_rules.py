@@ -531,10 +531,107 @@ def _record_slots(monkeypatch, registry_mod):
     return seen
 
 
+_GEN = dict(d_model=16, num_heads=2, d_ff=32, num_layers=1, max_len=16,
+            slots=2, prompt_buckets=(8,), bos_id=0, eos_id=1, block_size=4)
+
+
+def _generation_weights():
+    """{name: array} of the small generation LM, the reference's startup
+    of its ``transformer_lm`` program, seeded."""
+    import paddle_tpu as ptpu
+    from paddle_tpu import layers as ref_layers
+    from paddle_tpu.models import transformer as ref_tf
+    with ptpu.unique_name.guard():
+        main, startup = ptpu.Program(), ptpu.Program()
+        startup.random_seed = 3
+        with ptpu.program_guard(main, startup):
+            toks = ref_layers.data("toks", shape=[1, 16], dtype="int64",
+                                   append_batch_size=False)
+            ref_tf.transformer_lm(toks, toks, 20, is_test=True,
+                                  **{k: _GEN[k] for k in (
+                                      "d_model", "num_heads", "d_ff",
+                                      "num_layers")})
+    scope = ptpu.Scope()
+    ptpu.Executor().run(startup, scope=scope)
+    return {n: np.asarray(scope.find_var(n)) for n in scope.var_names()}
+
+
+def _generation_policies(dec):
+    """Two decode policies of ``dec`` (a package's ``serving.decoding``)
+    whose programs hold every generation op type: sampling under a
+    constraint (dense), greedy speculation (paged, with a prefix
+    copy-on-write)."""
+    return ((False, dec.DecodePolicy(
+                kind="sample", temperature=0.9,
+                constraint=dec.DFAConstraint({0: {t: 0 for t in
+                                                  range(2, 20)}}))),
+            (True, dec.DecodePolicy(speculate_k=2)))
+
+
+def _serve_generation(pkg, named):
+    """Serve a few tokens through each policy's programs in ``pkg``'s
+    session ("ref" or "port") over the weights ``named``."""
+    if pkg == "ref":
+        import paddle_tpu as ptpu
+        from paddle_tpu.models.transformer import transformer_lm_session
+        from paddle_tpu.serving import GenerationSession
+        from paddle_tpu.serving import decoding as dec
+
+        def scope_of():
+            scope = ptpu.Scope()
+            for n, v in named.items():
+                scope.set_var(n, np.array(v))
+            return scope
+        kw = {}
+    else:
+        from paddle_tpu_torch.serving import GenerationSession
+        from paddle_tpu_torch.serving import decoding as dec
+        transformer_lm_session = port_tf.transformer_lm_session
+
+        def scope_of():
+            return port_io.scope_from_jax(named, device="cpu")
+        kw = dict(device="cpu")
+    for paged, policy in _generation_policies(dec):
+        spec = transformer_lm_session(20, paged=paged, prefix_cache=paged,
+                                      decode_policy=policy, **_GEN, **kw)
+        sess = GenerationSession(spec, scope_of())
+        for prompt in ([2, 3, 4, 5, 6, 7], [2, 3, 4, 5, 6, 9]):
+            sess.generate(prompt, max_new_tokens=4)
+        sess.close()
+
+
+def test_generation_program_op_types_are_registered():
+    """Every op type of the reference's generation programs of a small
+    LM, the decode-policy flags off and on, is registered in the port: a
+    program the reference's ``transformer_lm_session`` builds does not
+    fail in the port on a missing op."""
+    from paddle_tpu.models.transformer import transformer_lm_session
+    from paddle_tpu.serving import decoding as dec
+    from paddle_tpu_torch.core import registry
+
+    def programs(spec):
+        progs = list(spec.prefill_programs.values()) + [
+            spec.decode_program, spec.copy_program, spec.verify_program]
+        if spec.draft_spec is not None:
+            progs += programs(spec.draft_spec)
+        return [p for p in progs if p is not None]
+    types = set()
+    for paged, policy in ((False, None), (True, None)) + \
+            _generation_policies(dec):
+        spec = transformer_lm_session(20, paged=paged, decode_policy=policy,
+                                      **_GEN)
+        types |= {op.type for p in programs(spec)
+                  for op in p.global_block().ops}
+    assert {"kv_cache_append", "kv_block_copy", "decode_sample",
+            "decode_verify", "arg_max"} <= types
+    assert sorted(types - set(registry.registered_ops())) == []
+
+
 def test_output_slots_equal_reference_on_one_program(monkeypatch):
     """Run on the same programs (the port's, and the reference's loaded
-    from their JSON), each op's compute returns the reference's output
-    slot names."""
+    from their JSON; the generation programs through each package's
+    session, which serialize alike), each op's compute returns the
+    reference's output slot names."""
     import json
     from paddle_tpu.core import registry as ref_registry
     from paddle_tpu.core import serialization as ref_ser
@@ -543,11 +640,13 @@ def test_output_slots_equal_reference_on_one_program(monkeypatch):
     from paddle_tpu_torch.core import registry
     from paddle_tpu_torch.core import serialization as port_ser
     programs = _slot_programs()
+    named = _generation_weights()
     ours = _record_slots(monkeypatch, registry)
     for main, startup, loss, feed in programs:
         exe, scope = pc.Executor(device="cpu"), pc.Scope()
         exe.run(startup, scope=scope)
         exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+    _serve_generation("port", named)
     theirs = _record_slots(monkeypatch, ref_registry)
     for main, startup, loss, feed in programs:
         load = lambda p: ref_ser.program_from_dict(  # noqa: E731
@@ -556,6 +655,7 @@ def test_output_slots_equal_reference_on_one_program(monkeypatch):
         with ptpu.scope_guard(ptpu.Scope()):
             exe.run(load(startup))
             exe.run(load(main), feed=feed, fetch_list=[loss])
+    _serve_generation("ref", named)
     assert sorted(ours) == registry.registered_ops()
     assert {t: sorted(s) for t, s in ours.items()} == \
         {t: sorted(theirs[t]) for t in ours}
