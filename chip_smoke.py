@@ -132,6 +132,17 @@ and PyTorch built for CUDA. In order, it:
    (``[program-serve]``); and ``bench.py``'s ``bench_generation``
    configuration, f32 and int8, 2 compiles each
    (``[program-generation]``).
+16. trains ResNet-50 as bench.py's ``bench_resnet_pipeline`` does on the
+   accelerator (224, batch 8, Momentum(0.1, 0.9), fused_conv_bn on)
+   through ``Trainer.train`` and the staged input pipeline
+   (``[pipeline]``): uint8 images and int32 labels packed into one block
+   of the pinned staging arena per batch, one host-to-device copy a batch
+   on the reader's own stream (counted by the staging counters and seen
+   in a profiler trace as Pinned -> Device on a stream the step's kernels
+   do not use), widened on the card; B1 30 times a step; one packed step
+   equal to the bit to a step on the batch widened on the host, and a
+   step resumed from a checkpoint equal to the bit to the uninterrupted
+   one; compute, wire-copy and pipeline times, the overlap and images/s.
 
 Any failed phase exits nonzero. The line before the last is the card's
 name and power limit from nvidia-smi; the one before that lists the
@@ -333,6 +344,16 @@ PROGRAM_RECOMPUTE_WARMUP, PROGRAM_RECOMPUTE_STEPS = 2, 10
 # route (f32, fused), and recompute against no recompute (bf16): losses
 # and running statistics within this relative distance
 PROGRAM_ROUTE_RTOL = 1e-5
+# bench.py's bench_resnet_pipeline on the accelerator: ResNet-50 at 224,
+# batch 8, Momentum(0.1, 0.9), uint8 images widened by 1/255 on the card,
+# 16 timed steps; the wire copy timed 4 times before and 4 after the pass;
+# a checkpoint every 4 steps for the resume check
+PIPELINE = dict(depth=50, res=224, batch=8, class_dim=1000, lr=0.1,
+                momentum=0.9, steps=16, h2d_reps=4, ckpt_every=4)
+PIPELINE_SCALE = 1.0 / 255.0
+# how long [pipeline]'s profiled window runs small ops before the staged
+# pass, seconds
+PIPELINE_PROFILE_SETTLE_S = 0.05
 # ResNet-8 for CIFAR as a serialized program, card vs CPU over 2
 # Momentum steps (batch 32, 16 x 16): f32 within SMALL_RESNET_RTOL of each
 # tensor's norm; under amp the small-ResNet amp tolerances (losses
@@ -3594,6 +3615,394 @@ def phase_program_train_recompute(seed, plain):
     return dict(ms=ms, peak_bytes=peak)
 
 
+def pipeline_program(cfg, fused=True):
+    """(main, startup, loss) of bench.py's bench_resnet_pipeline on the
+    accelerator: ResNet-50 at 224 x 224 whose feeds are declared on the
+    wire, ``img`` uint8 widened by 1/255 on the card and ``label`` int64
+    crossing as int32, Momentum(0.1, 0.9); fused_conv_bn as given."""
+    from paddle_tpu_torch import config, core, layers, optimizer
+    from paddle_tpu_torch.models import resnet
+    config.set_flags(fused_conv_bn=fused)
+    try:
+        main, startup = core.Program(), core.Program()
+        with core.unique_name.guard(), core.program_guard(main, startup):
+            img = layers.data("img", shape=[3, cfg["res"], cfg["res"]],
+                              wire_dtype="uint8", scale=PIPELINE_SCALE)
+            label = layers.data("label", shape=[1], dtype="int64",
+                                wire_dtype="int32")
+            loss = resnet.resnet_imagenet(img, label, depth=cfg["depth"],
+                                          class_dim=cfg["class_dim"])[0]
+            optimizer.Momentum(cfg["lr"], cfg["momentum"]).minimize(
+                loss, startup)
+    finally:
+        config.set_flags(fused_conv_bn=False)
+    return main, startup, loss
+
+
+def pipeline_batches(cfg):
+    """bench.py's host batches: RandomState(0) uint8 images and int32
+    labels in [0, 1000), three of them."""
+    rs = np.random.RandomState(0)
+    b, r = cfg["batch"], cfg["res"]
+    return [{"img": rs.randint(0, 256, (b, 3, r, r), "int64")
+             .astype("uint8"),
+             "label": rs.randint(0, 1000, (b, 1)).astype("int32")}
+            for _ in range(3)]
+
+
+def scope_state(scope):
+    """{name: a copy of the tensor} of every tensor in ``scope``."""
+    import torch
+    return {n: v.detach().clone() for n, v in scope.items()
+            if isinstance(v, torch.Tensor)}
+
+
+def bitwise_diff(a, b):
+    """The names whose tensors differ in bits (or dtype, or are missing)
+    between two {name: tensor} dicts."""
+    import torch
+
+    def bits(t):
+        return t.detach().cpu().contiguous().reshape(-1).view(torch.uint8)
+
+    return sorted(n for n in set(a) | set(b)
+                  if n not in a or n not in b or a[n].dtype != b[n].dtype
+                  or a[n].shape != b[n].shape
+                  or not torch.equal(bits(a[n]), bits(b[n])))
+
+
+def wire_copies(trace_path, nbytes):
+    """From a chrome trace of torch.profiler: the host-to-device copies
+    of ``nbytes`` bytes as (name, stream), the streams the kernels ran
+    on, every host-to-device copy as (name, bytes, stream), and the
+    share of the window from the first of those copies (or the first
+    kernel) to the last kernel's end in which a kernel ran."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    copies, kernel_streams, h2d, spans, starts = [], set(), [], [], []
+    for e in events:
+        args = e.get("args") or {}
+        if e.get("cat") == "kernel":
+            kernel_streams.add(args.get("stream"))
+            spans.append((float(e["ts"]), float(e["ts"]) + float(e["dur"])))
+        elif e.get("cat") == "gpu_memcpy" and "HtoD" in e.get("name", ""):
+            h2d.append((e["name"], args.get("bytes"), args.get("stream")))
+            if args.get("bytes") == nbytes:
+                copies.append((e["name"], args.get("stream")))
+                starts.append(float(e["ts"]))
+    if starts:
+        spans = [sp for sp in spans if sp[0] >= min(starts)]
+    busy, end = 0.0, None
+    for t0, t1 in sorted(spans):
+        if end is None or t0 > end:
+            busy, end = busy + t1 - t0, t1
+        elif t1 > end:
+            busy, end = busy + t1 - end, t1
+    window = max(t for _, t in spans) - min(t for t, _ in spans) \
+        if spans else 0.0
+    return copies, kernel_streams, h2d, busy / window if window else 0.0
+
+
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN's deterministic convolution algorithms for a bitwise check
+    (its default backward algorithms may sum in another order on each
+    run); restored after."""
+    import torch
+    prev = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic, \
+            torch.backends.cudnn.benchmark = prev
+
+
+class _Recorder:
+    """Wraps ``reader.staging.StagedReader`` so the readers Trainer.train
+    makes are kept, with what their arena was when made."""
+
+    def __init__(self):
+        from paddle_tpu_torch.reader import staging
+        self.staging, self.made = staging, []
+        real = self.real = staging.StagedReader
+        made = self.made
+
+        class Recording(real):
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                arena = self._arena
+                made.append(dict(
+                    reader=self, arena_active=self.arena_active,
+                    pinned=arena is not None and arena.block.is_pinned()
+                    and arena.tensor(64, 64).is_pinned(),
+                    stream=self._stream))
+        staging.StagedReader = Recording
+
+    def close(self):
+        self.staging.StagedReader = self.real
+
+
+def phase_pipeline(seed):
+    """bench.py's bench_resnet_pipeline on the accelerator, through the
+    port's Trainer.train and staged input pipeline: ResNet-50 at 224,
+    batch 8, fused_conv_bn on, Momentum(0.1, 0.9), uint8 images and int32
+    labels packed into one pinned block per batch (``packed_feeds`` and
+    ``telemetry`` on). Checks: exactly one host-to-device copy per batch,
+    Pinned -> Device on a stream other than the step's kernels', B1 30
+    times a step; one Trainer step from a packed uint8 batch equal to the
+    bit to one Executor.run fed the batch widened on the host; a step
+    resumed from a checkpoint equal to the bit to the uninterrupted one.
+    Times after bench.py's recipe: compute (the step on a widened feed
+    already on the card), the pinned wire copy (median of 4 before and 4
+    after the pass), the pipeline (Trainer.train over 16 steps), the
+    overlap max(compute, h2d) / pipeline and images/s."""
+    import os
+    import shutil
+    import tempfile
+    import torch
+    from paddle_tpu_torch import config, core
+    from paddle_tpu_torch.core import ingest
+    from paddle_tpu_torch.reader import staging
+    from paddle_tpu_torch.trainer import EndIteration, Trainer
+    torch.cuda.empty_cache()
+    cfg = PIPELINE
+    steps = cfg["steps"]
+    main, startup, loss = pipeline_program(cfg)
+    startup.random_seed = seed
+    init = core.Scope()
+    core.Executor(device="cuda").run(startup, scope=init)
+    hosts = pipeline_batches(cfg)
+
+    def widened(hb):
+        # the batch widened on the host: one rounding of u8 * f32(1/255)
+        return {"img": torch.from_numpy(
+            hb["img"].astype(np.float32) * np.float32(PIPELINE_SCALE)),
+            "label": torch.from_numpy(hb["label"])}
+
+    def trainer(scope, resume=False, **kw):
+        # on a copy of the startup's weights; ``resume``: on a fresh
+        # scope, the startup program then the newest checkpoint
+        tr = Trainer(loss, main_program=main, startup_program=startup,
+                     async_metrics=True, device="cuda", **kw)
+        if resume:
+            with core.scope_guard(scope):
+                tr.startup()
+        else:
+            tr._initialized = True
+        return tr
+
+    def train(tr, scope, batches, events=None):
+        with core.scope_guard(scope):
+            tr.train(lambda: iter([dict(b) for b in batches]),
+                     num_passes=1, event_handler=events)
+
+    prev = {k: config.get_flag(k) for k in ("packed_feeds", "telemetry")}
+    config.set_flags(packed_feeds=True, telemetry=True)
+    rec = _Recorder()
+    ckpt = tempfile.mkdtemp(prefix="pipeline_ckpt_")
+    try:
+        # the feeds a packed batch gives the program on the card, against
+        # the batch widened on the host
+        exe = core.Executor(device="cuda")
+        pb = ingest.pack_feed(hosts[0])[0]
+        pb.buffer = torch.from_numpy(pb.buffer).cuda()
+        fed = exe._unpack(pb, main.global_block())
+        differ = bitwise_diff(fed, widened(hosts[0]))
+        print("[pipeline] a packed batch unpacked and widened on the card: "
+              "%s; %d differ in bits from the batch widened on the host %s"
+              % ({k: (tuple(v.shape), str(v.dtype)) for k, v in fed.items()},
+                 len(differ), differ))
+        check(not differ, "the packed feeds are not bitwise the host-widened "
+              "ones")
+        # one packed uint8 step against one Executor.run of the batch
+        # widened on the host, from the same weights (cuDNN's
+        # deterministic algorithms: its default ones may differ run to run)
+        with deterministic_cudnn():
+            packed_scope = scope_copy(init)
+            train(trainer(packed_scope), packed_scope, hosts[:1])
+            states = []
+            for _ in range(2):
+                host_scope = scope_copy(init)
+                exe.run(main, feed={k: v.cuda() for k, v in
+                                    widened(hosts[0]).items()},
+                        fetch_list=[loss], scope=host_scope)
+                states.append(scope_state(host_scope))
+        differ = bitwise_diff(scope_state(packed_scope), states[0])
+        print("[pipeline] one Trainer step from a packed uint8 batch vs "
+              "Executor.run of the batch widened on the host, same weights, "
+              "deterministic cuDNN: %d tensors, %d differ in bits %s (two "
+              "host-widened runs: %d differ)"
+              % (len(states[0]), len(differ), differ[:5],
+                 len(bitwise_diff(*states))))
+        check(not differ, "the packed uint8 step is not bitwise the "
+              "widened f32 step")
+        del packed_scope, host_scope, states
+
+        # a checkpoint at step 4 resumed by a fresh Trainer: step 5
+        # equal to the bit to the uninterrupted run's step 5
+        with deterministic_cudnn():
+            n = cfg["ckpt_every"]
+            run_dir, resume_dir = (os.path.join(ckpt, d)
+                                   for d in ("run", "resume"))
+            whole = scope_copy(init)
+            tr = trainer(whole, checkpoint_dir=run_dir,
+                         checkpoint_every_n_steps=n)
+            batches = [hosts[i % len(hosts)] for i in range(n + 1)]
+            t0 = time.perf_counter()
+            train(tr, whole, batches[:n])
+            save_s = time.perf_counter() - t0
+            shutil.copytree(run_dir, resume_dir)
+            train(tr, whole, batches[n:])
+            fresh = core.Scope()
+            t0 = time.perf_counter()
+            tr2 = trainer(fresh, resume=True, checkpoint_dir=resume_dir)
+            load_s = time.perf_counter() - t0
+            check(tr2.step_id == n, "the fresh Trainer resumed at step %d, "
+                  "not %d" % (tr2.step_id, n))
+            train(tr2, fresh, batches[n:])
+            differ = bitwise_diff(scope_state(whole), scope_state(fresh))
+            ckpt_mb = sum(os.path.getsize(os.path.join(dp, f))
+                          for dp, _, fs in os.walk(
+                              os.path.join(resume_dir, "checkpoint_%d" % n))
+                          for f in fs) / 1e6
+            print("[pipeline] checkpoint at step %d (%.1f MB, %d train steps "
+                  "and the saves %.2f s), loaded by a fresh Trainer (startup "
+                  "and load %.2f s), step %d: %d of %d tensors differ in bits "
+                  "from the uninterrupted run %s"
+                  % (n, ckpt_mb, n, save_s, load_s, n + 1, len(differ),
+                     len(scope_state(whole)), differ[:5]))
+        check(not differ, "the step resumed from a checkpoint is not "
+              "bitwise the uninterrupted one")
+        del whole, fresh, tr, tr2
+
+        # compute only: the widened batch resident on the card
+        scope = scope_copy(init)
+        tr = trainer(scope)
+        dev_feed = {k: v.cuda() for k, v in widened(hosts[0]).items()}
+        with core.scope_guard(scope):
+            float(tr._train_feed(dev_feed)["loss"])
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                m = tr._train_feed(dev_feed)
+            float(m["loss"])
+            compute_ms = (time.perf_counter() - t0) / steps * 1e3
+
+        # the pinned wire copy of one packed batch, bracketed
+        pb, _ = ingest.pack_feed(hosts[0])
+        wire_nbytes = pb.nbytes
+        pinned = torch.from_numpy(pb.buffer.reshape(-1)).pin_memory()
+
+        def h2d_reps(k):
+            times = []
+            for _ in range(k):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                pinned.to("cuda", non_blocking=True)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            return times
+
+        h2d = h2d_reps(cfg["h2d_reps"])
+        # the pipeline from the startup's weights; the packed path warmed
+        # outside the timed window
+        scope = scope_copy(init)
+        del init
+        train(tr, scope, hosts[:1])
+        c0 = (staging._TRANSFERS.value, staging._WIRE_BYTES.value,
+              staging._LEGACY_BYTES.value)
+        losses = []
+        made = len(rec.made)
+        reset_launches()
+        t0 = time.perf_counter()
+        train(tr, scope, [hosts[i % len(hosts)] for i in range(steps)],
+              lambda e: losses.append(e.cost)
+              if isinstance(e, EndIteration) else None)
+        float(losses[-1])
+        pipeline_ms = (time.perf_counter() - t0) / steps * 1e3
+        launches = read_launches()
+        transfers = staging._TRANSFERS.value - c0[0]
+        wire = staging._WIRE_BYTES.value - c0[1]
+        legacy = staging._LEGACY_BYTES.value - c0[2]
+        h2d += h2d_reps(cfg["h2d_reps"])
+        h2d_ms = float(np.median(h2d))
+        reader = rec.made[made]
+
+        # where the copies ran: the profiler's trace of 3 more steps
+        trace = os.path.join(ckpt, "pipeline_trace.json")
+        act = torch.profiler.ProfilerActivity
+        with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
+            # a profiler session after an earlier one records the card's
+            # activity only from some milliseconds after its first op
+            # (~6.5 ms on the H100 machine): ops first, so the staging
+            # thread's copies, which come first, are recorded
+            warm = torch.zeros(1, device="cuda")
+            t0 = time.perf_counter()
+            while time.perf_counter() - t0 < PIPELINE_PROFILE_SETTLE_S:
+                warm.add_(1)
+                torch.cuda.synchronize()
+            train(tr, scope, hosts)
+            torch.cuda.synchronize()
+        prof.export_chrome_trace(trace)
+        copies, kernel_streams, h2d_events, busy = wire_copies(
+            trace, wire_nbytes)
+        stage_ms = float(np.median([(t1 - t0) * 1e3 for t0, t1 in
+                                    reader["reader"].records]))
+    finally:
+        rec.close()
+        config.set_flags(**prev)
+        shutil.rmtree(ckpt, ignore_errors=True)
+    bound = max(compute_ms, h2d_ms)
+    print("[pipeline] ResNet-50 f32 fused, batch %d at %d, Trainer.train "
+          "over %d steps on packed uint8/int32 feeds: pipeline %.3f ms a "
+          "step (%.1f images/s), compute alone %.3f ms, pinned wire copy "
+          "%.4f ms (median of %d, %.4f-%.4f ms), overlap max(compute, h2d) "
+          "/ pipeline %.4f; wire %d bytes a batch against %d legacy (%.2fx "
+          "cut), %d H2D copies (%g a batch); B1 %d launches (%g a step); "
+          "losses %s"
+          % (cfg["batch"], cfg["res"], steps, pipeline_ms,
+             cfg["batch"] / pipeline_ms * 1e3, compute_ms, h2d_ms, len(h2d),
+             min(h2d), max(h2d), bound / pipeline_ms, wire // steps,
+             legacy // steps, legacy / max(wire, 1), transfers,
+             transfers / steps, launches["conv_bn_stats"],
+             launches["conv_bn_stats"] / steps,
+             [round(float(v), 4) for v in losses]))
+    print("[pipeline] staging: arena active %s, block pinned %s, staging "
+          "thread %.3f ms a batch (median: reader pull, pack, copy); "
+          "profiler over %d steps: %d copies of %d bytes host to device "
+          "%s, kernels on streams %s, the card busy %.1f%% of the kernels' "
+          "window" % (reader["arena_active"], reader["pinned"], stage_ms,
+                      len(hosts), len(copies), wire_nbytes,
+                      sorted(set(copies)), sorted(kernel_streams),
+                      100 * busy))
+    check(transfers == steps, "the packed path issued %d host-to-device "
+          "copies over %d batches (want exactly 1 per batch)"
+          % (transfers, steps))
+    check(wire == steps * wire_nbytes, "wire bytes %d != %d batches x %d"
+          % (wire, steps, wire_nbytes))
+    check(reader["arena_active"] and reader["pinned"],
+          "the staging arena is not active and pinned: %s"
+          % {k: v for k, v in reader.items() if k != "reader"})
+    check(len(copies) == len(hosts) and all(
+        "Pinned" in name and stream not in kernel_streams
+        for name, stream in copies),
+        "the wire copies are not Pinned -> Device on a stream of their "
+        "own: %s (kernels on %s; every host-to-device copy: %s)"
+        % (copies, sorted(kernel_streams), h2d_events[:20]))
+    check(launches["conv_bn_stats"] == B1_PER_STEP * steps,
+          "B1 launches %d != %d x %d steps"
+          % (launches["conv_bn_stats"], B1_PER_STEP, steps))
+    check(all(v == 0 for k, v in launches.items() if k != "conv_bn_stats"),
+          "the pipeline launched another kernel: %s" % launches)
+    # random labels at lr 0.1 and batch 8 may diverge later in the pass;
+    # the first step from the startup's weights may not
+    check(np.isfinite(float(losses[0])), "non-finite first loss on the "
+          "pipeline: %s" % [float(v) for v in losses])
+    return dict(launches=launches["conv_bn_stats"], pipeline_ms=pipeline_ms,
+                compute_ms=compute_ms, h2d_ms=h2d_ms, busy=busy)
+
+
 def flash_inputs(b, h, t, d, lengths=None, dtype=None):
     """q, k, v [B, H, T, D] on the card (bfloat16 unless ``dtype``), and
     int32 segment ids [B, T] marking each row's first ``lengths[i]``
@@ -4939,6 +5348,9 @@ def main(argv=None):
         phase_program_train_recompute(args.seed, plain)
         del plain
         gc.collect()
+        # bench.py's staged input pipeline through Trainer.train
+        pipeline = phase_pipeline(args.seed)
+        gc.collect()
         torch.cuda.empty_cache()
         # ResNet-50 has left the card: the LM's training step, amp bf16
         with amp_flag("bfloat16"):
@@ -4958,6 +5370,11 @@ def main(argv=None):
         rows += phase_time_flash_bf16(lm_launches,
                                       errs["flash_attention bf16"], sweep)
         for row in rows:
+            if row["name"] == "conv_bn_stats":
+                # B1's launches over [pipeline]'s timed pass, all shapes
+                row.update(pipeline_launches=pipeline["launches"],
+                           pipeline_launches_in="[pipeline], 16 steps at "
+                           "batch 8, every shape")
             if row["name"] == "flash_attention" and \
                     row.get("dtype") == "bfloat16":
                 row.update(program_launches=prog_lm["launches"][

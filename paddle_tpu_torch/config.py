@@ -71,6 +71,15 @@ _flags = {
     # float is not finite (the RNG key still advances)
     "check_nan_inf": False,
     "nonfinite_guard": False,
+    # the staged input pipeline (reader/staging.py): pack every batch's
+    # feed arrays into ONE 64-byte-aligned block of the pinned staging
+    # arena and issue ONE host-to-device copy per batch; the executor
+    # unpacks it on the card (slices viewed as each slot's dtype,
+    # core/ingest.py) and drops the consumed buffer. Off (default): one
+    # copy per array. Independent of wire_dtype declarations
+    # (layers.data), which are opt-in per feed. Read by StagedReader at
+    # each batch it stages
+    "packed_feeds": False,
     # metric hooks and host spans (observability/tracing.py: synced into
     # the tracer by the observability package's change hook)
     "telemetry": False,

@@ -33,21 +33,32 @@ reference gets from XLA, this executor does by hand:
   state) through ``ops/quant_ops.maybe_quant_compute``: kernel B3 for
   the products on the card.
 
-Not ported: the narrow-wire ingest prologue, the compile cache and AOT
-(``lower``, ``cache_digest``, ``prime_aot``), ``as_jax_function`` and
-distribution strategies; each raises NotImplementedError.
+* Ingest: a feed arriving in its variable's ``wire_dtype`` (uint8
+  images, int32 ids) is widened and normalized on the card before the
+  first op reads it (``core/ingest.widen``, the reference's prologue);
+  a ``PackedBatch`` (one uint8 buffer for the whole batch, staged by
+  ``reader/staging.py``) is unpacked on the card by slicing and viewing
+  each slot as its dtype, after the executor's stream waits on the
+  staging copy's event, and the buffer is dropped once unpacked (the
+  reference donates it).
+
+Not ported: the compile cache and AOT (``lower``, ``cache_digest``,
+``prime_aot``), ``as_jax_function`` and distribution strategies; each
+raises NotImplementedError.
 """
 
+import collections.abc
 import contextlib
 
 import numpy as np
 import torch
 from torch.autograd.graph import get_gradient_edge
 
+from . import ingest as _ingest
 from . import registry
 from .enforce import EnforceNotMet
-from .framework import (Program, Variable, default_main_program,
-                        torch_dtype, RNG_STATE_VAR)
+from .framework import (Program, Variable, convert_dtype,
+                        default_main_program, torch_dtype, RNG_STATE_VAR)
 from .scope import global_scope
 from .. import config as _config
 from ..amp import amp_cast, amp_dtype
@@ -60,7 +71,7 @@ __all__ = ["Executor", "EMPTY_VAR", "run_block"]
 
 
 # the ROADMAP Queue A items that bring what this executor refuses
-_INGEST = 'ROADMAP Queue A, "Ingest, the compile cache and AOT"'
+_AOT = 'ROADMAP Queue A, "The compile cache and AOT"'
 _DISTRIBUTION = 'ROADMAP Queue A, "Distribution and the input pipeline"'
 
 
@@ -80,6 +91,42 @@ def _lookup(env, name, op, block):
                 "scope — run the startup program first" % (name, reader))
         raise EnforceNotMet("%r reads undefined variable %r"
                             % (reader, name)) from None
+
+
+def _arriving_dtype(value):
+    """The numpy dtype a feed value arrives in (bfloat16 as
+    ``torch.bfloat16``)."""
+    dt = getattr(value, "dtype", None)
+    if isinstance(dt, torch.dtype):
+        return convert_dtype(dt) if dt == torch.bfloat16 else \
+            np.dtype(str(dt).replace("torch.", ""))
+    return np.dtype(dt) if dt is not None else np.asarray(value).dtype
+
+
+def _ingest_spec(var, arriving_dtype, packed=False):
+    """The prologue step (target_dtype, scale, mean, std) for one feed
+    arriving as ``arriving_dtype``, or None when the feed needs no work
+    on the card (reference ``_ingest_spec``). Normalize attrs fire ONLY
+    for wire-form arrivals: an already-widened (host-normalized) feed
+    takes the plain path."""
+    if var is None:
+        return None
+    target = convert_dtype(var.dtype)
+    wire = getattr(var, "wire_dtype", None)
+    if wire is not None and arriving_dtype == wire:
+        norm = getattr(var, "ingest", None) or {}
+        return (target, _ingest.canon_norm(norm.get("scale")),
+                _ingest.canon_norm(norm.get("mean")),
+                _ingest.canon_norm(norm.get("std")))
+    if packed and arriving_dtype != target:
+        # a packed slot skips the host-side cast, so any residual dtype
+        # gap is closed on the card instead
+        return (target, None, None, None)
+    return None
+
+
+def _shares(t, buf):
+    return t.untyped_storage().data_ptr() == buf.untyped_storage().data_ptr()
 
 
 def _is_float(t):
@@ -363,22 +410,57 @@ class Executor:
         return {"entries": len(self._cache), "compiles": self._compiles}
 
     def lower(self, *args, **kwargs):
-        _not_ported("Executor.lower (AOT lowering)", _INGEST)
+        _not_ported("Executor.lower (AOT lowering)", _AOT)
 
     def cache_digest(self, *args, **kwargs):
-        _not_ported("The persistent compile cache", _INGEST)
+        _not_ported("The persistent compile cache", _AOT)
 
     def prime_aot(self, *args, **kwargs):
-        _not_ported("AOT executables", _INGEST)
+        _not_ported("AOT executables", _AOT)
 
     def as_jax_function(self, *args, **kwargs):
-        _not_ported("Exporting a program as a function", _INGEST)
+        _not_ported("Exporting a program as a function", _AOT)
 
     def _tensor(self, value, dtype=None):
         if isinstance(value, torch.Tensor):
             return value.to(device=self.device, dtype=dtype)
         return torch.as_tensor(np.asarray(value), dtype=dtype,
                                device=self.device)
+
+    def _unpack(self, feed, block):
+        """{name: tensor} of a PackedBatch on this executor's device:
+        the buffer's slots viewed as their wire dtypes, each wire slot
+        widened by its variable's ingest attrs. A staged device buffer
+        is read on this executor's stream only after the staging copy's
+        event, is marked as used by this stream for the caching
+        allocator, and is consumed: dropped from the batch, with no
+        slot left viewing it (the reference donates it)."""
+        buf = feed.buffer
+        if buf is None:
+            raise RuntimeError("this PackedBatch was consumed by an "
+                               "earlier run (its buffer is released once "
+                               "unpacked)")
+        if isinstance(buf, np.ndarray):
+            buf = torch.from_numpy(buf).to(self.device)
+        else:
+            feed.buffer = None
+            if feed.event is not None and buf.is_cuda:
+                stream = torch.cuda.current_stream(buf.device)
+                stream.wait_event(feed.event)
+                buf.record_stream(stream)
+            buf = buf.to(self.device)
+        out = {}
+        views = _ingest.unpack(buf, feed.layout)
+        dense = {s.name: s.dtype for s in feed.layout if s.kind == "dense"}
+        for name, t in views.items():
+            if name in dense:
+                spec = _ingest_spec(block.var_or_none(name),
+                                    np.dtype(dense[name]), packed=True)
+                if spec is not None:
+                    t = _ingest.widen(t, *spec)
+            # sparse triples arrive in their final wire dtypes
+            out[name] = t.clone() if _shares(t, buf) else t
+        return out
 
     def _state(self, scope, name):
         """The scope's tensor of ``name`` on this executor's device; a
@@ -398,8 +480,10 @@ class Executor:
             raise TypeError("Executor.run expects a Program, got %r"
                             % (program,))
         feed = {} if feed is None else feed
-        if not isinstance(feed, dict):
-            _not_ported("A packed feed (the ingest prologue)", _INGEST)
+        if not isinstance(feed, (_ingest.PackedBatch,
+                                 collections.abc.Mapping)):
+            raise TypeError("Executor.run feeds a dict of arrays or a "
+                            "PackedBatch, got %r" % type(feed).__name__)
         fetch_list = fetch_list or []
         scope = scope or global_scope()
         block = program.global_block()
@@ -434,10 +518,18 @@ class Executor:
                               random_ops.prng_key(seed, self.device))
             state_rw[RNG_STATE_VAR] = self._state(scope, RNG_STATE_VAR)
         env.update(state_rw)
-        for name, value in feed.items():
-            var = block.var_or_none(name)
-            env[name] = self._tensor(
-                value, torch_dtype(var.dtype) if var is not None else None)
+        if isinstance(feed, _ingest.PackedBatch):
+            env.update(self._unpack(feed, block))
+        else:
+            for name, value in _ingest.explode_sparse(feed).items():
+                var = block.var_or_none(name)
+                spec = _ingest_spec(var, _arriving_dtype(value))
+                if spec is not None:
+                    env[name] = _ingest.widen(self._tensor(value), *spec)
+                else:
+                    env[name] = self._tensor(
+                        value, torch_dtype(var.dtype) if var is not None
+                        else None)
 
         trace = _TraceState(plan.needs_vjp,
                             nan_guards={} if check_nan_inf else None,

@@ -99,6 +99,13 @@ class Variable:
         self.trainable = trainable
         self.initializer = initializer
         self.is_data = is_data
+        # Narrow-wire feed declaration (layers.data wire_dtype/scale/
+        # mean/std): feeds arriving in ``wire_dtype`` stay narrow on the
+        # wire and are widened/normalized on the card by the executor's
+        # ingest prologue (core/ingest.py). None = the plain feed path.
+        # Not serialized, as in the reference.
+        self.wire_dtype = None
+        self.ingest = None
         self.op = None  # producing operator, if any
 
     @property

@@ -35,7 +35,11 @@ site                            where / what
                                 is the slot: a firing forces the dead-end
                                 verdict (the typed ConstraintDeadEnd)
 ``nan_loss``                    :func:`poison_feed`, for a training loop
-                                that calls it
+                                that calls it; a packed batch is poisoned
+                                in a copy of its buffer
+``checkpoint_crash``            ``io.save_checkpoint``, after every file of
+                                the checkpoint is written and before it is
+                                published; ``index`` is the step
 ``collective_hang``             :func:`simulate_collective_hang`
 ==============================  ===========================================
 
@@ -200,19 +204,44 @@ def simulate_collective_hang(step, max_sec=600.0):
 def poison_feed(feed, step):
     """``nan_loss`` hook: overwrite the first float feed array with NaN
     (in a copy) when armed for ``step``, so a non-finite loss flows
-    through the unmodified train computation. Only a plain feed dict is
-    handled: the reference's packed batches (``core/ingest.py``) are not
-    ported yet (ROADMAP Queue A, "Ingest, the compile cache and AOT"),
-    and any other feed raises NotImplementedError."""
+    through the unmodified train computation. A packed batch
+    (``core/ingest.py``) is poisoned in a copy of its buffer, in the
+    byte range of its first float slot, on the buffer's device, so the
+    packed path stays on its own code path under chaos testing. Any
+    other feed than a dict or a packed batch raises
+    NotImplementedError."""
     import numpy as np
     if should_fire("nan_loss", step) is None:
         return feed
     _log.structured("fault_injected", site="nan_loss", index=step,
                     action="poison")
+    from ..core.ingest import PackedBatch
+    if isinstance(feed, PackedBatch):
+        import torch
+        for slot in feed.layout:
+            dt = np.dtype(slot.dtype)
+            if not np.issubdtype(dt, np.floating):
+                continue
+            nan_bytes = np.frombuffer(
+                np.full(slot.nbytes // dt.itemsize, np.nan, dt)
+                .tobytes(), np.uint8)
+            buf = feed.buffer
+            if isinstance(buf, np.ndarray):
+                buf = torch.from_numpy(buf)
+            if feed.event is not None:
+                torch.cuda.current_stream(buf.device).wait_event(feed.event)
+            buf = buf.clone()
+            buf[:, slot.offset:slot.offset + slot.nbytes] = \
+                torch.from_numpy(nan_bytes.copy()).to(buf.device)
+            poisoned = PackedBatch(buf, feed.layout, feed.shards,
+                                   feed.shard_nbytes, feed.batch_size)
+            poisoned.transfer_done = True
+            return poisoned
+        return feed
     if not isinstance(feed, collections.abc.Mapping):
         raise NotImplementedError(
-            "poison_feed of a %s: only a feed dict is ported (packed "
-            "batches wait for the ingest prologue)" % type(feed).__name__)
+            "poison_feed of a %s: only a feed dict or a packed batch is "
+            "handled" % type(feed).__name__)
     out = dict(feed)
     for name, v in out.items():
         arr = np.asarray(v)

@@ -407,12 +407,14 @@ def test_what_is_not_ported_raises():
     exe = _exe()
     for call in (exe.lower, exe.cache_digest, exe.prime_aot,
                  exe.as_jax_function):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue A"):
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP Queue A, \"The compile cache"):
             call(pc.Program())
     with pytest.raises(NotImplementedError, match="Distribution"):
         pc.Executor(device="cpu", strategy=object())
-    with pytest.raises(NotImplementedError, match="narrow-wire"):
-        layers.data("w", shape=[2], wire_dtype="uint8")
+    # narrow-wire feeds are ported: the declaration no longer raises
+    w = layers.data("w", shape=[2], wire_dtype="uint8", scale=0.5)
+    assert str(w.wire_dtype) == "uint8" and w.ingest["scale"] == 0.5
     with pytest.raises(TypeError, match="Program"):
         exe.run("not a program")
 

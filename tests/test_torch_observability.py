@@ -38,6 +38,11 @@ from paddle_tpu.serving import GenerationSession as RefSession
 from paddle_tpu.serving import decoding as ref_dec
 from paddle_tpu.serving import resilience as ref_sres
 from paddle_tpu.utils import log as ref_log
+# the training pipeline's families, registered by these modules in both
+# packages (the registry test compares the two registries' family sets)
+from paddle_tpu import trainer as ref_trainer  # noqa: F401
+from paddle_tpu.reader import staging as ref_staging  # noqa: F401
+from paddle_tpu.utils import stat as ref_stat  # noqa: F401
 from paddle_tpu_torch import config as port_config
 from paddle_tpu_torch import io as port_io
 from paddle_tpu_torch import observability
@@ -54,6 +59,8 @@ from paddle_tpu_torch.serving import decoding as port_dec
 from paddle_tpu_torch.serving import generation as port_gen
 from paddle_tpu_torch.serving import paged_cache as port_pc
 from paddle_tpu_torch.utils import log
+from paddle_tpu_torch import trainer as port_trainer  # noqa: F401
+from paddle_tpu_torch.reader import staging as port_staging  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 V, MAXLEN = 29, 24
@@ -81,7 +88,21 @@ FAMILIES = sorted([
     "paddle_serving_%s" % n for n in (
         "deadline_exceeded_total", "shed_total", "tenant_shed_total",
         "failover_total", "breaker_transitions_total",
-        "replica_healthy")] + ["paddle_quant_compute_ops_total"])
+        "replica_healthy")] + ["paddle_quant_compute_ops_total"] + [
+    # the training pipeline's (trainer, staging, checkpoints, stat
+    # timers): registered when their modules are imported, which this
+    # file does in both packages
+    "paddle_trainer_%s" % n for n in (
+        "step_seconds", "examples_total", "examples_per_second",
+        "steps_total", "checkpoint_seconds")] + [
+    "paddle_staging_%s" % n for n in (
+        "queue_depth", "batches_total", "stage_seconds",
+        "arena_in_use_bytes", "arena_peak_bytes", "wire_bytes_total",
+        "legacy_bytes_total", "h2d_transfers_total",
+        "sparse_slots_total")] + [
+    "paddle_checkpoint_%s" % n for n in (
+        "fallbacks_total", "quarantined_total", "verify_seconds")] + [
+    "paddle_stat_span_seconds", "paddle_stat_gauge"])
 
 
 @pytest.fixture(autouse=True)

@@ -659,3 +659,41 @@ def test_output_slots_equal_reference_on_one_program(monkeypatch):
     assert sorted(ours) == registry.registered_ops()
     assert {t: sorted(s) for t, s in ours.items()} == \
         {t: sorted(theirs[t]) for t in ours}
+
+
+# the staged training pipeline's modules: the import walk above and the
+# source check cover them with the rest of the package
+PIPELINE_MODULES = ["paddle_tpu_torch.core.ingest", "paddle_tpu_torch.reader",
+                    "paddle_tpu_torch.reader.staging",
+                    "paddle_tpu_torch.data_feeder", "paddle_tpu_torch.trainer",
+                    "paddle_tpu_torch.utils.stat", "paddle_tpu_torch.io"]
+
+
+def test_the_pipeline_modules_are_walked_and_import_clean():
+    assert set(PIPELINE_MODULES) <= set(_package_modules())
+    code = ("import importlib, sys\n"
+            "for m in %r: importlib.import_module(m)\n"
+            "print(sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith('jax.') or m == 'paddle_tpu' or "
+            "m.startswith('paddle_tpu.')))\n" % (PIPELINE_MODULES,))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def test_staged_pipeline_without_device_means_cuda_and_raises(monkeypatch):
+    from paddle_tpu_torch import core as pc
+    from paddle_tpu_torch import trainer as port_trainer
+    from paddle_tpu_torch.reader.staging import StagedReader
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        StagedReader(lambda: iter([]))
+    main = pc.Program()
+    with pc.program_guard(main, pc.Program()):
+        loss = pc.default_main_program().global_block().create_var(
+            name="loss", shape=[1])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        port_trainer.Trainer(loss, main_program=main)
+    assert StagedReader(lambda: iter([]), device="cpu").device == \
+        torch.device("cpu")
