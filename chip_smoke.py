@@ -144,6 +144,22 @@ and PyTorch built for CUDA. In order, it:
    step resumed from a checkpoint equal to the bit to the uninterrupted
    one; compute, wire-copy and pipeline times, the overlap and images/s.
 
+17. exports the flagship LM's forward program (is_test, T 512) through
+   ``io.save_inference_model``, f32 and int8, merges the f32 export into
+   one file, and serves it through ``ServingEngine`` (buckets 1 and 8, two
+   replicas on the card, breakers, a per-call timeout) and
+   ``MicroBatcher`` from 8 client threads (``[engine]``): a bucket-8 batch
+   equal to a direct run, each request within 1e-3 of max|logits| of its
+   row alone in bucket 1, B2 f32 12 launches an execution (B3 73 on the
+   int8 engine, whose scope keeps the 73 weights int8), a replica failure
+   failed over and re-admitted by the probe, a swap onto a seed-1 export
+   equal to a direct run on it, a push under ``swap_canary_fail``
+   rejected, the merged-file engine equal to the directory engine, a
+   2-layer artifact card against CPU, and ResNet-50's export refused as
+   the reference refuses it (no running statistics in the artifact);
+   batch times by bucket, requests/s and p50/p99, cold start, the swap's
+   blackout, the time to re-admission and the weight bytes.
+
 Any failed phase exits nonzero. The line before the last is the card's
 name and power limit from nvidia-smi; the one before that lists the
 kernels as JSON; the last line is ``{"ok": true, "device": ...}``.
@@ -5164,6 +5180,575 @@ def phase_time_flash_bf16(lm_launches, err, sweep):
     return rows
 
 
+# [engine]: the flagship LM's forward program (is_test, tokens declared
+# at ENGINE_T, bench.py's widths at full depth) exported through
+# io.save_inference_model (f32; int8; the f32 export merged into one
+# file), its weights from the program's startup on the card (seed), and
+# served by ServingEngine at ENGINE_BUCKETS (not the serving_buckets
+# default (1, 8, 32): warmup on the card stays bounded) on
+# ENGINE_REPLICAS replicas of the one card, breakers after
+# ENGINE_BREAKER_FAILURES failures, a cooldown of ENGINE_COOLDOWN_MS and a
+# per-call timeout of ENGINE_TIMEOUT_S; 1-row requests from
+# ENGINE_CLIENTS client threads (ENGINE_PER_CLIENT each) through
+# MicroBatcher(max_batch 8, max_delay ENGINE_DELAY_MS), each answer within
+# ENGINE_ROW_RTOL of max|logits| of the same row alone in bucket 1 (the
+# 12-layer logits limit of PERF.md: cuBLAS may take another algorithm at
+# m = 8 x 512 than at 512); ENGINE_TIMED_RUNS timed batches a bucket
+ENGINE_T = 512
+ENGINE_BUCKETS = (1, 8)
+ENGINE_REPLICAS = 2
+ENGINE_BREAKER_FAILURES = 2
+ENGINE_COOLDOWN_MS = 500.0
+ENGINE_TIMEOUT_S = 120.0
+ENGINE_CLIENTS, ENGINE_PER_CLIENT = 8, 8
+ENGINE_DELAY_MS = 5.0
+ENGINE_TIMED_RUNS = 5
+ENGINE_ROW_RTOL = 1e-3
+# the card against the CPU: SMALL_PROGRAM_LM at T ENGINE_SMALL_T exported
+# from a CPU startup, served at ENGINE_SMALL_BUCKETS on both devices, a
+# batch of ENGINE_SMALL_BATCH rows: f32 within ENGINE_CARD_CPU_RTOL of
+# max|logits|, int8 within LM_INT8_STEPS head quantization steps (the
+# armed forward's bound of tests/test_torch_program_quant.py)
+ENGINE_SMALL_T, ENGINE_SMALL_BATCH = 64, 3
+ENGINE_SMALL_BUCKETS = (1, 4)
+ENGINE_CARD_CPU_RTOL = 1e-4
+# ResNet-50 as bench.py builds it, exported under is_test (224 x 224)
+ENGINE_RESNET = dict(depth=50, res=224, class_dim=1000)
+
+
+def lm_cfg(cfg):
+    return {k: v for k, v in cfg.items() if k != "max_len"}
+
+
+def engine_export(cfg, t, seed, device, dirs):
+    """The LM's forward program (is_test) at T ``t``, its startup's
+    weights drawn from ``seed`` on ``device``, exported to each path of
+    ``dirs`` ({path: quantize}). Returns ({path: seconds}, the scope the
+    weights were exported from)."""
+    from paddle_tpu_torch import core, io
+    main, startup, _, logits = lm_program(lm_cfg(cfg), t, is_test=True)
+    startup.random_seed = seed
+    exe, scope = core.Executor(device=device), core.Scope()
+    exe.run(startup, scope=scope)
+    out = main.global_block().var(logits)
+    secs = {}
+    for d, quantize in dirs.items():
+        t0 = time.perf_counter()
+        io.save_inference_model(d, ["toks"], [out], exe, main_program=main,
+                                scope=scope, quantize=quantize)
+        secs[d] = time.perf_counter() - t0
+    return secs, scope
+
+
+def counted_engine(path, device="cuda", **kw):
+    """A ServingEngine over ``path`` whose executions (batches, warmup,
+    probes, canaries) count in ``eng.executions``; built without warmup,
+    then warmed. Returns (engine, seconds of construction + warmup)."""
+    import threading
+    from paddle_tpu_torch.serving import ServingEngine
+    t0 = time.perf_counter()
+    eng = ServingEngine(path, warmup=False, device=device, **kw)
+    lock = threading.Lock()
+    eng.executions = 0
+    execute, canary = eng._execute, eng._run_canary
+
+    def count():
+        with lock:
+            eng.executions += 1
+
+    def _execute(rep, feed, bucket):
+        out = execute(rep, feed, bucket)
+        count()
+        return out
+
+    def _run_canary(new_host):
+        canary(new_host)
+        count()
+
+    eng._execute, eng._run_canary = _execute, _run_canary
+    eng.warmup()
+    return eng, time.perf_counter() - t0
+
+
+def f32_flash(launches):
+    return launches["flash_attention"] - launches["flash_attention bf16"]
+
+
+def engine_held(before, executions, per_execution):
+    """The launches since ``before`` (read_launches()) are the engine's
+    ``executions``: B2 f32 ``per_execution[0]`` and B3 ``[1]`` each, and
+    no other kernel."""
+    now = read_launches()
+    delta = {k: now[k] - before[k] for k in now}
+    got = {"flash_attention f32": f32_flash(delta),
+           "int8_matmul": delta["int8_matmul"]}
+    want = {"flash_attention f32": per_execution[0] * executions,
+            "int8_matmul": per_execution[1] * executions}
+    others = {k: v for k, v in delta.items() if v and k not in (
+        "flash_attention", "int8_matmul")}
+    check(got == want and not others,
+          "[engine] launches %s (and %s) != %s for %d executions"
+          % (got, others, want, executions))
+
+
+def direct_run(eng, rows, rep=0, scope=None):
+    """The engine's program run by a replica's executor on its scope (or
+    ``scope``), launches uncounted."""
+    import torch
+    rep = eng.replicas[rep]
+    feed = {eng.feed_names[0]: torch.tensor(rows, device=rep.device)}
+    return uncounted(lambda: rep.exe.run(
+        eng.program, feed=feed, fetch_list=eng.fetch_names,
+        scope=scope if scope is not None else rep.scope))[0]
+
+
+def scope_bytes(scope, names=None):
+    return sum(v.numel() * v.element_size() for n, v in scope.items()
+               if names is None or n in names)
+
+
+def bucket_times(eng, rows):
+    """{bucket: (median host ms of ENGINE_TIMED_RUNS eng.run of a full
+    bucket, the mean of paddle_serving_batch_seconds over them, and the
+    median of the same program run by replica 0's executor with its
+    logits left on the card, ended by a synchronize, in ms)}."""
+    import torch
+    from paddle_tpu_torch.observability import metrics
+    hist = metrics.REGISTRY._families["paddle_serving_batch_seconds"]
+    rep = eng.replicas[0]
+    out = {}
+    for b in eng.buckets:
+        child = hist.labels(bucket=b)
+        n0, s0 = child.count, child.sum
+        ms = []
+        for _ in range(ENGINE_TIMED_RUNS):
+            t0 = time.perf_counter()
+            eng.run({"toks": rows[:b]})
+            ms.append((time.perf_counter() - t0) * 1e3)
+        feed = {eng.feed_names[0]: torch.tensor(rows[:b], device=rep.device)}
+
+        def on_card():
+            t0 = time.perf_counter()
+            rep.exe.run(eng.program, feed=feed, fetch_list=eng.fetch_names,
+                        scope=rep.scope, return_numpy=False)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3
+
+        kept = uncounted(lambda: [on_card()
+                                  for _ in range(ENGINE_TIMED_RUNS)])
+        out[b] = (float(np.median(ms)),
+                  (child.sum - s0) / max(child.count - n0, 1) * 1e3,
+                  float(np.median(kept)))
+    return out
+
+
+def engine_traffic(eng, rows):
+    """ENGINE_CLIENTS threads, each sending ENGINE_PER_CLIENT 1-row
+    requests in turn through a MicroBatcher. Returns ({request index:
+    its answer}, [latency ms], wall seconds)."""
+    import threading
+    from paddle_tpu_torch.serving import MicroBatcher
+    mb = MicroBatcher(eng, max_batch=8, max_delay_ms=ENGINE_DELAY_MS)
+    answers, lat, errors = {}, [], []
+
+    def client(c):
+        try:
+            for j in range(ENGINE_PER_CLIENT):
+                i = c * ENGINE_PER_CLIENT + j
+                t0 = time.perf_counter()
+                answers[i] = mb.submit({"toks": rows[i]}).result(600)[0]
+                lat.append((time.perf_counter() - t0) * 1e3)
+        except Exception as exc:  # noqa: BLE001 (reported below)
+            errors.append(exc)
+
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(ENGINE_CLIENTS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    mb.close()
+    check(not errors, "MicroBatcher requests failed: %r" % errors[:2])
+    return answers, lat, wall
+
+
+def rel_err(a, b):
+    return float(np.abs(np.asarray(a) - np.asarray(b)).max()
+                 / max(float(np.abs(np.asarray(b)).max()), 1e-30))
+
+
+def phase_engine(seed, smi, rng):
+    """[engine]: see ENGINE_T's comment. Returns the engine's launches of
+    B2 f32 and of B3 over the phase ({"flash_attention": n,
+    "int8_matmul": n})."""
+    import os
+    import shutil
+    import tempfile
+    import torch
+    from paddle_tpu_torch import config
+    from paddle_tpu_torch.models.transformer import lm_mul_weight_names
+    from paddle_tpu_torch.observability import metrics
+    from paddle_tpu_torch.resilience import faults
+    from paddle_tpu_torch.serving import SwapRejectedError
+    from paddle_tpu_torch.serving import deploy
+    from paddle_tpu_torch.utils.merge_model import merge_inference_model
+    card = smi[0] if smi else "nvidia-smi: no output"
+    cfg = lm_cfg(FULL)
+    L, vocab, t = cfg["num_layers"], cfg["vocab_size"], ENGINE_T
+    armed_per = 6 * L + 1
+    tmp = tempfile.mkdtemp(prefix="engine_")
+    engines = []
+    kw = dict(buckets=ENGINE_BUCKETS, replicas=ENGINE_REPLICAS,
+              breaker_failures=ENGINE_BREAKER_FAILURES,
+              breaker_cooldown_ms=ENGINE_COOLDOWN_MS,
+              timeout=ENGINE_TIMEOUT_S)
+    batches_total = metrics.REGISTRY._families[
+        "paddle_serving_batches_total"]
+    try:
+        free = shutil.disk_usage(tmp).free
+        d32, d8 = os.path.join(tmp, "f32"), os.path.join(tmp, "int8")
+        t0 = time.perf_counter()
+        secs, _ = uncounted(lambda: engine_export(
+            FULL, t, seed, "cuda", {d32: None, d8: "int8"}))
+        export_s = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        size = {d: sum(os.path.getsize(os.path.join(d, f))
+                       for f in os.listdir(d)) for d in (d32, d8)}
+        print("[engine] exported the LM's forward program (T %d, %s) f32 "
+              "in %.2f s (%.3f GB) and int8 in %.2f s (%.3f GB), with its "
+              "startup on the card %.2f s; %.1f GB free on the temporary "
+              "disk" % (t, cfg, secs[d32], size[d32] / 1e9, secs[d8],
+                        size[d8] / 1e9, export_s, free / 1e9))
+        rows = rng.integers(2, vocab, (ENGINE_CLIENTS * ENGINE_PER_CLIENT,
+                                       t)).astype(np.int32)
+
+        # -- the f32 engine: cold start, warmup, a bucket-8 batch -----------
+        reset_launches()
+        before = read_launches()
+        t0 = time.perf_counter()
+        eng, build_s = counted_engine(d32, **kw)
+        engines.append(eng)
+        first = eng.run({"toks": rows[:1]})[0]
+        cold_ms = (time.perf_counter() - t0) * 1e3
+        on_card = all(r.device.type == "cuda" and
+                      all(v.device == r.device for _, v in r.scope.items())
+                      for r in eng.replicas)
+        batch = [eng.run({"toks": rows[:8]})[0] for _ in eng.replicas]
+        direct = direct_run(eng, rows[:8])
+        check(on_card and first.shape == (1, t, vocab) and
+              np.isfinite(first).all(),
+              "[engine] replicas on the card %s, first response %s"
+              % (on_card, first.shape))
+        check(all(np.array_equal(b, direct) for b in batch),
+              "[engine] a bucket-8 batch differs from a direct run "
+              "(max %s)" % [float(np.abs(b - direct).max()) for b in batch])
+        f32_bytes = scope_bytes(eng.replicas[0].scope)
+        print("[engine] f32 engine, buckets %s, %d replicas on %s: cold "
+              "start (construction + warmup + first response) %.1f ms, "
+              "construction + warmup %.1f ms; a bucket-8 batch on each "
+              "replica equal to a direct run of the pruned program: True; "
+              "weights %.3f GB a replica; %s"
+              % (ENGINE_BUCKETS, len(eng.replicas),
+                 sorted({str(r.device) for r in eng.replicas}), cold_ms,
+                 build_s * 1e3, f32_bytes / 1e9, card))
+
+        # -- traffic through the micro-batcher ------------------------------
+        alone = {i: eng.run({"toks": rows[i:i + 1]})[0][0]
+                 for i in range(len(rows))}
+        b0 = sum(c.value for c in batches_total.children().values())
+        answers, lat, wall = engine_traffic(eng, rows)
+        batches = sum(c.value for c in batches_total.children().values()) \
+            - b0
+        worst = max(rel_err(answers[i], alone[i]) for i in alone)
+        check(len(answers) == len(rows) and worst <= ENGINE_ROW_RTOL,
+              "[engine] batched answers vs rows alone: %.3g > %g"
+              % (worst, ENGINE_ROW_RTOL))
+        times32 = bucket_times(eng, rows)
+        engine_held(before, eng.executions, (L, 0))
+        print("[engine] MicroBatcher, %d clients x %d 1-row requests: "
+              "%.2f requests/s, latency p50 %.1f ms, p99 %.1f ms, %d "
+              "batches (%.2f rows a batch); each answer against its row "
+              "alone in bucket 1: max %.3g of max|logits| (limit %g); B2 "
+              "f32 %d launches over the engine's %d executions so far, "
+              "warmup included (%d an execution); %s"
+              % (ENGINE_CLIENTS, ENGINE_PER_CLIENT, len(rows) / wall,
+                 np.percentile(lat, 50), np.percentile(lat, 99), batches,
+                 len(rows) / max(batches, 1), worst, ENGINE_ROW_RTOL,
+                 f32_flash(read_launches()) - f32_flash(before),
+                 eng.executions, L, card))
+        print("[engine] f32 batch time by bucket (median of %d eng.run, "
+              "host clock with the padding and the logits' copy to the "
+              "host; the mean of paddle_serving_batch_seconds; the "
+              "program with its logits kept on the card): %s; %s"
+              % (ENGINE_TIMED_RUNS, {b: "%.2f ms (%.2f; %.2f)" % v
+                                     for b, v in times32.items()}, card))
+
+        # -- breakers, failover and the probe -------------------------------
+        before, n0 = read_launches(), eng.executions
+        failover = metrics.REGISTRY._families["paddle_serving_failover_total"]
+        fo0 = failover.value
+        faults.arm("serving_replica_fail", at=0, times=None)
+        t_fault = time.perf_counter()
+        try:
+            outs = [eng.run({"toks": rows[:1]})[0] for _ in range(4)]
+            health = eng.replica_health()
+        finally:
+            faults.disarm()
+        t_off = time.perf_counter()
+        while eng.replica_health()[0] != "closed" and \
+                time.perf_counter() - t_off < 60.0:
+            time.sleep(0.005)
+        t_back = time.perf_counter()
+        worst = max(rel_err(o[0], alone[0]) for o in outs)
+        check(health == ["open", "closed"] and
+              eng.replica_health() == ["closed", "closed"] and
+              worst <= ENGINE_ROW_RTOL,
+              "[engine] failover: health %s then %s, answers %.3g"
+              % (health, eng.replica_health(), worst))
+        engine_held(before, eng.executions - n0, (L, 0))
+        print("[engine] serving_replica_fail on replica 0: 4 of 4 requests "
+              "answered by replica 1 (max %.3g of max|logits| from the row "
+              "alone), %d failovers, breakers %s; disarmed, the probe "
+              "re-admitted replica 0 after %.1f ms (fault to re-admission "
+              "%.1f ms, cooldown %.0f ms); %s"
+              % (worst, failover.value - fo0, health,
+                 (t_back - t_off) * 1e3, (t_back - t_fault) * 1e3,
+                 ENGINE_COOLDOWN_MS, card))
+
+        # -- the merged single file -----------------------------------------
+        merged = os.path.join(tmp, "f32.ptpu")
+        t0 = time.perf_counter()
+        merge_inference_model(d32, merged)
+        merge_s = time.perf_counter() - t0
+        before = read_launches()
+        engm, mbuild_s = counted_engine(merged, buckets=ENGINE_BUCKETS)
+        got = engm.run({"toks": rows[:8]})[0]
+        check(np.array_equal(got, batch[0]),
+              "[engine] the merged-file engine differs from the directory "
+              "engine")
+        engine_held(before, engm.executions, (L, 0))
+        engm.close()
+        del engm, got
+        os.remove(merged)
+        print("[engine] the f32 export merged into one file in %.2f s; an "
+              "engine on it built and warmed in %.2f s, its bucket-8 batch "
+              "equal to the directory engine's: True; %s"
+              % (merge_s, mbuild_s, card))
+
+        # -- hot swaps ------------------------------------------------------
+        d32b = os.path.join(tmp, "f32_seed1")
+        _, sb = uncounted(lambda: engine_export(FULL, t, seed + 1, "cuda",
+                                                {d32b: None}))
+        hist = deploy.SWAP_BLACKOUT_SECONDS.labels()
+        s0, c0 = hist.sum, hist.count
+        before, n0 = read_launches(), eng.executions
+        t0 = time.perf_counter()
+        version = eng.swap_weights(d32b, watch_requests=0)
+        swap_s = time.perf_counter() - t0
+        check(hist.count == c0 + 1, "[engine] the swap recorded no blackout")
+        blackout_ms = (hist.sum - s0) * 1e3
+        after = [eng.run({"toks": rows[:8]})[0] for _ in eng.replicas]
+        # the program run on the very weights the seed-1 artifact holds
+        want = direct_run(eng, rows[:8], scope=sb)
+        del sb
+        torch.cuda.empty_cache()
+        check(version == 1 and all(np.array_equal(a, want) for a in after)
+              and not np.array_equal(after[0], batch[0]),
+              "[engine] after the swap: outputs vs a direct run on the "
+              "seed-1 weights")
+        # the push: the int8 export, which loads dequantized into the f32
+        # engine's signature and so reaches the canary
+        faults.arm("swap_canary_fail", times=1)
+        rejected = False
+        try:
+            eng.swap_weights(d8, watch_requests=0)
+        except SwapRejectedError:
+            rejected = True
+        finally:
+            faults.disarm()
+        still = eng.run({"toks": rows[:8]})[0]
+        check(rejected and eng.weights_version == 1 and
+              np.array_equal(still, after[0]),
+              "[engine] a push under swap_canary_fail: rejected %s, "
+              "outputs unchanged %s" % (rejected,
+                                        np.array_equal(still, after[0])))
+        engine_held(before, eng.executions - n0, (L, 0))
+        print("[engine] swap_weights onto a seed-1 export: %.2f s (verify, "
+              "load, canary, stage), blackout %.4f ms "
+              "(paddle_deploy_swap_blackout_seconds); outputs equal a "
+              "direct run on the seed-1 weights: True; a push under "
+              "swap_canary_fail rejected, outputs bitwise as before: "
+              "True; %s" % (swap_s, blackout_ms, card))
+        shutil.rmtree(d32b, ignore_errors=True)
+        eng.close()
+        engines.remove(eng)
+        del eng, batch, after, alone, answers, outs, want, still, direct
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # -- the int8 engine ------------------------------------------------
+        before = read_launches()
+        config.set_flags(serving_quant_compute=True)
+        try:
+            eng8, build8_s = counted_engine(d8, **kw)
+        finally:
+            config.set_flags(serving_quant_compute=False)
+        engines.append(eng8)
+        armed = sorted(eng8.program._quant_compute["vars"])
+        int8_ok = all(r.scope.find_var(n).dtype == torch.int8 and
+                      r.scope.find_var(n + "@quant.scale").dtype ==
+                      torch.float32 for r in eng8.replicas for n in armed)
+        check(armed == sorted(lm_mul_weight_names(L)) and
+              len(armed) == armed_per and int8_ok,
+              "[engine] int8 engine: %d armed names, int8 in the scope %s"
+              % (len(armed), int8_ok))
+        b8 = [eng8.run({"toks": rows[:8]})[0] for _ in eng8.replicas]
+        direct8 = direct_run(eng8, rows[:8])
+        check(all(np.array_equal(b, direct8) for b in b8) and
+              np.isfinite(direct8).all(),
+              "[engine] an int8 bucket-8 batch differs from a direct armed "
+              "run")
+        times8 = bucket_times(eng8, rows)
+        engine_held(before, eng8.executions, (L, armed_per))
+        int8_bytes = scope_bytes(eng8.replicas[0].scope)
+        armed_bytes = scope_bytes(eng8.replicas[0].scope, set(armed))
+        print("[engine] int8 engine (serving_quant_compute): %d armed "
+              "names kept int8 in each replica's scope, no f32 copy; "
+              "weights %.3f GB a replica against the f32 engine's %.3f "
+              "(the armed products %.3f GB); built and warmed in %.2f s; "
+              "a bucket-8 batch on each replica equal to a direct armed "
+              "run: True; B3 %d an execution, B2 f32 %d; batch time by "
+              "bucket (median, histogram mean; logits kept on the card): "
+              "%s; %s"
+              % (len(armed), int8_bytes / 1e9, f32_bytes / 1e9,
+                 armed_bytes / 1e9, build8_s, armed_per, L,
+                 {b: "%.2f ms (%.2f; %.2f)" % v for b, v in times8.items()},
+                 card))
+        eng8.close()
+        engines.remove(eng8)
+        del eng8, b8, direct8
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # -- the card against the CPU ---------------------------------------
+        small = lm_cfg(SMALL_PROGRAM_LM)
+        sl = small["num_layers"]
+        ds32, ds8 = os.path.join(tmp, "s32"), os.path.join(tmp, "s8")
+        engine_export(small, ENGINE_SMALL_T, seed, "cpu",
+                      {ds32: None, ds8: "int8"})
+        srows = rng.integers(2, small["vocab_size"], (
+            ENGINE_SMALL_BATCH, ENGINE_SMALL_T)).astype(np.int32)
+        res = {}
+        for name, path, quant in (("f32", ds32, False), ("int8", ds8, True)):
+            before = read_launches()
+            config.set_flags(serving_quant_compute=quant)
+            try:
+                ec, _ = counted_engine(path, buckets=ENGINE_SMALL_BUCKETS)
+                # the CPU engine is the comparison's reference: its plain
+                # versions are not the card's launches
+                eh, _ = uncounted(lambda: counted_engine(
+                    path, device="cpu", buckets=ENGINE_SMALL_BUCKETS))
+            finally:
+                config.set_flags(serving_quant_compute=False)
+            a = ec.run({"toks": srows})[0]
+            b = uncounted(lambda: eh.run({"toks": srows})[0])
+            engine_held(before, ec.executions,
+                        (sl, 6 * sl + 1 if quant else 0))
+            diff = float(np.abs(a - b).max())
+            if quant:
+                sc = eh.replicas[0].scope
+                ln = "layer_norm_%d" % (2 * sl)
+                amax = (small["d_model"] - 1) ** 0.5 * float(
+                    sc.find_var(ln + ".w_0").abs().max()) + float(
+                    sc.find_var(ln + ".w_1").abs().max())
+                tol = LM_INT8_STEPS * amax * float(
+                    sc.find_var("lm_head.w@quant.scale").max())
+            else:
+                tol = ENGINE_CARD_CPU_RTOL * float(np.abs(b).max())
+            res[name] = (diff, tol, rel_err(a, b))
+            ec.close()
+            eh.close()
+            check(diff <= tol and np.isfinite(a).all(),
+                  "[engine] %s card vs CPU: %.3g > %.3g" % (name, diff, tol))
+        print("[engine] a 2-layer LM artifact (%s, T %d) served on the card "
+              "and on the CPU, batch %d in bucket %d: %s; %s"
+              % (small, ENGINE_SMALL_T, ENGINE_SMALL_BATCH,
+                 ENGINE_SMALL_BUCKETS[-1],
+                 {k: "max abs diff %.3g (tol %.3g, %.3g of max|logits|)"
+                  % v for k, v in res.items()}, card))
+
+        # -- ResNet-50 under is_test ----------------------------------------
+        print("[engine] %s" % engine_resnet(seed, tmp, card))
+        total = read_launches()
+        check(all(v == 0 for k, v in total.items() if k not in (
+            "flash_attention", "int8_matmul")) and
+            total["flash_attention bf16"] == 0,
+            "[engine] launched %s" % total)
+    finally:
+        for e in engines:
+            e.close()
+        faults.disarm()
+        config.set_flags(serving_quant_compute=False)
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"flash_attention": f32_flash(total),
+            "int8_matmul": total["int8_matmul"]}
+
+
+def engine_resnet(seed, tmp, card):
+    """ResNet-50 as bench.py builds it (fused_conv_bn on), its forward
+    program (is_test) exported through io.save_inference_model. The
+    export keeps Parameters only, as the reference's does, so the batch
+    norms' running statistics are not in the artifact: the engine
+    refuses it at warmup with the reference's error, before any kernel
+    launches. Returns the line to print."""
+    import os
+    from paddle_tpu_torch import config, core, io, layers
+    from paddle_tpu_torch.core.enforce import EnforceNotMet
+    from paddle_tpu_torch.models import resnet
+    from paddle_tpu_torch.serving import ServingEngine
+    r = ENGINE_RESNET
+    config.set_flags(fused_conv_bn=True)
+    try:
+        main, startup = core.Program(), core.Program()
+        with core.unique_name.guard(), core.program_guard(main, startup):
+            img = layers.data("img", shape=[3, r["res"], r["res"]])
+            label = layers.data("label", shape=[1], dtype="int64")
+            logits = resnet.resnet_imagenet(img, label, depth=r["depth"],
+                                            class_dim=r["class_dim"],
+                                            is_test=True)[2]
+    finally:
+        config.set_flags(fused_conv_bn=False)
+    startup.random_seed = seed
+    exe, scope = core.Executor(device="cuda"), core.Scope()
+    uncounted(lambda: exe.run(startup, scope=scope))
+    d = os.path.join(tmp, "resnet50")
+    io.save_inference_model(d, ["img"], [logits], exe, main_program=main,
+                            scope=scope)
+    pruned = io.prune_program(main, [logits.name]).global_block()
+    stats = sorted(n for n, v in pruned.vars.items() if v.persistable and
+                   not isinstance(v, core.framework.Parameter))
+    saved = len(io.load_params(d))
+    del scope
+    before = read_launches()
+    err = None
+    try:
+        ServingEngine(d, buckets=ENGINE_BUCKETS, device="cuda").close()
+    except EnforceNotMet as exc:
+        err = str(exc)
+    b1 = read_launches()["conv_bn_stats"] - before["conv_bn_stats"]
+    check(err is not None and "is not initialized" in err and
+          any(repr(n) in err for n in stats) and b1 == 0,
+          "[engine] ResNet-50's artifact: %r, B1 %d" % (err, b1))
+    return ("ResNet-50 (is_test, %d x %d, fused_conv_bn) exported with "
+            "%d parameters and without its %d running statistics (the "
+            "reference's save_inference_model keeps Parameters only); the "
+            "engine refuses it at warmup as the reference does: %s; B1 "
+            "launches %d; %s"
+            % (r["res"], r["res"], saved, len(stats), err.split(" — ")[0],
+               b1, card))
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5367,6 +5952,11 @@ def main(argv=None):
         int8_shapes = phase_program_lm_int8(args.seed)
         gc.collect()
         torch.cuda.empty_cache()
+        # inference export and the serving engine, from a stream of its own
+        engine = phase_engine(args.seed, smi,
+                              np.random.default_rng(args.seed + 11))
+        gc.collect()
+        torch.cuda.empty_cache()
         rows += phase_time_flash_bf16(lm_launches,
                                       errs["flash_attention bf16"], sweep)
         for row in rows:
@@ -5390,6 +5980,12 @@ def main(argv=None):
                 if key in prog_serve:
                     row.update(serve_program_launches=prog_serve[key],
                                serve_program_launches_in="[program-serve]")
+            if row["name"] in engine and \
+                    row.get("dtype", "float32") == "float32":
+                # the serving engine's launches over [engine]: 12 (B2 f32)
+                # and 73 (B3, the int8 engine) an execution
+                row.update(engine_launches=engine[row["name"]],
+                           engine_launches_in="[engine]")
             if row["name"] == "int8_matmul" and \
                     row["shape"][0] == PROGRAM_INT8_T:
                 # the armed run's launches of this shape, as B3's wrapper

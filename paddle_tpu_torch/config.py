@@ -15,8 +15,8 @@ are bitwise equal by its own contract, so the flag would change nothing.
 __all__ = ["set_flags", "get_flag"]
 
 _flags = {
-    # default per-request deadline budget of GenerationScheduler.submit;
-    # 0 = no deadline
+    # default per-request deadline budget of GenerationScheduler.submit
+    # and MicroBatcher.submit; 0 = no deadline
     "serving_deadline_ms": 0,
     # decode slots per session, cache-length buckets (the smallest that
     # covers max_len is chosen) and prompt paddings of the session
@@ -36,7 +36,9 @@ _flags = {
     # int8 weight compute: GenerationSession quantizes the LM's mul
     # weights in place at construction (serving/quant.py) and their
     # products run int8 x int8 -> int32 through kernel B3
-    # (ops/quant_ops.py); read only at session construction
+    # (ops/quant_ops.py); read only at session construction, and at
+    # ServingEngine construction, where an int8 artifact loads with its
+    # weights kept int8 (serving/quant.py install_quant_compute)
     "serving_quant_compute": False,
     # K/V cache storage dtype, dense and paged ("bfloat16" halves the
     # cache bytes; attention upcasts at the contraction); None keeps
@@ -83,8 +85,13 @@ _flags = {
     # metric hooks and host spans (observability/tracing.py: synced into
     # the tracer by the observability package's change hook)
     "telemetry": False,
+    # ServingEngine batch buckets (serving/engine.py): every batch is
+    # zero-padded up to the smallest bucket that holds it; read when an
+    # engine is constructed without buckets
+    "serving_buckets": (1, 8, 32),
     # serving breakers (serving/resilience.py ReplicaBreaker): read only
-    # when a GenerationScheduler is constructed; 0 failures = no breakers
+    # when a GenerationScheduler or a ServingEngine is constructed; 0
+    # failures = no breakers
     "serving_breaker_failures": 0,
     "serving_breaker_cooldown_ms": 1000.0,
     # the fault-injection master switch (resilience/faults.py): hook

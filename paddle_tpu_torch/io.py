@@ -23,6 +23,17 @@ corrupt). The RNG key crosses as the reference stores it (uint32 words)
 and loads as the port's int64 words; loaded arrays become tensors on the
 executor's device; a bfloat16 tensor is saved as float32 (numpy has no
 bfloat16).
+
+Inference export is the reference's too, in its layout, so an artifact
+crosses both ways: ``prune_program`` slices a program to its fetches,
+``save_inference_model`` writes the pruned ``__model__`` JSON, the
+parameters, an optional int8 ``quant.json`` (``quantize="int8"``,
+``serving/quant.py``) and the sha256 ``manifest.json``;
+``load_inference_model`` verifies the manifest (a manifest-less legacy
+artifact loads with a one-time warning), loads a directory or a merged
+single file (``utils/merge_model.py``), and dequantizes an int8 export
+or, with ``quant_compute``, keeps its weights int8 for kernel B3.
+``compiled/`` members are digested but never loaded here.
 """
 
 import hashlib
@@ -43,11 +54,18 @@ from .utils import log as _log
 from .models.transformer import check_lm_params, infer_num_layers
 from .optimizer import LR_NAME
 from .place import resolve_device
+# the artifact layout is defined ONCE in utils/merge_model.py
+from .utils.merge_model import (COMPILED_DIR as _COMPILED_DIR,
+                                MEMBERS as _ARTIFACT_CORE,
+                                SIDECAR_MEMBERS as _ARTIFACT_OPTIONAL)
 
 __all__ = ["load_params", "params_from_jax", "scope_from_jax",
            "save_params", "save_persistables", "load_persistables",
            "save_checkpoint", "load_checkpoint", "load_checkpoint_meta",
-           "verify_checkpoint"]
+           "verify_checkpoint", "save_inference_model",
+           "load_inference_model", "verify_model_artifact",
+           "prune_program", "write_artifact_manifest",
+           "artifact_manifest_digest"]
 
 # the reference scope's random-number state (``core/framework.py``
 # RNG_STATE_VAR)
@@ -69,6 +87,9 @@ _CKPT_VERIFY_SECONDS = _metrics.REGISTRY.histogram(
 
 _CKPT_RE = re.compile(r"checkpoint_(\d+)$")
 _MANIFEST = "manifest.json"
+
+# one-time legacy warnings, keyed by the caller-visible artifact path
+_LEGACY_WARNED = set()
 
 
 def _read_npz(dirname, filename="params"):
@@ -479,3 +500,208 @@ def load_checkpoint(executor, dirname, main_program=None, scope=None):
             _log.structured("checkpoint_skipped", dir=cdir,
                             reason=reason)
     return None
+
+
+def prune_program(program, fetch_names):
+    """Backward-slice a program to the ops needed for ``fetch_names``
+    (reference ``framework/prune.cc`` + save_inference_model pruning)."""
+    from .core.framework import Program, Variable
+    from .core.executor import EMPTY_VAR
+    block = program.global_block()
+    needed = set(fetch_names)
+    keep_rev = []
+    for op in reversed(block.ops):
+        outs = set(op.output_names()) - {EMPTY_VAR}
+        if outs & needed:
+            keep_rev.append(op)
+            needed |= set(n for n in op.input_names() if n != EMPTY_VAR)
+    new_prog = Program()
+    nb = new_prog.global_block()
+    op_map = {}
+    for op in reversed(keep_rev):
+        for n in op.input_names() + op.output_names():
+            if n == EMPTY_VAR or nb.has_var(n):
+                continue
+            src = block.var_or_none(n)
+            if src is None:
+                continue
+            if isinstance(src, Parameter):
+                var = Parameter(nb, name=n, shape=src.shape,
+                                dtype=src.dtype, trainable=src.trainable)
+            else:
+                var = Variable(nb, name=n, shape=src.shape,
+                               dtype=src.dtype,
+                               persistable=src.persistable,
+                               stop_gradient=src.stop_gradient)
+            var.is_data = getattr(src, "is_data", False)
+            nb.vars[n] = var
+        attrs = dict(op.attrs)
+        if "fwd_op" in attrs and attrs["fwd_op"] in op_map:
+            attrs["fwd_op"] = op_map[attrs["fwd_op"]]
+        new_op = type(op)(nb, op.type, op.inputs, op.outputs, attrs)
+        op_map[op] = new_op
+        nb.ops.append(new_op)
+    new_prog._bump_version()
+    return new_prog
+
+
+def _artifact_members(dirname):
+    """Relative paths of the artifact files a manifest covers (core +
+    optional sidecars + compiled/ members actually present)."""
+    members = [m for m in _ARTIFACT_CORE + _ARTIFACT_OPTIONAL
+               if os.path.exists(os.path.join(dirname, m))]
+    cdir = os.path.join(dirname, _COMPILED_DIR)
+    if os.path.isdir(cdir):
+        members += sorted(_COMPILED_DIR + "/" + f
+                          for f in os.listdir(cdir)
+                          if os.path.isfile(os.path.join(cdir, f)))
+    return members
+
+
+def write_artifact_manifest(dirname):
+    """(Re)write the artifact's sha256 ``manifest.json`` — call after
+    any republish that rewrites members in place (the engine-cache key
+    and swap validation both trust the digest)."""
+    digests = {m: _sha256_file(os.path.join(dirname, m))
+               for m in _artifact_members(dirname)}
+    _write_json_atomic(os.path.join(dirname, _MANIFEST),
+                       {"kind": "inference_model", "digests": digests})
+
+
+def artifact_manifest_digest(dirname):
+    """sha256 of the manifest file itself — a single content key for
+    the whole artifact (params-only or quant-only republishes change
+    it). None for legacy manifest-less artifacts."""
+    path = os.path.join(dirname, _MANIFEST)
+    if not os.path.exists(path):
+        return None
+    return _sha256_file(path)
+
+
+def verify_model_artifact(dirname, skip_compiled=True):
+    """Digest-verify an inference-model artifact dir. Returns
+    (ok, reason). Legacy manifest-less dirs verify as ok ("legacy");
+    ``skip_compiled`` leaves ``compiled/`` members to their consumer."""
+    if not os.path.isdir(dirname):
+        return False, "missing dir"
+    mpath = os.path.join(dirname, _MANIFEST)
+    if not os.path.exists(mpath):
+        if os.path.exists(os.path.join(dirname, "__model__")):
+            return True, "legacy (no manifest)"
+        return False, "no manifest and no __model__"
+    try:
+        with open(mpath) as f:
+            manifest = json.load(f)
+    except (OSError, ValueError) as e:
+        return False, "unreadable manifest: %r" % (e,)
+    digests = manifest.get("digests", {})
+    # a core/sidecar member present on disk but absent from the manifest
+    # is as suspect as a digest mismatch: a stray quant.json would
+    # otherwise be APPLIED unverified (silently wrong model)
+    for fn in _ARTIFACT_CORE + _ARTIFACT_OPTIONAL:
+        if fn not in digests and \
+                os.path.exists(os.path.join(dirname, fn)):
+            return False, "unmanifested file %s" % fn
+    for fn, want in sorted(digests.items()):
+        if skip_compiled and fn.startswith(_COMPILED_DIR + "/"):
+            continue
+        path = os.path.join(dirname, fn)
+        try:
+            digest = _sha256_file(path)
+        except OSError as e:
+            return False, "unreadable file %s: %r" % (fn, e)
+        if digest != want:
+            return False, "digest mismatch on %s" % fn
+    return True, "ok"
+
+
+def save_inference_model(dirname, feeded_var_names, target_vars, executor,
+                         main_program=None, scope=None, quantize=None,
+                         export_compiled=False, export_buckets=None):
+    """Export the program pruned to ``target_vars`` and its parameters
+    for inference (reference save_inference_model). ``quantize="int8"``
+    rewrites the exported weights to per-output-channel int8
+    (``serving/quant.py``). ``export_compiled=True`` asks
+    ``serving/deploy.py`` for AOT executables, which the port does not
+    make yet: the artifact ships without ``compiled/``, as the
+    reference's does on a backend that cannot serialize executables.
+    Every member is sha256-digested into ``manifest.json``."""
+    program = main_program or default_main_program()
+    program = prune_program(program, [v.name for v in target_vars])
+    os.makedirs(dirname, exist_ok=True)
+    save_params(executor, dirname, program, scope=scope)
+    spec = {
+        "feed_names": list(feeded_var_names),
+        "fetch_names": [v.name for v in target_vars],
+    }
+    from .core.serialization import program_to_dict
+    with open(os.path.join(dirname, "__model__"), "w") as f:
+        json.dump({"program": program_to_dict(program), "spec": spec}, f)
+    if quantize:
+        from .serving import quant as _quant
+        _quant.quantize_model_dir(dirname, program=program, dtype=quantize)
+    # a re-export must never inherit a previous export's AOT members:
+    # their digests cannot match the new program
+    stale = os.path.join(dirname, _COMPILED_DIR)
+    if os.path.isdir(stale):
+        shutil.rmtree(stale, ignore_errors=True)
+    if export_compiled:
+        from .serving import deploy as _deploy
+        _deploy.export_compiled_buckets(
+            dirname, scope=scope if scope is not None else global_scope(),
+            buckets=export_buckets, place=getattr(executor, "device", None))
+    write_artifact_manifest(dirname)
+
+
+def load_inference_model(dirname, executor, scope=None,
+                         quant_compute=False):
+    """Returns (program, feed_names, fetch_names); the parameters land in
+    ``scope`` (the global scope by default) as tensors on the executor's
+    device. ``dirname`` may also be a single merged-model FILE
+    (utils/merge_model.py). Artifacts with a ``manifest.json`` are
+    digest-verified before the params are trusted (corruption raises
+    ValueError); legacy manifest-less artifacts load with a one-time
+    warning. ``compiled/`` members are never loaded.
+
+    An int8 export (``quant.json``) is dequantized to float32 here, so
+    every loader is quant-agnostic, unless ``quant_compute=True``
+    (ServingEngine under the ``serving_quant_compute`` flag): then the
+    weights the compute path can serve stay int8 in the scope with their
+    scales beside them, no float32 copy is made, and the program is
+    tagged so the executor sends their products to kernel B3."""
+    orig_path = dirname
+    tmp_dir = None
+    if os.path.isfile(dirname):
+        from .utils.merge_model import unpack_merged_model
+        dirname = tmp_dir = unpack_merged_model(dirname)
+    try:
+        if os.path.exists(os.path.join(dirname, _MANIFEST)):
+            ok, reason = verify_model_artifact(dirname, skip_compiled=True)
+            if not ok:
+                raise ValueError(
+                    "inference model artifact %r failed integrity "
+                    "verification: %s" % (orig_path, reason))
+        elif orig_path not in _LEGACY_WARNED:
+            _LEGACY_WARNED.add(orig_path)
+            _log.structured("artifact_legacy_no_manifest", dir=orig_path)
+            import warnings
+            warnings.warn(
+                "inference model %r has no manifest.json (pre-integrity "
+                "export) — loading unverified; re-export to add digests"
+                % (orig_path,), stacklevel=2)
+        with open(os.path.join(dirname, "__model__")) as f:
+            bundle = json.load(f)
+        from .core.serialization import program_from_dict
+        program = program_from_dict(bundle["program"])
+        load_params(executor, dirname, main_program=program, scope=scope)
+        from .serving import quant as _quant
+        tgt_scope = scope if scope is not None else global_scope()
+        if quant_compute:
+            _quant.install_quant_compute(dirname, program, tgt_scope)
+        else:
+            _quant.maybe_dequantize(dirname, tgt_scope)
+    finally:
+        if tmp_dir is not None:
+            shutil.rmtree(tmp_dir, ignore_errors=True)
+    spec = bundle["spec"]
+    return program, spec["feed_names"], spec["fetch_names"]

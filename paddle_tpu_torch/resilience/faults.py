@@ -41,6 +41,20 @@ site                            where / what
                                 the checkpoint is written and before it is
                                 published; ``index`` is the step
 ``collective_hang``             :func:`simulate_collective_hang`
+``serving_replica_fail``        ServingEngine, before a replica executes a
+                                batch; ``index`` is the replica number
+``serving_replica_slow``        ServingEngine, inside the replica's
+                                execution lock (on its bounded worker when
+                                the engine has a timeout); arm with
+                                ``action="callback"`` sleeping past the
+                                timeout to simulate a wedged replica
+``serving_overload``            MicroBatcher.submit; ``index`` is the
+                                submit sequence number: a firing sheds
+                                the submit (ServingOverloadError)
+``swap_bad_artifact``           ServingEngine.swap_weights, at the start
+                                of validation (the push is rejected)
+``swap_canary_fail``            ServingEngine.swap_weights, before the
+                                canary run (the push is rejected)
 ==============================  ===========================================
 
 Actions: ``"raise"`` (raise ``exc``, default :class:`InjectedFault`),

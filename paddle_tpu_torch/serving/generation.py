@@ -1427,60 +1427,6 @@ def _scheduler_health(ref):
     return snapshot
 
 
-class _StepWorker:
-    """One session's long-lived step thread, for bounded steps.
-
-    The reference runs each bounded step on a fresh thread
-    (``resilience.run_bounded``). The port keeps one thread a session
-    instead: kernels B3, B4 and B5 cache their scratch (and B4 its
-    zeroed counters) per thread (``ops/_build.py``), so a fresh thread a
-    step would allocate both anew, one more launch, every step. A call
-    that outlives its timeout raises ``ServingTimeoutError`` carrying the
-    job's done-Event as ``.pending``, exactly as ``run_bounded`` does;
-    the thread stays busy with the wedged job (the scheduler keeps the
-    session out of stepping and placement until the Event is set) and
-    then serves the next call, so a session never holds more than one
-    step thread."""
-
-    def __init__(self, name):
-        self.name = name
-        self._jobs = queue.SimpleQueue()
-        self._thread = threading.Thread(target=self._run, name=name,
-                                        daemon=True)
-        self._thread.start()
-
-    def _run(self):
-        while True:
-            job = self._jobs.get()
-            if job is None:
-                return
-            fn, result, done = job
-            try:
-                result["value"] = fn()
-            except BaseException as exc:  # re-raised on the caller
-                result["exc"] = exc
-            finally:
-                done.set()
-
-    def call(self, fn, timeout):
-        result = {}
-        done = threading.Event()
-        self._jobs.put((fn, result, done))
-        if not done.wait(timeout):
-            err = _sres.ServingTimeoutError(
-                "%s exceeded the %.3fs execution timeout"
-                % (self.name, timeout))
-            err.pending = done
-            raise err
-        if "exc" in result:
-            raise result["exc"]
-        return result["value"]
-
-    def stop(self):
-        """Let the thread exit once its current job (if any) returns."""
-        self._jobs.put(None)
-
-
 class _GenRequest:
     __slots__ = ("prompt", "max_new", "explicit_budget", "eos_id",
                  "future", "deadline", "t_submit", "tokens", "slot",
@@ -1662,7 +1608,7 @@ class GenerationScheduler:
                 "inside step_run, which must stay on the dispatcher "
                 "thread; a leaked bounded worker could race "
                 "retire()/close() on the allocator books")
-        self._workers = {}       # si -> _StepWorker (bounded steps)
+        self._workers = {}       # si -> BoundedWorker (bounded steps)
         self._wedged = {}        # si -> done-Event of the wedged step
         self._rebuilding = set()  # session indices down for rebuild
         # True once nothing will absorb rebuilds any more (the
@@ -2217,7 +2163,7 @@ class GenerationScheduler:
         per-slot scalar updates of its own session."""
         worker = self._workers.get(si)
         if worker is None:
-            worker = self._workers[si] = _StepWorker(
+            worker = self._workers[si] = _sres.BoundedWorker(
                 "generation-step-%d" % si)
         try:
             return worker.call(

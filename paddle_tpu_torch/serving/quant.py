@@ -28,15 +28,25 @@ and scales are bitwise the reference's. It takes one of two forms:
   int8 tensors and scales, so no float32 copy of an armed weight
   survives in either model.
 
+Artifacts carry int8 weights too (the reference's export half):
+:func:`quantize_model_dir` rewrites an exported ``params.npz`` so the
+quantizable weights are int8, with their scales in ``quant.json``
+(byte-identical to the reference's); :func:`maybe_dequantize` rebuilds
+float32 weights at load (the default), and :func:`install_quant_compute`
+keeps the weights the compute path can serve int8 in the scope, their
+scales beside them, no float32 copy made, and tags the program
+(``io.load_inference_model(..., quant_compute=True)``, which
+``ServingEngine`` passes under the ``serving_quant_compute`` flag).
+Dequantization is one float32 multiply of the int8 value by its scale,
+bitwise numpy's, on the tensor's own device.
+
 The tag keeps the reference's ``pallas`` entry (False unless given: the
 port has no ``quant_pallas`` flag), which routes nothing: a CUDA tensor
-always takes B3.
-
-Not ported yet: artifact-load arming (``install_quant_compute``,
-``quant.json``, ``quantize_model_dir``; ROADMAP Queue A, "Inference
-export and the serving engine").
+always takes B3, a CPU tensor the dense plain route.
 """
 
+import json
+import os
 from collections.abc import Sequence
 
 import numpy as np
@@ -47,8 +57,12 @@ from ..models.transformer import lm_mul_weight_names
 from ..ops.quant_ops import SCALE_SUFFIX, scale_var_name
 
 __all__ = ["QUANT_OPS", "DEFAULT_FALLBACK_OPS", "SCALE_SUFFIX",
-           "scale_var_name", "quantize_array", "dequantize_array",
-           "select_quant_vars", "select_compute_vars", "arm_quant_compute"]
+           "QUANT_META_FILE", "scale_var_name", "quantize_array",
+           "dequantize_array", "select_quant_vars", "select_compute_vars",
+           "quantize_model_dir", "load_quant_meta", "maybe_dequantize",
+           "install_quant_compute", "arm_quant_compute"]
+
+QUANT_META_FILE = "quant.json"
 
 # op type -> (weight input slot, per-output-channel axis of that weight)
 QUANT_OPS = {
@@ -74,15 +88,19 @@ def quantize_array(w, axis):
     w = np.asarray(w, dtype=np.float32)
     axis = axis % w.ndim
     reduce_axes = tuple(i for i in range(w.ndim) if i != axis)
-    amax = np.max(np.abs(w), axis=reduce_axes) if reduce_axes \
-        else np.abs(w)
+    # max|w| as max(max w, -min w): the same values without a full-size
+    # |w| temporary
+    amax = np.maximum(w.max(axis=reduce_axes), -w.min(axis=reduce_axes)) \
+        if reduce_axes else np.abs(w)
     scales = (amax / 127.0).astype(np.float32)
     scales = np.where(scales == 0.0, np.float32(1.0), scales)
     shape = [1] * w.ndim
     shape[axis] = w.shape[axis]
-    q = np.clip(np.rint(w / scales.reshape(shape)), -127, 127) \
-        .astype(np.int8)
-    return q, scales
+    # the reference's divide, rint and clip, in place on one temporary
+    q = np.divide(w, scales.reshape(shape))
+    np.rint(q, out=q)
+    np.clip(q, -127, 127, out=q)
+    return q.astype(np.int8), scales
 
 
 def dequantize_array(q, scales, axis):
@@ -166,6 +184,120 @@ def _tag_program(program, vars_, pallas):
         "pallas": bool(pallas),
         "key": (tuple(sorted(vars_.items())), bool(pallas)),
     }
+
+
+def quantize_model_dir(dirname, program=None,
+                       fallback_ops=DEFAULT_FALLBACK_OPS, dtype="int8"):
+    """Rewrite an exported inference-model dir in place: quantizable
+    params in ``params.npz`` become int8 and ``quant.json`` records the
+    per-var scales (reference ``quantize_model_dir``). Returns the list
+    of quantized var names."""
+    if dtype not in ("int8", True):
+        raise ValueError("unsupported quantize mode %r (only 'int8')"
+                         % (dtype,))
+    if program is None:
+        from ..core.serialization import program_from_dict
+        with open(os.path.join(dirname, "__model__")) as f:
+            program = program_from_dict(json.load(f)["program"])
+    targets = select_quant_vars(program, fallback_ops=fallback_ops)
+
+    npz_path = os.path.join(dirname, "params.npz")
+    meta_path = os.path.join(dirname, "params.meta.json")
+    with np.load(npz_path) as data:
+        arrays = {k: data[k] for k in data.files}
+    with open(meta_path) as f:
+        meta = json.load(f)
+
+    quantized = {}
+    for key, name in meta.items():
+        axis = targets.get(name)
+        if axis is None or key not in arrays:
+            continue
+        q, scales = quantize_array(arrays[key], axis)
+        arrays[key] = q
+        quantized[name] = {"axis": int(axis),
+                           "scales": [float(s) for s in scales]}
+    np.savez(npz_path[:-len(".npz")], **arrays)
+    with open(os.path.join(dirname, QUANT_META_FILE), "w") as f:
+        json.dump({"version": 1, "dtype": "int8", "vars": quantized}, f)
+    # post-hoc quantization of an already-manifested artifact refreshes
+    # the digests (params.npz was rewritten in place); inside
+    # save_inference_model the manifest lands after
+    from .. import io as _io
+    if os.path.exists(os.path.join(dirname, "manifest.json")):
+        _io.write_artifact_manifest(dirname)
+    return sorted(quantized)
+
+
+def load_quant_meta(dirname):
+    """The dir's quant.json dict, or None when not quantized."""
+    path = os.path.join(dirname, QUANT_META_FILE)
+    if not os.path.exists(path):
+        return None
+    with open(path) as f:
+        return json.load(f)
+
+
+def _dequantize(q, scales, axis):
+    """:func:`dequantize_array` of a scope value: a tensor stays on its
+    device (one float32 multiply, bitwise numpy's), anything else goes
+    through numpy."""
+    if not isinstance(q, torch.Tensor):
+        return dequantize_array(q, scales, axis)
+    axis = axis % q.ndim
+    shape = [1] * q.ndim
+    shape[axis] = q.shape[axis]
+    s = torch.from_numpy(np.asarray(scales, dtype=np.float32)).to(q.device)
+    return q.to(torch.float32) * s.reshape(shape)
+
+
+def maybe_dequantize(dirname, scope):
+    """If ``dirname`` carries quant.json, replace each quantized var in
+    ``scope`` with its dequantized float32 value (the transparent load
+    path). Returns the list of dequantized names."""
+    meta = load_quant_meta(dirname)
+    if meta is None:
+        return []
+    done = []
+    for name, info in meta["vars"].items():
+        q = scope.find_var(name)
+        if q is None:
+            continue
+        scope.set_var(name, _dequantize(q, info["scales"], info["axis"]))
+        done.append(name)
+    return done
+
+
+def install_quant_compute(dirname, program, scope, pallas=None):
+    """Artifact-load arming: keep the int8 weights that the compute path
+    can serve AS int8 in ``scope`` (their scales become
+    ``<name>@quant.scale`` vars on the weight's device — the float32 copy
+    is never made), dequantize the rest exactly like the default load,
+    and tag ``program``. ``pallas`` is kept in the tag and routes
+    nothing (B3 on CUDA, the dense plain route on the CPU). Returns the
+    list of compute-armed names."""
+    meta = load_quant_meta(dirname)
+    if meta is None:
+        return []
+    compute = select_compute_vars(program)
+    armed = {}
+    for name, info in meta["vars"].items():
+        q = scope.find_var(name)
+        if q is None:
+            continue
+        axis = compute.get(name)
+        if axis is not None and int(info["axis"]) == axis:
+            scales = np.asarray(info["scales"], dtype=np.float32)
+            scope.set_var(scale_var_name(name), torch.from_numpy(
+                scales).to(q.device) if isinstance(q, torch.Tensor)
+                else scales)
+            armed[name] = axis
+        else:
+            scope.set_var(name, _dequantize(q, info["scales"],
+                                            info["axis"]))
+    if armed:
+        _tag_program(program, armed, pallas)
+    return sorted(armed)
 
 
 def _arm_programs(programs, scope, fallback_ops=DEFAULT_FALLBACK_OPS,

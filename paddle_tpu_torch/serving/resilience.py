@@ -1,11 +1,12 @@
 """Serving-resilience primitives (reference
 ``paddle_tpu/serving/resilience.py``): errors, replica circuit breakers,
-the bounded worker call and the half-open probe loop.
+the bounded worker call, the long-lived bounded worker and the half-open
+probe loop.
 
 * a request whose deadline has already passed is doomed work: it is
   dropped before it occupies a device (:class:`ServingDeadlineError`);
-* a wedged or failing replica (a generation session) is quarantined out
-  of dispatch (:class:`ReplicaBreaker`: closed -> open on N consecutive
+* a wedged or failing replica (a generation session, an engine replica)
+  is quarantined out of dispatch (:class:`ReplicaBreaker`: closed -> open on N consecutive
   failures or a single hang, -> half_open after a cooldown, -> closed
   when a trial succeeds);
 * overload is shed early, while the deadline budget can still be
@@ -17,6 +18,7 @@ unconditionally, under the reference's names. The mechanisms are armed
 per scheduler, so the default path stays as it was.
 """
 
+import queue
 import threading
 import time
 
@@ -26,7 +28,8 @@ from ..observability import request_trace as _rtrace
 from ..utils import log as _log
 
 __all__ = ["ServingDeadlineError", "ServingTimeoutError",
-           "ServingUnavailableError", "ReplicaBreaker", "run_bounded"]
+           "ServingUnavailableError", "ReplicaBreaker", "BreakerProbe",
+           "BoundedWorker", "run_bounded"]
 
 DEADLINE_EXCEEDED = _metrics.REGISTRY.counter(
     "paddle_serving_deadline_exceeded_total",
@@ -102,6 +105,59 @@ def run_bounded(fn, timeout, name="serving-exec"):
     return result["value"]
 
 
+class BoundedWorker:
+    """One long-lived thread for bounded calls, in place of the
+    reference's fresh thread a call (:func:`run_bounded`).
+
+    Kernels B3, B4 and B5 cache their scratch (and B4 its zeroed
+    counters) per thread (``ops/_build.py``), so a fresh thread a call
+    would allocate both anew, one more launch, every call. A call that
+    outlives its timeout raises ``ServingTimeoutError`` carrying the
+    job's done-Event as ``.pending``, exactly as :func:`run_bounded`
+    does; the thread stays busy with the wedged job (its owner keeps the
+    unit out of dispatch until the Event is set) and then serves the
+    next call, so a unit (a generation session, an engine replica) never
+    holds more than one thread."""
+
+    def __init__(self, name):
+        self.name = name
+        self._jobs = queue.SimpleQueue()
+        self._thread = threading.Thread(target=self._run, name=name,
+                                        daemon=True)
+        self._thread.start()
+
+    def _run(self):
+        while True:
+            job = self._jobs.get()
+            if job is None:
+                return
+            fn, result, done = job
+            try:
+                result["value"] = fn()
+            except BaseException as exc:  # re-raised on the caller
+                result["exc"] = exc
+            finally:
+                done.set()
+
+    def call(self, fn, timeout):
+        result = {}
+        done = threading.Event()
+        self._jobs.put((fn, result, done))
+        if not done.wait(timeout):
+            err = ServingTimeoutError(
+                "%s exceeded the %.3fs execution timeout"
+                % (self.name, timeout))
+            err.pending = done
+            raise err
+        if "exc" in result:
+            raise result["exc"]
+        return result["value"]
+
+    def stop(self):
+        """Let the thread exit once its current job (if any) returns."""
+        self._jobs.put(None)
+
+
 class ReplicaBreaker:
     """Per-replica circuit breaker.
 
@@ -110,8 +166,8 @@ class ReplicaBreaker:
     past the execution timeout (a wedged device is not worth N more
     co-batched victims). ``open`` -> ``half_open`` once ``cooldown``
     seconds have passed (via :meth:`to_half_open`, driven by a trial
-    admission; the reference's background ``BreakerProbe`` serves its
-    engine tier, not ported yet). ``half_open`` -> ``closed`` on the next
+    admission or by the engine's background :class:`BreakerProbe`).
+    ``half_open`` -> ``closed`` on the next
     success, back to ``open`` on the next failure (cooldown restarts).
 
     A success in any state resets the consecutive-failure count: the
@@ -192,3 +248,55 @@ class ReplicaBreaker:
         with self._lock:
             if self.state == "open":
                 self._transition("half_open")
+
+
+class BreakerProbe(threading.Thread):
+    """Background half-open prober: for every breaker past its cooldown,
+    transition to half_open and run ``probe_fn(replica_index)`` (the
+    engine re-executes a warmed bucket there); success re-admits the
+    replica, failure re-opens with a fresh cooldown. Daemon, started
+    lazily by the engine the first time any breaker opens."""
+
+    def __init__(self, breakers, probe_fn, interval=None):
+        super().__init__(name="serving-breaker-probe", daemon=True)
+        self.breakers = breakers
+        self.probe_fn = probe_fn
+        if interval is None:
+            # resolution scales with the cooldown being awaited, floored
+            # for tests with millisecond cooldowns
+            cooldown = min((b.cooldown for b in breakers), default=1.0)
+            interval = min(1.0, max(cooldown / 8.0, 0.01))
+        self.interval = interval
+        self._stop_ev = threading.Event()
+
+    def run(self):
+        while not self._stop_ev.is_set():
+            now = time.monotonic()
+            unhealthy = False
+            for breaker in self.breakers:
+                if self._stop_ev.is_set():
+                    return
+                if breaker.state == "closed":
+                    continue
+                unhealthy = True
+                # half_open stragglers (a trial dispatch that failed
+                # without recording) are probed directly, so no state
+                # can strand a replica out of rotation forever
+                if breaker.state != "half_open" \
+                        and not breaker.ready_to_probe(now):
+                    continue
+                breaker.to_half_open()
+                try:
+                    self.probe_fn(breaker.index)
+                except Exception:
+                    breaker.record_failure()
+                else:
+                    breaker.record_success()
+            # park at a coarse tick while every breaker is healthy
+            self._stop_ev.wait(self.interval if unhealthy
+                               else max(self.interval, 1.0))
+
+    def stop(self, join_timeout=2.0):
+        self._stop_ev.set()
+        if self.is_alive():
+            self.join(join_timeout)

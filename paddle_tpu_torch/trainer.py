@@ -20,8 +20,10 @@ input pipeline (``reader/staging.py``: a background thread packs and
 copies each batch to the card ahead of the step) or, with
 ``staging=False``, a host-side prefetch queue. On a CUDA device the
 staged pipeline needs its pinned arena: ``train`` raises rather than
-drop to the plain queue. ``save_inference_model`` and a distribution
-``strategy`` raise NotImplementedError.
+drop to the plain queue. ``save_inference_model`` exports the trained
+program pruned to its fetches (``io.save_inference_model``), an artifact
+both packages load. A distribution ``strategy`` raises
+NotImplementedError.
 """
 
 import itertools
@@ -42,10 +44,6 @@ from .utils.stat import timer, stat_set
 
 __all__ = ["Trainer", "BeginPass", "EndPass", "BeginIteration",
            "EndIteration", "train_step"]
-
-# the ROADMAP Queue A item that brings inference export
-_EXPORT = 'ROADMAP Queue A, "Inference export and the serving engine"'
-
 
 def train_step(model, optimizer, *feeds):
     """One training step of ``model`` with ``optimizer``: ``model(*feeds)``
@@ -487,8 +485,8 @@ class Trainer:
         return {n: totals[n] / max(count, 1) for n in names}
 
     def save_inference_model(self, dirname, feed_names, fetch_vars):
-        raise NotImplementedError(
-            "save_inference_model is not ported yet: %s" % _EXPORT)
+        _io.save_inference_model(dirname, feed_names, fetch_vars,
+                                 self.exe, self.main_program)
 
     def report(self):
         return stat_set.report()

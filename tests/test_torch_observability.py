@@ -69,7 +69,7 @@ BOS, EOS = 0, 1
 PROMPTS = ([BOS], [2, 3], [4, 5, 6], [BOS, 5])
 SHARED = [2, 3, 4, 5, 6, 7, 8, 9, 10]
 
-# the ~35 families the slice registers (ROADMAP Queue A 1)
+# the families the port registers
 FAMILIES = sorted([
     "paddle_generation_%s" % n for n in (
         "requests_total", "tokens_total", "prefills_total",
@@ -89,6 +89,17 @@ FAMILIES = sorted([
         "deadline_exceeded_total", "shed_total", "tenant_shed_total",
         "failover_total", "breaker_transitions_total",
         "replica_healthy")] + ["paddle_quant_compute_ops_total"] + [
+    # the serving engine's, the micro-batcher's and the deploy layer's,
+    # registered when the serving package is imported, as the
+    # reference's are
+    "paddle_serving_%s" % n for n in (
+        "requests_total", "batches_total", "batch_occupancy",
+        "batch_seconds", "bucket_compiles_total", "bucket_overflow_total",
+        "request_seconds", "queue_depth")] + [
+    "paddle_deploy_%s" % n for n in (
+        "aot_loads_total", "aot_fallbacks_total", "swap_total",
+        "swap_rolled_back_total", "cold_start_seconds",
+        "swap_blackout_seconds")] + [
     # the training pipeline's (trainer, staging, checkpoints, stat
     # timers): registered when their modules are imported, which this
     # file does in both packages
@@ -639,7 +650,7 @@ def test_run_bounded_as_the_reference():
 
 
 def test_step_worker_reuses_one_thread_and_reports_a_hang():
-    worker = port_gen._StepWorker("generation-step-test")
+    worker = sres.BoundedWorker("generation-step-test")
     try:
         idents = {worker.call(threading.get_ident, 1.0) for _ in range(5)}
         assert len(idents) == 1 and threading.get_ident() not in idents

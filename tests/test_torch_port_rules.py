@@ -697,3 +697,49 @@ def test_staged_pipeline_without_device_means_cuda_and_raises(monkeypatch):
         port_trainer.Trainer(loss, main_program=main)
     assert StagedReader(lambda: iter([]), device="cpu").device == \
         torch.device("cpu")
+
+
+def test_import_rule_covers_the_export_and_engine_modules():
+    """The inference export and serving engine modules are among those
+    the import rule parses and imports, and the C shim imports the
+    port's bridge."""
+    mods = _package_modules()
+    for mod in ("paddle_tpu_torch.inference", "paddle_tpu_torch.io",
+                "paddle_tpu_torch.capi_bridge", "paddle_tpu_torch.native",
+                "paddle_tpu_torch.utils.merge_model",
+                "paddle_tpu_torch.serving.engine",
+                "paddle_tpu_torch.serving.batcher",
+                "paddle_tpu_torch.serving.deploy",
+                "paddle_tpu_torch.serving.model_paging",
+                "paddle_tpu_torch.serving.quant",
+                "paddle_tpu_torch.serving.resilience"):
+        assert mod in mods
+    with open(os.path.join(PKG, "csrc", "capi.cc")) as f:
+        src = f.read()
+    assert "paddle_tpu_torch.capi_bridge" in src
+    assert '"paddle_tpu.' not in src
+
+
+def test_serving_entry_points_raise_without_cuda(tmp_path, monkeypatch):
+    from paddle_tpu_torch import capi_bridge, inference
+    from paddle_tpu_torch import core as pc
+    from paddle_tpu_torch import layers as pl
+    from paddle_tpu_torch.serving import ServingEngine
+    main, startup = pc.Program(), pc.Program()
+    with pc.unique_name.guard(), pc.program_guard(main, startup):
+        out = pl.fc(pl.data("x", shape=[3]), 2)
+    exe, scope = pc.Executor(device="cpu"), pc.Scope()
+    exe.run(startup, scope=scope)
+    d = str(tmp_path)
+    port_io.save_inference_model(d, ["x"], [out], exe, main, scope)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (lambda: ServingEngine(d, buckets=(1,)),
+                 lambda: inference.InferenceEngine(d),
+                 lambda: capi_bridge.load_model(d),
+                 lambda: port_io.load_inference_model(
+                     d, pc.Executor(), scope=pc.Scope())):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    eng = ServingEngine(d, buckets=(1,), device="cpu")
+    assert [str(r.device) for r in eng.replicas] == ["cpu"]
+    eng.close()

@@ -302,8 +302,6 @@ def test_periodic_checkpoints_and_resume(tmp_path):
 def test_what_the_trainer_refuses(tmp_path, monkeypatch):
     scope = pc.Scope()
     tr, _, _, _ = _make(port_trainer, scope)
-    with pytest.raises(NotImplementedError, match="Inference export"):
-        tr.save_inference_model(str(tmp_path), ["x"], [])
     main, startup, _, loss, _ = _classifier(port_trainer)
     with pytest.raises(NotImplementedError, match="Distribution"):
         port_trainer.Trainer(loss, main_program=main,
