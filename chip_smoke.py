@@ -159,6 +159,19 @@ and PyTorch built for CUDA. In order, it:
    the reference refuses it (no running statistics in the artifact);
    batch times by bucket, requests/s and p50/p99, cold start, the swap's
    blackout, the time to re-admission and the weight bytes.
+18. the compile cache and AOT (``[aot]``): the flagship LM's forward
+   program stored to a ``compile_cache_dir`` by this process and loaded
+   by a child process (one hit, no export, logits bitwise), a flipped
+   byte of the stored blob quarantined and the step rebuilt, and
+   ``[engine]``'s f32 and int8 artifacts exported with ``compiled/``
+   buckets and served beside the same artifacts without them: cold
+   start, the swap's blackout and the first batch after it (a
+   recapture), batch times; no fallback, answers bitwise, launches
+   exact. Since the same PR the executor's forward steps run as CUDA
+   graphs from their second run: ``[program-serve]`` times the captured
+   decode step of the dense, f32 paged and int8/bf16 cells beside the
+   nn.Module route with each step's device-busy share, and
+   ``[captures]`` fails the run if any capture failed.
 
 Any failed phase exits nonzero. The line before the last is the card's
 name and power limit from nvidia-smi; the one before that lists the
@@ -480,6 +493,16 @@ class SmokeFailure(RuntimeError):
 def check(cond, msg):
     if not cond:
         raise SmokeFailure(msg)
+
+
+@functools.lru_cache(maxsize=1)
+def card_line():
+    """The card's name and power limit, as nvidia-smi gives them."""
+    lines = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()
+    return lines[0] if lines else "nvidia-smi: no output"
 
 
 def two_clocks(fn, iters=10):
@@ -4988,46 +5011,76 @@ def phase_program_serve(sess, paged, quant, dense_prompts, dense_outs,
                 s.retire(slot)
         for name in times:
             ttft[name][p] = sorted(times[name])[1]
-    for i in range(SLOTS):
-        prompt = rng.integers(2, v, 64 + 56 * i)
-        for _, s in routes:
-            s.admit(prompt)
-    for _, s in routes:
-        for _ in range(3):
-            s.step()
-    rounds = {name: [] for name, _ in routes}
-    for _ in range(LATENCY_ROUNDS):
-        for name, s in routes:
-            t0 = time.perf_counter()
-            for _ in range(16):
-                s.step()
-            rounds[name].append((time.perf_counter() - t0) * 1e3 / 16)
-    step_ms = {name: float(np.median(r)) for name, r in rounds.items()}
-    print("[program-serve] ttft_ms (idle server, median of 3, in turns) "
-          "module %s, program %s; decode step at %d slots (median of %d "
-          "rounds of 16, in turns): module %.3f ms, program %.3f ms (+%.3f "
-          "ms, x%.2f); rounds module %s, program %s"
+    card = card_line()
+    print("[program-serve] ttft_ms (idle server, median of 3, in turns; the "
+          "program route replays each bucket's captured prefill) module "
+          "%s, program %s; %s"
           % ({k: round(x, 3) for k, x in ttft["module"].items()},
-             {k: round(x, 3) for k, x in ttft["program"].items()}, SLOTS,
-             LATENCY_ROUNDS, step_ms["module"], step_ms["program"],
-             step_ms["program"] - step_ms["module"],
-             step_ms["program"] / step_ms["module"],
-             [round(r, 3) for r in rounds["module"]],
-             [round(r, 3) for r in rounds["program"]]))
-    b4 = ("B4 (dense_decode_kernel)", ("dense_decode_kernel",))
-    busy = {}
-    for name, s in routes:
-        got = profile_window("%s route: 1 decode step, %d slots"
-                             % (name, SLOTS), s.step, (b4,))
-        busy[name] = None if got is None else got["busy_share"]
-        check(got is None or got[b4[0]] == layers,
-              "%s route's decode step launched %s B4 kernels"
-              % (name, (got or {}).get(b4[0])))
-    print("[program-serve] one decode step's device-busy share: module "
-          "%s, program %s" % (busy["module"], busy["program"]))
-    for _, s in routes:
-        for slot in s.active_slots():
-            s.retire(slot)
+             {k: round(x, 3) for k, x in ttft["program"].items()}, card))
+    # the decode step at 8 slots, each cell's module and program routes
+    # in turns, then one profiled step of each (the program route's steps
+    # replay the decode program's CUDA graph)
+    cells = {"dense": (sess, pdense), "paged": (paged, ppaged),
+             "int8/bf16": (quant, pquant)}
+    step_ms, busy = {}, {}
+    for cell, pair in cells.items():
+        routes = (("module", pair[0]), ("program", pair[1]))
+        for s in pair:
+            for slot in s.active_slots():
+                s.retire(slot)
+        for i in range(SLOTS):
+            prompt = rng.integers(2, v, 64 + 56 * i)
+            for _, s in routes:
+                s.admit(prompt)
+        for _, s in routes:
+            for _ in range(3):
+                s.step()
+        rounds = {name: [] for name, _ in routes}
+        for _ in range(LATENCY_ROUNDS):
+            for name, s in routes:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(16):
+                    s.step()
+                rounds[name].append((time.perf_counter() - t0) * 1e3 / 16)
+        step_ms[cell] = {name: float(np.median(r))
+                         for name, r in rounds.items()}
+        kernel = ("B4 (dense_decode_kernel)", ("dense_decode_kernel",)) \
+            if cell == "dense" else ("B5 (paged_split_kernel)",
+                                     ("paged_split_kernel",))
+        busy[cell] = {}
+        for name, s in routes:
+            got = profile_window("%s %s route: 1 decode step, %d slots"
+                                 % (cell, name, SLOTS), s.step, (kernel,))
+            busy[cell][name] = None if got is None else got["busy_share"]
+            check(got is None or got[kernel[0]] == layers,
+                  "%s %s route's decode step launched %s %s kernels"
+                  % (cell, name, (got or {}).get(kernel[0]), kernel[0]))
+        print("[program-serve] %s decode step at %d slots (median of %d "
+              "rounds of 16, in turns): module %.3f ms, program %.3f ms "
+              "(x%.2f; PR 14's program route, before capture: 10.484 ms "
+              "dense); rounds module %s, program %s; one step's "
+              "device-busy share module %s, program %s; %s"
+              % (cell, SLOTS, LATENCY_ROUNDS, step_ms[cell]["module"],
+                 step_ms[cell]["program"],
+                 step_ms[cell]["program"] / step_ms[cell]["module"],
+                 [round(r, 3) for r in rounds["module"]],
+                 [round(r, 3) for r in rounds["program"]],
+                 busy[cell]["module"], busy[cell]["program"], card))
+        for s in pair:
+            for slot in s.active_slots():
+                s.retire(slot)
+    print("[program-serve] captured steps (CUDA graphs) a session: dense "
+          "%s, paged %s, int8/bf16 %s; compile stats %s"
+          % (pdense.exe.capture_stats(), ppaged.exe.capture_stats(),
+             pquant.exe.capture_stats(),
+             {k: s.compile_stats() for k, s in (("dense", pdense),
+                                                ("paged", ppaged),
+                                                ("int8/bf16", pquant))}))
+    check(all(s.exe.capture_stats()["captures"] > 0 and
+              s.exe.capture_stats()["failed"] == 0
+              for s in (pdense, ppaged, pquant)),
+          "[program-serve] the program sessions captured no step")
     out.update(ttft=ttft, step_ms=step_ms, busy=busy)
     for s in (pdense, ppaged, pquant):
         s.close()
@@ -5220,11 +5273,12 @@ def lm_cfg(cfg):
     return {k: v for k, v in cfg.items() if k != "max_len"}
 
 
-def engine_export(cfg, t, seed, device, dirs):
+def engine_export(cfg, t, seed, device, dirs, compiled=None):
     """The LM's forward program (is_test) at T ``t``, its startup's
     weights drawn from ``seed`` on ``device``, exported to each path of
-    ``dirs`` ({path: quantize}). Returns ({path: seconds}, the scope the
-    weights were exported from)."""
+    ``dirs`` ({path: quantize}), with each bucket of ``compiled`` (a
+    tuple) exported under ``compiled/``. Returns ({path: seconds}, the
+    scope the weights were exported from)."""
     from paddle_tpu_torch import core, io
     main, startup, _, logits = lm_program(lm_cfg(cfg), t, is_test=True)
     startup.random_seed = seed
@@ -5235,7 +5289,9 @@ def engine_export(cfg, t, seed, device, dirs):
     for d, quantize in dirs.items():
         t0 = time.perf_counter()
         io.save_inference_model(d, ["toks"], [out], exe, main_program=main,
-                                scope=scope, quantize=quantize)
+                                scope=scope, quantize=quantize,
+                                export_compiled=compiled is not None,
+                                export_buckets=compiled)
         secs[d] = time.perf_counter() - t0
     return secs, scope
 
@@ -5696,6 +5752,301 @@ def phase_engine(seed, smi, rng):
             "int8_matmul": total["int8_matmul"]}
 
 
+
+# [aot]: the flagship LM's forward program (is_test, T ENGINE_T, batch 1)
+# stored to a compile cache dir by this process and loaded by a child
+# process; then [engine]'s f32 and int8 artifacts exported with compiled/
+# buckets and served beside the same artifacts without them
+AOT_CHILD_TIMEOUT_S = 600
+
+
+def aot_forward(cache_dir, seed):
+    """The flagship LM's forward program on the card, its startup weights
+    drawn from ``seed``, run once by a fresh executor with the
+    ``compile_cache_dir`` flag at ``cache_dir``. Returns (its logits,
+    {the cache's hits, misses and quarantines, and the exports the run
+    made}, seconds of the run)."""
+    import torch
+    from paddle_tpu_torch import config, core
+    from paddle_tpu_torch.core import executor
+    from paddle_tpu_torch.observability import metrics
+    cfg = lm_cfg(FULL)
+    main, startup, _, logits = lm_program(cfg, ENGINE_T, is_test=True)
+    startup.random_seed = seed
+    exe, scope = core.Executor(device="cuda"), core.Scope()
+    uncounted(lambda: exe.run(startup, scope=scope))
+    ids = np.random.RandomState(seed).randint(
+        2, cfg["vocab_size"], (1, ENGINE_T)).astype(np.int32)
+    names = {k: "paddle_deploy_cache_%s_total" % k
+             for k in ("hits", "misses", "quarantined")}
+    before = {k: metrics.REGISTRY.counter(n).value for k, n in names.items()}
+    real, made = executor._export, []
+
+    def counting(*a, **k):
+        made.append(1)
+        return real(*a, **k)
+    executor._export = counting
+    config.set_flags(compile_cache_dir=cache_dir)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, = exe.run(main, feed={"toks": ids, "lbls": ids},
+                       fetch_list=[logits], scope=scope)
+        secs = time.perf_counter() - t0
+    finally:
+        config.set_flags(compile_cache_dir=None)
+        executor._export = real
+    stats = {k: metrics.REGISTRY.counter(n).value - before[k]
+             for k, n in names.items()}
+    stats["exports"] = len(made)
+    return out, stats, secs
+
+
+def aot_child(cache_dir, seed, out_path):
+    """[aot]'s child process (``python -c``, importing only the port):
+    one :func:`aot_forward` on ``cache_dir``; saves the logits to
+    ``out_path`` and prints ``AOT_CHILD`` and its stats as JSON."""
+    from paddle_tpu_torch.place import resolve_device
+    resolve_device("cuda")      # TF32 off, as in the parent
+    out, stats, secs = aot_forward(cache_dir, seed)
+    np.save(out_path, out)
+    stats["seconds"] = secs
+    print("AOT_CHILD %s" % json.dumps(stats))
+
+
+def aot_engine(path, quant, kw, rows, push):
+    """One engine over ``path`` (int8 compute when ``quant``): cold start
+    (construction + warmup + first response), the AOT loads and
+    fallbacks it counted, its bucket-8 and bucket-1 answers, the batch
+    times by bucket, a swap onto ``push`` (the flip's blackout and the
+    first bucket-8 batch after it, which recaptures), and the launches
+    held to its executions. Returns a dict of those."""
+    import torch
+    from paddle_tpu_torch import config
+    from paddle_tpu_torch.serving import deploy
+    loads, falls = deploy.AOT_LOADS, deploy.AOT_FALLBACKS
+    l0, f0 = loads.value, falls.value
+    before = read_launches()
+    config.set_flags(serving_quant_compute=quant)
+    try:
+        t0 = time.perf_counter()
+        eng, build_s = counted_engine(path, **kw)
+        first = eng.run({"toks": rows[:1]})[0]
+        cold_ms = (time.perf_counter() - t0) * 1e3
+        res = dict(cold_ms=cold_ms, build_s=build_s, first=first,
+                   loads=loads.value - l0, fallbacks=falls.value - f0,
+                   primed=sum(e.aot is not None for r in eng.replicas
+                              for e in r.exe._cache.values()),
+                   graphs=sum(e.graph is not None for r in eng.replicas
+                              for e in r.exe._cache.values()))
+        res["b8"] = eng.run({"toks": rows[:8]})[0]
+        res["b1"] = eng.run({"toks": rows[1:2]})[0]
+        res["times"] = bucket_times(eng, rows)
+        hist = deploy.SWAP_BLACKOUT_SECONDS.labels()
+        s0 = hist.sum
+        recaptures0 = sum(r.exe.capture_stats()["recaptures"]
+                          for r in eng.replicas)
+        eng.swap_weights(push, watch_requests=0)
+        res["blackout_ms"] = (hist.sum - s0) * 1e3
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res["after"] = eng.run({"toks": rows[:8]})[0]
+        res["after_ms"] = (time.perf_counter() - t0) * 1e3
+        for _ in eng.replicas[1:]:
+            check(np.array_equal(eng.run({"toks": rows[:8]})[0],
+                                 res["after"]),
+                  "[aot] the replicas answer differently after the swap")
+        res["recaptures"] = sum(r.exe.capture_stats()["recaptures"]
+                                for r in eng.replicas) - recaptures0
+        res["executions"] = eng.executions
+        res["launches"] = {k: read_launches()[k] - before[k]
+                           for k in before}
+        eng.close()
+    finally:
+        config.set_flags(serving_quant_compute=False)
+    return res
+
+
+def phase_aot(seed, smi, rng):
+    """[aot]: see AOT_CHILD_TIMEOUT_S's comment. The child must show one
+    cache hit, no export and logits bitwise equal to this process's; a
+    byte flipped in the stored blob is quarantined and the step rebuilt;
+    the artifacts' engines prime every bucket of every replica (no
+    fallback), answer bitwise as the same artifacts' engines without
+    compiled/, and launch B2 f32 12 (B3 73) an execution."""
+    import os
+    import shutil
+    import tempfile
+    import torch
+    card = smi[0] if smi else "nvidia-smi: no output"
+    cfg = lm_cfg(FULL)
+    L, vocab = cfg["num_layers"], cfg["vocab_size"]
+    armed_per = 6 * L + 1
+    tmp = tempfile.mkdtemp(prefix="aot_")
+    try:
+        cache = os.path.join(tmp, "cc")
+        before = read_launches()
+        parent, st, secs = aot_forward(cache, seed)
+        stored = [f for f in os.listdir(cache) if f.endswith(".bin")]
+        blob_mb = sum(os.path.getsize(os.path.join(cache, f))
+                      for f in stored) / 1e6
+        check(st == {"hits": 0, "misses": 1, "quarantined": 0,
+                     "exports": 1} and len(stored) == 1 and
+              f32_flash(read_launches()) - f32_flash(before) == L,
+              "[aot] the storing run: %s, %d entries" % (st, len(stored)))
+        out_path = os.path.join(tmp, "child.npy")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", "import chip_smoke; chip_smoke.aot_child"
+             "(%r, %d, %r)" % (cache, seed, out_path)],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            capture_output=True, text=True, timeout=AOT_CHILD_TIMEOUT_S)
+        child_s = time.perf_counter() - t0
+        lines = [ln for ln in proc.stdout.splitlines()
+                 if ln.startswith("AOT_CHILD ")]
+        check(proc.returncode == 0 and lines,
+              "[aot] the child process failed (%d): %s"
+              % (proc.returncode, proc.stderr[-3000:]))
+        child = json.loads(lines[-1][len("AOT_CHILD "):])
+        same = bool(np.array_equal(np.load(out_path), parent))
+        check(child["hits"] == 1 and child["exports"] == 0 and
+              child["misses"] == 0 and same,
+              "[aot] the child: %s, logits bitwise equal %s"
+              % (child, same))
+        print("[aot] the LM's forward program (T %d, batch 1, %s): stored "
+              "by this process's run (%.2f s: export, store, run; a %.2f "
+              "MB entry); a child process loaded it: %s, its run %.2f s, "
+              "%.2f s for the child in all (start, startup on the card, "
+              "load, run); logits bitwise equal: %s; %s"
+              % (ENGINE_T, cfg, secs, blob_mb, child, child["seconds"],
+                 child_s, same, card))
+        path = os.path.join(cache, stored[0])
+        with open(path, "r+b") as f:
+            f.seek(os.path.getsize(path) // 2)
+            byte = f.read(1)
+            f.seek(-1, 1)
+            f.write(bytes([byte[0] ^ 0xFF]))
+        again, st2, secs2 = aot_forward(cache, seed)
+        check(st2 == {"hits": 0, "misses": 1, "quarantined": 1,
+                      "exports": 1} and np.array_equal(again, parent) and
+              any(f.startswith("corrupt_") for f in os.listdir(cache)),
+              "[aot] a flipped byte: %s" % st2)
+        print("[aot] one byte of the stored blob flipped: the next fresh "
+              "executor quarantined the entry and rebuilt it (%s, %.2f "
+              "s), logits bitwise equal: True" % (st2, secs2))
+        del parent, again
+        shutil.rmtree(cache, ignore_errors=True)
+
+        # -- the artifacts, with and without compiled/ ----------------------
+        from paddle_tpu_torch import config
+        d32, d8 = os.path.join(tmp, "f32"), os.path.join(tmp, "int8")
+        config.set_flags(serving_quant_compute=True)
+        try:
+            t0 = time.perf_counter()
+            secs, _ = uncounted(lambda: engine_export(
+                FULL, ENGINE_T, seed, "cuda", {d32: None, d8: "int8"},
+                compiled=ENGINE_BUCKETS))
+            export_s = time.perf_counter() - t0
+        finally:
+            config.set_flags(serving_quant_compute=False)
+        torch.cuda.empty_cache()
+        from paddle_tpu_torch.serving import deploy
+        sizes = {}
+        for d in (d32, d8):
+            index = deploy.load_compiled_index(d)
+            check(index is not None and sorted(map(int, index["buckets"]))
+                  == sorted(ENGINE_BUCKETS),
+                  "[aot] %s exported no compiled/ buckets" % d)
+            sizes[d] = {b: e["nbytes"] for b, e in index["buckets"].items()}
+        print("[aot] the [engine] artifacts exported with compiled/ "
+              "buckets %s: f32 in %.2f s, int8 (serving_quant_compute) in "
+              "%.2f s, %.2f s in all with the startup; bucket programs "
+              "%s bytes; %s"
+              % (ENGINE_BUCKETS, secs[d32], secs[d8], export_s, sizes, card))
+        rows = rng.integers(2, vocab, (16, ENGINE_T)).astype(np.int32)
+        kw = dict(buckets=ENGINE_BUCKETS, replicas=ENGINE_REPLICAS,
+                  timeout=ENGINE_TIMEOUT_S)
+        n_primed = len(ENGINE_BUCKETS) * ENGINE_REPLICAS
+        out = {}
+        for name, path, quant, per in (("f32", d32, False, (L, 0)),
+                                       ("int8", d8, True, (L, armed_per))):
+            res = {}
+            for mode in ("plain", "compiled"):
+                r = aot_engine(path, quant, dict(
+                    kw, use_exported=mode == "compiled"), rows, d8)
+                delta = dict(r["launches"])
+                want = {"flash_attention": per[0] * r["executions"],
+                        "int8_matmul": per[1] * r["executions"]}
+                got = {"flash_attention": f32_flash(delta),
+                       "int8_matmul": delta["int8_matmul"]}
+                check(got == want and not any(
+                    v for k, v in delta.items()
+                    if k not in ("flash_attention", "int8_matmul")),
+                    "[aot] %s %s engine: launches %s != %s for %d "
+                    "executions" % (name, mode, delta, want,
+                                    r["executions"]))
+                check(r["fallbacks"] == 0 and r["loads"] == (
+                    n_primed if mode == "compiled" else 0) and
+                    r["primed"] == (n_primed if mode == "compiled" else 0)
+                    and r["graphs"] == n_primed and r["recaptures"] ==
+                    ENGINE_REPLICAS,
+                    "[aot] %s %s engine: %d loads, %d fallbacks, %d primed "
+                    "entries, %d graphs, %d recaptures after the swap"
+                    % (name, mode, r["loads"], r["fallbacks"], r["primed"],
+                       r["graphs"], r["recaptures"]))
+                res.setdefault(mode, []).append(r)
+            base = res["plain"][0]
+            for mode, runs in res.items():
+                for r in runs:
+                    check(all(np.array_equal(r[k], base[k])
+                              for k in ("first", "b8", "b1", "after")),
+                          "[aot] %s %s engine's answers differ from the "
+                          "plain artifact's" % (name, mode))
+            for mode in ("plain", "compiled"):
+                runs = res[mode]
+                print("[aot] %s engine, %s artifact (%s; the plain one's "
+                      "engine is built first): cold start (construction "
+                      "+ warmup + first response) %s ms; construction + "
+                      "warmup %s s; AOT loads %d, fallbacks %d; swap "
+                      "blackout (the flip) %s ms, the first bucket-8 batch "
+                      "after the swap (it recaptures) %s ms; batch time by "
+                      "bucket (median, histogram mean, program with logits "
+                      "on the card) %s; answers bitwise equal to the plain "
+                      "artifact's engine: True; %s"
+                      % (name, mode, "with compiled/" if mode == "compiled"
+                         else "use_exported=False",
+                         [round(r["cold_ms"], 1) for r in runs],
+                         [round(r["build_s"], 2) for r in runs],
+                         runs[0]["loads"], runs[0]["fallbacks"],
+                         [round(r["blackout_ms"], 4) for r in runs],
+                         [round(r["after_ms"], 2) for r in runs],
+                         [{b: "%.2f ms (%.2f; %.2f)" % v
+                           for b, v in r["times"].items()} for r in runs],
+                         card))
+            out[name] = {mode: dict(
+                cold_ms=[r["cold_ms"] for r in runs],
+                blackout_ms=[r["blackout_ms"] for r in runs],
+                after_ms=[r["after_ms"] for r in runs],
+                times=[r["times"] for r in runs])
+                for mode, runs in res.items()}
+            del res, base
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def phase_captures():
+    """[captures]: every CUDA graph the run's executors captured, recaptured
+    and replayed; no capture may have failed on any path."""
+    from paddle_tpu_torch.core import executor
+    totals = dict(executor.CAPTURES)
+    print("[captures] the executors' CUDA graphs over the whole run: %s"
+          % totals)
+    check(totals.get("failed", 0) == 0 and totals.get("captures", 0) > 0,
+          "[captures] %s" % totals)
+
 def engine_resnet(seed, tmp, card):
     """ResNet-50 as bench.py builds it (fused_conv_bn on), its forward
     program (is_test) exported through io.save_inference_model. The
@@ -5957,6 +6308,11 @@ def main(argv=None):
                               np.random.default_rng(args.seed + 11))
         gc.collect()
         torch.cuda.empty_cache()
+        # the compile cache across processes and AOT serving artifacts
+        phase_aot(args.seed, smi, np.random.default_rng(args.seed + 12))
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_captures()
         rows += phase_time_flash_bf16(lm_launches,
                                       errs["flash_attention bf16"], sweep)
         for row in rows:

@@ -83,8 +83,28 @@ _flags = {
     # each batch it stages
     "packed_feeds": False,
     # metric hooks and host spans (observability/tracing.py: synced into
-    # the tracer by the observability package's change hook)
+    # the tracer by the observability package's change hook); read by the
+    # executor at each run: a cache entry of a forward program is
+    # exported at its second run (Executor.lower) to count its
+    # operations and bytes
     "telemetry": False,
+    # the persistent compile cache (core/compile_cache.py), read by the
+    # executor at each run. None (default): no filesystem access at all.
+    # A directory: each forward program's cache entry is stored there as
+    # its torch.export program, keyed by a stable digest of the program
+    # content + feed/fetch signature + trace-time flags + the torch,
+    # device and kernel-source fingerprint, and a fresh process loads it
+    # instead of rebuilding it. Entries are sha256-manifested; a corrupt
+    # or truncated entry is quarantined to corrupt_* and rebuilt (a
+    # poisoned dir can slow a start, never crash or mis-execute one).
+    # Training programs (vjp_grad ops) store nothing. Trust boundary:
+    # entries load through torch.export.load
+    "compile_cache_dir": None,
+    # 0 (default): the compile cache dir grows without bound. Else
+    # store() evicts the coldest-mtime entries (bin + manifest together;
+    # load() hits touch mtime, so this is LRU) until the dir fits, never
+    # the entry it just published. Only read on the store path
+    "compile_cache_max_bytes": 0,
     # ServingEngine batch buckets (serving/engine.py): every batch is
     # zero-padded up to the smallest bucket that holds it; read when an
     # engine is constructed without buckets

@@ -42,18 +42,69 @@ reference gets from XLA, this executor does by hand:
   staging copy's event, and the buffer is dropped once unpacked (the
   reference donates it).
 
-Not ported: the compile cache and AOT (``lower``, ``cache_digest``,
-``prime_aot``), ``as_jax_function`` and distribution strategies; each
-raises NotImplementedError.
+* The step cache (reference ``_CacheEntry``): each run resolves one cache
+  entry, keyed as the reference keys it: program uid and version, the
+  feed signature, fetch names, donation, ``check_nan_inf``, ``amp``, the
+  float32 matmul precision, ``nonfinite_guard``, the ingest specs and the
+  int8 tag. The reference's ``flash_attention`` flag is not part of the
+  key: the port has no such flag (``config.py``). ``compile_stats()``
+  counts one compile per key. Forward programs (no ``vjp_grad`` op) have
+  executables:
+
+  - on the card, a CUDA graph: the entry's first run executes op by op,
+    which warms it; its second captures its step into a
+    ``torch.cuda.CUDAGraph`` (one memory pool for each executor), with the
+    feeds in static buffers and the scope's state at the addresses it
+    has; written state is copied into the scope's own tensors inside the
+    graph. That run and every later one copy their feeds in and replay
+    the graph (a program run once, a startup, is never captured). A run
+    whose scope holds other state
+    tensors than the capture read (a weight swap installs new ones, a
+    load replaces them) recaptures, counted in ``compile_stats`` as a
+    recompile; a run on another scope (a swap's canary) runs op by op and
+    leaves the graph alone. A replay adds the kernel launches its capture
+    counted (``ops/launches.py``), and the graph keeps the scratch its
+    kernels baked in (``ops/_build.capture_buffers``). A capture that
+    fails (an op that waits on the host) logs ``executor_capture_failed``
+    and the entry runs op by op from then on.
+  - ``lower`` exports the step as a ``torch.export.ExportedProgram``, the
+    state as inputs (so it does not depend on the weights, as the
+    reference's executables do not), the kernels as ``paddle_tpu_torch::``
+    torch ops. With ``compile_cache_dir`` set, ``run`` loads the entry's
+    program from disk (``core/compile_cache.py``) or exports and stores
+    it, and executes it: its module on the CPU, its module captured on
+    the card. ``prime_aot`` installs a program from a serving artifact's
+    ``compiled/`` index, gated by ``cache_digest``. A call that no longer
+    fits the program's inputs marks it failed for good, and the entry
+    runs op by op from then on.
+  - Training programs (a ``vjp_grad`` op: ``torch.autograd.grad`` cannot
+    be exported or captured) run op by op, store nothing
+    (``aot_export_skipped``) and capture nothing.
+
+  Under the ``telemetry`` flag an entry of a forward program is exported
+  at its second run (a program run once, a startup, is not), and the
+  reference's ``paddle_executor_*`` families count
+  cache hits and misses, the export's seconds (``_trace_seconds``), the
+  capture's (``_compile_seconds``), and the exported graph's operations
+  (``_step_flops``, ``torch.utils.flop_counter``) and bytes
+  (``_step_bytes``: each call node's operands and results).
+
+Not ported: distribution strategies, which raise NotImplementedError.
 """
 
+import collections
 import collections.abc
 import contextlib
+import itertools
+import time
+import weakref
 
 import numpy as np
 import torch
 from torch.autograd.graph import get_gradient_edge
+from torch.utils import _pytree as pytree
 
+from . import compile_cache as _compile_cache
 from . import ingest as _ingest
 from . import registry
 from .enforce import EnforceNotMet
@@ -62,17 +113,55 @@ from .framework import (Program, Variable, convert_dtype,
 from .scope import global_scope
 from .. import config as _config
 from ..amp import amp_cast, amp_dtype
+from ..observability import metrics as _metrics
+from ..observability import tracing as _tracing
+from ..ops import _build
+from ..ops import launches as _launches
 from ..ops import quant_ops, random_ops
 from ..place import resolve_device
+from ..utils import log as _log
 
 EMPTY_VAR = "@EMPTY@"
 
-__all__ = ["Executor", "EMPTY_VAR", "run_block"]
+__all__ = ["Executor", "EMPTY_VAR", "run_block", "CAPTURES"]
 
 
-# the ROADMAP Queue A items that bring what this executor refuses
-_AOT = 'ROADMAP Queue A, "The compile cache and AOT"'
+# the ROADMAP Queue A item that brings what this executor refuses
 _DISTRIBUTION = 'ROADMAP Queue A, "Distribution and the input pipeline"'
+
+# Compile-cache and per-step cost telemetry (the reference's families;
+# hooks gated by the telemetry flag)
+_CACHE_HITS = _metrics.REGISTRY.counter(
+    "paddle_executor_cache_hits_total",
+    "Executor.run compile-cache hits")
+_CACHE_MISSES = _metrics.REGISTRY.counter(
+    "paddle_executor_cache_misses_total",
+    "Executor.run compile-cache misses (trace + XLA compile)")
+_TRACE_SECONDS = _metrics.REGISTRY.gauge(
+    "paddle_executor_trace_seconds",
+    "Python block trace + StableHLO lowering wall time per "
+    "compile-cache key",
+    labelnames=("key",))
+_COMPILE_SECONDS = _metrics.REGISTRY.gauge(
+    "paddle_executor_compile_seconds",
+    "XLA compile wall time per compile-cache key",
+    labelnames=("key",))
+_STEP_FLOPS = _metrics.REGISTRY.gauge(
+    "paddle_executor_step_flops",
+    "XLA cost-analysis FLOPs of the cached step (MFU numerator)",
+    labelnames=("key",))
+_STEP_BYTES = _metrics.REGISTRY.gauge(
+    "paddle_executor_step_bytes",
+    "XLA cost-analysis bytes accessed of the cached step "
+    "(bandwidth-roofline numerator)",
+    labelnames=("key",))
+# labels must not alias across executors or threads
+_KEY_IDS = itertools.count(1)
+
+# process-wide CUDA graph events, for a caller that checks a whole run:
+# "captures", "recaptures", "failed" (logged as executor_capture_failed)
+# and "replays"
+CAPTURES = collections.Counter()
 
 
 def _not_ported(what, item):
@@ -352,8 +441,7 @@ def _block_io(block):
 
 
 class _Plan:
-    """What a run of one program version with one fetch list (and int8
-    tag) needs: the block's persistable reads and writes (with an armed
+    """What the runs of one cache entry need: the block's persistable reads and writes (with an armed
     program's scale sidecars, which are not block variables), its RNG
     need, the forward ops that a ``vjp_grad`` op differentiates, and
     after which op each temporary is read for the last time; and the
@@ -367,6 +455,9 @@ class _Plan:
         self.quant_seen = set()
         if self.needs_rng:
             self.written.add(RNG_STATE_VAR)
+        # in name order: an exported step's input tree follows it
+        self.written_sorted = sorted(self.written)
+        self.read_sorted = sorted(self.read)
         self.needs_vjp = {id(op.attrs["fwd_op"]): op for op in block.ops
                           if op.type == "vjp_grad"}
         last = {}
@@ -387,6 +478,220 @@ def _to_numpy(v):
     return v.cpu().numpy()
 
 
+def _step_fn(block, plan, fetch_names, widen, check_nan_inf, amp,
+             nonfinite_guard, inplace, quant, device):
+    """The step of one cache entry as a function of (state_rw, state_ro,
+    feed) -> (new state, fetches, guards): the feeds widened by their
+    ingest specs, the block run op by op, then ``nonfinite_guard``'s
+    choice between the new and the old state (the RNG key exempt, so a
+    retried batch draws fresh randomness). ``ambient`` runs the ops in
+    the caller's autograd mode, as an export traces them under one
+    ``torch.no_grad``."""
+    def fn(state_rw, state_ro, feed, ambient=False):
+        env = dict(state_ro)
+        env.update(state_rw)
+        for name, t in feed.items():
+            spec = widen.get(name)
+            env[name] = t if spec is None else _ingest.widen(t, *spec)
+        trace = _TraceState(plan.needs_vjp,
+                            nan_guards={} if check_nan_inf else None,
+                            amp=amp, inplace=inplace, autograd=ambient,
+                            drops=plan.drops, device=device, quant=quant,
+                            quant_seen=plan.quant_seen)
+        run_block(block, env, trace)
+        new_state = {n: env[n] for n in plan.written_sorted if n in env}
+        fetches = [_lookup(env, n, None, block) for n in fetch_names]
+        if nonfinite_guard:
+            # a poisoned batch leaves the state as it was
+            ok = torch.ones((), dtype=torch.bool, device=device)
+            for v in fetches:
+                if _is_float(v):
+                    ok = ok & torch.isfinite(v).all()
+            new_state = {
+                n: (v if n == RNG_STATE_VAR or n not in state_rw
+                    else torch.where(ok, v, state_rw[n]))
+                for n, v in new_state.items()}
+        return new_state, fetches, trace.nan_guards or {}
+    return fn
+
+
+class _StepModule(torch.nn.Module):
+    """An entry's step as the module ``torch.export`` takes: the state a
+    step writes in place (a KV cache, an update op's ``ParamOut``) is an
+    input mutation of the exported program, not an output; an output
+    that is one of the inputs is copied, as an exported program's
+    outputs may not alias its inputs."""
+
+    def __init__(self, fn, device):
+        super().__init__()
+        self._fn = fn
+        self._device = device
+
+    def forward(self, state_rw, state_ro, feed):
+        new_state, fetches, guards = self._fn(state_rw, state_ro, feed,
+                                              ambient=True)
+        ins = {id(t) for d in (state_rw, state_ro, feed)
+               for t in d.values()}
+        new_state = {n: (v.clone() if id(v) in ins else v)
+                     for n, v in new_state.items()
+                     if v is not state_rw.get(n)}
+        fetches = [v.clone() if id(v) in ins else v for v in fetches]
+        # a step that only writes state in place (the block copy) still
+        # returns one tensor: a program without outputs does not serialize
+        empty = not (new_state or fetches or guards)
+        return (new_state, fetches, guards,
+                [torch.zeros((), device=self._device)] if empty else [])
+
+
+def _export(fn, args, device):
+    """``torch.export`` of the step ``fn`` on ``args`` (state_rw,
+    state_ro, feed) on ``device``: non-strict, every op traced under one
+    ``torch.no_grad`` (the executor's per-op ``no_grad`` blocks would
+    each become a graph region)."""
+    with torch.no_grad():
+        ep = torch.export.export(_StepModule(fn, device), args,
+                                 strict=False)
+    # the example inputs are the state itself: neither held (a swap's old
+    # weights would stay alive) nor serialized (a blob would carry them)
+    ep._example_inputs = None
+    return ep
+
+
+def _aot_signature(ep):
+    """(input tree spec, [(shape, dtype, device type)] of each input) of
+    an exported step: what a call must fit."""
+    names = ep.graph_signature.user_inputs
+    vals = {n.name: n.meta.get("val") for n in ep.graph.nodes
+            if n.op == "placeholder"}
+    return ep.call_spec.in_spec, [
+        (tuple(vals[n].shape), vals[n].dtype, vals[n].device.type)
+        for n in names]
+
+
+def _fits(sig, args):
+    flat, spec = pytree.tree_flatten((args, {}))
+    in_spec, inputs = sig
+    return spec == in_spec and len(flat) == len(inputs) and all(
+        isinstance(t, torch.Tensor) and tuple(t.shape) == shape
+        and t.dtype == dtype and t.device.type == dev
+        for t, (shape, dtype, dev) in zip(flat, inputs))
+
+
+def _cost(ep):
+    """(operations, bytes) of an exported step: the FLOPs
+    ``FlopCounterMode`` counts running the graph on fake tensors, and the
+    bytes of every call node's operands and results (``meta["val"]``),
+    XLA's "bytes accessed"."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils.flop_counter import FlopCounterMode
+    nbytes = 0
+    for node in ep.graph.nodes:
+        if node.op != "call_function":
+            continue
+        vals = [a.meta.get("val") for a in node.all_input_nodes]
+        vals.append(node.meta.get("val"))
+        for v in pytree.tree_leaves(vals):
+            if isinstance(v, torch.Tensor):
+                nbytes += v.numel() * v.element_size()
+    vals = {n.name: n.meta["val"] for n in ep.graph.nodes
+            if n.op == "placeholder"}
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        # fake tensors on the step's device: no memory is allocated
+        flat = [torch.empty(v.shape, dtype=v.dtype, device=v.device)
+                for v in (vals[n] for n in ep.graph_signature.user_inputs)]
+        args, kwargs = pytree.tree_unflatten(flat, ep.call_spec.in_spec)
+        counter = FlopCounterMode(display=False)
+        with counter:
+            ep.module()(*args, **kwargs)
+    return counter.get_total_flops(), nbytes
+
+
+class _Entry:
+    """One step-cache entry (reference ``_CacheEntry``): the plan and the
+    step function of runs with one key, and its executables: ``aot`` an
+    ``ExportedProgram`` (exported under telemetry or the persistent
+    cache, loaded from disk, or primed from an artifact) with its module
+    ``aot_fn`` and input signature ``aot_sig``, and ``graph``, the CUDA
+    graph of its step, captured at a run after one op by op
+    (``capturable``). ``skey_parts`` is the key minus its process-local
+    head (the stable half of the persistent digest), ``pkey`` the digest
+    once computed."""
+
+    __slots__ = ("plan", "fn", "key_id", "skey_parts", "pkey", "aot",
+                 "aot_fn", "aot_sig", "aot_failed", "graph",
+                 "graph_failed", "ran", "capturable")
+
+    def __init__(self, plan, fn, key_id, skey_parts):
+        self.plan = plan
+        self.fn = fn
+        self.key_id = key_id
+        self.skey_parts = skey_parts
+        self.pkey = None
+        self.aot = self.aot_fn = self.aot_sig = None
+        self.aot_failed = False
+        self.graph = None
+        self.graph_failed = False
+        # set after each run op by op: that it ran, whether the next run
+        # may capture
+        self.ran = self.capturable = False
+
+    def install(self, ep):
+        self.aot = ep
+        self.aot_fn = ep.module()
+        self.aot_sig = _aot_signature(ep)
+        self.aot_failed = False
+        self.graph = None   # the next capture takes the installed program
+
+    def execute(self, args):
+        """(new state, fetches, guards) of one run op by op, or through
+        the installed program when the call fits it; a call that does not
+        fit marks the program failed for good."""
+        if self.aot_fn is not None:
+            if _fits(self.aot_sig, args):
+                return self.aot_fn(*args)[:3]
+            _log.structured("aot_call_fallback", key=self.key_id)
+            self.aot = self.aot_fn = self.aot_sig = None
+            self.aot_failed = True
+            self.graph = None
+        return self.fn(*args)
+
+
+class _Graph:
+    """An entry's step captured on the card: the graph, the scope whose
+    state it reads and writes (weakly), those tensors, the static feed
+    buffers, its outputs, the scratch its kernels took, and the launches
+    its capture counted."""
+
+    __slots__ = ("graph", "scope", "state", "feed", "fetches", "guards",
+                 "buffers", "launches")
+
+    def matches(self, state):
+        return len(state) == len(self.state) and all(
+            state.get(n) is t for n, t in self.state.items())
+
+
+class _Call:
+    """One resolved run: the entry, its block and fetch names, the scope,
+    and the state and feeds the step takes."""
+
+    __slots__ = ("entry", "block", "fetch_names", "scope", "state_rw",
+                 "state_ro", "feed")
+
+    def __init__(self, entry, block, fetch_names, scope, state_rw,
+                 state_ro, feed):
+        self.entry = entry
+        self.block = block
+        self.fetch_names = fetch_names
+        self.scope = scope
+        self.state_rw = state_rw
+        self.state_ro = state_ro
+        self.feed = feed
+
+    @property
+    def args(self):
+        return self.state_rw, self.state_ro, self.feed
+
+
 class Executor:
     """Runs Programs. Parity surface: ``fluid.Executor(place).run(...)``
     (reference ``python/paddle/v2/fluid/executor.py:71,126``).
@@ -401,25 +706,35 @@ class Executor:
         self.device = resolve_device(device if device is not None
                                      else place)
         self._cache = {}
-        # plans built, as the reference counts compiles: one per
-        # (program version, fetch list)
+        # entries ever made, and recaptures, as the reference counts
+        # compiles and recompiles
         self._compiles = 0
+        self._captures = collections.Counter()
+        self._pool = None            # the CUDA graphs' memory pool
+        self._capture_stream = None
 
     def compile_stats(self):
-        """``entries`` (live plans) and ``compiles`` (plans ever built)."""
+        """Flag-free per-executor compile counters: ``entries`` (live
+        cache entries) and ``compiles`` (entries ever made, ``lower``
+        included, plus recaptures after the state they read was
+        replaced). N distinct (program, feed signature, flags) shapes
+        show as exactly N compiles however many steps run."""
         return {"entries": len(self._cache), "compiles": self._compiles}
 
-    def lower(self, *args, **kwargs):
-        _not_ported("Executor.lower (AOT lowering)", _AOT)
+    def release_graphs(self):
+        """Drop every entry's CUDA graph, with the memory and the state
+        tensors it holds (a closed session's caches, an engine's
+        weights); an entry run again captures anew. Owners call it when
+        they close."""
+        for entry in self._cache.values():
+            entry.graph = None
 
-    def cache_digest(self, *args, **kwargs):
-        _not_ported("The persistent compile cache", _AOT)
-
-    def prime_aot(self, *args, **kwargs):
-        _not_ported("AOT executables", _AOT)
-
-    def as_jax_function(self, *args, **kwargs):
-        _not_ported("Exporting a program as a function", _AOT)
+    def capture_stats(self):
+        """This executor's CUDA graph events: ``captures``,
+        ``recaptures`` (part of ``captures``), ``failed`` and
+        ``replays``."""
+        return {k: self._captures[k]
+                for k in ("captures", "recaptures", "failed", "replays")}
 
     def _tensor(self, value, dtype=None):
         if isinstance(value, torch.Tensor):
@@ -472,8 +787,10 @@ class Executor:
             scope.set_var(name, v)
         return v
 
-    def run(self, program=None, feed=None, fetch_list=None, scope=None,
-            return_numpy=True, donate_state=True):
+    def _prepare(self, program, feed, fetch_list, scope, donate_state,
+                 count_cache=True):
+        """The run's cache entry, made on a miss, with its state and
+        feeds (reference ``_prepare``)."""
         if program is None:
             program = default_main_program()
         if not isinstance(program, Program):
@@ -490,26 +807,75 @@ class Executor:
         fetch_names = [v.name if isinstance(v, Variable) else v
                        for v in fetch_list]
 
+        # the feeds as tensors on the device, in their names' order (an
+        # exported step's input tree follows it); a wire-dtype feed stays
+        # narrow and is widened inside the step
+        widen, feeds = {}, {}
+        if isinstance(feed, _ingest.PackedBatch):
+            packed = ("@packed@",) + feed.signature()
+            feeds = self._unpack(feed, block)
+        else:
+            packed = None
+            for name, value in _ingest.explode_sparse(feed).items():
+                var = block.var_or_none(name)
+                spec = _ingest_spec(var, _arriving_dtype(value))
+                if spec is not None:
+                    widen[name] = spec
+                    feeds[name] = self._tensor(value)
+                else:
+                    feeds[name] = self._tensor(
+                        value, torch_dtype(var.dtype) if var is not None
+                        else None)
+        feeds = {n: feeds[n] for n in sorted(feeds)}
+        feed_sig = tuple((n, tuple(t.shape), str(t.dtype))
+                         for n, t in feeds.items())
+        if packed is not None:
+            feed_sig = (packed,) + feed_sig
+
         check_nan_inf = bool(_config.get_flag("check_nan_inf"))
         nonfinite_guard = bool(_config.get_flag("nonfinite_guard"))
         amp = amp_dtype(_config.get_flag("amp"))
+        precision = torch.get_float32_matmul_precision()
+        telemetry = bool(_config.get_flag("telemetry"))
         # an armed program carries its int8 tag (serving/quant.py)
         quant = getattr(program, "_quant_compute", None)
-
-        key = (program._uid, program._version, tuple(fetch_names),
-               quant["key"] if quant else None)
-        plan = self._cache.get(key)
-        if plan is None:
+        ingest_specs = tuple(sorted((n,) + tuple(spec)
+                                    for n, spec in widen.items()))
+        # every trace-time flag keys the cache (the reference's key, less
+        # the flash_attention flag and the strategy and embedding parts
+        # the port does not have)
+        key = (program._uid, program._version, feed_sig, tuple(fetch_names),
+               bool(donate_state), check_nan_inf, amp, precision,
+               nonfinite_guard, ingest_specs, quant["key"] if quant else None)
+        entry = self._cache.get(key)
+        if entry is None:
             self._compiles += 1
-            plan = self._cache[key] = _Plan(block, fetch_names, quant)
+            if telemetry and count_cache:
+                _CACHE_MISSES.inc()
+            plan = _Plan(block, fetch_names, quant)
+            fn = _step_fn(block, plan, fetch_names, widen, check_nan_inf, amp,
+                          nonfinite_guard,
+                          bool(donate_state) and not nonfinite_guard, quant,
+                          self.device)
+            # key[2:] drops the program's uid and version, which the
+            # program's serialized content replaces in the digest
+            entry = self._cache[key] = _Entry(plan, fn,
+                                              "k%d" % next(_KEY_IDS),
+                                              key[2:])
+        elif telemetry and count_cache:
+            _CACHE_HITS.inc()
+        if entry.pkey is None and _config.get_flag("compile_cache_dir"):
+            entry.pkey = _compile_cache.entry_digest(
+                program, entry.skey_parts, self.device)
 
-        state_rw, env = {}, {}
-        for n in plan.written:
+        plan = entry.plan
+        state_rw, state_ro = {}, {}
+        for n in plan.written_sorted:
             if scope.has_var(n):
                 state_rw[n] = self._state(scope, n)
-        for n in plan.read:
+        for n in plan.read_sorted:
             if n not in state_rw and scope.has_var(n):
-                env[n] = self._state(scope, n)
+                state_ro[n] = self._state(scope, n)
             # else: the first reader raises with a clear message
         if plan.needs_rng:
             if not scope.has_var(RNG_STATE_VAR):
@@ -517,48 +883,323 @@ class Executor:
                 scope.set_var(RNG_STATE_VAR,
                               random_ops.prng_key(seed, self.device))
             state_rw[RNG_STATE_VAR] = self._state(scope, RNG_STATE_VAR)
-        env.update(state_rw)
-        if isinstance(feed, _ingest.PackedBatch):
-            env.update(self._unpack(feed, block))
-        else:
-            for name, value in _ingest.explode_sparse(feed).items():
-                var = block.var_or_none(name)
-                spec = _ingest_spec(var, _arriving_dtype(value))
-                if spec is not None:
-                    env[name] = _ingest.widen(self._tensor(value), *spec)
-                else:
-                    env[name] = self._tensor(
-                        value, torch_dtype(var.dtype) if var is not None
-                        else None)
+            state_rw = {n: state_rw[n] for n in sorted(state_rw)}
+        return _Call(entry, block, fetch_names, scope, state_rw, state_ro,
+                     feeds)
 
-        trace = _TraceState(plan.needs_vjp,
-                            nan_guards={} if check_nan_inf else None,
-                            amp=amp,
-                            inplace=bool(donate_state) and not nonfinite_guard,
-                            drops=plan.drops, device=self.device,
-                            quant=quant, quant_seen=plan.quant_seen)
-        run_block(block, env, trace)
-        new_state = {n: env[n] for n in plan.written if n in env}
-        fetches = [_lookup(env, n, None, block) for n in fetch_names]
-        if nonfinite_guard:
-            # a poisoned batch leaves the state as it was; RNG is exempt
-            # so a retried batch draws fresh randomness
-            ok = torch.ones((), dtype=torch.bool, device=self.device)
-            for v in fetches:
-                if _is_float(v):
-                    ok = ok & torch.isfinite(v).all()
-            new_state = {
-                n: (v if n == RNG_STATE_VAR or n not in state_rw
-                    else torch.where(ok, v, state_rw[n]))
-                for n, v in new_state.items()}
+    def lower(self, program=None, feed=None, fetch_list=None, scope=None,
+              donate_state=True):
+        """Export the EXACT step ``run`` would execute (same donation,
+        amp policy, state threading) without running it. Returns the
+        ``torch.export.ExportedProgram`` (the counterpart of
+        ``jax.stages.Lowered``) whose inputs are ``(state_rw, state_ro,
+        feed)``: dicts of the written state, the read state and the feeds
+        by name. Raises for a step that cannot be exported (a training
+        program)."""
+        call = self._prepare(program, feed, fetch_list, scope, donate_state,
+                             count_cache=False)
+        return _export(call.entry.fn, call.args, self.device)
+
+    def cache_digest(self, program, feed=None, fetch_list=None, scope=None,
+                     donate_state=True):
+        """The process-stable persistent-cache digest of the EXACT step
+        ``run`` would execute for these arguments (program content,
+        feed/fetch signature, trace-time flags and the environment
+        fingerprint: ``core/compile_cache.py``). An AOT serving artifact
+        records it per bucket, so a loader can prove that the stored
+        program IS the step it would build here before trusting it."""
+        entry = self._prepare(program, feed, fetch_list, scope,
+                              donate_state, count_cache=False).entry
+        if entry.pkey is None:
+            entry.pkey = _compile_cache.entry_digest(
+                program, entry.skey_parts, self.device)
+        return entry.pkey
+
+    def prime_aot(self, program, feed, fetch_list, scope, compiled,
+                  expect_digest=None, donate_state=True):
+        """Install an ``ExportedProgram`` (deserialized from a serving
+        artifact's ``compiled/`` index) as the executable of the cache
+        entry these arguments resolve to: the serving cold-start path.
+
+        When ``expect_digest`` is given it must equal this entry's
+        :meth:`cache_digest` (raises ValueError otherwise): version skew,
+        flag drift or another card cannot install a program that computes
+        something else; callers catch and run the program. A program the
+        call does not fit is dropped at its first run, which then runs
+        op by op. Returns the entry."""
+        entry = self._prepare(program, feed, fetch_list, scope,
+                              donate_state, count_cache=False).entry
+        if expect_digest is not None:
+            if entry.pkey is None:
+                entry.pkey = _compile_cache.entry_digest(
+                    program, entry.skey_parts, self.device)
+            if entry.pkey != expect_digest:
+                raise ValueError(
+                    "AOT executable digest %s does not match this "
+                    "executor's computation digest %s (program/flag/"
+                    "environment skew)" % (expect_digest[:12],
+                                           entry.pkey[:12]))
+        entry.install(compiled)
+        return entry
+
+    def as_jax_function(self, program, feed_templates, fetch_list,
+                        scope=None):
+        """A Program block as a pure function (the reference's name, so
+        code written against it runs). Returns ``(fn, (state, feed))``
+        where ``fn(state, feed) -> fetches`` is a torch function that
+        writes none of its inputs, ``state`` the persistable variables
+        the block reads and writes, from ``scope`` (run the startup
+        program first), and ``feed`` the templates as tensors of their
+        variables' dtypes on this executor's device. The ops run in the
+        caller's autograd mode, so ``torch.autograd`` differentiates
+        through ``fn``."""
+        scope = scope or global_scope()
+        block = program.global_block()
+        fetch_names = [v.name if isinstance(v, Variable) else v
+                       for v in fetch_list]
+        feed = {}
+        for name, value in feed_templates.items():
+            var = block.var_or_none(name)
+            feed[name] = self._tensor(
+                value, torch_dtype(var.dtype) if var is not None else None)
+        read, written, needs_rng = _block_io(block)
+        needs_vjp = {id(op.attrs["fwd_op"]): op for op in block.ops
+                     if op.type == "vjp_grad"}
+        state = {}
+        for n in sorted(read | written):
+            if scope.has_var(n):
+                state[n] = self._state(scope, n)
+        if needs_rng:
+            seed = program.random_seed if program.random_seed else 0
+            state[RNG_STATE_VAR] = self._state(scope, RNG_STATE_VAR) \
+                if scope.has_var(RNG_STATE_VAR) else \
+                random_ops.prng_key(seed, self.device)
+        amp = amp_dtype(_config.get_flag("amp"))
+        device = self.device
+
+        def fn(state, feed):
+            env = dict(state)
+            env.update(feed)
+            trace = _TraceState(needs_vjp, amp=amp, autograd=True,
+                                device=device)
+            run_block(block, env, trace)
+            return [_lookup(env, n, None, block) for n in fetch_names]
+
+        return fn, (state, feed)
+
+    def _aot(self, call):
+        """Give ``call``'s entry its ExportedProgram where the persistent
+        cache or telemetry asks for one (reference ``run``'s AOT branch):
+        loaded from the cache dir, else exported (and stored). A training
+        step is not exported; an export that fails leaves the entry to run
+        op by op. Either logs ``aot_export_skipped``."""
+        entry = call.entry
+        telemetry = bool(_config.get_flag("telemetry"))
+        pcache = _compile_cache.active_cache() \
+            if entry.pkey is not None else None
+        if pcache is not None:
+            ep = pcache.load(entry.pkey, self.device)
+            if ep is not None:
+                entry.install(ep)
+                return
+        if pcache is None and not telemetry:
+            return
+        if entry.plan.needs_vjp:
+            entry.aot_failed = True
+            _log.structured("aot_export_skipped", key=entry.key_id,
+                            error="a training step (vjp_grad) is not "
+                            "serializable")
+            return
+        t0 = time.perf_counter()
+        try:
+            with _tracing.span("executorTrace", key=entry.key_id):
+                ep = _export(entry.fn, call.args, self.device)
+        except Exception as e:
+            entry.aot_failed = True
+            _log.structured("aot_export_skipped", key=entry.key_id,
+                            error=repr(e))
+            return
+        t1 = time.perf_counter()
+        entry.install(ep)
+        if telemetry:
+            _TRACE_SECONDS.labels(key=entry.key_id).set(t1 - t0)
+            if self.device.type != "cuda":
+                # the executable is the program's module: made above
+                _COMPILE_SECONDS.labels(key=entry.key_id).set(
+                    time.perf_counter() - t1)
+            try:
+                flops, nbytes = _cost(ep)
+                _STEP_FLOPS.labels(key=entry.key_id).set(float(flops))
+                _STEP_BYTES.labels(key=entry.key_id).set(float(nbytes))
+            except Exception:
+                pass  # cost counting is best-effort, as the reference's
+        if pcache is not None:
+            pcache.store(entry.pkey, ep, self.device)
+
+    def _capture(self, call):
+        """Capture ``call``'s step into a CUDA graph over the scope's
+        state as ``call`` holds it and static copies of its feeds (the
+        entry has run before, which warmed it). Written state is copied
+        into the scope's own tensors in the graph. Returns the _Graph, or
+        None with the entry marked (logged ``executor_capture_failed``)."""
+        entry = call.entry
+        state_rw, state_ro = call.state_rw, call.state_ro
+        feed = {n: t.clone() for n, t in call.feed.items()}
+        args = (state_rw, state_ro, feed)
+
+        def body():
+            new_state, fetches, guards = entry.execute(args)
+            for n, v in new_state.items():
+                if v is not state_rw[n]:
+                    state_rw[n].copy_(v)
+            return fetches, guards
+
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+            self._capture_stream = torch.cuda.Stream(self.device)
+        g = _Graph()
+        g.graph = torch.cuda.CUDAGraph()
+        stream = self._capture_stream
+        before = _launches.snapshot()
+        t0 = time.perf_counter()
+        stream.wait_stream(torch.cuda.current_stream(self.device))
+        try:
+            with _tracing.span("executorCompile", key=entry.key_id), \
+                    _build.capture_buffers() as buffers, \
+                    torch.cuda.stream(stream):
+                _warm_handles(self.device)
+                g.graph.capture_begin(pool=self._pool,
+                                      capture_error_mode="thread_local")
+                try:
+                    g.fetches, g.guards = body()
+                except BaseException:
+                    try:
+                        g.graph.capture_end()
+                    except Exception:
+                        pass
+                    raise
+                g.graph.capture_end()
+        except Exception as e:
+            entry.graph_failed = True
+            self._captures["failed"] += 1
+            CAPTURES["failed"] += 1
+            _log.structured("executor_capture_failed", key=entry.key_id,
+                            error=repr(e))
+            return None
+        finally:
+            g.launches = _launches.since(before)
+            _launches.add(g.launches, -1)   # a capture launches nothing
+        torch.cuda.current_stream(self.device).wait_stream(stream)
+        if _config.get_flag("telemetry"):
+            _COMPILE_SECONDS.labels(key=entry.key_id).set(
+                time.perf_counter() - t0)
+        g.scope = weakref.ref(call.scope)
+        g.state = dict(state_ro)
+        g.state.update(state_rw)
+        g.feed = feed
+        g.buffers = buffers
+        self._captures["captures"] += 1
+        CAPTURES["captures"] += 1
+        return g
+
+    def _note_writes(self, call, new_state):
+        """After a run op by op: whether the entry's step can be captured,
+        a forward program on the card whose written state all lives in
+        the scope with the shapes and dtypes the step writes (a state
+        variable's first write waits for the next run)."""
+        entry = call.entry
+        if not graphs_on(self.device) or entry.graph_failed or \
+                entry.plan.needs_vjp:
+            return False
         for n, v in new_state.items():
-            scope.set_var(n, v)
-        if return_numpy:
-            fetches = [_to_numpy(v) for v in fetches]
-        if trace.nan_guards:
-            # Per-op output scan (reference framework/executor.cc:120-128).
-            bad = [k for k, ok in trace.nan_guards.items() if not bool(ok)]
-            if bad:
-                raise FloatingPointError(
-                    "NaN/Inf detected in op outputs: %s" % ", ".join(bad))
+            if n not in call.state_rw:
+                return False
+            cur = call.scope.find_var(n)
+            if not isinstance(cur, torch.Tensor) or cur.shape != v.shape \
+                    or cur.dtype != v.dtype:
+                entry.graph_failed = True
+                _log.structured("executor_capture_skipped",
+                                key=entry.key_id, var=n)
+                return False
+        return True
+
+    def _replay(self, call):
+        g = call.entry.graph
+        for n, t in call.feed.items():
+            g.feed[n].copy_(t)
+        g.graph.replay()
+        _launches.add(g.launches)
+        self._captures["replays"] += 1
+        CAPTURES["replays"] += 1
+        return g.fetches, g.guards
+
+    def run(self, program=None, feed=None, fetch_list=None, scope=None,
+            return_numpy=True, donate_state=True):
+        call = self._prepare(program, feed, fetch_list, scope, donate_state)
+        entry, scope = call.entry, call.scope
+        if entry.aot is None and not entry.aot_failed and (
+                entry.pkey is not None or
+                (entry.ran and _config.get_flag("telemetry"))):
+            # entry.pkey doubles as the "persistent cache armed" gate;
+            # telemetry exports at an entry's second run, so a program
+            # run once (a startup: tens of thousands of random-bit ops)
+            # is never traced for it
+            self._aot(call)
+        g = entry.graph
+        if g is not None:
+            owner = g.scope()
+            state = dict(call.state_ro)
+            state.update(call.state_rw)
+            if owner is scope and not g.matches(state):
+                # the scope's state was replaced (a swap, a load): the
+                # graph reads the old tensors; recapture now
+                entry.graph = g = None
+                self._compiles += 1
+                self._captures["recaptures"] += 1
+                CAPTURES["recaptures"] += 1
+            elif owner is None:
+                entry.graph = g = None
+            # else another scope's run (a canary) runs op by op and the
+            # graph stays
+        if g is None and entry.capturable:
+            entry.graph = g = self._capture(call)
+        if g is not None and g.scope() is scope:
+            fetches, guards = self._replay(call)
+            fetches = [_to_numpy(v) if return_numpy else v.clone()
+                       for v in fetches]
+        else:
+            new_state, fetches, guards = entry.execute(call.args)
+            for n, v in new_state.items():
+                scope.set_var(n, v)
+            entry.ran = True
+            entry.capturable = self._note_writes(call, new_state)
+            if return_numpy:
+                fetches = [_to_numpy(v) for v in fetches]
+        _check_guards(guards)
         return fetches
+
+
+def _warm_handles(device):
+    """Make this thread's cuBLAS, cuBLASLt and cuDNN handles on the
+    current stream before a capture: a thread whose runs so far were
+    all replays (a replica's worker after a swap) has none, and creating
+    one inside a capture fails."""
+    torch.cuda.current_blas_handle()
+    x = torch.ones((2, 8, 4, 4), device=device)
+    torch.nn.functional.linear(x[0, 0], x[0, 0], x[0, 0, 0])
+    torch.nn.functional.conv2d(x, x[:, :, :1, :1])
+
+
+def graphs_on(device):
+    """Whether forward steps on ``device`` are captured as CUDA graphs
+    (the card's are)."""
+    return device.type == "cuda"
+
+
+def _check_guards(guards):
+    # Per-op output scan (reference framework/executor.cc:120-128).
+    if guards:
+        bad = [k for k, ok in guards.items() if not bool(ok)]
+        if bad:
+            raise FloatingPointError(
+                "NaN/Inf detected in op outputs: %s" % ", ".join(bad))

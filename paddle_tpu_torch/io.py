@@ -621,11 +621,12 @@ def save_inference_model(dirname, feeded_var_names, target_vars, executor,
     """Export the program pruned to ``target_vars`` and its parameters
     for inference (reference save_inference_model). ``quantize="int8"``
     rewrites the exported weights to per-output-channel int8
-    (``serving/quant.py``). ``export_compiled=True`` asks
-    ``serving/deploy.py`` for AOT executables, which the port does not
-    make yet: the artifact ships without ``compiled/``, as the
-    reference's does on a backend that cannot serialize executables.
-    Every member is sha256-digested into ``manifest.json``."""
+    (``serving/quant.py``). ``export_compiled=True`` embeds each serving
+    bucket's exported step under ``compiled/`` (``serving/deploy.py``
+    ``export_compiled_buckets``, on the executor's device; the buckets
+    are ``export_buckets`` or the ``serving_buckets`` flag), which a
+    ServingEngine primes from. Every member is sha256-digested into
+    ``manifest.json``."""
     program = main_program or default_main_program()
     program = prune_program(program, [v.name for v in target_vars])
     os.makedirs(dirname, exist_ok=True)
@@ -647,6 +648,8 @@ def save_inference_model(dirname, feeded_var_names, target_vars, executor,
         shutil.rmtree(stale, ignore_errors=True)
     if export_compiled:
         from .serving import deploy as _deploy
+        # the export of an int8 artifact loads it, verified
+        write_artifact_manifest(dirname)
         _deploy.export_compiled_buckets(
             dirname, scope=scope if scope is not None else global_scope(),
             buckets=export_buckets, place=getattr(executor, "device", None))
@@ -661,7 +664,8 @@ def load_inference_model(dirname, executor, scope=None,
     (utils/merge_model.py). Artifacts with a ``manifest.json`` are
     digest-verified before the params are trusted (corruption raises
     ValueError); legacy manifest-less artifacts load with a one-time
-    warning. ``compiled/`` members are never loaded.
+    warning. ``compiled/`` members are not loaded here (a ServingEngine
+    primes from them).
 
     An int8 export (``quant.json``) is dequantized to float32 here, so
     every loader is quant-agnostic, unless ``quant_compute=True``

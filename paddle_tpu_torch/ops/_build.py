@@ -10,6 +10,7 @@ the headers) is reused; a header shared by two sources makes both
 stale.
 """
 
+import contextlib
 import ctypes
 import os
 import re
@@ -167,10 +168,28 @@ def stream(device):
     return torch._C._cuda_getCurrentRawStream(device.index)
 
 
+@contextlib.contextmanager
+def capture_buffers():
+    """While a CUDA graph is captured on this thread: the scratch and
+    counter buffers its launches take come from a dict of their own,
+    which this yields and the graph's holder keeps. A graph bakes in the
+    buffers' addresses; the thread's own dict drops a buffer when a larger
+    request grows it, which would leave a graph reading freed memory."""
+    prev = getattr(_local, "capture", None)
+    bufs = _local.capture = {}
+    try:
+        yield bufs
+    finally:
+        _local.capture = prev
+
+
 def _buffers(device, stream):
     """The calling thread's [scratch, counters] for launches on ``stream``
-    on ``device`` (None until first asked for)."""
-    bufs = getattr(_local, "buffers", None)
+    on ``device`` (None until first asked for); under
+    :func:`capture_buffers`, the capture's."""
+    bufs = getattr(_local, "capture", None)
+    if bufs is None:
+        bufs = getattr(_local, "buffers", None)
     if bufs is None:
         bufs = _local.buffers = {}
     key = (device.index, stream)

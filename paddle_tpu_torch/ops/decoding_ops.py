@@ -36,7 +36,9 @@ NEG_INF = -1e30
 
 
 def _f32(value, device):
-    return torch.tensor(value, dtype=torch.float32, device=device)
+    # a fill on the device, not a copy from the host: a captured step
+    # (core/executor.py) may make it
+    return torch.full((), value, dtype=torch.float32, device=device)
 
 
 def filtered_logits(logits, temperature=1.0, top_k=0, top_p=1.0):

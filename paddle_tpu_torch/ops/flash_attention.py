@@ -53,17 +53,28 @@ the ``generation_kv_dtype`` flag); q, the output and all arithmetic
 stay float32, the cache upcast at the contraction as the reference
 does. The plain versions upcast the caches before their einsums.
 
-A wrapper given CPU tensors computes the plain version (the CPU tests
-rely on it). Given CUDA tensors it launches the kernel or raises: there
-is no fallback. Each wrapper counts its kernel launches in
+B2's forward, B4 and B5 are torch ops (``torch.library.custom_op``) in
+the ``paddle_tpu_torch`` namespace: ``flash_attention_fwd``,
+``decode_attention`` and ``decode_attention_paged``, each with a fake
+implementation that only computes shapes, the plain version as its CPU
+implementation and the kernel as its CUDA one. So ``torch.export`` keeps
+each as one node of a program's graph (``core/executor.py`` ``lower``),
+and a graph exported on the CPU launches the kernels when it runs on
+the card. The wrappers check shapes and devices and call the ops (or,
+eagerly, the op's implementation for the device, :func:`_eager`): a
+wrapper given CPU tensors computes the plain version (the CPU tests rely
+on it); given CUDA tensors it launches the kernel or raises: there is no
+fallback. Each CUDA implementation counts its kernel launches in
 ``<wrapper>.launches``; :func:`flash_attention` also counts its bfloat16
 launches in ``flash_attention.launches_bf16``.
 """
 
 import collections
 import functools
+from typing import Optional
 
 import torch
+from torch.utils._python_dispatch import _get_current_dispatch_mode
 
 from . import _build
 
@@ -135,6 +146,18 @@ def _on_cpu(*tensors):
     return True
 
 
+def _eager(*tensors):
+    """True when a wrapper may call its op's implementation for the
+    tensors' device directly: plain tensors, no dispatch mode watching.
+    An export, a fake-tensor trace or a FLOP count sees subclassed
+    tensors or a mode, and goes through the op, which it records as one
+    node; the dispatcher's own cost (tens of µs a call on the host) is
+    kept off the eager path, where B3 alone runs 73 times a decode
+    step."""
+    return _get_current_dispatch_mode() is None and all(
+        type(t) is torch.Tensor for t in tensors if t is not None)
+
+
 def _check_input(name, t, dtype=torch.float32):
     _require(t.dtype == dtype, "%s must be %s, got %s", name, dtype, t.dtype)
     _require(t.is_contiguous(), "%s must be contiguous", name)
@@ -201,6 +224,32 @@ def _check_flash(q, k, v, segment_ids):
         _require(segment_ids.dtype == torch.int32
                  and segment_ids.is_contiguous(),
                  "segment_ids must be contiguous int32")
+
+
+@torch.library.custom_op("paddle_tpu_torch::flash_attention_fwd",
+                         mutates_args=(), device_types="cpu")
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        segment_ids: Optional[torch.Tensor],
+                        causal: bool) -> torch.Tensor:
+    """B2's forward as a torch op on [B, H, T, D] inputs: on the CPU the
+    plain version, on the card the kernel at the path's tile."""
+    return flash_attention_plain(q, k, v, causal, segment_ids)
+
+
+@flash_attention_fwd.register_kernel("cuda")
+def _flash_attention_fwd_cuda(q, k, v, segment_ids, causal):
+    _check_flash(q, k, v, segment_ids)
+    out = _launch_flash(q, k, v, segment_ids, causal,
+                        PATH_TILES[q.shape[-1]])
+    flash_attention.launches += 1
+    if q.dtype == torch.bfloat16:
+        flash_attention.launches_bf16 += 1
+    return out
+
+
+@flash_attention_fwd.register_fake
+def _flash_attention_fwd_fake(q, k, v, segment_ids, causal):
+    return torch.empty_like(q)
 
 
 def _launch_flash(q, k, v, segment_ids, causal, tile):
@@ -299,21 +348,21 @@ def _flash_backward(q, k, v, seg, g, causal, block_q):
 
 
 class _Flash(torch.autograd.Function):
-    """Forward: kernel B2 on CUDA inputs, the plain version on CPU ones;
-    saved for the backward: q, k, v and the segment ids only (reference
-    ``_flash_fwd``), never the probabilities."""
+    """Forward: the op :func:`flash_attention_fwd` (kernel B2 on CUDA
+    inputs, the plain version on CPU ones); saved for the backward: q, k,
+    v and the segment ids only (reference ``_flash_fwd``), never the
+    probabilities."""
 
     @staticmethod
     def forward(ctx, q, k, v, segment_ids, causal, block_q):
-        if _on_cpu(q, k, v, segment_ids):
+        cpu = _on_cpu(q, k, v, segment_ids)
+        if not _eager(q, k, v, segment_ids):
+            out = torch.ops.paddle_tpu_torch.flash_attention_fwd(
+                q, k, v, segment_ids, causal)
+        elif cpu:
             out = flash_attention_plain(q, k, v, causal, segment_ids)
         else:
-            _check_flash(q, k, v, segment_ids)
-            out = _launch_flash(q, k, v, segment_ids, causal,
-                                PATH_TILES[q.shape[-1]])
-            flash_attention.launches += 1
-            if q.dtype == torch.bfloat16:
-                flash_attention.launches_bf16 += 1
+            out = _flash_attention_fwd_cuda(q, k, v, segment_ids, causal)
         ctx.save_for_backward(q, k, v, segment_ids)
         ctx.causal, ctx.block_q = causal, block_q
         return out
@@ -422,23 +471,46 @@ def decode_attention(q, k_cache, v_cache, lengths, num_heads):
              "H*D = %d not divisible by %d heads", hd, num_heads)
     _require(tuple(lengths.shape) == (s,),
              "lengths must be [S] = [%d], got %s", s, tuple(lengths.shape))
-    c = k_cache.shape[1]
+    cpu = _on_cpu(q, k_cache, v_cache, lengths)
+    if _eager(q, k_cache, v_cache, lengths):
+        impl = decode_attention_plain if cpu else _decode_attention_cuda
+    else:
+        impl = torch.ops.paddle_tpu_torch.decode_attention
+    return impl(q, k_cache, v_cache, lengths, num_heads)
+
+
+decode_attention.launches = 0
+
+
+@torch.library.custom_op("paddle_tpu_torch::decode_attention",
+                         mutates_args=(), device_types="cpu")
+def decode_attention_op(q: torch.Tensor, k_cache: torch.Tensor,
+                        v_cache: torch.Tensor, lengths: torch.Tensor,
+                        num_heads: int) -> torch.Tensor:
+    """:func:`decode_attention` as a torch op: on the CPU the plain
+    version, on the card kernel B4."""
+    return decode_attention_plain(q, k_cache, v_cache, lengths,
+                                  num_heads)
+
+
+@decode_attention_op.register_kernel("cuda")
+def _decode_attention_cuda(q, k_cache, v_cache, lengths, num_heads):
+    s, hd = q.shape
     d = hd // num_heads
-    if _on_cpu(q, k_cache, v_cache, lengths):
-        return decode_attention_plain(q, k_cache, v_cache, lengths,
-                                      num_heads)
     kind = _check_decode_inputs(q, k_cache, v_cache)
     _require(d in _HEAD_DIMS, "head dim %d not in %s", d, _HEAD_DIMS)
     _require(lengths.dtype == torch.int32 and lengths.is_contiguous(),
              "lengths must be contiguous int32")
     out = _launch_dense(q, k_cache, v_cache, lengths, num_heads,
-                        _split_plan(s, num_heads, d, c),
+                        _split_plan(s, num_heads, d, k_cache.shape[1]),
                         _build.entry("decode_attention_" + kind))
     decode_attention.launches += 1
     return out
 
 
-decode_attention.launches = 0
+@decode_attention_op.register_fake
+def _decode_attention_fake(q, k_cache, v_cache, lengths, num_heads):
+    return torch.empty_like(q)
 
 
 def _launch_dense(q, k_cache, v_cache, lengths, num_heads, plan, fn,
@@ -543,12 +615,37 @@ def decode_attention_paged(q, k_pool, v_pool, lengths, tables, num_heads):
              and tables.shape[1] >= 1,
              "tables must be [S, MB] = [%d, MB >= 1], got %s", s,
              tuple(tables.shape))
+    cpu = _on_cpu(q, k_pool, v_pool, lengths, tables)
+    if _eager(q, k_pool, v_pool, lengths, tables):
+        impl = _decode_paged_reference if cpu \
+            else _decode_attention_paged_cuda
+    else:
+        impl = torch.ops.paddle_tpu_torch.decode_attention_paged
+    return impl(q, k_pool, v_pool, lengths, tables, num_heads)
+
+
+decode_attention_paged.launches = 0
+
+
+@torch.library.custom_op("paddle_tpu_torch::decode_attention_paged",
+                         mutates_args=(), device_types="cpu")
+def decode_attention_paged_op(q: torch.Tensor, k_pool: torch.Tensor,
+                              v_pool: torch.Tensor, lengths: torch.Tensor,
+                              tables: torch.Tensor,
+                              num_heads: int) -> torch.Tensor:
+    """:func:`decode_attention_paged` as a torch op: on the CPU the plain
+    version, on the card kernel B5."""
+    return _decode_paged_reference(q, k_pool, v_pool, lengths, tables,
+                                   num_heads)
+
+
+@decode_attention_paged_op.register_kernel("cuda")
+def _decode_attention_paged_cuda(q, k_pool, v_pool, lengths, tables,
+                                 num_heads):
+    s, hd = q.shape
     nb, bs, _ = k_pool.shape
     mb = tables.shape[1]
     d = hd // num_heads
-    if _on_cpu(q, k_pool, v_pool, lengths, tables):
-        return _decode_paged_reference(q, k_pool, v_pool, lengths, tables,
-                                       num_heads)
     kind = _check_decode_inputs(q, k_pool, v_pool)
     _require(d in _HEAD_DIMS, "head dim %d not in %s", d, _HEAD_DIMS)
     _require(nb >= 1 and bs >= 1, "empty pool %s", tuple(k_pool.shape))
@@ -562,7 +659,10 @@ def decode_attention_paged(q, k_pool, v_pool, lengths, tables, num_heads):
     return out
 
 
-decode_attention_paged.launches = 0
+@decode_attention_paged_op.register_fake
+def _decode_attention_paged_fake(q, k_pool, v_pool, lengths, tables,
+                                 num_heads):
+    return torch.empty_like(q)
 
 
 def _launch_paged(q, k_pool, v_pool, lengths, tables, num_heads, plan, fn,

@@ -35,10 +35,14 @@ cluster, add their exact int32 sums through distributed shared memory
 before the f32 epilogue, so the output stays bitwise the plain
 version's. At prefill a tiled GEMM, the tile chosen by :func:`_plan`.
 The scratch is allocated once per device and stream and reused
-(``_build.scratch``). On CPU tensors it computes the plain version; on
-CUDA tensors it launches the kernel or raises, and counts launches in
-``quant_matmul_2d.launches``, and apart by ``(m, k, n)`` in
-``quant_matmul_2d.launches_by_shape``.
+(``_build.scratch``). The quantize pass and the product are one torch op,
+``paddle_tpu_torch::int8_matmul`` (:func:`int8_matmul`: a fake
+implementation for shapes, the plain version on the CPU, the kernel on
+the card), so an exported program keeps it as one node; an eager call
+takes the implementation directly (``flash_attention._eager``). On CPU tensors
+it computes the plain version; on CUDA tensors it launches the kernel or
+raises, and counts launches in ``quant_matmul_2d.launches``, and apart by
+``(m, k, n)`` in ``quant_matmul_2d.launches_by_shape``.
 
 The executor's armed-program hook :func:`maybe_quant_compute` (a program
 tagged by ``serving/quant.py`` ``arm_quant_compute(programs, scope)``)
@@ -57,7 +61,7 @@ import torch.nn.functional as F
 
 from ..observability import metrics as _metrics
 from . import _build
-from .flash_attention import _on_cpu, _require
+from .flash_attention import _eager, _on_cpu, _require
 
 __all__ = ["QUANT_COMPUTE_TYPES", "SCALE_SUFFIX", "scale_var_name",
            "quantize_rows", "int8_matmul_plain", "quant_matmul_2d",
@@ -78,14 +82,15 @@ INV_127 = float(torch.tensor(1.0, dtype=torch.float32) / 127.0)
 SCALE_SUFFIX = "@quant.scale"
 
 # the reference's trace-time counter, one count per armed op per
-# compiled program. The port compiles no programs: a generation session
-# counts once per armed product the first time it runs each of its
-# program shapes (a prefill bucket, the decode step, the verify forward;
-# ``serving.generation.GenerationSession``), the executor once per armed
-# op the first time it runs each program version with one fetch list and
-# tag (:func:`maybe_quant_compute`). The path is "pallas" for kernel B3
-# (a CUDA tensor), "dense" for its plain version (the CPU) and for every
-# int8 conv2d
+# compiled program. A generation session on the module route counts once
+# per armed product the first time it runs each of its program shapes (a
+# prefill bucket, the decode step, the verify forward;
+# ``serving.generation.GenerationSession``); the executor counts once per
+# armed op the first time it runs each program version with one fetch
+# list and tag (:func:`maybe_quant_compute`), whatever the feed
+# signatures of its cache entries: an entry's export, capture and replays
+# add nothing. The path is "pallas" for kernel B3 (a CUDA tensor), "dense"
+# for its plain version (the CPU) and for every int8 conv2d
 QUANT_COMPUTE_OPS = _metrics.REGISTRY.counter(
     "paddle_quant_compute_ops_total",
     "Quantized-compute op lowerings traced, by op type and path "
@@ -230,13 +235,36 @@ def quant_matmul_2d(x2, wq, w_scale):
     _require(x2.dim() == 2 and wq.dim() == 2 and x2.shape[1] == wq.shape[0],
              "x2 [m, k] and wq [k, n] do not chain: %s %s",
              tuple(x2.shape), tuple(wq.shape))
+    _require(wq.dtype == torch.int8, "wq must be int8, got %s", wq.dtype)
+    _require(w_scale.shape[0] == wq.shape[1],
+             "w_scale must have n = %d entries, got %d", wq.shape[1],
+             w_scale.shape[0])
+    cpu = _on_cpu(x2, wq, w_scale)
+    if _eager(x2, wq, w_scale):
+        impl = int8_matmul_plain if cpu else _int8_matmul_cuda
+    else:
+        impl = torch.ops.paddle_tpu_torch.int8_matmul
+    return impl(x2, wq, w_scale)
+
+
+quant_matmul_2d.launches = 0
+quant_matmul_2d.launches_by_shape = collections.Counter()
+
+
+@torch.library.custom_op("paddle_tpu_torch::int8_matmul", mutates_args=(),
+                         device_types="cpu")
+def int8_matmul(x2: torch.Tensor, wq: torch.Tensor,
+                w_scale: torch.Tensor) -> torch.Tensor:
+    """B3's quantize pass and product as a torch op (x2 f32 [m, k], wq
+    int8 [k, n], w_scale f32 [n]): on the CPU the plain version, on the
+    card the kernel."""
+    return int8_matmul_plain(x2, wq, w_scale)
+
+
+@int8_matmul.register_kernel("cuda")
+def _int8_matmul_cuda(x2, wq, w_scale):
     m, k = x2.shape
     n = wq.shape[1]
-    _require(wq.dtype == torch.int8, "wq must be int8, got %s", wq.dtype)
-    _require(w_scale.numel() == n,
-             "w_scale must have n = %d entries, got %d", n, w_scale.numel())
-    if _on_cpu(x2, wq, w_scale):
-        return int8_matmul_plain(x2, wq, w_scale)
     _require(m >= 1 and k >= 1 and n >= 1,
              "empty product %s", (m, k, n))
     _require(x2.is_contiguous() and wq.is_contiguous()
@@ -250,8 +278,9 @@ def quant_matmul_2d(x2, wq, w_scale):
     return out
 
 
-quant_matmul_2d.launches = 0
-quant_matmul_2d.launches_by_shape = collections.Counter()
+@int8_matmul.register_fake
+def _int8_matmul_fake(x2, wq, w_scale):
+    return x2.new_empty((x2.shape[0], wq.shape[1]), dtype=torch.float32)
 
 
 def _launch(x2, wq, w_scale, plan):

@@ -46,6 +46,10 @@ F32_TINY = torch.finfo(torch.float32).tiny
 def _u32(x, device=None):
     """An int64 tensor holding the uint32 value of ``x`` (an int, a numpy
     array or a tensor), wrapped modulo 2**32 as a cast to uint32 wraps."""
+    if isinstance(x, int):
+        # a fill on the device, not a copy from the host: a captured
+        # step (core/executor.py) may make it
+        return torch.full((), x & _MASK, dtype=torch.int64, device=device)
     return torch.as_tensor(x, device=device).to(torch.int64) & _MASK
 
 
@@ -125,8 +129,8 @@ def uniform(key, n, minval=0.0, maxval=1.0):
     and rounded once."""
     bits = (random_bits(key, n) >> 9) | 0x3F800000
     floats = bits.to(torch.int32).view(torch.float32) - 1.0
-    lo = torch.tensor(minval, dtype=torch.float32, device=key.device)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=key.device)
+    lo = torch.full((), minval, dtype=torch.float32, device=key.device)
+    hi = torch.full((), maxval, dtype=torch.float32, device=key.device)
     scaled = (floats.double() * (hi - lo).double() + lo.double()).float()
     return torch.maximum(lo, scaled)
 
@@ -182,8 +186,8 @@ def _f32(v):
 def normal(key, n):
     """``jax.random.normal(key, (n,), float32)``: ``sqrt(2) *
     erf_inv(u)``, within 2 ulp of JAX's (see :func:`_erf_inv`)."""
-    return torch.tensor(_f32(math.sqrt(2.0)), dtype=torch.float32,
-                        device=key.device) * _erf_inv_uniform(key, n)
+    return torch.full((), _f32(math.sqrt(2.0)), dtype=torch.float32,
+                      device=key.device) * _erf_inv_uniform(key, n)
 
 
 def _float32_draw(ctx):

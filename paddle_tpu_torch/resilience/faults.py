@@ -51,6 +51,10 @@ site                            where / what
 ``serving_overload``            MicroBatcher.submit; ``index`` is the
                                 submit sequence number: a firing sheds
                                 the submit (ServingOverloadError)
+``cache_corrupt``               PersistentCompileCache.load, before the
+                                manifest read: a raising spec is treated
+                                exactly like on-disk corruption (the entry
+                                is quarantined and the caller rebuilds)
 ``swap_bad_artifact``           ServingEngine.swap_weights, at the start
                                 of validation (the push is rejected)
 ``swap_canary_fail``            ServingEngine.swap_weights, before the

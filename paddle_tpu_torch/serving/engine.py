@@ -11,7 +11,8 @@ directory or a merged single file) once and serves batches of it:
   largest bucket runs unpadded and is counted as an overflow.
 * **warmup**: each bucket runs once on each replica at construction, so
   the first user request pays no first-run cost (kernel builds, cuBLAS
-  handles, the executor's plan).
+  handles, the executor's cache entry and, on the card, its CUDA graph);
+  an artifact with a ``compiled/`` index primes the entries from it.
 * **device replicas**: each replica has its own executor and its own
   scope holding its own copy of the weights, on the device
   ``devices[i % len(devices)]`` of the executor's kind (two replicas on
@@ -39,11 +40,17 @@ Differences by design from the reference:
   B3, B4 and B5 keep their scratch per thread, so a fresh thread would
   allocate it anew every batch. A wedged worker stays its replica's,
   and the replica fails fast until it returns.
-* a ``compiled/`` index (the reference's AOT executables, pickled XLA
-  blobs) is never unpickled: warmup counts one
-  ``paddle_deploy_aot_fallbacks_total`` per indexed bucket and replica,
-  logs ``aot_prime_fallback`` and runs the program (ROADMAP Queue A,
-  "The compile cache and AOT").
+* a ``compiled/`` index written by the reference (pickled XLA
+  executables, its ``env`` naming jax) is never unpickled: warmup counts
+  one ``paddle_deploy_aot_fallbacks_total`` per indexed bucket and
+  replica, logs ``aot_prime_fallback`` and runs the program. The port's
+  own index (``serving/deploy.py`` ``export_compiled_buckets``: one
+  ``torch.export`` program a bucket) primes each replica's cache entry
+  (``_prime_bucket``), as the reference primes its executables.
+* on the card, warmup leaves every bucket of every replica captured as a
+  CUDA graph (``core/executor.py``), so no request pays a capture; a
+  weight swap's flip installs new tensors, and each replica's next batch
+  recaptures against them.
 
 ``swap_weights`` hot-swaps the weights (validate, canary, flip, watch,
 rollback; ``serving/deploy.py``'s counters). Staged weights are copied
@@ -77,6 +84,8 @@ import torch
 
 from .. import config as _config
 from .. import io as _io
+from ..core import compile_cache as _cc
+from ..core import executor as _executor
 from ..core.executor import Executor
 from ..core.scope import Scope
 from ..observability import health as _health
@@ -298,8 +307,7 @@ class ServingEngine:
             # True from the instant a watch failure DECIDES to roll back
             # until the restore flip lands
             self._rollback_pending = False
-            # a reference artifact's compiled/ index: read to count the
-            # fallbacks warmup takes, never deserialized
+            # the artifact's compiled/ index, primed from at warmup
             self._aot_index = _deploy.load_compiled_index(artifact_dir) \
                 if use_exported else None
 
@@ -742,6 +750,8 @@ class ServingEngine:
                 worker, rep.worker = rep.worker, None
             if worker is not None:
                 worker.stop()
+            # the replica's captured buckets hold its weights
+            rep.exe.release_graphs()
         unpacked, self._unpacked_dir = self._unpacked_dir, None
         if unpacked is not None:
             shutil.rmtree(unpacked, ignore_errors=True)
@@ -1102,27 +1112,71 @@ class ServingEngine:
         return True
 
     # -- startup ---------------------------------------------------------
-    def _aot_fallback(self, bucket):
-        """A bucket the artifact's ``compiled/`` index lists: its blob is
-        a pickled XLA executable, which the port never loads, so each
-        replica counts the reference's fallback and runs the program."""
-        entry = (self._aot_index or {}).get("buckets", {}).get(str(bucket))
+    def _prime_bucket(self, bucket, feed):
+        """Prime one bucket from the artifact's exported program instead
+        of building it (reference ``_prime_bucket``): the index must name
+        this runtime and environment (a reference index names jax: its
+        pickled blob is never read), the replica's device must be the
+        exporting one, the blob's sha256 must match the index, and it is
+        deserialized once for every replica; each replica's
+        ``prime_aot`` is gated by the executor cache digest. Returns
+        {replica index: cache entry} of the replicas primed (warmup runs
+        each and only THEN counts the AOT load, or a fallback if the call
+        degraded); every miss here is a counted fallback."""
+        index = self._aot_index
+        entry = (index or {}).get("buckets", {}).get(str(bucket))
         if entry is None:
-            return
+            return {}
+        env = (index or {}).get("env") or {}
+        compiled = None
+        primed = {}
         for rep in self.replicas:
-            _deploy.AOT_FALLBACKS.inc()
-            _log.structured("aot_prime_fallback", bucket=bucket,
-                            replica=rep.index,
-                            error="compiled/%s is an XLA executable; this "
-                            "backend runs the program" % entry.get("file"))
+            try:
+                if not entry.get("digest"):
+                    # no digest = no gate: never install a program the
+                    # executor cannot prove is THIS step
+                    raise ValueError(
+                        "index entry for bucket %d carries no executor "
+                        "digest" % bucket)
+                if env.get("runtime") != "torch":
+                    raise ValueError(
+                        "compiled/%s was exported by another runtime; "
+                        "this engine runs the program" % entry.get("file"))
+                if env != _cc.env_fingerprint(rep.device):
+                    raise ValueError("compiled/ was exported in another "
+                                     "environment")
+                if (rep.device.index or 0) != index.get("device_id"):
+                    raise ValueError(
+                        "replica device %d != exported device %r"
+                        % (rep.device.index or 0, index.get("device_id")))
+                if compiled is None:
+                    compiled = _cc.deserialize_compiled(
+                        _deploy.read_compiled_blob(self._artifact_dir,
+                                                   entry))
+                cache_entry = rep.exe.prime_aot(
+                    self.program, feed, self.fetch_names, rep.scope,
+                    compiled, expect_digest=entry["digest"])
+            except Exception as e:
+                _deploy.AOT_FALLBACKS.inc()
+                _log.structured("aot_prime_fallback", bucket=bucket,
+                                replica=rep.index, error=repr(e))
+                continue
+            # the primed execution is no compile (warmup counts one if
+            # the call degrades)
+            rep.seen.add(tuple(sorted((n, a.shape)
+                               for n, a in feed.items())))
+            primed[rep.index] = cache_entry
+        return primed
 
     def warmup(self, example_feed=None):
-        """Run every bucket on every replica ahead of traffic. Feature
-        dims come from the program's feed vars; a model with dynamic
-        (non-batch) dims needs ``example_feed`` — one example per feed
-        name, WITHOUT the batch dim. Returns the warmed buckets. The
-        smallest warmed bucket also becomes the breaker probe's
-        health-check execution."""
+        """Make every bucket on every replica ready ahead of traffic:
+        prime it from the artifact's exported program when one matches,
+        then run it once (on the card twice: the second run captures the
+        step). Feature dims come from the program's feed vars; a
+        model with dynamic (non-batch) dims needs ``example_feed`` — one
+        example per feed name, WITHOUT the batch dim. Returns the warmed
+        buckets. The smallest warmed bucket also becomes the breaker
+        probe's health-check execution."""
         specs = {}
         for name in self.feed_names:
             if example_feed is not None and name in example_feed:
@@ -1138,10 +1192,25 @@ class ServingEngine:
             feed = _deploy.synth_bucket_feed(specs, b)
             if feed is None:
                 continue  # dynamic feature dim, can't synthesize
-            if self._aot_index:
-                self._aot_fallback(b)
+            primed = self._prime_bucket(b, feed) if self._aot_index else {}
             for rep in self.replicas:
+                # a primed replica runs too: one batch through the
+                # installed program validates it now, and only a program
+                # that survives its call counts as an AOT load. On the
+                # card a second run captures the step
                 self._execute(rep, feed, b)
+                if _executor.graphs_on(rep.device):
+                    self._execute(rep, feed, b)
+                centry = primed.get(rep.index)
+                if centry is None:
+                    continue
+                if centry.aot is not None and not centry.aot_failed:
+                    _deploy.AOT_LOADS.inc()
+                else:
+                    _deploy.AOT_FALLBACKS.inc()
+                    _BUCKET_COMPILES.labels(bucket=b).inc()
+                    _log.structured("aot_prime_call_fallback", bucket=b,
+                                    replica=rep.index)
             if not warmed:
                 self._probe_feed = (feed, b)
             warmed.append(b)

@@ -654,9 +654,10 @@ class GenerationSession:
         """Free the caches; the session must not be used after. Paged:
         every block reference (slot tables and prefix pins) returns to
         the pool first, and the books are checked to balance at zero. The
-        draft closes with it. A program session releases its cache claim
-        and erases its caches from the scope, so a later session may take
-        the names. Idempotent."""
+        draft closes with it. A program session releases its cache claim,
+        erases its caches from the scope, so a later session may take
+        the names, and drops its executor's captured steps, which hold
+        them. Idempotent."""
         if self.draft is not None:
             self.draft.close()
             self.draft = None
@@ -679,6 +680,8 @@ class GenerationSession:
             for name in self._claimed:
                 self.scope.erase(name)
             self._claimed = set()
+            # the captured steps hold the caches the scope let go
+            self.exe.release_graphs()
         self.active[:] = False
 
     # -- decode-policy plumbing ------------------------------------------

@@ -7,8 +7,10 @@ A merged model is a plain zip of the inference dir's members
 ``quant.json`` for int8 exports, the sha256 ``manifest.json``, and any
 ``compiled/`` members) in the reference's layout, so a bundle written by
 either package unpacks in the other. The data members are pickle-free;
-``compiled/`` members are never loaded by the port (the engine counts a
-fallback for each and runs the program).
+``compiled/`` members are the exported bucket programs a ServingEngine
+primes from (``serving/deploy.py``), or a reference artifact's pickled
+executables, which the port never loads (the engine counts a fallback
+for each and runs the program).
 
 One difference by design: ``params.npz`` is stored, not deflated. The
 npz is itself a zip of raw arrays, and deflate gains a few percent on

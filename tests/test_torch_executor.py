@@ -137,8 +137,9 @@ def test_fetch_multiple_and_feed_shapes_respecialize():
                          scope=pc.Scope())
         assert yv.shape == (bs, 4)
         np.testing.assert_allclose(zv, 3 * xv)
-    # one plan for the program and fetch list, whatever the feed shapes
-    assert exe.compile_stats() == {"entries": 1, "compiles": 1}
+    # one cache entry for each feed signature, as the reference compiles
+    # one executable for each
+    assert exe.compile_stats() == {"entries": 3, "compiles": 3}
 
 
 def test_two_programs_share_scope_params():
@@ -352,9 +353,10 @@ def test_amp_is_read_at_each_run(flags):
                        return_numpy=False)
         dtypes.append(out.dtype)
     assert dtypes == [torch.float32, torch.bfloat16, torch.float32]
-    # one plan for the startup program, one for main: the flag is read
-    # at each run and plans nothing anew
-    assert exe.compile_stats()["compiles"] == 2
+    # one entry for the startup program and one for main under each amp
+    # setting, as the reference's key holds the flag: it is read at each
+    # run, and the third run finds the first's entry
+    assert exe.compile_stats()["compiles"] == 3
 
 
 def test_temporaries_leave_after_their_last_reader():
@@ -404,12 +406,30 @@ def test_no_edge_kept_for_an_output_without_gradient(monkeypatch):
 
 
 def test_what_is_not_ported_raises():
-    exe = _exe()
-    for call in (exe.lower, exe.cache_digest, exe.prime_aot,
-                 exe.as_jax_function):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP Queue A, \"The compile cache"):
-            call(pc.Program())
+    """Distribution strategies still raise. The AOT surface the reference
+    has is ported: ``lower`` gives the step's ExportedProgram,
+    ``cache_digest`` a stable digest, ``prime_aot`` installs a program
+    behind its digest and ``as_jax_function`` gives a pure function."""
+    main, startup = pc.Program(), pc.Program()
+    with pc.program_guard(main, startup):
+        x = layers.data("x", shape=[4])
+        h = layers.fc(x, 3)
+    exe, scope = _exe(), pc.Scope()
+    exe.run(startup, scope=scope)
+    feed = {"x": np.random.RandomState(0).randn(2, 4).astype("float32")}
+    want, = exe.run(main, feed=feed, fetch_list=[h], scope=scope)
+    ep = exe.lower(main, feed=feed, fetch_list=[h], scope=scope)
+    assert isinstance(ep, torch.export.ExportedProgram)
+    digest = exe.cache_digest(main, feed=feed, fetch_list=[h], scope=scope)
+    assert digest == _exe().cache_digest(main, feed=feed, fetch_list=[h],
+                                         scope=scope)
+    with pytest.raises(ValueError, match="digest"):
+        exe.prime_aot(main, feed, [h], scope, ep, expect_digest="0" * 64)
+    exe.prime_aot(main, feed, [h], scope, ep, expect_digest=digest)
+    got, = exe.run(main, feed=feed, fetch_list=[h], scope=scope)
+    np.testing.assert_array_equal(got, want)
+    fn, (state, tfeed) = exe.as_jax_function(main, feed, [h], scope=scope)
+    np.testing.assert_array_equal(fn(state, tfeed)[0].numpy(), want)
     with pytest.raises(NotImplementedError, match="Distribution"):
         pc.Executor(device="cpu", strategy=object())
     # narrow-wire feeds are ported: the declaration no longer raises

@@ -100,6 +100,14 @@ FAMILIES = sorted([
         "aot_loads_total", "aot_fallbacks_total", "swap_total",
         "swap_rolled_back_total", "cold_start_seconds",
         "swap_blackout_seconds")] + [
+    # the executor's step cache and the persistent compile cache,
+    # registered when core/executor.py and core/compile_cache.py are
+    # imported, as the reference's are
+    "paddle_executor_%s" % n for n in (
+        "cache_hits_total", "cache_misses_total", "trace_seconds",
+        "compile_seconds", "step_flops", "step_bytes")] + [
+    "paddle_deploy_cache_%s_total" % n for n in (
+        "hits", "misses", "quarantined", "evictions")] + [
     # the training pipeline's (trainer, staging, checkpoints, stat
     # timers): registered when their modules are imported, which this
     # file does in both packages
