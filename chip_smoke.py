@@ -172,6 +172,21 @@ and PyTorch built for CUDA. In order, it:
    decode step of the dense, f32 paged and int8/bf16 cells beside the
    nn.Module route with each step's device-busy share, and
    ``[captures]`` fails the run if any capture failed.
+19. the LeNet-5/MNIST slice, after the small program phases: every op
+   type the slice ports (118) on the card against the CPU on the same
+   inputs (``[ops]``, the cases of ``paddle_tpu_torch/probes/
+   op_cases.py``): outputs on the card, a warm second call reading
+   nothing back to the host, the 8 update rules in place over 3 steps,
+   the random ops' draws bitwise, ``auc``'s counts accumulated over 3
+   batches exact, the worst error of each op family against its
+   tolerance; and LeNet-5 (BASELINE config 1: conv 20 and 50 filters
+   5x5, pools 2x2, fc 10; batch 64, Adam(1e-3), the book test's
+   synthetic digits from the seed) through ``Executor.run``
+   (``[lenet]``): 5 steps on the card against the CPU from the same
+   startup weights, 50 steps to a mean accuracy above 0.9 over the last
+   10, the test program captured as a CUDA graph and its replay bitwise
+   the eager run, the step time, images/s, one step's busy share and
+   the peak memory.
 
 Any failed phase exits nonzero. The line before the last is the card's
 name and power limit from nvidia-smi; the one before that lists the
@@ -6100,6 +6115,301 @@ def engine_resnet(seed, tmp, card):
             % (r["res"], r["res"], saved, len(stats), err.split(" — ")[0],
                b1, card))
 
+# -- the LeNet-5/MNIST slice: the op library and LeNet-5 training ----------
+
+OPS_CARD_ULPS = 16          # transcendentals: CUDA's and the CPU's libm
+OPS_SUM_RTOL = 2e-5         # reductions, products: another order
+OPS_CONV_RTOL = 1e-4        # cuDNN's and the CPU's f32 convolutions
+OPS_STEPS = 3               # update-rule steps chained card and CPU
+LENET = dict(batch=64, lr=1e-3, compare_steps=5, train_steps=50,
+             acc_window=10, acc_floor=0.9, windows=5, window_steps=10)
+LENET_LOSS_RTOL = 1e-4      # 5 Adam steps, cuDNN against the CPU
+LENET_RULES = 6             # Adam's updates: 2 convolutions, the fc
+
+
+def ops_tolerance(case):
+    """The card-against-CPU tolerance of an op case: bitwise where the
+    port's compute is elementwise IEEE arithmetic or selection (the
+    case's own tolerance 0), else a family bound on max|card - cpu| /
+    max|cpu|."""
+    from paddle_tpu_torch.probes import op_cases as oc
+    if case.tol == oc.EXACT:
+        return 0.0
+    if case.tol == oc.ULP4:
+        return OPS_CARD_ULPS * 2.0 ** -23
+    if case.tol == oc.CONV:
+        return OPS_CONV_RTOL
+    return OPS_SUM_RTOL
+
+
+def op_call(case, inputs, device, inplace=False):
+    """A call of the port's op of ``case`` on ``inputs`` moved to
+    ``device`` (moved now, so the call itself copies nothing from the
+    host): returns {slot: [tensor]}, the outputs where the op put them.
+    ``inplace``: the update rules' outputs name their inputs, and the
+    executor's permission to write them in place is given."""
+    import types
+    import torch
+    from paddle_tpu_torch.core import registry
+    from paddle_tpu_torch.probes import op_cases as oc
+    op = oc.op_desc(case.op_type, inputs, case.attrs)
+    if inplace:
+        op.outputs = {oc.UPDATE_OUTPUTS[k]: [k] for k in inputs
+                      if k in oc.UPDATE_OUTPUTS}
+    vals = {k: [oc.to_torch(a, device) for a in
+                (v if isinstance(v, list) else [v])]
+            for k, v in inputs.items()}
+    key = torch.tensor(oc.KEY_WORDS, dtype=torch.int64, device=device) \
+        if case.key else None
+    trace = types.SimpleNamespace(device=torch.device(device),
+                                  inplace=inplace)
+    compute = registry.get_op_def(case.op_type).compute
+
+    def call():
+        ctx = registry.ExecContext(op, vals, rng_key=key, trace=trace)
+        with torch.no_grad():
+            return registry.normalize_outputs(op, compute(ctx))
+    return call
+
+
+def op_err(card, cpu):
+    """max|card - cpu| / max|cpu| over the finite elements, 0 where the
+    two are equal (infinities included: a max pool over a window of
+    padding is -inf in both packages); inf where only one is finite or
+    integers differ."""
+    import torch
+    a = card.cpu()
+    if torch.equal(a, cpu) or not cpu.numel():
+        return 0.0
+    if not cpu.is_floating_point():
+        return float("inf")
+    a, b = a.double(), cpu.double()
+    same = (a == b) | (torch.isnan(a) & torch.isnan(b))
+    if not bool((torch.isfinite(a) & torch.isfinite(b) | same).all()):
+        return float("inf")
+    diff = torch.where(same, torch.zeros_like(a), a - b)
+    finite = torch.where(torch.isfinite(b), b, torch.zeros_like(b))
+    return float(diff.abs().max() / max(float(finite.abs().max()), 1e-30))
+
+
+def phase_ops():
+    """[ops]: every op type of the LeNet-5/MNIST slice on the card against
+    the CPU on the same inputs (``probes/op_cases.py``'s cases): outputs
+    on the card (no op falls back to the CPU), none reading back to the
+    host on a warm second run (``torch.cuda`` sync debug mode "error",
+    what a captured step needs), the update rules in place over 3
+    steps, the random ops' threefry draws bitwise, ``auc``'s
+    accumulated counts over 3 batches exact; the worst error per family
+    against its tolerance."""
+    import torch
+    from paddle_tpu_torch.core import registry
+    from paddle_tpu_torch.probes import op_cases as oc
+    t0 = time.perf_counter()
+    worst = {}
+    checked = set()
+    for case in oc.CASES:
+        inputs = case.inputs()
+        family = oc.family(case.op_type)
+        tol = ops_tolerance(case)
+        rule = case.op_type in oc.UPDATE_RULES
+        steps = OPS_STEPS if rule else 1
+        state = {"cpu": dict(inputs), "cuda": dict(inputs)}
+        rs = np.random.RandomState(5)
+        for step in range(steps):
+            if rule:
+                grad = rs.standard_normal(
+                    inputs["Grad"].shape).astype(np.float32)
+                for d in state.values():
+                    d["Grad"] = grad
+            out = {dev: op_call(case, state[dev], dev, inplace=rule)()
+                   for dev in ("cpu", "cuda")}
+            if not rule:
+                # a warm second call reads nothing back to the host
+                again = op_call(case, state["cuda"], "cuda")
+                torch.cuda.synchronize()
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    again()
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            check(sorted(out["cuda"]) == sorted(out["cpu"]),
+                  "[ops] %s: slots %s against %s" % (case.id,
+                                                     sorted(out["cuda"]),
+                                                     sorted(out["cpu"])))
+            for slot, vals in out["cpu"].items():
+                for got, want in zip(out["cuda"][slot], vals):
+                    check(got.device.type == "cuda" and
+                          got.dtype == want.dtype and
+                          got.shape == want.shape,
+                          "[ops] %s %s: %s %s %s against %s %s" % (
+                              case.id, slot, got.device, got.dtype,
+                              tuple(got.shape), want.dtype,
+                              tuple(want.shape)))
+                    err = op_err(got, want)
+                    bound = tol * (step + 1)
+                    check(err <= bound, "[ops] %s %s step %d: card against "
+                          "CPU %.3g > %.3g" % (case.id, slot, step, err,
+                                               bound))
+                    ratio = err / bound if bound else 0.0
+                    if ratio >= worst.get(family, (-1.0,))[0]:
+                        worst[family] = (ratio, case.id, err, bound)
+            if rule:
+                for dev in ("cpu", "cuda"):
+                    for k in list(state[dev]):
+                        if k in oc.UPDATE_OUTPUTS:
+                            state[dev][k] = out[dev][oc.UPDATE_OUTPUTS[k]][
+                                0].cpu().numpy()
+        checked.add(case.op_type)
+    # auc's statistics accumulated over batches, as an evaluator sums them
+    auc = next(c for c in oc.CASES if c.op_type == "auc")
+    batches = [oc.Case("auc", auc.make, auc.attrs,
+                       name="batch%d" % b).inputs() for b in range(3)]
+    acc = {dev: sum(op_call(auc, inputs, dev)()["StatCounts"][0]
+                    for inputs in batches) for dev in ("cpu", "cuda")}
+    check(torch.equal(acc["cuda"].cpu(), acc["cpu"]) and
+          float(acc["cpu"].sum()) == 3 * auc.attrs["num_thresholds"] *
+          auc.inputs()["Out"].shape[0],
+          "[ops] auc's accumulated counts differ card to CPU")
+    slice_ops = set(oc.SLICE_OPS)
+    check(slice_ops <= checked and len(slice_ops) == 118 and
+          slice_ops <= set(registry.registered_ops()),
+          "[ops] checked %d of the slice's %d op types"
+          % (len(slice_ops & checked), len(slice_ops)))
+    print("[ops] %d op types of the slice checked card against CPU (%d "
+          "cases, the %d update rules over %d in-place steps, auc's counts "
+          "over 3 batches exact), in %.1f s" % (
+              len(slice_ops & checked), len(oc.CASES),
+              len(oc.UPDATE_RULES), OPS_STEPS, time.perf_counter() - t0))
+    for family in sorted(worst):
+        _, case_id, err, bound = worst[family]
+        print("[ops]   %-10s worst %-32s %.3g (tolerance %.3g)"
+              % (family, case_id, err, bound))
+
+
+def synth_digits(n, rs, img_shape=(1, 28, 28), n_classes=10):
+    """The book test's synthetic digits (``tests/test_book_mnist.py``):
+    noise with a class-dependent blob."""
+    y = rs.randint(0, n_classes, size=n)
+    x = rs.randn(n, *img_shape).astype("float32") * 0.3
+    for i in range(n):
+        c = y[i]
+        r0, c0 = 2 + (c // 5) * 12, 2 + (c % 5) * 5
+        x[i, 0, r0:r0 + 6, c0:c0 + 4] += 2.0
+    return x, y.astype("int64").reshape(-1, 1)
+
+
+def lenet_program(seed, lr, train=True):
+    """LeNet-5 as ``models/lenet.py`` builds it, with ``Adam(lr)`` when
+    ``train`` (without, the test program: the same parameter names)."""
+    from paddle_tpu_torch import core, layers, optimizer
+    from paddle_tpu_torch.models import lenet
+    main, startup = core.Program(), core.Program()
+    startup.random_seed = seed
+    with core.unique_name.guard(), core.program_guard(main, startup):
+        img = layers.data("img", shape=[1, 28, 28])
+        label = layers.data("label", shape=[1], dtype="int64")
+        loss, acc, logits = lenet.lenet5(img, label)
+        if train:
+            optimizer.Adam(learning_rate=lr).minimize(loss, startup)
+    return main, startup, loss, acc, logits
+
+
+def phase_lenet(seed):
+    """[lenet]: LeNet-5 (BASELINE config 1 at its published widths:
+    conv 20 and 50 filters 5x5, pools 2x2, fc 10; batch 64, 1x28x28,
+    Adam(1e-3)) through ``Executor.run``: 5 steps on the card against
+    the CPU from the same startup weights; 50 steps from the startup
+    (the last 10's mean accuracy above 0.9, as the book test); the test
+    program captured as a CUDA graph, its replay bitwise the eager run;
+    the step time (median window of 10 steps closed by a synchronize),
+    images/s, one step's busy share and the peak memory."""
+    import torch
+    from paddle_tpu_torch import core
+    cfg = LENET
+    t0 = time.perf_counter()
+    main, startup, loss, acc, _ = lenet_program(seed, cfg["lr"])
+    check(sum(op.type == "adam" for op in main.global_block().ops) ==
+          LENET_RULES, "[lenet] the program has not LeNet-5's 6 updates")
+    init = core.Scope()
+    core.Executor(device="cpu").run(startup, scope=init)
+    rs = np.random.RandomState(seed)
+    batches = [synth_digits(cfg["batch"], rs)
+               for _ in range(cfg["train_steps"])]
+    feeds = [{"img": x, "label": y} for x, y in batches]
+    losses = {}
+    for dev in ("cpu", "cuda"):
+        scope = scope_copy(init, dev)
+        exe = core.Executor(device=dev)
+        losses[dev] = [float(exe.run(main, feed=f, fetch_list=[loss],
+                                     scope=scope)[0])
+                       for f in feeds[:cfg["compare_steps"]]]
+    err = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"],
+                                                   losses["cpu"]))
+    print("[lenet] %d Adam steps from the same startup weights, losses "
+          "card %s cpu %s: rel err %.3g (tolerance %.0e)" % (
+              cfg["compare_steps"], [round(v, 6) for v in losses["cuda"]],
+              [round(v, 6) for v in losses["cpu"]], err, LENET_LOSS_RTOL))
+    check(err <= LENET_LOSS_RTOL, "[lenet] card against CPU: %.3g" % err)
+    # 50 steps on the card from the startup weights
+    scope = scope_copy(init, "cuda")
+    exe = core.Executor(device="cuda")
+    accs = []
+    for f in feeds:
+        _, a = exe.run(main, feed=f, fetch_list=[loss, acc], scope=scope)
+        accs.append(float(a))
+    mean_acc = float(np.mean(accs[-cfg["acc_window"]:]))
+    print("[lenet] %d steps on the card: mean accuracy over the last %d "
+          "%.4f (floor %.1f)" % (cfg["train_steps"], cfg["acc_window"],
+                                 mean_acc, cfg["acc_floor"]))
+    check(mean_acc > cfg["acc_floor"], "[lenet] accuracy %.4f" % mean_acc)
+    # timed steps: windows closed by a synchronize (bench.py's discipline)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # what earlier phases left allocated counts in the peak: print the
+    # peak above it too
+    base = torch.cuda.memory_allocated()
+    feed = {k: torch.from_numpy(v).cuda() for k, v in feeds[0].items()}
+    windows = []
+    for _ in range(cfg["windows"]):
+        t1 = time.perf_counter()
+        for _ in range(cfg["window_steps"]):
+            out, = exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
+                           return_numpy=False)
+        torch.cuda.synchronize()
+        windows.append((time.perf_counter() - t1) * 1e3 /
+                       cfg["window_steps"])
+    step_ms = float(np.median(windows))
+    peak = torch.cuda.max_memory_allocated()
+    busy = profile_window("lenet one training step", lambda: exe.run(
+        main, feed=feed, fetch_list=[loss], scope=scope,
+        return_numpy=False))
+    print("[lenet] step %.3f ms (median of %d windows of %d: %s), %.1f "
+          "images/s, busy %s, peak allocated %.1f MB (%.1f MB above the "
+          "%.1f MB allocated before the windows); %s" % (
+              step_ms, cfg["windows"], cfg["window_steps"],
+              [round(w, 3) for w in windows], cfg["batch"] / step_ms * 1e3,
+              "not measured" if busy is None else
+              "%.1f%%" % (100 * busy["busy_share"]), peak / 1e6,
+              (peak - base) / 1e6, base / 1e6, card_line()))
+    # the test program: its second run captures a CUDA graph, the third
+    # replays it; the replay bitwise the eager first run
+    test, _, _, _, logits = lenet_program(seed, cfg["lr"], train=False)
+    texe = core.Executor(device="cuda")
+    with deterministic_cudnn():
+        outs = [texe.run(test, feed=feeds[1], fetch_list=[logits],
+                         scope=scope, return_numpy=False)[0].clone()
+                for _ in range(3)]
+    stats = texe.capture_stats()
+    print("[lenet] test program on the card: captures %s; replay against "
+          "the eager run bitwise: %s" % (stats,
+                                         torch.equal(outs[2], outs[0])))
+    check(stats["captures"] == 1 and stats["failed"] == 0 and
+          stats["replays"] >= 1 and torch.equal(outs[2], outs[0]),
+          "[lenet] the test program's capture: %s" % stats)
+    print("[lenet] done in %.1f s" % (time.perf_counter() - t0))
+    return dict(step_ms=step_ms, peak=peak)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6175,6 +6485,12 @@ def main(argv=None):
         phase_small_program_int8(args.seed)
         phase_small_program_lm(args.seed)
         phase_small_program_serve(args.seed)
+        # the LeNet-5/MNIST slice: the op library card against CPU, and
+        # LeNet-5's training
+        phase_ops()
+        phase_lenet(args.seed)
+        gc.collect()
+        torch.cuda.empty_cache()
         # the LM training phases draw from their own stream, so the
         # serving phases see the inputs they saw before these existed
         lm_rng = np.random.default_rng(args.seed + 1)

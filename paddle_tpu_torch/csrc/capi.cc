@@ -199,6 +199,12 @@ const char* ptc_model_output_name(void* model, int i) {
   return m->out_names[i].c_str();
 }
 
+// The outputs of a handle live in ONE buffer per handle, as in the
+// reference's ABI: the handle's next ptc_model_forward replaces them, and
+// these accessors read them without taking the handle's lock. A caller
+// that forwards one handle from several threads holds its own lock
+// around each forward and the reads of that forward's outputs, or gives
+// each thread a handle of its own.
 const float* ptc_model_output_data(void* model, int i, int64_t* numel) {
   Model* m = static_cast<Model*>(model);
   if (numel) *numel = static_cast<int64_t>(m->out_bufs[i].size());

@@ -1,7 +1,7 @@
 """Parameter initializers (reference ``paddle_tpu/initializer.py``).
 
-Constant / Uniform / Normal / Xavier / MSRA as fill ops appended to the
-startup program: an initializer appends ONE op, and running the startup
+Constant / Uniform / Normal / Xavier / MSRA / NumpyArray as ops appended
+to the startup program: an initializer appends ONE op, and running the startup
 program draws the reference's initial weights (``ops/random_ops.py``).
 """
 
@@ -9,7 +9,7 @@ import numpy as np
 
 __all__ = ["Constant", "Uniform", "Normal", "Xavier", "MSRA",
            "ConstantInitializer", "UniformInitializer", "NormalInitializer",
-           "XavierInitializer", "MSRAInitializer"]
+           "XavierInitializer", "MSRAInitializer", "NumpyArrayInitializer"]
 
 
 class Initializer:
@@ -99,6 +99,21 @@ class MSRAInitializer(Initializer):
         else:
             std = float(np.sqrt(2.0 / fi))
             NormalInitializer(0.0, std, self.seed)(var, block)
+
+
+class NumpyArrayInitializer(Initializer):
+    """Initialize from a literal array (one ``assign_value`` op)."""
+
+    def __init__(self, value):
+        self.value = np.asarray(value)
+
+    def __call__(self, var, block):
+        block.append_op(
+            "assign_value", outputs={"Out": [var.name]},
+            attrs={"shape": list(self.value.shape),
+                   "dtype": var.dtype,
+                   "values": self.value.ravel().tolist()},
+            infer_shape=False)
 
 
 Constant = ConstantInitializer

@@ -1,7 +1,13 @@
-"""Loader of the port's C inference API (``csrc/capi.cc``): built with
-``g++`` against this interpreter's headers and libpython at first use,
-into the git-ignored ``build/`` beside the CUDA kernels, and loaded with
-``ctypes``. A library newer than its source is reused."""
+"""Loader of the port's native libraries, built with ``g++`` at first use
+into the git-ignored ``build/`` beside the CUDA kernels and loaded with
+``ctypes``; a library newer than its source is reused:
+
+* the C inference API (``csrc/capi.cc``), against this interpreter's
+  headers and libpython;
+* the RecordIO reader and writer (``native/recordio.cc``) and the
+  shuffling sample pool (``native/shuffle_pool.cc``), the reference's
+  sources compiled unchanged (its ``native/Makefile`` flags), so a file
+  either package writes reads back through the other."""
 
 import ctypes
 import os
@@ -13,11 +19,14 @@ import threading
 _PKG = os.path.dirname(os.path.abspath(__file__))
 SOURCE = os.path.join(_PKG, "csrc", "capi.cc")
 LIBRARY = os.path.join(_PKG, "build", "libptc_capi.so")
+_NATIVE = os.path.join(os.path.dirname(_PKG), "native")
 
 _lock = threading.Lock()
 _lib = [None]
+_libs = {}
 
-__all__ = ["build_capi", "capi_lib", "PtcTensor"]
+__all__ = ["build_capi", "capi_lib", "PtcTensor", "build_native_lib",
+           "recordio_lib", "shuffle_pool_lib"]
 
 
 def _python_flags():
@@ -38,29 +47,88 @@ def _python_flags():
     return inc, ["-L" + libdir, "-lpython" + ver] if libdir else []
 
 
-def build_capi(force=False):
-    """Compile ``csrc/capi.cc`` into ``build/libptc_capi.so`` unless a
-    library newer than the source is there; returns its path. Raises
+def _compile(src, lib, flags, libs=(), force=False):
+    """Compile ``src`` into the shared library ``lib`` with g++ unless a
+    library newer than the source is there; returns ``lib``. Raises
     RuntimeError with the compiler's output when the build fails."""
     with _lock:
-        fresh = os.path.exists(LIBRARY) and \
-            os.path.getmtime(LIBRARY) >= os.path.getmtime(SOURCE)
-        if fresh and not force:
-            return LIBRARY
+        if os.path.exists(lib) and not force and \
+                os.path.getmtime(lib) >= os.path.getmtime(src):
+            return lib
         cxx = shutil.which(os.environ.get("CXX", "g++"))
         if cxx is None:
-            raise RuntimeError("no C++ compiler (g++) to build the C API")
-        inc, ld = _python_flags()
-        os.makedirs(os.path.dirname(LIBRARY), exist_ok=True)
-        tmp = "%s.%d.tmp" % (LIBRARY, os.getpid())
+            raise RuntimeError("no C++ compiler (g++) to build %s" % src)
+        os.makedirs(os.path.dirname(lib), exist_ok=True)
+        tmp = "%s.%d.tmp" % (lib, os.getpid())
         out = subprocess.run(
-            [cxx, "-O2", "-std=c++17", "-fPIC", "-Wall", *inc, "-shared",
-             "-o", tmp, SOURCE, *ld], capture_output=True, text=True)
+            [cxx, "-O2", "-std=c++17", "-fPIC", "-Wall", *flags, "-shared",
+             "-o", tmp, src, *libs], capture_output=True, text=True)
         if out.returncode != 0:
-            raise RuntimeError("building the C API failed:\n%s%s"
-                               % (out.stdout, out.stderr))
-        os.replace(tmp, LIBRARY)
-        return LIBRARY
+            raise RuntimeError("building %s failed:\n%s%s"
+                               % (src, out.stdout, out.stderr))
+        os.replace(tmp, lib)
+        return lib
+
+
+def build_capi(force=False):
+    """Compile ``csrc/capi.cc`` into ``build/libptc_capi.so`` (see
+    :func:`_compile`); returns its path."""
+    inc, ld = _python_flags()
+    return _compile(SOURCE, LIBRARY, inc, ld, force)
+
+
+def build_native_lib(stem, force=False):
+    """Compile ``native/<stem>.cc`` into ``build/lib<stem>.so`` (see
+    :func:`_compile`); returns its path."""
+    return _compile(os.path.join(_NATIVE, stem + ".cc"),
+                    os.path.join(_PKG, "build", "lib%s.so" % stem), (),
+                    force=force)
+
+
+def _native(stem, sigs):
+    """lib<stem> loaded once, each (name, restype, argtypes) of ``sigs``
+    set on it."""
+    with _lock:
+        if stem in _libs:
+            return _libs[stem]
+    lib = ctypes.CDLL(build_native_lib(stem))
+    for name, restype, argtypes in sigs:
+        fn = getattr(lib, name)
+        fn.restype = restype
+        fn.argtypes = argtypes
+    with _lock:
+        return _libs.setdefault(stem, lib)
+
+
+_P, _U32, _S = ctypes.c_void_p, ctypes.c_uint32, ctypes.c_char_p
+_I = ctypes.c_int
+
+
+def recordio_lib():
+    """The RecordIO library (``native/recordio.cc``): chunked records,
+    each chunk with its length and checksum."""
+    return _native("recordio", [
+        ("ptrc_writer_open", _P, [_S, _U32]),
+        ("ptrc_writer_write", _I, [_P, _S, _U32]),
+        ("ptrc_writer_close", _I, [_P]),
+        ("ptrc_reader_open", _P, [_S]),
+        ("ptrc_reader_num_chunks", _I, [_P]),
+        ("ptrc_reader_load_chunk", _I, [_P, _I]),
+        ("ptrc_reader_next", _I, [_P, _S, _U32]),
+        ("ptrc_reader_peek_len", _I, [_P]),
+        ("ptrc_reader_close", None, [_P])])
+
+
+def shuffle_pool_lib():
+    """The shuffling sample pool (``native/shuffle_pool.cc``): records
+    pushed by a producer, popped in an order its seed fixes."""
+    return _native("shuffle_pool", [
+        ("ptpool_create", _P, [_U32, _U32, _U32]),
+        ("ptpool_push", _I, [_P, _S, _U32]),
+        ("ptpool_pop", _I, [_P, _S, _U32]),
+        ("ptpool_close", None, [_P]),
+        ("ptpool_size", _I, [_P]),
+        ("ptpool_destroy", None, [_P])])
 
 
 def capi_lib():

@@ -98,26 +98,10 @@ def conv2d(x, w, stride=1, padding=0, dilation=1, groups=1, amp=None):
 
 def pool2d(x, ksize, pool_type="max", strides=1, paddings=0,
            global_pooling=False, ceil_mode=False, exclusive=True):
-    """Reference ``_pool`` over NCHW: ``global_pooling`` takes the whole
-    plane; max pads with -inf; avg divides each window's sum by the
-    count of its unpadded elements (``exclusive``) or by the window
-    size; ``ceil_mode`` pads s - 1 more on the far side."""
-    if global_pooling:
-        ksize, strides, paddings = tuple(x.shape[2:]), (1, 1), (0, 0)
-    ksize, strides, paddings = _pair(ksize), _pair(strides), _pair(paddings)
-    extra = [s - 1 if ceil_mode else 0 for s in strides]
-    pad = (paddings[1], paddings[1] + extra[1],
-           paddings[0], paddings[0] + extra[0])
-    if pool_type == "max":
-        return F.max_pool2d(F.pad(x, pad, value=float("-inf")), ksize,
-                            strides)
-    summed = F.avg_pool2d(F.pad(x, pad), ksize, strides, divisor_override=1)
-    if not exclusive:
-        return summed / float(ksize[0] * ksize[1])
-    ones = F.pad(torch.ones((1, 1) + tuple(x.shape[2:]), dtype=x.dtype,
-                            device=x.device), pad)
-    counts = F.avg_pool2d(ones, ksize, strides, divisor_override=1)
-    return summed / counts
+    """Reference ``_pool`` over NCHW (:func:`pool_nd` with each of
+    ``ksize``, ``strides`` and ``paddings`` an int or a pair)."""
+    return pool_nd(x, _pair(ksize), _pair(strides), _pair(paddings),
+                   pool_type, exclusive, global_pooling, ceil_mode)
 
 
 def batch_norm_stats(x, scale, bias, mean, variance, momentum=0.9,
@@ -273,3 +257,230 @@ def _dropout(ctx):
                 "Mask": torch.ones_like(x)}
     mask = bernoulli(ctx.rng_key, 1.0 - p, x.shape).to(x.dtype)
     return {"Out": x * mask, "Mask": mask}
+
+
+# -- the rest of the reference's nn ops ----------------------------------
+# Convolutions stay torch's (cuDNN on the card), as the reference leaves
+# them to XLA; pooling pads explicitly (max with -inf) and pools without
+# padding, so any padding the reference takes is taken here too.
+
+def _conv_attrs(ctx, n):
+    def tup(name, default):
+        v = ctx.attr(name, default)
+        return tuple(v) if isinstance(v, (list, tuple)) else (v,) * n
+    return (tup("strides", [1] * n), tup("paddings", [0] * n),
+            tup("dilations", [1] * n))
+
+
+@register_op("batch_conv2d")
+def _batch_conv2d(ctx):
+    """Each image convolved with its own filters: Input [B, C, H, W],
+    Filter [B, O, C, kh, kw] -> [B, O, oh, ow], one grouped convolution
+    (groups B), as the reference's vmapped convolution lowers."""
+    x, w = ctx.input("Input"), ctx.input("Filter")
+    strides, pads, dils = _conv_attrs(ctx, 2)
+    b, c = x.shape[0], x.shape[1]
+    o = w.shape[1]
+    out = F.conv2d(x.reshape((1, b * c) + tuple(x.shape[2:])),
+                   w.reshape((b * o,) + tuple(w.shape[2:])), None, strides,
+                   pads, dils, b)
+    return {"Output": out.reshape((b, o) + tuple(out.shape[2:]))}
+
+
+@register_op("conv3d")
+def _conv3d(ctx):
+    strides, pads, dils = _conv_attrs(ctx, 3)
+    return {"Output": F.conv3d(ctx.input("Input"), ctx.input("Filter"), None,
+                               strides, pads, dils,
+                               ctx.attr("groups", 1) or 1)}
+
+
+@register_op("conv2d_transpose")
+def _conv2d_transpose(ctx):
+    """The gradient of a convolution: Filter [in, out, kh, kw], output
+    ``(in - 1) * stride - 2 * pad + dilation * (k - 1) + 1``."""
+    strides, pads, dils = _conv_attrs(ctx, 2)
+    return {"Output": F.conv_transpose2d(
+        ctx.input("Input"), ctx.input("Filter"), None, strides, pads, 0, 1,
+        dils)}
+
+
+@register_op("conv3d_transpose")
+def _conv3d_transpose(ctx):
+    strides, pads, dils = _conv_attrs(ctx, 3)
+    return {"Output": F.conv_transpose3d(
+        ctx.input("Input"), ctx.input("Filter"), None, strides, pads, 0, 1,
+        dils)}
+
+
+@register_op("factorization_machine")
+def _factorization_machine(ctx):
+    """The second-order interaction ``0.5 * sum_k((x V)_k^2 - (x^2
+    V^2)_k)``, [..., 1]."""
+    x, v = ctx.input("X"), ctx.input("V")
+    xv = x @ v
+    x2v2 = (x * x) @ (v * v)
+    return {"Out": 0.5 * torch.sum(xv * xv - x2v2, dim=-1, keepdim=True)}
+
+
+def pool_nd(x, ksize, strides, pads, pooling_type="max", exclusive=True,
+            global_pooling=False, ceil_mode=False):
+    """The reference's ``_pool`` over the spatial axes of x [N, C, ...]:
+    ``global_pooling`` takes the whole extent; max pads with -inf; avg
+    divides a window's sum by the count of its unpadded elements
+    (``exclusive``) or by the window's size; ``ceil_mode`` pads s - 1
+    more on the far side."""
+    nd = x.dim() - 2
+    if global_pooling:
+        ksize, strides, pads = tuple(x.shape[2:]), (1,) * nd, (0,) * nd
+    pad = []
+    for p, s in reversed(list(zip(pads, strides))):
+        pad += [p, p + (s - 1 if ceil_mode else 0)]
+    max_pool = (F.max_pool1d, F.max_pool2d, F.max_pool3d)[nd - 1]
+    avg_pool = (F.avg_pool1d, F.avg_pool2d, F.avg_pool3d)[nd - 1]
+    if pooling_type == "max":
+        return max_pool(F.pad(x, pad, value=float("-inf")), ksize, strides)
+    summed = avg_pool(F.pad(x, pad), ksize, strides, divisor_override=1)
+    if not exclusive:
+        return summed / torch.full((), float(math.prod(ksize)),
+                                   dtype=x.dtype, device=x.device)
+    ones = F.pad(torch.ones((1, 1) + tuple(x.shape[2:]), dtype=x.dtype,
+                            device=x.device), pad)
+    return summed / avg_pool(ones, ksize, strides, divisor_override=1)
+
+
+@register_op("pool3d")
+def _pool3d(ctx):
+    return {"Out": pool_nd(ctx.input("X"), tuple(ctx.attr("ksize")),
+                           tuple(ctx.attr("strides", [1, 1, 1])),
+                           tuple(ctx.attr("paddings", [0, 0, 0])),
+                           ctx.attr("pooling_type", "max"),
+                           ctx.attr("exclusive", True),
+                           ctx.attr("global_pooling", False),
+                           ctx.attr("ceil_mode", False))}
+
+
+@register_op("pool2d_with_index")
+def _pool2d_with_index(ctx):
+    """Max pooling and, in ``Mask`` (int32), each maximum's flat index
+    ``h * W + w`` in its channel's unpadded plane."""
+    x = ctx.input("X")
+    out, idx = F.max_pool2d(x, _pair(ctx.attr("ksize")),
+                            _pair(ctx.attr("strides", [1, 1])),
+                            _pair(ctx.attr("paddings", [0, 0])),
+                            return_indices=True)
+    return {"Out": out, "Mask": idx.to(torch.int32)}
+
+
+@register_op("lrn")
+def _lrn(ctx):
+    """Local response norm across channels: ``mid = k + alpha * sum`` of
+    the squares over a window of n channels (zero-padded), ``x /
+    mid^beta``; the window summed in the reference's order."""
+    x = ctx.input("X")
+    n = ctx.attr("n", 5)
+    half = n // 2
+    pad = F.pad(x * x, (0, 0, 0, 0, half, half))
+    c = x.shape[1]
+    acc = pad[:, 0:c]
+    for i in range(1, n):
+        acc = acc + pad[:, i:i + c]
+    mid = ctx.attr("k", 2.0) + ctx.attr("alpha", 1e-4) * acc
+    return {"Out": x / torch.pow(mid, ctx.attr("beta", 0.75)),
+            "MidOut": mid}
+
+
+@register_op("maxout")
+def _maxout(ctx):
+    x = ctx.input("X")
+    g = ctx.attr("groups")
+    n, c = x.shape[0], x.shape[1]
+    return {"Out": x.reshape((n, c // g, g) + tuple(x.shape[2:]))
+            .amax(dim=2)}
+
+
+@register_op("norm")
+def _norm(ctx):
+    """Cross-channel L2 normalization, scaled per channel."""
+    x, scale = ctx.input("X"), ctx.input("Scale")
+    norm = torch.sqrt(torch.sum(x * x, dim=1, keepdim=True) +
+                      ctx.attr("epsilon", 1e-10))
+    return {"Out": x / norm * scale.reshape(1, -1, 1, 1)}
+
+
+@register_op("l2_normalize")
+def _l2_normalize(ctx):
+    x = ctx.input("X")
+    norm = torch.sqrt(torch.sum(x * x, dim=ctx.attr("axis", -1),
+                                keepdim=True) + ctx.attr("epsilon", 1e-12))
+    return {"Out": x / norm, "Norm": norm}
+
+
+@register_op("conv_shift")
+def _conv_shift(ctx):
+    """Circular correlation: ``out[b, i] = sum_j x[b, (i + j - M // 2)
+    mod N] * y[b, j]``."""
+    x, y = ctx.input("X"), ctx.input("Y")
+    n, m = x.shape[1], y.shape[1]
+    ar = torch.arange(n, device=x.device)
+    idx = (ar[:, None] + torch.arange(m, device=x.device)[None, :] -
+           m // 2) % n
+    return {"Out": torch.einsum("bnm,bm->bn", x[:, idx], y)}
+
+
+@register_op("row_conv")
+def _row_conv(ctx):
+    """Lookahead convolution over time of X [B, T, D] with Filter [k, D]:
+    ``out[t] = sum_i x[t + i] * w[i]``, zero past the end."""
+    x, w = ctx.input("X"), ctx.input("Filter")
+    k, t = w.shape[0], x.shape[1]
+    pad = F.pad(x, (0, 0, 0, k - 1))
+    out = pad[:, 0:t] * w[0]
+    for i in range(1, k):
+        out = out + pad[:, i:i + t] * w[i]
+    return {"Out": out}
+
+
+@register_op("spp")
+def _spp(ctx):
+    """Spatial pyramid pooling: level l pools into 2^l x 2^l bins
+    (window and stride ceil(H / 2^l), padding to cover, the window size
+    as an average's divisor), each level flattened, all concatenated."""
+    x = ctx.input("X")
+    pool_type = ctx.attr("pooling_type", "max")
+    n, _, h, w = x.shape
+    outs = []
+    for lvl in range(ctx.attr("pyramid_height", 3)):
+        bins = 2 ** lvl
+        kh, kw = -(-h // bins), -(-w // bins)
+        ph, pw = (kh * bins - h + 1) // 2, (kw * bins - w + 1) // 2
+        out = pool_nd(x, (kh, kw), (kh, kw), (ph, pw), pool_type,
+                      exclusive=False)
+        outs.append(out.reshape(n, -1))
+    return {"Out": torch.cat(outs, dim=1)}
+
+
+@register_op("unpool")
+def _unpool(ctx):
+    """Max-unpooling: each value of X added at its ``Indices`` entry (a
+    flat index into an ``unpooled_height`` x ``unpooled_width`` plane
+    of its channel, as ``pool2d_with_index`` gives it)."""
+    x, idx = ctx.input("X"), ctx.input("Indices")
+    n, c = x.shape[0], x.shape[1]
+    oh, ow = ctx.attr("unpooled_height"), ctx.attr("unpooled_width")
+    flat = torch.zeros((n, c, oh * ow), dtype=x.dtype, device=x.device)
+    out = flat.scatter_add(2, idx.reshape(n, c, -1).to(torch.int64),
+                           x.reshape(n, c, -1))
+    return {"Out": out.reshape(n, c, oh, ow)}
+
+
+@register_op("im2sequence")
+def _im2sequence(ctx):
+    """Image patches to rows: [N * oh * ow, C * kh * kw], the rows in
+    (image, patch row, patch column) order, each row channel-major as
+    ``conv_general_dilated_patches`` lays it out; no padding."""
+    x = ctx.input("X")
+    kernels = _pair(ctx.attr("kernels"))
+    patches = F.unfold(x, kernels, stride=_pair(ctx.attr("strides", [1, 1])))
+    n, ckk, _ = patches.shape
+    return {"Out": patches.transpose(1, 2).reshape(-1, ckk)}

@@ -1,19 +1,25 @@
-"""Optimizer update ops (reference ``paddle_tpu/ops/optimizer_ops.py``
-``sgd``, ``momentum`` and ``adam``, dense form), as IN-PLACE updates of
+"""Optimizer update ops (reference ``paddle_tpu/ops/optimizer_ops.py``:
+``sgd``, ``momentum``, ``adam``, ``adamax``, ``adagrad``,
+``decayed_adagrad``, ``adadelta``, ``rmsprop``, ``proximal_gd``,
+``proximal_adagrad`` and ``ftrl``, dense form), as IN-PLACE updates of
 the parameter and its accumulators: the reference's functional update
-with its buffers donated, without the copy. Adam's lazy-rows branch is
+with its buffers donated, without the copy. The lazy-rows branches are
 for sparse embedding gradients, which no ported model produces.
 
 The program ops of the same names are registered here. Each writes in
 place when the executor allows it and its outputs name its inputs (as
 ``minimize`` appends them), and otherwise returns new tensors, the
-reference's functional form, with the same arithmetic."""
+reference's functional form, with the same arithmetic in the same
+order: each in-place step rounds as the functional expression it
+replaces."""
 
 import torch
 
 from ..core.registry import register_op
 
-__all__ = ["sgd", "momentum", "adam"]
+__all__ = ["sgd", "momentum", "adam", "adamax", "adagrad",
+           "decayed_adagrad", "adadelta", "rmsprop", "proximal_gd",
+           "proximal_adagrad", "ftrl"]
 
 
 @torch.no_grad()
@@ -112,3 +118,191 @@ def _adam(ctx):
     p_new = p - lr_t * m_new / (torch.sqrt(v_new) + eps)
     return {"ParamOut": p_new, "Moment1Out": m_new, "Moment2Out": v_new,
             "Beta1PowOut": b1p * b1, "Beta2PowOut": b2p * b2}
+
+
+def _all_in_place(ctx, pairs):
+    return all(ctx.in_place(o, i) for o, i in pairs)
+
+
+def _functional_or_in_place(ctx, fn, pairs, args, **kw):
+    """Run ``fn`` (an update written in place) on the op's tensors where
+    every output of ``pairs`` may be written into its input, else on
+    clones of them (the reference's functional form); returns the
+    outputs."""
+    inplace = _all_in_place(ctx, pairs)
+    tensors = [ctx.input(i) if inplace else ctx.input(i).clone()
+               for _, i in pairs]
+    fn(*tensors, *args, **kw)
+    return dict(zip((o for o, _ in pairs), tensors))
+
+
+@torch.no_grad()
+def adamax(param, moment, inf_norm, beta1_pow, grad, lr, beta1=0.9,
+           beta2=0.999, epsilon=1e-8):
+    """``m <- beta1 * m + (1 - beta1) * grad``, ``u <- max(beta2 * u,
+    |grad|)``, ``param <- param - (lr / (1 - beta1_pow)) * (m / (u +
+    epsilon))``, then ``beta1_pow *= beta1``."""
+    moment.mul_(beta1).add_((1.0 - beta1) * grad)
+    torch.maximum(inf_norm.mul_(beta2), torch.abs(grad), out=inf_norm)
+    param.sub_((lr / (1.0 - beta1_pow)) * (moment / (inf_norm + epsilon)))
+    beta1_pow.mul_(beta1)
+
+
+@torch.no_grad()
+def adagrad(param, moment, grad, lr, epsilon=1e-6):
+    """``m <- m + grad^2``, ``param <- param - lr * grad / (sqrt(m) +
+    epsilon)``."""
+    moment.add_(torch.square(grad))
+    param.sub_(lr * grad / (torch.sqrt(moment) + epsilon))
+
+
+@torch.no_grad()
+def decayed_adagrad(param, moment, grad, lr, decay=0.95, epsilon=1e-6):
+    """``m <- decay * m + (1 - decay) * grad^2``, then as adagrad."""
+    moment.mul_(decay).add_((1.0 - decay) * torch.square(grad))
+    param.sub_(lr * grad / (torch.sqrt(moment) + epsilon))
+
+
+@torch.no_grad()
+def adadelta(param, avg_sq_grad, avg_sq_update, grad, rho=0.95,
+             epsilon=1e-6):
+    """``g2 <- rho * g2 + (1 - rho) * grad^2``, ``update = -sqrt((u2 +
+    eps) / (g2 + eps)) * grad``, ``u2 <- rho * u2 + (1 - rho) *
+    update^2``, ``param <- param + update`` (no learning rate)."""
+    avg_sq_grad.mul_(rho).add_((1.0 - rho) * torch.square(grad))
+    update = -torch.sqrt((avg_sq_update + epsilon) /
+                         (avg_sq_grad + epsilon)) * grad
+    avg_sq_update.mul_(rho).add_((1.0 - rho) * torch.square(update))
+    param.add_(update)
+
+
+@torch.no_grad()
+def rmsprop(param, mean_square, moment, grad, lr, decay=0.9, momentum=0.0,
+            epsilon=1e-10):
+    """``ms <- decay * ms + (1 - decay) * grad^2``, ``mom <- momentum *
+    mom + lr * grad / sqrt(ms + epsilon)``, ``param <- param - mom``."""
+    mean_square.mul_(decay).add_((1.0 - decay) * torch.square(grad))
+    moment.mul_(momentum).add_(lr * grad / torch.sqrt(mean_square + epsilon))
+    param.sub_(moment)
+
+
+def _shrink(prox, t1, t2):
+    """``sign(prox) * max(|prox| - t1, 0) / (1 + t2)``."""
+    return torch.sign(prox) * torch.clamp(torch.abs(prox) - t1, min=0.0) \
+        / (1.0 + t2)
+
+
+@torch.no_grad()
+def proximal_gd(param, grad, lr, l1=0.0, l2=0.0):
+    """``prox = param - lr * grad``, then the L1 shrink by ``lr * l1``
+    and the L2 scale ``1 / (1 + lr * l2)``."""
+    prox = param - lr * grad
+    param.copy_(_shrink(prox, lr * l1, lr * l2))
+
+
+@torch.no_grad()
+def proximal_adagrad(param, moment, grad, lr, l1=0.0, l2=0.0):
+    """``m <- m + grad^2``, ``lr_t = lr / sqrt(m)``, then as proximal_gd
+    with ``lr_t``."""
+    moment.add_(torch.square(grad))
+    lr_t = lr / torch.sqrt(moment)
+    param.copy_(_shrink(param - lr_t * grad, lr_t * l1, lr_t * l2))
+
+
+@torch.no_grad()
+def ftrl(param, sq_accum, lin_accum, grad, lr, l1=0.0, l2=0.0,
+         lr_power=-0.5):
+    """FTRL-proximal: ``n' = n + grad^2``, ``sigma = (n'^-p - n^-p) /
+    lr``, ``z <- z + grad - sigma * param``, ``param <- (sign(z) * l1 -
+    z) / (l2 + n'^-p / lr)`` where ``|z| > l1``, else 0; ``n <- n'``."""
+    new_accum = sq_accum + torch.square(grad)
+    if lr_power == -0.5:
+        pw_new, pw_old = torch.sqrt(new_accum), torch.sqrt(sq_accum)
+    else:
+        pw_new = torch.pow(new_accum, -lr_power)
+        pw_old = torch.pow(sq_accum, -lr_power)
+    sigma = (pw_new - pw_old) / lr
+    lin_accum.add_(grad).sub_(sigma * param)
+    x = l2 + pw_new / lr
+    pre_shrink = (torch.sign(lin_accum) * l1 - lin_accum) / x
+    param.copy_(torch.where(torch.abs(lin_accum) > l1, pre_shrink,
+                            torch.zeros_like(pre_shrink)))
+    sq_accum.copy_(new_accum)
+
+
+@register_op("adamax")
+def _adamax(ctx):
+    _dense(ctx)
+    return _functional_or_in_place(
+        ctx, adamax, (("ParamOut", "Param"), ("MomentOut", "Moment"),
+                      ("InfNormOut", "InfNorm"), ("Beta1PowOut", "Beta1Pow")),
+        (ctx.input("Grad"), _lr(ctx), ctx.attr("beta1", 0.9),
+         ctx.attr("beta2", 0.999), ctx.attr("epsilon", 1e-8)))
+
+
+@register_op("adagrad")
+def _adagrad(ctx):
+    _dense(ctx)
+    return _functional_or_in_place(
+        ctx, adagrad, (("ParamOut", "Param"), ("MomentOut", "Moment")),
+        (ctx.input("Grad"), _lr(ctx), ctx.attr("epsilon", 1e-6)))
+
+
+@register_op("decayed_adagrad")
+def _decayed_adagrad(ctx):
+    _dense(ctx)
+    return _functional_or_in_place(
+        ctx, decayed_adagrad, (("ParamOut", "Param"), ("MomentOut", "Moment")),
+        (ctx.input("Grad"), _lr(ctx), ctx.attr("decay", 0.95),
+         ctx.attr("epsilon", 1e-6)))
+
+
+@register_op("adadelta")
+def _adadelta(ctx):
+    _dense(ctx)
+    return _functional_or_in_place(
+        ctx, adadelta, (("ParamOut", "Param"),
+                        ("AvgSquaredGradOut", "AvgSquaredGrad"),
+                        ("AvgSquaredUpdateOut", "AvgSquaredUpdate")),
+        (ctx.input("Grad"), ctx.attr("rho", 0.95),
+         ctx.attr("epsilon", 1e-6)))
+
+
+@register_op("rmsprop")
+def _rmsprop(ctx):
+    _dense(ctx)
+    return _functional_or_in_place(
+        ctx, rmsprop, (("ParamOut", "Param"), ("MeanSquareOut", "MeanSquare"),
+                       ("MomentOut", "Moment")),
+        (ctx.input("Grad"), _lr(ctx), ctx.attr("decay", 0.9),
+         ctx.attr("momentum", 0.0), ctx.attr("epsilon", 1e-10)))
+
+
+@register_op("proximal_gd")
+def _proximal_gd(ctx):
+    _dense(ctx)
+    return _functional_or_in_place(
+        ctx, proximal_gd, (("ParamOut", "Param"),),
+        (ctx.input("Grad"), _lr(ctx), ctx.attr("l1", 0.0),
+         ctx.attr("l2", 0.0)))
+
+
+@register_op("proximal_adagrad")
+def _proximal_adagrad(ctx):
+    _dense(ctx)
+    return _functional_or_in_place(
+        ctx, proximal_adagrad, (("ParamOut", "Param"),
+                                ("MomentOut", "Moment")),
+        (ctx.input("Grad"), _lr(ctx), ctx.attr("l1", 0.0),
+         ctx.attr("l2", 0.0)))
+
+
+@register_op("ftrl")
+def _ftrl(ctx):
+    _dense(ctx)
+    return _functional_or_in_place(
+        ctx, ftrl, (("ParamOut", "Param"),
+                    ("SquaredAccumOut", "SquaredAccumulator"),
+                    ("LinearAccumOut", "LinearAccumulator")),
+        (ctx.input("Grad"), _lr(ctx), ctx.attr("l1", 0.0),
+         ctx.attr("l2", 0.0), ctx.attr("lr_power", -0.5)))

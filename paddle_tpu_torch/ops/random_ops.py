@@ -1,9 +1,10 @@
 """Counter-keyed random bits for decoding and the random ops of a
 program (reference ``paddle_tpu/ops/random_ops.py`` ``decoding_key``,
-``gaussian_random`` and ``uniform_random``, and the parts of JAX's
-threefry PRNG they reach: ``jax._src.prng`` with
-``jax_threefry_partitionable`` on, and ``jax._src.random`` ``split``,
-``_uniform``, ``_normal_real`` and ``_gumbel``).
+``gaussian_random``, ``uniform_random``, ``randint`` and
+``sampling_id``, and the parts of JAX's threefry PRNG they reach:
+``jax._src.prng`` with ``jax_threefry_partitionable`` on, and
+``jax._src.random`` ``split``, ``_uniform``, ``_normal_real``,
+``_randint`` and ``_gumbel``).
 
 Every function here is integer or floating-point arithmetic in torch
 ops, on the device of its inputs. torch has no unsigned 32-bit arithmetic, so a
@@ -24,6 +25,10 @@ floats bit for bit, and its ``gaussian_random`` the reference's within 2
 ulp: XLA's float32 ``erf_inv`` is a polynomial, which :func:`_erf_inv`
 evaluates as XLA does, each step as one fused multiply-add rounded to
 float32, with the logarithm under it taken in float64 and rounded once.
+At float16 and bfloat16 both draw the reference's values bit for bit
+(the 16-bit paths of ``_uniform``, rounded as XLA rounds them on the
+CPU), ``randint`` its integers bit for bit, and ``sampling_id`` its ids
+but where two columns' noisy logits lie within an ulp.
 """
 
 import math
@@ -31,11 +36,12 @@ import math
 import numpy as np
 import torch
 
-from ..core.framework import convert_dtype
+from ..core.framework import torch_dtype
 from ..core.registry import register_op
 
 __all__ = ["threefry2x32", "prng_key", "fold_in", "split", "decoding_key",
-           "random_bits", "uniform", "normal", "gumbel", "F32_TINY"]
+           "random_bits", "uniform", "normal", "gumbel", "randint",
+           "F32_TINY"]
 
 _MASK = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -165,8 +171,8 @@ def _erf_inv(x):
     w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0).double()
     p = None
     for a, b in zip(_ERFINV_LT5, _ERFINV_GT5):
-        c = torch.where(lt, torch.tensor(a, dtype=torch.float32),
-                        torch.tensor(b, dtype=torch.float32)).double()
+        c = torch.where(lt, torch.full((), a, device=x.device),
+                        torch.full((), b, device=x.device)).double()
         p = c if p is None else (c + p.double() * w).float()
     res = p * x
     return torch.where(x.abs() == 1.0, x * math.inf, res)
@@ -190,30 +196,121 @@ def normal(key, n):
                       device=key.device) * _erf_inv_uniform(key, n)
 
 
-def _float32_draw(ctx):
+# the 16-bit float draws (``jax._src.random._uniform``): the bits each
+# takes from the 32-bit word, its mantissa width and the bits of 1.0
+_HALF_BITS = {torch.float16: (16, 10, 0x3C00),
+              torch.bfloat16: (8, 7, 0x3F80)}
+
+
+def _draw(ctx):
     shape = tuple(ctx.attr("shape"))
-    dtype = convert_dtype(ctx.attr("dtype", "float32"))
-    if dtype != np.dtype("float32"):
-        raise NotImplementedError(
-            "%s draws float32 only here, got %s: ROADMAP Queue A, "
-            "\"LeNet-5/MNIST slice\"" % (ctx.op.type, dtype))
-    return shape, math.prod(shape)
+    return shape, math.prod(shape), torch_dtype(ctx.attr("dtype", "float32"))
+
+
+def _half_uniform(key, n, dtype, minval, maxval):
+    """``jax.random.uniform`` at a 16-bit float ``dtype``: the low 16
+    (float16) or 8 (bfloat16: fewer than 8 mantissa bits take 8) bits of
+    the 32-bit word, shifted under the exponent of 1.0, minus 1, scaled
+    and shifted. XLA on the CPU computes float16 in float32 within the
+    fusion and rounds once, bfloat16 rounds after each operation: so do
+    these."""
+    rng_bits, nmant, one = _HALF_BITS[dtype]
+    bits = random_bits(key, n) & ((1 << rng_bits) - 1)
+    floats = ((bits >> (rng_bits - nmant)) | one).to(torch.int16) \
+        .view(dtype) - 1.0
+    lo = torch.full((), minval, dtype=dtype, device=key.device)
+    hi = torch.full((), maxval, dtype=dtype, device=key.device)
+    if dtype == torch.float16:
+        scaled = (floats.float() * (hi - lo).float() + lo.float()).to(dtype)
+    else:
+        scaled = floats * (hi - lo) + lo
+    return torch.maximum(lo, scaled)
+
+
+def _half_normal(key, n, dtype):
+    """``jax.random.normal`` at a 16-bit float ``dtype``: XLA's float32
+    ``erf_inv`` of the dtype's uniform on [nextafter(-1, 0), 1), rounded
+    to the dtype, times sqrt(2) in the dtype."""
+    # nextafter(-1, 0) in the dtype
+    lo = -1.0 + (2.0 ** -11 if dtype == torch.float16 else 2.0 ** -8)
+    e = _erf_inv(_half_uniform(key, n, dtype, lo, 1.0).float()).to(dtype)
+    return e, torch.full((), math.sqrt(2.0), dtype=dtype, device=key.device)
 
 
 @register_op("gaussian_random", needs_rng=True, skip_eval_shape=True)
 def _gaussian_random(ctx):
-    """``mean + std * normal`` as XLA compiles it: the two constants
-    ``std`` and ``sqrt(2)`` folded into one float32 product, and the
-    multiply-add rounded once."""
-    shape, n = _float32_draw(ctx)
-    scale = _f32(_f32(math.sqrt(2.0)) * _f32(ctx.attr("std", 1.0)))
+    """``mean + std * normal`` as XLA compiles it. float32: the two
+    constants ``std`` and ``sqrt(2)`` folded into one float32 product,
+    and the multiply-add rounded once. float16: the constants folded in
+    float16, the multiply-add in float32, rounded to float16. bfloat16:
+    each operation rounded to bfloat16, as the reference runs it."""
+    shape, n, dtype = _draw(ctx)
+    mean, std = ctx.attr("mean", 0.0), ctx.attr("std", 1.0)
+    if dtype in _HALF_BITS:
+        e, sqrt2 = _half_normal(ctx.rng_key, n, dtype)
+        if dtype == torch.float16:
+            scale = (sqrt2 * torch.full((), std, dtype=dtype,
+                                        device=e.device)).float()
+            out = (e.float() * scale + float(np.float16(mean))).to(dtype)
+        else:
+            out = torch.full((), mean, dtype=dtype, device=e.device) + \
+                torch.full((), std, dtype=dtype, device=e.device) * \
+                (e * sqrt2)
+        return {"Out": out.reshape(shape)}
+    scale = _f32(_f32(math.sqrt(2.0)) * _f32(std))
     e = _erf_inv_uniform(ctx.rng_key, n).double()
-    out = e * scale + _f32(ctx.attr("mean", 0.0))
+    out = e * scale + _f32(mean)
     return {"Out": out.float().reshape(shape)}
 
 
 @register_op("uniform_random", needs_rng=True, skip_eval_shape=True)
 def _uniform_random(ctx):
-    shape, n = _float32_draw(ctx)
-    return {"Out": uniform(ctx.rng_key, n, ctx.attr("min", -1.0),
-                           ctx.attr("max", 1.0)).reshape(shape)}
+    shape, n, dtype = _draw(ctx)
+    lo, hi = ctx.attr("min", -1.0), ctx.attr("max", 1.0)
+    if dtype in _HALF_BITS:
+        return {"Out": _half_uniform(ctx.rng_key, n, dtype, lo, hi)
+                .reshape(shape)}
+    return {"Out": uniform(ctx.rng_key, n, lo, hi).reshape(shape)}
+
+
+def randint(key, shape, low, high):
+    """``jax.random.randint(key, shape, low, high, int32)``: two draws of
+    32 bits from the key's two halves (``split``), the span ``high -
+    low`` (1 when empty) as uint32, the multiplier ``(2^16 % span)^2 %
+    span``, then ``(hi % span) * multiplier + lo % span`` modulo span,
+    plus ``low``; every product and sum wraps at 32 bits as uint32 does
+    in JAX.
+    Returns an int32 tensor of ``shape`` on the key's device."""
+    n = math.prod(shape)
+    k1, k2 = split(key, 2)
+    higher, lower = random_bits(k1, n), random_bits(k2, n)
+    span = (high - low) & _MASK if high > low else 1
+    mult = (2 ** 16) % span
+    mult = ((mult * mult) & _MASK) % span
+    offset = (((higher % span) * mult) & _MASK) + (lower % span)
+    offset = (offset & _MASK) % span
+    out = (offset + low) & _MASK
+    # two's complement: the low 32 bits as int32
+    return torch.where(out >= 2 ** 31, out - 2 ** 32, out).to(
+        torch.int32).reshape(tuple(shape))
+
+
+@register_op("randint", needs_rng=True, skip_eval_shape=True)
+def _randint(ctx):
+    return {"Out": randint(ctx.rng_key, tuple(ctx.attr("shape")),
+                           int(ctx.attr("low", 0)), int(ctx.attr("high")))}
+
+
+@register_op("sampling_id", needs_rng=True)
+def _sampling_id(ctx):
+    """A column per row of the probabilities X: ``jax.random.categorical``
+    of ``log(max(x, 1e-20))``, the argmax of logits plus Gumbel noise
+    (``gumbel``) from the op's key; int32."""
+    x = ctx.input("X")
+    if x.device.type == "meta":
+        return {"Out": torch.empty(x.shape[:-1], dtype=torch.int32,
+                                   device="meta")}
+    logits = torch.log(torch.maximum(x, torch.full((), 1e-20, dtype=x.dtype,
+                                                   device=x.device)))
+    noise = gumbel(ctx.rng_key, x.numel()).reshape(x.shape).to(x.dtype)
+    return {"Out": torch.argmax(noise + logits, dim=-1).to(torch.int32)}

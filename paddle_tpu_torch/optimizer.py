@@ -1,11 +1,13 @@
-"""Optimizers (reference ``paddle_tpu/optimizer.py`` ``SGD``,
-``Momentum`` and ``Adam``), in two forms served by one class per name.
+"""Optimizers (reference ``paddle_tpu/optimizer.py``): ``SGD``,
+``Momentum``, ``Adagrad``, ``Adam``, ``Adamax``, ``DecayedAdagrad``,
+``AdaDelta``, ``RMSProp``, ``Ftrl`` and ``ModelAverage``.
 
-The ``nn.Module`` form takes ``{reference name: parameter}`` first (for
-a ResNet, ``model.reference_parameters()``) and keeps its accumulators
-under the reference's scope names: the velocity of parameter ``p`` is
-``p_velocity_acc_0`` and the learning rate ``learning_rate_0``, so a
-reference scope's optimizer state loads by name
+``SGD``, ``Momentum`` and ``Adam`` come in two forms served by one class
+per name. The ``nn.Module`` form takes ``{reference name: parameter}``
+first (for a ResNet, ``model.reference_parameters()``) and keeps its
+accumulators under the reference's scope names: the velocity of
+parameter ``p`` is ``p_velocity_acc_0`` and the learning rate
+``learning_rate_0``, so a reference scope's optimizer state loads by name
 (``io.params_from_jax``); Adam's are ``p_moment1_acc_0``,
 ``p_moment2_acc_0``, ``p_beta1_pow_acc_0`` and ``p_beta2_pow_acc_0``.
 An optimizer of this form trains its parameters: it turns their
@@ -13,40 +15,59 @@ An optimizer of this form trains its parameters: it turns their
 ``ops/optimizer_ops.py`` in place to every parameter that has a
 gradient.
 
-The program form takes the learning rate first, as the reference's
-does (``Momentum(0.1, 0.9)``), and :meth:`minimize` appends the
-backward (``core/backward.py``) and one update op per parameter to the
-loss's program, with its accumulators and learning rate as persistable
+The program form, the only one of the other update rules, takes the
+learning rate first, as the reference's does (``Momentum(0.1, 0.9)``),
+and :meth:`minimize` appends to the loss's program, as the reference's
+does: the backward (``core/backward.py``), the gradient clips
+(``clip.py``), the regularization (``regularizer.py``: a parameter's
+own, else the optimizer's ``regularization``), one update op per
+parameter (a parameter's ``learning_rate`` multiple through a ``scale``
+op of the learning rate), and an ``increment`` of ``global_step`` when
+one is given; the accumulators and the learning rate are persistable
 variables initialized by the startup program, under the same names.
-The reference's regularization, gradient clipping, global step and
-per-parameter learning rates are not ported yet (ROADMAP Queue A,
-"LeNet-5/MNIST slice"); using one raises."""
+Sparse gradients are not ported (ROADMAP Queue A, "Distribution and the
+input pipeline")."""
+
+import contextlib
 
 import torch
 
+from .clip import append_gradient_clip_ops
 from .core import unique_name
 from .core.backward import append_backward
-from .core.framework import Variable, default_startup_program
+from .core.framework import (Variable, default_main_program,
+                             default_startup_program)
+from .core.scope import global_scope
 from .initializer import ConstantInitializer
 from .ops import optimizer_ops
+from .regularizer import append_regularization_ops
 
-__all__ = ["SGD", "Momentum", "Adam"]
+__all__ = ["SGD", "Momentum", "Adagrad", "Adam", "Adamax", "DecayedAdagrad",
+           "AdaDelta", "RMSProp", "Ftrl", "SGDOptimizer",
+           "MomentumOptimizer", "AdagradOptimizer", "AdamOptimizer",
+           "AdamaxOptimizer", "DecayedAdagradOptimizer",
+           "AdaDeltaOptimizer", "RMSPropOptimizer", "FtrlOptimizer",
+           "ModelAverage"]
 
 LR_NAME = "learning_rate_0"
 
-_TODO = "ROADMAP Queue A, \"LeNet-5/MNIST slice\""
 
-
-def _forms(args, kwargs, names, defaults):
-    """(params, [value of each of ``names``]) of a constructor call: the
-    nn.Module form passes the parameters first, the program form starts
-    at the learning rate (a number or a Variable)."""
+def _forms(args, kwargs, names, defaults, module_form=True):
+    """(params, {name: value}) of a constructor call: the nn.Module form
+    passes the parameters first, the program form starts at the learning
+    rate (a number or a Variable). ``regularization`` and
+    ``global_step`` (keywords) belong to the program form."""
     args, kwargs = list(args), dict(kwargs)
     params = kwargs.pop("params", None)
     if args and params is None and \
             not isinstance(args[0], (int, float, Variable)):
         params = args.pop(0)
-    if len(args) > len(names):
+    if params is not None and not module_form:
+        raise TypeError("this optimizer has the program form only: give "
+                        "it the learning rate and call minimize")
+    names = tuple(names) + ("regularization", "global_step")
+    defaults = tuple(defaults) + (None, None)
+    if len(args) > len(names) - 2:
         raise TypeError("too many arguments: %r" % (args,))
     values = dict(zip(names, defaults))
     values.update(zip(names, args))
@@ -54,17 +75,20 @@ def _forms(args, kwargs, names, defaults):
         if k not in names:
             raise TypeError("unexpected argument %r" % k)
         values[k] = v
-    if values.get("regularization") is not None or \
-            values.get("global_step") is not None:
-        raise NotImplementedError(
-            "regularization and global_step are not ported yet: " + _TODO)
-    return params, [values[n] for n in names]
+    if params is not None and (values["regularization"] is not None or
+                               values["global_step"] is not None):
+        raise TypeError("regularization and global_step are appended by "
+                        "minimize: the program form")
+    return params, values
 
 
 class _Optimizer:
-    def __init__(self, params, learning_rate):
+    def __init__(self, params, learning_rate, regularization=None,
+                 global_step=None):
         if learning_rate is None:
             raise TypeError("learning_rate is required")
+        self.regularization = regularization
+        self._global_step = global_step
         self.params = None if params is None else dict(params)
         self._learning_rate = learning_rate
         self.learning_rate = learning_rate \
@@ -115,10 +139,20 @@ class _Optimizer:
         return var
 
     def _lr_for_param(self, main, param):
-        if param.optimize_attr.get("learning_rate", 1.0) != 1.0:
-            raise NotImplementedError(
-                "per-parameter learning rates are not ported yet: " + _TODO)
-        return self._lr_var
+        """The learning rate variable of ``param``: the optimizer's, or
+        for a parameter with its own ``learning_rate`` multiple, a
+        ``scale`` of it."""
+        mult = param.optimize_attr.get("learning_rate", 1.0)
+        if mult == 1.0:
+            return self._lr_var
+        block = main.global_block()
+        out = block.create_var(
+            name=unique_name.generate("%s.lr" % param.name), shape=[1],
+            dtype="float32", stop_gradient=True)
+        block.append_op("scale", inputs={"X": [self._lr_var.name]},
+                        outputs={"Out": [out.name]},
+                        attrs={"scale": float(mult)})
+        return out
 
     def _add_accumulator(self, name, param, main, startup, fill_value=0.0,
                          shape=None):
@@ -138,25 +172,29 @@ class _Optimizer:
 
     def minimize(self, loss, startup_program=None, parameter_list=None,
                  no_grad_set=None):
-        """Append the backward of ``loss`` and the update ops to its
-        program (the accumulators' and the learning rate's initializers
-        to ``startup_program``, default the default startup program).
-        Returns ``(update ops, [(parameter, gradient variable)])``."""
+        """Append the backward of ``loss``, the gradient clips, the
+        regularization, the update ops and the ``global_step`` increment
+        to its program (the accumulators' and the learning rate's
+        initializers to ``startup_program``, default the default startup
+        program). Returns ``(update ops, [(parameter, gradient
+        variable)])``."""
         main = loss.block.program
         startup = startup_program or default_startup_program()
         params_grads = append_backward(loss, parameter_list, no_grad_set)
-        for param, _ in params_grads:
-            if getattr(param, "regularizer", None) is not None or \
-                    getattr(param, "gradient_clip", None) is not None:
-                raise NotImplementedError(
-                    "regularizers and gradient clipping are not ported "
-                    "yet: " + _TODO)
+        params_grads = append_gradient_clip_ops(params_grads)
+        params_grads = append_regularization_ops(params_grads,
+                                                 self.regularization)
         self._create_lr_var(main, startup)
         ops = []
         for param, grad in params_grads:
             if grad is not None:
                 ops.append(self._append_optimize_op(main, startup, param,
                                                     grad))
+        if self._global_step is not None:
+            loss.block.append_op(
+                "increment", inputs={"X": [self._global_step.name]},
+                outputs={"Out": [self._global_step.name]},
+                attrs={"step": 1.0}, infer_shape=False)
         return ops, params_grads
 
     def _append_optimize_op(self, main, startup, param, grad):
@@ -168,10 +206,9 @@ class SGD(_Optimizer):
     ``SGD(learning_rate=0.001)``."""
 
     def __init__(self, *args, **kwargs):
-        params, (lr, _, _) = _forms(
-            args, kwargs, ("learning_rate", "regularization", "global_step"),
-            (0.001, None, None))
-        super().__init__(params, lr)
+        params, v = _forms(args, kwargs, ("learning_rate",), (0.001,))
+        super().__init__(params, v["learning_rate"], v["regularization"],
+                         v["global_step"])
 
     def _update(self, name, param, grad):
         optimizer_ops.sgd(param, grad, self.learning_rate)
@@ -192,13 +229,12 @@ class Momentum(_Optimizer):
     use_nesterov)``."""
 
     def __init__(self, *args, **kwargs):
-        params, (lr, momentum, use_nesterov, _, _) = _forms(
-            args, kwargs, ("learning_rate", "momentum", "use_nesterov",
-                           "regularization", "global_step"),
-            (None, 0.9, False, None, None))
-        super().__init__(params, lr)
-        self.momentum = momentum
-        self.use_nesterov = use_nesterov
+        params, v = _forms(args, kwargs, ("learning_rate", "momentum",
+                                          "use_nesterov"), (None, 0.9, False))
+        super().__init__(params, v["learning_rate"], v["regularization"],
+                         v["global_step"])
+        self.momentum = v["momentum"]
+        self.use_nesterov = v["use_nesterov"]
         self.velocities = {name: torch.zeros_like(p)
                            for name, p in (self.params or {}).items()}
 
@@ -229,12 +265,13 @@ class Adam(_Optimizer):
     ``Adam(learning_rate, beta1, beta2, epsilon)``."""
 
     def __init__(self, *args, **kwargs):
-        params, (lr, beta1, beta2, epsilon, _, _) = _forms(
-            args, kwargs, ("learning_rate", "beta1", "beta2", "epsilon",
-                           "regularization", "global_step"),
-            (0.001, 0.9, 0.999, 1e-8, None, None))
-        super().__init__(params, lr)
-        self.beta1, self.beta2, self.epsilon = beta1, beta2, epsilon
+        params, v = _forms(args, kwargs, ("learning_rate", "beta1", "beta2",
+                                          "epsilon"),
+                           (0.001, 0.9, 0.999, 1e-8))
+        super().__init__(params, v["learning_rate"], v["regularization"],
+                         v["global_step"])
+        beta1, beta2 = v["beta1"], v["beta2"]
+        self.beta1, self.beta2, self.epsilon = beta1, beta2, v["epsilon"]
         self.slots = {}
         for name, p in (self.params or {}).items():
             pow1 = torch.full((1,), beta1, dtype=p.dtype, device=p.device)
@@ -274,3 +311,244 @@ class Adam(_Optimizer):
                      "Beta2PowOut": [b2p.name]},
             attrs={"beta1": self.beta1, "beta2": self.beta2,
                    "epsilon": self.epsilon}, infer_shape=False)
+
+
+class _ProgramOptimizer(_Optimizer):
+    """An update rule of the program form only (``minimize``)."""
+
+    _NAMES = ("learning_rate",)
+    _DEFAULTS = (None,)
+
+    def __init__(self, *args, **kwargs):
+        _, v = _forms(args, kwargs, self._NAMES, self._DEFAULTS,
+                      module_form=False)
+        super().__init__(None, v["learning_rate"], v["regularization"],
+                         v["global_step"])
+        for name in self._NAMES[1:]:
+            setattr(self, "_" + name, v[name])
+
+
+class Adagrad(_ProgramOptimizer):
+    """``Adagrad(learning_rate, epsilon=1e-6)``."""
+
+    _NAMES = ("learning_rate", "epsilon")
+    _DEFAULTS = (None, 1e-6)
+
+    def _append_optimize_op(self, main, startup, param, grad):
+        moment = self._add_accumulator("moment", param, main, startup)
+        lr = self._lr_for_param(main, param)
+        return main.global_block().append_op(
+            "adagrad",
+            inputs=dict(Grad=[grad.name], Param=[param.name],
+                        Moment=[moment.name], LearningRate=[lr.name]),
+            outputs={"ParamOut": [param.name], "MomentOut": [moment.name]},
+            attrs={"epsilon": self._epsilon}, infer_shape=False)
+
+
+class Adamax(_ProgramOptimizer):
+    """``Adamax(learning_rate=0.001, beta1=0.9, beta2=0.999,
+    epsilon=1e-8)``."""
+
+    _NAMES = ("learning_rate", "beta1", "beta2", "epsilon")
+    _DEFAULTS = (0.001, 0.9, 0.999, 1e-8)
+
+    def _append_optimize_op(self, main, startup, param, grad):
+        m = self._add_accumulator("moment", param, main, startup)
+        inf = self._add_accumulator("inf_norm", param, main, startup)
+        b1p = self._add_accumulator("beta1_pow", param, main, startup,
+                                    fill_value=self._beta1, shape=[1])
+        lr = self._lr_for_param(main, param)
+        return main.global_block().append_op(
+            "adamax",
+            inputs={"Param": [param.name], "Grad": [grad.name],
+                    "Moment": [m.name], "InfNorm": [inf.name],
+                    "Beta1Pow": [b1p.name], "LearningRate": [lr.name]},
+            outputs={"ParamOut": [param.name], "MomentOut": [m.name],
+                     "InfNormOut": [inf.name], "Beta1PowOut": [b1p.name]},
+            attrs={"beta1": self._beta1, "beta2": self._beta2,
+                   "epsilon": self._epsilon}, infer_shape=False)
+
+
+class DecayedAdagrad(_ProgramOptimizer):
+    """``DecayedAdagrad(learning_rate, decay=0.95, epsilon=1e-6)``."""
+
+    _NAMES = ("learning_rate", "decay", "epsilon")
+    _DEFAULTS = (None, 0.95, 1e-6)
+
+    def _append_optimize_op(self, main, startup, param, grad):
+        moment = self._add_accumulator("moment", param, main, startup)
+        lr = self._lr_for_param(main, param)
+        return main.global_block().append_op(
+            "decayed_adagrad",
+            inputs={"Param": [param.name], "Grad": [grad.name],
+                    "Moment": [moment.name], "LearningRate": [lr.name]},
+            outputs={"ParamOut": [param.name], "MomentOut": [moment.name]},
+            attrs={"decay": self._decay, "epsilon": self._epsilon},
+            infer_shape=False)
+
+
+class AdaDelta(_ProgramOptimizer):
+    """``AdaDelta(learning_rate=1.0, rho=0.95, epsilon=1e-6)``; the rule
+    takes no learning rate."""
+
+    _NAMES = ("learning_rate", "rho", "epsilon")
+    _DEFAULTS = (1.0, 0.95, 1e-6)
+
+    def _append_optimize_op(self, main, startup, param, grad):
+        g2 = self._add_accumulator("avg_squared_grad", param, main, startup)
+        u2 = self._add_accumulator("avg_squared_update", param, main,
+                                   startup)
+        return main.global_block().append_op(
+            "adadelta",
+            inputs={"Param": [param.name], "Grad": [grad.name],
+                    "AvgSquaredGrad": [g2.name],
+                    "AvgSquaredUpdate": [u2.name]},
+            outputs={"ParamOut": [param.name], "AvgSquaredGradOut":
+                     [g2.name], "AvgSquaredUpdateOut": [u2.name]},
+            attrs={"rho": self._rho, "epsilon": self._epsilon},
+            infer_shape=False)
+
+
+class RMSProp(_ProgramOptimizer):
+    """``RMSProp(learning_rate, decay=0.9, momentum=0.0,
+    epsilon=1e-10)``."""
+
+    _NAMES = ("learning_rate", "decay", "momentum", "epsilon")
+    _DEFAULTS = (None, 0.9, 0.0, 1e-10)
+
+    def _append_optimize_op(self, main, startup, param, grad):
+        ms = self._add_accumulator("mean_square", param, main, startup)
+        mom = self._add_accumulator("moment", param, main, startup)
+        lr = self._lr_for_param(main, param)
+        return main.global_block().append_op(
+            "rmsprop",
+            inputs={"Param": [param.name], "Grad": [grad.name],
+                    "MeanSquare": [ms.name], "Moment": [mom.name],
+                    "LearningRate": [lr.name]},
+            outputs={"ParamOut": [param.name], "MeanSquareOut": [ms.name],
+                     "MomentOut": [mom.name]},
+            attrs={"decay": self._decay, "momentum": self._momentum,
+                   "epsilon": self._epsilon}, infer_shape=False)
+
+
+class Ftrl(_ProgramOptimizer):
+    """``Ftrl(learning_rate, l1=0.0, l2=0.0, lr_power=-0.5)``."""
+
+    _NAMES = ("learning_rate", "l1", "l2", "lr_power")
+    _DEFAULTS = (None, 0.0, 0.0, -0.5)
+
+    def _append_optimize_op(self, main, startup, param, grad):
+        sq = self._add_accumulator("squared", param, main, startup)
+        lin = self._add_accumulator("linear", param, main, startup)
+        lr = self._lr_for_param(main, param)
+        return main.global_block().append_op(
+            "ftrl",
+            inputs={"Param": [param.name], "Grad": [grad.name],
+                    "SquaredAccumulator": [sq.name],
+                    "LinearAccumulator": [lin.name],
+                    "LearningRate": [lr.name]},
+            outputs={"ParamOut": [param.name], "SquaredAccumOut": [sq.name],
+                     "LinearAccumOut": [lin.name]},
+            attrs={"l1": self._l1, "l2": self._l2,
+                   "lr_power": self._lr_power}, infer_shape=False)
+
+
+# fluid-style aliases
+SGDOptimizer = SGD
+MomentumOptimizer = Momentum
+AdagradOptimizer = Adagrad
+AdamOptimizer = Adam
+AdamaxOptimizer = Adamax
+DecayedAdagradOptimizer = DecayedAdagrad
+AdaDeltaOptimizer = AdaDelta
+RMSPropOptimizer = RMSProp
+FtrlOptimizer = Ftrl
+
+
+class ModelAverage:
+    """Parameter averaging for evaluation (reference ``ModelAverage``):
+    ops appended to the main program count the steps and sum each
+    parameter (in float32) after its update; :meth:`apply` swaps the
+    averages into the scope around an evaluation, :meth:`restore` (or
+    leaving ``apply``'s context) swaps the trained values back. The
+    window runs from construction or the last :meth:`reset_window`."""
+
+    def __init__(self, main_program=None, startup_program=None,
+                 parameter_list=None):
+        main = main_program or default_main_program()
+        startup = startup_program or default_startup_program()
+        block = main.global_block()
+        sblock = startup.global_block()
+        params = block.all_parameters()
+        if parameter_list is not None:
+            wanted = {p if isinstance(p, str) else p.name
+                      for p in parameter_list}
+            params = [p for p in params if p.name in wanted]
+        self._param_names = [p.name for p in params]
+        self._sums = {}
+        cname = unique_name.generate("model_average_count")
+        block.create_var(name=cname, shape=[1], dtype="float32",
+                         persistable=True, stop_gradient=True)
+        svar = sblock.create_var(name=cname, shape=[1], dtype="float32",
+                                 persistable=True)
+        ConstantInitializer(0.0)(svar, sblock)
+        block.append_op("increment", inputs={"X": [cname]},
+                        outputs={"Out": [cname]}, attrs={"step": 1.0},
+                        infer_shape=False)
+        self._count_name = cname
+        for p in params:
+            sname = unique_name.generate("%s_avg_sum" % p.name)
+            block.create_var(name=sname, shape=list(p.shape),
+                             dtype="float32", persistable=True,
+                             stop_gradient=True)
+            sv = sblock.create_var(name=sname, shape=list(p.shape),
+                                   dtype="float32", persistable=True)
+            ConstantInitializer(0.0)(sv, sblock)
+            block.append_op("elementwise_add",
+                            inputs={"X": [sname], "Y": [p.name]},
+                            outputs={"Out": [sname]}, infer_shape=False)
+            self._sums[p.name] = sname
+        self._backup = None
+
+    def apply(self, scope=None):
+        """A context in which the scope holds the averaged parameters."""
+        @contextlib.contextmanager
+        def _ctx():
+            self._swap_in(scope)
+            try:
+                yield
+            finally:
+                self.restore(scope)
+        return _ctx()
+
+    def _swap_in(self, scope=None):
+        scope = scope or global_scope()
+        count_t = scope.find_var(self._count_name)
+        if float(count_t.reshape(-1)[0]) <= 0:
+            raise RuntimeError("ModelAverage.apply before any step ran")
+        count = count_t.reshape(())
+        self._backup = {}
+        for pname in self._param_names:
+            param = scope.find_var(pname)
+            self._backup[pname] = param
+            # the parameter's own dtype, so the step's feed signature
+            # stays as it was
+            scope.set_var(pname, (scope.find_var(self._sums[pname]) /
+                                  count).to(param.dtype))
+
+    def restore(self, scope=None):
+        scope = scope or global_scope()
+        if self._backup is None:
+            return
+        for pname, val in self._backup.items():
+            scope.set_var(pname, val)
+        self._backup = None
+
+    def reset_window(self, scope=None):
+        """Restart the accumulation (the window's boundary)."""
+        scope = scope or global_scope()
+        count = scope.find_var(self._count_name)
+        scope.set_var(self._count_name, torch.zeros_like(count))
+        for pname in self._param_names:
+            scope.set_var(self._sums[pname], torch.zeros_like(
+                scope.find_var(self._sums[pname])))

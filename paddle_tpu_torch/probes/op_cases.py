@@ -1,0 +1,516 @@
+"""The op cases of the LeNet-5/MNIST slice: for each of the 118 op types
+the slice ports, the inputs (numpy, from a seed of the case's name),
+attributes and tolerance of one or more op descriptions. The CPU tests
+hold each case against the reference's op (``tests/test_torch_ops_*.py``)
+and ``chip_smoke.py``'s ``[ops]`` runs each on the card against the CPU.
+Numpy and torch only: nothing here imports the reference.
+
+A case's tolerance is on ``max|port - ref| / max(max|ref|, 1e-30)``
+against the reference on the CPU (0 is bitwise):
+
+* ``EXACT``: plumbing, comparisons, integer and selection ops, and
+  elementwise arithmetic that rounds once (+, -, *, /, sqrt) in the same
+  order as the reference;
+* ``ULP4`` (4 float32 ulp at the largest magnitude): one transcendental
+  (``exp``, ``log``, ``tanh``, ``log1p``, ``pow``, ``erf_inv`` ...),
+  whose float32 versions in XLA and torch are different approximations;
+* ``SUM``: reductions, norms and products, which sum in another order
+  than XLA's; ``CONV``: convolutions.
+"""
+
+import types
+
+import numpy as np
+import torch
+
+__all__ = ["EXACT", "ULP4", "SUM", "CONV", "Case", "CASES", "SLICE_OPS",
+           "KEY_WORDS", "UPDATE_RULES", "UPDATE_OUTPUTS", "FAMILIES",
+           "family", "op_desc", "to_torch"]
+
+EXACT = 0.0
+ULP4 = 4 * 2.0 ** -23
+SUM = 2e-6
+CONV = 1e-5
+
+def _rs(seed):
+    return np.random.RandomState(seed)
+
+
+def _f(rs, *shape, lo=None, hi=None):
+    if lo is not None:
+        return rs.uniform(lo, hi, shape).astype(np.float32)
+    return rs.standard_normal(shape).astype(np.float32)
+
+
+def _i(rs, hi, *shape, lo=0):
+    return rs.randint(lo, hi, shape).astype(np.int32)
+
+
+class Case:
+    """One op description: ``inputs`` maps a slot to an array or a list
+    of arrays (made by ``make(rs)``), ``attrs`` its attributes, ``tol``
+    its tolerance, ``grad`` whether its float inputs take a gradient
+    check, ``key`` whether it needs the op's random key."""
+
+    def __init__(self, op_type, make, attrs=(), tol=EXACT, grad=True,
+                 key=False, name=""):
+        self.op_type = op_type
+        self.make = make
+        self.attrs = dict(attrs)
+        self.tol = tol
+        self.grad = grad
+        self.key = key
+        self.id = op_type + ("-" + name if name else "")
+
+    def inputs(self):
+        return self.make(_rs(sum(map(ord, self.id))))
+
+
+# -- the cases, by reference module -----------------------------------------
+
+_ACT = {
+    "sigmoid": ({}, ULP4), "logsigmoid": ({}, ULP4), "exp": ({}, ULP4),
+    "tanh": ({}, ULP4), "tanh_shrink": ({}, ULP4),
+    "softshrink": ({"lambda": 0.3}, EXACT), "sqrt": ({}, EXACT),
+    "abs": ({}, EXACT), "ceil": ({}, EXACT), "floor": ({}, EXACT),
+    "round": ({}, EXACT), "reciprocal": ({}, EXACT), "log": ({}, ULP4),
+    "square": ({}, EXACT), "softplus": ({}, ULP4), "softsign": ({}, EXACT),
+    "brelu": ({"t_min": -1.0, "t_max": 1.5}, EXACT),
+    "leaky_relu": ({"alpha": 0.1}, EXACT),
+    "soft_relu": ({"threshold": 2.0}, ULP4), "elu": ({"alpha": 0.7}, ULP4),
+    "relu6": ({"threshold": 1.0}, EXACT), "stanh": ({}, ULP4),
+    "hard_shrink": ({"threshold": 0.3}, EXACT),
+    "thresholded_relu": ({"threshold": 0.2}, EXACT),
+    "hard_sigmoid": ({"slope": 0.3, "offset": 0.4}, EXACT),
+    "swish": ({"beta": 1.5}, ULP4), "silu": ({}, ULP4),
+}
+_POSITIVE = ("sqrt", "log", "reciprocal")
+
+CASES = []
+for _t, (_a, _tol) in _ACT.items():
+    if _t in _POSITIVE:
+        CASES.append(Case(_t, lambda rs: {"X": _f(rs, 3, 5, lo=0.1, hi=3)},
+                          _a, _tol))
+    else:
+        CASES.append(Case(_t, lambda rs: {"X": 2 * _f(rs, 3, 5)}, _a, _tol))
+
+CASES += [
+    Case("prelu", lambda rs: {"X": _f(rs, 2, 3, 4), "Alpha":
+                              _f(rs, 1, lo=0.1, hi=0.5)}, name="all"),
+    Case("prelu", lambda rs: {"X": _f(rs, 2, 3, 4), "Alpha":
+                              _f(rs, 3, 1, lo=0.1, hi=0.5)},
+         name="channel"),
+]
+
+# math_ops
+CASES += [
+    Case("elementwise_sub", lambda rs: {"X": _f(rs, 2, 3, 4),
+                                        "Y": _f(rs, 3)}, {"axis": 1}),
+    Case("elementwise_max", lambda rs: {"X": _f(rs, 2, 3, 4),
+                                        "Y": _f(rs, 4)}),
+    Case("elementwise_min", lambda rs: {"X": _f(rs, 2, 3, 4),
+                                        "Y": _f(rs, 2, 3, 4)}),
+    Case("elementwise_pow", lambda rs: {"X": _f(rs, 2, 3, lo=0.2, hi=2),
+                                        "Y": _f(rs, 3, lo=-1, hi=2)},
+         tol=ULP4),
+    Case("elementwise_pow", lambda rs: {"X": _i(rs, 5, 2, 3, lo=-4),
+                                        "Y": _i(rs, 4, 3)}, grad=False,
+         name="int"),
+    Case("scale", lambda rs: {"X": _f(rs, 3, 4)},
+         {"scale": 1.7, "bias": -0.3}),
+    Case("minus", lambda rs: {"X": _f(rs, 3, 4), "Y": _f(rs, 3, 4)}),
+]
+for _r in ("mean", "max", "min", "prod"):
+    _mk = (lambda rs: {"X": _f(rs, 2, 3, 4, lo=0.5, hi=1.5)}) \
+        if _r == "prod" else (lambda rs: {"X": _f(rs, 2, 3, 4)})
+    CASES += [
+        Case("reduce_" + _r, _mk, {"dim": [1], "keep_dim": True},
+             tol=SUM, name="dim1"),
+        Case("reduce_" + _r, _mk, {"dim": [0, 2], "keep_dim": False},
+             tol=SUM, name="dims02"),
+        Case("reduce_" + _r, _mk, {"dim": None, "reduce_all": True},
+             tol=SUM, name="all"),
+    ]
+CASES += [
+    Case("reduce_mean", lambda rs: {"X": _i(rs, 9, 3, 4)},
+         {"dim": [1]}, tol=SUM, grad=False, name="int"),
+    Case("clip", lambda rs: {"X": _f(rs, 3, 5)}, {"min": -0.5, "max": 0.7}),
+    Case("clip_by_norm", lambda rs: {"X": _f(rs, 4, 5)}, {"max_norm": 1.0},
+         tol=SUM, name="clipped"),
+    Case("clip_by_norm", lambda rs: {"X": _f(rs, 4, 5)},
+         {"max_norm": 100.0}, tol=SUM, name="kept"),
+    Case("sign", lambda rs: {"X": np.concatenate(
+        [_f(rs, 7), np.zeros(1, np.float32)])}),
+    Case("squared_l2_norm", lambda rs: {"X": _f(rs, 4, 5)}, tol=SUM),
+    Case("squared_l2_distance", lambda rs: {"X": _f(rs, 4, 3),
+                                            "Y": _f(rs, 4, 3)}, tol=SUM),
+    Case("squared_l2_distance", lambda rs: {"X": _f(rs, 4, 2, 3),
+                                            "Y": _f(rs, 1, 2, 3)}, tol=SUM,
+         name="row"),
+    Case("l1_norm", lambda rs: {"X": _f(rs, 4, 5)}, tol=SUM),
+    Case("cos_sim", lambda rs: {"X": _f(rs, 4, 5), "Y": _f(rs, 4, 5)},
+         tol=SUM),
+    Case("cos_sim", lambda rs: {"X": _f(rs, 4, 5), "Y": _f(rs, 1, 5)},
+         tol=SUM, name="row"),
+    Case("bilinear_tensor_product", lambda rs: {
+        "X": _f(rs, 3, 4), "Y": _f(rs, 3, 5), "Weight": _f(rs, 2, 4, 5),
+        "Bias": _f(rs, 2)}, tol=SUM),
+    Case("pow", lambda rs: {"X": _f(rs, 3, 4, lo=0.1, hi=2)},
+         {"factor": 2.5}, tol=ULP4),
+    Case("pow", lambda rs: {"X": _i(rs, 6, 3, 4, lo=-5)}, {"factor": 3},
+         grad=False, name="int"),
+]
+for _l in ("and", "or", "xor"):
+    CASES.append(Case("logical_" + _l, lambda rs: {
+        "X": rs.rand(3, 4) > 0.5, "Y": rs.rand(3, 4) > 0.5}, grad=False))
+CASES.append(Case("logical_not", lambda rs: {"X": rs.rand(3, 4) > 0.5},
+                  grad=False))
+
+
+def _ties(rs):
+    x = _f(rs, 3, 4).round(0)
+    y = _f(rs, 3, 4).round(0)
+    return {"X": x, "Y": y}
+
+
+for _c in ("less_than", "less_equal", "greater_than", "greater_equal",
+           "equal", "not_equal"):
+    CASES.append(Case(_c, _ties, grad=False))
+
+# tensor_ops
+CASES += [
+    Case("cast", lambda rs: {"X": 3 * _f(rs, 3, 4)}, {"out_dtype": "int32"},
+         grad=False, name="f2i"),
+    Case("cast", lambda rs: {"X": _f(rs, 3, 4)}, {"out_dtype": "float16"},
+         name="f2h"),
+    Case("cast", lambda rs: {"X": _i(rs, 9, 3, 4, lo=-9)},
+         {"out_dtype": "float32"}, name="i2f"),
+    Case("cast", lambda rs: {"X": rs.rand(3, 4) > 0.5},
+         {"out_dtype": "int64"}, name="b2l"),
+    Case("concat", lambda rs: {"X": [_f(rs, 2, 1), _f(rs, 2, 3),
+                                     _f(rs, 2, 2)]}, {"axis": 1}),
+    Case("split", lambda rs: {"X": _f(rs, 4, 3)},
+         {"sections": [1, 2], "axis": 1}, name="sections"),
+    Case("split", lambda rs: {"X": _f(rs, 4, 3)}, {"num": 2, "axis": 0},
+         name="num"),
+    Case("flip", lambda rs: {"X": _f(rs, 3, 4)}, {"axis": 1}),
+    Case("pad", lambda rs: {"X": _f(rs, 2, 3)},
+         {"paddings": [1, 0, 2, 3], "pad_value": 0.5}),
+    Case("crop", lambda rs: {"X": _f(rs, 4, 5)},
+         {"offsets": [1, 2], "shape": [2, -1]}),
+    Case("expand", lambda rs: {"X": _f(rs, 2, 3)},
+         {"expand_times": [2, 1]}),
+    Case("expand", lambda rs: {"X": _f(rs, 2, 3)},
+         {"expand_times": [3]}, name="trailing"),
+    Case("scatter", lambda rs: {"X": _f(rs, 5, 3),
+                                "Index": np.array([1, 3, 1], np.int32),
+                                "Updates": _f(rs, 3, 3)}, name="repeats"),
+    Case("multiplex", lambda rs: {
+        "X": [_f(rs, 4, 2), _f(rs, 4, 2), _f(rs, 4, 2)],
+        "Ids": np.array([[0], [2], [1], [0]], np.int32)}),
+    Case("fill_zeros_like", lambda rs: {"X": _f(rs, 3, 2)}, grad=False),
+    Case("fill_constant_batch_size_like", lambda rs: {"Input": _f(rs, 6, 3)},
+         {"shape": [-1, 4], "value": 2.5, "dtype": "float32"}, grad=False),
+    Case("fill_constant_batch_size_like", lambda rs: {"Input": _f(rs, 2, 5)},
+         {"shape": [3, -1], "value": 7, "dtype": "int64",
+          "input_dim_idx": 1, "output_dim_idx": 1}, grad=False,
+         name="idx"),
+    Case("assign", lambda rs: {"X": _f(rs, 3, 2)}),
+    Case("assign_value", lambda rs: {}, {
+        "shape": [2, 3], "dtype": "float32",
+        "values": [0.5, -1.25, 3.0, 1e-3, 7.0, -2.0]}, grad=False),
+    Case("assign_value", lambda rs: {}, {
+        "shape": [3], "dtype": "int32", "values": [4, -1, 9]}, grad=False,
+        name="int"),
+    Case("increment", lambda rs: {"X": _f(rs, 1)}, {"step": 1.0},
+         grad=False),
+    Case("increment", lambda rs: {"X": np.array([5], np.int32)},
+         {"step": 2.0}, grad=False, name="int"),
+    Case("is_empty", lambda rs: {"X": _f(rs, 0, 3)}, grad=False),
+    Case("is_empty", lambda rs: {"X": _f(rs, 2, 3)}, grad=False,
+         name="full"),
+    Case("one_hot", lambda rs: {"X": np.array([[1], [4], [0], [7]],
+                                              np.int32)}, {"depth": 5},
+         grad=False),
+    Case("shape", lambda rs: {"Input": _f(rs, 2, 3, 4)}, grad=False),
+    Case("arg_min", lambda rs: {"X": _f(rs, 3, 5)}, {"axis": 1},
+         grad=False),
+    Case("stack", lambda rs: {"X": [_f(rs, 2, 3), _f(rs, 2, 3),
+                                    _f(rs, 2, 3)]}, {"axis": 1}),
+    Case("unstack", lambda rs: {"X": _f(rs, 2, 3, 4)}, {"axis": 1}),
+]
+
+# nn_ops
+CASES += [
+    Case("batch_conv2d", lambda rs: {"Input": _f(rs, 2, 3, 6, 6),
+                                     "Filter": _f(rs, 2, 4, 3, 3, 3)},
+         {"strides": [1, 1], "paddings": [1, 1], "dilations": [1, 1]},
+         tol=CONV),
+    Case("conv3d", lambda rs: {"Input": _f(rs, 2, 2, 5, 5, 5),
+                               "Filter": _f(rs, 3, 2, 3, 3, 3)},
+         {"strides": [1, 2, 1], "paddings": [1, 1, 0],
+          "dilations": [1, 1, 1], "groups": 1}, tol=CONV),
+    Case("conv2d_transpose", lambda rs: {"Input": _f(rs, 2, 3, 5, 5),
+                                         "Filter": _f(rs, 3, 4, 3, 3)},
+         {"strides": [2, 2], "paddings": [1, 1], "dilations": [1, 1]},
+         tol=CONV),
+    Case("conv3d_transpose", lambda rs: {"Input": _f(rs, 1, 2, 3, 3, 3),
+                                         "Filter": _f(rs, 2, 3, 2, 2, 2)},
+         {"strides": [2, 2, 2], "paddings": [0, 0, 0],
+          "dilations": [1, 1, 1]}, tol=CONV),
+    Case("factorization_machine", lambda rs: {"X": _f(rs, 4, 6),
+                                              "V": _f(rs, 6, 3)}, tol=SUM),
+    Case("pool3d", lambda rs: {"X": _f(rs, 2, 2, 5, 5, 5)},
+         {"ksize": [2, 2, 2], "strides": [2, 2, 2], "paddings": [0, 0, 0],
+          "pooling_type": "max"}, name="max"),
+    Case("pool3d", lambda rs: {"X": _f(rs, 2, 2, 5, 5, 5)},
+         {"ksize": [3, 3, 3], "strides": [2, 2, 2], "paddings": [1, 1, 1],
+          "pooling_type": "avg", "exclusive": True}, tol=SUM, name="avg"),
+    Case("pool3d", lambda rs: {"X": _f(rs, 1, 2, 4, 5, 3)},
+         {"ksize": [2, 2, 2], "pooling_type": "avg", "global_pooling": True,
+          "exclusive": False}, tol=SUM, name="global"),
+    # no gradient: the reference's reduce_window over (value, index)
+    # pairs has none
+    Case("pool2d_with_index", lambda rs: {"X": _f(rs, 2, 3, 6, 6)},
+         {"ksize": [2, 2], "strides": [2, 2], "paddings": [0, 0]},
+         grad=False),
+    Case("pool2d_with_index", lambda rs: {"X": _f(rs, 2, 3, 7, 6)},
+         {"ksize": [3, 3], "strides": [2, 2], "paddings": [1, 1]},
+         grad=False, name="padded"),
+    Case("lrn", lambda rs: {"X": _f(rs, 2, 7, 3, 3)},
+         {"n": 5, "k": 2.0, "alpha": 1e-2, "beta": 0.75}, tol=ULP4),
+    Case("maxout", lambda rs: {"X": _f(rs, 2, 6, 3, 3)}, {"groups": 2}),
+    Case("norm", lambda rs: {"X": _f(rs, 2, 4, 3, 3), "Scale": _f(rs, 4)},
+         tol=SUM),
+    Case("l2_normalize", lambda rs: {"X": _f(rs, 3, 5)}, {"axis": 1},
+         tol=SUM),
+    Case("conv_shift", lambda rs: {"X": _f(rs, 3, 7), "Y": _f(rs, 3, 3)},
+         tol=SUM),
+    Case("row_conv", lambda rs: {"X": _f(rs, 2, 5, 4),
+                                 "Filter": _f(rs, 3, 4)}, tol=EXACT),
+    Case("spp", lambda rs: {"X": _f(rs, 2, 3, 5, 7)},
+         {"pyramid_height": 3, "pooling_type": "max"}, name="max"),
+    Case("spp", lambda rs: {"X": _f(rs, 2, 3, 5, 7)},
+         {"pyramid_height": 3, "pooling_type": "avg"}, tol=SUM, name="avg"),
+    Case("unpool", lambda rs: {
+        "X": _f(rs, 2, 3, 3, 3),
+        "Indices": (np.arange(9).reshape(3, 3) * 2 % 36 +
+                    rs.randint(0, 2, (2, 3, 3, 3))).astype(np.int32)},
+         {"unpooled_height": 6, "unpooled_width": 6}),
+    Case("im2sequence", lambda rs: {"X": _f(rs, 2, 3, 5, 6)},
+         {"kernels": [2, 3], "strides": [1, 2]}),
+]
+
+
+def _probs(rs, n, d):
+    p = rs.uniform(0.05, 1.0, (n, d)).astype(np.float32)
+    return (p / p.sum(1, keepdims=True)).astype(np.float32)
+
+
+# loss_ops
+CASES += [
+    Case("cross_entropy", lambda rs: {"X": _probs(rs, 4, 5),
+                                      "Label": _i(rs, 5, 4, 1)}, tol=ULP4),
+    Case("cross_entropy", lambda rs: {"X": _probs(rs, 4, 5),
+                                      "Label": _probs(rs, 4, 5)},
+         {"soft_label": True}, tol=ULP4, name="soft"),
+    Case("softmax_with_cross_entropy", lambda rs: {
+        "Logits": _f(rs, 4, 5), "Label": _probs(rs, 4, 5)},
+        {"soft_label": True}, tol=ULP4, name="soft"),
+    Case("sigmoid_cross_entropy_with_logits", lambda rs: {
+        "X": 2 * _f(rs, 4, 5), "Label": _f(rs, 4, 5, lo=0, hi=1)}, tol=ULP4),
+    Case("square_error_cost", lambda rs: {"X": _f(rs, 4, 1),
+                                          "Y": _f(rs, 4, 1)}),
+    Case("hinge_loss", lambda rs: {"Logits": _f(rs, 6, 1), "Labels":
+                                   _i(rs, 2, 6, 1).astype(np.float32)}),
+    Case("huber_loss", lambda rs: {"X": _f(rs, 6, 1), "Y": _f(rs, 6, 1)},
+         {"delta": 0.5}),
+    Case("log_loss", lambda rs: {"Predicted": _f(rs, 6, 1, lo=0.05, hi=0.95),
+                                 "Labels": _i(rs, 2, 6, 1).astype(
+                                     np.float32)}, {"epsilon": 1e-4},
+         tol=ULP4),
+    Case("margin_rank_loss", lambda rs: {
+        "X1": _f(rs, 6, 1), "X2": _f(rs, 6, 1),
+        "Label": (2 * _i(rs, 2, 6, 1) - 1).astype(np.float32)},
+        {"margin": 0.1}),
+    Case("modified_huber_loss", lambda rs: {
+        "X": 2 * _f(rs, 8, 1),
+        "Y": _i(rs, 2, 8, 1).astype(np.float32)}),
+    Case("rank_loss", lambda rs: {"Left": _f(rs, 6, 1), "Right":
+                                  _f(rs, 6, 1), "Label":
+                                  _f(rs, 6, 1, lo=0, hi=1)}, tol=ULP4),
+    Case("smooth_l1_loss", lambda rs: {"X": _f(rs, 4, 3), "Y": _f(rs, 4, 3)},
+         {"sigma": 2.0}, tol=SUM),
+    Case("smooth_l1_loss", lambda rs: {
+        "X": _f(rs, 4, 3), "Y": _f(rs, 4, 3),
+        "InsideWeight": _f(rs, 4, 3, lo=0, hi=2),
+        "OutsideWeight": _f(rs, 4, 3, lo=0, hi=2)}, {"sigma": 1.0},
+        tol=SUM, name="weighted"),
+    Case("nce", lambda rs: {"Input": _f(rs, 4, 6),
+                            "Label": _i(rs, 20, 4, 1),
+                            "Weight": _f(rs, 20, 6),
+                            "Bias": _f(rs, 20, 1)},
+         {"num_neg_samples": 5, "num_total_classes": 20}, tol=SUM,
+         key=True),
+    Case("hsigmoid", lambda rs: {"X": _f(rs, 5, 6), "W": _f(rs, 6, 6),
+                                 "Label": _i(rs, 7, 5, 1),
+                                 "Bias": _f(rs, 6)},
+         {"num_classes": 7}, tol=SUM),
+]
+
+
+def _opt_inputs(rs, slots, positive=()):
+    out = {"Param": _f(rs, 3, 4), "Grad": _f(rs, 3, 4),
+           "LearningRate": np.array([0.1], np.float32)}
+    for s in slots:
+        out[s] = _f(rs, 3, 4, lo=0.01, hi=1.0) if s in positive \
+            else _f(rs, 3, 4)
+    return out
+
+
+# optimizer_ops (the functional form; test_torch_optimizers.py runs
+# three steps of each, in place and not)
+CASES += [
+    Case("adamax", lambda rs: dict(
+        _opt_inputs(rs, ("Moment", "InfNorm"), ("InfNorm",)),
+        Beta1Pow=np.array([0.9 ** 3], np.float32)), tol=ULP4, grad=False),
+    Case("adagrad", lambda rs: _opt_inputs(rs, ("Moment",), ("Moment",)),
+         tol=ULP4, grad=False),
+    Case("decayed_adagrad", lambda rs: _opt_inputs(rs, ("Moment",),
+                                                   ("Moment",)),
+         {"decay": 0.9}, tol=ULP4, grad=False),
+    Case("adadelta", lambda rs: {
+        k: v for k, v in _opt_inputs(
+            rs, ("AvgSquaredGrad", "AvgSquaredUpdate"),
+            ("AvgSquaredGrad", "AvgSquaredUpdate")).items()
+        if k != "LearningRate"}, tol=ULP4, grad=False),
+    Case("rmsprop", lambda rs: _opt_inputs(rs, ("MeanSquare", "Moment"),
+                                           ("MeanSquare",)),
+         {"momentum": 0.5}, tol=ULP4, grad=False),
+    Case("proximal_gd", lambda rs: _opt_inputs(rs, ()),
+         {"l1": 0.05, "l2": 0.1}, tol=ULP4, grad=False),
+    Case("proximal_adagrad", lambda rs: _opt_inputs(rs, ("Moment",),
+                                                    ("Moment",)),
+         {"l1": 0.05, "l2": 0.1}, tol=ULP4, grad=False),
+    Case("ftrl", lambda rs: _opt_inputs(
+        rs, ("SquaredAccumulator", "LinearAccumulator"),
+        ("SquaredAccumulator",)), {"l1": 0.05, "l2": 0.1}, tol=ULP4,
+        grad=False),
+    Case("ftrl", lambda rs: _opt_inputs(
+        rs, ("SquaredAccumulator", "LinearAccumulator"),
+        ("SquaredAccumulator",)), {"l1": 0.05, "l2": 0.1, "lr_power": -0.7},
+        tol=ULP4, grad=False, name="power"),
+]
+
+# metric_ops
+CASES += [
+    Case("auc", lambda rs: {"Out": _probs(rs, 40, 2),
+                            "Label": _i(rs, 2, 40, 1)},
+         {"num_thresholds": 200}, tol=SUM, grad=False),
+    Case("auc", lambda rs: {"Out": _f(rs, 30, lo=0, hi=1),
+                            "Label": _i(rs, 2, 30, 1)},
+         {"num_thresholds": 17}, tol=SUM, grad=False, name="flat"),
+    Case("precision_recall", lambda rs: {
+        "MaxProbs": _f(rs, 12, 1, lo=0, hi=1), "Indices": _i(rs, 4, 12, 1),
+        "Labels": _i(rs, 4, 12, 1)}, {"class_number": 4}, tol=SUM,
+        grad=False),
+    Case("positive_negative_pair", lambda rs: {
+        "Score": _f(rs, 12, 1).round(0), "Label": _i(rs, 3, 12, 1),
+        "QueryID": _i(rs, 3, 12, 1)}, grad=False),
+]
+
+# random_ops (bitwise; test_torch_ops_random.py covers the draws at
+# every dtype and through programs)
+CASES += [
+    Case("randint", lambda rs: {}, {"shape": [3, 4], "low": -3,
+                                    "high": 17}, grad=False, key=True),
+    Case("sampling_id", lambda rs: {"X": _probs(rs, 5, 8)}, grad=False,
+         key=True),
+    Case("gaussian_random", lambda rs: {}, {"shape": [4, 5], "mean": 0.5,
+                                            "std": 0.02,
+                                            "dtype": "float16"},
+         grad=False, key=True, name="f16"),
+    Case("uniform_random", lambda rs: {}, {"shape": [4, 5], "min": -3.0,
+                                           "max": 7.5,
+                                           "dtype": "bfloat16"},
+         grad=False, key=True, name="bf16"),
+]
+
+# the 118 op types this slice registers
+SLICE_OPS = sorted({c.op_type for c in CASES} -
+                   {"softmax_with_cross_entropy", "gaussian_random",
+                    "uniform_random"})
+
+KEY_WORDS = (0, 42)
+
+
+
+# input slot -> output slot of each update rule (``minimize`` names the
+# same variable in both: the update runs in place)
+UPDATE_OUTPUTS = {
+    "Param": "ParamOut", "Moment": "MomentOut", "InfNorm": "InfNormOut",
+    "Beta1Pow": "Beta1PowOut", "AvgSquaredGrad": "AvgSquaredGradOut",
+    "AvgSquaredUpdate": "AvgSquaredUpdateOut",
+    "MeanSquare": "MeanSquareOut", "SquaredAccumulator": "SquaredAccumOut",
+    "LinearAccumulator": "LinearAccumOut"}
+UPDATE_RULES = ("adamax", "adagrad", "decayed_adagrad", "adadelta",
+                "rmsprop", "proximal_gd", "proximal_adagrad", "ftrl")
+
+# the op types of the slice by the reference module that registers them
+FAMILIES = {
+    "activation": tuple(_ACT) + ("prelu",),
+    "math": ("elementwise_sub", "elementwise_max", "elementwise_min",
+             "elementwise_pow", "scale", "minus", "reduce_mean",
+             "reduce_max", "reduce_min", "reduce_prod", "clip",
+             "clip_by_norm", "sign", "squared_l2_norm",
+             "squared_l2_distance", "l1_norm", "cos_sim",
+             "bilinear_tensor_product", "pow", "logical_and", "logical_or",
+             "logical_xor", "logical_not", "less_than", "less_equal",
+             "greater_than", "greater_equal", "equal", "not_equal"),
+    "tensor": ("cast", "concat", "split", "flip", "pad", "crop", "expand",
+               "scatter", "multiplex", "fill_zeros_like",
+               "fill_constant_batch_size_like", "assign", "assign_value",
+               "increment", "is_empty", "one_hot", "shape", "arg_min",
+               "stack", "unstack"),
+    "nn": ("batch_conv2d", "conv3d", "conv2d_transpose",
+           "conv3d_transpose", "factorization_machine", "pool3d",
+           "pool2d_with_index", "lrn", "maxout", "norm", "l2_normalize",
+           "conv_shift", "row_conv", "spp", "unpool", "im2sequence"),
+    "loss": ("cross_entropy", "sigmoid_cross_entropy_with_logits",
+             "square_error_cost", "hinge_loss", "huber_loss", "log_loss",
+             "margin_rank_loss", "modified_huber_loss", "rank_loss",
+             "smooth_l1_loss", "nce", "hsigmoid",
+             "softmax_with_cross_entropy"),
+    "optimizer": UPDATE_RULES,
+    "metric": ("auc", "precision_recall", "positive_negative_pair"),
+    "random": ("randint", "sampling_id", "gaussian_random",
+               "uniform_random"),
+}
+
+
+def family(op_type):
+    """The reference module (by its family name) of an op type."""
+    return next(f for f, types_ in FAMILIES.items() if op_type in types_)
+
+
+def op_desc(op_type, inputs, attrs):
+    """An op description whose input names are its slots (a list slot
+    names its elements ``<slot>#<i>``); no output names."""
+    names = {}
+    for k, v in inputs.items():
+        names[k] = ["%s#%d" % (k, i) for i in range(len(v))] \
+            if isinstance(v, list) else [k]
+    return types.SimpleNamespace(type=op_type, attrs=dict(attrs),
+                                 inputs=names, outputs={})
+
+
+def to_torch(a, device):
+    """A copy of a numpy array as a tensor on ``device`` (an update rule
+    run in place writes into it, not into the case's array; a bfloat16
+    array, which numpy holds as ``ml_dtypes.bfloat16``, through
+    float32)."""
+    a = np.array(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(
+            device=device, dtype=torch.bfloat16)
+    return torch.from_numpy(a).to(device)

@@ -87,11 +87,16 @@ def test_c_round_trip_matches_executor(lib, tmp_path):
 
 def test_c_concurrent_requests(lib, tmp_path):
     """N threads hammer one loaded model and a private model each, all
-    results exact (the reference's multi-thread serving example)."""
+    results exact (the reference's multi-thread serving example). A
+    handle keeps one output buffer, which its next forward replaces, so
+    a caller sharing a handle holds one lock around its forward and its
+    reads of that handle's outputs (``ptc_model_output_data``); the
+    private handles run with no lock, concurrently."""
     assert lib.ptc_init(b"") == 0
     d = str(tmp_path)
     xv, want, _ = _build_and_save(d)
     shared = lib.ptc_model_load(d.encode())
+    shared_lock = threading.Lock()
     errors = []
 
     def worker(i):
@@ -101,8 +106,9 @@ def test_c_concurrent_requests(lib, tmp_path):
             for _ in range(5):
                 np.testing.assert_array_equal(
                     _c_forward(lib, mine, "x", xv), want)
-                np.testing.assert_array_equal(
-                    _c_forward(lib, shared, "x", xv), want)
+                with shared_lock:
+                    got = _c_forward(lib, shared, "x", xv)
+                np.testing.assert_array_equal(got, want)
                 out = _c_forward(lib, mine, "x",
                                  rs.randn(3, 4).astype("float32"))
                 assert out.shape == (3, 3) and np.isfinite(out).all()

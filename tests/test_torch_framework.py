@@ -21,6 +21,7 @@ from paddle_tpu_torch.core import enforce, registry, unique_name
 from paddle_tpu_torch.core.framework import (BFLOAT16, convert_dtype,
                                              dtype_name, torch_dtype)
 from paddle_tpu_torch.ops import conv_bn
+from test_torch_ops_cases import SLICE_OPS
 
 
 def test_unique_names_follow_the_reference():
@@ -126,7 +127,9 @@ def test_the_port_registers_the_slice():
         "kv_cache_append_paged", "kv_block_copy",
         "multihead_attention_decode", "multihead_attention_decode_paged",
         "multihead_attention_prefill_paged", "decode_sample",
-        "decode_verify", "transpose", "gather", "slice", "arg_max"])
+        "decode_verify", "transpose", "gather", "slice", "arg_max"] +
+        # the LeNet-5/MNIST slice's op library
+        SLICE_OPS)
     with pytest.raises(NotImplementedError, match="no op registered"):
         registry.get_op_def("lstm")
 
@@ -288,7 +291,10 @@ def _infer(pkg, op_type):
 
 
 def test_shape_cases_cover_the_slice():
-    assert sorted(list(SHAPE_CASES) + list(SKIPPED)) == \
+    """Every op type's build-time shapes are checked against the
+    reference's: here, or for the LeNet-5/MNIST slice's op library case
+    by case in ``test_torch_ops_forward.py``."""
+    assert sorted(set(SHAPE_CASES) | set(SKIPPED) | set(SLICE_OPS)) == \
         registry.registered_ops()
 
 

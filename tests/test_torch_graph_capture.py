@@ -132,10 +132,13 @@ def graphs(monkeypatch):
 @pytest.fixture
 def counting(monkeypatch):
     """B4's and B5's CPU implementations count a launch, as their CUDA
-    ones do (a replay's re-run of the recorded op does not)."""
+    ones do (a replay's re-run of the recorded op does not). The counts
+    go back to what they were after the test: they are process-wide, and
+    other files on the worker expect none on the CPU."""
     for name, plain in (("decode_attention_plain", fa.decode_attention),
                         ("_decode_paged_reference",
                          fa.decode_attention_paged)):
+        monkeypatch.setattr(plain, "launches", plain.launches)
         real = getattr(fa, name)
 
         def counted(*a, _real=real, _wrapper=plain, **k):

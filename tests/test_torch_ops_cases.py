@@ -1,0 +1,172 @@
+"""The op library of the LeNet-5/MNIST slice against the reference: the
+helpers that run one case of ``paddle_tpu_torch/probes/op_cases.py``
+(inputs from a seed, attributes, tolerance) through both packages'
+registries, the reference's compute on jax arrays and the port's on CPU
+tensors (``test_torch_ops_forward.py`` and ``test_torch_ops_grad.py``
+run every case); and the registry's coverage: the port registers the
+reference's op types but the 55 that ``core/registry.PENDING`` names,
+each with the ROADMAP Queue A item that will bring it.
+"""
+
+import os
+import re
+from types import SimpleNamespace
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+import paddle_tpu.ops  # noqa: F401  (registers the reference's ops)
+from paddle_tpu.core import registry as ref_registry
+from paddle_tpu_torch.core import registry as port_registry
+from paddle_tpu_torch.probes.op_cases import (  # noqa: F401
+    CASES, CONV, EXACT, KEY_WORDS, SLICE_OPS, SUM, ULP4, Case, op_desc,
+    to_torch)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+# -- running one description through both registries ------------------------
+
+def _listify(v):
+    return v if isinstance(v, list) else [v]
+
+
+def _to_numpy(v):
+    if isinstance(v, torch.Tensor):
+        v = v.detach()
+        if v.dtype == torch.bfloat16:
+            return v.float().numpy().astype(jnp.bfloat16)
+        return v.numpy()
+    return np.asarray(v)
+
+
+def run_ref(case, inputs=None, jit=False):
+    """{slot: [numpy]} of the reference's compute on ``inputs``."""
+    inputs = case.inputs() if inputs is None else inputs
+    op = op_desc(case.op_type, inputs, case.attrs)
+    key = jnp.asarray(KEY_WORDS, jnp.uint32) if case.key else None
+
+    def f(vals, key):
+        ctx = ref_registry.ExecContext(op, vals, rng_key=key)
+        return ref_registry.normalize_outputs(
+            op, ref_registry.get_op_def(case.op_type).compute(ctx))
+    vals = {k: [jnp.asarray(a) for a in _listify(v)]
+            for k, v in inputs.items()}
+    out = (jax.jit(f) if jit else f)(vals, key)
+    return {k: [np.asarray(a) for a in v] for k, v in out.items()}
+
+
+def run_port(case, inputs=None, device="cpu", trace=None):
+    """{slot: [numpy]} of the port's compute on ``inputs`` on
+    ``device``."""
+    inputs = case.inputs() if inputs is None else inputs
+    op = op_desc(case.op_type, inputs, case.attrs)
+    key = torch.tensor(KEY_WORDS, dtype=torch.int64, device=device) \
+        if case.key else None
+    vals = {k: [to_torch(a, device) for a in _listify(v)]
+            for k, v in inputs.items()}
+    trace = trace or SimpleNamespace(device=torch.device(device),
+                                     inplace=False)
+    ctx = port_registry.ExecContext(op, vals, rng_key=key, trace=trace)
+    with torch.no_grad():
+        out = port_registry.normalize_outputs(
+            op, port_registry.get_op_def(case.op_type).compute(ctx))
+    return {k: [_to_numpy(a.cpu()) for a in v] for k, v in out.items()}
+
+
+def rel_err(got, want):
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    if want.size == 0:
+        return 0.0
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+
+
+def assert_outputs_match(port, ref, tol, what=""):
+    """Same slots, element counts, shapes and dtypes; values within
+    ``tol`` (bitwise for 0; NaN where the reference has NaN)."""
+    assert sorted(port) == sorted(ref), (what, sorted(port), sorted(ref))
+    for slot in ref:
+        assert len(port[slot]) == len(ref[slot]), (what, slot)
+        for p, r in zip(port[slot], ref[slot]):
+            assert p.shape == r.shape, (what, slot, p.shape, r.shape)
+            assert np.dtype(p.dtype) == np.dtype(r.dtype), \
+                (what, slot, p.dtype, r.dtype)
+            if r.dtype == np.bool_ or np.issubdtype(r.dtype, np.integer) \
+                    or tol == 0:
+                np.testing.assert_array_equal(
+                    p.view(np.uint16) if r.dtype == jnp.bfloat16 else p,
+                    r.view(np.uint16) if r.dtype == jnp.bfloat16 else r,
+                    err_msg="%s %s" % (what, slot))
+            else:
+                assert rel_err(p, r) <= tol, (what, slot, rel_err(p, r),
+                                              tol)
+
+
+# -- the registry's coverage ------------------------------------------------
+
+def _reference_registry():
+    import importlib
+    import pkgutil
+    import paddle_tpu
+    for m in pkgutil.walk_packages(paddle_tpu.__path__, "paddle_tpu."):
+        if m.name.startswith(("paddle_tpu.ops.", "paddle_tpu.embeddings.")):
+            importlib.import_module(m.name)
+    return set(ref_registry.registered_ops())
+
+
+def _queue_a_titles():
+    with open(os.path.join(ROOT, "ROADMAP.md")) as f:
+        section = f.read().split("### Queue A")[1].split("### Queue B")[0]
+    return [re.sub(r"\s+", " ", t).strip() for t in re.findall(
+        r"^\d+\.\s+\*\*(.+?)\*\*", section, re.M | re.S)]
+
+
+def test_the_slice_registers_118_op_types():
+    assert len(SLICE_OPS) == 118
+    assert set(SLICE_OPS) <= set(port_registry.registered_ops())
+
+
+def test_registered_and_pending_partition_the_reference():
+    """Every reference op type is registered in the port or named in
+    ``PENDING``, never both: 164 registered, 55 pending."""
+    ref = _reference_registry()
+    port = set(port_registry.registered_ops())
+    pending = set(port_registry.PENDING)
+    assert len(ref) == 219
+    assert port <= ref
+    assert not port & pending
+    assert port | pending == ref, sorted(ref - port - pending)
+    assert (len(port), len(pending)) == (164, 55)
+
+
+def test_pending_ops_cite_their_queue_a_item():
+    """Each pending op type cites a Queue A item by its title, and the
+    registry's refusal carries that citation."""
+    titles = _queue_a_titles()
+    cited = {}
+    for op_type, citation in port_registry.PENDING.items():
+        m = re.fullmatch(r'ROADMAP Queue A, "(.+)"', citation)
+        assert m and any(t.startswith(m.group(1)) for t in titles), \
+            (op_type, citation)
+        cited.setdefault(m.group(1), []).append(op_type)
+        try:
+            port_registry.get_op_def(op_type)
+        except NotImplementedError as exc:
+            assert citation in str(exc)
+        else:
+            raise AssertionError(op_type)
+    assert {k: len(v) for k, v in cited.items()} == {
+        "RNN and seq2seq configs": 35,
+        "Distribution and the input pipeline": 3, "Long tail": 17}
+
+
+def test_flags_of_the_slice_ops_are_the_references():
+    """needs_rng and skip_eval_shape as the reference registers them."""
+    for op_type in SLICE_OPS:
+        ours = port_registry.get_op_def(op_type)
+        theirs = ref_registry.get_op_def(op_type)
+        assert (ours.needs_rng, ours.skip_eval_shape) == \
+            (theirs.needs_rng, theirs.skip_eval_shape), op_type

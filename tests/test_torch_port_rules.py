@@ -656,9 +656,42 @@ def test_output_slots_equal_reference_on_one_program(monkeypatch):
             exe.run(load(startup))
             exe.run(load(main), feed=feed, fetch_list=[loss])
     _serve_generation("ref", named)
-    assert sorted(ours) == registry.registered_ops()
+    # the op types of the LeNet-5/MNIST slice have their output slots
+    # held against the reference's case by case, every op type of the
+    # slice with at least one case (test_torch_ops_forward.py)
+    from test_torch_ops_cases import SLICE_OPS
+    assert sorted(set(ours) | set(SLICE_OPS)) == registry.registered_ops()
     assert {t: sorted(s) for t, s in ours.items()} == \
         {t: sorted(theirs[t]) for t in ours}
+
+
+# the LeNet-5/MNIST slice's modules: the import walk above and the source
+# check cover them with the rest of the package
+LENET_SLICE_MODULES = [
+    "paddle_tpu_torch.ops.activation_ops", "paddle_tpu_torch.ops.math_ops",
+    "paddle_tpu_torch.ops.tensor_ops", "paddle_tpu_torch.ops.random_ops",
+    "paddle_tpu_torch.ops.nn_ops", "paddle_tpu_torch.ops.loss_ops",
+    "paddle_tpu_torch.ops.optimizer_ops", "paddle_tpu_torch.ops.metric_ops",
+    "paddle_tpu_torch.regularizer", "paddle_tpu_torch.clip",
+    "paddle_tpu_torch.lr_scheduler", "paddle_tpu_torch.optimizer",
+    "paddle_tpu_torch.layers.nn", "paddle_tpu_torch.layers.tensor",
+    "paddle_tpu_torch.layers.ops", "paddle_tpu_torch.layers.io",
+    "paddle_tpu_torch.initializer", "paddle_tpu_torch.nets",
+    "paddle_tpu_torch.models.lenet", "paddle_tpu_torch.reader.recordio",
+    "paddle_tpu_torch.native"]
+
+
+def test_import_rule_covers_the_lenet_slice_modules():
+    assert set(LENET_SLICE_MODULES) <= set(_package_modules())
+    code = ("import importlib, sys\n"
+            "for m in %r: importlib.import_module(m)\n"
+            "print(sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith('jax.') or m == 'paddle_tpu' or "
+            "m.startswith('paddle_tpu.')))\n" % (LENET_SLICE_MODULES,))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
 
 
 # the staged training pipeline's modules: the import walk above and the
