@@ -187,6 +187,26 @@ and PyTorch built for CUDA. In order, it:
    10, the test program captured as a CUDA graph and its replay bitwise
    the eager run, the step time, images/s, one step's busy share and
    the peak memory.
+20. the RNN and seq2seq slice, after ``[lenet]``: its 35 op types on the
+   card against the CPU (``[ops]``: the cases of ``probes/op_cases.py``
+   ``RNN_CASES`` and five control-flow and beam-search programs; no warm
+   call reads back to the host but the unbounded ``while`` and ``cond``,
+   whose reads are counted); a ``While(max_iters)`` RNN and a
+   ``StaticRNN`` LSTM trained card against CPU, captured, replayed
+   bitwise, and an unbounded ``While`` and a ``cond`` refused capture
+   with their reasons (``[control-flow]``); ``bench.py``'s
+   ``bench_seq2seq`` recipe (``[seq2seq]``: batch 128, length 50,
+   vocabulary 30000, width 512, Adam(1e-3): 3 warm-up and 20 timed
+   steps, ``seq2seq_train_tokens_per_sec``, then greedy and beam-4
+   generation from the trained scope, eager and replayed, beam width 1
+   equal to greedy; a small width card against CPU first);
+   ``stacked_lstm_net`` at its defaults on the IMDB recipe's shapes
+   (``[lstm-sentiment]``: batch 128, length 100, Adam(1e-3), step time,
+   sequences/s, busy share, peak; the synthetic task learned on the
+   card); and ``transformer_lm_generate`` at ``bench_paged_kv``'s
+   configuration (``[lm-generate]``: beam 1, beam 4, sampling, eager
+   and replayed, B2 f32 256 launches a call, beam 1 and sampling equal
+   to a cached paged session's tokens).
 
 Any failed phase exits nonzero. The line before the last is the card's
 name and power limit from nvidia-smi; the one before that lists the
@@ -667,6 +687,23 @@ def phase_compare(rng):
               "(tol %g)" % (p, n, err, KERNEL_ATOL))
         check(err <= KERNEL_ATOL, "flash_attention disagrees: %g" % err)
         check(not got[:, :, n:].any(), "flash_attention padded rows not 0")
+    # transformer_lm_generate's step sub-block: causal, no segment ids,
+    # 8 heads of 64 over the 64-token window, batch 8 (beam 1, sampling)
+    # and 32 (beam 4); drawn from a generator of its own so that the
+    # cases below keep their inputs
+    gen_rng = np.random.default_rng(LM_GENERATE["max_len"])
+    for n in (LM_GENERATE_BATCH, 4 * LM_GENERATE_BATCH):
+        shape = (n, LM_GENERATE["num_heads"], LM_GENERATE["max_len"],
+                 LM_GENERATE["d_model"] // LM_GENERATE["num_heads"])
+        q, k, v = (torch.from_numpy(gen_rng.standard_normal(
+            shape, dtype=np.float32)).cuda() for _ in range(3))
+        err = float((fa.flash_attention(q, k, v, True) -
+                     fa.flash_attention_plain(q, k, v, True)).abs().max())
+        flash_errs.append(err)
+        print("[compare] flash_attention causal=True %s seg=None (the "
+              "[lm-generate] step) max_abs_err=%.3g (tol %g)"
+              % (list(shape), err, KERNEL_ATOL))
+        check(err <= KERNEL_ATOL, "flash_attention disagrees: %g" % err)
     # off the main path: no segment ids, non-causal, head dim 64, ragged T
     for causal, p, n, hd in ((True, 100, None, 128), (False, 200, 77, 64)):
         q, k, v = (torch.from_numpy(rng.standard_normal(
@@ -6410,6 +6447,774 @@ def phase_lenet(seed):
     return dict(step_ms=step_ms, peak=peak)
 
 
+# -- the RNN and seq2seq slice: sequence, control-flow, beam-search, seq2seq,
+# CRF/CTC and nested-sequence ops; BASELINE configs 3 and 4; uncached LM
+# generation over B2 ------------------------------------------------------
+
+OPS_RNN_RTOL = 1e-4         # time loops: products and transcendentals
+#                             chained over the steps, cuBLAS against the CPU
+RNN_LOSS_RTOL = 1e-4        # a few Adam steps of an RNN, card against CPU
+SEQ2SEQ = dict(batch=128, src_len=50, trg_len=50, vocab=30000, emb=512,
+               hid=512, lr=1e-3, warmup=3, steps=20, beam=4, gen_len=50,
+               gen_runs=3)
+SEQ2SEQ_SMALL = dict(batch=8, src_len=10, trg_len=10, vocab=500, emb=64,
+                     hid=64, lr=1e-3, steps=5, beam=4, gen_len=12)
+LSTM_SENT = dict(vocab=30000, emb=128, hid=512, layers=3, classes=2,
+                 batch=128, max_len=100, min_len=50, lr=1e-3, warmup=10,
+                 windows=5, window_steps=10)
+LSTM_SMALL = dict(vocab=50, t=12, emb=16, hid=32, layers=2, batch=32,
+                  lr=2e-3, compare_steps=5, train_steps=60, acc_window=10,
+                  acc_floor=0.9)
+LM_GENERATE = dict(vocab_size=1024, d_model=512, num_heads=8, d_ff=2048,
+                   num_layers=4, max_len=64)
+LM_GENERATE_BATCH = 8
+LM_GENERATE_SAMPLE = dict(sample_seed=20260807, temperature=0.9, top_k=6)
+LM_GENERATE_RUNS = 3
+CF = dict(batch=4, t=5, d=3, h=6, lr=5e-3, steps=3)
+
+
+def seq2seq_gflop(cfg):
+    """The forward's products of ``seq2seq_attention`` in GFLOP (2 per
+    multiply-add), from the code's shapes: the two encoder projections
+    and GRUs, the encoder's output fc, and per decoder step the attention
+    query, scores and context, the GRU's input and recurrent products and
+    the vocabulary projection."""
+    b, t, t2, v = cfg["batch"], cfg["src_len"], cfg["trg_len"], cfg["vocab"]
+    e, h = cfg["emb"], cfg["hid"]
+    enc = 2 * (2 * b * t * e * 3 * h) + 2 * t * (2 * b * h * 3 * h) + \
+        2 * b * t * 2 * h * h
+    dec = t2 * (2 * b * h * h + 2 * 2 * b * t * h +
+                2 * b * (e + h) * 3 * h + 2 * b * h * 3 * h + 2 * b * h * v)
+    return (enc + dec) / 1e9, t2 * 2 * b * h * v / 1e9
+
+
+def lstm_sentiment_gflop(cfg):
+    """The forward's products of ``stacked_lstm_net`` in GFLOP: the first
+    fc, each LSTM's recurrent product per step, each later fc over the
+    [fc, lstm] pair, the classifier."""
+    n, t = cfg["batch"], cfg["max_len"]
+    e, h = cfg["emb"], cfg["hid"]
+    first = 2 * n * t * e * 4 * h
+    rec = cfg["layers"] * t * 2 * n * h * 4 * h
+    later = (cfg["layers"] - 1) * 2 * n * t * (4 * h + h) * 4 * h
+    return (first + rec + later + 2 * n * 5 * h * cfg["classes"]) / 1e9
+
+
+def cf_program(kind, train=False, seed=0):
+    """The control-flow programs of ``[ops]`` and ``[control-flow]``, the
+    reference's tests' own (``tests/test_control_flow.py``): ``while``,
+    an fc RNN under ``While(max_iters)``; ``static_rnn``, an LSTM step
+    (``lstm_unit``) under ``StaticRNN``; ``unbounded``, a loop whose trip
+    count is the feed ``n``; ``cond``, two branches over one weight.
+    Returns (main, startup, fetch list, feed)."""
+    from paddle_tpu_torch import core, layers as L, optimizer
+    c = CF
+    rs = np.random.RandomState(seed + 31)
+    x = rs.randn(c["batch"], c["t"], c["d"]).astype(np.float32)
+    feed = {"x": x, "y": x.sum(axis=(1, 2)).reshape(-1, 1) * 0.1}
+    main, startup = core.Program(), core.Program()
+    startup.random_seed = seed + 6
+    with core.unique_name.guard(), core.program_guard(main, startup):
+        xv = L.data("x", shape=[c["t"], c["d"]])
+        yv = L.data("y", shape=[1])
+        if kind == "while":
+            xt = L.transpose(xv, perm=[1, 0, 2])
+            i = L.fill_constant([1], "int32", 0)
+            n = L.fill_constant([1], "int32", c["t"])
+            h = L.fill_constant_batch_size_like(
+                xv, shape=[-1, c["h"]], dtype="float32", value=0.0)
+            cond_v = L.less_than(i, n)
+            w = L.While(cond_v, max_iters=c["t"])
+            with w.block():
+                x_t = L.reshape(L.gather(xt, i), [-1, c["d"]])
+                L.assign(L.fc([x_t, h], c["h"], act="tanh"), h)
+                L.assign(L.increment(i, 1, in_place=False), i)
+                L.assign(L.less_than(i, n), cond_v)
+            out = h
+        elif kind == "static_rnn":
+            zero = L.fill_constant_batch_size_like(
+                xv, shape=[-1, c["h"]], dtype="float32", value=0.0)
+            rnn = L.StaticRNN()
+            with rnn.step():
+                x_t = rnn.step_input(xv)
+                h_prev = rnn.memory(init=zero)
+                c_prev = rnn.memory(init=zero)
+                h, cell = L.lstm_unit(x_t, h_prev, c_prev, forget_bias=1.0)
+                rnn.update_memory(h_prev, h)
+                rnn.update_memory(c_prev, cell)
+                rnn.step_output(h)
+            out = L.sequence_pool(rnn(), "last")
+        elif kind == "unbounded":
+            n = L.data("n", shape=[1], dtype="int32",
+                       append_batch_size=False)
+            feed["n"] = np.array([4], np.int32)
+            i = L.fill_constant([1], "int32", 0)
+            acc = L.fill_constant_batch_size_like(
+                xv, shape=[-1, c["d"]], dtype="float32", value=0.0)
+            cond_v = L.less_than(i, n)
+            w = L.While(cond_v)
+            with w.block():
+                step = L.reshape(L.gather(L.transpose(xv, perm=[1, 0, 2]),
+                                          i), [-1, c["d"]])
+                L.assign(L.elementwise_add(L.scale(acc, 0.5), step), acc)
+                L.assign(L.increment(i, 1, in_place=False), i)
+                L.assign(L.less_than(i, n), cond_v)
+            out = acc
+        else:
+            flag = L.data("flag", shape=[], dtype="bool",
+                          append_batch_size=False)
+            feed["flag"] = np.array(True)
+            flat = L.reshape(xv, [-1, c["t"] * c["d"]])
+            w = main.global_block().create_parameter(
+                name="cf_cond_w", shape=[c["t"] * c["d"], 2],
+                dtype="float32")
+            sv = startup.global_block().create_var(
+                name="cf_cond_w", shape=[c["t"] * c["d"], 2],
+                dtype="float32", persistable=True)
+            from paddle_tpu_torch.initializer import NormalInitializer
+            NormalInitializer(0.0, 0.1)(sv, startup.global_block())
+            out = L.cond(flag, lambda: L.tanh(L.mul(flat, w)),
+                         lambda: L.scale(L.mul(flat, w), 3.0))
+        loss = L.mean(L.square_error_cost(L.fc(out, 1), yv))
+        if train:
+            optimizer.Adam(learning_rate=c["lr"]).minimize(loss, startup)
+    return main, startup, [out, loss], feed
+
+
+def gru_beam_program(beam, seed=0):
+    """A GRU step (embedding, fc, gru_unit, fc to 11 tokens) under
+    ``BeamSearchDecoder``: (main, startup, [ids, lengths, scores], feed)."""
+    from paddle_tpu_torch import core, layers as L
+    main, startup = core.Program(), core.Program()
+    startup.random_seed = seed + 4
+    with core.unique_name.guard(), core.program_guard(main, startup):
+        h0 = L.data("h0", shape=[6])
+        bs = L.BeamSearchDecoder(beam_size=beam, max_len=5, bos_id=0,
+                                 eos_id=1)
+        with bs.step():
+            tok = bs.token()
+            h_prev = bs.state(h0)
+            emb = L.embedding(tok, size=[11, 6], param_attr="gd.emb")
+            h, _, _ = L.gru_unit(L.fc(emb, 18, param_attr="gd.proj"),
+                                 h_prev, 6, param_attr="gd.w",
+                                 bias_attr="gd.b")
+            bs.update_state(h_prev, h)
+            bs.set_logits(L.fc(h, 11, param_attr="gd.out"))
+        outs = bs(return_all_beams=True)
+    feed = {"h0": np.random.RandomState(seed + 2).randn(3, 6)
+            .astype(np.float32)}
+    return main, startup, list(outs), feed
+
+
+def cuda_feed(feed):
+    import torch
+    return {k: torch.from_numpy(np.asarray(v)).cuda() for k, v in
+            feed.items()}
+
+
+def program_pair(main, startup, fetch, feed):
+    """The fetches of one run of ``main`` on the CPU and on the card from
+    the same startup weights (drawn on the CPU)."""
+    from paddle_tpu_torch import core
+    init = core.Scope()
+    core.Executor(device="cpu").run(startup, scope=init)
+    cpu = core.Executor(device="cpu").run(main, feed=feed, fetch_list=fetch,
+                                          scope=scope_copy(init, "cpu"))
+    scope = scope_copy(init, "cuda")
+    card = core.Executor(device="cuda").run(main, feed=feed,
+                                            fetch_list=fetch, scope=scope)
+    return card, cpu, init
+
+
+def phase_ops_rnn(seed):
+    """[ops] of the RNN and seq2seq slice: its 31 op types outside
+    sub-blocks on the card against the CPU on ``probes/op_cases.py``'s
+    cases, a warm second call reading nothing back to the host; and the
+    4 sub-block op types (``static_rnn``, bounded ``while``,
+    ``dynamic_beam_search``; unbounded ``while`` and ``cond``) through
+    small programs: card against CPU, the warm run of the first three
+    with the sync debug mode at "error", the host reads of the last two
+    counted (one before each iteration and one that stops the loop; one
+    a ``cond``)."""
+    import torch
+    from paddle_tpu_torch import core
+    from paddle_tpu_torch.core import registry
+    from paddle_tpu_torch.ops import control_flow_ops as cf
+    from paddle_tpu_torch.probes import op_cases as oc
+    t0 = time.perf_counter()
+    worst, checked = {}, set()
+    for case in oc.RNN_CASES:
+        inputs = case.inputs()
+        family = oc.rnn_family(case.op_type)
+        tol = OPS_RNN_RTOL if case.tol == oc.RNN else ops_tolerance(case)
+        out = {dev: op_call(case, inputs, dev)() for dev in ("cpu", "cuda")}
+        again = op_call(case, inputs, "cuda")
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            again()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        check(sorted(out["cuda"]) == sorted(out["cpu"]),
+              "[ops] %s: slots differ" % case.id)
+        for slot, vals in out["cpu"].items():
+            for got, want in zip(out["cuda"][slot], vals):
+                check(got.device.type == "cuda" and got.dtype == want.dtype
+                      and got.shape == want.shape,
+                      "[ops] %s %s: %s %s %s against %s %s" % (
+                          case.id, slot, got.device, got.dtype,
+                          tuple(got.shape), want.dtype, tuple(want.shape)))
+                err = op_err(got, want)
+                check(err <= tol, "[ops] %s %s: card against CPU %.3g > "
+                      "%.3g" % (case.id, slot, err, tol))
+                ratio = err / tol if tol else 0.0
+                if ratio >= worst.get(family, (-1.0,))[0]:
+                    worst[family] = (ratio, case.id, err, tol)
+        checked.add(case.op_type)
+    reads = {}
+    for kind, build in (("static_rnn", lambda: cf_program("static_rnn")),
+                        ("while", lambda: cf_program("while")),
+                        ("dynamic_beam_search",
+                         lambda: gru_beam_program(3, seed)),
+                        ("unbounded while", lambda: cf_program("unbounded")),
+                        ("cond", lambda: cf_program("cond"))):
+        main, startup, fetch, feed = build()
+        before = dict(cf.HOST_READS)
+        card, cpu, init = program_pair(main, startup, fetch, feed)
+        for got, want in zip(card, cpu):
+            if np.issubdtype(want.dtype, np.floating):
+                err = float(np.abs(got.astype(np.float64) - want).max() /
+                            max(float(np.abs(want).max()), 1e-30))
+            else:
+                err = 0.0 if np.array_equal(got, want) else float("inf")
+            check(err <= OPS_RNN_RTOL, "[ops] %s: card against CPU %.3g"
+                  % (kind, err))
+            worst.setdefault("blocks", (0.0, kind, 0.0, OPS_RNN_RTOL))
+            if err / OPS_RNN_RTOL >= worst["blocks"][0]:
+                worst["blocks"] = (err / OPS_RNN_RTOL, kind, err,
+                                   OPS_RNN_RTOL)
+        reads[kind] = {k: cf.HOST_READS[k] - before.get(k, 0)
+                       for k in ("while", "cond")}
+        if kind in ("unbounded while", "cond"):
+            continue
+        # a warm run op by op (a fresh executor's first) reads nothing back
+        scope = scope_copy(init, "cuda")
+        fresh = core.Executor(device="cuda")
+        dev_feed = cuda_feed(feed)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            fresh.run(main, feed=dev_feed, fetch_list=fetch, scope=scope,
+                      return_numpy=False)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        checked.add(kind)
+    check(reads["unbounded while"] == {"while": 2 * 5, "cond": 0} and
+          reads["cond"] == {"while": 0, "cond": 2} and
+          all(not any(reads[k].values()) for k in
+              ("static_rnn", "while", "dynamic_beam_search")),
+          "[ops] host reads of the control flow: %s" % reads)
+    checked.add("cond")
+    rnn_ops = set(oc.RNN_OPS)
+    check(rnn_ops <= checked and len(rnn_ops) == 35 and
+          rnn_ops <= set(registry.registered_ops()) and
+          len(registry.registered_ops()) == 199,
+          "[ops] checked %d of the RNN slice's %d op types; %d registered"
+          % (len(rnn_ops & checked), len(rnn_ops),
+             len(registry.registered_ops())))
+    print("[ops] %d op types of the RNN and seq2seq slice checked card "
+          "against CPU (%d cases and 5 programs; host reads, card and CPU "
+          "runs together: %s), %d of the reference's 219 op types "
+          "registered, in %.1f s" % (
+              len(rnn_ops & checked), len(oc.RNN_CASES), reads,
+              len(registry.registered_ops()), time.perf_counter() - t0))
+    for family in sorted(worst):
+        _, case_id, err, bound = worst[family]
+        print("[ops]   %-10s worst %-32s %.3g (tolerance %.3g)"
+              % (family, case_id, err, bound))
+
+
+def rnn_train_pair(main, startup, loss, feeds):
+    """Losses of Adam steps over ``feeds`` on the CPU and on the card from
+    the same startup weights (drawn on the CPU), their worst relative
+    difference, and the trained scopes by device."""
+    from paddle_tpu_torch import core
+    init = core.Scope()
+    core.Executor(device="cpu").run(startup, scope=init)
+    losses, scopes = {}, {}
+    for dev in ("cpu", "cuda"):
+        exe, scopes[dev] = core.Executor(device=dev), scope_copy(init, dev)
+        losses[dev] = [float(exe.run(main, feed=f, fetch_list=[loss],
+                                     scope=scopes[dev])[0]) for f in feeds]
+    err = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"],
+                                                   losses["cpu"]))
+    return losses, err, scopes
+
+
+def phase_control_flow(seed):
+    """[control-flow]: a While(max_iters) fc RNN and a StaticRNN LSTM train
+    3 Adam steps on the card against the CPU; their forward programs
+    capture at their second run and replay bitwise the eager run; an
+    unbounded While and a cond run op by op, are refused capture with the
+    reason in ``capture_stats()``, and equal the CPU."""
+    import torch
+    from paddle_tpu_torch import core
+    from paddle_tpu_torch.ops import control_flow_ops as cf
+    t0 = time.perf_counter()
+    c = CF
+    rs = np.random.RandomState(seed + 32)
+    feeds = []
+    for _ in range(c["steps"]):
+        x = rs.randn(c["batch"], c["t"], c["d"]).astype(np.float32)
+        feeds.append({"x": x, "y": x.sum(axis=(1, 2)).reshape(-1, 1) * 0.1})
+    for kind in ("while", "static_rnn"):
+        main, startup, (_, loss), _ = cf_program(kind, train=True,
+                                                 seed=seed)
+        losses, err, _ = rnn_train_pair(main, startup, loss, feeds)
+        print("[control-flow] %s: %d Adam steps, losses card %s cpu %s, "
+              "rel err %.3g (tolerance %.0e)" % (
+                  kind, c["steps"], [round(v, 6) for v in losses["cuda"]],
+                  [round(v, 6) for v in losses["cpu"]], err,
+                  RNN_LOSS_RTOL))
+        check(err <= RNN_LOSS_RTOL, "[control-flow] %s: %.3g" % (kind, err))
+    for kind in ("while", "static_rnn", "unbounded", "cond"):
+        main, startup, fetch, feed = cf_program(kind, seed=seed)
+        init = core.Scope()
+        core.Executor(device="cpu").run(startup, scope=init)
+        want = core.Executor(device="cpu").run(
+            main, feed=feed, fetch_list=fetch, scope=scope_copy(init, "cpu"))
+        exe, scope = core.Executor(device="cuda"), scope_copy(init, "cuda")
+        dev_feed = cuda_feed(feed)
+        before = dict(cf.HOST_READS)
+        outs = [[v.clone() for v in exe.run(
+            main, feed=dev_feed, fetch_list=fetch, scope=scope,
+            return_numpy=False)] for _ in range(3)]
+        reads = {k: cf.HOST_READS[k] - before.get(k, 0)
+                 for k in ("while", "cond")}
+        stats = exe.capture_stats()
+        bitwise = all(torch.equal(a, b) for run in outs[1:]
+                      for a, b in zip(run, outs[0]))
+        err = max(float(np.abs(a.cpu().numpy().astype(np.float64) - b).max()
+                        / max(float(np.abs(b).max()), 1e-30))
+                  for a, b in zip(outs[0], want))
+        print("[control-flow] %s forward, 3 runs on the card: %s; runs 2-3 "
+              "bitwise run 1: %s; card against CPU %.3g; host reads %s"
+              % (kind, stats, bitwise, err, reads))
+        check(bitwise and err <= OPS_RNN_RTOL and stats["failed"] == 0,
+              "[control-flow] %s: %s" % (kind, stats))
+        if kind in ("while", "static_rnn"):
+            check(stats["captures"] == 1 and stats["replays"] == 2 and
+                  stats["refused"] == 0 and not any(reads.values()),
+                  "[control-flow] %s did not capture: %s" % (kind, stats))
+        else:
+            check(stats["captures"] == 0 and stats["refused"] == 1 and
+                  len(stats["refused_reasons"]) == 1 and
+                  reads == ({"while": 3 * 5, "cond": 0}
+                            if kind == "unbounded" else
+                            {"while": 0, "cond": 3}),
+                  "[control-flow] %s was not refused: %s %s"
+                  % (kind, stats, reads))
+    print("[control-flow] done in %.1f s" % (time.perf_counter() - t0))
+
+
+def seq2seq_program(cfg, mode="train", beam_size=4):
+    """``bench_seq2seq``'s program (``bench.py``): the reference's
+    feeds, ``seq2seq_attention`` at ``cfg``'s widths, Adam(lr) for
+    training; greedy or beam generation otherwise, reading the same
+    parameter names. Returns (main, startup, outputs)."""
+    from paddle_tpu_torch import core, layers, optimizer
+    from paddle_tpu_torch.models.seq2seq import seq2seq_attention
+    main, startup = core.Program(), core.Program()
+    with core.unique_name.guard(), core.program_guard(main, startup):
+        src = layers.data("src", shape=[cfg["src_len"]], dtype="int64")
+        slen = layers.data("src_len", shape=[], dtype="int64")
+        trg = layers.data("trg", shape=[cfg["trg_len"]], dtype="int64")
+        tlen = layers.data("trg_len", shape=[], dtype="int64")
+        lbl = layers.data("lbl", shape=[cfg["trg_len"]], dtype="int64")
+        outs = seq2seq_attention(
+            src, slen, trg, tlen, lbl, src_vocab=cfg["vocab"],
+            trg_vocab=cfg["vocab"], emb_dim=cfg["emb"], hid_dim=cfg["hid"],
+            mode=mode, max_gen_len=cfg["gen_len"], beam_size=beam_size)
+        if mode == "train":
+            optimizer.Adam(learning_rate=cfg["lr"]).minimize(outs[0],
+                                                             startup)
+    return main, startup, outs
+
+
+def seq2seq_feed(cfg, rs):
+    """bench.py's feeds: ids from 2 to the vocabulary, full lengths."""
+    b = cfg["batch"]
+
+    def ids(t):
+        return rs.randint(2, cfg["vocab"], (b, t)).astype(np.int32)
+    return {"src": ids(cfg["src_len"]), "trg": ids(cfg["trg_len"]),
+            "lbl": ids(cfg["trg_len"]),
+            "src_len": np.full((b,), cfg["src_len"], np.int32),
+            "trg_len": np.full((b,), cfg["trg_len"], np.int32)}
+
+
+def generation_times(main, feed, fetch, scope, runs):
+    """(eager ms, replayed ms, the eager outputs, the replays bitwise
+    equal to them): the first run of a fresh executor on the card (op by
+    op), then the median of ``runs`` runs after its second, which
+    captured the step."""
+    import torch
+    from paddle_tpu_torch import core
+    exe = core.Executor(device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eager = [v.clone() for v in exe.run(main, feed=feed, fetch_list=fetch,
+                                        scope=scope, return_numpy=False)]
+    torch.cuda.synchronize()
+    eager_ms = (time.perf_counter() - t0) * 1e3
+    exe.run(main, feed=feed, fetch_list=fetch, scope=scope,
+            return_numpy=False)
+    times, same = [], True
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = exe.run(main, feed=feed, fetch_list=fetch, scope=scope,
+                       return_numpy=False)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        same = same and all(torch.equal(a, b) for a, b in zip(outs, eager))
+    stats = exe.capture_stats()
+    check(stats["captures"] == 1 and stats["failed"] == 0,
+          "generation step not captured: %s" % stats)
+    exe.release_graphs()
+    return eager_ms, float(np.median(times)), eager, same
+
+
+def phase_seq2seq_small(seed):
+    """At a small width: 5 Adam steps on the card against the CPU from
+    the same startup, and greedy and beam decoding of the trained CPU
+    scope card against CPU (tokens equal)."""
+    from paddle_tpu_torch import core
+    cfg = SEQ2SEQ_SMALL
+    main, startup, (loss, _) = seq2seq_program(cfg)
+    rs = np.random.RandomState(seed + 40)
+    feeds = [seq2seq_feed(cfg, rs) for _ in range(cfg["steps"])]
+    for f in feeds:
+        f["src_len"] = rs.randint(1, cfg["src_len"] + 1,
+                                  cfg["batch"]).astype(np.int32)
+        f["trg_len"] = rs.randint(1, cfg["trg_len"] + 1,
+                                  cfg["batch"]).astype(np.int32)
+    losses, err, scopes = rnn_train_pair(main, startup, loss, feeds)
+    print("[seq2seq] small (batch %d, T %d, vocab %d, width %d): %d Adam "
+          "steps card %s cpu %s, rel err %.3g (tolerance %.0e)" % (
+              cfg["batch"], cfg["src_len"], cfg["vocab"], cfg["hid"],
+              cfg["steps"], [round(v, 6) for v in losses["cuda"]],
+              [round(v, 6) for v in losses["cpu"]], err, RNN_LOSS_RTOL))
+    check(err <= RNN_LOSS_RTOL, "[seq2seq] small card against CPU %.3g"
+          % err)
+    feed = {k: feeds[0][k] for k in ("src", "src_len")}
+    for mode in ("greedy", "beam"):
+        gmain, _, gouts = seq2seq_program(cfg, mode, cfg["beam"])
+        got = core.Executor(device="cuda").run(
+            gmain, feed=feed, fetch_list=list(gouts),
+            scope=scope_copy(scopes["cpu"], "cuda"))
+        want = core.Executor(device="cpu").run(
+            gmain, feed=feed, fetch_list=list(gouts), scope=scopes["cpu"])
+        same = all(np.array_equal(a, b) for a, b in zip(got, want))
+        print("[seq2seq] small %s decoding of the CPU-trained scope, card "
+              "against CPU: tokens and lengths equal %s" % (mode, same))
+        check(same, "[seq2seq] small %s tokens differ card to CPU" % mode)
+
+
+def phase_seq2seq(seed):
+    """[seq2seq]: ``bench_seq2seq``'s accelerator recipe (``bench.py``:
+    batch 128, source and target length 50, vocabulary 30000, embedding
+    and hidden 512, Adam(1e-3), feeds from RandomState(0)): 3 warm-up
+    steps, 20 timed closed by one read of the loss,
+    ``seq2seq_train_tokens_per_sec``, ms a step, one profiled step's busy
+    share, the peak; then greedy and beam (4) generation of the 128
+    sources, 50 tokens, from the trained scope: eager and replayed ms a
+    batch, beam width 1 equal to greedy, replays bitwise the eager run;
+    and the small width card against CPU."""
+    import torch
+    from paddle_tpu_torch import core
+    cfg = SEQ2SEQ
+    t0 = time.perf_counter()
+    phase_seq2seq_small(seed)
+    fwd_gflop, proj_gflop = seq2seq_gflop(cfg)
+    main, startup, (loss, _) = seq2seq_program(cfg)
+    exe, scope = core.Executor(device="cuda"), core.Scope()
+    exe.run(startup, scope=scope)
+    feed = cuda_feed(seq2seq_feed(cfg, np.random.RandomState(0)))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    for _ in range(cfg["warmup"]):
+        outs = exe.run(main, feed=feed, fetch_list=[loss],
+                       return_numpy=False, scope=scope)
+    first = float(outs[0])
+    t1 = time.perf_counter()
+    for _ in range(cfg["steps"]):
+        outs = exe.run(main, feed=feed, fetch_list=[loss],
+                       return_numpy=False, scope=scope)
+    final = float(outs[0])
+    dt = time.perf_counter() - t1
+    peak = torch.cuda.max_memory_allocated()
+    tok_s = cfg["batch"] * cfg["trg_len"] * cfg["steps"] / dt
+    step_ms = dt / cfg["steps"] * 1e3
+    busy = profile_window("seq2seq one training step", lambda: exe.run(
+        main, feed=feed, fetch_list=[loss], return_numpy=False,
+        scope=scope))
+    print("[seq2seq] seq2seq_train_tokens_per_sec %.1f (batch %d x %d "
+          "target tokens x %d steps in %.3f s), %.3f ms a step, loss %.6f "
+          "after the warm-up and %.6f after the timed steps, busy %s, peak "
+          "allocated %.2f GB (%.2f GB above the %.2f GB allocated before); "
+          "the forward's products %.1f GFLOP (%.1f of them the vocabulary "
+          "projection), a step ~%.1f GFLOP: %.1f TFLOP/s; %s" % (
+              tok_s, cfg["batch"], cfg["trg_len"], cfg["steps"], dt,
+              step_ms, first, final, "not measured" if busy is None else
+              "%.1f%%" % (100 * busy["busy_share"]), peak / 1e9,
+              (peak - base) / 1e9, base / 1e9, fwd_gflop, proj_gflop,
+              3 * fwd_gflop, 3 * fwd_gflop / step_ms, card_line()))
+    check(np.isfinite(final) and final < first,
+          "[seq2seq] the loss did not fall: %s -> %s" % (first, final))
+    gfeed = {k: feed[k] for k in ("src", "src_len")}
+    res = {}
+    for mode, beam in (("greedy", 1), ("beam", cfg["beam"]), ("beam", 1)):
+        gmain, _, gouts = seq2seq_program(cfg, mode, beam)
+        eager_ms, replay_ms, outs, same = generation_times(
+            gmain, gfeed, list(gouts), scope, cfg["gen_runs"])
+        res[(mode, beam)] = outs
+        lengths = outs[1].float()
+        print("[seq2seq] %s%s generation, batch %d, %d tokens: eager %.3f "
+              "ms, replayed %.3f ms a batch (median of %d); replays bitwise "
+              "the eager run: %s; mean length %.2f; %s" % (
+                  mode, "" if mode == "greedy" else " %d" % beam,
+                  cfg["batch"], cfg["gen_len"], eager_ms, replay_ms,
+                  cfg["gen_runs"], same, float(lengths.mean()),
+                  card_line()))
+        check(same, "[seq2seq] %s replay differs from the eager run" % mode)
+    same = torch.equal(res[("beam", 1)][0], res[("greedy", 1)][0])
+    print("[seq2seq] beam width 1 gives the greedy tokens: %s" % same)
+    check(same, "[seq2seq] beam width 1 differs from greedy")
+    del exe, scope
+    print("[seq2seq] done in %.1f s" % (time.perf_counter() - t0))
+    return dict(tok_s=tok_s, step_ms=step_ms)
+
+
+def lstm_program(cfg, t, seed=0):
+    """``stacked_lstm_net`` at ``cfg``'s widths with Adam: (main, startup,
+    loss, acc)."""
+    from paddle_tpu_torch import core, layers, optimizer
+    from paddle_tpu_torch.models.lstm_sentiment import stacked_lstm_net
+    main, startup = core.Program(), core.Program()
+    startup.random_seed = seed + 5
+    with core.unique_name.guard(), core.program_guard(main, startup):
+        data = layers.data("words", shape=[t], dtype="int64")
+        length = layers.data("length", shape=[], dtype="int64")
+        label = layers.data("label", shape=[1], dtype="int64")
+        loss, acc, _ = stacked_lstm_net(
+            data, length, label, dict_dim=cfg["vocab"], emb_dim=cfg["emb"],
+            hid_dim=cfg["hid"], stacked_num=cfg["layers"],
+            class_dim=cfg.get("classes", 2))
+        optimizer.Adam(learning_rate=cfg["lr"]).minimize(loss, startup)
+    return main, startup, loss, acc
+
+
+def synth_sentiment(n, t, vocab, rs):
+    """The reference's synthetic sentiment task (``tests/test_models.py``):
+    positive sequences hold a run of token 5."""
+    y = rs.randint(0, 2, n)
+    x = rs.randint(10, vocab, (n, t))
+    length = rs.randint(t // 2, t + 1, n)
+    for i in range(n):
+        if y[i]:
+            pos = rs.randint(0, length[i] - 1)
+            x[i, pos:pos + 2] = 5
+        x[i, length[i]:] = 0
+    return {"words": x.astype(np.int32), "length": length.astype(np.int32),
+            "label": y.astype(np.int32).reshape(-1, 1)}
+
+
+def phase_lstm_sentiment(seed):
+    """[lstm-sentiment]: ``stacked_lstm_net`` (BASELINE config 3) at the
+    model's defaults (embedding 128, hidden 512, 3 layers, 2 classes),
+    vocabulary 30000, batch 128, padded length 100, lengths uniform in
+    [50, 100] from the seed (the IMDB RNN recipe of the reference's
+    ``benchmark/paddle/rnn``), Adam(1e-3): 10 warm-up steps, then 5
+    windows of 10 closed by a synchronize: ms a step, sequences/s, one
+    step's busy share, the peak. At a small width: 5 steps card against
+    CPU, and the reference's synthetic task learned above 0.9 accuracy
+    over the last 10 of 60 steps on the card."""
+    import torch
+    from paddle_tpu_torch import core
+    t0 = time.perf_counter()
+    small = LSTM_SMALL
+    main, startup, loss, acc = lstm_program(small, small["t"], seed)
+    rs = np.random.RandomState(seed + 50)
+    feeds = [synth_sentiment(small["batch"], small["t"], small["vocab"], rs)
+             for _ in range(small["train_steps"])]
+    losses, err, _ = rnn_train_pair(main, startup, loss,
+                                    feeds[:small["compare_steps"]])
+    print("[lstm-sentiment] small (vocab %d, T %d, width %d, %d layers): "
+          "%d Adam steps card %s cpu %s, rel err %.3g (tolerance %.0e)" % (
+              small["vocab"], small["t"], small["hid"], small["layers"],
+              small["compare_steps"], [round(v, 6) for v in losses["cuda"]],
+              [round(v, 6) for v in losses["cpu"]], err, RNN_LOSS_RTOL))
+    check(err <= RNN_LOSS_RTOL, "[lstm-sentiment] small: %.3g" % err)
+    exe, scope = core.Executor(device="cuda"), core.Scope()
+    exe.run(startup, scope=scope)
+    accs = [float(exe.run(main, feed=f, fetch_list=[loss, acc],
+                          scope=scope)[1]) for f in feeds]
+    mean_acc = float(np.mean(accs[-small["acc_window"]:]))
+    print("[lstm-sentiment] the synthetic task on the card: mean accuracy "
+          "over the last %d of %d steps %.4f (floor %.1f)" % (
+              small["acc_window"], small["train_steps"], mean_acc,
+              small["acc_floor"]))
+    check(mean_acc > small["acc_floor"], "[lstm-sentiment] accuracy %.4f"
+          % mean_acc)
+    cfg = LSTM_SENT
+    main, startup, loss, acc = lstm_program(cfg, cfg["max_len"], seed)
+    exe, scope = core.Executor(device="cuda"), core.Scope()
+    exe.run(startup, scope=scope)
+    rs = np.random.RandomState(seed + 51)
+    n, t = cfg["batch"], cfg["max_len"]
+    length = rs.randint(cfg["min_len"], t + 1, n)
+    words = rs.randint(2, cfg["vocab"], (n, t))
+    words[np.arange(t)[None, :] >= length[:, None]] = 0
+    feed = cuda_feed({"words": words.astype(np.int32),
+                      "length": length.astype(np.int32),
+                      "label": rs.randint(0, 2, (n, 1)).astype(np.int32)})
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    for _ in range(cfg["warmup"]):
+        out, = exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
+                       return_numpy=False)
+    first = float(out)
+    windows = []
+    for _ in range(cfg["windows"]):
+        t1 = time.perf_counter()
+        for _ in range(cfg["window_steps"]):
+            out, = exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
+                           return_numpy=False)
+        torch.cuda.synchronize()
+        windows.append((time.perf_counter() - t1) * 1e3 /
+                       cfg["window_steps"])
+    final = float(out)
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = float(np.median(windows))
+    busy = profile_window("lstm-sentiment one training step",
+                          lambda: exe.run(main, feed=feed, fetch_list=[loss],
+                                          scope=scope, return_numpy=False))
+    gflop = lstm_sentiment_gflop(cfg)
+    print("[lstm-sentiment] batch %d x T %d (lengths %d-%d), vocab %d, "
+          "embedding %d, hidden %d, %d layers: step %.3f ms (median of %d "
+          "windows of %d: %s), %.1f sequences/s, loss %.6f -> %.6f, busy "
+          "%s, peak allocated %.2f GB (%.2f GB above the %.2f GB before); "
+          "the forward's products %.1f GFLOP, a step ~%.1f GFLOP: %.1f "
+          "TFLOP/s; %s" % (
+              n, t, length.min(), length.max(), cfg["vocab"], cfg["emb"],
+              cfg["hid"], cfg["layers"], step_ms, cfg["windows"],
+              cfg["window_steps"], [round(w, 3) for w in windows],
+              n / step_ms * 1e3, first, final, "not measured" if busy is
+              None else "%.1f%%" % (100 * busy["busy_share"]), peak / 1e9,
+              (peak - base) / 1e9, base / 1e9, gflop, 3 * gflop,
+              3 * gflop / step_ms, card_line()))
+    check(np.isfinite(final), "[lstm-sentiment] loss %s" % final)
+    print("[lstm-sentiment] done in %.1f s" % (time.perf_counter() - t0))
+    return dict(step_ms=step_ms)
+
+
+def lm_generate_program(**kw):
+    """``transformer_lm_generate`` at ``bench_paged_kv``'s accelerator
+    configuration: (main, startup, [ids, lengths, scores])."""
+    from paddle_tpu_torch import core, layers
+    from paddle_tpu_torch.models.transformer import transformer_lm_generate
+    main, startup = core.Program(), core.Program()
+    with core.unique_name.guard(), core.program_guard(main, startup):
+        anchor = layers.data("anchor", shape=[1], dtype="int32")
+        outs = transformer_lm_generate(anchor, bos_id=0, eos_id=1,
+                                       **dict(LM_GENERATE, **kw))
+    return main, startup, list(outs)
+
+
+def phase_lm_generate(seed):
+    """[lm-generate]: ``transformer_lm_generate`` at ``bench_paged_kv``'s
+    accelerator configuration (``bench.py``: vocabulary 1024, d_model 512,
+    8 heads, d_ff 2048, 4 layers, max_len 64, batch 8) on weights drawn
+    from the seed as the reference's parity tests draw them (standard
+    normal): beam 1, beam 4 and sampling; eager and replayed ms a call,
+    B2 (f32, head dim 64) launches a call (4 layers x 64 steps); beam 1
+    equal to a KV-cached paged ``GenerationSession``'s greedy tokens from
+    ``[bos]`` on the same weights, sampling to its sampled tokens with
+    the same seed and knobs. Returns B2's launches a call."""
+    import torch
+    from paddle_tpu_torch import core, io
+    from paddle_tpu_torch.models.transformer import transformer_lm_session
+    from paddle_tpu_torch.serving import GenerationSession
+    from paddle_tpu_torch.serving.decoding import DecodePolicy
+    t0 = time.perf_counter()
+    cfg = LM_GENERATE
+    _, startup, _ = lm_generate_program(beam_size=1)
+    init = core.Scope()
+    core.Executor(device="cpu").run(startup, scope=init)
+    rs = np.random.RandomState(seed + 7)
+    named = {n: rs.standard_normal(tuple(init.find_var(n).shape))
+             .astype(np.float32) for n in sorted(init.var_names())
+             if not n.startswith("@")}
+    scope = io.scope_from_jax(named, device="cuda")
+    feed = cuda_feed({"anchor": np.zeros((LM_GENERATE_BATCH, 1), np.int32)})
+    per_call = {}
+    streams = {}
+    for tag, kw in (("beam 1", dict(beam_size=1)),
+                    ("beam 4", dict(beam_size=4)),
+                    ("sample", dict(decode="sample",
+                                    **LM_GENERATE_SAMPLE))):
+        main, _, outs = lm_generate_program(**kw)
+        reset_launches()
+        eager_ms, replay_ms, eager, same = generation_times(
+            main, feed, outs, scope, LM_GENERATE_RUNS)
+        launches = read_launches()["flash_attention"]
+        # the eager run, the capture's count once, and each replay's
+        calls = 2 + LM_GENERATE_RUNS
+        per_call[tag] = launches / calls
+        streams[tag] = eager
+        print("[lm-generate] %s, batch %d, %d tokens: eager %.3f ms, "
+              "replayed %.3f ms a call (median of %d); replays bitwise the "
+              "eager run: %s; B2 f32 launches %d over %d calls (%.1f a "
+              "call); %s" % (tag, LM_GENERATE_BATCH, cfg["max_len"],
+                             eager_ms, replay_ms, LM_GENERATE_RUNS, same,
+                             launches, calls, per_call[tag], card_line()))
+        check(same and per_call[tag] == cfg["num_layers"] * cfg["max_len"],
+              "[lm-generate] %s: replay %s, %s B2 launches a call"
+              % (tag, same, per_call[tag]))
+    for tag in ("beam 1", "sample"):
+        ids, lengths = (v.cpu().numpy() for v in streams[tag][:2])
+        pol = DecodePolicy(kind="sample", temperature=LM_GENERATE_SAMPLE[
+            "temperature"], top_k=LM_GENERATE_SAMPLE["top_k"]) \
+            if tag == "sample" else None
+        spec = transformer_lm_session(
+            cfg["vocab_size"], d_model=cfg["d_model"],
+            num_heads=cfg["num_heads"], d_ff=cfg["d_ff"],
+            num_layers=cfg["num_layers"], max_len=cfg["max_len"], slots=2,
+            cache_len=cfg["max_len"] + 16, prompt_buckets=(8,), bos_id=0,
+            eos_id=1, paged=True, block_size=16, num_blocks=0,
+            decode_policy=pol, device="cuda")
+        sess = GenerationSession(spec, io.scope_from_jax(named,
+                                                         device="cuda"))
+        try:
+            got = [int(t) for t in sess.generate(
+                [0], max_new_tokens=cfg["max_len"],
+                seed=LM_GENERATE_SAMPLE["sample_seed"]
+                if tag == "sample" else 0)]
+        finally:
+            sess.close()
+        want = [int(t) for t in ids[0][:int(lengths[0])]]
+        print("[lm-generate] %s: the cached paged session from [bos] gives "
+              "the uncached tokens: %s (%d tokens)" % (tag, got == want,
+                                                       len(want)))
+        check(got == want, "[lm-generate] %s: cached %s uncached %s"
+              % (tag, got[:12], want[:12]))
+    print("[lm-generate] done in %.1f s" % (time.perf_counter() - t0))
+    return per_call["beam 4"]
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6488,7 +7293,20 @@ def main(argv=None):
         # the LeNet-5/MNIST slice: the op library card against CPU, and
         # LeNet-5's training
         phase_ops()
+        phase_ops_rnn(args.seed)
         phase_lenet(args.seed)
+        gc.collect()
+        torch.cuda.empty_cache()
+        # the RNN and seq2seq slice: control flow, BASELINE configs 4 and
+        # 3, and the uncached LM generation over B2
+        phase_control_flow(args.seed)
+        phase_seq2seq(args.seed)
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_lstm_sentiment(args.seed)
+        gc.collect()
+        torch.cuda.empty_cache()
+        generate_b2 = phase_lm_generate(args.seed)
         gc.collect()
         torch.cuda.empty_cache()
         # the LM training phases draw from their own stream, so the
@@ -6652,6 +7470,12 @@ def main(argv=None):
                 if key in prog_serve:
                     row.update(serve_program_launches=prog_serve[key],
                                serve_program_launches_in="[program-serve]")
+            if row["name"] == "flash_attention" and \
+                    row.get("dtype", "float32") == "float32":
+                # B2 f32 under transformer_lm_generate's step sub-block
+                row.update(generate_launches=generate_b2,
+                           generate_launches_in="[lm-generate], a beam-4 "
+                           "call: 4 layers x 64 steps")
             if row["name"] in engine and \
                     row.get("dtype", "float32") == "float32":
                 # the serving engine's launches over [engine]: 12 (B2 f32)

@@ -18,6 +18,7 @@ import numpy as np
 from . import registry
 from .framework import Parameter
 from .executor import EMPTY_VAR
+from ..ops import control_flow_ops
 
 GRAD_SUFFIX = "@GRAD"
 
@@ -170,6 +171,13 @@ def append_backward(loss, parameter_list=None, no_grad_set=None):
         # contribution alias the already-consumed output gradient.
         for n in set(out_names):
             grads.pop(n, None)
+        if any(map(control_flow_ops.is_unbounded_while,
+                   control_flow_ops.walk_ops(program, [op]))):
+            raise ValueError(
+                "append_backward: an unbounded While (no max_iters) has no "
+                "gradient, as lax.while_loop has none in the reference, "
+                "also inside another op's sub-block; give the While a "
+                "max_iters to train through it")
         in_grad_names = []
         for n, ok in zip(in_names, need):
             in_grad_names.append(add_contrib(n) if ok else EMPTY_VAR)

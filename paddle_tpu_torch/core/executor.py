@@ -80,6 +80,14 @@ reference gets from XLA, this executor does by hand:
   - Training programs (a ``vjp_grad`` op: ``torch.autograd.grad`` cannot
     be exported or captured) run op by op, store nothing
     (``aot_export_skipped``) and capture nothing.
+  - A program that decides its control flow on the host (an unbounded
+    ``while``, a ``cond``: ``ops/control_flow_ops.py``) is refused
+    capture and export when its plan is made, since a graph would bake
+    in one trip count or one branch: it runs op by op,
+    ``capture_stats()`` counts it as ``refused`` with the reason,
+    ``lower`` raises, and an export the flags ask for logs
+    ``aot_export_skipped`` with the reason. Bounded loops,
+    ``static_rnn`` and the decoders read nothing back and capture.
 
   Under the ``telemetry`` flag an entry of a forward program is exported
   at its second run (a program run once, a startup, is not), and the
@@ -117,7 +125,7 @@ from ..observability import metrics as _metrics
 from ..observability import tracing as _tracing
 from ..ops import _build
 from ..ops import launches as _launches
-from ..ops import quant_ops, random_ops
+from ..ops import control_flow_ops, quant_ops, random_ops
 from ..place import resolve_device
 from ..utils import log as _log
 
@@ -159,8 +167,9 @@ _STEP_BYTES = _metrics.REGISTRY.gauge(
 _KEY_IDS = itertools.count(1)
 
 # process-wide CUDA graph events, for a caller that checks a whole run:
-# "captures", "recaptures", "failed" (logged as executor_capture_failed)
-# and "replays"
+# "captures", "recaptures", "failed" (logged as executor_capture_failed),
+# "replays" and "refused" (entries whose control flow is decided on the
+# host)
 CAPTURES = collections.Counter()
 
 
@@ -449,6 +458,10 @@ class _Plan:
 
     def __init__(self, block, fetch_names, quant=None):
         self.read, self.written, self.needs_rng = _block_io(block)
+        # why the step may be neither captured nor exported: control flow
+        # decided on the host (an unbounded while, a cond)
+        self.host_reads = control_flow_ops.host_read_reason(block.program,
+                                                            block)
         if quant:
             self.read.update(quant_ops.scale_var_name(n)
                              for n in quant["vars"])
@@ -710,6 +723,7 @@ class Executor:
         # compiles and recompiles
         self._compiles = 0
         self._captures = collections.Counter()
+        self._refusals = {}          # entry key id -> why not captured
         self._pool = None            # the CUDA graphs' memory pool
         self._capture_stream = None
 
@@ -731,10 +745,16 @@ class Executor:
 
     def capture_stats(self):
         """This executor's CUDA graph events: ``captures``,
-        ``recaptures`` (part of ``captures``), ``failed`` and
-        ``replays``."""
-        return {k: self._captures[k]
-                for k in ("captures", "recaptures", "failed", "replays")}
+        ``recaptures`` (part of ``captures``), ``failed``, ``replays``,
+        and ``refused``, the entries whose plan forbids a capture (a
+        step that decides its control flow on the host); when there are
+        any, ``refused_reasons`` names why, one reason an entry."""
+        stats = {k: self._captures[k] for k in
+                 ("captures", "recaptures", "failed", "replays")}
+        stats["refused"] = len(self._refusals)
+        if self._refusals:
+            stats["refused_reasons"] = dict(self._refusals)
+        return stats
 
     def _tensor(self, value, dtype=None):
         if isinstance(value, torch.Tensor):
@@ -862,6 +882,11 @@ class Executor:
             entry = self._cache[key] = _Entry(plan, fn,
                                               "k%d" % next(_KEY_IDS),
                                               key[2:])
+            if plan.host_reads:
+                # refused when the plan is made, not after a capture fails
+                entry.graph_failed = True
+                self._refusals[entry.key_id] = plan.host_reads
+                CAPTURES["refused"] += 1
         elif telemetry and count_cache:
             _CACHE_HITS.inc()
         if entry.pkey is None and _config.get_flag("compile_cache_dir"):
@@ -898,6 +923,9 @@ class Executor:
         program)."""
         call = self._prepare(program, feed, fetch_list, scope, donate_state,
                              count_cache=False)
+        if call.entry.plan.host_reads:
+            raise ValueError("this step cannot be exported: %s"
+                             % call.entry.plan.host_reads)
         return _export(call.entry.fn, call.args, self.device)
 
     def cache_digest(self, program, feed=None, fetch_list=None, scope=None,
@@ -997,13 +1025,18 @@ class Executor:
         telemetry = bool(_config.get_flag("telemetry"))
         pcache = _compile_cache.active_cache() \
             if entry.pkey is not None else None
+        if pcache is None and not telemetry:
+            return
+        if entry.plan.host_reads:
+            entry.aot_failed = True
+            _log.structured("aot_export_skipped", key=entry.key_id,
+                            error=entry.plan.host_reads)
+            return
         if pcache is not None:
             ep = pcache.load(entry.pkey, self.device)
             if ep is not None:
                 entry.install(ep)
                 return
-        if pcache is None and not telemetry:
-            return
         if entry.plan.needs_vjp:
             entry.aot_failed = True
             _log.structured("aot_export_skipped", key=entry.key_id,

@@ -28,15 +28,15 @@ __all__ = ["OpDef", "register_op", "get_op_def", "registered_ops", "PENDING",
 _DIM_PLACEHOLDER = 8191
 
 # the modules whose import registers the port's ops
-OP_MODULES = ("activation_ops", "attention_ops", "conv_bn",
-              "control_flow_ops", "decoding_ops", "generation_ops",
-              "loss_ops", "math_ops", "metric_ops", "nn_ops",
-              "optimizer_ops", "random_ops", "sequence_ops", "tensor_ops")
+OP_MODULES = ("activation_ops", "attention_ops", "beam_search_ops",
+              "conv_bn", "control_flow_ops", "crf_ctc_ops", "decoding_ops",
+              "generation_ops", "loss_ops", "math_ops", "metric_ops",
+              "nested_ops", "nn_ops", "optimizer_ops", "random_ops",
+              "seq2seq_ops", "sequence_ops", "tensor_ops")
 
 _registry = {}
 _loaded = []
 
-_RNN = 'ROADMAP Queue A, "RNN and seq2seq configs"'
 _DIST = 'ROADMAP Queue A, "Distribution and the input pipeline"'
 _TAIL = 'ROADMAP Queue A, "Long tail"'
 
@@ -44,18 +44,6 @@ _TAIL = 'ROADMAP Queue A, "Long tail"'
 # ROADMAP Queue A item that brings it, cited by title: a program holding
 # one fails at build or run time with that citation.
 PENDING = dict(
-    [(t, _RNN) for t in (
-        "array_read", "array_write", "chunk_eval_counts",
-        "dynamic_gru", "dynamic_lstm", "gru_unit", "lod_reset",
-        "lstm_unit", "max_sequence_len", "sequence_concat_packed",
-        "sequence_conv", "sequence_erase", "sequence_expand",
-        "sequence_pool", "sequence_reshape", "sequence_reverse",
-        "sequence_softmax", "crf_decoding", "ctc_align", "edit_distance",
-        "linear_chain_crf", "warpctc", "nested_sequence_mask",
-        "nested_sequence_pool", "sub_nested_seq", "sub_seq", "cond",
-        "static_rnn", "while", "beam_search", "beam_search_decode",
-        "dynamic_beam_search", "attention_gru_beam_decode",
-        "attention_gru_decoder", "attention_gru_greedy_decode")] +
     [(t, _DIST) for t in (
         "lookup_table_dist", "lookup_table_dist_grad",
         "lookup_table_sparse_grad")] +
@@ -68,9 +56,13 @@ PENDING = dict(
 
 
 class OpDef:
-    def __init__(self, type, compute, needs_rng=False, skip_eval_shape=False):
+    def __init__(self, type, compute, infer_shape=None, needs_rng=False,
+                 skip_eval_shape=False):
         self.type = type
         self.compute = compute
+        # an op's own shape function ``(op, block)``, where its compute
+        # cannot relate its output shapes to its inputs' (a sub-block's)
+        self.custom_infer_shape = infer_shape
         self.needs_rng = needs_rng
         # Ops whose compute cannot run abstractly (their shapes come from
         # attrs, or from a sub-block).
@@ -188,6 +180,9 @@ def normalize_outputs(op, result):
 def infer_shape(op, block):
     """Set output var shapes/dtypes by running compute() on meta tensors."""
     opdef = get_op_def(op.type)
+    if opdef.custom_infer_shape is not None:
+        opdef.custom_infer_shape(op, block)
+        return
     if opdef.skip_eval_shape:
         return
 

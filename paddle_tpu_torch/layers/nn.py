@@ -5,11 +5,10 @@ reference's does, byte for byte.
 
 Each layer appends ops to the current program; output shapes and dtypes
 are inferred by running the op's torch compute on meta tensors
-(``core/registry.py`` ``infer_shape``). The reference's CRF and CTC
-layers come with the sequence ops (ROADMAP Queue A, "RNN and seq2seq
-configs") and its legacy layers (``switch_order``, ``scale_shift``,
-``resize``, ``kmax_seq_score``, ``scale_sub_region``) with the last item
-(ROADMAP Queue A, "Long tail").
+(``core/registry.py`` ``infer_shape``). The reference's legacy layers
+(``switch_order``, ``scale_shift``, ``resize``, ``kmax_seq_score``,
+``scale_sub_region``) come with the last item (ROADMAP Queue A, "Long
+tail").
 """
 
 import numpy as np
@@ -32,7 +31,8 @@ __all__ = [
     "hinge_loss", "rank_loss", "margin_rank_loss",
     "bilinear_tensor_product", "spp", "elementwise_add", "elementwise_sub",
     "elementwise_mul", "elementwise_div", "elementwise_max",
-    "elementwise_min", "elementwise_pow",
+    "elementwise_min", "elementwise_pow", "linear_chain_crf",
+    "crf_decoding", "warpctc", "edit_distance", "ctc_greedy_decoder",
 ]
 
 
@@ -760,6 +760,89 @@ def spp(input, pyramid_height=3, pool_type="max", name=None, **kwargs):
     return _single(helper, "spp", {"X": [input.name]},
                    {"pyramid_height": pyramid_height,
                     "pooling_type": pool_type})
+
+
+def linear_chain_crf(input, label, length=None, param_attr=None,
+                     name=None, **kwargs):
+    """CRF negative log-likelihood cost (reference
+    fluid/layers linear_chain_crf). input: [N,T,C] emissions."""
+    helper = LayerHelper("linear_chain_crf", name=name, **kwargs)
+    num_classes = input.shape[-1]
+    transition = helper.create_parameter(
+        param_attr, shape=[num_classes + 2, num_classes],
+        dtype=input.dtype,
+        default_initializer=NormalInitializer(0.0, 0.1))
+    inputs = {"Emission": [input.name], "Label": [label.name],
+              "Transition": [transition.name]}
+    if length is not None:
+        inputs["Length"] = [length.name]
+    out = helper.create_tmp_variable(input.dtype)
+    helper.append_op(type="linear_chain_crf", inputs=inputs,
+                     outputs={"LogLikelihood": [out.name]})
+    return out
+
+
+def crf_decoding(input, param_attr, length=None, name=None, **kwargs):
+    """Viterbi decode using a trained CRF transition parameter."""
+    helper = LayerHelper("crf_decoding", name=name, **kwargs)
+    transition = helper.create_parameter(
+        ParamAttr.to_attr(param_attr),
+        shape=[input.shape[-1] + 2, input.shape[-1]], dtype=input.dtype)
+    inputs = {"Emission": [input.name], "Transition": [transition.name]}
+    if length is not None:
+        inputs["Length"] = [length.name]
+    out = helper.create_tmp_variable("int64", stop_gradient=True)
+    helper.append_op(type="crf_decoding", inputs=inputs,
+                     outputs={"ViterbiPath": [out.name]})
+    return out
+
+
+def warpctc(input, label, logits_length, label_length, blank=0,
+            norm_by_times=False, name=None, **kwargs):
+    """CTC loss (reference warpctc layer). input: [N,T,C] logits."""
+    helper = LayerHelper("warpctc", name=name, **kwargs)
+    out = helper.create_tmp_variable(input.dtype)
+    helper.append_op(type="warpctc",
+                     inputs={"Logits": [input.name],
+                             "Label": [label.name],
+                             "LogitsLength": [logits_length.name],
+                             "LabelLength": [label_length.name]},
+                     outputs={"Loss": [out.name]},
+                     attrs={"blank": blank,
+                            "norm_by_times": norm_by_times})
+    return out
+
+
+def edit_distance(input, label, input_length, label_length,
+                  normalized=True, name=None, **kwargs):
+    helper = LayerHelper("edit_distance", name=name, **kwargs)
+    out = helper.create_tmp_variable("float32", stop_gradient=True)
+    seq_num = helper.create_tmp_variable("int32", stop_gradient=True)
+    helper.append_op(type="edit_distance",
+                     inputs={"Hyps": [input.name], "Refs": [label.name],
+                             "HypsLength": [input_length.name],
+                             "RefsLength": [label_length.name]},
+                     outputs={"Out": [out.name],
+                              "SequenceNum": [seq_num.name]},
+                     attrs={"normalized": normalized})
+    return out, seq_num
+
+
+def ctc_greedy_decoder(input, blank, length, name=None, **kwargs):
+    """argmax over classes then CTC-align (merge repeats, drop blanks)."""
+    helper = LayerHelper("ctc_greedy_decoder", name=name, **kwargs)
+    ids = helper.create_tmp_variable("int64", stop_gradient=True)
+    helper.append_op(type="arg_max", inputs={"X": [input.name]},
+                     outputs={"Out": [ids.name]}, attrs={"axis": -1})
+    out = helper.create_tmp_variable("int64", stop_gradient=True)
+    out_len = helper.create_tmp_variable("int64", stop_gradient=True)
+    helper.append_op(type="ctc_align",
+                     inputs={"Input": [ids.name],
+                             "Length": [length.name]},
+                     outputs={"Output": [out.name],
+                              "OutputLength": [out_len.name]},
+                     attrs={"blank": blank})
+    return out, out_len
 
 
 def conv3d_transpose(input, num_filters, filter_size, stride=1, padding=0,

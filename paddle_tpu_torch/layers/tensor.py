@@ -1,7 +1,5 @@
 """Tensor layers of the program front end (reference
-``paddle_tpu/layers/tensor.py``). The tensor-array layers
-(``array_write``, ``array_read``) come with the loops that use them and
-raise until then."""
+``paddle_tpu/layers/tensor.py``)."""
 
 from ..layer_helper import LayerHelper
 from ..core.framework import convert_dtype
@@ -13,9 +11,6 @@ __all__ = ["create_tensor", "cast", "concat", "sums", "assign",
            "argmin", "decode_sample", "decode_verify", "stack", "slice",
            "shape", "increment", "multiplex", "array_write", "array_read",
            "create_array"]
-
-_LOOPS = 'ROADMAP Queue A, "RNN and seq2seq configs"'
-
 
 def create_tensor(dtype, name=None, persistable=False, **kwargs):
     helper = LayerHelper("create_tensor", name=name, **kwargs)
@@ -218,11 +213,25 @@ def create_array(max_len, elem_shape, dtype="float32", **kwargs):
 
 
 def array_write(x, i, array, **kwargs):
-    raise NotImplementedError("array_write is not ported yet: " + _LOOPS)
+    """array[i] = x (runtime index i, clamped into bounds); returns the
+    updated array."""
+    helper = LayerHelper("array_write", **kwargs)
+    out = helper.create_tmp_variable(array.dtype)
+    helper.append_op(type="array_write",
+                     inputs={"Array": [array.name], "X": [x.name],
+                             "I": [i.name]},
+                     outputs={"Out": [out.name]})
+    return out
 
 
 def array_read(array, i, **kwargs):
-    raise NotImplementedError("array_read is not ported yet: " + _LOOPS)
+    """Returns array[i] (runtime index, clamped into bounds)."""
+    helper = LayerHelper("array_read", **kwargs)
+    out = helper.create_tmp_variable(array.dtype)
+    helper.append_op(type="array_read",
+                     inputs={"Array": [array.name], "I": [i.name]},
+                     outputs={"Out": [out.name]})
+    return out
 
 
 def multiplex(inputs, index, **kwargs):

@@ -1,6 +1,8 @@
 """The causal transformer LM (reference ``paddle_tpu/models/transformer.py``):
 its training forward (``_lm_backbone`` without a cache and
-``transformer_lm``'s loss) and KV-cached generation (the dense and paged
+``transformer_lm``'s loss), uncached generation by beam search or
+sampling over the whole history (``transformer_lm_generate``) and
+KV-cached generation (the dense and paged
 branches of ``transformer_lm_session``, with its decode policies:
 sampling, speculative decoding with a draft, constrained output).
 
@@ -44,7 +46,8 @@ from ..place import resolve_device
 
 __all__ = ["TransformerLM", "transformer_lm", "lm_param_names",
            "lm_mul_weight_names", "check_lm_params", "infer_num_layers",
-           "kv_dtype", "policy_epilogue", "transformer_lm_session"]
+           "kv_dtype", "policy_epilogue", "transformer_lm_generate",
+           "transformer_lm_session"]
 
 
 def _name_map(num_layers):
@@ -728,6 +731,55 @@ def _generation_programs(ns, vocab_size, d_model, num_heads, d_ff,
                                  "gen.vpix", "gen.vtab", "gen.vseed"),
                    verify_fetch=(vtoks.name, vaccept.name))
     return out
+
+
+def transformer_lm_generate(batch_anchor, vocab_size, d_model=128,
+                            num_heads=4, d_ff=256, num_layers=2,
+                            max_len=16, beam_size=4, bos_id=0, eos_id=1,
+                            return_all_beams=False, decode="beam",
+                            sample_seed=0, temperature=1.0, top_k=0,
+                            top_p=1.0):
+    """Beam-search generation from the causal LM through
+    ``BeamSearchDecoder`` (reference ``transformer_lm_generate``): the
+    step sub-block runs the whole backbone over the token history, O(L^2)
+    a sequence, the exact formulation the KV-cached decode
+    (:func:`transformer_lm_session` and ``serving.generation``) is held
+    to token for token at ``beam_size=1``. Its attention is the f32
+    ``multihead_attention`` op, kernel B2 on the card, one launch a layer
+    a step.
+
+    ``decode="sample"`` is the stochastic reference path: beam_size is
+    forced to 1 and each step samples under the SAME counter-key
+    schedule the cached session uses — ``decoding_key(sample_seed,
+    position)`` with temperature/top-k/top-p — so cached-vs-reference
+    parity tests cover stochastic decode too (the token at sequence
+    index *i* is keyed by (seed, i) on both paths; a session decoding
+    from a ``[bos]`` prompt with the same seed reproduces this path's
+    stream token-for-token).
+
+    ``batch_anchor``: any [B, ...] variable sizing the batch (e.g. an
+    int32 dummy [B, 1]). Returns (ids, lengths, scores).
+    """
+    if decode == "sample":
+        beam_size = 1
+    bs = _layers.BeamSearchDecoder(beam_size=beam_size, max_len=max_len,
+                                  bos_id=bos_id, eos_id=eos_id,
+                                  decode=decode, sample_seed=sample_seed,
+                                  temperature=temperature, top_k=top_k,
+                                  top_p=top_p)
+    with bs.step():
+        bs.token()                       # advances via history
+        anchor = bs.state(batch_anchor)  # sizes the batch; never updated
+        del anchor
+        hist = bs.history()              # [N, max_len] tokens so far
+        pos = bs.position()              # [1] current step index
+        logits_all = _lm_backbone(hist, vocab_size, d_model, num_heads,
+                                  d_ff, num_layers, is_test=True)
+        # take logits at the current position: [N,L,V] -> [L,N,V] -> [N,V]
+        by_time = _layers.transpose(logits_all, [1, 0, 2])
+        at_pos = _layers.gather(by_time, pos)
+        bs.set_logits(_layers.reshape(at_pos, [-1, vocab_size]))
+    return bs(return_all_beams=return_all_beams)
 
 
 def transformer_lm_session(vocab_size, d_model=128, num_heads=4, d_ff=256,

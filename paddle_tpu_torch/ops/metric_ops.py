@@ -5,8 +5,8 @@ per-batch statistics (``StatCounts``, ``AccumStatesInfo``, the pair
 counts) are outputs; a program accumulates them across batches in
 persistable variables with a ``sum`` op, as the reference's evaluators
 do. Counts are exact; the ratios and the AUC's trapezoid sum in torch's
-order, within a few ulp of the reference's. ``chunk_eval_counts`` comes
-with the sequence ops (ROADMAP Queue A, "RNN and seq2seq configs")."""
+order, within a few ulp of the reference's. ``chunk_eval_counts``
+counts IOB chunks of padded tag sequences."""
 
 import functools
 
@@ -130,3 +130,53 @@ def _positive_negative_pair(ctx):
     return {"PositivePair": pos.to(torch.float32) + 0.5 * neu,
             "NegativePair": neg.to(torch.float32) + 0.5 * neu,
             "NeutralPair": neu}
+
+
+@register_op("chunk_eval_counts")
+def _chunk_eval_counts(ctx):
+    """IOB chunk counts (reference ``chunk_eval_counts``): tag 2t begins a
+    chunk of type t, 2t+1 continues it, 2 * num_chunk_types is outside;
+    a chunk is a B followed by the I's of its type. Returns the counts of
+    correct, inferred and labeled chunks (float32) over padded [N, T]
+    tags and their lengths."""
+    inf = ctx.input("Inference")
+    inf = inf.reshape(inf.shape[0], -1).to(torch.int32)
+    lab = ctx.input("Label").reshape(inf.shape[0], -1).to(torch.int32)
+    length = ctx.input("Length").reshape(-1)
+    o_tag = 2 * ctx.attr("num_chunk_types")
+    n, t = inf.shape
+    pos = torch.arange(t, device=inf.device)
+    valid = pos[None, :] < length[:, None]
+
+    def analyze(tags):
+        tags = torch.where(valid, tags, torch.full_like(tags, o_tag))
+        is_b = (tags % 2 == 0) & (tags < o_tag)
+        typ = tags // 2
+        # the length of the run of I's of one tag starting at each step,
+        # from the end backwards
+        runs = [None] * t
+        run = torch.zeros(n, dtype=torch.int32, device=tags.device)
+        nxt = torch.full((n,), -1, dtype=torch.int32, device=tags.device)
+        for i in range(t - 1, -1, -1):
+            tag = tags[:, i]
+            run = torch.where((tag % 2 == 1) & (tag < o_tag),
+                              1 + torch.where(nxt == tag, run,
+                                              torch.zeros_like(run)),
+                              torch.zeros_like(run))
+            nxt = tag
+            runs[i] = run
+        runs = torch.stack(runs, dim=1)
+        nxt_run = torch.cat([runs[:, 1:], torch.zeros_like(runs[:, :1])],
+                            dim=1)
+        nxt_tag = torch.cat([tags[:, 1:], torch.full_like(tags[:, :1], -1)],
+                            dim=1)
+        ext = torch.where(nxt_tag == 2 * typ + 1, nxt_run,
+                          torch.zeros_like(nxt_run))
+        return is_b, typ, pos[None, :] + ext
+
+    ib_i, ty_i, end_i = analyze(inf)
+    ib_l, ty_l, end_l = analyze(lab)
+    match = ib_i & ib_l & (ty_i == ty_l) & (end_i == end_l)
+    return {"Correct": torch.sum(match).to(torch.float32),
+            "Infer": torch.sum(ib_i).to(torch.float32),
+            "Label": torch.sum(ib_l).to(torch.float32)}

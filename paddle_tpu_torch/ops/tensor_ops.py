@@ -3,9 +3,11 @@
 ``pad``, ``crop``, ``expand``, ``gather``, ``scatter``, ``multiplex``,
 the fills, ``assign``, ``assign_value``, ``increment``, ``is_empty``,
 ``one_hot``, ``lookup_table``, ``shape``, ``slice``, ``stack``,
-``unstack``, ``arg_max``, ``arg_min`` and ``top_k``. The tensor-array
-ops (``array_read``, ``array_write``) come with the loops that use them
-(ROADMAP Queue A, "RNN and seq2seq configs").
+``unstack``, ``arg_max``, ``arg_min`` and ``top_k``; and the
+tensor-array ops ``array_write`` and ``array_read`` over a preallocated
+[max_len, ...] buffer, whose runtime index is clamped into bounds on the
+device as XLA's dynamic slices clamp it (torch's index ops on the card
+would assert instead).
 
 Every op stays on the run's device: ``shape``, ``is_empty`` and
 ``increment`` give tensors there, read nothing back to the host, and a
@@ -147,6 +149,30 @@ def scatter(x, index, updates):
 def _scatter(ctx):
     return {"Out": scatter(ctx.input("X"), ctx.input("Index"),
                            ctx.input("Updates"))}
+
+
+def _array_index(i, n):
+    """The [1] int64 row of a runtime scalar index into ``n`` rows, as
+    ``lax.dynamic_index_in_dim`` takes it: a negative index counts from
+    the end once, then the index is clamped into [0, n - 1]."""
+    idx = i.reshape(1).to(torch.int64)
+    idx = torch.where(idx < 0, idx + n, idx)
+    return torch.clamp(idx, 0, n - 1)
+
+
+@register_op("array_write")
+def _array_write(ctx):
+    """arr[i] = x, returning the updated array."""
+    arr, x, i = ctx.input("Array"), ctx.input("X"), ctx.input("I")
+    idx = _array_index(i, arr.shape[0])
+    return {"Out": arr.index_copy(0, idx, x.to(arr.dtype)[None])}
+
+
+@register_op("array_read")
+def _array_read(ctx):
+    """arr[i]."""
+    arr, i = ctx.input("Array"), ctx.input("I")
+    return {"Out": arr.index_select(0, _array_index(i, arr.shape[0]))[0]}
 
 
 @register_op("multiplex")

@@ -1,8 +1,10 @@
-"""The op cases of the LeNet-5/MNIST slice: for each of the 118 op types
-the slice ports, the inputs (numpy, from a seed of the case's name),
-attributes and tolerance of one or more op descriptions. The CPU tests
-hold each case against the reference's op (``tests/test_torch_ops_*.py``)
-and ``chip_smoke.py``'s ``[ops]`` runs each on the card against the CPU.
+"""The op cases of the LeNet-5/MNIST slice (``CASES``: for each of the
+118 op types the slice ports) and of the RNN and seq2seq slice
+(``RNN_CASES``: its 31 op types outside sub-blocks): the inputs (numpy,
+from a seed of the case's name), attributes and tolerance of one or more
+op descriptions. The CPU tests hold each case against the reference's
+op (``tests/test_torch_ops_*.py``; the RNN slice's in its own files) and
+``chip_smoke.py``'s ``[ops]`` runs each on the card against the CPU.
 Numpy and torch only: nothing here imports the reference.
 
 A case's tolerance is on ``max|port - ref| / max(max|ref|, 1e-30)``
@@ -15,7 +17,7 @@ against the reference on the CPU (0 is bitwise):
   (``exp``, ``log``, ``tanh``, ``log1p``, ``pow``, ``erf_inv`` ...),
   whose float32 versions in XLA and torch are different approximations;
 * ``SUM``: reductions, norms and products, which sum in another order
-  than XLA's; ``CONV``: convolutions.
+  than XLA's; ``CONV``: convolutions; ``RNN``: the time loops.
 """
 
 import types
@@ -23,9 +25,10 @@ import types
 import numpy as np
 import torch
 
-__all__ = ["EXACT", "ULP4", "SUM", "CONV", "Case", "CASES", "SLICE_OPS",
-           "KEY_WORDS", "UPDATE_RULES", "UPDATE_OUTPUTS", "FAMILIES",
-           "family", "op_desc", "to_torch"]
+__all__ = ["EXACT", "ULP4", "SUM", "CONV", "RNN", "Case", "CASES",
+           "SLICE_OPS", "RNN_CASES", "RNN_OPS", "RNN_FAMILIES",
+           "RNN_BLOCK_OPS", "KEY_WORDS", "UPDATE_RULES", "UPDATE_OUTPUTS",
+           "FAMILIES", "family", "rnn_family", "op_desc", "to_torch"]
 
 EXACT = 0.0
 ULP4 = 4 * 2.0 ** -23
@@ -445,6 +448,227 @@ KEY_WORDS = (0, 42)
 
 
 
+# -- the RNN and seq2seq slice: the op types outside sub-blocks -------------
+#
+# ``RNN`` is their forward tolerance on max|port - ref| / max|ref|: the
+# time loops chain products and transcendentals over the steps. The
+# sub-block ops (static_rnn, while, cond, dynamic_beam_search) run in
+# programs: tests/test_torch_control_flow.py, test_torch_beam_search.py
+# and chip_smoke.py's [control-flow] and [lm-generate].
+
+RNN = 1e-5
+
+
+def _len(rs, hi, n, lo=0):
+    return rs.randint(lo, hi + 1, (n,)).astype(np.int32)
+
+
+def _gru_in(rs, b, t, h):
+    return {"Input": _f(rs, b, t, 3 * h), "Weight": 0.5 * _f(rs, h, 3 * h),
+            "Bias": 0.1 * _f(rs, 1, 3 * h),
+            "Length": np.array([t, 2, 0][:b], np.int32)}
+
+
+def _lstm_in(rs, b, t, h, peep=False):
+    return {"Input": _f(rs, b, t, 4 * h), "Weight": 0.5 * _f(rs, h, 4 * h),
+            "Bias": 0.1 * _f(rs, 1, (7 if peep else 4) * h),
+            "Length": np.array([t, 3, 0][:b], np.int32)}
+
+
+def _decoder_in(rs, b=2, t=5, t2=4, e=3, h=4, v=9):
+    return {"EncOut": _f(rs, b, t, h),
+            "EncMask": (np.arange(t)[None] < np.array([t, 3])[:b, None])
+            .astype(np.float32),
+            "TrgEmb": _f(rs, b, t2, e), "H0": _f(rs, b, h),
+            "WIn": 0.5 * _f(rs, e + h, 3 * h), "WH": 0.5 * _f(rs, h, 3 * h),
+            "Bias": 0.1 * _f(rs, 3 * h), "WAtt": 0.5 * _f(rs, h, h),
+            "WOut": _f(rs, h, v), "BOut": 0.1 * _f(rs, v)}
+
+
+def _generate_in(rs):
+    d = _decoder_in(rs)
+    del d["TrgEmb"]
+    d["Embedding"] = _f(rs, 9, 3)
+    return d
+
+
+def _beam_in(rs):
+    done = np.array([[False, True, False], [False, False, False]])
+    return {"PreScores": np.where(done, -2.0, _f(rs, 2, 3, lo=-3, hi=-1))
+            .astype(np.float32), "Logits": _f(rs, 6, 7), "Done": done}
+
+
+def _tags(rs, n, t, types):
+    return rs.randint(0, 2 * types + 1, (n, t)).astype(np.int32)
+
+
+RNN_CASES = []
+for _p in ("average", "sum", "sqrt", "max", "first", "last"):
+    RNN_CASES.append(Case(
+        "sequence_pool", lambda rs: {"X": _f(rs, 3, 5, 4),
+                                     "Length": np.array([5, 2, 0],
+                                                        np.int32)},
+        {"pool_type": _p}, tol=SUM, name=_p))
+RNN_CASES += [
+    Case("sequence_pool", lambda rs: {"X": _f(rs, 3, 5, 4)},
+         {"pool_type": "last"}, name="last-nolength"),
+    Case("sequence_softmax", lambda rs: {"X": _f(rs, 3, 5), "Length":
+                                         np.array([5, 2, 1], np.int32)},
+         tol=SUM),
+    Case("sequence_expand", lambda rs: {"X": _f(rs, 3, 4),
+                                        "Y": _f(rs, 3, 5, 2),
+                                        "Length": np.array([5, 2, 0],
+                                                           np.int32)}),
+    Case("sequence_reverse", lambda rs: {"X": _f(rs, 3, 5, 2), "Length":
+                                         np.array([5, 2, 0], np.int32)}),
+    Case("sequence_reverse", lambda rs: {"X": _f(rs, 3, 5, 2)},
+         name="nolength"),
+    Case("sequence_erase", lambda rs: {"X": _i(rs, 6, 3, 7),
+                                       "Length": np.array([7, 4, 0],
+                                                          np.int32)},
+         {"tokens": [2, 5]}, grad=False),
+    Case("sequence_conv", lambda rs: {"X": _f(rs, 2, 5, 3),
+                                      "Filter": _f(rs, 9, 4)},
+         {"contextLength": 3, "contextStart": -1}, tol=SUM),
+    Case("sequence_conv", lambda rs: {"X": _f(rs, 2, 5, 3),
+                                      "Filter": _f(rs, 12, 4)},
+         {"contextLength": 4, "contextStart": 0}, tol=SUM, name="ahead"),
+    Case("dynamic_lstm", lambda rs: _lstm_in(rs, 3, 6, 4), tol=RNN),
+    Case("dynamic_lstm", lambda rs: dict(_lstm_in(rs, 3, 6, 4, peep=True),
+                                         H0=_f(rs, 3, 4), C0=_f(rs, 3, 4)),
+         {"use_peepholes": True, "is_reverse": True}, tol=RNN,
+         name="peep-reverse"),
+    Case("dynamic_gru", lambda rs: _gru_in(rs, 3, 6, 4), tol=RNN),
+    Case("dynamic_gru", lambda rs: dict(_gru_in(rs, 3, 6, 4),
+                                        H0=_f(rs, 3, 4)),
+         {"is_reverse": True}, tol=RNN, name="reverse"),
+    Case("gru_unit", lambda rs: {"Input": _f(rs, 3, 12),
+                                 "HiddenPrev": _f(rs, 3, 4),
+                                 "Weight": 0.5 * _f(rs, 4, 12),
+                                 "Bias": 0.1 * _f(rs, 1, 12)}, tol=RNN),
+    Case("lstm_unit", lambda rs: {"X": _f(rs, 3, 16), "C_prev":
+                                  _f(rs, 3, 4)}, {"forget_bias": 1.0},
+         tol=RNN),
+    Case("sequence_reshape", lambda rs: {"X": _f(rs, 2, 4, 6), "Length":
+                                         np.array([4, 2], np.int32)},
+         {"new_dim": 3}),
+    Case("lod_reset", lambda rs: {"X": _f(rs, 2, 5, 3), "Length":
+                                  np.array([7, 2], np.int32),
+                                  "OrigLength": np.array([4, 5],
+                                                         np.int32)}),
+    Case("max_sequence_len", lambda rs: {"Length": _len(rs, 9, 4)},
+         grad=False),
+    Case("sequence_concat_packed", lambda rs: {
+        "A": _f(rs, 2, 3, 2), "B": _f(rs, 2, 4, 2),
+        "LenA": np.array([3, 1], np.int32),
+        "LenB": np.array([2, 4], np.int32)}),
+    # beam search
+    Case("beam_search", _beam_in, {"eos_id": 1}, tol=ULP4, grad=False),
+    Case("beam_search_decode", lambda rs: {
+        "StepTokens": _i(rs, 7, 4, 2, 3),
+        "StepParents": _i(rs, 3, 4, 2, 3),
+        "FinalScores": _f(rs, 2, 3, lo=-5, hi=-1)},
+        {"eos_id": 1}, grad=False),
+    # the attention-GRU decoder
+    Case("attention_gru_decoder", _decoder_in, tol=RNN),
+    Case("attention_gru_greedy_decode", _generate_in,
+         {"max_len": 6, "bos_id": 0, "eos_id": 1}, tol=RNN, grad=False),
+    Case("attention_gru_beam_decode", _generate_in,
+         {"max_len": 6, "beam_size": 3, "bos_id": 0, "eos_id": 1},
+         tol=RNN, grad=False),
+    # nested sequences
+    Case("nested_sequence_mask", lambda rs: {
+        "SeqLen": np.array([3, 1], np.int32),
+        "SubLen": np.array([[4, 0, 2], [3, 1, 2]], np.int32)},
+        {"max_sub": 3, "maxlen": 4}, grad=False),
+]
+for _p in ("average", "sum", "sqrt", "max", "first", "last"):
+    RNN_CASES.append(Case(
+        "nested_sequence_pool", lambda rs: {
+            "X": _f(rs, 2, 3, 4, 2),
+            "SubLen": np.array([[4, 0, 2], [3, 1, 2]], np.int32)},
+        {"pool_type": _p}, tol=SUM, name=_p))
+RNN_CASES += [
+    Case("sub_seq", lambda rs: {"X": _f(rs, 3, 6, 2),
+                                "Offset": np.array([1, 4, -1], np.int32),
+                                "Size": np.array([3, 4, 2], np.int32)},
+         {"max_size": 4}),
+    Case("sub_nested_seq", lambda rs: {
+        "X": _f(rs, 2, 3, 4, 2),
+        "SubLen": np.array([[4, 0, 2], [3, 1, 2]], np.int32),
+        "Selected": np.array([[2, -1], [0, 1]], np.int32)}),
+    # CRF and CTC
+    Case("linear_chain_crf", lambda rs: {
+        "Emission": _f(rs, 3, 5, 4), "Label": _i(rs, 4, 3, 5),
+        "Length": np.array([5, 3, 1], np.int32),
+        "Transition": 0.5 * _f(rs, 6, 4)}, tol=RNN),
+    Case("crf_decoding", lambda rs: {
+        "Emission": _f(rs, 3, 5, 4), "Transition": 0.5 * _f(rs, 6, 4),
+        "Length": np.array([5, 3, 1], np.int32)}, grad=False),
+    Case("warpctc", lambda rs: {
+        "Logits": _f(rs, 3, 7, 5), "Label": _i(rs, 5, 3, 3, lo=1),
+        "LogitsLength": np.array([7, 5, 4], np.int32),
+        "LabelLength": np.array([3, 2, 0], np.int32)},
+        {"blank": 0}, tol=RNN),
+    Case("warpctc", lambda rs: {
+        "Logits": _f(rs, 2, 6, 4), "Label": np.array([[1, 1, 2], [3, 2, 2]],
+                                                     np.int32),
+        "LogitsLength": np.array([6, 6], np.int32),
+        "LabelLength": np.array([3, 3], np.int32)},
+        {"blank": 0, "norm_by_times": True}, tol=RNN, name="repeats"),
+    Case("ctc_align", lambda rs: {
+        "Input": np.array([[0, 1, 1, 0, 2, 2, 3, 0], [2, 2, 0, 0, 2, 1, 1, 4],
+                           [0, 0, 0, 0, 0, 0, 0, 0]], np.int32),
+        "Length": np.array([8, 6, 3], np.int32)}, {"blank": 0}, grad=False),
+    Case("edit_distance", lambda rs: {
+        "Hyps": _i(rs, 4, 3, 5), "Refs": _i(rs, 4, 3, 6),
+        "HypsLength": np.array([5, 2, 0], np.int32),
+        "RefsLength": np.array([6, 3, 4], np.int32)},
+        {"normalized": False}, grad=False),
+    Case("edit_distance", lambda rs: {
+        "Hyps": _i(rs, 3, 4, 6), "Refs": _i(rs, 3, 4, 5),
+        "HypsLength": np.array([6, 4, 3, 1], np.int32),
+        "RefsLength": np.array([5, 5, 0, 2], np.int32)},
+        {"normalized": True}, grad=False, name="normalized"),
+    Case("chunk_eval_counts", lambda rs: {
+        "Inference": _tags(rs, 3, 10, 2), "Label": _tags(rs, 3, 10, 2),
+        "Length": np.array([10, 7, 4], np.int32)},
+        {"num_chunk_types": 2}, grad=False),
+    # the tensor arrays, their index clamped into bounds
+]
+for _name, _idx in (("in", 2), ("minus1", -1), ("max-len", 4),
+                    ("below", -6)):
+    RNN_CASES += [
+        Case("array_write", lambda rs, i=_idx: {
+            "Array": _f(rs, 4, 3), "X": _f(rs, 3),
+            "I": np.array([i], np.int32)}, name=_name),
+        Case("array_read", lambda rs, i=_idx: {
+            "Array": _f(rs, 4, 3), "I": np.array([i], np.int32)},
+            name=_name),
+    ]
+
+# the op types of the RNN and seq2seq slice by reference module; with the
+# sub-block ops, 35
+RNN_FAMILIES = {
+    "sequence": ("sequence_pool", "sequence_softmax", "sequence_expand",
+                 "sequence_reverse", "sequence_erase", "sequence_conv",
+                 "dynamic_lstm", "dynamic_gru", "gru_unit", "lstm_unit",
+                 "sequence_reshape", "lod_reset", "max_sequence_len",
+                 "sequence_concat_packed"),
+    "beam": ("beam_search", "beam_search_decode"),
+    "seq2seq": ("attention_gru_decoder", "attention_gru_greedy_decode",
+                "attention_gru_beam_decode"),
+    "nested": ("nested_sequence_mask", "nested_sequence_pool", "sub_seq",
+               "sub_nested_seq"),
+    "crf_ctc": ("linear_chain_crf", "crf_decoding", "warpctc", "ctc_align",
+                "edit_distance"),
+    "metric": ("chunk_eval_counts",),
+    "tensor": ("array_write", "array_read"),
+}
+RNN_BLOCK_OPS = ("static_rnn", "while", "cond", "dynamic_beam_search")
+RNN_OPS = sorted({c.op_type for c in RNN_CASES} | set(RNN_BLOCK_OPS))
+
+
 # input slot -> output slot of each update rule (``minimize`` names the
 # same variable in both: the update runs in place)
 UPDATE_OUTPUTS = {
@@ -491,6 +715,11 @@ FAMILIES = {
 def family(op_type):
     """The reference module (by its family name) of an op type."""
     return next(f for f, types_ in FAMILIES.items() if op_type in types_)
+
+
+def rnn_family(op_type):
+    """The family of an op type of the RNN and seq2seq slice."""
+    return next(f for f, types_ in RNN_FAMILIES.items() if op_type in types_)
 
 
 def op_desc(op_type, inputs, attrs):

@@ -21,6 +21,7 @@ from paddle_tpu_torch.core import enforce, registry, unique_name
 from paddle_tpu_torch.core.framework import (BFLOAT16, convert_dtype,
                                              dtype_name, torch_dtype)
 from paddle_tpu_torch.ops import conv_bn
+from paddle_tpu_torch.probes.op_cases import RNN_OPS
 from test_torch_ops_cases import SLICE_OPS
 
 
@@ -128,8 +129,8 @@ def test_the_port_registers_the_slice():
         "multihead_attention_decode", "multihead_attention_decode_paged",
         "multihead_attention_prefill_paged", "decode_sample",
         "decode_verify", "transpose", "gather", "slice", "arg_max"] +
-        # the LeNet-5/MNIST slice's op library
-        SLICE_OPS)
+        # the LeNet-5/MNIST slice's op library, the RNN and seq2seq slice's
+        SLICE_OPS + RNN_OPS)
     with pytest.raises(NotImplementedError, match="no op registered"):
         registry.get_op_def("lstm")
 
@@ -293,9 +294,11 @@ def _infer(pkg, op_type):
 def test_shape_cases_cover_the_slice():
     """Every op type's build-time shapes are checked against the
     reference's: here, or for the LeNet-5/MNIST slice's op library case
-    by case in ``test_torch_ops_forward.py``."""
-    assert sorted(set(SHAPE_CASES) | set(SKIPPED) | set(SLICE_OPS)) == \
-        registry.registered_ops()
+    by case in ``test_torch_ops_forward.py``, or for the RNN and seq2seq
+    slice's in its files (``RNN_CASES`` case by case, the sub-block ops
+    through programs that serialize as the reference's)."""
+    assert sorted(set(SHAPE_CASES) | set(SKIPPED) | set(SLICE_OPS) |
+                  set(RNN_OPS)) == registry.registered_ops()
 
 
 @pytest.mark.parametrize("op_type", sorted(SHAPE_CASES))

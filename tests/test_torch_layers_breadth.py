@@ -230,8 +230,51 @@ def test_forward_exports_and_runs_equal(built, monkeypatch):
         np.testing.assert_array_equal(g, w, err_msg=n)
 
 
+def _arrays_and_recurrent_nets(pkg):
+    """A program of the tensor-array layers (an index past the end
+    clamped) and the recurrent ``nets.py`` composites."""
+    fw, L, nets = (ptpu, ref_layers, ref_nets) if pkg == "ref" else \
+        (pc, port_layers, port_nets)
+    main, startup = fw.Program(), fw.Program()
+    startup.random_seed = 2
+    with fw.unique_name.guard(), fw.program_guard(main, startup):
+        x = L.data("x", shape=[2, 5, 3], append_batch_size=False)
+        length = L.data("len", shape=[2], dtype="int64",
+                        append_batch_size=False)
+        arr = L.create_array(4, [2, 3])
+        step = L.reshape(L.slice(x, [1], [1], [2]), [-1, 3])
+        at = L.fill_constant([1], "int32", 9)
+        arr = L.array_write(step, at, arr)
+        outs = [arr, L.array_read(arr, at),
+                nets.simple_lstm(x, 4, length=length),
+                nets.bidirectional_gru(x, 3, length=length),
+                nets.bidirectional_lstm(x, 2, length=length,
+                                        return_concat=False)[1],
+                nets.sequence_conv_pool(x, 4, 3, length=length)]
+        proj = L.fc(x, 6, num_flatten_dims=2)
+        state = L.fc(L.reshape(L.slice(x, [1], [0], [1]), [-1, 3]), 6)
+        outs += list(nets.simple_attention(x, proj, state, length=length))
+    return main, startup, outs
+
+
 def test_tensor_array_layers_cite_their_item():
-    with pytest.raises(NotImplementedError, match="RNN and seq2seq"):
-        port_layers.array_write(None, None, None)
-    with pytest.raises(NotImplementedError, match="RNN and seq2seq"):
-        port_nets.simple_lstm(None, 4)
+    """The tensor-array layers and the recurrent composites (which raised
+    before the sequence ops were ported) build the reference's program
+    and fetch its outputs from the same startup."""
+    feed = {"x": np.random.RandomState(3).randn(2, 5, 3).astype(np.float32),
+            "len": np.array([5, 2], np.int32)}
+    main, startup, outs = _arrays_and_recurrent_nets("ref")
+    pmain, pstartup, pouts = _arrays_and_recurrent_nets("port")
+    for a, b in ((main, pmain), (startup, pstartup)):
+        assert json.dumps(port_ser.program_to_dict(b)) == \
+            json.dumps(ref_ser.program_to_dict(a))
+    exe, scope = ptpu.Executor(), ptpu.Scope()
+    exe.run(startup, scope=scope)
+    want = exe.run(main, feed=feed, fetch_list=outs, scope=scope)
+    pexe, pscope = pc.Executor(device="cpu"), pc.Scope()
+    pexe.run(pstartup, scope=pscope)
+    got = pexe.run(pmain, feed=feed, fetch_list=pouts, scope=pscope)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        assert float(np.abs(g - w).max()) <= \
+            RTOL * max(float(np.abs(w).max()), 1e-30)

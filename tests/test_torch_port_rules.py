@@ -658,9 +658,13 @@ def test_output_slots_equal_reference_on_one_program(monkeypatch):
     _serve_generation("ref", named)
     # the op types of the LeNet-5/MNIST slice have their output slots
     # held against the reference's case by case, every op type of the
-    # slice with at least one case (test_torch_ops_forward.py)
+    # slice with at least one case (test_torch_ops_forward.py), and so do
+    # the RNN and seq2seq slice's (its sub-block ops through the programs
+    # of test_torch_control_flow.py and test_torch_beam_search.py)
+    from paddle_tpu_torch.probes.op_cases import RNN_OPS
     from test_torch_ops_cases import SLICE_OPS
-    assert sorted(set(ours) | set(SLICE_OPS)) == registry.registered_ops()
+    assert sorted(set(ours) | set(SLICE_OPS) | set(RNN_OPS)) == \
+        registry.registered_ops()
     assert {t: sorted(s) for t, s in ours.items()} == \
         {t: sorted(theirs[t]) for t in ours}
 
