@@ -208,6 +208,19 @@ and PyTorch built for CUDA. In order, it:
    and replayed, B2 f32 256 launches a call, beam 1 and sampling equal
    to a cached paged session's tokens).
 
+21. the distribution slice, after ``[lenet]``: ``bench.py``'s
+   ``bench_recsys`` recipe (``[recsys]``: wide&deep, BASELINE config 5:
+   vocab 200,000, 26 slots, emb_dim 32, batch 4096, hidden (64, 32),
+   Adagrad(0.05), distributed tables, packed feeds through
+   ``StagedReader``: 3 steps card against CPU, the sparse gradients'
+   shapes, 30 timed steps, ``recsys_examples_per_sec`` and
+   ``embedding_lookup_rows_per_sec``, a profiled step's busy share, the
+   a2a bytes a step; then an ``is_sparse`` pass); and the strategy route
+   on a one-rank NCCL group (``[dist]``: the LM program at full width,
+   2 layers, under ``transformer_tp_rules`` against no strategy, B2 bf16
+   launched per shard; wide&deep under ``DataParallel(n_devices=1)``;
+   ring attention over a one-rank axis against dense attention).
+
 Any failed phase exits nonzero. The line before the last is the card's
 name and power limit from nvidia-smi; the one before that lists the
 kernels as JSON; the last line is ``{"ok": true, "device": ...}``.
@@ -6716,9 +6729,11 @@ def phase_ops_rnn(seed):
           "[ops] host reads of the control flow: %s" % reads)
     checked.add("cond")
     rnn_ops = set(oc.RNN_OPS)
+    # 202 since the distribution slice: its three sparse and distributed
+    # lookup types run card against CPU in [recsys]
     check(rnn_ops <= checked and len(rnn_ops) == 35 and
           rnn_ops <= set(registry.registered_ops()) and
-          len(registry.registered_ops()) == 199,
+          len(registry.registered_ops()) == 202,
           "[ops] checked %d of the RNN slice's %d op types; %d registered"
           % (len(rnn_ops & checked), len(rnn_ops),
              len(registry.registered_ops())))
@@ -7215,6 +7230,346 @@ def phase_lm_generate(seed):
     return per_call["beam 4"]
 
 
+# -- the distribution slice: wide&deep (BASELINE config 5) with distributed
+# tables, and the strategy route on a one-rank NCCL group -----------------
+
+# bench.py bench_recsys's on-card configuration
+RECSYS = dict(vocab=200_000, slots=26, emb_dim=32, batch=4096,
+              hidden=(64, 32), lr=0.05, steps=30, dense=8)
+RECSYS_COMPARE_STEPS = 3
+RECSYS_LOSS_RTOL = 1e-4     # 3 Adagrad steps, card against the CPU: the
+#                             sums of the fc products in another order
+RECSYS_SPARSE_STEPS = 10    # the is_sparse pass's timed steps
+DIST_LM_LAYERS = 2          # [dist]'s LM: full width, cut in depth
+DIST_LM_BATCH, DIST_LM_T = 8, 1024
+DIST_LM_STEPS = 2
+DIST_WD_STEPS = 3
+DIST_RING = (2, 1024, 16, 128)      # ring attention's [B, T, H, D]
+DIST_RING_RTOL, DIST_RING_ATOL = 2e-4, 2e-5
+DIST_RING_GRAD_RTOL, DIST_RING_GRAD_ATOL = 2e-3, 2e-4
+
+
+def recsys_program(cfg, dist=True):
+    """bench_recsys's program through the port's front end: wide&deep
+    with distributed (or is_sparse) tables, Adagrad(0.05)."""
+    from paddle_tpu_torch import core, layers, optimizer
+    from paddle_tpu_torch.models.wide_deep import wide_deep
+    main, startup = core.Program(), core.Program()
+    with core.unique_name.guard(), core.program_guard(main, startup):
+        ids = layers.data("ids", shape=[cfg["slots"]], dtype="int64")
+        dense = layers.data("dense", shape=[cfg["dense"]])
+        label = layers.data("label", shape=[1])
+        loss, _, _ = wide_deep(ids, dense, label, cfg["vocab"],
+                               cfg["slots"], emb_dim=cfg["emb_dim"],
+                               hidden=cfg["hidden"], is_sparse=not dist,
+                               is_distributed=dist)
+        optimizer.Adagrad(cfg["lr"]).minimize(loss, startup)
+    return main, startup, loss
+
+
+def recsys_batches(cfg, n=3):
+    """bench_recsys's host batches: RandomState(7), int32 ids."""
+    rs = np.random.RandomState(7)
+    return [{"ids": rs.randint(0, cfg["vocab"], (cfg["batch"],
+                                                  cfg["slots"]))
+             .astype("int32"),
+             "dense": rs.randn(cfg["batch"], cfg["dense"])
+             .astype("float32"),
+             "label": rs.randint(0, 2, (cfg["batch"], 1)).astype("float32")}
+            for _ in range(n)]
+
+
+@contextlib.contextmanager
+def port_flags(**kw):
+    from paddle_tpu_torch import config
+    prev = {k: config.get_flag(k) for k in kw}
+    config.set_flags(**kw)
+    try:
+        yield
+    finally:
+        config.set_flags(**prev)
+
+
+@contextlib.contextmanager
+def recorded_sparse_grads(shapes):
+    """Record the (Rows, Values) shapes every sparse gradient op makes."""
+    from paddle_tpu_torch.core import registry
+    defs = [registry.get_op_def(t) for t in ("lookup_table_dist_grad",
+                                              "lookup_table_sparse_grad")]
+    origs = [d.compute for d in defs]
+
+    def wrap(orig):
+        def compute(ctx):
+            out = orig(ctx)
+            shapes.append((tuple(out["Rows"].shape),
+                           tuple(out["Values"].shape)))
+            return out
+        return compute
+    for d, o in zip(defs, origs):
+        d.compute = wrap(o)
+    try:
+        yield
+    finally:
+        for d, o in zip(defs, origs):
+            d.compute = o
+
+
+def recsys_pass(cfg, dist, batches, steps):
+    """One regime of [recsys]: the program, card against CPU over the
+    first steps from one startup, then one warm and ``steps`` timed
+    batches through StagedReader and Executor.run (every launch count at
+    0 before the timed pass), and a profiled step. Returns its numbers."""
+    import torch
+    from paddle_tpu_torch import core
+    from paddle_tpu_torch.reader.staging import StagedReader
+    main, startup, loss = recsys_program(cfg, dist)
+    block = main.global_block()
+    for t in ("deep_embedding", "wide_embedding"):
+        check(not block.has_var(t + "@GRAD") and
+              block.has_var(t + "@GRAD@VALUES"),
+              "[recsys] %s has a dense gradient variable" % t)
+    init = core.Scope()
+    core.Executor(device="cpu").run(startup, scope=init)
+    losses, shapes = {}, []
+    with recorded_sparse_grads(shapes):
+        for dev in ("cpu", "cuda"):
+            scope = scope_copy(init, dev)
+            exe = core.Executor(device=dev)
+            losses[dev] = [float(exe.run(main, feed=f, fetch_list=[loss],
+                                         scope=scope)[0])
+                           for f in batches[:RECSYS_COMPARE_STEPS]]
+    err = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"],
+                                                   losses["cpu"]))
+    total = cfg["batch"] * cfg["slots"]
+    vp = block.var("deep_embedding").shape[0]
+    check(err <= RECSYS_LOSS_RTOL, "[recsys] card against CPU: %.3g" % err)
+    check(shapes and all(r == (total,) and v[0] == total and v[0] < vp
+                         for r, v in shapes),
+          "[recsys] a sparse gradient is not [ids]: %s" % shapes[:4])
+
+    def reader(n):
+        def gen():
+            for i in range(n):
+                yield dict(batches[i % len(batches)])
+        return gen
+    scope = scope_copy(init, "cuda")
+    exe = core.Executor(device="cuda")
+    sr = StagedReader(reader(1), program=main, device="cuda")  # warm
+    for staged in sr():
+        exe.run(main, feed=staged, fetch_list=[loss], scope=scope)
+    sr.close()
+    torch.cuda.synchronize()
+    reset_launches()
+    sr = StagedReader(reader(steps), program=main, device="cuda")
+    last = None
+    t0 = time.perf_counter()
+    for staged in sr():
+        last = exe.run(main, feed=staged, fetch_list=[loss], scope=scope,
+                       return_numpy=False)[0]
+    final = float(last)
+    elapsed = time.perf_counter() - t0
+    sr.close()
+    launches = read_launches()
+    check(np.isfinite(final), "[recsys] the loss is not finite")
+    sr = StagedReader(reader(2), program=main, device="cuda")
+    staged = list(sr())
+    exe.run(main, feed=staged[0], fetch_list=[loss], scope=scope)
+    busy = profile_window(
+        "[recsys] one %s step" % ("distributed" if dist else "is_sparse"),
+        lambda: exe.run(main, feed=staged[1], fetch_list=[loss],
+                        scope=scope, return_numpy=False))
+    sr.close()
+    return dict(losses=losses, err=err, shapes=shapes[:2], elapsed=elapsed,
+                final=final, launches=launches, busy=busy,
+                ex_per_sec=cfg["batch"] * steps / elapsed,
+                rows_per_sec=2 * total * steps / elapsed)
+
+
+def phase_recsys(seed):
+    """[recsys]: BASELINE config 5 as bench.py's bench_recsys runs it on
+    the card (vocab 200,000, 26 slots, emb_dim 32, batch 4096, hidden
+    (64, 32), Adagrad(0.05), packed feeds, embedding_shard_rows and
+    embedding_a2a on; one shard, so no strategy): the first 3 steps card
+    against CPU from one startup, every sparse gradient [batch * slots]
+    rows (no [V, D] gradient), 30 timed steps after a warm one through
+    StagedReader and Executor.run (recsys_examples_per_sec,
+    embedding_lookup_rows_per_sec: both tables count), a profiled step's
+    busy share, the static a2a bytes a step of the f32 and int8 wires,
+    and the same for an is_sparse pass."""
+    from paddle_tpu_torch.embeddings.sharded import a2a_step_bytes
+    cfg = RECSYS
+    t0 = time.perf_counter()
+    batches = recsys_batches(cfg)
+    out = {}
+    with port_flags(embedding_shard_rows=True, embedding_a2a=True,
+                    packed_feeds=True):
+        for dist, steps in ((True, cfg["steps"]),
+                            (False, RECSYS_SPARSE_STEPS)):
+            tag = "distributed" if dist else "is_sparse"
+            r = out[tag] = recsys_pass(cfg, dist, batches, steps)
+            print("[recsys] %s tables: losses card %s cpu %s, rel err %.3g "
+                  "(tolerance %.0e); sparse gradients (Rows, Values) %s, "
+                  "no [V, D] gradient" % (
+                      tag, [round(v, 6) for v in r["losses"]["cuda"]],
+                      [round(v, 6) for v in r["losses"]["cpu"]], r["err"],
+                      RECSYS_LOSS_RTOL, r["shapes"]))
+            print("[recsys] %s: %d timed steps in %.3f s (loss %.6f): "
+                  "recsys_examples_per_sec %.1f, "
+                  "embedding_lookup_rows_per_sec %.1f, busy %s, launches %s"
+                  "; %s" % (tag, steps, r["elapsed"], r["final"],
+                            r["ex_per_sec"], r["rows_per_sec"],
+                            "not measured" if r["busy"] is None else
+                            "%.1f%%" % (100 * r["busy"]["busy_share"]),
+                            {k: v for k, v in r["launches"].items() if v}
+                            or "none (no kernel on this path)",
+                            card_line()))
+    total = cfg["batch"] * cfg["slots"]
+    f32_step = int8_step = 0
+    for dim in (cfg["emb_dim"], 1):
+        ids_b, rows_b = a2a_step_bytes(total, dim, 1, itemsize=4)
+        f32_step += ids_b + rows_b
+        ids8, rows8 = a2a_step_bytes(total, dim, 1, itemsize=1)
+        int8_step += ids8 + rows8 + total * 4
+    print("[recsys] embedding_a2a_bytes_per_step %d (f32 wire), %d (int8 "
+          "wire), 1-shard tables, vocab %d, %d slots" % (
+              f32_step, int8_step, cfg["vocab"], cfg["slots"]))
+    print("[recsys] done in %.1f s" % (time.perf_counter() - t0))
+    return out
+
+
+def phase_dist(seed):
+    """[dist]: the strategy route on the card, over a one-rank NCCL group
+    made by ``distributed.init_multihost``: (1) the LM program at full
+    width and DIST_LM_LAYERS layers, amp bf16, Adam, under
+    DistStrategy(make_mesh({"data": 1, "model": 1}),
+    transformer_tp_rules()) against strategy=None from the same startup
+    weights, B2 bf16 launched through the per-shard route (counted);
+    (2) [recsys]'s wide&deep under DataParallel(n_devices=1) against
+    strategy=None; (3) ring_attention over a one-rank axis against
+    dense_attention, forward and gradients. Returns B2's launches."""
+    import torch
+    from paddle_tpu_torch import core, parallel
+    from paddle_tpu_torch.distributed import (init_multihost,
+                                              shutdown_multihost)
+    from paddle_tpu_torch.models.transformer import transformer_tp_rules
+    from paddle_tpu_torch.ops.attention_ops import sharded_attention
+    import socket
+    t0 = time.perf_counter()
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    rank, world = init_multihost("localhost:%d" % port, 1, 0,
+                                 initialization_timeout_sec=60)
+    check(torch.distributed.get_backend() == "nccl",
+          "[dist] the process group is not NCCL's")
+    try:
+        mesh = parallel.make_mesh({"data": 1, "model": 1})
+        strat = parallel.DistStrategy(mesh,
+                                      param_rules=transformer_tp_rules())
+        cfg = dict({k: v for k, v in FULL.items() if k != "max_len"},
+                   num_layers=DIST_LM_LAYERS)
+        main, startup, loss, _ = lm_program(cfg, DIST_LM_T, 1e-4)
+        init = core.Scope()
+        startup.random_seed = seed
+        core.Executor(device="cuda").run(startup, scope=init)
+        feed = lm_feed(DIST_LM_BATCH, DIST_LM_T, cfg["vocab_size"], "cuda")
+        losses, counts = {}, {}
+        with amp_flag("bfloat16"):
+            for name, st in (("none", None), ("strategy", strat)):
+                scope = scope_copy(init)
+                exe = core.Executor(device="cuda", strategy=st)
+                reset_launches()
+                sharded_attention.per_shard = 0
+                losses[name] = [float(exe.run(main, feed=feed,
+                                              fetch_list=[loss],
+                                              scope=scope)[0])
+                                for _ in range(DIST_LM_STEPS)]
+                counts[name] = dict(read_launches(),
+                                    per_shard=sharded_attention.per_shard)
+                if st is not None:
+                    stats = exe.capture_stats()
+                del scope, exe
+                gc.collect()
+                torch.cuda.empty_cache()
+        del init
+        bitwise = losses["none"] == losses["strategy"]
+        err = max(abs(a - b) / abs(b) for a, b in zip(losses["strategy"],
+                                                       losses["none"]))
+        want = DIST_LM_LAYERS * DIST_LM_STEPS
+        print("[dist] LM program, full width, %d layers, batch %d x T %d, "
+              "amp bf16, Adam: strategy %s vs none %s: %s (rel err %.3g, "
+              "bound %.0e: the global mean divides the all-reduced sum, "
+              "where the plain op takes torch's mean); B2 bf16 launches %d"
+              " (%d through the per-shard route, %d expected); captures "
+              "%s" % (DIST_LM_LAYERS, DIST_LM_BATCH, DIST_LM_T,
+                      losses["strategy"], losses["none"],
+                      "bitwise equal" if bitwise else "not bitwise equal",
+                      err, PROGRAM_LM_LOSS_RTOL,
+                      counts["strategy"]["flash_attention bf16"],
+                      counts["strategy"]["per_shard"], want, stats))
+        check(err <= PROGRAM_LM_LOSS_RTOL, "[dist] LM under the strategy")
+        check(counts["strategy"]["flash_attention bf16"] == want and
+              counts["strategy"]["per_shard"] == want,
+              "[dist] B2 per-shard launches %s" % counts["strategy"])
+        check(stats["refused"] >= 1 and stats["captures"] == 0,
+              "[dist] a step under the strategy was captured: %s" % stats)
+        # (2) wide&deep under DataParallel(1)
+        rc = RECSYS
+        batches = recsys_batches(rc)
+        wd = {}
+        with port_flags(embedding_shard_rows=True, embedding_a2a=True):
+            wmain, wstartup, wloss = recsys_program(rc)
+            winit = core.Scope()
+            core.Executor(device="cuda").run(wstartup, scope=winit)
+            for name, st in (("none", None),
+                             ("strategy", parallel.DataParallel(
+                                 n_devices=1))):
+                scope = scope_copy(winit)
+                exe = core.Executor(device="cuda", strategy=st)
+                wd[name] = [float(exe.run(wmain, feed=f, fetch_list=[wloss],
+                                          scope=scope)[0])
+                            for f in batches[:DIST_WD_STEPS]]
+        wd_err = max(abs(a - b) / abs(b) for a, b in zip(wd["strategy"],
+                                                         wd["none"]))
+        print("[dist] wide&deep under DataParallel(n_devices=1): %s vs "
+              "none %s: %s (rel err %.3g, bound %.0e)" % (
+                  wd["strategy"], wd["none"],
+                  "bitwise equal" if wd["strategy"] == wd["none"]
+                  else "not bitwise equal", wd_err, RECSYS_LOSS_RTOL))
+        check(wd_err <= RECSYS_LOSS_RTOL, "[dist] wide&deep under dp")
+        # (3) ring attention over a one-rank axis
+        rmesh = parallel.make_mesh({"sp": 1})
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        q, k, v = (0.5 * torch.randn(DIST_RING, device="cuda", generator=g)
+                   for _ in range(3))
+        outs = []
+        for fn in (lambda a, b, c: parallel.ring_attention(
+                a, b, c, rmesh, axis_name="sp", causal=True),
+                   lambda a, b, c: parallel.dense_attention(a, b, c,
+                                                           causal=True)):
+            qs, ks, vs = (t.clone().requires_grad_() for t in (q, k, v))
+            o = fn(qs, ks, vs)
+            (o * o).sum().backward()
+            outs.append((o.detach(), qs.grad, ks.grad, vs.grad))
+        fwd_err = float((outs[0][0] - outs[1][0]).abs().max())
+        grad_ok = all(torch.allclose(a, b, rtol=DIST_RING_GRAD_RTOL,
+                                     atol=DIST_RING_GRAD_ATOL)
+                      for a, b in zip(outs[0][1:], outs[1][1:]))
+        print("[dist] ring_attention over a one-rank axis, %s causal: "
+              "forward max|diff| %.3g against dense_attention (rtol %.0e "
+              "atol %.0e), gradients within rtol %.0e atol %.0e: %s" % (
+                  list(DIST_RING), fwd_err, DIST_RING_RTOL, DIST_RING_ATOL,
+                  DIST_RING_GRAD_RTOL, DIST_RING_GRAD_ATOL, grad_ok))
+        check(torch.allclose(outs[0][0], outs[1][0], rtol=DIST_RING_RTOL,
+                             atol=DIST_RING_ATOL) and grad_ok,
+              "[dist] ring attention against dense")
+    finally:
+        shutdown_multihost()
+    print("[dist] done in %.1f s (rank %d of %d); %s" % (
+        time.perf_counter() - t0, rank, world, card_line()))
+    return counts["strategy"]
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7295,6 +7650,13 @@ def main(argv=None):
         phase_ops()
         phase_ops_rnn(args.seed)
         phase_lenet(args.seed)
+        gc.collect()
+        torch.cuda.empty_cache()
+        # the distribution slice: BASELINE config 5 and the strategy route
+        phase_recsys(args.seed)
+        gc.collect()
+        torch.cuda.empty_cache()
+        dist_b2 = phase_dist(args.seed)
         gc.collect()
         torch.cuda.empty_cache()
         # the RNN and seq2seq slice: control flow, BASELINE configs 4 and
@@ -7459,7 +7821,11 @@ def main(argv=None):
                     row.get("dtype") == "bfloat16":
                 row.update(program_launches=prog_lm["launches"][
                     "flash_attention bf16"],
-                    program_launches_in="[program-lm-train]")
+                    program_launches_in="[program-lm-train]",
+                    dist_launches=dist_b2["flash_attention bf16"],
+                    dist_per_shard=dist_b2["per_shard"],
+                    dist_launches_in="[dist], the LM program under a "
+                    "DistStrategy, per shard")
             if row["name"] in ("flash_attention", "decode_attention",
                                "decode_attention_paged",
                                "int8_matmul") and \

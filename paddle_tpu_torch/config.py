@@ -129,6 +129,28 @@ _flags = {
     # state by the observability package's change hook, never read per
     # request; a nonzero telemetry_port raises, as its HTTP server is not
     # ported yet
+    # sharded embedding tables (embeddings/sharded.py), read only for a
+    # program that registered a distributed table (the executor gates on
+    # the program's table registry, one getattr; a plain program reads
+    # none of them), at each run, and keyed into the executor's cache:
+    # embedding_shard_rows row-shards each table created by
+    # layers.embedding(..., is_distributed=True) over the strategy's data
+    # axis by row_id % num_shards (the mod-interleaved layout), its
+    # optimizer slots alongside, so no rank holds a whole table; False
+    # (default): distributed tables stay replicated and the lookup is a
+    # plain gather. embedding_a2a (with sharding on) runs the lookup and
+    # its gradient as the two-hop all_to_all (ids to their owners, rows
+    # back; gradients reverse the route and are merged per shard); False
+    # (default): every rank gathers the table's blocks and takes its
+    # rows, and the gradients' rows go to every rank. Same numbers either
+    # way. embedding_wire_dtype: the payload dtype of the a2a ROW hop;
+    # "int8" quantizes rows on their shard (symmetric per-row amax/127
+    # scale), the int8 rows and one f32 scale a row cross the wire and
+    # the receiver dequantizes (the gradient hop stays f32); None
+    # (default): f32 rows
+    "embedding_shard_rows": False,
+    "embedding_a2a": False,
+    "embedding_wire_dtype": None,
     "request_tracing": False,
     "trace_sample_rate": 1.0,
     "telemetry_port": 0,

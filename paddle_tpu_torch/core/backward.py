@@ -11,7 +11,18 @@ recomputed and no op has grad code of its own.
 Gradient accumulation (a var consumed by N ops) follows the reference's
 "sum" insertion (``backward.cc: MakeOpGrad`` dedup logic): contributions get
 unique names and a ``sum`` op folds them right before first use.
+
+Sparse gradients (the reference's SelectedRows path): a trainable table
+read by exactly ONE ``is_sparse`` lookup gets a ``lookup_table_sparse_grad``
+op, and a distributed table (``lookup_table_dist``) one
+``lookup_table_dist_grad`` op a lookup, their (Rows, Values) pairs
+concatenated: never a dense [V, D] gradient. The values variable carries
+the rows in ``selected_rows``, which the optimizers read. A distributed
+table that another op reads (weight tying) falls back to the dense
+gradient, with a warning.
 """
+
+import logging
 
 import numpy as np
 
@@ -124,16 +135,35 @@ def append_backward(loss, parameter_list=None, no_grad_set=None):
                 entry["final"] = out
         return entry["final"]
 
-    # The reference's sparse (SelectedRows) gradients of is_sparse and
-    # distributed embedding tables are not ported: a distributed table's
-    # lookup op is not registered here, and an is_sparse lookup_table
-    # (whose gradient would come out dense) is refused.
-    for op in block.ops:
+    # Sparse-eligible embedding tables: a trainable table consumed by
+    # exactly ONE is_sparse lookup_table; a distributed table however
+    # many lookups share it, unless a non-lookup op reads it too.
+    consumers = {}
+    for op in fwd_ops:
+        for n in set(op.input_names()):
+            consumers[n] = consumers.get(n, 0) + 1
+    sparse_tables, dist_tables, lookup_consumers = set(), set(), {}
+    for op in fwd_ops:
         if op.type == "lookup_table" and op.attrs.get("is_sparse"):
-            raise NotImplementedError(
-                "the sparse gradient of an is_sparse lookup_table is not "
-                "ported yet: ROADMAP Queue A, \"Distribution and the input "
-                "pipeline\"")
+            w = op.input("W")
+            if w in param_names and consumers.get(w, 0) == 1:
+                sparse_tables.add(w)
+        elif op.type == "lookup_table_dist":
+            w = op.input("W")
+            lookup_consumers[w] = lookup_consumers.get(w, 0) + 1
+            if w in param_names:
+                dist_tables.add(w)
+    for w in sorted(dist_tables):
+        if lookup_consumers.get(w, 0) != consumers.get(w, 0):
+            dist_tables.discard(w)
+            logging.getLogger("paddle_tpu_torch").warning(
+                "distributed embedding table %r is consumed by a "
+                "non-lookup op: its gradient falls back to a DENSE "
+                "[%s] cotangent — the sparse-update guarantee does "
+                "not hold for this table", w,
+                "x".join(str(d) for d in block.var(w).shape))
+    sparse_grads = {}       # table name -> (rows var, values var)
+    dist_grad_parts = {}    # table name -> [(rows, values), ...]
 
     # Seed: d loss / d loss = ones.
     seed = add_contrib(loss.name)
@@ -144,6 +174,40 @@ def append_backward(loss, parameter_list=None, no_grad_set=None):
     for i in range(len(fwd_ops) - 1, -1, -1):
         op = fwd_ops[i]
         if op.type in NO_GRAD_OP_TYPES or op.type == "vjp_grad":
+            continue
+        if (op.type == "lookup_table" and op.input("W") in sparse_tables) \
+                or (op.type == "lookup_table_dist" and
+                    op.input("W") in dist_tables):
+            g_out = final_grad(op.output("Out"))
+            if g_out is None:
+                continue
+            w = block.var(op.input("W"))
+            dist = op.type == "lookup_table_dist"
+            k = len(dist_grad_parts.get(w.name, ())) if dist else 0
+            suffix = "" if k == 0 else "@%d" % k
+            rows_n = "%s%s@ROWS%s" % (w.name, GRAD_SUFFIX, suffix)
+            vals_n = "%s%s@VALUES%s" % (w.name, GRAD_SUFFIX, suffix)
+            block.create_var(name=rows_n, dtype="int32",
+                             stop_gradient=True)
+            block.create_var(name=vals_n, dtype=w.dtype,
+                             stop_gradient=True)
+            if dist:
+                attrs = {"vocab_size": op.attrs.get("vocab_size"),
+                         "padded_vocab": int(w.shape[0]),
+                         "padding_idx": op.attrs.get("padding_idx")}
+            else:
+                attrs = {"vocab_size": int(w.shape[0]),
+                         "padding_idx": op.attrs.get("padding_idx")}
+            block.append_op(
+                op.type + ("_grad" if dist else "_sparse_grad"),
+                inputs={"OutGrad": [g_out], "Ids": [op.input("Ids")]},
+                outputs={"Rows": [rows_n], "Values": [vals_n]},
+                attrs=attrs, infer_shape=False)
+            if dist:
+                dist_grad_parts.setdefault(w.name, []).append(
+                    (rows_n, vals_n))
+            else:
+                sparse_grads[w.name] = (rows_n, vals_n)
             continue
         out_slots = registry.flat_output_slots(op)
         in_slots = registry.flat_input_slots(op)
@@ -189,9 +253,32 @@ def append_backward(loss, parameter_list=None, no_grad_set=None):
             attrs={"fwd_op": op, "fwd_op_type": op.type},
             infer_shape=False)
 
+    # a table shared by N distributed lookups: its N (rows, values) pairs
+    # concatenated (the update's merge sums the duplicates)
+    for wname, parts in dist_grad_parts.items():
+        if len(parts) == 1:
+            sparse_grads[wname] = parts[0]
+            continue
+        w = block.var(wname)
+        rows_n = "%s%s@ROWS@CAT" % (wname, GRAD_SUFFIX)
+        vals_n = "%s%s@VALUES@CAT" % (wname, GRAD_SUFFIX)
+        block.create_var(name=rows_n, dtype="int32", stop_gradient=True)
+        block.create_var(name=vals_n, dtype=w.dtype, stop_gradient=True)
+        for out, k in ((rows_n, 0), (vals_n, 1)):
+            block.append_op("concat", inputs={"X": [p[k] for p in parts]},
+                            outputs={"Out": [out]}, attrs={"axis": 0},
+                            infer_shape=False)
+        sparse_grads[wname] = (rows_n, vals_n)
+
     params_and_grads = []
     for pname in sorted(param_names):
         param = block.var(pname)
+        if pname in sparse_grads:
+            rows_n, vals_n = sparse_grads[pname]
+            gvar = block.var(vals_n)
+            gvar.selected_rows = block.var(rows_n)  # SelectedRows marker
+            params_and_grads.append((param, gvar))
+            continue
         g = final_grad(pname)
         if g is None:
             # Unused parameter: gradient is zeros (reference raises; we keep

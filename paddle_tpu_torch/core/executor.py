@@ -44,10 +44,12 @@ reference gets from XLA, this executor does by hand:
 
 * The step cache (reference ``_CacheEntry``): each run resolves one cache
   entry, keyed as the reference keys it: program uid and version, the
-  feed signature, fetch names, donation, ``check_nan_inf``, ``amp``, the
-  float32 matmul precision, ``nonfinite_guard``, the ingest specs and the
-  int8 tag. The reference's ``flash_attention`` flag is not part of the
-  key: the port has no such flag (``config.py``). ``compile_stats()``
+  feed signature, fetch names, donation, the strategy's uid,
+  ``check_nan_inf``, ``amp``, the float32 matmul precision,
+  ``nonfinite_guard``, the ingest specs, the embedding flags of a program
+  with a distributed table and the int8 tag. The reference's
+  ``flash_attention`` flag is not part of the key: the port has no such
+  flag (``config.py``). ``compile_stats()``
   counts one compile per key. Forward programs (no ``vjp_grad`` op) have
   executables:
 
@@ -97,7 +99,25 @@ reference gets from XLA, this executor does by hand:
   (``_step_flops``, ``torch.utils.flop_counter``) and bytes
   (``_step_bytes``: each call node's operands and results).
 
-Not ported: distribution strategies, which raise NotImplementedError.
+* Distribution (``Executor(strategy=DistStrategy)``, ``parallel/``):
+  every rank runs the same program on the same global feeds; each keeps
+  only its rows of the batch (a ``PackedBatch`` staged under the strategy
+  already holds only them) and runs each op on them by its rule in
+  ``parallel/spmd.py`` (row-local ops as they are; batch reductions,
+  batch-norm statistics and the sparse gradients through collectives on
+  the data axis; any other op on the gathered rows). State is stored as
+  ``param_rules`` place it: each rank keeps its slice in the scope, the
+  step gathers it, and the slice of the new value is written back; a
+  distributed embedding table row-sharded by ``embedding_shard_rows``
+  stays a local block, read by its lookup and its sparse update only.
+  The gradients of state are summed over the data axis at their vjp,
+  state a run creates is broadcast from the mesh's first rank, and a
+  batch-sharded fetch is gathered, so every rank sees the global value.
+  The strategy's uid and, for a program with a distributed table, the
+  embedding flags key the cache, as the reference's. A step under a
+  strategy is neither captured (its collectives would be baked into a
+  graph: ``capture_stats()`` counts it as refused, with the reason) nor
+  exported.
 """
 
 import collections
@@ -126,6 +146,8 @@ from ..observability import tracing as _tracing
 from ..ops import _build
 from ..ops import launches as _launches
 from ..ops import control_flow_ops, quant_ops, random_ops
+from .. import parallel as _parallel
+from ..parallel import spmd
 from ..place import resolve_device
 from ..utils import log as _log
 
@@ -133,9 +155,6 @@ EMPTY_VAR = "@EMPTY@"
 
 __all__ = ["Executor", "EMPTY_VAR", "run_block", "CAPTURES"]
 
-
-# the ROADMAP Queue A item that brings what this executor refuses
-_DISTRIBUTION = 'ROADMAP Queue A, "Distribution and the input pipeline"'
 
 # Compile-cache and per-step cost telemetry (the reference's families;
 # hooks gated by the telemetry flag)
@@ -171,10 +190,6 @@ _KEY_IDS = itertools.count(1)
 # "replays" and "refused" (entries whose control flow is decided on the
 # host)
 CAPTURES = collections.Counter()
-
-
-def _not_ported(what, item):
-    raise NotImplementedError("%s is not ported yet: %s" % (what, item))
 
 
 def _lookup(env, name, op, block):
@@ -245,12 +260,14 @@ class _TraceState:
     predicates under ``check_nan_inf``. ``device`` is where ops without
     inputs (``fill_constant``) put their outputs. ``quant`` is an armed
     program's tag (None otherwise) and ``quant_seen`` the armed ops
-    already counted."""
+    already counted. ``dist`` is a run's ``parallel.spmd.DistRun`` under
+    a strategy (None otherwise)."""
 
     def __init__(self, needs_vjp=None, nan_guards=None, amp=None,
                  inplace=False, autograd=False, drops=None, device=None,
-                 quant=None, quant_seen=None):
+                 quant=None, quant_seen=None, dist=None):
         self.device = device
+        self.dist = dist
         self.quant = quant
         self.quant_seen = quant_seen if quant_seen is not None else set()
         self.anchor = torch.zeros((), requires_grad=True)
@@ -287,6 +304,8 @@ def _compute(opdef, op, values, rng_key, block, trace):
         # brings float32 gradients back to float32 inputs (master weights)
         values = {slot: [amp_cast(op.type, v, trace.amp) for v in lst]
                   for slot, lst in values.items()}
+    if trace.dist is not None:
+        return trace.dist.run_op(opdef, op, values, rng_key, block, trace)
     ctx = registry.ExecContext(op, values, rng_key=rng_key, block=block,
                                trace=trace)
     return registry.normalize_outputs(op, opdef.compute(ctx))
@@ -397,13 +416,26 @@ def _execute_vjp_grad(op, env, block, trace):
     grads = torch.autograd.grad(sel, live, cots, allow_unused=True) \
         if sel and live else [None] * len(live)
     grads = iter(grads)
-    for root, gname in zip(inputs, op.outputs.get("InGrads", [])):
+    dist = trace.dist
+    in_names = [fwd_op.inputs[slot][i]
+                for slot, i in registry.flat_input_slots(fwd_op)]
+    for root, gname, name in zip(inputs, op.outputs.get("InGrads", []),
+                                 in_names):
         if root is None:
             continue
         g = next(grads)
         _, shape, dtype, device = root
-        env[gname] = torch.zeros(shape, dtype=dtype, device=device) \
+        g = torch.zeros(shape, dtype=dtype, device=device) \
             if g is None else g
+        if dist is not None:
+            # an input's gradient takes the input's state; the partial
+            # gradient of state is completed over the data axis
+            var = block.var_or_none(name)
+            if var is not None and var.persistable and \
+                    dist.state(name) == "R":
+                g = spmd.all_reduce(g, dist.data_group)
+            dist.record_names([gname], dist.state(name))
+        env[gname] = g
 
 
 def run_block(block, env, trace):
@@ -492,15 +524,16 @@ def _to_numpy(v):
 
 
 def _step_fn(block, plan, fetch_names, widen, check_nan_inf, amp,
-             nonfinite_guard, inplace, quant, device):
+             nonfinite_guard, inplace, quant, device, strategy=None):
     """The step of one cache entry as a function of (state_rw, state_ro,
     feed) -> (new state, fetches, guards): the feeds widened by their
     ingest specs, the block run op by op, then ``nonfinite_guard``'s
     choice between the new and the old state (the RNG key exempt, so a
     retried batch draws fresh randomness). ``ambient`` runs the ops in
     the caller's autograd mode, as an export traces them under one
-    ``torch.no_grad``."""
-    def fn(state_rw, state_ro, feed, ambient=False):
+    ``torch.no_grad``. Under ``strategy``, ``dist`` is the run's
+    ``spmd.DistRun`` and the fetches come out global."""
+    def fn(state_rw, state_ro, feed, ambient=False, dist=None):
         env = dict(state_ro)
         env.update(state_rw)
         for name, t in feed.items():
@@ -510,10 +543,20 @@ def _step_fn(block, plan, fetch_names, widen, check_nan_inf, amp,
                             nan_guards={} if check_nan_inf else None,
                             amp=amp, inplace=inplace, autograd=ambient,
                             drops=plan.drops, device=device, quant=quant,
-                            quant_seen=plan.quant_seen)
-        run_block(block, env, trace)
+                            quant_seen=plan.quant_seen, dist=dist)
+        if strategy is not None:
+            prev = _parallel.set_current_strategy(strategy)
+            try:
+                run_block(block, env, trace)
+            finally:
+                _parallel.set_current_strategy(prev)
+        else:
+            run_block(block, env, trace)
         new_state = {n: env[n] for n in plan.written_sorted if n in env}
         fetches = [_lookup(env, n, None, block) for n in fetch_names]
+        if dist is not None:
+            fetches = [dist.fetch(n, v) for n, v in zip(fetch_names,
+                                                        fetches)]
         if nonfinite_guard:
             # a poisoned batch leaves the state as it was
             ok = torch.ones((), dtype=torch.bool, device=device)
@@ -688,11 +731,15 @@ class _Call:
     and the state and feeds the step takes."""
 
     __slots__ = ("entry", "block", "fetch_names", "scope", "state_rw",
-                 "state_ro", "feed")
+                 "state_ro", "feed", "dist", "placed")
 
     def __init__(self, entry, block, fetch_names, scope, state_rw,
-                 state_ro, feed):
+                 state_ro, feed, dist=None, placed=None):
         self.entry = entry
+        # under a strategy: the run's spmd.DistRun, and the index of this
+        # rank's slice of each state the step gathered
+        self.dist = dist
+        self.placed = placed or {}
         self.block = block
         self.fetch_names = fetch_names
         self.scope = scope
@@ -711,11 +758,14 @@ class Executor:
 
     ``place`` (or ``device``) is the device the program runs on: CUDA
     when neither is given, which raises without a GPU; ``device="cpu"``
-    runs on the CPU."""
+    runs on the CPU. ``strategy``: a ``parallel.DistStrategy`` whose
+    mesh holds this rank."""
 
     def __init__(self, place=None, strategy=None, device=None):
-        if strategy is not None:
-            _not_ported("A distribution strategy", _DISTRIBUTION)
+        if strategy is not None and not strategy.mesh.in_mesh:
+            raise ValueError("rank %d is not in the strategy's mesh %r"
+                             % (strategy.mesh.rank, strategy.mesh))
+        self.strategy = strategy
         self.device = resolve_device(device if device is not None
                                      else place)
         self._cache = {}
@@ -827,6 +877,8 @@ class Executor:
         fetch_names = [v.name if isinstance(v, Variable) else v
                        for v in fetch_list]
 
+        # an armed program carries its int8 tag (serving/quant.py)
+        quant = getattr(program, "_quant_compute", None)
         # the feeds as tensors on the device, in their names' order (an
         # exported step's input tree follows it); a wire-dtype feed stays
         # narrow and is widened inside the step
@@ -847,6 +899,12 @@ class Executor:
                         value, torch_dtype(var.dtype) if var is not None
                         else None)
         feeds = {n: feeds[n] for n in sorted(feeds)}
+        sharded = ()
+        if self.strategy is not None:
+            if quant is not None:
+                raise ValueError("an int8-armed program does not run under "
+                                 "a distribution strategy")
+            feeds, sharded = self._shard_feeds(feed, feeds)
         feed_sig = tuple((n, tuple(t.shape), str(t.dtype))
                          for n, t in feeds.items())
         if packed is not None:
@@ -857,16 +915,23 @@ class Executor:
         amp = amp_dtype(_config.get_flag("amp"))
         precision = torch.get_float32_matmul_precision()
         telemetry = bool(_config.get_flag("telemetry"))
-        # an armed program carries its int8 tag (serving/quant.py)
-        quant = getattr(program, "_quant_compute", None)
         ingest_specs = tuple(sorted((n,) + tuple(spec)
                                     for n, spec in widen.items()))
-        # every trace-time flag keys the cache (the reference's key, less
-        # the flash_attention flag and the strategy and embedding parts
-        # the port does not have)
+        # the embedding flags are read only for a program that registered
+        # a distributed table (one getattr for any other)
+        emb_tables = getattr(program, "_dist_embeddings", None)
+        emb_key = None
+        if emb_tables:
+            emb_key = (bool(_config.get_flag("embedding_shard_rows")),
+                       bool(_config.get_flag("embedding_a2a")), telemetry,
+                       _config.get_flag("embedding_wire_dtype"))
+        # every run-time flag keys the cache (the reference's key, less
+        # the flash_attention flag the port does not have)
         key = (program._uid, program._version, feed_sig, tuple(fetch_names),
-               bool(donate_state), check_nan_inf, amp, precision,
-               nonfinite_guard, ingest_specs, quant["key"] if quant else None)
+               bool(donate_state),
+               self.strategy._uid if self.strategy is not None else None,
+               check_nan_inf, amp, precision, nonfinite_guard, ingest_specs,
+               emb_key, quant["key"] if quant else None)
         entry = self._cache.get(key)
         if entry is None:
             self._compiles += 1
@@ -876,20 +941,26 @@ class Executor:
             fn = _step_fn(block, plan, fetch_names, widen, check_nan_inf, amp,
                           nonfinite_guard,
                           bool(donate_state) and not nonfinite_guard, quant,
-                          self.device)
+                          self.device, self.strategy)
             # key[2:] drops the program's uid and version, which the
             # program's serialized content replaces in the digest
             entry = self._cache[key] = _Entry(plan, fn,
                                               "k%d" % next(_KEY_IDS),
                                               key[2:])
-            if plan.host_reads:
+            refusal = plan.host_reads or (
+                self.strategy is not None and
+                "a step under a distribution strategy runs collectives "
+                "on its process groups, which a graph would replay "
+                "outside the group's own ordering")
+            if refusal:
                 # refused when the plan is made, not after a capture fails
                 entry.graph_failed = True
-                self._refusals[entry.key_id] = plan.host_reads
+                self._refusals[entry.key_id] = refusal
                 CAPTURES["refused"] += 1
         elif telemetry and count_cache:
             _CACHE_HITS.inc()
-        if entry.pkey is None and _config.get_flag("compile_cache_dir"):
+        if entry.pkey is None and self.strategy is None and \
+                _config.get_flag("compile_cache_dir"):
             entry.pkey = _compile_cache.entry_digest(
                 program, entry.skey_parts, self.device)
 
@@ -909,8 +980,104 @@ class Executor:
                               random_ops.prng_key(seed, self.device))
             state_rw[RNG_STATE_VAR] = self._state(scope, RNG_STATE_VAR)
             state_rw = {n: state_rw[n] for n in sorted(state_rw)}
+        if self.strategy is None:
+            return _Call(entry, block, fetch_names, scope, state_rw,
+                         state_ro, feeds)
+        dist_rows = None
+        if emb_key is not None and emb_key[0]:
+            dist_rows = {n: info["padded"] for n, info in emb_tables.items()
+                         if n in _row_shardable(entry.plan, block)}
+        placed, row_base = {}, {}
+        state_rw, state_ro = (
+            {n: self._place(scope, block, n, t, dist_rows, placed, row_base)
+             for n, t in d.items()} for d in (state_rw, state_ro))
+        dist = spmd.DistRun(self.strategy, sharded, row_base)
         return _Call(entry, block, fetch_names, scope, state_rw, state_ro,
-                     feeds)
+                     feeds, dist, placed)
+
+    def global_state(self, scope=None, names=None, program=None):
+        """{name: global value} of the persistable state ``names`` (every
+        one in ``scope`` by default): under a strategy a slice that this
+        rank holds is gathered, which is collective (every rank of the
+        mesh calls it with the same names); a value the scope holds
+        whole is returned as it is."""
+        scope = scope or global_scope()
+        names = list(scope.var_names()) if names is None else list(names)
+        if self.strategy is None:
+            return {n: scope.find_var(n) for n in names if scope.has_var(n)}
+        program = program or default_main_program()
+        block = program.global_block()
+        tables = getattr(program, "_dist_embeddings", None) or {}
+        dist_rows = {n: info["padded"] for n, info in tables.items()}
+        out = {}
+        for n in names:
+            if not scope.has_var(n):
+                continue
+            t = scope.find_var(n)
+            var = block.var_or_none(n)
+            if var is None or not isinstance(t, torch.Tensor) or \
+                    tuple(t.shape) == tuple(var.shape):
+                out[n] = t
+                continue
+            gshape = tuple(var.shape)
+            spec = self.strategy.state_sharding(n, len(gshape), gshape,
+                                                dist_rows)
+            out[n] = self.strategy.gather(t, spec)
+        return out
+
+    def _shard_feeds(self, feed, feeds):
+        """(feeds, names of the batch-sharded ones) under the strategy:
+        each feed's rows of this rank's data shard (a PackedBatch staged
+        under the strategy holds only them already). A batch the data
+        axis does not divide is replicated (``shard_feed`` logs it once),
+        and so are feeds whose leading dims differ (a sequence feed's ids
+        and offsets, a [T] table beside [B, T] ids): their rows are not
+        one batch's."""
+        st = self.strategy
+        if isinstance(feed, _ingest.PackedBatch) and \
+                feed.shard_start is not None:
+            return feeds, tuple(n for n, t in feeds.items() if t.dim())
+        n = st.data_shards()
+        if len({t.shape[0] for t in feeds.values() if t.dim()}) > 1:
+            return feeds, ()
+        if any(t.dim() and t.shape[0] % n for t in feeds.values()):
+            for name, t in feeds.items():
+                if t.dim() and t.shape[0] % n:
+                    st.shard_feed(name, t)      # logs the fallback once
+            return feeds, ()
+        out = {name: st.shard_feed(name, t) for name, t in feeds.items()}
+        return out, tuple(name for name, t in out.items() if t.dim())
+
+    def _place(self, scope, block, name, t, dist_rows, placed, row_base):
+        """The tensor the step reads for state ``name`` under the
+        strategy. The scope keeps this rank's slice (a global tensor, as a
+        startup or a load leaves it, is sliced and stored back); a
+        row-sharded distributed table stays local, with its first row's
+        global index in ``row_base``; other sharded state is gathered,
+        and its slice's index kept in ``placed`` for the write-back."""
+        st = self.strategy
+        var = block.var_or_none(name)
+        gshape = tuple(var.shape) if var is not None and var.shape and \
+            all(d is not None and d > 0 for d in var.shape) \
+            else tuple(t.shape)
+        spec = st.state_sharding(name, len(gshape), gshape, dist_rows)
+        if not any(spec):
+            return t
+        idx = st.local_index(spec, gshape)
+        lshape = tuple(len(range(*s.indices(d))) for s, d in zip(idx, gshape))
+        if tuple(t.shape) == gshape and lshape != gshape:
+            t = t[idx].clone()
+            scope.set_var(name, t)
+        elif tuple(t.shape) != lshape:
+            raise ValueError(
+                "state %r has shape %s: neither its global shape %s nor "
+                "this rank's slice %s" % (name, tuple(t.shape), gshape,
+                                          lshape))
+        if dist_rows and name in dist_rows and spec[0] == st.data_axis:
+            row_base[name] = st.data_coord() * lshape[0]
+            return t
+        placed[name] = idx
+        return st.gather(t, spec)
 
     def lower(self, program=None, feed=None, fetch_list=None, scope=None,
               donate_state=True):
@@ -921,6 +1088,9 @@ class Executor:
         feed)``: dicts of the written state, the read state and the feeds
         by name. Raises for a step that cannot be exported (a training
         program)."""
+        if self.strategy is not None:
+            raise ValueError("a step under a distribution strategy is not "
+                             "exported (it runs collectives)")
         call = self._prepare(program, feed, fetch_list, scope, donate_state,
                              count_cache=False)
         if call.entry.plan.host_reads:
@@ -1166,9 +1336,40 @@ class Executor:
         CAPTURES["replays"] += 1
         return g.fetches, g.guards
 
+    def _run_dist(self, call, return_numpy):
+        """One run under the strategy, op by op: state a run creates is
+        broadcast from the mesh's first rank, and each gathered state's
+        slice of its new value is written back."""
+        entry, scope = call.entry, call.scope
+        new_state, fetches, guards = entry.fn(*call.args, dist=call.dist)
+        mesh = self.strategy.mesh
+        for n, v in new_state.items():
+            if n not in call.state_rw and n not in call.state_ro:
+                spmd.broadcast(v, mesh.first_rank(), mesh.mesh_group)
+            idx = call.placed.get(n)
+            if idx is None:
+                # (a sharded state's first write is sliced at its next
+                # read, by _place)
+                scope.set_var(n, v)
+                continue
+            part = v[idx]
+            cur = scope.find_var(n)
+            if isinstance(cur, torch.Tensor) and cur.shape == part.shape \
+                    and cur is not part:
+                cur.copy_(part)
+            else:
+                scope.set_var(n, part.clone())
+        entry.ran = True
+        if return_numpy:
+            fetches = [_to_numpy(v) for v in fetches]
+        _check_guards(guards)
+        return fetches
+
     def run(self, program=None, feed=None, fetch_list=None, scope=None,
             return_numpy=True, donate_state=True):
         call = self._prepare(program, feed, fetch_list, scope, donate_state)
+        if self.strategy is not None:
+            return self._run_dist(call, return_numpy)
         entry, scope = call.entry, call.scope
         if entry.aot is None and not entry.aot_failed and (
                 entry.pkey is not None or
@@ -1210,6 +1411,25 @@ class Executor:
                 fetches = [_to_numpy(v) for v in fetches]
         _check_guards(guards)
         return fetches
+
+
+def _row_shardable(plan, block):
+    """The persistable names that only a distributed lookup and the
+    sparse updates read: a distributed table (or slot) that another op
+    reads (weight tying, whose gradient is dense) stays whole."""
+    names = getattr(plan, "row_shardable", None)
+    if names is None:
+        bad, seen = set(), set()
+        for op in block.ops:
+            if op.type == "vjp_grad":
+                continue
+            sparse = op.type == "lookup_table_dist" or "Rows" in op.inputs
+            for n in op.input_names():
+                seen.add(n)
+                if not sparse:
+                    bad.add(n)
+        names = plan.row_shardable = frozenset(seen - bad)
+    return names
 
 
 def _warm_handles(device):

@@ -123,10 +123,13 @@ class PackedBatch:
     staging thread once the copy completed, which is what makes
     recycling the staging block safe. The executor consumes a device
     buffer: it drops it once unpacked (the reference donates it), and a
-    second run of the same batch raises."""
+    second run of the same batch raises. ``shard_start`` is None when
+    ``buffer`` holds every shard row, or the index of its first row when
+    it holds one rank's rows of a data-parallel batch (staged under a
+    strategy: ``DistStrategy.scatter_packed``)."""
 
     __slots__ = ("buffer", "layout", "shards", "shard_nbytes",
-                 "batch_size", "transfer_done", "event")
+                 "batch_size", "transfer_done", "event", "shard_start")
 
     def __init__(self, buffer, layout, shards, shard_nbytes, batch_size):
         self.buffer = buffer
@@ -136,6 +139,7 @@ class PackedBatch:
         self.batch_size = batch_size
         self.transfer_done = False
         self.event = None
+        self.shard_start = None
 
     def signature(self):
         """Hashable layout key."""

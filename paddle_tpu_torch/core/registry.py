@@ -32,21 +32,20 @@ OP_MODULES = ("activation_ops", "attention_ops", "beam_search_ops",
               "conv_bn", "control_flow_ops", "crf_ctc_ops", "decoding_ops",
               "generation_ops", "loss_ops", "math_ops", "metric_ops",
               "nested_ops", "nn_ops", "optimizer_ops", "random_ops",
-              "seq2seq_ops", "sequence_ops", "tensor_ops")
+              "seq2seq_ops", "sequence_ops", "sparse_ops", "tensor_ops")
+# the modules outside ``ops/`` whose import registers ops: the distributed
+# lookup and its gradient
+OTHER_OP_MODULES = ("paddle_tpu_torch.embeddings.sharded",)
 
 _registry = {}
 _loaded = []
 
-_DIST = 'ROADMAP Queue A, "Distribution and the input pipeline"'
 _TAIL = 'ROADMAP Queue A, "Long tail"'
 
 # The reference's op types the port does not register yet, each with the
 # ROADMAP Queue A item that brings it, cited by title: a program holding
 # one fails at build or run time with that citation.
 PENDING = dict(
-    [(t, _DIST) for t in (
-        "lookup_table_dist", "lookup_table_dist_grad",
-        "lookup_table_sparse_grad")] +
     [(t, _TAIL) for t in (
         "kmax_seq_score", "print", "resize", "roi_pool", "scale_shift",
         "scale_sub_region", "switch_order", "bilinear_interp",
@@ -85,6 +84,8 @@ def _load_ops():
     if not _loaded:
         for mod in OP_MODULES:
             importlib.import_module("paddle_tpu_torch.ops." + mod)
+        for mod in OTHER_OP_MODULES:
+            importlib.import_module(mod)
         _loaded.append(True)
 
 

@@ -143,11 +143,32 @@ def _scope_value(name, arr, device):
     return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
 
 
-def _save(var_names, dirname, filename, scope):
+def _writer(executor):
+    """Whether this process writes what a save writes: under a strategy
+    only the mesh's first rank does (the others wait for it)."""
+    st = getattr(executor, "strategy", None)
+    return st is None or st.mesh.rank == st.mesh.first_rank()
+
+
+def _wait_for_writer(executor):
+    st = getattr(executor, "strategy", None)
+    if st is not None and st.mesh.mesh_group is not None:
+        torch.distributed.barrier(group=st.mesh.mesh_group)
+
+
+def _save(var_names, dirname, filename, scope, executor=None,
+          program=None):
+    """Write ``var_names`` of ``scope`` as one npz; under a strategy each
+    state's global value (gathered: every rank calls it), written by the
+    mesh's first rank."""
+    values = executor.global_state(scope, var_names, program) \
+        if getattr(executor, "strategy", None) is not None else None
+    if not _writer(executor):
+        return
     os.makedirs(dirname, exist_ok=True)
     arrays, meta = {}, {}
     for name in var_names:
-        val = scope.find_var(name)
+        val = scope.find_var(name) if values is None else values.get(name)
         if val is None:
             continue
         key = "v%d" % len(arrays)
@@ -179,7 +200,8 @@ def save_params(executor, dirname, main_program=None, filename="params",
     program = main_program or default_main_program()
     names = [v.name for v in _select_vars(
         program, lambda v: isinstance(v, Parameter))]
-    _save(names, dirname, filename, scope or global_scope())
+    _save(names, dirname, filename, scope or global_scope(), executor,
+          program)
 
 
 def save_persistables(executor, dirname, main_program=None,
@@ -193,7 +215,7 @@ def save_persistables(executor, dirname, main_program=None,
                                           lambda v: v.persistable)]
     if scope.has_var(RNG_STATE_VAR):
         names.append(RNG_STATE_VAR)
-    _save(names, dirname, filename, scope)
+    _save(names, dirname, filename, scope, executor, program)
 
 
 def load_persistables(executor, dirname, main_program=None,
@@ -328,7 +350,14 @@ def save_checkpoint(executor, dirname, step, main_program=None, scope=None,
     dir records the per-file sha256 digests that ``load_checkpoint``
     verifies before trusting the state. ``extra_meta`` (e.g. preemption
     resume info) is merged into ``latest.json``, itself replaced
-    atomically."""
+    atomically. Under a strategy every rank of the mesh calls it: the
+    state is gathered to its global values and the mesh's first rank
+    writes, the others returning once it has published."""
+    if not _writer(executor):
+        # under a strategy: gather with the writer, then wait for it
+        save_persistables(executor, dirname, main_program, scope=scope)
+        _wait_for_writer(executor)
+        return
     os.makedirs(dirname, exist_ok=True)
     cdir = os.path.join(dirname, "checkpoint_%d" % step)
     # sweep stale temp dirs from past crashed/killed writers, whatever
@@ -379,6 +408,7 @@ def save_checkpoint(executor, dirname, step, main_program=None, scope=None,
             key=lambda d: os.path.getmtime(os.path.join(dirname, d)))
         for d in corrupt[:-2]:
             shutil.rmtree(os.path.join(dirname, d), ignore_errors=True)
+    _wait_for_writer(executor)
 
 
 def verify_checkpoint(cdir):

@@ -52,8 +52,8 @@ def multi_head_attention(queries, keys, values, d_model, num_heads,
                          param_attr=None, name=None, **kwargs):
     """Full MHA with input/output projections (program form).
     queries/keys/values: [B, T, D]; ``key_length`` [B] masks padded
-    keys. ``ring_axis`` is kept in the op's attributes; the op raises on
-    it (ring attention is not ported)."""
+    keys. ``ring_axis`` names a mesh axis that the op splits T over
+    under a strategy (ring attention)."""
     helper = LayerHelper("multi_head_attention", name=name, **kwargs)
     prefix = name or unique_name.generate("mha")
 
@@ -331,11 +331,13 @@ class MultiHeadAttention(nn.Module):
     def _out(self, ctx, amp=None):
         return mul(ctx, self.wo, self.wo_scale, amp)
 
-    def full(self, x, causal=False, key_length=None, amp=None):
+    def full(self, x, causal=False, key_length=None, amp=None,
+             ring_axis=None):
         q, k, v = self._qkv(x, amp)
         return self._out(multihead_attention(q, k, v, self.num_heads,
                                              causal=causal,
-                                             key_length=key_length), amp)
+                                             key_length=key_length,
+                                             ring_axis=ring_axis), amp)
 
     def prefill(self, x, cache_k, cache_v, slot, key_length):
         q, k, v = self._qkv(x)
@@ -391,8 +393,10 @@ class TransformerEncoderLayer(nn.Module):
     modes run without it.
 
     ``dropout_prob`` > 0 raises NotImplementedError here: dropout runs
-    on the program route, where each mask comes from its op's key; and
-    ``ring_axis`` raises (not ported)."""
+    on the program route, where each mask comes from its op's key.
+    ``ring_axis`` names a mesh axis of the current strategy
+    (``parallel.set_current_strategy``) that the full mode's attention
+    splits T over (ring attention); without one it runs as usual."""
 
     def __init__(self, d_model, num_heads, d_ff, device=None,
                  dropout_prob=0.0, ring_axis=None):
@@ -405,11 +409,7 @@ class TransformerEncoderLayer(nn.Module):
                 "scope's @RNG_STATE@, which a module has none of; build "
                 "the program with models.transformer.transformer_lm given "
                 "Variables and run it with core.Executor")
-        if ring_axis:
-            raise NotImplementedError(
-                "ring_axis (ring attention over a mesh) is not ported: "
-                "ROADMAP Queue A, \"Distribution and the input "
-                "pipeline\"")
+        self.ring_axis = ring_axis
         self.ln1_w = _weight(d_model, device=device)
         self.ln1_b = _weight(d_model, device=device)
         self.attn = MultiHeadAttention(d_model, num_heads, device)
@@ -428,7 +428,8 @@ class TransformerEncoderLayer(nn.Module):
                              % (_MODES, mode))
         h = layer_norm(x, self.ln1_w, self.ln1_b)
         if mode == "full":
-            x = x + self.attn.full(h, amp=amp, **index)
+            x = x + self.attn.full(h, amp=amp, ring_axis=self.ring_axis,
+                                   **index)
         else:
             x = x + getattr(self.attn, mode)(h, cache_k, cache_v, **index)
         h = layer_norm(x, self.ln2_w, self.ln2_b)

@@ -85,15 +85,38 @@ def embedding(input, size, is_sparse=False, padding_idx=None,
               param_attr=None, dtype="float32", name=None,
               keep_dims=False, is_distributed=False, **kwargs):
     """Embedding lookup (reference lookup_table_op): a [vocab, dim] table
-    initialized normal(0, 1/sqrt(dim)), its gradient a dense scatter-add.
-    The reference's sharded table (``is_distributed``) is not ported and
-    raises; an ``is_sparse`` table builds, and ``append_backward`` refuses
-    its sparse gradient."""
-    if is_distributed:
-        raise NotImplementedError(
-            "a distributed embedding table is not ported yet: ROADMAP "
-            "Queue A, \"Distribution and the input pipeline\"")
+    initialized normal(0, 1/sqrt(dim)). Its gradient is a dense
+    scatter-add; with ``is_sparse`` a (rows, values) pair, never a dense
+    [V, D] buffer, which SGD/Momentum/Adagrad/Adam apply row by row
+    (``ops/sparse_ops.py``).
+
+    ``is_distributed`` creates a distributed table
+    (``embeddings/sharded.py``): one [padded_vocab, dim] array in the
+    mod-interleaved layout, which a strategy row-shards over its data
+    axis (flag ``embedding_shard_rows``), looked up by the two-hop
+    ``all_to_all`` (flag ``embedding_a2a``), its gradient always the
+    sparse (rows, values) form. On one process, or with the flags off,
+    it is a plain gather with the same numbers."""
     helper = LayerHelper("embedding", name=name, **kwargs)
+    if is_distributed:
+        from ..embeddings import sharded as _sharded
+        vocab, dim = int(size[0]), int(size[1])
+        vp = _sharded.padded_vocab(vocab)
+        w = helper.create_parameter(
+            param_attr, shape=[vp, dim], dtype=dtype,
+            default_initializer=NormalInitializer(0.0,
+                                                  1.0 / np.sqrt(dim)))
+        _sharded.register_table(helper.main_program, w.name,
+                                vocab=vocab, padded=vp, dim=dim)
+        out = helper.create_tmp_variable(dtype)
+        helper.append_op(type="lookup_table_dist",
+                         inputs={"W": [w.name], "Ids": [input.name]},
+                         outputs={"Out": [out.name]},
+                         attrs={"padding_idx": padding_idx,
+                                "vocab_size": vocab,
+                                "padded_vocab": vp,
+                                "keep_dims": bool(keep_dims)})
+        return out
     w = helper.create_parameter(param_attr, shape=list(size), dtype=dtype,
                                 default_initializer=NormalInitializer(
                                     0.0, 1.0 / np.sqrt(size[1])))

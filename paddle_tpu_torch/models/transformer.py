@@ -44,7 +44,8 @@ from ..ops.nn_ops import argmax, layer_norm, lookup_table, mul
 from ..ops.quant_ops import SCALE_SUFFIX, scale_var_name
 from ..place import resolve_device
 
-__all__ = ["TransformerLM", "transformer_lm", "lm_param_names",
+__all__ = ["TransformerLM", "transformer_lm", "transformer_tp_rules",
+           "lm_param_names",
            "lm_mul_weight_names", "check_lm_params", "infer_num_layers",
            "kv_dtype", "policy_epilogue", "transformer_lm_generate",
            "transformer_lm_session"]
@@ -147,7 +148,8 @@ class TransformerLM(nn.Module):
     every ``mul`` of that call a bfloat16 product (``amp.py``); parameters
     stay float32, so one model trains under amp and runs without it.
     ``dropout_prob`` > 0 raises NotImplementedError (dropout runs on the
-    program route) and so does ``ring_axis`` (not ported). Parameters are created
+    program route); ``ring_axis`` splits T over that axis of the current
+    strategy's mesh (ring attention). Parameters are created
     without gradients; an optimizer over them turns gradients on.
 
     Generation, over per-layer KV caches that :meth:`allocate_cache`
@@ -435,6 +437,26 @@ class TransformerLM(nn.Module):
         for ck, cv in self.caches:
             kv_block_copy(ck, src, dst)
             kv_block_copy(cv, src, dst)
+
+
+def transformer_tp_rules(model_axis="model"):
+    """Megatron-style tensor-parallel rules for the transformer's
+    parameters (fed to ``parallel.DistStrategy``): qkv and ffn1
+    column-sharded, attention-out and ffn2 row-sharded, the lm head and
+    the token embedding vocab-sharded. The tails are UNANCHORED, so
+    optimizer accumulators (``<param>_moment1_acc_0``) inherit the
+    sharding; ``state_sharding``'s divisibility guard drops the axis on
+    [1] beta-pow accumulators."""
+    from ..parallel import P
+    return [
+        (r"\.qkv_[qkv]\.w", P(None, model_axis)),
+        (r"\.o\.w", P(model_axis, None)),
+        (r"\.ffn1\.w", P(None, model_axis)),
+        (r"\.ffn1\.b", P(model_axis)),
+        (r"\.ffn2\.w", P(model_axis, None)),
+        (r"^lm_head\.w", P(None, model_axis)),
+        (r"^tok_embedding", P(model_axis, None)),
+    ]
 
 
 def _lm_backbone(tokens, vocab_size, d_model, num_heads, d_ff, num_layers,

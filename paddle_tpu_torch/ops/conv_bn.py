@@ -204,7 +204,8 @@ def conv_bn_stats(x, w, stride=1, padding=0, dilation=1, groups=1):
 
 def conv2d_bn_stats(x, w, scale, bias, mean, variance, stride=1,
                     padding=0, dilation=1, groups=1, momentum=0.9,
-                    epsilon=1e-5, is_test=False):
+                    epsilon=1e-5, is_test=False, reduce=None,
+                    count_mult=1):
     """conv2d + batch_norm in one op (reference ``_conv2d_bn``) as a
     function: ``(y, mean_out, variance_out, saved_mean, saved_inv)``.
 
@@ -213,7 +214,12 @@ def conv2d_bn_stats(x, w, scale, bias, mean, variance, stride=1,
     out are ``momentum * old + (1 - momentum) * batch``. ``is_test``: a
     plain convolution normalized by the running statistics, returned as
     they are. ``y * a + b`` with ``a = scale / sqrt(var + eps)`` and
-    ``b = bias - mean * a``; ``saved_inv`` is ``1 / sqrt(var + eps)``."""
+    ``b = bias - mean * a``; ``saved_inv`` is ``1 / sqrt(var + eps)``.
+
+    ``reduce`` (under a distribution strategy, ``parallel/spmd.py``)
+    sums B1's per-channel sums over the data axis's ranks, each holding
+    ``1 / count_mult`` of the batch, before the finish: the statistics
+    are the global batch's."""
     if is_test:
         y = conv2d(x, w, stride, padding, dilation, groups)
         use_mean, use_var = mean, variance
@@ -221,6 +227,8 @@ def conv2d_bn_stats(x, w, scale, bias, mean, variance, stride=1,
     else:
         y, csum, csq = conv_bn_stats(x, w, stride, padding, dilation, groups)
         count = y.shape[0] * y.shape[2] * y.shape[3]
+        if reduce is not None:
+            csum, csq, count = reduce(csum), reduce(csq), count * count_mult
         use_mean = csum / count
         use_var = csq / count - use_mean * use_mean
         new_mean = momentum * mean + (1.0 - momentum) * use_mean

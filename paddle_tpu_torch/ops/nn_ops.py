@@ -105,7 +105,8 @@ def pool2d(x, ksize, pool_type="max", strides=1, paddings=0,
 
 
 def batch_norm_stats(x, scale, bias, mean, variance, momentum=0.9,
-                     epsilon=1e-5, is_test=False, channel_axis=1):
+                     epsilon=1e-5, is_test=False, channel_axis=1,
+                     reduce=None, count_mult=1):
     """Reference ``batch_norm`` as a function: ``(y, mean_out,
     variance_out, saved_mean, saved_inv)``. In training the batch mean
     and the biased variance ``E[x^2] - E[x]^2`` (moments in f32), and the
@@ -114,7 +115,12 @@ def batch_norm_stats(x, scale, bias, mean, variance, momentum=0.9,
     variance); ``is_test`` normalizes by the running statistics and
     returns them as they are. ``y = x * a + b`` with
     ``a = scale / sqrt(var + eps)`` and ``b = bias - mean * a``;
-    ``saved_inv`` is ``1 / sqrt(var + eps)``."""
+    ``saved_inv`` is ``1 / sqrt(var + eps)``.
+
+    ``reduce`` (under a distribution strategy, ``parallel/spmd.py``)
+    sums the per-channel sums of x and x^2 over the data axis's ranks,
+    each holding ``1 / count_mult`` of the batch, before the moments are
+    finished: the statistics are the global batch's."""
     shape = [1] * x.dim()
     shape[channel_axis] = -1
     if is_test:
@@ -124,8 +130,14 @@ def batch_norm_stats(x, scale, bias, mean, variance, momentum=0.9,
         # moments in f32 at least (a float64 input keeps float64)
         xs = x if x.dtype in (torch.float32, torch.float64) else x.float()
         axes = tuple(i for i in range(x.dim()) if i != channel_axis)
-        use_mean = xs.mean(dim=axes)
-        use_var = (xs * xs).mean(dim=axes) - use_mean * use_mean
+        if reduce is None:
+            use_mean = xs.mean(dim=axes)
+            use_var = (xs * xs).mean(dim=axes) - use_mean * use_mean
+        else:
+            count = count_mult * (xs.numel() // xs.shape[channel_axis])
+            use_mean = reduce(xs.sum(dim=axes)) / count
+            use_var = reduce((xs * xs).sum(dim=axes)) / count \
+                - use_mean * use_mean
         new_mean = momentum * mean + (1.0 - momentum) * use_mean
         new_var = momentum * variance + (1.0 - momentum) * use_var
     inv = torch.rsqrt(use_var + epsilon)

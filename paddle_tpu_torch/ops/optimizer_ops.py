@@ -1,17 +1,26 @@
 """Optimizer update ops (reference ``paddle_tpu/ops/optimizer_ops.py``:
 ``sgd``, ``momentum``, ``adam``, ``adamax``, ``adagrad``,
 ``decayed_adagrad``, ``adadelta``, ``rmsprop``, ``proximal_gd``,
-``proximal_adagrad`` and ``ftrl``, dense form), as IN-PLACE updates of
+``proximal_adagrad`` and ``ftrl``), as IN-PLACE updates of
 the parameter and its accumulators: the reference's functional update
-with its buffers donated, without the copy. The lazy-rows branches are
-for sparse embedding gradients, which no ported model produces.
+with its buffers donated, without the copy.
 
 The program ops of the same names are registered here. Each writes in
 place when the executor allows it and its outputs name its inputs (as
 ``minimize`` appends them), and otherwise returns new tensors, the
 reference's functional form, with the same arithmetic in the same
 order: each in-place step rounds as the functional expression it
-replaces."""
+replaces.
+
+A ``Rows`` input makes the ``Grad`` a sparse (SelectedRows) gradient of
+an embedding table (``ops/sparse_ops.py``): sgd, momentum, adagrad and
+adam merge its duplicate rows, drop the rows out of range (the
+reference's scatter ``mode="drop"``: filtered here) and update the rows
+that remain, each once (lazily: the other rows' moments do not
+advance). Under a strategy a row-sharded table's Param holds one block
+of rows: its rows are its global rows less the block's first
+(``DistRun.row_base``), and the other blocks' rows are dropped. The
+other update rules have no sparse form and refuse a ``Rows`` input."""
 
 import torch
 
@@ -63,13 +72,56 @@ def _lr(ctx):
 def _dense(ctx):
     if ctx.has_input("Rows"):
         raise NotImplementedError(
-            "sparse (SelectedRows) gradients are not ported yet: ROADMAP "
-            "Queue A, \"Distribution and the input pipeline\"")
+            "%s has no sparse (SelectedRows) update rule: use "
+            "SGD/Momentum/Adagrad/Adam for sparse embeddings" % ctx.op.type)
     return ctx.input("Param"), ctx.input("Grad")
+
+
+def _sparse_rows(ctx):
+    """The sparse gradient as (rows, values) of the Param's own rows:
+    merged, with the rows out of range dropped; None for a dense one."""
+    if not ctx.has_input("Rows"):
+        return None
+    from .sparse_ops import merge_duplicate_rows
+    p = ctx.input("Param")
+    n = p.shape[0]
+    dist = getattr(ctx.trace, "dist", None)
+    base = dist.row_base.get(ctx.op.inputs["Param"][0], 0) \
+        if dist is not None else 0
+    rows = ctx.input("Rows").to(torch.long) - base
+    rows = torch.where((rows >= 0) & (rows < n), rows,
+                       torch.full_like(rows, n))
+    rows, vals = merge_duplicate_rows(rows, ctx.input("Grad"), n)
+    keep = rows < n
+    return rows[keep].to(torch.long), vals[keep]
+
+
+def _rows_target(ctx, out_slot, in_slot):
+    """The tensor a sparse update writes: the input itself where the op
+    may write in place, else a copy."""
+    t = ctx.input(in_slot)
+    return t if ctx.in_place(out_slot, in_slot) else t.clone()
+
+
+def _sparse_update(ctx, rows, upd, slots=()):
+    """``Param[rows] -= upd`` and each (out, in, values) of ``slots``
+    set at ``rows``; returns the outputs."""
+    p = _rows_target(ctx, "ParamOut", "Param")
+    p.index_add_(0, rows, -upd.to(p.dtype))
+    out = {"ParamOut": p}
+    for o, i, vals in slots:
+        t = _rows_target(ctx, o, i)
+        t.index_copy_(0, rows, vals.to(t.dtype))
+        out[o] = t
+    return out
 
 
 @register_op("sgd")
 def _sgd(ctx):
+    sparse = _sparse_rows(ctx)
+    if sparse is not None:
+        rows, vals = sparse
+        return _sparse_update(ctx, rows, _lr(ctx) * vals)
     p, g = _dense(ctx)
     if ctx.in_place("ParamOut", "Param"):
         sgd(p, g, _lr(ctx))
@@ -79,11 +131,19 @@ def _sgd(ctx):
 
 @register_op("momentum")
 def _momentum(ctx):
-    p, g = _dense(ctx)
     v = ctx.input("Velocity")
     mu = ctx.attr("mu", 0.9)
     nesterov = ctx.attr("use_nesterov", False)
     lr = _lr(ctx)
+    sparse = _sparse_rows(ctx)
+    if sparse is not None:
+        # lazy sparse momentum: only touched rows advance their velocity
+        rows, vals = sparse
+        v_rows = mu * v[rows] + vals
+        upd = (vals + mu * v_rows) * lr if nesterov else lr * v_rows
+        return _sparse_update(ctx, rows, upd,
+                              [("VelocityOut", "Velocity", v_rows)])
+    p, g = _dense(ctx)
     if ctx.in_place("ParamOut", "Param") and \
             ctx.in_place("VelocityOut", "Velocity"):
         momentum(p, g, v, lr, mu, nesterov)
@@ -98,13 +158,30 @@ def _momentum(ctx):
 
 @register_op("adam")
 def _adam(ctx):
-    p, g = _dense(ctx)
     m, v = ctx.input("Moment1"), ctx.input("Moment2")
     b1p, b2p = ctx.input("Beta1Pow"), ctx.input("Beta2Pow")
     b1 = ctx.attr("beta1", 0.9)
     b2 = ctx.attr("beta2", 0.999)
     eps = ctx.attr("epsilon", 1e-8)
     lr = _lr(ctx)
+    sparse = _sparse_rows(ctx)
+    if sparse is not None:
+        # lazy adam: moments advance only for touched rows
+        rows, vals = sparse
+        lr_t = lr * torch.sqrt(1.0 - b2p.reshape(())) \
+            / (1.0 - b1p.reshape(()))
+        m_rows = b1 * m[rows] + (1.0 - b1) * vals
+        v_rows = b2 * v[rows] + (1.0 - b2) * torch.square(vals)
+        upd = lr_t * m_rows / (torch.sqrt(v_rows) + eps)
+        out = _sparse_update(ctx, rows, upd,
+                             [("Moment1Out", "Moment1", m_rows),
+                              ("Moment2Out", "Moment2", v_rows)])
+        for o, i, beta in (("Beta1PowOut", "Beta1Pow", b1),
+                           ("Beta2PowOut", "Beta2Pow", b2)):
+            t = ctx.input(i)
+            out[o] = t.mul_(beta) if ctx.in_place(o, i) else t * beta
+        return out
+    p, g = _dense(ctx)
     if all(ctx.in_place(o, i) for o, i in (
             ("ParamOut", "Param"), ("Moment1Out", "Moment1"),
             ("Moment2Out", "Moment2"), ("Beta1PowOut", "Beta1Pow"),
@@ -242,6 +319,14 @@ def _adamax(ctx):
 
 @register_op("adagrad")
 def _adagrad(ctx):
+    sparse = _sparse_rows(ctx)
+    if sparse is not None:
+        rows, vals = sparse
+        eps = ctx.attr("epsilon", 1e-6)
+        m_rows = ctx.input("Moment")[rows] + torch.square(vals)
+        upd = _lr(ctx) * vals / (torch.sqrt(m_rows) + eps)
+        return _sparse_update(ctx, rows, upd,
+                              [("MomentOut", "Moment", m_rows)])
     _dense(ctx)
     return _functional_or_in_place(
         ctx, adagrad, (("ParamOut", "Param"), ("MomentOut", "Moment")),

@@ -161,6 +161,18 @@ class _Optimizer:
             return self._accumulators[key]
         shape = list(shape if shape is not None else param.shape)
         vname = unique_name.generate("%s_%s_acc" % (param.name, name))
+        # a distributed table's row-shaped slots (Adam's moments) are
+        # registered beside it: a strategy row-shards them by the same
+        # rule and a checkpoint reshard permutes them with it; [1] slots
+        # (the beta powers) stay replicated
+        tables = getattr(main, "_dist_embeddings", None)
+        if tables is not None and param.name in tables and \
+                tables[param.name].get("slot_of") is None and \
+                shape and shape[0] == tables[param.name]["padded"]:
+            info = tables[param.name]
+            tables[vname] = {"vocab": info["vocab"],
+                             "padded": info["padded"],
+                             "dim": info["dim"], "slot_of": param.name}
         var = main.global_block().create_var(
             name=vname, shape=shape, dtype=param.dtype, persistable=True,
             stop_gradient=True)
@@ -188,6 +200,7 @@ class _Optimizer:
         ops = []
         for param, grad in params_grads:
             if grad is not None:
+                self._check_sparse(grad)
                 ops.append(self._append_optimize_op(main, startup, param,
                                                     grad))
         if self._global_step is not None:
@@ -200,10 +213,32 @@ class _Optimizer:
     def _append_optimize_op(self, main, startup, param, grad):
         raise NotImplementedError
 
+    @staticmethod
+    def _grad_inputs(grad):
+        """The update op's gradient slots: a sparse (SelectedRows)
+        gradient adds its Rows."""
+        ins = {"Grad": [grad.name]}
+        rows = getattr(grad, "selected_rows", None)
+        if rows is not None:
+            ins["Rows"] = [rows.name]
+        return ins
+
+    _SPARSE_CAPABLE = False
+
+    def _check_sparse(self, grad):
+        if getattr(grad, "selected_rows", None) is not None and \
+                not self._SPARSE_CAPABLE:
+            raise NotImplementedError(
+                "%s has no sparse (SelectedRows) update rule — use "
+                "SGD/Momentum/Adagrad/Adam for is_sparse embeddings"
+                % type(self).__name__)
+
 
 class SGD(_Optimizer):
     """``param <- param - lr * grad``. ``SGD(params, learning_rate)`` or
     ``SGD(learning_rate=0.001)``."""
+
+    _SPARSE_CAPABLE = True
 
     def __init__(self, *args, **kwargs):
         params, v = _forms(args, kwargs, ("learning_rate",), (0.001,))
@@ -217,7 +252,7 @@ class SGD(_Optimizer):
         lr = self._lr_for_param(main, param)
         return main.global_block().append_op(
             "sgd",
-            inputs=dict(Grad=[grad.name], Param=[param.name],
+            inputs=dict(self._grad_inputs(grad), Param=[param.name],
                         LearningRate=[lr.name]),
             outputs={"ParamOut": [param.name]}, infer_shape=False)
 
@@ -227,6 +262,8 @@ class Momentum(_Optimizer):
     velocities start at 0. ``Momentum(params, learning_rate, momentum,
     use_nesterov)`` or ``Momentum(learning_rate, momentum,
     use_nesterov)``."""
+
+    _SPARSE_CAPABLE = True
 
     def __init__(self, *args, **kwargs):
         params, v = _forms(args, kwargs, ("learning_rate", "momentum",
@@ -243,7 +280,7 @@ class Momentum(_Optimizer):
         lr = self._lr_for_param(main, param)
         return main.global_block().append_op(
             "momentum",
-            inputs=dict(Grad=[grad.name], Param=[param.name],
+            inputs=dict(self._grad_inputs(grad), Param=[param.name],
                         Velocity=[vel.name], LearningRate=[lr.name]),
             outputs={"ParamOut": [param.name], "VelocityOut": [vel.name]},
             attrs={"mu": self.momentum, "use_nesterov": self.use_nesterov},
@@ -263,6 +300,8 @@ class Adam(_Optimizer):
     tensors starting at beta1 and beta2, reference ``Adam``); the moments
     start at 0. ``Adam(params, learning_rate, beta1, beta2, epsilon)`` or
     ``Adam(learning_rate, beta1, beta2, epsilon)``."""
+
+    _SPARSE_CAPABLE = True
 
     def __init__(self, *args, **kwargs):
         params, v = _forms(args, kwargs, ("learning_rate", "beta1", "beta2",
@@ -302,7 +341,7 @@ class Adam(_Optimizer):
         lr = self._lr_for_param(main, param)
         return main.global_block().append_op(
             "adam",
-            inputs=dict(Grad=[grad.name], Param=[param.name],
+            inputs=dict(self._grad_inputs(grad), Param=[param.name],
                         Moment1=[m1.name], Moment2=[m2.name],
                         Beta1Pow=[b1p.name], Beta2Pow=[b2p.name],
                         LearningRate=[lr.name]),
@@ -331,6 +370,8 @@ class _ProgramOptimizer(_Optimizer):
 class Adagrad(_ProgramOptimizer):
     """``Adagrad(learning_rate, epsilon=1e-6)``."""
 
+    _SPARSE_CAPABLE = True
+
     _NAMES = ("learning_rate", "epsilon")
     _DEFAULTS = (None, 1e-6)
 
@@ -339,7 +380,7 @@ class Adagrad(_ProgramOptimizer):
         lr = self._lr_for_param(main, param)
         return main.global_block().append_op(
             "adagrad",
-            inputs=dict(Grad=[grad.name], Param=[param.name],
+            inputs=dict(self._grad_inputs(grad), Param=[param.name],
                         Moment=[moment.name], LearningRate=[lr.name]),
             outputs={"ParamOut": [param.name], "MomentOut": [moment.name]},
             attrs={"epsilon": self._epsilon}, infer_shape=False)

@@ -55,7 +55,6 @@ __all__ = ["StagedReader"]
 _END = object()
 
 # the ROADMAP Queue A item that brings data-parallel staging
-_DISTRIBUTION = 'ROADMAP Queue A, "Distribution and the input pipeline"'
 
 # Input-pipeline telemetry (recording gated by the "telemetry" flag),
 # under the reference's names and help text. Gauges are labeled per
@@ -206,17 +205,20 @@ class StagedReader:
     device: where batches are copied to: CUDA when None (which raises
     without a GPU), ``"cpu"`` on the CPU. A CUDA device needs the
     page-locked arena: without it the reader raises.
-    strategy: a data-parallel strategy; not ported (raises).
+    strategy: a ``parallel.DistStrategy``: a packed batch is packed in
+    ``data_shards()`` rows (each one shard's rows of every slot) and this
+    rank copies only its own row to its device, on the reader's stream
+    (``DistStrategy.scatter_packed``; a batch packed for another shard
+    count that the data axis does not divide is copied whole, which is
+    logged once). The per-array path copies whole arrays, whose rows the
+    executor takes.
     """
 
     def __init__(self, reader, feeder=None, depth=2, capacity_mb=256,
                  device_put=True, free_lag=2, pack=None, strategy=None,
                  program=None, device=None):
-        if strategy is not None:
-            raise NotImplementedError(
-                "staging for a distribution strategy is not ported yet: %s"
-                % _DISTRIBUTION)
         self.reader = reader
+        self.strategy = strategy
         self.feeder = feeder
         self.depth = max(1, int(depth))
         self.device_put = device_put
@@ -332,11 +334,18 @@ class StagedReader:
     def _stage_packed(self, feed):
         """Fused single-copy path: one arena block, one copy. Returns
         (PackedBatch, offsets, event) or None to fall back."""
+        shards = self.strategy.data_shards() \
+            if self.strategy is not None else 1
         packed = _ingest.pack_feed(
-            feed, shards=1, alloc=lambda n: self._alloc((n,), np.uint8, n))
+            feed, shards=shards,
+            alloc=lambda n: self._alloc((n,), np.uint8, n))
         if packed is None:
             return None
         pb, off = packed
+        rows, start = pb.buffer, None
+        if self.strategy is not None:
+            # this rank's rows of the block: one contiguous range of it
+            rows, start = self.strategy.scatter_packed(pb.buffer)
         telemetry = _config.get_flag("telemetry")
         if telemetry:
             _LEGACY_BYTES.inc(sum(
@@ -347,19 +356,21 @@ class StagedReader:
             if n_sparse:
                 _SPARSE_SLOTS.inc(n_sparse)
         event = None
+        nbytes = rows.shape[0] * pb.shard_nbytes
         if off is not None:
-            dst = self._copy(off, pb.nbytes)
+            dst = self._copy(off + (start or 0) * pb.shard_nbytes, nbytes)
             event = self._record()
         else:
-            dst = self._to_device(pb.buffer.reshape(-1))
-        pb.buffer = dst.view(pb.shards, pb.shard_nbytes)
+            dst = self._to_device(rows.reshape(-1))
+        pb.buffer = dst.view(rows.shape[0], pb.shard_nbytes)
+        pb.shard_start = start
         pb.event = event
         # the transfer-completion barrier ON the staging thread: the
         # block may be recycled from here on
         self._wait(event)
         pb.transfer_done = True
         if telemetry:
-            _WIRE_BYTES.inc(pb.nbytes)
+            _WIRE_BYTES.inc(nbytes)
             _TRANSFERS.inc()
         self.packed_batches += 1
         return pb, ([off] if off is not None else []), event

@@ -22,8 +22,10 @@ copies each batch to the card ahead of the step) or, with
 staged pipeline needs its pinned arena: ``train`` raises rather than
 drop to the plain queue. ``save_inference_model`` exports the trained
 program pruned to its fetches (``io.save_inference_model``), an artifact
-both packages load. A distribution ``strategy`` raises
-NotImplementedError.
+both packages load. A distribution ``strategy``
+(``parallel.DistStrategy``) runs every step on the strategy's mesh (every
+rank runs the same Trainer on the same reader), and its staged batches
+carry only this rank's rows (``StagedReader(strategy=)``).
 """
 
 import itertools
@@ -343,6 +345,7 @@ class Trainer:
             from .reader.staging import StagedReader
             staged = StagedReader(reader, feeder=self.feeder,
                                   depth=prefetch,
+                                  strategy=self.exe.strategy,
                                   program=self.main_program,
                                   device=self.exe.device)
             if not (staged.arena_active or staged.packing_enabled()):

@@ -391,12 +391,13 @@ def test_telemetry_counts_the_cache_and_the_exported_step():
 
 def test_the_key_is_the_references_less_what_the_port_lacks():
     """The step cache's key holds the reference's parts (uid, version,
-    feed signature, fetches, donation, check_nan_inf, amp, matmul
-    precision, nonfinite_guard, ingest specs, the int8 tag) less three:
-    the ``flash_attention`` flag, which the port does not carry (a CUDA
-    tensor always takes the kernels), and the strategy and embedding
-    parts, whose modules are not ported. Each trace-time flag the port
-    has makes a new entry."""
+    feed signature, fetches, donation, the strategy's uid,
+    check_nan_inf, amp, matmul precision, nonfinite_guard, ingest specs,
+    the embedding flags of a program with a distributed table, the int8
+    tag) less one: the ``flash_attention`` flag, which the port does not
+    carry (a CUDA tensor always takes the kernels). Each trace-time flag
+    the port has, and a strategy, makes a new entry."""
+    from paddle_tpu_torch import parallel as port_parallel
     with pytest.raises(KeyError):
         port_config.set_flags(flash_attention=True)
     main, startup, out = _build()
@@ -412,9 +413,8 @@ def test_the_key_is_the_references_less_what_the_port_lacks():
             port_config.set_flags(check_nan_inf=False, nonfinite_guard=False,
                                   amp=None)
     new = [k for k in exe._cache if k not in keys]
-    assert len(new) == 4 and {len(k) for k in new} == {11}
-    # the reference's key: the same parts, with strategy (5), flash (8)
-    # and the embedding key (12) between them
+    assert len(new) == 4 and {len(k) for k in new} == {13}
+    # the reference's key: the same parts, with flash (8) between them
     ref_main, ref_startup = ptpu.Program(), ptpu.Program()
     with ptpu.unique_name.guard(), ptpu.program_guard(ref_main, ref_startup):
         x = ptpu.layers.data("x", shape=[6])
@@ -426,8 +426,14 @@ def test_the_key_is_the_references_less_what_the_port_lacks():
     ref_key = [k for k in rexe._cache if k[0] == ref_main._uid][0]
     assert len(ref_key) == 14
     assert ref_key[8] is False          # flash_attention, off by default
-    # donation, check_nan_inf, amp and nonfinite_guard, flags off
+    # donation, no strategy, check_nan_inf, amp, nonfinite_guard, the
+    # ingest specs, no embedding key and no int8 tag
     plain = [k for k in new
-             if k[5] is False and k[6] is None and k[8] is False][0]
-    assert [plain[i] for i in (4, 5, 6, 8)] == \
-        [ref_key[i] for i in (4, 6, 7, 10)]
+             if k[6] is False and k[7] is None and k[9] is False][0]
+    assert [plain[i] for i in (4, 5, 6, 7, 9, 10, 11, 12)] == \
+        [ref_key[i] for i in (4, 5, 6, 7, 10, 11, 12, 13)]
+    # a strategy keys its own entry, by its uid
+    strat = port_parallel.DataParallel(n_devices=1)
+    sexe = pc.Executor(device="cpu", strategy=strat)
+    sexe.run(main, feed={"x": FEED}, fetch_list=[out], scope=scope)
+    assert [k[5] for k in sexe._cache] == [strat._uid]

@@ -406,7 +406,8 @@ def test_no_edge_kept_for_an_output_without_gradient(monkeypatch):
 
 
 def test_what_is_not_ported_raises():
-    """Distribution strategies still raise. The AOT surface the reference
+    """A distribution strategy runs (one process: a one-rank mesh) and is
+    neither exported nor captured. The AOT surface the reference
     has is ported: ``lower`` gives the step's ExportedProgram,
     ``cache_digest`` a stable digest, ``prime_aot`` installs a program
     behind its digest and ``as_jax_function`` gives a pure function."""
@@ -430,8 +431,13 @@ def test_what_is_not_ported_raises():
     np.testing.assert_array_equal(got, want)
     fn, (state, tfeed) = exe.as_jax_function(main, feed, [h], scope=scope)
     np.testing.assert_array_equal(fn(state, tfeed)[0].numpy(), want)
-    with pytest.raises(NotImplementedError, match="Distribution"):
-        pc.Executor(device="cpu", strategy=object())
+    from paddle_tpu_torch import parallel
+    sexe = pc.Executor(device="cpu",
+                       strategy=parallel.DataParallel(n_devices=1))
+    got, = sexe.run(main, feed=feed, fetch_list=[h], scope=scope)
+    np.testing.assert_array_equal(got, want)
+    with pytest.raises(ValueError, match="not exported"):
+        sexe.lower(main, feed=feed, fetch_list=[h], scope=scope)
     # narrow-wire feeds are ported: the declaration no longer raises
     w = layers.data("w", shape=[2], wire_dtype="uint8", scale=0.5)
     assert str(w.wire_dtype) == "uint8" and w.ingest["scale"] == 0.5

@@ -128,7 +128,10 @@ def test_the_port_registers_the_slice():
         "kv_cache_append_paged", "kv_block_copy",
         "multihead_attention_decode", "multihead_attention_decode_paged",
         "multihead_attention_prefill_paged", "decode_sample",
-        "decode_verify", "transpose", "gather", "slice", "arg_max"] +
+        "decode_verify", "transpose", "gather", "slice", "arg_max",
+        # the distribution slice's sparse and distributed lookups
+        "lookup_table_dist", "lookup_table_dist_grad",
+        "lookup_table_sparse_grad"] +
         # the LeNet-5/MNIST slice's op library, the RNN and seq2seq slice's
         SLICE_OPS + RNN_OPS)
     with pytest.raises(NotImplementedError, match="no op registered"):
@@ -187,6 +190,19 @@ SHAPE_CASES = {
                      {"padding_idx": None, "is_sparse": False,
                       "keep_dims": False}, {"Out": 1}),
     "gelu": ({"X": [((-1, 4), F)]}, {}, {"Out": 1}),
+    "lookup_table_dist": ({"W": [((64, 6), F)], "Ids": [((-1, 5), I)]},
+                          {"padding_idx": None, "vocab_size": 50,
+                           "padded_vocab": 64, "keep_dims": False},
+                          {"Out": 1}),
+    "lookup_table_dist_grad": ({"OutGrad": [((-1, 5, 6), F)],
+                                "Ids": [((-1, 5), I)]},
+                               {"padding_idx": None, "vocab_size": 50,
+                                "padded_vocab": 64},
+                               {"Rows": 1, "Values": 1}),
+    "lookup_table_sparse_grad": ({"OutGrad": [((-1, 5, 6), F)],
+                                  "Ids": [((-1, 5), I)]},
+                                 {"padding_idx": 3, "vocab_size": 50},
+                                 {"Rows": 1, "Values": 1}),
     "multihead_attention": ({"Q": [((-1, 16, 64), F)],
                              "K": [((-1, 16, 64), F)],
                              "V": [((-1, 16, 64), F)]},

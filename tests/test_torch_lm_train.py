@@ -244,9 +244,26 @@ def test_lm_forward_dropout_and_ring_raise():
     with pytest.raises(NotImplementedError, match="per-op key split"):
         port_tf.TransformerLM(max_len=8, device="cpu", dropout_prob=0.1,
                               **NET)
-    with pytest.raises(NotImplementedError,
-                       match="Distribution and the input pipeline"):
-        port_tf.TransformerLM(max_len=8, device="cpu", ring_axis="sp", **NET)
+    # ring_axis no longer raises: without a strategy whose mesh has the
+    # axis the layers attend as usual, so the loss is the plain model's
+    from paddle_tpu_torch import parallel
+    ring = port_tf.TransformerLM(max_len=8, device="cpu", ring_axis="sp",
+                                 **NET)
+    plain = port_tf.TransformerLM(max_len=8, device="cpu", **NET)
+    ring.reset_parameters(1)
+    plain.reset_parameters(1)
+    toks = torch.from_numpy(np.random.RandomState(0).randint(
+        0, NET["vocab_size"], (2, 8)))
+    want = plain(toks, toks)[0]
+    assert torch.equal(ring(toks, toks)[0], want)
+    # a one-rank "sp" axis: ring attention over one block
+    prev = parallel.set_current_strategy(parallel.DistStrategy(
+        parallel.make_mesh({"sp": 1})))
+    try:
+        got = ring(toks, toks)[0]
+    finally:
+        parallel.set_current_strategy(prev)
+    assert abs(float(got) - float(want)) <= 1e-5 * max(1.0, abs(float(want)))
 
 
 def test_length_masked_loss_and_amp_serving_refused():

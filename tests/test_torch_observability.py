@@ -108,6 +108,11 @@ FAMILIES = sorted([
         "compile_seconds", "step_flops", "step_bytes")] + [
     "paddle_deploy_cache_%s_total" % n for n in (
         "hits", "misses", "quarantined", "evictions")] + [
+    # the distributed embedding tables', registered when their module is
+    # imported (the reference's package imports it; the port's registry
+    # imports it with the ops)
+    "paddle_embedding_lookup_rows_total", "paddle_embedding_a2a_bytes_total",
+    "paddle_embedding_unique_ratio"] + [
     # the training pipeline's (trainer, staging, checkpoints, stat
     # timers): registered when their modules are imported, which this
     # file does in both packages

@@ -472,21 +472,39 @@ def _slot_programs():
     startup program and feed: ResNet-8 for CIFAR plain, fused and
     recomputed with Momentum; an fc net whose logits come through a
     ``matmul`` and a ``reduce_sum``, with SGD, and one with Adam; and the
-    transformer LM with dropout and its ``length`` mask, with Adam."""
+    transformer LM with dropout and its ``length`` mask, with Adam; and
+    wide&deep with distributed tables beside an ``is_sparse`` one, with
+    Adagrad (their sparse gradients)."""
     from paddle_tpu_torch import core as pc
     from paddle_tpu_torch import layers, optimizer
-    from paddle_tpu_torch.models import resnet, transformer
+    from paddle_tpu_torch.models import resnet, transformer, wide_deep
     img_feed = {"img": np.random.RandomState(0).randn(2, 3, 8, 8)
                 .astype(np.float32), "label": np.array([[1], [7]])}
     ids = np.random.RandomState(1).randint(2, 20, (2, 8))
     lm_feed = {"toks": ids, "lbls": ids, "len": np.array([[8], [3]])}
+    wd_feed = {"ids": ids[:, :3], "dense": np.ones((2, 4), np.float32),
+               "label": np.array([[1.0], [0.0]], np.float32)}
     out = []
-    for kind in ("plain", "fused", "recompute", "sgd", "adam", "lm"):
+    for kind in ("plain", "fused", "recompute", "sgd", "adam", "lm",
+                 "wide_deep"):
         port_config.set_flags(fused_conv_bn=kind == "fused")
         try:
             main, startup = pc.Program(), pc.Program()
             with pc.unique_name.guard(), pc.program_guard(main, startup):
-                if kind == "lm":
+                if kind == "wide_deep":
+                    wids = layers.data("ids", shape=[3], dtype="int64")
+                    dense = layers.data("dense", shape=[4])
+                    lbl = layers.data("label", shape=[1])
+                    loss = wide_deep.wide_deep(wids, dense, lbl, 20, 3,
+                                               emb_dim=4, hidden=(8,),
+                                               is_distributed=True)[0]
+                    side = layers.embedding(wids, size=[20, 2],
+                                            is_sparse=True)
+                    loss = layers.elementwise_add(
+                        loss, layers.mean(side))
+                    opt = optimizer.Adagrad(0.1)
+                    feed = wd_feed
+                elif kind == "lm":
                     toks = layers.data("toks", shape=[8], dtype="int64")
                     lbls = layers.data("lbls", shape=[8], dtype="int64")
                     length = layers.data("len", shape=[1], dtype="int64")
@@ -508,7 +526,7 @@ def _slot_programs():
                         logits, label))
                     opt = optimizer.SGD(0.1) if kind == "sgd" \
                         else optimizer.Adam(0.1)
-                elif kind != "lm":
+                elif kind not in ("lm", "wide_deep"):
                     loss = resnet.resnet_cifar10(
                         img, label, depth=8,
                         recompute=kind == "recompute")[0]
@@ -780,3 +798,36 @@ def test_serving_entry_points_raise_without_cuda(tmp_path, monkeypatch):
     eng = ServingEngine(d, buckets=(1,), device="cpu")
     assert [str(r.device) for r in eng.replicas] == ["cpu"]
     eng.close()
+
+
+# the distribution slice's modules: the import walk above and the source
+# check cover them with the rest of the package
+DISTRIBUTION_MODULES = [
+    "paddle_tpu_torch.parallel", "paddle_tpu_torch.parallel.spmd",
+    "paddle_tpu_torch.parallel.ring_attention",
+    "paddle_tpu_torch.distributed", "paddle_tpu_torch.distributed.launch",
+    "paddle_tpu_torch.embeddings", "paddle_tpu_torch.embeddings.sharded",
+    "paddle_tpu_torch.embeddings.checkpoint",
+    "paddle_tpu_torch.ops.sparse_ops", "paddle_tpu_torch.models.wide_deep"]
+
+
+def test_the_distribution_modules_are_walked_and_import_clean():
+    """The distribution modules import neither jax nor paddle_tpu, and
+    their entry points take the card by default: a process group asked
+    for without a device is NCCL's, and raises without CUDA rather than
+    falling back to gloo."""
+    assert set(DISTRIBUTION_MODULES) <= set(_package_modules())
+    code = ("import importlib, sys\n"
+            "for m in %r: importlib.import_module(m)\n"
+            "print(sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith('jax.') or m == 'paddle_tpu' or "
+            "m.startswith('paddle_tpu.')))\n" % (DISTRIBUTION_MODULES,))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+    import torch
+    from paddle_tpu_torch.distributed import init_multihost
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            init_multihost("localhost:1", 2, 0)

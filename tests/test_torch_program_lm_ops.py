@@ -18,7 +18,9 @@ jax arrays, the port's on CPU tensors.
   reference with its flash flag on (the Pallas kernel interpreted) and
   off (its dense branch); on ``meta`` tensors the output takes q's
   shape and dtype without reaching the kernel's wrapper.
-* ``ring_axis`` raises, naming the ROADMAP item.
+* ``ring_axis``: without a strategy whose mesh has the axis the op is
+  the plain one; with one (a one-rank axis here) it takes ring attention,
+  within 1e-5 of the plain op.
 """
 
 import types
@@ -270,12 +272,25 @@ def test_multihead_attention_shape_rule_on_meta(monkeypatch):
 
 
 def test_ring_axis_raises():
+    """``ring_axis`` no longer raises (the name is kept): see the module
+    docstring."""
+    from paddle_tpu_torch import parallel
     inputs, heads = _mha_inputs(8, 8, None)
-    op = _op("multihead_attention", inputs,
-             {"num_heads": heads, "causal": True, "ring_axis": "sp"})
-    ctx = port_registry.ExecContext(
-        op, {k: [torch.from_numpy(v)] for k, v in inputs.items()
-             if v is not None})
-    with pytest.raises(NotImplementedError,
-                       match="Distribution and the input pipeline"):
-        port_registry.get_op_def("multihead_attention").compute(ctx)
+    values = {k: [torch.from_numpy(v)] for k, v in inputs.items()
+              if v is not None}
+    compute = port_registry.get_op_def("multihead_attention").compute
+
+    def run(ring_axis):
+        op = _op("multihead_attention", inputs,
+                 {"num_heads": heads, "causal": True,
+                  "ring_axis": ring_axis})
+        return compute(port_registry.ExecContext(op, values))["Out"]
+    plain = run(None)
+    assert torch.equal(run("sp"), plain)
+    prev = parallel.set_current_strategy(parallel.DistStrategy(
+        parallel.make_mesh({"sp": 1})))
+    try:
+        ring = run("sp")
+    finally:
+        parallel.set_current_strategy(prev)
+    assert _rel(ring.numpy(), plain.numpy()) <= 1e-5

@@ -377,8 +377,20 @@ def test_a_cuda_reader_without_a_pinned_arena_raises(monkeypatch):
 
 
 def test_a_strategy_is_refused():
-    with pytest.raises(NotImplementedError, match="Distribution"):
-        StagedReader(_feed_reader(1), strategy=object(), device="cpu")
+    """A strategy is no longer refused: under a one-rank mesh a packed
+    batch is packed in one shard row, which this rank copies, marked as
+    its rows (``shard_start`` 0)."""
+    from paddle_tpu_torch import parallel
+    reader = StagedReader(_feed_reader(2), pack=True, device="cpu",
+                          strategy=parallel.DataParallel(n_devices=1))
+    try:
+        batches = list(reader())
+    finally:
+        reader.close()
+    assert len(batches) == 2
+    for b in batches:
+        assert isinstance(b, ingest.PackedBatch)
+        assert b.shard_start == 0 and b.buffer.shape[0] == 1
 
 
 def test_poison_feed_of_a_packed_batch_equals_the_reference():

@@ -303,10 +303,12 @@ def test_what_the_trainer_refuses(tmp_path, monkeypatch):
     scope = pc.Scope()
     tr, _, _, _ = _make(port_trainer, scope)
     main, startup, _, loss, _ = _classifier(port_trainer)
-    with pytest.raises(NotImplementedError, match="Distribution"):
-        port_trainer.Trainer(loss, main_program=main,
-                             startup_program=startup, strategy=object(),
-                             device="cpu")
+    # a strategy is taken (it no longer raises): the executor runs on it
+    from paddle_tpu_torch import parallel
+    strat = parallel.DataParallel(n_devices=1)
+    assert port_trainer.Trainer(loss, main_program=main,
+                                startup_program=startup, strategy=strat,
+                                device="cpu").exe.strategy is strat
 
     # on a CUDA device, a staged reader with neither an arena nor
     # packing is not swapped for the plain queue
