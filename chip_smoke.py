@@ -431,6 +431,26 @@ PIPELINE_SCALE = 1.0 / 255.0
 # how long [pipeline]'s profiled window runs small ops before the staged
 # pass, seconds
 PIPELINE_PROFILE_SETTLE_S = 0.05
+# [resilient]: ResilientTrainer over [pipeline]'s configuration: passes of
+# ``steps`` batches; a NaN loss at step ``skip_at`` (0-based) skipped, one
+# at ``rollback_at`` rolled back to the checkpoint of every ``ckpt_every``
+# steps with the learning rate times ``lr_backoff``; a reader error before
+# batch ``reader_fault_at``; SIGTERM after step ``preempt_at``; a step held
+# ``hang_s`` past a ``deadline_s`` watchdog; ``timing_steps`` a timed pass
+RESILIENT = dict(steps=6, skip_at=2, rollback_at=5, rollback_steps=8,
+                 ckpt_every=4, lr_backoff=0.5, reader_fault_at=3,
+                 preempt_at=3, deadline_s=1.0, hang_s=1.5, timing_steps=8)
+# [elastic]: the master's heartbeat deadline (bench.py's 400 ms), the
+# workers' beat, the rendezvous settle (past the deadline), the RecordIO
+# samples (8 a chunk and a batch), checkpoints every ``ckpt_every``
+# steps, a silent peer joining after step ``join_at``, a step hung at
+# ``hang_at`` under a ``deadline_s`` watchdog
+ELASTIC = dict(hb_timeout_ms=400, hb_interval_s=0.1, settle_s=0.6,
+               samples=48, ckpt_every=2, join_at=2, hang_at=3,
+               deadline_s=2.0, init_timeout_s=60)
+# bench.py's bench_slo detection latency, deterministic on its driven
+# clock: the reference's value (tests/test_torch_telemetry.py computes it)
+SLO_DETECTION_MS = 250.0
 # ResNet-8 for CIFAR as a serialized program, card vs CPU over 2
 # Momentum steps (batch 32, 16 x 16): f32 within SMALL_RESNET_RTOL of each
 # tensor's norm; under amp the small-ResNet amp tolerances (losses
@@ -7570,6 +7590,868 @@ def phase_dist(seed):
     return counts["strategy"]
 
 
+# -- the training supervisor, the elastic control plane and the telemetry
+# plane, around [pipeline]'s configuration ------------------------------------
+
+def counter_value(name):
+    from paddle_tpu_torch.observability import metrics
+    return metrics.REGISTRY.families()[name].value
+
+
+def no_rng(state):
+    return {n: v for n, v in state.items() if n != "@RNG_STATE@"}
+
+
+def phase_resilient(seed):
+    """ResilientTrainer over [pipeline]'s trainer (packed uint8 feeds,
+    staged, async metrics), cuDNN deterministic: the step's cost beside the
+    plain Trainer's (passes in turns plain, supervised, supervised, plain);
+    a NaN loss skipped (parameters, velocities and running statistics
+    bitwise unchanged across it, the budget counters moved, B1 30 times a
+    step, a finite pass); a NaN loss rolled back to the last checkpoint
+    with the learning rate halved (the restore timed); a reader error
+    retried to a pass bitwise equal to a fault-free one; SIGTERM mid-pass
+    checkpointed with the resume metadata, resumed by a fresh trainer to
+    a state bitwise equal to an uninterrupted pass; a step past the
+    watchdog's deadline counted once. Returns the program and its weights
+    for the phases after."""
+    import os
+    import shutil
+    import signal
+    import tempfile
+    import torch
+    from paddle_tpu_torch import config, core, io
+    from paddle_tpu_torch.resilience import (RecoveryPolicy,
+                                             ResilientTrainer, faults)
+    from paddle_tpu_torch.trainer import EndIteration, Trainer
+    R = RESILIENT
+    torch.cuda.empty_cache()
+    main, startup, loss = pipeline_program(PIPELINE)
+    startup.random_seed = seed
+    init = core.Scope()
+    core.Executor(device="cuda").run(startup, scope=init)
+    hosts = pipeline_batches(PIPELINE)
+    steps = R["steps"]
+
+    def batches(n, start=0, wide=False):
+        # ``wide``: the images widened on the host to float32 (a float
+        # feed, which nan_loss can poison: a uint8 one holds no NaN)
+        out = [dict(hosts[i % len(hosts)]) for i in range(start, n)]
+        if wide:
+            for b in out:
+                b["img"] = b["img"].astype(np.float32) * \
+                    np.float32(PIPELINE_SCALE)
+        return out
+
+    def make(policy=None, plain=False, **kw):
+        if plain:
+            tr = Trainer(loss, main_program=main, startup_program=startup,
+                         async_metrics=True, device="cuda", **kw)
+        else:
+            tr = ResilientTrainer(loss, main_program=main,
+                                  startup_program=startup,
+                                  async_metrics=True, device="cuda",
+                                  policy=policy or RecoveryPolicy(), **kw)
+        tr._initialized = True       # on a copy of the startup's weights
+        return tr
+
+    def run(tr, scope, bs, events=None):
+        with core.scope_guard(scope):
+            return tr.train(lambda: iter([dict(b) for b in bs]),
+                            num_passes=1, event_handler=events)
+
+    prev = {k: config.get_flag(k) for k in ("packed_feeds",
+                                            "nonfinite_guard")}
+    config.set_flags(packed_feeds=True)
+    tmp = tempfile.mkdtemp(prefix="resilient_")
+    try:
+        # the supervisor's cost: passes of R["timing_steps"] in turns
+        times = {"plain": [], "supervised": []}
+        for kind in ("plain", "supervised", "supervised", "plain"):
+            scope = scope_copy(init)
+            tr = make(plain=kind == "plain")
+            run(tr, scope, batches(1))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run(tr, scope, batches(R["timing_steps"]))
+            torch.cuda.synchronize()
+            times[kind].append((time.perf_counter() - t0)
+                               / R["timing_steps"] * 1e3)
+            del tr, scope
+        plain_ms = float(np.median(times["plain"]))
+        sup_ms = float(np.median(times["supervised"]))
+        print("[resilient] %s; ResNet-50 f32 fused, batch %d at %d, packed "
+              "staged feeds: %.3f ms a step under ResilientTrainer (passes "
+              "%s) beside %.3f ms under the plain Trainer (%s), %.3fx: the "
+              "finite check's read of each step's loss"
+              % (card_line(), PIPELINE["batch"], PIPELINE["res"], sup_ms,
+                 [round(t, 3) for t in times["supervised"]], plain_ms,
+                 [round(t, 3) for t in times["plain"]], sup_ms / plain_ms))
+
+        with deterministic_cudnn():
+            # skip: the NaN step leaves every tensor as it was
+            k = R["skip_at"]
+            scope = scope_copy(init)
+            seen, marks, losses = {}, [], []
+
+            def grab(e):
+                if isinstance(e, EndIteration):
+                    marks.append(bool(e.metrics.get("skipped_nonfinite")))
+                    losses.append(e.cost)
+                    if e.step_id in (k, k + 1):
+                        seen[e.step_id] = no_rng(scope_state(scope))
+
+            c0 = [counter_value("paddle_resilience_%s" % n) for n in
+                  ("nonfinite_steps_total", "skipped_steps_total")]
+            faults.arm("nan_loss", at=k)
+            reset_launches()
+            run(make(RecoveryPolicy(nonfinite_policy="skip",
+                                    nonfinite_budget=2)), scope,
+                batches(steps, wide=True), grab)
+            faults.disarm()
+            launches = read_launches()
+            moved = [counter_value("paddle_resilience_%s" % n) - c
+                     for n, c in zip(("nonfinite_steps_total",
+                                      "skipped_steps_total"), c0)]
+            differ = bitwise_diff(seen[k], seen[k + 1])
+            print("[resilient] skip (float32 feeds, packed): NaN loss at "
+                  "step %d of %d: marks %s, "
+                  "%d of %d tensors differ in bits across the skipped step "
+                  "%s; nonfinite/skipped counters moved %s; B1 %d launches "
+                  "(%g a step); losses %s"
+                  % (k + 1, steps, marks, len(differ), len(seen[k]),
+                     differ[:5], moved, launches["conv_bn_stats"],
+                     launches["conv_bn_stats"] / steps,
+                     [round(float(v), 4) for v in losses]))
+            check(marks == [i == k for i in range(steps)],
+                  "skip marks %s" % marks)
+            check(not differ, "the skipped step changed %s" % differ[:5])
+            check(moved == [1, 1], "skip counters moved %s" % moved)
+            check(np.isfinite(float(losses[-1])), "the skip pass ended "
+                  "non-finite")
+            check(launches["conv_bn_stats"] == B1_PER_STEP * steps,
+                  "B1 launches %d != %d x %d steps"
+                  % (launches["conv_bn_stats"], B1_PER_STEP, steps))
+            check(all(v == 0 for n, v in launches.items()
+                      if n != "conv_bn_stats"),
+                  "another kernel launched: %s" % launches)
+            del scope, seen
+
+            # rollback to the last checkpoint, lr halved
+            scope = scope_copy(init)
+            lr_names = sorted(n for n, _ in scope.items()
+                              if n.startswith("learning_rate"))
+            lr0 = {n: float(scope.find_var(n)) for n in lr_names}
+            tr = make(RecoveryPolicy(nonfinite_policy="rollback",
+                                     nonfinite_budget=3,
+                                     lr_backoff=R["lr_backoff"]),
+                      checkpoint_dir=os.path.join(tmp, "rollback"),
+                      checkpoint_every_n_steps=R["ckpt_every"])
+            restore_s, real = [], tr.restore_checkpoint
+
+            def timed_restore():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = real()
+                torch.cuda.synchronize()
+                restore_s.append(time.perf_counter() - t0)
+                return out
+
+            tr.restore_checkpoint = timed_restore
+            rolled = []
+            faults.arm("nan_loss", at=R["rollback_at"])
+            r0 = counter_value("paddle_resilience_rollbacks_total")
+            run(tr, scope, batches(R["rollback_steps"], wide=True),
+                lambda e: rolled.append(e.metrics.get("rolled_back_to"))
+                if isinstance(e, EndIteration) else None)
+            faults.disarm()
+            lr1 = {n: float(scope.find_var(n)) for n in lr_names}
+            want = {n: float(np.float32(v) * np.float32(R["lr_backoff"]))
+                    for n, v in lr0.items()}
+            print("[resilient] rollback (float32 feeds, packed): NaN loss at "
+                  "step %d, checkpoints "
+                  "every %d: rolled back to %s, learning rates %s -> %s; "
+                  "the restore %.3f s (digest-verified load of a %.1f MB "
+                  "checkpoint onto the card)"
+                  % (R["rollback_at"] + 1, R["ckpt_every"],
+                     [m for m in rolled if m is not None], lr0, lr1,
+                     restore_s[0] if restore_s else float("nan"),
+                     sum(os.path.getsize(os.path.join(dp, f))
+                         for dp, _, fs in os.walk(os.path.join(
+                             tmp, "rollback")) for f in fs
+                         if "checkpoint_%d" % R["ckpt_every"] in dp)
+                     / 1e6))
+            check([m for m in rolled if m is not None] ==
+                  [R["ckpt_every"]], "rollback marks %s" % rolled)
+            check(counter_value("paddle_resilience_rollbacks_total") ==
+                  r0 + 1, "the rollback counter did not move")
+            check(lr_names and lr1 == want, "learning rates %s, want %s"
+                  % (lr1, want))
+            del scope, tr
+
+            # a reader error retried: the pass bitwise the fault-free one
+            outs = []
+            for fault in (False, True):
+                scope = scope_copy(init)
+                r0 = counter_value("paddle_resilience_reader_retries_total")
+                if fault:
+                    faults.arm("reader_error", at=R["reader_fault_at"])
+                tr = make(RecoveryPolicy(reader_backoff=0.001))
+                run(tr, scope, batches(steps))
+                faults.disarm()
+                outs.append((scope_state(scope), tr.step_id,
+                             counter_value(
+                                 "paddle_resilience_reader_retries_total")
+                             - r0))
+                del scope, tr
+            differ = bitwise_diff(outs[0][0], outs[1][0])
+            print("[resilient] reader retry: an IOError before batch %d, "
+                  "retried (%g retries): %d steps against %d fault-free, "
+                  "%d of %d tensors differ in bits"
+                  % (R["reader_fault_at"], outs[1][2], outs[1][1],
+                     outs[0][1], len(differ), len(outs[0][0])))
+            check(outs[1][2] == 1 and outs[0][1] == outs[1][1] == steps,
+                  "the reader retry: %s" % [o[1:] for o in outs])
+            check(not differ, "the retried pass differs: %s" % differ[:5])
+            del outs
+
+            # SIGTERM mid-pass: checkpoint, resume, bitwise the whole pass
+            whole = scope_copy(init)
+            run(make(), whole, batches(steps))
+            scope = scope_copy(init)
+            ck = os.path.join(tmp, "preempt")
+            p0 = counter_value("paddle_resilience_preemptions_total")
+
+            def sigterm(e):
+                if isinstance(e, EndIteration) and \
+                        e.step_id == R["preempt_at"]:
+                    signal.raise_signal(signal.SIGTERM)
+
+            result = run(make(checkpoint_dir=ck,
+                              checkpoint_every_n_steps=100), scope,
+                         batches(steps), sigterm)
+            meta = io.load_checkpoint_meta(ck)
+            fresh = core.Scope()
+            tr2 = ResilientTrainer(loss, main_program=main,
+                                   startup_program=startup,
+                                   async_metrics=True, device="cuda",
+                                   checkpoint_dir=ck)
+            with core.scope_guard(fresh):
+                tr2.startup()
+            resumed_at = tr2.step_id
+            run(tr2, fresh, batches(steps, R["preempt_at"]))
+            differ = bitwise_diff(scope_state(whole), scope_state(fresh))
+            print("[resilient] preemption: SIGTERM after step %d: train() "
+                  "returned %s; latest.json %s; a fresh ResilientTrainer "
+                  "resumed at step %d and ran to step %d: %d of %d tensors "
+                  "differ in bits from the uninterrupted pass"
+                  % (R["preempt_at"], result,
+                     {k: meta.get(k) for k in ("preempted", "reason",
+                                               "step", "batch_id")},
+                     resumed_at, tr2.step_id, len(differ),
+                     len(scope_state(whole))))
+            check(result and result.get("preempted") and
+                  result["step"] == R["preempt_at"],
+                  "the preempted pass returned %s" % result)
+            check(meta.get("preempted") and meta.get("step") ==
+                  R["preempt_at"] and meta.get("reason") ==
+                  "signal_%d" % signal.SIGTERM, "latest.json %s" % meta)
+            check(counter_value("paddle_resilience_preemptions_total") ==
+                  p0 + 1, "the preemption counter did not move")
+            check(resumed_at == R["preempt_at"], "resumed at %d"
+                  % resumed_at)
+            check(not differ, "the resumed pass differs: %s" % differ[:5])
+            del whole, scope, fresh, tr2
+
+        # the watchdog: one step past the deadline counted once
+        scope = scope_copy(init)
+        tr = make(RecoveryPolicy(step_deadline_sec=R["deadline_s"]))
+        run(tr, scope, batches(1))           # the first step, untimed
+        s0 = counter_value("paddle_resilience_watchdog_stalls_total")
+        faults.arm("collective_hang", at=tr.step_id + 1, action="callback",
+                   callback=lambda: time.sleep(R["hang_s"]))
+        t0 = time.perf_counter()
+        run(tr, scope, batches(3))
+        faults.disarm()
+        stalls = counter_value("paddle_resilience_watchdog_stalls_total") - s0
+        print("[resilient] watchdog: a step held %.1f s against a %.1f s "
+              "deadline: %g stall(s) counted, the 3-step pass %.2f s"
+              % (R["hang_s"], R["deadline_s"], stalls,
+                 time.perf_counter() - t0))
+        check(stalls == 1, "watchdog stalls %g != 1" % stalls)
+        del tr, scope
+    finally:
+        faults.disarm()
+        config.set_flags(**prev)
+        shutil.rmtree(tmp, ignore_errors=True)
+    return dict(main=main, startup=startup, loss=loss, init=init,
+                hosts=hosts, step_ms=sup_ms, plain_ms=plain_ms)
+
+
+def elastic_dataset(path, n, seed):
+    """A RecordIO file of ``n`` (uint8 image, label) samples at
+    [pipeline]'s width, from ``seed``: 8 samples a chunk. Returns its
+    chunk count."""
+    from paddle_tpu_torch.reader import recordio
+    rs = np.random.RandomState(seed)
+    r = PIPELINE["res"]
+    recordio.write_recordio(
+        path, ((rs.randint(0, 256, (3, r, r)).astype(np.uint8),
+                int(rs.randint(0, 1000))) for _ in range(n)),
+        max_chunk_bytes=8 * 3 * r * r)
+    return recordio.num_chunks(path)
+
+
+def phase_elastic(seed, ctx):
+    """bench.py's bench_elastic_resume on the card, then
+    ElasticTrainerLoop over a one-rank NCCL group with [pipeline]'s
+    ResNet-50 as a ResilientTrainer over an ElasticDataDispatcher (a
+    RecordIO file written from the seed), cuDNN deterministic: a peer
+    that joins mid-pass and never beats forces one restart (the group
+    aborted, brought up again at the later generation, the newest
+    checkpoint restored, every chunk done); then a step hung past
+    step_deadline_sec escalates watchdog -> collective_abort -> restart,
+    and the first step after it equals the same step of a fresh trainer
+    from the restored checkpoint, bit for bit."""
+    import os
+    import shutil
+    import socket
+    import tempfile
+    import threading
+    import torch
+    import torch.distributed as dist
+    from paddle_tpu_torch import core, io
+    from paddle_tpu_torch.distributed import (ElasticDataDispatcher,
+                                              ElasticTrainerLoop,
+                                              GenerationMismatch,
+                                              MasterClient, MasterServer,
+                                              elastic, launch)
+    from paddle_tpu_torch.resilience import (RecoveryPolicy,
+                                             ResilientTrainer, faults)
+    from paddle_tpu_torch.trainer import EndIteration, Trainer
+    E = ELASTIC
+    main, startup, loss = ctx["main"], ctx["startup"], ctx["loss"]
+    tmp = tempfile.mkdtemp(prefix="elastic_")
+    try:
+        # -- the recovery timing: detect a silent peer, restore onto the
+        # card
+        with core.scope_guard(ctx["init"]):
+            io.save_checkpoint(core.Executor(device="cuda"),
+                               os.path.join(tmp, "ckpt"), 1, main)
+        srv = MasterServer(os.path.join(tmp, "snap"), timeout_sec=30,
+                           heartbeat_timeout_ms=E["hb_timeout_ms"])
+        try:
+            # the doomed peer first: a join bumps the generation
+            MasterClient(srv.port).register("doomed")
+            c = MasterClient(srv.port)
+            gen, _ = c.register("live")
+            t0 = time.perf_counter()
+            while True:
+                try:
+                    c.heartbeat("live", gen)
+                except GenerationMismatch:
+                    break
+                time.sleep(0.02)
+                check(time.perf_counter() - t0 < 30,
+                      "the master never reaped the silent peer")
+            detect_s = time.perf_counter() - t0
+            new_gen, _ = c.register("live")
+            scope = core.Scope()
+            with core.scope_guard(scope):
+                step = io.load_checkpoint(core.Executor(device="cuda"),
+                                          os.path.join(tmp, "ckpt"), main)
+            torch.cuda.synchronize()
+            resume_s = time.perf_counter() - t0
+        finally:
+            srv.stop()
+        print("[elastic] %s; elastic_resume %.4f s (the %.1f s heartbeat "
+              "deadline is its floor; detection %.4f s, then re-register at "
+              "generation %d -> %d and a digest-verified ResNet-50 "
+              "checkpoint onto the card)"
+              % (card_line(), resume_s, E["hb_timeout_ms"] / 1e3, detect_s,
+                 gen, new_gen))
+        check(new_gen == gen + 1 and step == 1, "re-registered at %d (was "
+              "%d), restored step %s" % (new_gen, gen, step))
+        check(resume_s >= E["hb_timeout_ms"] / 1e3, "resumed before the "
+              "deadline could pass")
+        del scope
+
+        ds = os.path.join(tmp, "images.rio")
+        chunks = elastic_dataset(ds, E["samples"], seed)
+        aborts, inits = [], []
+        real_abort, real_init = launch.abort_multihost, \
+            elastic.init_multihost
+
+        def counted_abort(*a, **kw):
+            t0 = time.perf_counter()
+            out = real_abort(*a, **kw)
+            aborts.append((out, time.perf_counter() - t0))
+            return out
+
+        def counted_init(*a, **kw):
+            inits.append(kw.get("generation"))
+            return real_init(*a, **kw)
+
+        launch.abort_multihost = counted_abort
+        elastic.abort_multihost = counted_abort
+        elastic.init_multihost = counted_init
+
+        def loop_run(tag, policy, events, on_build=None):
+            """One ElasticTrainerLoop pass over the dataset on a fresh
+            master; returns (loop, master stats, cluster, groups)."""
+            srv = MasterServer(os.path.join(tmp, "snap-" + tag),
+                               timeout_sec=5,
+                               heartbeat_timeout_ms=E["hb_timeout_ms"])
+            groups = []
+            with socket.socket() as s:
+                s.bind(("localhost", 0))
+                coord = "localhost:%d" % s.getsockname()[1]
+            ck = os.path.join(tmp, "ckpt-" + tag)
+
+            def build(world):
+                t = torch.ones(1, device="cuda")
+                dist.all_reduce(t)
+                groups.append((world.generation, world.n_live,
+                               float(t[0]), dist.get_world_size()))
+                tr = ResilientTrainer(
+                    loss, main_program=main, startup_program=startup,
+                    device="cuda", checkpoint_dir=ck,
+                    checkpoint_every_n_steps=E["ckpt_every"],
+                    policy=policy())
+                if on_build is not None:
+                    on_build(tr, world)
+                disp = ElasticDataDispatcher(world.client, ds,
+                                             worker_id=world.worker_id,
+                                             generation=world.generation)
+
+                def reader():
+                    imgs, labels = [], []
+                    for img, label in disp.reader(poll_interval=0.05)():
+                        imgs.append(img)
+                        labels.append(label)
+                        if len(imgs) == PIPELINE["batch"]:
+                            b = {"img": np.stack(imgs), "label": np.asarray(
+                                labels, np.int32).reshape(-1, 1)}
+                            fed.append(b)
+                            yield b
+                            imgs, labels = [], []
+                return tr, reader
+
+            try:
+                c = MasterClient(srv.port)
+                check(ElasticDataDispatcher(c, ds).register_dataset() ==
+                      chunks, "chunks registered")
+                with core.scope_guard(core.Scope()):
+                    loop = ElasticTrainerLoop(
+                        build, srv.port, worker_id="w0",
+                        heartbeat_interval_sec=E["hb_interval_s"],
+                        coordinator_address=coord, num_processes=1,
+                        initialization_timeout_sec=E["init_timeout_s"],
+                        settle_sec=E["settle_s"])
+                    loop.run(num_passes=1,
+                             event_handler=lambda e: events(e, loop, c))
+                return loop, c.stats(), c.cluster(), groups
+            finally:
+                launch.shutdown_multihost()
+                srv.stop()
+
+        with deterministic_cudnn():
+            # a peer joins mid-pass and never beats
+            fed, log, death = [], [], {}
+            stop = threading.Event()
+
+            def joined_peer(e, loop, c):
+                if not isinstance(e, EndIteration):
+                    return
+                log.append((time.perf_counter(), loop.restarts, e.step_id,
+                            float(e.cost)))
+                if e.step_id == E["join_at"] and not death:
+                    death["client"] = c
+                    MasterClient(c.addr[1]).register("zz-silent")
+                    death["joined"] = time.perf_counter()
+
+                    def watch():
+                        d0 = MasterClient(c.addr[1]).cluster()["deaths"]
+                        w = MasterClient(c.addr[1])
+                        while not stop.is_set():
+                            if w.cluster()["deaths"] > d0:
+                                death["declared"] = time.perf_counter()
+                                return
+                            time.sleep(0.005)
+                    threading.Thread(target=watch, daemon=True).start()
+
+            starts = []
+
+            def record_start(tr, world):
+                # the step each bring-up's startup() restored
+                real = tr.startup
+
+                def startup():
+                    first = not tr._initialized
+                    real()
+                    if first:
+                        starts.append(tr.step_id)
+                tr.startup = startup
+
+            n0 = len(aborts)
+            loop, stats, cluster, groups = loop_run(
+                "join", lambda: RecoveryPolicy(), joined_peer,
+                record_start)
+            stop.set()
+            resumed = [t for t, r, _, _ in log if r == 1]
+            print("[elastic] ElasticTrainerLoop, one-rank NCCL group, "
+                  "ResNet-50 batch %d over %d RecordIO chunks: a silent "
+                  "peer joined after step %d; generations %s, %d "
+                  "restart(s); group bring-ups %s (generation, live, "
+                  "all-reduce of ones, world); aborts %s; steps %s; master "
+                  "%s, cluster %s; death declared %.3f s after the join, "
+                  "first resumed step %.3f s after the death"
+                  % (PIPELINE["batch"], chunks, E["join_at"],
+                     loop.generations, loop.restarts, groups,
+                     [(a, round(s, 4)) for a, s in aborts[n0:]],
+                     [(s, r) for _, r, s, _ in log], stats, cluster,
+                     death.get("declared", float("nan")) -
+                     death.get("joined", float("nan")),
+                     (resumed[0] if resumed else float("nan")) -
+                     death.get("declared", float("nan"))))
+            check(len(loop.generations) == 2 and loop.restarts == 1 and
+                  loop.generations[1] > loop.generations[0],
+                  "generations %s, restarts %d" % (loop.generations,
+                                                   loop.restarts))
+            check([g[0] for g in groups] == loop.generations and
+                  all(g[1:] == (1, 1.0, 1) for g in groups),
+                  "group bring-ups %s" % groups)
+            check(any(a for a, _ in aborts[n0:]), "no group was aborted")
+            check("declared" in death and resumed, "no death or no resume")
+            check(stats["todo"] == 0 and stats["pending"] == 0 and
+                  stats["done"] == chunks, "master stats %s" % stats)
+            check(all(np.isfinite(v) for _, _, _, v in log),
+                  "non-finite loss: %s" % log)
+            stopped = max(s for _, r, s, _ in log if r == 0)
+            print("[elastic] the restart: the first generation stopped at "
+                  "step %d, its restart checkpoint restored at step %s"
+                  % (stopped, starts))
+            check(starts == [0, stopped], "bring-ups restored steps %s, "
+                  "the first generation stopped at %d" % (starts, stopped))
+
+            # a hung step: watchdog -> collective_abort -> restart
+            fed, log = [], []
+            after = {}
+
+            def snapshot_restore(tr, world):
+                # the state each bring-up starts from, once restored
+                real = tr.startup
+
+                def startup():
+                    first = not tr._initialized
+                    real()
+                    if first:
+                        after["start"] = (tr.step_id, no_rng(scope_state(
+                            core.global_scope())))
+                tr.startup = startup
+
+            def hung(e, loop, c):
+                if isinstance(e, EndIteration):
+                    log.append((time.perf_counter(), loop.restarts,
+                                e.step_id, float(e.cost)))
+                    if loop.restarts == 1 and "step" not in after:
+                        after["step"] = (e.step_id, float(e.cost),
+                                         no_rng(scope_state(
+                                             core.global_scope())),
+                                         dict(fed[-1]))
+
+            n0 = len(aborts)
+            faults.arm("collective_hang", at=E["hang_at"])
+            try:
+                loop, stats, cluster, groups = loop_run(
+                    "hang", lambda: RecoveryPolicy(
+                        step_deadline_sec=E["deadline_s"]),
+                    hung, snapshot_restore)
+            finally:
+                faults.disarm()
+            hang_t = [t for t, r, s, _ in log if r == 0 and
+                      s == E["hang_at"]]
+            res_t = [t for t, r, _, _ in log if r == 1]
+            bound = E["deadline_s"] + E["settle_s"] + 30.0
+            gap = res_t[0] - hang_t[0] if hang_t and res_t else float("nan")
+            # the first step after the abort against a fresh trainer's
+            # same step from the restored state
+            start_step, start_state = after["start"]
+            step_id, cost, state, batch = after["step"]
+            fresh = core.Scope()
+            for n, v in start_state.items():
+                fresh.set_var(n, v.clone())
+            tr = Trainer(loss, main_program=main, startup_program=startup,
+                         device="cuda")
+            tr._initialized = True
+            with core.scope_guard(fresh):
+                ref_cost = float(tr.train_batch(batch)["loss"])
+            differ = bitwise_diff(no_rng(scope_state(fresh)), state)
+            print("[elastic] hang escalation: a step hung past a %.1f s "
+                  "deadline: generations %s, %d restart(s), group "
+                  "bring-ups %s, aborts %s (the abort %.4f s); the step "
+                  "before the hang to the first resumed step %.3f s "
+                  "(bound %.1f s); resumed from step %d: step %d loss %r "
+                  "against %r from a fresh trainer on the restored state, "
+                  "%d of %d tensors differ in bits; master %s"
+                  % (E["deadline_s"], loop.generations, loop.restarts,
+                     groups, [(a, round(s, 4)) for a, s in aborts[n0:]],
+                     max([s for _, s in aborts[n0:]] or [float("nan")]),
+                     gap, bound, start_step, step_id, cost, ref_cost,
+                     len(differ), len(state), stats))
+            check(loop.restarts == 1 and len(set(loop.generations)) == 1
+                  and len(groups) == 2, "generations %s, restarts %d, "
+                  "groups %s" % (loop.generations, loop.restarts, groups))
+            check(inits[-2:] == ["%d.0" % loop.generations[0],
+                                 "%d.1" % loop.generations[0]],
+                  "group prefixes %s" % inits)
+            check(any(a for a, _ in aborts[n0:]), "no group was aborted")
+            check(gap < bound, "the hang took %.1f s to resume" % gap)
+            check(cost == ref_cost and not differ, "the step after the "
+                  "abort differs from a fresh trainer's: loss %r vs %r, %s"
+                  % (cost, ref_cost, differ[:5]))
+            check(stats["todo"] == 0 and stats["pending"] == 0,
+                  "master stats %s" % stats)
+    finally:
+        launch.abort_multihost = real_abort
+        elastic.abort_multihost = real_abort
+        elastic.init_multihost = real_init
+        launch.shutdown_multihost()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return dict(resume_s=resume_s, hang_s=gap)
+
+
+def http_get(url):
+    """(status, body bytes, seconds) of one GET."""
+    import urllib.error
+    import urllib.request
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(url, timeout=30) as r:
+            return r.status, r.read(), time.perf_counter() - t0
+    except urllib.error.HTTPError as e:
+        return e.code, e.read(), time.perf_counter() - t0
+
+
+def metric_families(text):
+    """{prefix: [family names]} of a /metrics text for the generation,
+    resilience and elastic prefixes."""
+    return {p: sorted({ln.split()[2] for ln in text.splitlines()
+                       if ln.startswith("# TYPE %s" % p)})
+            for p in ("paddle_generation_", "paddle_resilience_",
+                      "paddle_elastic_")}
+
+
+def phase_telemetry_serve(paged, prompts, paged_outs):
+    """The telemetry_port server beside the flagship LM's paged f32
+    session: the five paged requests decode while a client thread GETs
+    /metrics, /healthz, /debug/flight and /debug/trace?id= of a live
+    request; the tokens equal the same requests' without scrapes."""
+    import socket
+    import tempfile
+    import threading
+    from paddle_tpu_torch import config
+    from paddle_tpu_torch import distributed  # noqa: F401  (families)
+    from paddle_tpu_torch.observability import flight, http
+    from paddle_tpu_torch.observability import request_trace as rtrace
+    from paddle_tpu_torch.resilience import supervisor  # noqa: F401
+    from paddle_tpu_torch.serving import GenerationScheduler
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    fdir = tempfile.mkdtemp(prefix="flight_")
+    config.set_flags(request_tracing=True, flight_dir=fdir,
+                     telemetry_port=port)
+    try:
+        srv = http.active_server()
+        check(srv is not None and srv.port == port, "no server on %d"
+              % port)
+        flight.RECORDER.trigger("telemetry_smoke")
+        sched = GenerationScheduler(paged, autostart=False)
+        futs = [sched.submit(p, max_new_tokens=NEW_TOKENS, eos_id=-1)
+                for p in prompts]
+        got, times, rounds, done = {}, [], [0], threading.Event()
+
+        def scrape():
+            while not done.is_set():
+                for path in ("/metrics", "/healthz", "/debug/flight"):
+                    code, body, dt = http_get(srv.url + path)
+                    got[path] = (code, body)
+                    times.append(dt)
+                ids = rtrace.trace_ids()
+                if ids:
+                    code, body, dt = http_get(
+                        srv.url + "/debug/trace?id=%s" % ids[-1])
+                    got["/debug/trace"] = (code, body)
+                    times.append(dt)
+                rounds[0] += 1
+
+        th = threading.Thread(target=scrape, daemon=True)
+        th.start()
+        sched.start()
+        outs = [f.result(timeout=600) for f in futs]
+        during = rounds[0]
+        sched.drain(timeout=60)
+        done.set()
+        th.join(timeout=60)
+    finally:
+        config.set_flags(telemetry_port=0, request_tracing=False,
+                         flight_dir=None)
+    text = got.get("/metrics", (0, b""))[1].decode()
+    fams = metric_families(text)
+    equal = all(np.array_equal(a, b) for a, b in zip(outs, paged_outs))
+    print("[telemetry] telemetry_port %d beside the paged f32 session: %d "
+          "scrape rounds while %d requests decoded (%d GETs, median %.3f "
+          "ms, max %.3f ms); statuses %s; /metrics families %s; tokens "
+          "equal to the unscraped run: %s"
+          % (port, during, len(prompts), len(times),
+             float(np.median(times)) * 1e3 if times else float("nan"),
+             max(times) * 1e3 if times else float("nan"),
+             {p: c for p, (c, _) in got.items()},
+             {p: len(v) for p, v in fams.items()}, equal))
+    check(during >= 1, "no scrape finished while the requests decoded")
+    check(all(got.get(p, (0,))[0] == 200 for p in
+              ("/metrics", "/healthz", "/debug/flight", "/debug/trace")),
+          "statuses %s" % {p: c for p, (c, _) in got.items()})
+    check(fams["paddle_generation_"], "no generation family on /metrics")
+    check(equal, "the scraped run's tokens differ")
+    return float(np.median(times)) * 1e3
+
+
+def phase_telemetry(seed, ctx):
+    """bench.py's bench_slo with the port's modules (the detection
+    latency on the driven clock, equal to the reference's; the
+    aggregation overhead on the host clock), and one ResNet-50 step under
+    utils.profiler.profiler(trace_dir): its torch.profiler trace holds
+    B1's kernels."""
+    import os
+    import shutil
+    import tempfile
+    import torch
+    from paddle_tpu_torch import core
+    from paddle_tpu_torch.observability import aggregate, metrics, slo
+    from paddle_tpu_torch.trainer import Trainer
+    from paddle_tpu_torch.utils import profiler
+    reg = metrics.Registry()
+    hist = reg.histogram("paddle_bench_slo_e2e_ms", "bench latencies",
+                         buckets=metrics.LATENCY_MS_BUCKETS)
+    tracker = slo.SLOTracker(
+        label="bench", target_p99_ms=100.0,
+        source=slo.local_source(histogram="paddle_bench_slo_e2e_ms",
+                                registry=reg))
+    now = 0.0
+    tracker.tick(now)
+    while now < 90.0:
+        now += 0.25
+        for _ in range(8):
+            hist.observe(10.0)
+        tracker.tick(now)
+    fault_start, detected = now, None
+    while now < fault_start + 60.0:
+        now += 0.25
+        for _ in range(8):
+            hist.observe(800.0)
+        tracker.tick(now)
+        if tracker.alerting:
+            detected = now
+            break
+    tracker.close()
+    detection_ms = (detected - fault_start) * 1e3 if detected else None
+    reg = metrics.Registry()
+    for i in range(20):
+        c = reg.counter("paddle_bench_c%d_total" % i, "c",
+                        labelnames=("route",))
+        for j in range(16):
+            c.labels(route="r%02d" % j).inc(j + 1)
+    for i in range(6):
+        h = reg.histogram("paddle_bench_h%d_ms" % i, "h",
+                          labelnames=("route",),
+                          buckets=metrics.LATENCY_MS_BUCKETS)
+        for j in range(16):
+            h.labels(route="r%02d" % j).observe(float(7 * j % 90))
+    agg = aggregate.FleetAggregator("bench", registry=metrics.Registry())
+    reps = 50
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        snap = aggregate.build_snapshot(max_bytes=aggregate.MAX_LINE - 1024,
+                                        registry=reg)
+        aggregate.encode_snapshot(snap)
+        agg.ingest("m0", "i1", snap)
+    cycle_s = (time.perf_counter() - t0) / reps
+    print("[telemetry] slo_detection_latency_ms %r (driven clock, 0.25 s "
+          "ticks, default windows; the reference's: %r); "
+          "metrics_aggregation_overhead_pct %.4f (host clock: a %.4f ms "
+          "build + encode + ingest cycle of 26 families x 16 children "
+          "against a 1 s interval)"
+          % (detection_ms, SLO_DETECTION_MS, cycle_s * 100.0,
+             cycle_s * 1e3))
+    check(detection_ms == SLO_DETECTION_MS, "SLO detection %r ms, the "
+          "reference's %r" % (detection_ms, SLO_DETECTION_MS))
+
+    # /metrics once the supervisor's and the elastic runtime's counters
+    # have moved ([telemetry]'s serving half scraped before them)
+    import socket
+    from paddle_tpu_torch import config
+    from paddle_tpu_torch.observability import http
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    config.set_flags(telemetry_port=port)
+    try:
+        code, body, dt = http_get(http.active_server().url + "/metrics")
+    finally:
+        config.set_flags(telemetry_port=0)
+    fams = metric_families(body.decode())
+    print("[telemetry] /metrics after [resilient] and [elastic] (%.3f ms, "
+          "%d bytes): %s" % (dt * 1e3, len(body), fams))
+    check(code == 200 and all(fams.values()), "families missing from "
+          "/metrics: %s" % fams)
+
+    # one ResNet-50 step under the profiler
+    scope = scope_copy(ctx["init"])
+    tr = Trainer(ctx["loss"], main_program=ctx["main"],
+                 startup_program=ctx["startup"], async_metrics=True,
+                 device="cuda")
+    tr._initialized = True
+    hb = ctx["hosts"][0]
+    feed = {"img": torch.from_numpy(hb["img"].astype(np.float32) *
+                                    np.float32(PIPELINE_SCALE)).cuda(),
+            "label": torch.from_numpy(hb["label"]).cuda()}
+    trace_dir = tempfile.mkdtemp(prefix="profiler_")
+    try:
+        with core.scope_guard(scope):
+            float(tr._train_feed(feed)["loss"])
+            reset_launches()
+            with profiler.profiler(trace_dir) as handle:
+                with profiler.RecordEvent("resnet50_step"):
+                    float(tr._train_feed(feed)["loss"])
+        launches = read_launches()
+        with open(handle.device_trace) as f:
+            events = json.load(f)["traceEvents"]
+        kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+        # the profiler names a kernel by its demangled signature
+        b1 = sorted({n for n in ("w_transpose_kernel",
+                                 "conv1x1_f32_stats_kernel",
+                                 "stats_finish_kernel")
+                     if any(n in k for k in kernels)})
+        print("[telemetry] profiler(trace_dir) around one ResNet-50 step: "
+              "%s, %d kernel events, B1's %s (%d launches counted), host "
+              "table rows %s"
+              % (os.path.basename(handle.device_trace), len(kernels), b1,
+                 launches["conv_bn_stats"],
+                 [ln.split()[0] for ln in handle.report().splitlines()[2:]]))
+        check(kernels, "the device trace holds no kernel event")
+        check("conv1x1_f32_stats_kernel" in b1, "B1's kernel is not in "
+              "the trace: %s" % b1)
+        check(launches["conv_bn_stats"] == B1_PER_STEP, "B1 launches %d "
+              "in the profiled step" % launches["conv_bn_stats"])
+        check("resnet50_step" in handle.report(), "the host table lacks "
+              "the step's span")
+    finally:
+        shutil.rmtree(trace_dir, ignore_errors=True)
+    return dict(detection_ms=detection_ms, overhead_pct=cycle_s * 100.0)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7746,6 +8628,8 @@ def main(argv=None):
                               pol["dead end"], prompts)
         phase_failover(paged, quant, prompts, paged_outs, sample_outs,
                        quant_outs, paged_kw, smi)
+        # the telemetry plane's HTTP server beside the paged session
+        phase_telemetry_serve(paged, prompts, paged_outs)
         phase_latency(sess, rng)
         phase_paged_latency(paged, sess, system, rng, quant)
         phase_policy_latency(sess, paged, pol, pol_rng)
@@ -7782,6 +8666,17 @@ def main(argv=None):
         gc.collect()
         # bench.py's staged input pipeline through Trainer.train
         pipeline = phase_pipeline(args.seed)
+        gc.collect()
+        torch.cuda.empty_cache()
+        # the training supervisor, the elastic control plane and the
+        # telemetry plane over [pipeline]'s configuration
+        t0 = time.perf_counter()
+        resilient = phase_resilient(args.seed)
+        phase_elastic(args.seed, resilient)
+        phase_telemetry(args.seed, resilient)
+        print("[resilient] [elastic] [telemetry] %.1f s together"
+              % (time.perf_counter() - t0))
+        del resilient
         gc.collect()
         torch.cuda.empty_cache()
         # ResNet-50 has left the card: the LM's training step, amp bf16

@@ -12,9 +12,24 @@ always takes kernel B3, and the reference's dense and Pallas int8 paths
 are bitwise equal by its own contract, so the flag would change nothing.
 """
 
-__all__ = ["set_flags", "get_flag"]
+__all__ = ["set_flags", "get_flag", "resolve_matmul_precision"]
+
+# The reference's matmul_precision values and the torch float32 matmul
+# precision each one runs as on the card: full float32, TF32, or bfloat16
+# products summed in float32 (the reference's BF16_BF16_F32).
+MATMUL_PRECISIONS = {
+    "highest": "highest", "float32": "highest",
+    "tensorfloat32": "high",
+    "BF16_BF16_F32": "medium", "bfloat16": "medium", "default": "medium",
+}
 
 _flags = {
+    # float32 matmul precision of Executor.run, read at each run and keyed
+    # into the step cache: None (default) keeps the device's rule (full
+    # float32, TF32 off, place.resolve_device); a value of
+    # MATMUL_PRECISIONS is applied with torch.set_float32_matmul_precision
+    # around the run and restored after it
+    "matmul_precision": None,
     # default per-request deadline budget of GenerationScheduler.submit
     # and MicroBatcher.submit; 0 = no deadline
     "serving_deadline_ms": 0,
@@ -117,6 +132,24 @@ _flags = {
     # the fault-injection master switch (resilience/faults.py): hook
     # sites are one flag check while it is off; arm()/disarm() flip it
     "fault_injection": False,
+    # the training supervisor (resilience/supervisor.py): RecoveryPolicy's
+    # defaults, read when a policy is constructed. nonfinite_policy is
+    # what a ResilientTrainer does on a non-finite step ("raise", "skip"
+    # or "rollback"), nonfinite_budget how many consecutive ones it
+    # takes before it raises, reader_retries the retry budget of the
+    # resilient reader, step_deadline_sec the hung-step watchdog's
+    # deadline (0 = no watchdog)
+    "nonfinite_policy": "raise",
+    "nonfinite_budget": 8,
+    "reader_retries": 3,
+    "step_deadline_sec": 0,
+    # the elastic runtime (distributed/elastic.py), read only by it: the
+    # membership heartbeat's cadence (pair it with the master's
+    # heartbeat_timeout_ms, several beats a deadline) and the
+    # teardown/rebuild cycles an ElasticTrainerLoop takes before it raises
+    # ElasticRestartLimit
+    "elastic_heartbeat_interval_sec": 2.0,
+    "elastic_max_restarts": 3,
     # stateful-generation resilience (serving/generation.py): token
     # replay, session rebuild and the step timeout, read only at
     # scheduler construction; the defaults keep the dispatcher's hot path
@@ -124,11 +157,6 @@ _flags = {
     "generation_replay_attempts": 0,
     "generation_rebuild_limit": 0,
     "generation_step_timeout_ms": 0,
-    # request-scoped tracing, the flight recorder and live introspection
-    # (observability/request_trace.py, flight.py): synced into module
-    # state by the observability package's change hook, never read per
-    # request; a nonzero telemetry_port raises, as its HTTP server is not
-    # ported yet
     # sharded embedding tables (embeddings/sharded.py), read only for a
     # program that registered a distributed table (the executor gates on
     # the program's table registry, one getattr; a plain program reads
@@ -151,10 +179,20 @@ _flags = {
     "embedding_shard_rows": False,
     "embedding_a2a": False,
     "embedding_wire_dtype": None,
+    # request-scoped tracing, the flight recorder and live introspection
+    # (observability/request_trace.py, flight.py, http.py): synced into
+    # module state by the observability package's change hook, never read
+    # per request; a nonzero telemetry_port starts the HTTP server on
+    # 127.0.0.1 at that port, 0 stops it
     "request_tracing": False,
     "trace_sample_rate": 1.0,
     "telemetry_port": 0,
     "flight_dir": None,
+    # SLO tracking (observability/slo.py), read only when an SLOTracker is
+    # constructed: the latency objective requests are judged against (0 =
+    # none) and the burn-rate windows in seconds, shortest first
+    "slo_target_p99_ms": 0.0,
+    "slo_windows": (5.0, 60.0),
 }
 
 # Observers called with the flag dict after every set_flags (the
@@ -173,3 +211,16 @@ def set_flags(**kwargs):
 
 def get_flag(name):
     return _flags[name]
+
+
+def resolve_matmul_precision():
+    """The torch float32 matmul precision the ``matmul_precision`` flag
+    asks for, or None when it is unset (the device's rule stands).
+    Raises ValueError for a value the reference does not take."""
+    p = _flags["matmul_precision"]
+    if p is None:
+        return None
+    if p not in MATMUL_PRECISIONS:
+        raise ValueError("matmul_precision %r: expected None or one of %s"
+                         % (p, sorted(MATMUL_PRECISIONS)))
+    return MATMUL_PRECISIONS[p]

@@ -45,7 +45,8 @@ reference gets from XLA, this executor does by hand:
 * The step cache (reference ``_CacheEntry``): each run resolves one cache
   entry, keyed as the reference keys it: program uid and version, the
   feed signature, fetch names, donation, the strategy's uid,
-  ``check_nan_inf``, ``amp``, the float32 matmul precision,
+  ``check_nan_inf``, ``amp``, the ``matmul_precision`` flag (applied
+  around each run, ``config.resolve_matmul_precision``),
   ``nonfinite_guard``, the ingest specs, the embedding flags of a program
   with a distributed table and the int8 tag. The reference's
   ``flash_attention`` flag is not part of the key: the port has no such
@@ -913,7 +914,7 @@ class Executor:
         check_nan_inf = bool(_config.get_flag("check_nan_inf"))
         nonfinite_guard = bool(_config.get_flag("nonfinite_guard"))
         amp = amp_dtype(_config.get_flag("amp"))
-        precision = torch.get_float32_matmul_precision()
+        precision = _config.resolve_matmul_precision()
         telemetry = bool(_config.get_flag("telemetry"))
         ingest_specs = tuple(sorted((n,) + tuple(spec)
                                     for n, spec in widen.items()))
@@ -1367,6 +1368,20 @@ class Executor:
 
     def run(self, program=None, feed=None, fetch_list=None, scope=None,
             return_numpy=True, donate_state=True):
+        precision = _config.resolve_matmul_precision()
+        if precision is None:
+            return self._run(program, feed, fetch_list, scope, return_numpy,
+                             donate_state)
+        prev = torch.get_float32_matmul_precision()
+        torch.set_float32_matmul_precision(precision)
+        try:
+            return self._run(program, feed, fetch_list, scope, return_numpy,
+                             donate_state)
+        finally:
+            torch.set_float32_matmul_precision(prev)
+
+    def _run(self, program, feed, fetch_list, scope, return_numpy,
+             donate_state):
         call = self._prepare(program, feed, fetch_list, scope, donate_state)
         if self.strategy is not None:
             return self._run_dist(call, return_numpy)

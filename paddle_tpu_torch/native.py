@@ -7,7 +7,11 @@ into the git-ignored ``build/`` beside the CUDA kernels and loaded with
 * the RecordIO reader and writer (``native/recordio.cc``) and the
   shuffling sample pool (``native/shuffle_pool.cc``), the reference's
   sources compiled unchanged (its ``native/Makefile`` flags), so a file
-  either package writes reads back through the other."""
+  either package writes reads back through the other;
+* the elastic task master (``native/task_master.cc``), the reference's
+  daemon compiled unchanged into the executable ``build/task_master``
+  (g++ with ``-pthread``), which ``distributed.master.MasterServer``
+  spawns."""
 
 import ctypes
 import os
@@ -26,7 +30,7 @@ _lib = [None]
 _libs = {}
 
 __all__ = ["build_capi", "capi_lib", "PtcTensor", "build_native_lib",
-           "recordio_lib", "shuffle_pool_lib"]
+           "recordio_lib", "shuffle_pool_lib", "task_master_binary"]
 
 
 def _python_flags():
@@ -47,10 +51,13 @@ def _python_flags():
     return inc, ["-L" + libdir, "-lpython" + ver] if libdir else []
 
 
-def _compile(src, lib, flags, libs=(), force=False):
-    """Compile ``src`` into the shared library ``lib`` with g++ unless a
-    library newer than the source is there; returns ``lib``. Raises
-    RuntimeError with the compiler's output when the build fails."""
+def _compile(src, lib, flags, libs=(), force=False, shared=True):
+    """Compile ``src`` into ``lib`` with g++ unless one newer than the
+    source is there; returns ``lib``. ``shared`` builds a shared library,
+    else an executable. The output is written to a name of this process's
+    own and renamed into place, so processes building at once (test
+    workers) never see a half-written file. Raises RuntimeError with the
+    compiler's output when the build fails."""
     with _lock:
         if os.path.exists(lib) and not force and \
                 os.path.getmtime(lib) >= os.path.getmtime(src):
@@ -61,8 +68,9 @@ def _compile(src, lib, flags, libs=(), force=False):
         os.makedirs(os.path.dirname(lib), exist_ok=True)
         tmp = "%s.%d.tmp" % (lib, os.getpid())
         out = subprocess.run(
-            [cxx, "-O2", "-std=c++17", "-fPIC", "-Wall", *flags, "-shared",
-             "-o", tmp, src, *libs], capture_output=True, text=True)
+            [cxx, "-O2", "-std=c++17", "-fPIC", "-Wall", *flags,
+             *(["-shared"] if shared else []), "-o", tmp, src, *libs],
+            capture_output=True, text=True)
         if out.returncode != 0:
             raise RuntimeError("building %s failed:\n%s%s"
                                % (src, out.stdout, out.stderr))
@@ -83,6 +91,15 @@ def build_native_lib(stem, force=False):
     return _compile(os.path.join(_NATIVE, stem + ".cc"),
                     os.path.join(_PKG, "build", "lib%s.so" % stem), (),
                     force=force)
+
+
+def task_master_binary(force=False):
+    """Compile ``native/task_master.cc`` into the executable
+    ``build/task_master`` (the Makefile's flags and ``-pthread``; see
+    :func:`_compile`); returns its path."""
+    return _compile(os.path.join(_NATIVE, "task_master.cc"),
+                    os.path.join(_PKG, "build", "task_master"),
+                    ("-pthread",), force=force, shared=False)
 
 
 def _native(stem, sigs):

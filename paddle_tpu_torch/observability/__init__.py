@@ -11,14 +11,22 @@ recorder.
   flag.
 * ``request_trace`` and ``flight`` — per-request span trees and the
   post-mortem ring, armed by the ``request_tracing`` flag.
-* ``health``   — the component health registry a scheduler registers
-  itself in.
+* ``health``   — the component health and introspection-provider
+  registries a scheduler registers itself in.
+* ``slo``      — windowed SLO tracking: percentiles and multi-window
+  burn rates over the request telemetry (``SLOTracker``).
+* ``aggregate`` — mergeable registry snapshots and the fleet-side
+  aggregator with per-(member, incarnation) delta accounting.
+* ``http``     — the ``telemetry_port`` server: ``/metrics``,
+  ``/healthz`` and ``/debug/*``; imported only once the flag is set.
 
 The flags are synced into module state by :func:`_on_flags_changed`, a
-``config._on_change`` hook, so no call site reads them per request. The
-reference's HTTP exposition (``observability/http.py``) is not ported
-yet (ROADMAP Queue A, "Resilience, deploy, observability"): a nonzero
-``telemetry_port`` raises NotImplementedError.
+``config._on_change`` hook, so no call site reads them per request.
+
+Recovery events are always on, not gated by ``telemetry``: the
+resilience counters (``paddle_resilience_*``, ``resilience/
+supervisor.py``; ``paddle_checkpoint_*``, ``io.py``) and the elastic
+ones (``paddle_elastic_*``) fire on rare events, never per step.
 """
 
 from . import flight  # noqa: F401
@@ -34,29 +42,32 @@ def enabled():
     return bool(config.get_flag("telemetry"))
 
 
-# last-synced (request_tracing, sample_rate): the hook runs on every
-# set_flags (fault arming flips fault_injection constantly in chaos
-# tests), so the sync work is skipped when nothing of these changed
+# last-synced (request_tracing, sample_rate, telemetry_port): the hook
+# runs on every set_flags (fault arming flips fault_injection constantly
+# in chaos tests), so the sync work is skipped when nothing of these
+# changed
 _last_sync = [None]
+_http_started = [False]
 
 
 def _on_flags_changed(flags):
     tracing._TRACER.set_flag(flags.get("telemetry", False))
-    if int(flags.get("telemetry_port", 0) or 0):
-        # refused, not half-applied: the flag goes back to 0, so later
-        # set_flags calls are not refused for it
-        flags["telemetry_port"] = 0
-        raise NotImplementedError(
-            "telemetry_port: the HTTP exposition (/metrics, /healthz, "
-            "/debug/*) is not ported yet (ROADMAP Queue A, \"Resilience, "
-            "deploy, observability\")")
     state = (bool(flags.get("request_tracing", False)),
-             float(flags.get("trace_sample_rate", 1.0) or 0.0))
+             float(flags.get("trace_sample_rate", 1.0) or 0.0),
+             int(flags.get("telemetry_port", 0) or 0))
+    armed, rate, port = state
     if state != _last_sync[0]:
         _last_sync[0] = state
-        armed, rate = state
         request_trace._TRACER.set_flag(armed, sample_rate=rate)
         flight.RECORDER.set_armed(armed)
+    # the port sync is not deduplicated: a bind can fail (the port is
+    # taken) and the same set_flags again must retry it. _sync_port_flag
+    # does nothing when the server is bound already, and http.server is
+    # imported only by a process that sets telemetry_port
+    if port or _http_started[0]:
+        from . import http as _http
+        _http._sync_port_flag(port)
+        _http_started[0] = bool(port)
 
 
 def _install_config_hook():

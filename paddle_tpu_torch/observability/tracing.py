@@ -3,8 +3,8 @@
 
 Nestable host spans recorded per thread as complete ("ph":"X") events,
 written by ``emit_chrome_trace`` in the Chrome trace-event format: load
-the file in Perfetto or chrome://tracing. Device-side tracing
-(``utils/profiler.py``) is not ported yet.
+the file in Perfetto or chrome://tracing. ``utils/profiler.py`` takes
+the device trace beside them (``torch.profiler``).
 
 Hot-path discipline: ``span()`` when the tracer is inactive returns the
 preallocated ``NULL_SPAN`` singleton, one attribute check and no

@@ -25,8 +25,9 @@ parameter (a parameter's ``learning_rate`` multiple through a ``scale``
 op of the learning rate), and an ``increment`` of ``global_step`` when
 one is given; the accumulators and the learning rate are persistable
 variables initialized by the startup program, under the same names.
-Sparse gradients are not ported (ROADMAP Queue A, "Distribution and the
-input pipeline")."""
+SGD, Momentum, Adagrad and Adam also take the sparse gradients of an
+``is_sparse`` embedding (rows and their values), as the reference's
+do."""
 
 import contextlib
 

@@ -28,11 +28,33 @@ one; rank 0 prints one JSON object a case:
 
 The parent kills every rank and exits nonzero when one fails or the run
 passes ``--timeout``.
+
+    python3 -m paddle_tpu_torch.probes.dist elastic [--ranks N]
+        [--timeout S] [--device cuda|cpu]
+
+runs the ``elastic`` case alone: the task master and a RecordIO dataset
+(52 chunks of 12 samples, one a rank's step) in the parent, N workers
+(default: every card), each an ``ElasticTrainerLoop`` over the
+coordinator's NCCL group (gloo with ``--device cpu``) training a
+DataParallel MLP as a ResilientTrainer over a generation-fenced
+dispatcher, a checkpoint every step (one directory, written by the
+mesh's first rank). Worker w2 SIGKILLs itself before
+step 4 (``worker_kill``) while the others sit in the step's all-reduce:
+their watchdogs (4 s) abort the group (``collective_abort``), the master
+declares w2 dead (1 s deadline), and they rebuild at the survivors'
+world, restore their checkpoints and finish the pass. One JSON object:
+each survivor's generations, bring-ups, kill-to-resumed-step seconds and
+``paddle_elastic_*`` counters, and the master's final view. The
+subprocess timeout is the check that no survivor hangs; the exit code is
+nonzero unless every survivor resumed and every chunk is done.
 """
 
 import argparse
+import faulthandler
 import json
 import os
+import pickle
+import signal
 import socket
 import subprocess
 import sys
@@ -212,6 +234,231 @@ def case_ring(n):
             "grad_max_abs": errs[1:]}
 
 
+# -- elastic: a rank killed mid-pass, the survivors resume ------------------
+
+ELASTIC_PROBE = dict(batch=12, dim=32, hidden=64, chunks=52, kill_rank=2,
+                     kill_at=4, hb_timeout_ms=3000, hb_interval_s=0.2,
+                     settle_s=3.5, deadline_s=4.0, lease_timeout_s=2,
+                     init_timeout_s=60)
+
+
+def _elastic_dataset(path, cfg, seed=0):
+    """``chunks`` RecordIO chunks of ``batch`` (x, y) regression samples:
+    one chunk a rank's step."""
+    from ..reader import recordio
+    rs = np.random.RandomState(seed)
+    n = cfg["chunks"] * cfg["batch"]
+    x = rs.randn(n, cfg["dim"]).astype("float32")
+    y = (x.sum(1, keepdims=True) * 0.1).astype("float32")
+    rec = len(pickle.dumps((x[0], y[0])))
+    recordio.write_recordio(path, zip(x, y),
+                            max_chunk_bytes=cfg["batch"] * rec - rec // 2)
+    return recordio.num_chunks(path)
+
+
+def _elastic_child(args):
+    """One worker ``w<rank>`` of the elastic case: an ElasticTrainerLoop
+    over the coordinator's NCCL group (gloo with ``--device cpu``), a
+    DataParallel MLP over the world's ranks as a ResilientTrainer over a
+    generation-fenced dispatcher, a checkpoint every step into one
+    directory (the mesh's first rank writes it, every rank reads it); the
+    rank ``kill_rank`` SIGKILLs itself before step ``kill_at``. Writes its
+    record to ``<dir>/w<rank>.json``."""
+    from .. import core, layers, optimizer, parallel
+    from ..distributed import ElasticDataDispatcher, ElasticTrainerLoop
+    from ..observability import metrics
+    from ..resilience import RecoveryPolicy, ResilientTrainer, faults
+    from ..distributed import elastic
+    from ..trainer import EndIteration
+    from ..utils import log
+    cfg = ELASTIC_PROBE
+    rank, out = args.elastic_rank, args.dir
+    # the parent's SIGUSR1 before a timeout's kill: every thread's stack
+    faulthandler.register(signal.SIGUSR1, all_threads=True)
+    real_abort = elastic.abort_multihost
+
+    def timed_abort(*a, **kw):
+        t0 = time.time()
+        done = real_abort(*a, **kw)
+        log.structured("probe_abort_returned", worker="w%d" % rank,
+                       aborted=done, seconds=round(time.time() - t0, 4))
+        return done
+
+    elastic.abort_multihost = timed_abort
+    wid = "w%d" % rank
+    device = None if args.device == "cuda" else args.device
+    if rank == cfg["kill_rank"]:
+        def die():
+            with open(os.path.join(out, wid + ".killed"), "w") as f:
+                f.write(repr(time.time()))
+            os.kill(os.getpid(), signal.SIGKILL)
+        faults.arm("worker_kill", at=cfg["kill_at"], action="callback",
+                   callback=die)
+    ds = os.path.join(out, "data.rio")
+    record = {"worker": wid, "steps": [], "bring_ups": [], "restored": []}
+
+    def build(world):
+        main, startup = core.Program(), core.Program()
+        with core.unique_name.guard(), core.program_guard(main, startup):
+            x = layers.data("x", shape=[cfg["dim"]])
+            y = layers.data("y", shape=[1])
+            h = layers.fc(x, cfg["hidden"], act="relu")
+            loss = layers.mean(layers.square_error_cost(layers.fc(h, 1),
+                                                        y))
+            optimizer.SGD(0.05).minimize(loss, startup)
+        record["bring_ups"].append((world.generation, world.n_live,
+                                    world.process_id, time.time()))
+        tr = ResilientTrainer(
+            loss, main_program=main, startup_program=startup,
+            strategy=parallel.DataParallel(n_devices=world.num_processes),
+            checkpoint_dir=os.path.join(out, "ckpt"),
+            checkpoint_every_n_steps=1, device=device,
+            policy=RecoveryPolicy(step_deadline_sec=cfg["deadline_s"]))
+        disp = ElasticDataDispatcher(world.client, ds, worker_id=wid,
+                                     generation=world.generation)
+        real = tr.startup
+
+        def startup():
+            first = not tr._initialized
+            real()
+            if first:
+                record["restored"].append(tr.step_id)
+        tr.startup = startup
+
+        def reader():
+            xs, ys = [], []
+            for xv, yv in disp.reader(poll_interval=0.02)():
+                xs.append(xv)
+                ys.append(yv)
+                if len(xs) == cfg["batch"]:
+                    yield {"x": np.stack(xs), "y": np.stack(ys)}
+                    xs, ys = [], []
+        return tr, reader
+
+    def handler(e):
+        if isinstance(e, EndIteration):
+            record["steps"].append((loop.restarts, e.step_id,
+                                    float(np.asarray(e.cost)), time.time()))
+
+    loop = ElasticTrainerLoop(
+        build, args.master_port, worker_id=wid,
+        heartbeat_interval_sec=cfg["hb_interval_s"],
+        coordinator_address=args.addr, num_processes=args.ranks,
+        initialization_timeout_sec=cfg["init_timeout_s"],
+        settle_sec=cfg["settle_s"], device=device)
+    with core.scope_guard(core.Scope()):
+        record["result"] = loop.run(num_passes=1, event_handler=handler)
+    fams = metrics.REGISTRY.families()
+    record.update(
+        generations=loop.generations, restarts=loop.restarts,
+        counters={n: (sum(c.value for c in fams[n].children().values())
+                      if fams[n].kind != "histogram" else
+                      [sum(c.count for c in fams[n].children().values()),
+                       sum(c.sum for c in fams[n].children().values())])
+                  for n in sorted(fams) if n.startswith("paddle_elastic_")})
+    from ..distributed import shutdown_multihost
+    shutdown_multihost()
+    with open(os.path.join(out, wid + ".json"), "w") as f:
+        json.dump(record, f)
+    # the record is out: leave without the interpreter's teardown
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(0)
+
+
+def run_elastic(n, timeout, device):
+    """The elastic case's parent: the task master and the dataset, ``n``
+    workers, then one JSON object with what each survivor saw."""
+    import shutil
+    import tempfile
+    from ..distributed import (ElasticDataDispatcher, MasterClient,
+                               MasterServer)
+    cfg = ELASTIC_PROBE
+    out = tempfile.mkdtemp(prefix="elastic_probe_")
+    chunks = _elastic_dataset(os.path.join(out, "data.rio"), cfg)
+    srv = MasterServer(os.path.join(out, "snap"),
+                       timeout_sec=cfg["lease_timeout_s"],
+                       heartbeat_timeout_ms=cfg["hb_timeout_ms"])
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        addr = "localhost:%d" % s.getsockname()[1]
+    procs = []
+    t0 = time.time()
+    try:
+        client = MasterClient(srv.port)
+        ElasticDataDispatcher(client, os.path.join(out, "data.rio")) \
+            .register_dataset()
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "paddle_tpu_torch.probes.dist",
+             "elastic", "--ranks", str(n), "--elastic-rank", str(r),
+             "--addr", addr, "--master-port", str(srv.port), "--dir", out,
+             "--device", device], env=dict(os.environ))
+            for r in range(n)]
+        rc, deadline = 0, t0 + timeout
+        codes = []
+        for p in procs:
+            try:
+                codes.append(p.wait(timeout=max(1.0, deadline - time.time())))
+            except subprocess.TimeoutExpired:
+                codes.append(None)
+                rc = 124
+        if rc:
+            # stacks of the ranks still running, then the kill below
+            for p in procs:
+                if p.poll() is None:
+                    p.send_signal(signal.SIGUSR1)
+            time.sleep(3)
+        records = {}
+        for r in range(n):
+            path = os.path.join(out, "w%d.json" % r)
+            if os.path.exists(path):
+                with open(path) as f:
+                    records["w%d" % r] = json.load(f)
+        killed_path = os.path.join(out, "w%d.killed" % cfg["kill_rank"])
+        killed = float(open(killed_path).read()) \
+            if os.path.exists(killed_path) else None
+        survivors = {}
+        for w, rec in records.items():
+            resumed = [t for restarts, _, _, t in rec["steps"] if restarts]
+            survivors[w] = {
+                "generations": rec["generations"],
+                "restarts": rec["restarts"],
+                "bring_ups": [b[:3] for b in rec["bring_ups"]],
+                "restored_steps": rec["restored"],
+                "kill_to_resumed_step_s": None if killed is None or
+                not resumed else resumed[0] - killed,
+                "steps": len(rec["steps"]),
+                "last_loss": rec["steps"][-1][2] if rec["steps"] else None,
+                "counters": rec["counters"]}
+        doc = {"case": "elastic", "ranks": n, "device": device,
+               "killed": "w%d" % cfg["kill_rank"],
+               "kill_at_step": cfg["kill_at"], "exit_codes": codes,
+               "chunks": chunks, "master": client.stats(),
+               "cluster": client.cluster(), "survivors": survivors,
+               "seconds": time.time() - t0, "config": cfg}
+        if device == "cuda":
+            doc["card"] = subprocess.run(
+                ["nvidia-smi", "--query-gpu=name,power.limit",
+                 "--format=csv,noheader"], capture_output=True, text=True,
+                timeout=60).stdout.strip().splitlines()[0]
+        print(json.dumps(doc), flush=True)
+        ok = (rc == 0 and len(survivors) == n - 1 and
+              codes[cfg["kill_rank"]] == -signal.SIGKILL and
+              all(c == 0 for r, c in enumerate(codes)
+                  if r != cfg["kill_rank"]) and
+              doc["master"]["todo"] == 0 and doc["master"]["pending"] == 0
+              and all(s["restarts"] >= 1 and s["kill_to_resumed_step_s"]
+                      is not None for s in survivors.values()))
+        return rc or (0 if ok else 1)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        srv.stop()
+        shutil.rmtree(out, ignore_errors=True)
+
+
 def _child(addr, rank, n):
     from ..distributed import init_multihost, shutdown_multihost
     from ..place import resolve_device
@@ -236,13 +483,29 @@ def main(argv=None):
     ap.add_argument("--timeout", type=float, default=600.0)
     ap.add_argument(_CHILD, type=int, default=None)
     ap.add_argument("--addr", default=None)
+    ap.add_argument("cases", nargs="*", default=[],
+                    help="'elastic' runs the elastic case alone; nothing "
+                    "runs the others")
+    ap.add_argument("--elastic-rank", type=int, default=None)
+    ap.add_argument("--master-port", type=int, default=None)
+    ap.add_argument("--dir", default=None)
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (NCCL, the default) or cpu (gloo), for the "
+                    "elastic case")
     args = ap.parse_args(argv)
     if args.rank is not None:
         _child(args.addr, args.rank, args.ranks)
         return 0
-    if not torch.cuda.is_available():
+    if args.elastic_rank is not None:
+        _elastic_child(args)
+        return 0
+    if args.device == "cuda" and not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         return 1
+    if "elastic" in args.cases:
+        return run_elastic(args.ranks or (torch.cuda.device_count()
+                                          if args.device == "cuda" else 4),
+                           args.timeout, args.device)
     n = args.ranks or torch.cuda.device_count()
     with socket.socket() as s:
         s.bind(("localhost", 0))

@@ -54,8 +54,6 @@ __all__ = ["StagedReader"]
 
 _END = object()
 
-# the ROADMAP Queue A item that brings data-parallel staging
-
 # Input-pipeline telemetry (recording gated by the "telemetry" flag),
 # under the reference's names and help text. Gauges are labeled per
 # reader instance so concurrent StagedReaders don't clobber each other;

@@ -8,8 +8,8 @@ config flag is on and a spec armed for that site matches ``index``.
 Matching specs execute their action exactly ``times`` times, so chaos
 tests are reproducible.
 
-The port's hook sites (the reference's names; its other sites belong to
-modules not ported yet):
+The port's hook sites (the reference's names; its fleet and model-paging
+sites belong to the fleet tier, not ported yet):
 
 ==============================  ===========================================
 site                            where / what
@@ -34,13 +34,34 @@ site                            where / what
                                 token of a constrained request; ``index``
                                 is the slot: a firing forces the dead-end
                                 verdict (the typed ConstraintDeadEnd)
-``nan_loss``                    :func:`poison_feed`, for a training loop
-                                that calls it; a packed batch is poisoned
-                                in a copy of its buffer
+``nan_loss``                    ResilientTrainer, before the step
+                                (:func:`poison_feed`): the first float
+                                feed is NaN, so the NaN flows through the
+                                real computation; a packed batch is
+                                poisoned in a copy of its buffer
 ``checkpoint_crash``            ``io.save_checkpoint``, after every file of
                                 the checkpoint is written and before it is
                                 published; ``index`` is the step
-``collective_hang``             :func:`simulate_collective_hang`
+``collective_hang``             ResilientTrainer, inside the step's
+                                watchdog window
+                                (:func:`simulate_collective_hang`): the
+                                step blocks like an all-reduce whose peer
+                                died; only the watchdog's abort
+                                escalation gets out
+``reader_error``                ResilientTrainer's reader, before it
+                                yields sample ``index``: raises the armed
+                                exception (default IOError, inside the
+                                resilient reader's transient set)
+``worker_kill``                 ResilientTrainer, before the step; arm
+                                with ``action="kill"`` to SIGKILL one
+                                worker of an elastic run mid-pass
+``master_kill``                 ElasticDataDispatcher.reader, once per
+                                task lease; arm with a callback that kills
+                                (and restarts) the master
+``heartbeat_drop``              MembershipHeartbeat; ``index`` is the beat
+                                number: a firing swallows the beat, so
+                                ``times=K`` is K beats of partition and a
+                                master-declared death of a live process
 ``serving_replica_fail``        ServingEngine, before a replica executes a
                                 batch; ``index`` is the replica number
 ``serving_replica_slow``        ServingEngine, inside the replica's

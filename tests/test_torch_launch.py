@@ -85,10 +85,17 @@ def test_timeout_names_the_coordinator():
 
 
 def test_elastic_names_raise_with_their_item():
-    with pytest.raises(NotImplementedError,
-                       match="Distribution and the input pipeline"):
-        tdist.ElasticTrainerLoop
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tdist.MasterServer
-    assert tdist.__all__ == ["init_multihost", "shutdown_multihost",
-                             "multihost_active"]
+    """The elastic control plane's names are the ported modules' (the
+    reference's names, and the port's abort beside them); a name never
+    ported raises AttributeError."""
+    import paddle_tpu.distributed as ref_dist
+    from paddle_tpu_torch.distributed import elastic, master
+    assert tdist.ElasticTrainerLoop is elastic.ElasticTrainerLoop
+    assert tdist.MasterServer is master.MasterServer
+    ref_names = {n for n in dir(ref_dist) if not n.startswith("_")} - {
+        "elastic", "master", "launch"}
+    assert set(tdist.__all__) == ref_names | {"abort_multihost"}
+    for name in tdist.__all__:
+        getattr(tdist, name)
+    with pytest.raises(AttributeError):
+        tdist.nothing_here

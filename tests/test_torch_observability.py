@@ -61,6 +61,16 @@ from paddle_tpu_torch.serving import paged_cache as port_pc
 from paddle_tpu_torch.utils import log
 from paddle_tpu_torch import trainer as port_trainer  # noqa: F401
 from paddle_tpu_torch.reader import staging as port_staging  # noqa: F401
+# the supervisor's, the elastic runtime's and the telemetry plane's
+# families, registered at import in both packages
+from paddle_tpu_torch import distributed as port_distributed  # noqa: F401
+from paddle_tpu_torch.resilience import supervisor as port_sup  # noqa: F401
+from paddle_tpu_torch.observability import aggregate as _agg  # noqa: F401
+from paddle_tpu_torch.observability import slo as _slo  # noqa: F401
+from paddle_tpu import distributed as ref_distributed  # noqa: F401
+from paddle_tpu.resilience import supervisor as ref_sup  # noqa: F401
+from paddle_tpu.observability import aggregate as _ref_agg  # noqa: F401
+from paddle_tpu.observability import slo as _ref_slo  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 V, MAXLEN = 29, 24
@@ -126,7 +136,18 @@ FAMILIES = sorted([
         "sparse_slots_total")] + [
     "paddle_checkpoint_%s" % n for n in (
         "fallbacks_total", "quarantined_total", "verify_seconds")] + [
-    "paddle_stat_span_seconds", "paddle_stat_gauge"])
+    "paddle_stat_span_seconds", "paddle_stat_gauge"] + [
+    # the supervisor's, the elastic runtime's, SLO tracking's and the
+    # snapshot encoder's
+    "paddle_resilience_%s" % n for n in (
+        "nonfinite_steps_total", "skipped_steps_total", "rollbacks_total",
+        "reader_retries_total", "watchdog_stalls_total",
+        "preemptions_total")] + [
+    "paddle_elastic_%s" % n for n in (
+        "generation", "worker_deaths_total", "resume_seconds",
+        "restarts_total", "heartbeats_total", "heartbeat_misses_total")] + [
+    "paddle_slo_burn_rate", "paddle_slo_violation_seconds_total",
+    "paddle_fleet_snapshot_truncated_total"])
 
 
 @pytest.fixture(autouse=True)
@@ -537,6 +558,12 @@ def test_flight_bundle_as_the_reference(tmp_path):
 
 
 def test_config_hook_arms_tracers_and_refuses_a_port():
+    """The hook arms the tracers, and a nonzero ``telemetry_port`` starts
+    the HTTP server where the port used to refuse one (0 stops it; a
+    taken port is logged, not raised)."""
+    import socket
+    import urllib.request
+    from paddle_tpu_torch.observability import http as port_http
     assert observability._on_flags_changed in port_config._on_change
     port_config.set_flags(request_tracing=True, trace_sample_rate=0.5)
     assert rtrace.enabled() and flight.RECORDER.armed
@@ -546,8 +573,25 @@ def test_config_hook_arms_tracers_and_refuses_a_port():
     port_config.set_flags(request_tracing=False, telemetry=False)
     assert not rtrace.enabled() and not flight.RECORDER.armed
     assert not tracing.active()
-    with pytest.raises(NotImplementedError, match="not ported"):
-        port_config.set_flags(telemetry_port=9100)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        free = s.getsockname()[1]
+    try:
+        port_config.set_flags(telemetry_port=free)
+        srv = port_http.active_server()
+        assert srv is not None and srv.port == free
+        with urllib.request.urlopen(srv.url + "/healthz",
+                                    timeout=10) as r:
+            assert r.status == 200
+        with socket.socket() as taken:
+            taken.bind(("127.0.0.1", 0))
+            taken.listen()
+            port_config.set_flags(telemetry_port=taken.getsockname()[1])
+            # the bind failed: the old server stopped, nothing raised
+            assert port_http.active_server() is None
+    finally:
+        port_config.set_flags(telemetry_port=0)
+    assert port_http.active_server() is None
     assert port_config.get_flag("telemetry_port") == 0
     port_config.set_flags(fault_injection=False)   # later calls work
 
@@ -608,8 +652,12 @@ def test_poison_feed_dict_as_the_reference_and_packed_raises():
 
 
 def test_supervisor_names_raise_not_implemented():
-    with pytest.raises(NotImplementedError, match="supervisor"):
-        port_resilience.ResilientTrainer
+    """The supervisor's names resolve (lazily, as the reference's do) to
+    the ported module; a name never ported raises AttributeError."""
+    from paddle_tpu import resilience as ref_resilience
+    for name in port_resilience._SUPERVISOR_EXPORTS:
+        assert getattr(port_resilience, name) is getattr(port_sup, name)
+    assert port_resilience.__all__ == ref_resilience.__all__
     with pytest.raises(AttributeError):
         port_resilience.nothing_here
 

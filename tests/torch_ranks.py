@@ -38,7 +38,7 @@ class RankPool:
     results in rank order; a rank's exception is raised here with its
     traceback."""
 
-    def __init__(self, n, timeout=180.0):
+    def __init__(self, n, timeout=180.0, init=True):
         self.n = n
         self.timeout = timeout
         self._listener = Listener(("localhost", 0), authkey=b"ranks")
@@ -51,8 +51,8 @@ class RankPool:
         addr = "%s:%d" % self._listener.address
         self._procs = [subprocess.Popen(
             [sys.executable, "-c",
-             "import torch_ranks; torch_ranks._serve(%r, %d, %d, %d)"
-             % (addr, r, n, port)], env=env, cwd=_ROOT)
+             "import torch_ranks; torch_ranks._serve(%r, %d, %d, %d, %r)"
+             % (addr, r, n, port, init)], env=env, cwd=_ROOT)
             for r in range(n)]
         self._conns = [None] * n
         for _ in range(n):
@@ -90,15 +90,23 @@ class RankPool:
         self._listener.close()
 
 
-def _serve(addr, rank, n, port):
+_RANK = None
+
+
+def _serve(addr, rank, n, port, init=True):
+    """A rank's loop. ``init`` joins the pool's gloo group first; without
+    it the bodies bring their own groups up (the elastic ones)."""
+    global _RANK
     import torch
     torch.set_num_threads(1)
     from paddle_tpu_torch.distributed import init_multihost
+    _RANK = rank
     host, p = addr.rsplit(":", 1)
     conn = Client((host, int(p)), authkey=b"ranks")
     conn.send(rank)
-    init_multihost("localhost:%d" % port, n, rank, device="cpu",
-                   initialization_timeout_sec=60)
+    if init:
+        init_multihost("localhost:%d" % port, n, rank, device="cpu",
+                       initialization_timeout_sec=60)
     while True:
         item = conn.recv()
         if item is None:
@@ -623,3 +631,137 @@ def ragged_feeds(axes, x, table):
     exe = core.Executor(device="cpu", strategy=_strategy(axes))
     return exe.run(main, feed={"x": x, "t": table}, fetch_list=[out],
                    scope=scope)[0]
+
+
+# -- bodies: test_torch_elastic.py -------------------------------------------
+
+def elastic_hang_abort(coord_port, deadline, timeout):
+    """Rank 0 waits in an all-reduce that rank 1 never joins: its
+    watchdog's escalation aborts the group (collective_abort) and the
+    wait ends within the group's bounded timeout; then both ranks bring
+    a group up again at the next generation and it reduces. Returns
+    {"first", "second": the two all-reduces, "unblocked_by", "seconds",
+    "aborted"} (rank 0's wait)."""
+    import time
+    import torch
+    import torch.distributed as dist
+    from paddle_tpu_torch.distributed import (ElasticTrainerLoop,
+                                              collective_abort,
+                                              init_multihost)
+    from paddle_tpu_torch.resilience import StepWatchdog
+    addr = "localhost:%d" % coord_port
+    init_multihost(addr, 2, _RANK, device="cpu",
+                   initialization_timeout_sec=timeout, generation="1.0")
+    x = torch.ones(2)
+    dist.all_reduce(x)
+    out = {"first": x.tolist()}
+    if _RANK == 0:
+        aborted = []
+        wd = StepWatchdog(deadline, abort=True, poll_interval=0.05,
+                          on_hang=lambda step, el: aborted.append(
+                              collective_abort("hung step %s" % step)))
+        wd.start()
+        wd.step_started(0)
+        t0 = time.monotonic()
+        try:
+            try:
+                dist.all_reduce(torch.ones(2))
+                out["unblocked_by"] = "return"
+            except KeyboardInterrupt:
+                out["unblocked_by"] = "interrupt"
+            except RuntimeError:
+                out["unblocked_by"] = "error"
+                ElasticTrainerLoop._absorb_interrupt()
+        except KeyboardInterrupt:
+            out["unblocked_by"] = "interrupt"
+        out["seconds"] = time.monotonic() - t0
+        out["aborted"] = aborted
+        wd.stop()
+    else:
+        time.sleep(timeout + 2.0)   # never joins rank 0's all-reduce
+        collective_abort("peer")
+    init_multihost(addr, 2, _RANK, device="cpu",
+                   initialization_timeout_sec=timeout, generation="2.0")
+    y = torch.ones(2) * (_RANK + 1)
+    dist.all_reduce(y)
+    out["second"] = y.tolist()
+    collective_abort("done")
+    return out
+
+
+def elastic_loop_ranks(master_port, coord_port, ds_glob, ckpt_dir,
+                       drop_beats, timeout):
+    """An ElasticTrainerLoop on this rank (worker ``w<rank>``) over a
+    gloo group at the coordinator: the regressor trainer over a fenced
+    dispatcher, checkpointing every step; each bring-up all-reduces a
+    ones tensor over its group. ``drop_beats[rank]`` heartbeats of this
+    worker are swallowed, so the master declares it dead mid-pass.
+    Returns {"generations", "restarts", "reduced": [(gen, n_live,
+    value)], "losses", "result"}."""
+    import time
+    import torch
+    import torch.distributed as dist
+    from paddle_tpu_torch import core, layers, optimizer
+    from paddle_tpu_torch.data_feeder import DataFeeder
+    from paddle_tpu_torch.distributed import (ElasticDataDispatcher,
+                                              ElasticTrainerLoop)
+    from paddle_tpu_torch.resilience import (RecoveryPolicy,
+                                             ResilientTrainer, faults)
+    from paddle_tpu_torch.trainer import EndIteration
+    wid = "w%d" % _RANK
+    ckpt_dir = "%s_w%d" % (ckpt_dir, _RANK)
+    reduced, losses = [], []
+    if drop_beats.get(_RANK):
+        faults.arm("heartbeat_drop", at=None, times=drop_beats[_RANK])
+
+    def build(world):
+        t = torch.ones(1)
+        dist.all_reduce(t)
+        reduced.append((world.generation, world.n_live, float(t[0])))
+        main, startup = core.Program(), core.Program()
+        with core.unique_name.guard(), core.program_guard(main, startup):
+            xv = layers.data("x", shape=[4])
+            yv = layers.data("y", shape=[1])
+            pred = layers.fc(xv, 1, bias_attr=False, param_attr="w_lin")
+            loss = layers.mean(layers.square_error_cost(pred, yv))
+            optimizer.SGD(learning_rate=0.05).minimize(loss, startup)
+        trainer = ResilientTrainer(
+            loss, feeder=DataFeeder([xv, yv]), main_program=main,
+            startup_program=startup, checkpoint_dir=ckpt_dir,
+            checkpoint_every_n_steps=1, device="cpu",
+            policy=RecoveryPolicy(step_deadline_sec=30))
+        disp = ElasticDataDispatcher(world.client, ds_glob,
+                                     worker_id=wid,
+                                     generation=world.generation)
+
+        def reader():
+            batch = []
+            for s in disp.reader(poll_interval=0.05)():
+                batch.append((np.asarray(s[1], "float32"),
+                              np.asarray(s[2], "float32")))
+                time.sleep(0.02)
+                if len(batch) == 8:
+                    yield batch
+                    batch = []
+            if batch:
+                yield batch
+        return trainer, reader
+
+    def handler(e):
+        if isinstance(e, EndIteration):
+            losses.append(float(np.asarray(e.cost)))
+
+    with core.scope_guard(core.Scope()):
+        loop = ElasticTrainerLoop(
+            build, master_port, worker_id=wid, heartbeat_interval_sec=0.1,
+            coordinator_address="localhost:%d" % coord_port,
+            num_processes=2, initialization_timeout_sec=timeout,
+            max_restarts=8, device="cpu")
+        try:
+            result = loop.run(num_passes=1, event_handler=handler)
+        finally:
+            faults.disarm()
+            from paddle_tpu_torch.distributed import collective_abort
+            collective_abort("done")
+    return {"generations": loop.generations, "restarts": loop.restarts,
+            "reduced": reduced, "losses": losses, "result": result}
