@@ -220,6 +220,26 @@ and PyTorch built for CUDA. In order, it:
    2 layers, under ``transformer_tp_rules`` against no strategy, B2 bf16
    launched per shard; wide&deep under ``DataParallel(n_devices=1)``;
    ring attention over a one-rank axis against dense attention).
+22. the fleet tier, after ``[aot]``: ``bench.py``'s ``bench_fleet`` and
+   ``bench_model_paging`` recipes at the flagship LM's full width and
+   depth, every member a ``python -m paddle_tpu_torch.probes.fleet_worker``
+   process on this card (dense program sessions, 8 slots, cache 1024,
+   buckets 128 and 512) loading one ``.npz`` of the reference child's
+   ``build_scope`` weights, the router and the oracle (the same weights
+   in a scheduler here) in this process (``[fleet]``): 12 prompts over
+   two members, one SIGKILLed at streamed token 4, every stream equal to
+   the oracle's (p99, ``paddle_fleet_recovery_seconds``, failovers, no
+   journal reset); a scale-up through ``FleetAutoscaler.request_scale_up``
+   with the compile cache warm (spawn to first token); a rolling deploy
+   of a x1.01 push under two client threads (0 client errors, no mixed
+   version, every response equal to its version's oracle); and
+   (``[model-paging]``) models A (seed 7) and B (seed 11, drawn in a
+   child process beside ``[fleet]``) under a 1.5-model resident budget
+   over two members resident for A: the first B request pages B in and
+   evicts A (``model_page_in_ms``), 24 mixed requests then hit resident
+   members (the hit rate), 0 client errors, every stream its model's
+   oracle's. Each member that stops prints its launches: B2 12 an
+   admission and B4 12 a decode step, both launched, nothing else.
 
 Any failed phase exits nonzero. The line before the last is the card's
 name and power limit from nvidia-smi; the one before that lists the
@@ -8452,6 +8472,582 @@ def phase_telemetry(seed, ctx):
     return dict(detection_ms=detection_ms, overhead_pct=cycle_s * 100.0)
 
 
+# [fleet] and [model-paging]: bench.py's bench_fleet and bench_model_paging
+# on the card, at the flagship LM's full width and depth. Every member is
+# a probes.fleet_worker process on this card serving dense program
+# sessions at SLOTS, CACHE_LEN and BUCKETS over weights it loads from one
+# .npz this process writes (the reference child's build_scope draw:
+# standard normals, so greedy logits are far from ties); the router and
+# the oracle (the same weights in-process) run here. The members' beats
+# every 150 ms as the bench's, their deadline 2 s where the bench's is
+# 0.7 s: a member loading 3 GB of weights for a swap or a page-in holds
+# its interpreter for longer stretches than a CPU member; a SIGKILL is
+# seen at once on the request's connection either way.
+FLEET = dict(seed=7, requests=12, max_new=10, kill_at=4, prompt_seed=5,
+             push=1.01, heartbeat_ms=150, deadline_ms=2000.0,
+             replay_attempts=6, breaker_failures=2, deploy_max_new=4,
+             deploy_canary=2, member_timeout_s=600)
+PAGING = dict(seed_b=11, max_new=8, steady=12, prompt_seeds=(3, 23))
+FLEET_LM = dict(vocab=FULL["vocab_size"], max_len=FULL["max_len"],
+                d_model=FULL["d_model"], num_heads=FULL["num_heads"],
+                d_ff=FULL["d_ff"], num_layers=FULL["num_layers"])
+
+
+class FleetMembers:
+    """The probes.fleet_worker processes of one phase: started together,
+    each printing READY once registered; stopped through the ``stop``
+    verb, each then printing its LAUNCHES line; every one killed and
+    reaped on the way out."""
+
+    def __init__(self, tmp, params, cache_dir):
+        self.tmp, self.params, self.cache_dir = tmp, params, cache_dir
+        self.procs = {}     # member id -> Popen
+        self.ports = {}
+
+    def start(self, router, mid, *extra):
+        import os
+        log = open(os.path.join(self.tmp, "%s.log" % mid), "w")
+        cmd = [sys.executable, "-m", "paddle_tpu_torch.probes.fleet_worker",
+               "--router", "%s:%d" % router.addr, "--member", mid,
+               "--heartbeat-ms", str(FLEET["heartbeat_ms"]),
+               "--compile-cache", self.cache_dir, "--params", self.params,
+               "--slots", str(SLOTS), "--cache-len", str(CACHE_LEN),
+               "--prompt-buckets", ",".join(str(b) for b in BUCKETS)]
+        for k, v in FLEET_LM.items():
+            cmd += ["--" + k.replace("_", "-"), str(v)]
+        self.procs[mid] = subprocess.Popen(
+            cmd + list(extra), stdout=subprocess.PIPE, stderr=log,
+            text=True, cwd=os.path.dirname(os.path.abspath(__file__)))
+        log.close()
+        return self.procs[mid]
+
+    def ready(self, mid):
+        import select
+        proc = self.procs[mid]
+        got, _, _ = select.select([proc.stdout], [], [],
+                                  FLEET["member_timeout_s"])
+        if not got:
+            proc.kill()
+            raise SmokeFailure("fleet member %s printed nothing in %d s; "
+                               "its log ends %s"
+                               % (mid, FLEET["member_timeout_s"],
+                                  self.log_tail(mid)))
+        line = proc.stdout.readline().strip()
+        if not line.startswith("READY"):
+            self.procs[mid].kill()
+            raise SmokeFailure("fleet member %s failed before READY: %r; "
+                               "its log ends %s" % (mid, line,
+                                                    self.log_tail(mid)))
+        self.ports[mid] = int(line.split()[2])
+        print("[fleet] member %s started: %s (%s)"
+              % (mid, self.start_line(mid), card_line()))
+        return self.ports[mid]
+
+    def start_line(self, mid):
+        """The member's ``fleet_worker_started`` fields: the seconds of
+        its imports, its weights and its session's build and warm-up,
+        and its compile cache's hits and misses."""
+        import os
+        with open(os.path.join(self.tmp, "%s.log" % mid)) as f:
+            for ln in f:
+                if "fleet_worker_started " in ln:
+                    return json.loads(ln.split("fleet_worker_started ",
+                                               1)[1])
+        return None
+
+    def log_tail(self, mid, n=3000):
+        import os
+        with open(os.path.join(self.tmp, "%s.log" % mid)) as f:
+            return f.read()[-n:]
+
+    def stop(self, mid, timeout=120):
+        """Send ``stop`` and read the member's LAUNCHES line."""
+        from paddle_tpu_torch.serving import wire
+        wire.call_once(("127.0.0.1", self.ports[mid]), {"cmd": "stop"},
+                       timeout=30.0, retries=1)
+        out, _ = self.procs[mid].communicate(timeout=timeout)
+        lines = [ln for ln in out.splitlines()
+                 if ln.startswith("LAUNCHES ")]
+        check(self.procs[mid].returncode == 0 and lines,
+              "fleet member %s exited %s without its LAUNCHES line: %s"
+              % (mid, self.procs[mid].returncode, self.log_tail(mid)))
+        return json.loads(lines[-1][len("LAUNCHES "):])
+
+    def close(self):
+        for p in self.procs.values():
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+
+
+def member_launches(tag, got):
+    """A member's LAUNCHES line: B2 12 times an admission and B4 12 times
+    a decode step (the prefill and decode programs' multihead attention,
+    graph replays counted as the executor counts them), both launched,
+    nothing else."""
+    layers = FULL["num_layers"]
+    want = {"flash_attention.launches": layers * got["admissions"],
+            "decode_attention.launches": layers * got["steps"]}
+    counts = {k: v for k, v in got.items() if k.endswith(".launches") or
+              k.endswith(".launches_bf16")}
+    print("[%s] member %s (pid %d): %d admissions, %d decode steps, "
+          "launches %s" % (tag, got["member"], got["pid"],
+                           got["admissions"], got["steps"],
+                           {k: v for k, v in counts.items() if v}))
+    check(got["admissions"] > 0 and got["steps"] > 0 and
+          all(counts[k] == want.get(k, 0) for k in counts),
+          "[%s] member %s launched %s over %d admissions and %d steps, "
+          "expected %s" % (tag, got["member"], counts, got["admissions"],
+                           got["steps"], want))
+    return want
+
+
+def oracle_tokens(sched, prompts, max_new):
+    futs = [sched.submit(p, max_new_tokens=max_new, eos_id=-1)
+            for p in prompts]
+    return [[int(t) for t in f.result(timeout=600)] for f in futs]
+
+
+def hist_sum(name):
+    """(count, sum) of the port registry's histogram ``name``."""
+    from paddle_tpu_torch.observability import metrics
+    samples = metrics.REGISTRY.dump().get(name, {}).get("samples", ())
+    return (sum(s["count"] for s in samples),
+            sum(s["sum"] for s in samples))
+
+
+def fleet_draw(seed, path):
+    """[model-paging]'s model B: drawn as the reference's
+    ``build_scope(seed)`` on the host and written to ``path`` with its
+    manifest, in a child process [fleet] starts first, so the draw (one
+    core for ~30 s) runs beside [fleet]."""
+    from paddle_tpu_torch.probes import fleet_worker as fw
+    from paddle_tpu_torch.serving import model_paging
+    params = fw.model_params(fw.build_scope(seed, device="cpu", **FLEET_LM))
+    np.savez(path, **params)
+    model_paging.write_weights_manifest(path, params)
+
+
+def phase_fleet():
+    """[fleet]: bench.py's bench_fleet. Two members; 12 prompts with one
+    member SIGKILLed at streamed token 4 (every stream equal to the
+    oracle's, p99, recovery, failovers); a scale-up through
+    FleetAutoscaler.request_scale_up with the compile cache warm (spawn to
+    first token); a rolling deploy of a x1.01 push under concurrent
+    traffic (0 client errors, every response equal to its version's
+    oracle); each surviving member's launches. Returns the weights' files
+    and the oracle for [model-paging], and the members' B2 and B4
+    launches."""
+    import os
+    import shutil
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="fleet_")
+    path_b = os.path.join(tmp, "B.npz")
+    draw_b = subprocess.Popen(
+        [sys.executable, "-c", "import chip_smoke; chip_smoke.fleet_draw"
+         "(%d, %r)" % (PAGING["seed_b"], path_b)],
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    try:
+        return dict(fleet_run(tmp), draw_b=draw_b, path_b=path_b)
+    except BaseException:
+        draw_b.kill()
+        draw_b.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise
+
+
+def fleet_run(tmp):
+    """[fleet]'s body, its files in ``tmp``."""
+    import os
+    import threading
+    import torch
+    from paddle_tpu_torch.probes import fleet_worker as fw
+    from paddle_tpu_torch.serving import model_paging, wire
+    from paddle_tpu_torch.serving.autoscale import FleetAutoscaler
+    from paddle_tpu_torch.serving.fleet import FleetRouter
+    card = card_line()
+    cache_dir = os.path.join(tmp, "compile_cache")
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    scope = fw.build_scope(FLEET["seed"], device="cuda", **FLEET_LM)
+    draw_s = time.perf_counter() - t0
+    v0_path, v1_path = os.path.join(tmp, "v0.npz"), os.path.join(tmp,
+                                                                 "v1.npz")
+    v0 = fw.model_params(scope)
+    np.savez(v0_path, **v0)
+    model_paging.write_weights_manifest(v0_path, v0)
+    v1 = fw.model_params(scope, FLEET["push"])
+    np.savez(v1_path, **v1)
+    del v0
+    files_s = time.perf_counter() - t0 - draw_s
+    oracle = fw.make_scheduler(
+        scope, slots=SLOTS, device="cuda", cache_len=CACHE_LEN,
+        prompt_buckets=BUCKETS, replay_attempts=0, **FLEET_LM)
+    del scope
+    prompts = fw.chaos_prompts(FLEET["requests"], seed=FLEET["prompt_seed"])
+    base = oracle_tokens(oracle, prompts, FLEET["max_new"])
+    print("[fleet] weights: %d tensors drawn as the reference's "
+          "build_scope(%d) in %.1f s, v0 and the x%.2f push written with "
+          "v0's manifest in %.1f s (%.2f GB each); the oracle served %d "
+          "prompts" % (len(v1), FLEET["seed"], draw_s, FLEET["push"],
+                       files_s, os.path.getsize(v0_path) / 1e9,
+                       len(prompts)))
+    members = FleetMembers(tmp, v0_path, cache_dir)
+    router = FleetRouter(heartbeat_timeout_ms=FLEET["deadline_ms"],
+                         replay_attempts=FLEET["replay_attempts"],
+                         breaker_failures=FLEET["breaker_failures"],
+                         breaker_cooldown_ms=60000.0)
+    failovers0 = registry_value("paddle_fleet_failover_total")
+    rec0 = hist_sum("paddle_fleet_recovery_seconds")
+    resets0 = registry_value("paddle_fleet_journal_resets_total")
+    out = {}
+    try:
+        t0 = time.perf_counter()
+        members.start(router, "m0", "--kill-at-token",
+                      str(FLEET["kill_at"]))
+        members.start(router, "m1")
+        members.ready("m0")
+        members.ready("m1")
+        router.wait_members(2, timeout=FLEET["member_timeout_s"])
+        start_s = time.perf_counter() - t0
+        print("[fleet] two members started together and registered in "
+              "%.1f s (%s)" % (start_s, card))
+
+        # the p99 under a mid-generation SIGKILL of m0
+        done_at = {}
+        t0 = time.perf_counter()
+        futures = []
+        for i, p in enumerate(prompts):
+            fut = router.submit(p, max_new_tokens=FLEET["max_new"],
+                                eos_id=-1, meta=True)
+            fut.add_done_callback(
+                lambda f, i=i: done_at.__setitem__(i, time.perf_counter()))
+            futures.append(fut)
+        results = [f.result(timeout=600) for f in futures]
+        wait_deadline = time.monotonic() + 10
+        while len(done_at) < len(prompts) and \
+                time.monotonic() < wait_deadline:
+            time.sleep(0.005)
+        check(len(done_at) == len(prompts),
+              "[fleet] %d of %d completion stamps" % (len(done_at),
+                                                      len(prompts)))
+        lat_ms = [(done_at[i] - t0) * 1e3 for i in range(len(prompts))]
+        mism = [i for i, (got, want) in enumerate(zip(results, base))
+                if got["tokens"].tolist() != want]
+        check(not mism, "[fleet] streams %s differ from the oracle's "
+              "after the SIGKILL" % mism)
+        members.procs["m0"].wait(timeout=60)
+        check(members.procs["m0"].returncode == -9,
+              "[fleet] m0 exited %s, not SIGKILLed"
+              % members.procs["m0"].returncode)
+        failovers = registry_value("paddle_fleet_failover_total") - \
+            failovers0
+        rec = hist_sum("paddle_fleet_recovery_seconds")
+        rec_n, rec_s = rec[0] - rec0[0], rec[1] - rec0[1]
+        resets = registry_value("paddle_fleet_journal_resets_total") - \
+            resets0
+        check(failovers >= 1 and rec_n >= 1 and resets == 0,
+              "[fleet] %d failovers, %d recoveries, %d journal resets"
+              % (failovers, rec_n, resets))
+        p99 = float(np.percentile(lat_ms, 99))
+        out.update(p99_ms=p99, recovery_s=rec_s / rec_n,
+                   failovers=failovers)
+        print("[fleet] kill: 12 of 12 streams equal to the oracle's; "
+              "fleet_p99_under_kill_ms %.1f (p50 %.1f); "
+              "paddle_fleet_recovery_seconds mean %.3f over %d "
+              "recoveries; failovers %d, replays %s, journal resets 0 (%s)"
+              % (p99, float(np.percentile(lat_ms, 50)), rec_s / rec_n,
+                 rec_n, failovers, [r["replays"] for r in results], card))
+
+        # scale-up through the autoscaler's spawn path, the cache warm
+        free, total = torch.cuda.mem_get_info()
+        print("[fleet] before the scale-up: %.1f of %.1f GB of the card "
+              "free (m0 reaped)" % (free / 1e9, total / 1e9))
+        check(free > 12e9, "[fleet] %.1f GB free for a member" % (free / 1e9))
+
+        def as_spawn(mid):
+            proc = members.start(router, mid)
+            members.ready(mid)
+            return proc
+        scaler = FleetAutoscaler(
+            router, as_spawn, members_max=8, burn_threshold=1.0,
+            cooldown_ms=200.0, idle_ms=3600e3,
+            spawn_timeout_ms=FLEET["member_timeout_s"] * 1e3,
+            spawn_failure_budget=2, member_prefix="up")
+        t_up0 = time.perf_counter()
+        up_mid = scaler.request_scale_up()
+        check(up_mid is not None, "[fleet] the autoscaler refused the "
+              "scale-up")
+        join_deadline = time.monotonic() + FLEET["member_timeout_s"]
+        while up_mid not in router.members_live():
+            check(time.monotonic() < join_deadline,
+                  "[fleet] the scale-up member never joined")
+            time.sleep(0.02)
+        join_s = time.perf_counter() - t_up0
+        while scaler.doc()["pending"]:
+            scaler.tick()
+            time.sleep(0.01)
+        check(not scaler.spawn_failures, "[fleet] the autoscaler charged "
+              "a spawn failure")
+        scaler.close()
+        first_token_ms = None
+        try:
+            conn = wire.LineConn.connect(
+                ("127.0.0.1", members.ports[up_mid]), timeout=300.0)
+            conn.send({"cmd": "generate", "prompt": prompts[0],
+                       "max_new": 2, "eos_id": -1})
+            while True:
+                msg = conn.recv()
+                check(msg is not None and msg.get("ev") != "err",
+                      "[fleet] the scale-up member failed: %r; its log "
+                      "ends %s" % (msg, members.log_tail(up_mid)))
+                if msg.get("ev") == "tok" and first_token_ms is None:
+                    first_token_ms = (time.perf_counter() - t_up0) * 1e3
+                if msg.get("ev") == "done":
+                    break
+            conn.close()
+        except OSError as exc:
+            raise SmokeFailure("[fleet] the scale-up member's stream: %r; "
+                               "its log ends %s"
+                               % (exc, members.log_tail(up_mid)))
+        check(msg["tokens"] == base[0][:2], "[fleet] the scale-up member's "
+              "tokens %s, the oracle's %s" % (msg["tokens"], base[0][:2]))
+        cache_files = sorted(os.listdir(cache_dir)) \
+            if os.path.isdir(cache_dir) else []
+        out["scale_up_ms"] = first_token_ms
+        print("[fleet] scale_up_to_first_token_ms %.1f (request_scale_up "
+              "-> READY and joined %.1f s -> first token; compile cache "
+              "%d files) (%s)" % (first_token_ms, join_s, len(cache_files),
+                                  card))
+
+        # a rolling deploy under concurrent traffic
+        stop = threading.Event()
+        responses, errors = [], []
+
+        def traffic(seed_):
+            rs = np.random.RandomState(seed_)
+            while not stop.is_set():
+                p = [fw.BOS] + [int(t) for t in rs.randint(2, fw.VOCAB, 3)]
+                try:
+                    got = router.submit(
+                        p, max_new_tokens=FLEET["deploy_max_new"],
+                        eos_id=-1, meta=True).result(timeout=600)
+                    responses.append((p, got))
+                except Exception as exc:  # noqa: BLE001 — counted
+                    errors.append(repr(exc))
+        threads = [threading.Thread(target=traffic, args=(17 + i,),
+                                    daemon=True) for i in range(2)]
+        for t in threads:
+            t.start()
+        time.sleep(0.3)
+        t0 = time.perf_counter()
+        deploy = router.rolling_deploy(
+            params_path=v1_path, tag="v1",
+            canary_requests=FLEET["deploy_canary"], watch_timeout=300,
+            swap_timeout=600)
+        deploy_s = time.perf_counter() - t0
+        stop.set()
+        for t in threads:
+            t.join(timeout=600)
+        check(deploy.get("ok"), "[fleet] the rolling deploy: %r" % deploy)
+        mixed = [r for _, r in responses
+                 if r["version_start"] != r["version"]]
+        check(not errors and not mixed,
+              "[fleet] deploy: client errors %s, %d mixed-version "
+              "responses" % (errors[:3], len(mixed)))
+        by_version = {"v0": [], "v1": []}
+        for p, r in responses:
+            by_version[r["version"]].append((p, r["tokens"].tolist()))
+        for version, params in (("v0", None), ("v1", v1)):
+            if params is not None:
+                oracle.swap_weights(params, timeout=600)
+            rows = by_version[version]
+            want = oracle_tokens(oracle, [p for p, _ in rows],
+                                 FLEET["deploy_max_new"])
+            bad = [i for i, ((_, got), w) in enumerate(zip(rows, want))
+                   if got != w]
+            check(not bad, "[fleet] deploy: %d %s responses differ from "
+                  "%s's oracle" % (len(bad), version, version))
+        check(by_version["v1"], "[fleet] no response served by v1")
+        out.update(deploy_errors=len(errors), deploy_s=deploy_s)
+        print("[fleet] rolling deploy of the x%.2f push over %s in %.1f s "
+              "under traffic: rolling_deploy_client_errors %d, %d "
+              "responses (%d v0, %d v1), each equal to its version's "
+              "oracle, none mixed (%s)"
+              % (FLEET["push"], deploy["swapped"], deploy_s, len(errors),
+                 len(responses), len(by_version["v0"]),
+                 len(by_version["v1"]), card))
+        launches = {"flash_attention": 0, "decode_attention": 0}
+        for mid in router.members_live():
+            want = member_launches("fleet", members.stop(mid))
+            launches["flash_attention"] += want["flash_attention.launches"]
+            launches["decode_attention"] += want["decode_attention.launches"]
+        out["launches"] = launches
+    finally:
+        router.close()
+        members.close()
+    del v1
+    print("[fleet] %.1f s in all (%s)" % (time.perf_counter() - t_phase,
+                                          card))
+    return dict(out, tmp=tmp, v0_path=v0_path, cache_dir=cache_dir,
+                oracle=oracle)
+
+
+def phase_model_paging(fleet):
+    """[model-paging]: bench.py's bench_model_paging. Models A ([fleet]'s
+    v0 weights, seed 7) and B (seed 11) in the catalog, a resident-bytes
+    budget of 1.5 models, two members resident for A: the first B request
+    pages B in and evicts A from its member (model_page_in_ms, the
+    page-in's own time beside), then 12 A and 12 B requests interleaved
+    (the residency hit rate); 0 client errors, every stream equal to its
+    model's oracle, each member's launches."""
+    import os
+    import shutil
+    from paddle_tpu_torch.probes import fleet_worker as fw
+    from paddle_tpu_torch.serving.fleet import FleetRouter
+    card = card_line()
+    tmp, path_a, oracle = fleet["tmp"], fleet["v0_path"], fleet["oracle"]
+    t_phase = time.perf_counter()
+    out = {}
+    members = None
+    try:
+        t0 = time.perf_counter()
+        path_b = fleet["path_b"]
+        check(fleet["draw_b"].wait(timeout=600) == 0,
+              "[model-paging] drawing B failed (%s)"
+              % fleet["draw_b"].returncode)
+        with np.load(path_b) as data:
+            b = {k: data[k] for k in data.files}
+        nbytes = os.path.getsize(path_a)
+        print("[model-paging] B, drawn as build_scope(%d) and written with "
+              "its manifest beside [fleet], waited for and read in %.1f s; "
+              "%.2f GB a model, the resident budget %.2f GB"
+              % (PAGING["seed_b"], time.perf_counter() - t0, nbytes / 1e9,
+                 1.5 * nbytes / 1e9))
+        cold = [fw.BOS, 5, 9]
+        prompts_a = fw.chaos_prompts(PAGING["steady"],
+                                     seed=PAGING["prompt_seeds"][0])
+        prompts_b = fw.chaos_prompts(PAGING["steady"],
+                                     seed=PAGING["prompt_seeds"][1])
+        with np.load(path_a) as data:
+            oracle.swap_weights({k: data[k] for k in data.files},
+                                timeout=600)
+        base_a = oracle_tokens(oracle, prompts_a, PAGING["max_new"])
+        oracle.swap_weights(b, timeout=600)
+        del b
+        base_b = oracle_tokens(oracle, [cold] + prompts_b,
+                               PAGING["max_new"])
+        base_cold, base_b = base_b[0], base_b[1:]
+        oracle.close()
+        del oracle
+        fleet.pop("oracle")
+        gc.collect()
+        import torch
+        torch.cuda.empty_cache()
+
+        router = FleetRouter(
+            heartbeat_timeout_ms=FLEET["deadline_ms"], replay_attempts=4,
+            models={"A": {"params_path": path_a, "tag": "A@v0",
+                          "bytes": nbytes, "tenants": ("acme",)},
+                    "B": {"params_path": path_b, "tag": "B@v0",
+                          "bytes": nbytes, "tenants": ("bravo",)}},
+            resident_bytes=int(nbytes * 1.5),
+            page_timeout_ms=FLEET["member_timeout_s"] * 1e3)
+        members = FleetMembers(tmp, path_a, fleet["cache_dir"])
+        page0 = registry_value("paddle_fleet_model_page_ins_total",
+                               outcome="ok")
+        evict0 = registry_value("paddle_fleet_model_evictions_total")
+        hits0 = registry_value("paddle_fleet_model_residency_hits_total")
+        miss0 = registry_value("paddle_fleet_model_residency_misses_total")
+        pin0 = hist_sum("paddle_fleet_model_page_in_ms")
+        try:
+            t0 = time.perf_counter()
+            for mid in ("m0", "m1"):
+                members.start(router, mid, "--model", "A", "--version",
+                              "A@v0")
+            for mid in ("m0", "m1"):
+                members.ready(mid)
+            router.wait_members(2, timeout=FLEET["member_timeout_s"])
+            print("[model-paging] two members resident for A registered "
+                  "in %.1f s (%s)" % (time.perf_counter() - t0, card))
+            t0 = time.perf_counter()
+            got = router.submit(cold, max_new_tokens=PAGING["max_new"],
+                                eos_id=-1, tenant="bravo",
+                                meta=True).result(timeout=900)
+            page_in_ms = (time.perf_counter() - t0) * 1e3
+            check(got["tokens"].tolist() == base_cold,
+                  "[model-paging] the cold B request's tokens differ from "
+                  "B's oracle")
+            pin = hist_sum("paddle_fleet_model_page_in_ms")
+            check(registry_value("paddle_fleet_model_page_ins_total",
+                                 outcome="ok") - page0 == 1
+                  and pin[0] - pin0[0] == 1,
+                  "[model-paging] the cold request did not page B in once")
+            evicted = registry_value(
+                "paddle_fleet_model_evictions_total") - evict0
+            check(evicted >= 1, "[model-paging] paging B in evicted "
+                  "nothing under a 1.5-model budget")
+            errors, futs = [], []
+            for pa, pb in zip(prompts_a, prompts_b):
+                futs.append(router.submit(pa, max_new_tokens=PAGING[
+                    "max_new"], eos_id=-1, tenant="acme"))
+                futs.append(router.submit(pb, max_new_tokens=PAGING[
+                    "max_new"], eos_id=-1, tenant="bravo"))
+            streams = []
+            for f in futs:
+                try:
+                    streams.append([int(t) for t in f.result(timeout=900)])
+                except Exception as exc:  # noqa: BLE001 — counted
+                    errors.append(repr(exc))
+                    streams.append(None)
+            want = [t for ab in zip(base_a, base_b) for t in ab]
+            mism = [i for i, (g, w) in enumerate(zip(streams, want))
+                    if g is not None and g != w]
+            check(not errors and not mism,
+                  "[model-paging] mixed traffic: errors %s, streams %s "
+                  "differ from their model's oracle" % (errors[:3],
+                                                        mism[:5]))
+            hits = registry_value(
+                "paddle_fleet_model_residency_hits_total") - hits0
+            misses = registry_value(
+                "paddle_fleet_model_residency_misses_total") - miss0
+            hit_rate = hits / max(1.0, hits + misses)
+            check(registry_value("paddle_fleet_model_page_ins_total",
+                                 outcome="ok") - page0 == 1,
+                  "[model-paging] steady traffic paged again")
+            out.update(page_in_ms=page_in_ms, hit_rate=hit_rate,
+                       errors=len(errors))
+            print("[model-paging] model_page_in_ms %.1f (the first B "
+                  "request: page-in, the flip's graph recapture and %d "
+                  "tokens; paddle_fleet_model_page_in_ms %.1f), %d "
+                  "eviction(s); model_residency_hit_rate %.3f (%d hits, "
+                  "%d misses over 1 cold + %d mixed requests); "
+                  "paging_client_errors %d; every stream equal to its "
+                  "model's oracle (%s)"
+                  % (page_in_ms, PAGING["max_new"], pin[1] - pin0[1],
+                     evicted, hit_rate, hits, misses, len(futs),
+                     len(errors), card))
+            launches = {"flash_attention": 0, "decode_attention": 0}
+            for mid in router.members_live():
+                want = member_launches("model-paging", members.stop(mid))
+                launches["flash_attention"] += \
+                    want["flash_attention.launches"]
+                launches["decode_attention"] += \
+                    want["decode_attention.launches"]
+            out["launches"] = launches
+        finally:
+            router.close()
+    finally:
+        if members is not None:
+            members.close()
+        if fleet["draw_b"].poll() is None:
+            fleet["draw_b"].kill()
+        fleet["draw_b"].wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    print("[model-paging] %.1f s in all (%s)"
+          % (time.perf_counter() - t_phase, card))
+    return out
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -8703,6 +9299,14 @@ def main(argv=None):
         phase_aot(args.seed, smi, np.random.default_rng(args.seed + 12))
         gc.collect()
         torch.cuda.empty_cache()
+        # the fleet tier: the flagship LM served by member processes on
+        # this card through a router
+        fleet = phase_fleet()
+        paging = phase_model_paging(fleet)
+        paging["fleet_launches"] = fleet["launches"]
+        del fleet
+        gc.collect()
+        torch.cuda.empty_cache()
         phase_captures()
         rows += phase_time_flash_bf16(lm_launches,
                                       errs["flash_attention bf16"], sweep)
@@ -8737,6 +9341,16 @@ def main(argv=None):
                 row.update(generate_launches=generate_b2,
                            generate_launches_in="[lm-generate], a beam-4 "
                            "call: 4 layers x 64 steps")
+            if row["name"] in ("flash_attention", "decode_attention") \
+                    and row.get("dtype", "float32") == "float32" and \
+                    row.get("kv_dtype", "float32") == "float32":
+                # the fleet members' launches, as their LAUNCHES lines
+                # counted them: 12 an admission (B2), 12 a decode step (B4)
+                row.update(
+                    fleet_launches=paging["launches"][row["name"]] +
+                    paging["fleet_launches"][row["name"]],
+                    fleet_launches_in="[fleet] and [model-paging], the "
+                    "members that stopped (m0 was SIGKILLed)")
             if row["name"] in engine and \
                     row.get("dtype", "float32") == "float32":
                 # the serving engine's launches over [engine]: 12 (B2 f32)

@@ -193,6 +193,42 @@ _flags = {
     # none) and the burn-rate windows in seconds, shortest first
     "slo_target_p99_ms": 0.0,
     "slo_windows": (5.0, 60.0),
+    # the serving fleet (serving/fleet.py), read only inside the
+    # FleetRouter and EngineWorker constructors: a worker's membership
+    # beat cadence (the router's default member deadline is 3x it), the
+    # live members a router calls healthy (the /healthz threshold and
+    # wait_members' default), the share of live traffic a freshly
+    # swapped member takes during a rolling deploy's canary watch, and
+    # the cadence at which a worker piggybacks a registry snapshot on its
+    # beat (0 = no shipping)
+    "fleet_heartbeat_ms": 1000.0,
+    "fleet_members_min": 1,
+    "fleet_canary_fraction": 0.25,
+    "fleet_metrics_interval_ms": 0.0,
+    # autoscaling and multi-tenancy (serving/autoscale.py, fleet.py): the
+    # autoscale_* flags and fleet_members_max are read only at
+    # FleetAutoscaler construction (upper capacity bound, fast-window
+    # burn threshold, the spacing of any two capacity actions, the idle
+    # time before a retire, the spawn-to-REG bound and the spawn-failure
+    # budget); fleet_tenants ({tenant: {"quota": N, "priority": P}}, "*"
+    # for unknown tenants) only at router construction. None: no tenant
+    # table
+    "fleet_members_max": 8,
+    "fleet_tenants": None,
+    "autoscale_burn_threshold": 1.0,
+    "autoscale_cooldown_ms": 5000.0,
+    "autoscale_idle_ms": 10000.0,
+    "autoscale_spawn_timeout_ms": 30000.0,
+    "autoscale_spawn_failures": 3,
+    # multi-model paging (serving/model_paging.py, fleet.py), read only at
+    # router construction: the catalog ({model id: {"params_path" or
+    # "model_dir", "tag", "bytes", "tenants"}}; None: no catalog, no
+    # residency state, no paging verbs on any frame), and, only when a
+    # catalog is armed, a member's resident-set byte budget (0 = no
+    # eviction pressure) and the bound on one demand page-in
+    "fleet_models": None,
+    "member_resident_bytes": 0,
+    "model_page_timeout_ms": 30000.0,
 }
 
 # Observers called with the flag dict after every set_flags (the

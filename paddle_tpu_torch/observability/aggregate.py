@@ -7,8 +7,8 @@ aggregation where the scrape is pulled.
   document (label names once per family, raw bucket counts, no help
   text), byte-identical to the reference's for a registry of the same
   contents. :func:`build_snapshot` bounds the encoding under a byte
-  budget (the wire's :data:`MAX_LINE` frame cap less the heartbeat
-  envelope): an oversized snapshot degrades to a summary frame by
+  budget (``serving/wire.py``'s :data:`MAX_LINE` frame cap less the
+  heartbeat envelope): an oversized snapshot degrades to a summary frame by
   dropping whole families, histograms first and counters (the
   conservation-critical data) last, counted in
   ``paddle_fleet_snapshot_truncated_total``; the heartbeat carrying it
@@ -37,16 +37,13 @@ import threading
 import time
 
 from . import metrics as _metrics
+from ..serving.wire import MAX_LINE
 
 __all__ = ["SNAPSHOT_VERSION", "MAX_LINE", "snapshot_registry",
            "encode_snapshot", "encoded_size", "build_snapshot",
            "FleetAggregator"]
 
 SNAPSHOT_VERSION = 1
-
-# the serving wire's frame cap (reference serving/wire.py), which a
-# snapshot riding a heartbeat frame is budgeted against
-MAX_LINE = 8 << 20
 
 _SNAPSHOT_TRUNCATED = _metrics.REGISTRY.counter(
     "paddle_fleet_snapshot_truncated_total",

@@ -44,7 +44,7 @@ import time
 from . import flight as _flight
 from . import metrics as _metrics
 
-__all__ = ["TraceContext", "NO_TRACE", "mint", "event",
+__all__ = ["TraceContext", "NO_TRACE", "mint", "adopt", "event",
            "global_event",
            "discard", "current", "activate", "trace_events", "span_tree",
            "chrome_trace", "trace_ids", "enabled", "clear",
@@ -209,6 +209,25 @@ class RequestTracer:
         ctx = TraceContext(trace_id, span_id, dict(baggage))
         self._record(ctx, span_id, None, "request", None,
                      dict(baggage, kind=kind))
+        return ctx
+
+    def adopt(self, trace_id, kind, **baggage):
+        """A TraceContext bound to a trace id minted in another process
+        (wire propagation: the fleet router sends its id in the request
+        envelope and the worker adopts it, so both stores grow the same
+        tree). No sampling decision here: the minting side made it, and
+        the id's presence on the wire is that decision. None when
+        tracing is off here or ``trace_id`` is falsy; otherwise the
+        trace is registered (if unseen) and a ``kind`` span rooted in
+        it."""
+        if not self.enabled or not trace_id:
+            return None
+        with self._lock:
+            self._ensure_trace_locked(trace_id)
+            span_id = self._new_span_id()
+        ctx = TraceContext(trace_id, span_id, dict(baggage))
+        self._record(ctx, span_id, None, kind, None,
+                     dict(baggage, kind=kind, adopted=True))
         return ctx
 
     def _record(self, ctx, span_id, parent_id, name, dur_ms, attrs):
@@ -379,6 +398,10 @@ _TRACER = RequestTracer()
 
 def mint(kind, **baggage):
     return _TRACER.mint(kind, **baggage)
+
+
+def adopt(trace_id, kind, **baggage):
+    return _TRACER.adopt(trace_id, kind, **baggage)
 
 
 def event(ctx, name, dur_ms=None, parent=None, **attrs):

@@ -8,8 +8,7 @@ config flag is on and a spec armed for that site matches ``index``.
 Matching specs execute their action exactly ``times`` times, so chaos
 tests are reproducible.
 
-The port's hook sites (the reference's names; its fleet and model-paging
-sites belong to the fleet tier, not ported yet):
+The port's hook sites (the reference's names, all of them):
 
 ==============================  ===========================================
 site                            where / what
@@ -80,6 +79,48 @@ site                            where / what
                                 of validation (the push is rejected)
 ``swap_canary_fail``            ServingEngine.swap_weights, before the
                                 canary run (the push is rejected)
+``fleet_member_kill``           EngineWorker's token-stream loop; ``index``
+                                is the request's streamed-token count: arm
+                                with ``action="kill"`` in the worker
+                                process to SIGKILL the member
+                                mid-generation (the router re-drives its
+                                in-flight journals on a peer)
+``fleet_network_partition``     both ends of the fleet wire: the router
+                                fires it before dispatching to a member
+                                (``index`` = member id, default exception
+                                ConnectionError) and the worker's
+                                heartbeat loop swallows beats under it, so
+                                one arm per process is one direction of a
+                                partition
+``fleet_slow_member``           EngineWorker, before serving a request;
+                                ``index`` is the member id: a callback
+                                sleeping past the router's call timeout is
+                                a wedged member (a hang opens its breaker)
+``fleet_spawn_fail``            FleetAutoscaler's launch thread, before the
+                                spawn callable runs; ``index`` is the
+                                would-be member id: a raising spec is the
+                                spawn that died before registering,
+                                charged to the spawn-failure budget
+``fleet_spawn_slow``            FleetAutoscaler's launch thread, after the
+                                spawn callable returned: a callback
+                                sleeping past
+                                ``autoscale_spawn_timeout_ms`` wedges the
+                                launch; the tick's sweep kills the handle
+                                and charges the budget
+``model_page_in_fail``          EngineWorker's page_in handler, before any
+                                weight lands; ``index`` is the model id: a
+                                raising spec is a refused artifact (the
+                                member keeps its resident set; the router
+                                charges the spawn-failure budget)
+``model_page_in_slow``          EngineWorker's page_in handler; ``index``
+                                is the model id: a callback sleeping past
+                                ``model_page_timeout_ms`` wedges the
+                                page-in (the router times it out, charges
+                                the budget and retries on a peer)
+``model_evict_race``            FleetRouter's eviction pressure, between
+                                victim selection and the page_out send;
+                                ``index`` is the victim's model id: a
+                                raising spec aborts the eviction round
 ==============================  ===========================================
 
 Actions: ``"raise"`` (raise ``exc``, default :class:`InjectedFault`),

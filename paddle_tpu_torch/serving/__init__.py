@@ -16,6 +16,11 @@
 * :mod:`generation` — KV-cached generation, dense or paged:
   :class:`GenerationSession` and :class:`GenerationScheduler`.
 * :mod:`paged_cache` — :class:`BlockPool` and :class:`PrefixIndex`.
+* :mod:`fleet` — :class:`FleetRouter` over :class:`EngineWorker`
+  processes: membership, routing, cross-process failover, rolling
+  deploys, tenants and model paging (:mod:`model_paging`), over the
+  JSON-line transport of :mod:`wire`; :mod:`autoscale` holds the
+  capacity control loop a router's monitor ticks.
 """
 
 from . import deploy  # noqa: F401
@@ -31,11 +36,14 @@ from .batcher import (MicroBatcher, ServingOverloadError,  # noqa: F401
 from .generation import (GenerationScheduler,  # noqa: F401
                          GenerationSession, GenerationSpec)
 from .paged_cache import BlockPool, PoolExhausted, PrefixIndex  # noqa: F401
+from .fleet import EngineWorker, FleetRouter  # noqa: F401
+from .wire import WireError  # noqa: F401
 
 __all__ = ["ServingEngine", "MicroBatcher", "ServingOverloadError",
            "TenantQuotaError", "ServingDeadlineError",
            "ServingTimeoutError", "ServingUnavailableError",
            "SwapRejectedError", "ReplicaBreaker", "GenerationSession",
            "GenerationScheduler", "GenerationSpec", "BlockPool",
-           "PrefixIndex", "PoolExhausted", "deploy", "generation",
-           "paged_cache", "quant", "resilience"]
+           "PrefixIndex", "PoolExhausted", "FleetRouter", "EngineWorker",
+           "WireError", "deploy", "fleet", "generation", "paged_cache",
+           "quant", "resilience", "wire"]

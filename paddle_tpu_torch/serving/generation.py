@@ -1296,6 +1296,27 @@ class GenerationSession:
         return tokens
 
 
+def _host_weights(sessions, names):
+    """{name: a CPU copy of its live tensor} for the ``names`` the first
+    session holds: its scope's on the program route, its model's
+    reference state on the module route (every session of a scheduler
+    holds the same values)."""
+    s = sessions[0]
+    if s.scope is not None:
+        state = {n: s.scope.find_var(n) for n in names}
+    else:
+        state = s.model.reference_state()
+    out = {}
+    for name in names:
+        v = state.get(name)
+        if v is None:
+            continue
+        out[name] = (v.detach().to("cpu", copy=True)
+                     if isinstance(v, torch.Tensor)
+                     else torch.from_numpy(np.array(v, copy=True)))
+    return out
+
+
 def _install_weights(sessions, params):
     """Swap ``params`` ({reference name: array or tensor}) into every
     session (their drafts included): the models of module sessions, the
@@ -1623,6 +1644,7 @@ class GenerationScheduler:
         self._trial_failures = [0] * len(self.sessions)
         self._swap_lock = threading.Lock()
         self._pending_swap = None  # (params, Future)
+        self._pending_snapshots = []  # [(names, Future)]
         self._weights_version = 0
         self._health_name = "generation%d" % self._sched_id
         _health.register_health(self._health_name,
@@ -2496,7 +2518,13 @@ class GenerationScheduler:
     # -- weight swap -----------------------------------------------------
     def _apply_pending_swap(self):
         with self._swap_lock:
+            snaps, self._pending_snapshots = self._pending_snapshots, []
             pending, self._pending_swap = self._pending_swap, None
+        for names, future in snaps:
+            try:
+                _resolve(future, result=_host_weights(self.sessions, names))
+            except Exception as exc:  # noqa: BLE001 — the caller's error
+                _resolve(future, exception=exc)
         if pending is None:
             return
         params, future = pending
@@ -2543,6 +2571,23 @@ class GenerationScheduler:
                         "cancelled" % timeout) from None
             # the dispatcher took it mid-wait: the install is bounded
             return future.result(timeout=5.0)
+
+    def snapshot_weights(self, names, timeout=30.0):
+        """Host copies of the live parameter values ``names`` ({reference
+        name: CPU tensor}; a name the sessions do not hold is left out),
+        read on the dispatcher thread between decode steps, where every
+        launch of this scheduler runs: a fleet worker's rollback target
+        of a weight push and the resident copy of a model it pages out of
+        its scope. A later ``swap_weights`` installs new tensors and
+        never writes these."""
+        if self._closed:
+            raise RuntimeError("scheduler is closed")
+        future = Future()
+        with self._swap_lock:
+            self._pending_snapshots.append((list(names), future))
+        if self._thread is None:
+            self._apply_pending_swap()
+        return future.result(timeout=timeout)
 
     # -- serving loop and shutdown ----------------------------------------
     def _serve_out(self):

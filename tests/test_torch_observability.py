@@ -71,6 +71,11 @@ from paddle_tpu import distributed as ref_distributed  # noqa: F401
 from paddle_tpu.resilience import supervisor as ref_sup  # noqa: F401
 from paddle_tpu.observability import aggregate as _ref_agg  # noqa: F401
 from paddle_tpu.observability import slo as _ref_slo  # noqa: F401
+# the fleet tier's: the router's, the workers' and the paging families
+# register when the serving package is imported (fleet.py,
+# model_paging.py), the autoscaler's when its module is
+from paddle_tpu_torch.serving import autoscale as _autoscale  # noqa: F401
+from paddle_tpu.serving import autoscale as _ref_autoscale  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 V, MAXLEN = 29, 24
@@ -147,7 +152,21 @@ FAMILIES = sorted([
         "generation", "worker_deaths_total", "resume_seconds",
         "restarts_total", "heartbeats_total", "heartbeat_misses_total")] + [
     "paddle_slo_burn_rate", "paddle_slo_violation_seconds_total",
-    "paddle_fleet_snapshot_truncated_total"])
+    "paddle_fleet_snapshot_truncated_total"] + [
+    "paddle_fleet_%s" % n for n in (
+        "requests_total", "failover_total", "member_deaths_total",
+        "fenced_replies_total", "journal_resets_total", "deploys_total",
+        "rollbacks_total", "generation", "members_live",
+        "member_inflight", "request_ms", "tenant_request_ms",
+        "tenant_deadline_total", "tenant_active", "recovery_seconds",
+        "worker_done_total", "model_page_ins_total", "model_page_in_ms",
+        "model_evictions_total", "model_residency_hits_total",
+        "model_residency_misses_total", "model_request_ms",
+        "model_deadline_total", "member_resident_bytes")] + [
+    "paddle_autoscale_%s" % n for n in (
+        "scale_ups_total", "scale_downs_total", "spawn_failures_total",
+        "spawn_to_join_ms", "pending_spawns", "pressure",
+        "queue_wait_ms")])
 
 
 @pytest.fixture(autouse=True)

@@ -42,6 +42,15 @@ def _forbidden(name):
         name == "paddle_tpu" or name.startswith("paddle_tpu.")
 
 
+def test_the_walk_covers_the_fleet_tier():
+    """The fleet tier's modules and its member probe are among the
+    modules the import walk and the source scan below cover."""
+    mods = _package_modules()
+    for name in ("serving.wire", "serving.fleet", "serving.autoscale",
+                 "serving.model_paging", "probes.fleet_worker"):
+        assert "paddle_tpu_torch." + name in mods, name
+
+
 def test_import_leaves_jax_and_reference_out():
     """Import every module of the package in a fresh interpreter."""
     code = ("import importlib, sys\n"

@@ -448,19 +448,24 @@ def test_registered_families_follow_the_rules():
 # -- config ----------------------------------------------------------------
 
 def test_flag_names_equal_the_reference_but_the_listed():
-    """The port carries 48 of the reference's 64 flags: the two it
-    leaves out by design (config.py's docstring) and the fleet tier's,
-    which that slice brings; defaults equal."""
+    """The port carries 62 of the reference's 64 flags, the fleet tier's
+    14 among them: only the two it leaves out by design (config.py's
+    docstring) are missing; defaults equal, and set_flags refuses the
+    two as it refuses any unknown name."""
     ours, theirs = set(port_config._flags), set(ptpu.config._flags)
     assert ours <= theirs
-    missing = theirs - ours
-    by_design = {"flash_attention", "quant_pallas"}
-    fleet = {n for n in missing if n.startswith(("autoscale_", "fleet_"))}
-    fleet |= {"member_resident_bytes", "model_page_timeout_ms"}
-    assert missing == by_design | fleet
-    assert (len(ours), len(theirs)) == (48, 64)
+    assert theirs - ours == {"flash_attention", "quant_pallas"}
+    assert (len(ours), len(theirs)) == (62, 64)
     for name in ours:
         assert port_config._flags[name] == ptpu.config._flags[name], name
+    fleet = {n for n in ours if n.startswith(("autoscale_", "fleet_"))}
+    fleet |= {"member_resident_bytes", "model_page_timeout_ms"}
+    assert len(fleet) == 14
+    for name in sorted(fleet):
+        port_config.set_flags(**{name: port_config.get_flag(name)})
+    for name in ("flash_attention", "quant_pallas"):
+        with pytest.raises(KeyError):
+            port_config.set_flags(**{name: True})
 
 
 def test_matmul_precision_keys_the_cache_and_is_restored():
