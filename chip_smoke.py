@@ -144,17 +144,19 @@ and PyTorch built for CUDA. In order, it:
    step resumed from a checkpoint equal to the bit to the uninterrupted
    one; compute, wire-copy and pipeline times, the overlap and images/s.
 
-17. exports the flagship LM's forward program (is_test, T 512) through
-   ``io.save_inference_model``, f32 and int8, merges the f32 export into
-   one file, and serves it through ``ServingEngine`` (buckets 1 and 8, two
-   replicas on the card, breakers, a per-call timeout) and
-   ``MicroBatcher`` from 8 client threads (``[engine]``): a bucket-8 batch
-   equal to a direct run, each request within 1e-3 of max|logits| of its
-   row alone in bucket 1, B2 f32 12 launches an execution (B3 73 on the
-   int8 engine, whose scope keeps the 73 weights int8), a replica failure
-   failed over and re-admitted by the probe, a swap onto a seed-1 export
-   equal to a direct run on it, a push under ``swap_canary_fail``
-   rejected, the merged-file engine equal to the directory engine, a
+17. exports the flagship LM's forward program (is_test, T 512; at full
+   width and, since the op tail's slice, half depth: 6 layers,
+   ENGINE_LM) through ``io.save_inference_model``, f32 and int8, merges
+   the f32 export into one file, and serves it through ``ServingEngine``
+   (buckets 1 and 8, two replicas on the card, breakers, a per-call
+   timeout) and ``MicroBatcher`` from 8 client threads (``[engine]``): a
+   bucket-8 batch equal to a direct run, each request within 1e-3 of
+   max|logits| of its row alone in bucket 1, B2 f32 one launch a layer
+   an execution (B3 6 a layer and 1 on the int8 engine, whose scope
+   keeps those weights int8), a replica failure failed over and
+   re-admitted by the probe, a swap onto a seed-1 export equal to a
+   direct run on it, a push under ``swap_canary_fail`` rejected, the
+   merged-file engine equal to the directory engine, a
    2-layer artifact card against CPU, and ResNet-50's export refused as
    the reference refuses it (no running statistics in the artifact);
    batch times by bucket, requests/s and p50/p99, cold start, the swap's
@@ -240,6 +242,18 @@ and PyTorch built for CUDA. In order, it:
    members (the hit rate), 0 client errors, every stream its model's
    oracle's. Each member that stops prints its launches: B2 12 an
    admission and B4 12 a decode step, both launched, nothing else.
+23. the op tail, after the RNN slice's ``[ops]`` and after ``[lenet]``:
+   its 17 op types on the card against the CPU (``[ops]``, the cases of
+   ``probes/op_cases.py`` ``TAIL_CASES``: no warm call reads back to the
+   host but ``print``'s, whose line is checked; all 219 op types
+   registered, none pending); ``models/ssd.py`` at 300², VOC's 21
+   classes, batch 32 (``[detection]``: a step card against CPU, 30 steps
+   halving the loss, the detections card against CPU with no host read,
+   ``DetectionMAP`` equal, the step, images/s, busy share, peak); and the
+   ``benchmark/paddle/image`` recipes (``[vision]``: AlexNet, VGG-19 and
+   GoogLeNet at 224² and SmallNet at 32², batch 64, Momentum(0.01, 0.9):
+   a step card against CPU, 10 timed steps beside their reckoned bound,
+   SmallNet's ``Accuracy`` evaluator against its steps' accuracy).
 
 Any failed phase exits nonzero. The line before the last is the card's
 name and power limit from nvidia-smi; the one before that lists the
@@ -5353,6 +5367,10 @@ def phase_time_flash_bf16(lm_launches, err, sweep):
 # 12-layer logits limit of PERF.md: cuBLAS may take another algorithm at
 # m = 8 x 512 than at 512); ENGINE_TIMED_RUNS timed batches a bucket
 ENGINE_T = 512
+# the LM of [engine] and [aot]: the flagship's full width at half its
+# depth, 6 of 12 layers (a depth cut for the script's 1200 s; the fleet
+# phases serve all 12)
+ENGINE_LM = dict(FULL, num_layers=6)
 ENGINE_BUCKETS = (1, 8)
 ENGINE_REPLICAS = 2
 ENGINE_BREAKER_FAILURES = 2
@@ -5556,7 +5574,7 @@ def phase_engine(seed, smi, rng):
     from paddle_tpu_torch.serving import deploy
     from paddle_tpu_torch.utils.merge_model import merge_inference_model
     card = smi[0] if smi else "nvidia-smi: no output"
-    cfg = lm_cfg(FULL)
+    cfg = lm_cfg(ENGINE_LM)
     L, vocab, t = cfg["num_layers"], cfg["vocab_size"], ENGINE_T
     armed_per = 6 * L + 1
     tmp = tempfile.mkdtemp(prefix="engine_")
@@ -5572,7 +5590,7 @@ def phase_engine(seed, smi, rng):
         d32, d8 = os.path.join(tmp, "f32"), os.path.join(tmp, "int8")
         t0 = time.perf_counter()
         secs, _ = uncounted(lambda: engine_export(
-            FULL, t, seed, "cuda", {d32: None, d8: "int8"}))
+            ENGINE_LM, t, seed, "cuda", {d32: None, d8: "int8"}))
         export_s = time.perf_counter() - t0
         torch.cuda.empty_cache()
         size = {d: sum(os.path.getsize(os.path.join(d, f))
@@ -5700,7 +5718,8 @@ def phase_engine(seed, smi, rng):
 
         # -- hot swaps ------------------------------------------------------
         d32b = os.path.join(tmp, "f32_seed1")
-        _, sb = uncounted(lambda: engine_export(FULL, t, seed + 1, "cuda",
+        _, sb = uncounted(lambda: engine_export(ENGINE_LM, t, seed + 1,
+                                                "cuda",
                                                 {d32b: None}))
         hist = deploy.SWAP_BLACKOUT_SECONDS.labels()
         s0, c0 = hist.sum, hist.count
@@ -5875,7 +5894,7 @@ def aot_forward(cache_dir, seed):
     from paddle_tpu_torch import config, core
     from paddle_tpu_torch.core import executor
     from paddle_tpu_torch.observability import metrics
-    cfg = lm_cfg(FULL)
+    cfg = lm_cfg(ENGINE_LM)
     main, startup, _, logits = lm_program(cfg, ENGINE_T, is_test=True)
     startup.random_seed = seed
     exe, scope = core.Executor(device="cuda"), core.Scope()
@@ -5978,13 +5997,14 @@ def phase_aot(seed, smi, rng):
     byte flipped in the stored blob is quarantined and the step rebuilt;
     the artifacts' engines prime every bucket of every replica (no
     fallback), answer bitwise as the same artifacts' engines without
-    compiled/, and launch B2 f32 12 (B3 73) an execution."""
+    compiled/, and launch B2 f32 L (B3 6L + 1) an execution, L the
+    layers of ENGINE_LM."""
     import os
     import shutil
     import tempfile
     import torch
     card = smi[0] if smi else "nvidia-smi: no output"
-    cfg = lm_cfg(FULL)
+    cfg = lm_cfg(ENGINE_LM)
     L, vocab = cfg["num_layers"], cfg["vocab_size"]
     armed_per = 6 * L + 1
     tmp = tempfile.mkdtemp(prefix="aot_")
@@ -6049,7 +6069,7 @@ def phase_aot(seed, smi, rng):
         try:
             t0 = time.perf_counter()
             secs, _ = uncounted(lambda: engine_export(
-                FULL, ENGINE_T, seed, "cuda", {d32: None, d8: "int8"},
+                ENGINE_LM, ENGINE_T, seed, "cuda", {d32: None, d8: "int8"},
                 compiled=ENGINE_BUCKETS))
             export_s = time.perf_counter() - t0
         finally:
@@ -6769,11 +6789,12 @@ def phase_ops_rnn(seed):
           "[ops] host reads of the control flow: %s" % reads)
     checked.add("cond")
     rnn_ops = set(oc.RNN_OPS)
-    # 202 since the distribution slice: its three sparse and distributed
-    # lookup types run card against CPU in [recsys]
+    # 219 since the op tail (202 since the distribution slice, whose
+    # three sparse and distributed lookup types run card against CPU in
+    # [recsys]); the op tail's 17 are checked in its own [ops] call
     check(rnn_ops <= checked and len(rnn_ops) == 35 and
           rnn_ops <= set(registry.registered_ops()) and
-          len(registry.registered_ops()) == 202,
+          len(registry.registered_ops()) == 219,
           "[ops] checked %d of the RNN slice's %d op types; %d registered"
           % (len(rnn_ops & checked), len(rnn_ops),
              len(registry.registered_ops())))
@@ -9048,6 +9069,446 @@ def phase_model_paging(fleet):
           % (time.perf_counter() - t_phase, card))
     return out
 
+# -- the op tail, detection and the image recipes: the 17 op types of
+# ops/{detection,misc,legacy_tail}_ops.py, SSD and the benchmark/paddle/
+# image recipes ------------------------------------------------------------
+
+DETECT = dict(res=300, classes=21, batch=32, gt=8, lr=0.01, momentum=0.9,
+              compare_batch=2, train_steps=30, window=10)
+DETECT_RTOL = 1e-4          # one step at batch 2, cuDNN against the CPU
+DETECT_MAP_ATOL = 1e-9      # mAP over the card's and the CPU's detections
+VISION = dict(batch=64, compare_batch=2, lr=0.01, momentum=0.9, warmup=2,
+              steps=10)
+# (name, input side, classes): the benchmark/paddle/image recipes
+VISION_MODELS = (("alexnet", 224, 1000), ("vgg19", 224, 1000),
+                 ("googlenet", 224, 1000), ("smallnet", 32, 10))
+VISION_RTOL = 1e-4          # one step at batch 2, cuDNN against the CPU
+STEP_NUDGE = 1e-6           # the input's relative nudge, and the bound's
+STEP_SPREAD = 8             # multiple of the spread it gives (step_pair)
+
+
+def phase_ops_tail():
+    """[ops] of the op tail: its 17 op types (``probes/op_cases.py``
+    ``TAIL_CASES``) on the card against the CPU on the same inputs, each
+    output on the card, a warm second call reading nothing back to the
+    host (sync debug mode "error") but ``print``'s, whose printed line
+    is checked instead: the CPU's text of the same values, one host read
+    a call; and the registry: all 219 of the reference's op types, none
+    pending."""
+    import io
+    import torch
+    from paddle_tpu_torch.core import registry
+    from paddle_tpu_torch.ops import control_flow_ops as cf
+    from paddle_tpu_torch.probes import op_cases as oc
+    t0 = time.perf_counter()
+    worst, checked = {}, set()
+    for case in oc.TAIL_CASES:
+        inputs = case.inputs()
+        family = oc.tail_family(case.op_type)
+        tol = OPS_RNN_RTOL if case.tol == oc.RNN else ops_tolerance(case)
+        printed = {}
+        for dev in ("cpu", "cuda"):
+            with contextlib.redirect_stdout(io.StringIO()) as text:
+                before = cf.HOST_READS["print"]
+                printed[dev] = (op_call(case, inputs, dev)(),
+                                cf.HOST_READS["print"] - before)
+            printed[dev] += (text.getvalue(),)
+        out = {dev: printed[dev][0] for dev in printed}
+        if case.op_type == "print":
+            want = "%s: %s\n" % (case.attrs["message"],
+                                 out["cpu"]["Out"][0].numpy())
+            check(printed["cuda"][1:] == printed["cpu"][1:] == (1, want),
+                  "[ops] print: card %r, CPU %r" % (printed["cuda"][1:],
+                                                    printed["cpu"][1:]))
+        else:
+            again = op_call(case, inputs, "cuda")
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                again()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        check(sorted(out["cuda"]) == sorted(out["cpu"]),
+              "[ops] %s: slots differ" % case.id)
+        for slot, vals in out["cpu"].items():
+            for got, want in zip(out["cuda"][slot], vals):
+                check(got.device.type == "cuda" and got.dtype == want.dtype
+                      and got.shape == want.shape,
+                      "[ops] %s %s: %s %s %s against %s %s" % (
+                          case.id, slot, got.device, got.dtype,
+                          tuple(got.shape), want.dtype, tuple(want.shape)))
+                err = op_err(got, want)
+                check(err <= tol, "[ops] %s %s: card against CPU %.3g > "
+                      "%.3g" % (case.id, slot, err, tol))
+                ratio = err / tol if tol else 0.0
+                if ratio >= worst.get(family, (-1.0,))[0]:
+                    worst[family] = (ratio, case.id, err, tol)
+        checked.add(case.op_type)
+    tail = set(oc.TAIL_OPS)
+    check(tail <= checked and len(tail) == 17 and
+          tail <= set(registry.registered_ops()) and
+          len(registry.registered_ops()) == 219 and not registry.PENDING,
+          "[ops] checked %d of the op tail's %d op types; %d registered, "
+          "%d pending" % (len(tail & checked), len(tail),
+                          len(registry.registered_ops()),
+                          len(registry.PENDING)))
+    print("[ops] %d op types of the op tail checked card against CPU (%d "
+          "cases; print's line checked, one host read a call), %d of the "
+          "reference's 219 op types registered, %d pending, in %.1f s" % (
+              len(tail & checked), len(oc.TAIL_CASES),
+              len(registry.registered_ops()), len(registry.PENDING),
+              time.perf_counter() - t0))
+    for family in sorted(worst):
+        _, case_id, err, bound = worst[family]
+        print("[ops]   %-10s worst %-32s %.3g (tolerance %.3g)"
+              % (family, case_id, err, bound))
+
+
+def ssd_program(seed, mode="train"):
+    """``models.ssd.ssd_net`` at DETECT's size: training with
+    Momentum(lr, momentum) over padded ground truth of DETECT["gt"] boxes
+    an image, or the detections (``mode="infer"``)."""
+    from paddle_tpu_torch import core, layers, optimizer
+    from paddle_tpu_torch.models import ssd
+    cfg = DETECT
+    main, startup = core.Program(), core.Program()
+    startup.random_seed = seed
+    with core.unique_name.guard(), core.program_guard(main, startup):
+        img = layers.data("img", shape=[3, cfg["res"], cfg["res"]])
+        if mode == "infer":
+            return main, startup, ssd.ssd_net(
+                img, num_classes=cfg["classes"], mode="infer")
+        gb = layers.data("gb", shape=[cfg["gt"], 4])
+        gl = layers.data("gl", shape=[cfg["gt"]], dtype="int64")
+        gc = layers.data("gc", shape=[], dtype="int64")
+        loss, _, _ = ssd.ssd_net(img, num_classes=cfg["classes"],
+                                 gt_box=gb, gt_label=gl, gt_count=gc)
+        optimizer.Momentum(cfg["lr"], cfg["momentum"]).minimize(loss,
+                                                                startup)
+    return main, startup, loss
+
+
+def ssd_batch(rs, n):
+    """``n`` images with 1..gt boxes each (normalized corners), labels
+    1..classes-1, padding label 0."""
+    cfg = DETECT
+    g = cfg["gt"]
+    count = rs.randint(1, g + 1, n)
+    boxes = np.zeros((n, g, 4), np.float32)
+    labels = np.zeros((n, g), np.int64)
+    for i in range(n):
+        for j in range(count[i]):
+            x0, y0 = rs.uniform(0.0, 0.7, 2)
+            w, h = rs.uniform(0.1, 0.3, 2)
+            boxes[i, j] = [x0, y0, min(x0 + w, 1.0), min(y0 + h, 1.0)]
+            labels[i, j] = rs.randint(1, cfg["classes"])
+    return {"img": rs.rand(n, 3, cfg["res"], cfg["res"]).astype(np.float32),
+            "gb": boxes, "gl": labels, "gc": count.astype(np.int64)}
+
+
+def scope_errs(a, b, names):
+    """{name: ||a - b|| / ||b||} over ``names`` of two scopes, in float64
+    (the small-ResNet phases' measure)."""
+    return {n: rel_dist(a.find_var(n).cpu(), b.find_var(n).cpu())
+            for n in names}
+
+
+def step_pair(main, startup, loss, feed, tol, tag):
+    """One step on the card and on the CPU from the same startup weights
+    (drawn on the card, copied): the losses within ``tol``, and each
+    persistable within max(``tol``, STEP_SPREAD x the step's spread) in
+    relative L2, the spread being the largest relative L2 move of a
+    persistable on the CPU when the input moves by STEP_NUDGE relative. A
+    step of a ReLU and max-pool net is discontinuous: an activation
+    within rounding of 0 or of its pool window's maximum sends its
+    gradient elsewhere when the forward's rounding changes, which tensor
+    it hits is chance, and the spread measures how far such a change
+    moves this step's gradients. Returns the startup scope."""
+    from paddle_tpu_torch import core
+    init = core.Scope()
+    core.Executor(device="cuda").run(startup, scope=init)
+    nudged = dict(feed)
+    nudged["img"] = (feed["img"] * (1 + STEP_NUDGE * np.random.RandomState(
+        1).standard_normal(feed["img"].shape))).astype(np.float32)
+    scopes, losses = {}, {}
+    for run, dev, f in (("cpu", "cpu", feed), ("cuda", "cuda", feed),
+                        ("nudged", "cpu", nudged)):
+        scopes[run] = scope_copy(init, dev)
+        losses[run] = float(np.asarray(core.Executor(device=dev).run(
+            main, feed=f, fetch_list=[loss],
+            scope=scopes[run])[0]).ravel()[0])
+    names = [v.name for v in main.global_block().vars.values()
+             if v.persistable and not v.name.startswith("@")]
+    errs = scope_errs(scopes["cuda"], scopes["cpu"], names)
+    spread = scope_errs(scopes["nudged"], scopes["cpu"], names)
+    widest = max(names, key=spread.get)
+    bound = max(tol, STEP_SPREAD * spread[widest])
+    worst = max(names, key=errs.get)
+    lerr = abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"])
+    print("[%s] one step at batch %d from the same startup weights: loss "
+          "card %.6f cpu %.6f (rel err %.3g, tolerance %.0e); %d "
+          "persistables in relative L2, worst %s %.3g (bound %.3g: the "
+          "step's spread under a %.0e nudge of the input %.3g, %s)" % (
+              tag, feed["img"].shape[0], losses["cuda"], losses["cpu"],
+              lerr, tol, len(names), worst, errs[worst], bound,
+              STEP_NUDGE, spread[widest], widest))
+    check(lerr <= tol and errs[worst] <= bound and
+          np.isfinite(losses["cuda"]),
+          "[%s] card against CPU: loss %.3g, %s %.3g > %.3g" % (
+              tag, lerr, worst, errs[worst], bound))
+    return init
+
+
+def phase_detection(seed):
+    """[detection]: ``ssd_net`` at its own widths on VOC's 21 classes at
+    300 x 300 (priors at strides 4 and 8: 75² x 3 + 37² x 3 = 20,982),
+    batch 32 with 1-8 ground-truth boxes an image (padded to 8), data
+    from the seed, Momentum(0.01, 0.9): one step at batch 2 card against
+    CPU from the same startup weights (``step_pair``: the loss, every
+    parameter and velocity); 30 steps on one fixed batch on the
+    card, the loss below half its first value; the infer program's
+    detections at batch 2 card against CPU from the trained weights
+    (labels equal, scores and boxes within tolerance), a warm second
+    call (a fresh executor's first run) reading nothing back to the host;
+    ``DetectionMAP`` over the card's detections equal to the CPU's over
+    its own; the step (median of windows of 10), images/s, one step's
+    busy share and the peak memory."""
+    import torch
+    from paddle_tpu_torch import core, evaluator
+    cfg = DETECT
+    t0 = time.perf_counter()
+    main, startup, loss = ssd_program(seed)
+    infer, _, dets = ssd_program(seed, "infer")
+    priors = sum(int(np.prod(v.shape[:3])) for v in
+                 main.global_block().vars.values()
+                 if v.name.startswith("prior_box") and
+                 v.name.endswith("tmp_0"))
+    check(priors == 75 * 75 * 3 + 37 * 37 * 3,
+          "[detection] %d priors" % priors)
+    rs = np.random.RandomState(seed)
+    batch = ssd_batch(rs, cfg["batch"])
+    small = {k: v[:cfg["compare_batch"]] for k, v in batch.items()}
+    init = step_pair(main, startup, loss, small, DETECT_RTOL, "detection")
+    # 30 steps on the fixed batch, timed in windows of 10
+    scope = scope_copy(init, "cuda")
+    exe = core.Executor(device="cuda")
+    feed = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    losses, windows = [], []
+    for _ in range(cfg["train_steps"] // cfg["window"]):
+        t1 = time.perf_counter()
+        for _ in range(cfg["window"]):
+            out, = exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
+                           return_numpy=False)
+            losses.append(out)
+        torch.cuda.synchronize()
+        windows.append((time.perf_counter() - t1) * 1e3 / cfg["window"])
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(v) for v in losses]
+    print("[detection] %d steps on one batch of %d: loss %.4f -> %.4f "
+          "(%.3f of the first; below 0.5 required)" % (
+              cfg["train_steps"], cfg["batch"], losses[0], losses[-1],
+              losses[-1] / losses[0]))
+    check(all(np.isfinite(losses)) and losses[-1] < 0.5 * losses[0],
+          "[detection] the loss did not halve: %s" % losses)
+    step_ms = float(np.median(windows))
+    busy = profile_window("detection one training step", lambda: exe.run(
+        main, feed=feed, fetch_list=[loss], scope=scope,
+        return_numpy=False))
+    print("[detection] step %.3f ms (median of %d windows of %d: %s), "
+          "%.1f images/s, busy %s, peak allocated %.1f MB (%.1f MB above "
+          "the %.1f MB allocated before the windows); %s" % (
+              step_ms, len(windows), cfg["window"],
+              [round(w, 3) for w in windows], cfg["batch"] / step_ms * 1e3,
+              "not measured" if busy is None else
+              "%.1f%%" % (100 * busy["busy_share"]), peak / 1e6,
+              (peak - base) / 1e6, base / 1e6, card_line()))
+    # detections from the trained weights, card against CPU
+    images = {"img": batch["img"][:cfg["compare_batch"]]}
+    cpu_scope = scope_copy(scope, "cpu")
+    got = {"cpu": core.Executor(device="cpu").run(
+        infer, feed=images, fetch_list=[dets], scope=cpu_scope)[0]}
+    got["cuda"] = core.Executor(device="cuda").run(
+        infer, feed=images, fetch_list=[dets], scope=scope)[0]
+    a, b = got["cuda"], got["cpu"]
+    kept = int((b[..., 0] >= 0).sum())
+    err = float(np.abs(a[..., 1:] - b[..., 1:]).max() /
+                max(float(np.abs(b[..., 1:]).max()), 1e-30))
+    print("[detection] infer at batch %d: %s detections, %d kept; labels "
+          "equal %s, scores and boxes rel err %.3g (tolerance %.0e)" % (
+              cfg["compare_batch"], tuple(a.shape), kept,
+              np.array_equal(a[..., 0], b[..., 0]), err, DETECT_RTOL))
+    check(a.shape == b.shape == (cfg["compare_batch"], 16, 6) and kept and
+          np.array_equal(a[..., 0], b[..., 0]) and err <= DETECT_RTOL,
+          "[detection] infer card against CPU")
+    fresh = core.Executor(device="cuda")
+    dev_images = {"img": torch.from_numpy(images["img"]).cuda()}
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fresh.run(infer, feed=dev_images, fetch_list=[dets], scope=scope,
+                  return_numpy=False)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    maps = {}
+    for dev in ("cpu", "cuda"):
+        ev = evaluator.DetectionMAP(cfg["classes"])
+        ev.update(got[dev], *(small[k] for k in ("gb", "gl", "gc")))
+        maps[dev] = ev.eval()
+    print("[detection] DetectionMAP (11-point) over the %d images: card "
+          "%.6f, CPU %.6f; a warm infer call read nothing back; %.1f s"
+          % (cfg["compare_batch"], maps["cuda"], maps["cpu"],
+             time.perf_counter() - t0))
+    check(abs(maps["cuda"] - maps["cpu"]) <= DETECT_MAP_ATOL,
+          "[detection] mAP card %r CPU %r" % (maps["cuda"], maps["cpu"]))
+    return dict(step_ms=step_ms, peak=peak)
+
+
+def vision_program(name, res, classes, seed, with_eval=False):
+    """The ``benchmark/paddle/image`` recipe ``name`` at res², Momentum;
+    with ``with_eval`` an ``evaluator.Accuracy`` over its softmax."""
+    from paddle_tpu_torch import core, evaluator, layers, optimizer
+    from paddle_tpu_torch.models import alexnet, googlenet, smallnet, vgg
+    build = {"alexnet": alexnet.alexnet, "googlenet": googlenet.googlenet,
+             "smallnet": smallnet.smallnet,
+             "vgg19": lambda i, l, **k: vgg.vgg(i, l, depth=19, **k)}[name]
+    main, startup = core.Program(), core.Program()
+    startup.random_seed = seed
+    ev = None
+    with core.unique_name.guard(), core.program_guard(main, startup):
+        img = layers.data("img", shape=[3, res, res])
+        label = layers.data("label", shape=[1], dtype="int64")
+        loss, acc, logits = build(img, label, class_dim=classes)
+        if with_eval:
+            ev = evaluator.Accuracy(layers.softmax(logits), label)
+        optimizer.Momentum(VISION["lr"], VISION["momentum"]).minimize(
+            loss, startup)
+    return main, startup, loss, acc, ev
+
+
+def program_work(main, batch):
+    """A training step's reckoned work at ``batch``: (f32 FLOPs, bytes).
+    FLOPs: 3x the forward's convolutions and fc products (forward, and
+    the two gradient products); bytes: each parameter read and written
+    with its gradient and velocity (24 B), each convolution, fc and pool
+    output written forward and read backward (8 B an element)."""
+    block = main.global_block()
+
+    def numel(name):
+        shape = block.var(name).shape
+        return batch * int(np.prod([d for d in shape if d != -1]))
+    flops = acts = 0
+    for op in block.ops:
+        if op.type == "conv2d":
+            w = block.var(op.inputs["Filter"][0]).shape
+            flops += 2 * numel(op.outputs["Output"][0]) * \
+                int(np.prod(w[1:]))
+            acts += numel(op.outputs["Output"][0])
+        elif op.type == "mul":
+            k = block.var(op.inputs["Y"][0]).shape[0]
+            flops += 2 * numel(op.outputs["Out"][0]) * k
+            acts += numel(op.outputs["Out"][0])
+        elif op.type == "pool2d":
+            acts += numel(op.outputs["Out"][0])
+    params = sum(int(np.prod(p.shape)) for p in block.all_parameters())
+    return 3 * flops, 24 * params + 8 * acts, params
+
+
+def phase_vision(seed):
+    """[vision]: the ``benchmark/paddle/image`` recipes at ImageNet width
+    (AlexNet, VGG-19, GoogLeNet at 224², 1000 classes; SmallNet at 3 x 32 x
+    32, 10 classes), Momentum(0.01, 0.9), data from the seed: one step at
+    batch 2 card against CPU from the same startup weights (``step_pair``:
+    the loss, every parameter and velocity); 10 timed steps at batch 64
+    from those weights (median step,
+    images/s, one step's busy share, peak memory) beside the step's
+    reckoned bound (f32 CUDA-core FLOPs and bytes); SmallNet's
+    ``evaluator.Accuracy`` accumulated over its steps equal to the mean of
+    their ``accuracy`` outputs."""
+    import torch
+    from paddle_tpu_torch import core
+    cfg = VISION
+    t0 = time.perf_counter()
+    rows = {}
+    for name, res, classes in VISION_MODELS:
+        t1 = time.perf_counter()
+        main, startup, loss, acc, ev = vision_program(
+            name, res, classes, seed, with_eval=name == "smallnet")
+        rs = np.random.RandomState(seed)
+        small = {"img": rs.rand(cfg["compare_batch"], 3, res, res)
+                 .astype(np.float32),
+                 "label": rs.randint(0, classes, (cfg["compare_batch"], 1))
+                 .astype(np.int64)}
+        init = step_pair(main, startup, loss, small, VISION_RTOL,
+                         "vision %s" % name)
+        scope = scope_copy(init, "cuda")
+        del init
+        exe = core.Executor(device="cuda")
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        feed = {"img": torch.rand((cfg["batch"], 3, res, res),
+                                  generator=gen, device="cuda"),
+                "label": torch.randint(0, classes, (cfg["batch"], 1),
+                                       generator=gen, device="cuda")}
+        for _ in range(cfg["warmup"]):
+            exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
+                    return_numpy=False)
+        if ev is not None:
+            ev.reset(scope=scope)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times, accs, losses = [], [], []
+        for _ in range(cfg["steps"]):
+            t2 = time.perf_counter()
+            lv, av = exe.run(main, feed=feed, fetch_list=[loss, acc],
+                             scope=scope, return_numpy=False)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t2) * 1e3)
+            losses.append(float(lv))
+            accs.append(float(av))
+        peak = torch.cuda.max_memory_allocated()
+        step_ms = float(np.median(times))
+        # the evaluator's state before the profiled step adds a batch
+        ev_acc = ev.eval(scope=scope) if ev is not None else None
+        busy = profile_window("vision %s one training step" % name,
+                              lambda: exe.run(main, feed=feed,
+                                              fetch_list=[loss], scope=scope,
+                                              return_numpy=False))
+        flops, nbytes, params = program_work(main, cfg["batch"])
+        bound, bound_by = roofline_ms(nbytes, flops)
+        print("[vision] %s %d² batch %d: step %.3f ms (median of %d: %s), "
+              "%.1f images/s, busy %s, peak allocated %.1f MB; bound %.3f "
+              "ms (%s: %.1f GFLOP f32, %.1f MB, %d parameters), %.3f of "
+              "the step; losses %.4f -> %.4f (%d of %d finite); %.1f s; "
+              "%s" % (
+                  name, res, cfg["batch"], step_ms, cfg["steps"],
+                  [round(t, 3) for t in times], cfg["batch"] / step_ms * 1e3,
+                  "not measured" if busy is None else
+                  "%.1f%%" % (100 * busy["busy_share"]), peak / 1e6, bound,
+                  bound_by, flops / 1e9, nbytes / 1e6, params,
+                  bound / step_ms, losses[0], losses[-1],
+                  int(np.isfinite(losses).sum()), len(losses),
+                  time.perf_counter() - t1, card_line()))
+        # Momentum(0.01, 0.9) on random labels may diverge (VGG-19 does in
+        # a CPU rehearsal): the timed steps are timed, not trained
+        check(np.isfinite(losses[0]), "[vision] %s losses %s"
+              % (name, losses))
+        if ev is not None:
+            got, want = ev_acc, float(np.mean(accs))
+            print("[vision] smallnet Accuracy evaluator over the %d steps "
+                  "%.6f, mean of the steps' accuracy %.6f" % (
+                      cfg["steps"], got, want))
+            check(abs(got - want) <= 1e-9, "[vision] Accuracy %r against "
+                  "%r" % (got, want))
+        rows[name] = dict(step_ms=step_ms, peak=peak, bound_ms=bound)
+        del exe, scope, feed
+        gc.collect()
+        torch.cuda.empty_cache()
+    print("[vision] done in %.1f s" % (time.perf_counter() - t0))
+    return rows
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -9127,7 +9588,16 @@ def main(argv=None):
         # LeNet-5's training
         phase_ops()
         phase_ops_rnn(args.seed)
+        phase_ops_tail()
         phase_lenet(args.seed)
+        gc.collect()
+        torch.cuda.empty_cache()
+        # the op tail's models: SSD, and the image recipes at ImageNet
+        # width
+        phase_detection(args.seed)
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_vision(args.seed)
         gc.collect()
         torch.cuda.empty_cache()
         # the distribution slice: BASELINE config 5 and the strategy route

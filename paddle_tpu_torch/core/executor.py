@@ -84,9 +84,10 @@ reference gets from XLA, this executor does by hand:
     be exported or captured) run op by op, store nothing
     (``aot_export_skipped``) and capture nothing.
   - A program that decides its control flow on the host (an unbounded
-    ``while``, a ``cond``: ``ops/control_flow_ops.py``) is refused
-    capture and export when its plan is made, since a graph would bake
-    in one trip count or one branch: it runs op by op,
+    ``while``, a ``cond``: ``ops/control_flow_ops.py``) or prints (a
+    ``print`` op) is refused capture and export when its plan is made,
+    since a graph would bake in one trip count or one branch, or skip
+    the print: it runs op by op,
     ``capture_stats()`` counts it as ``refused`` with the reason,
     ``lower`` raises, and an export the flags ask for logs
     ``aot_export_skipped`` with the reason. Bounded loops,
@@ -189,7 +190,7 @@ _KEY_IDS = itertools.count(1)
 # process-wide CUDA graph events, for a caller that checks a whole run:
 # "captures", "recaptures", "failed" (logged as executor_capture_failed),
 # "replays" and "refused" (entries whose control flow is decided on the
-# host)
+# host, or that print)
 CAPTURES = collections.Counter()
 
 
@@ -492,7 +493,7 @@ class _Plan:
     def __init__(self, block, fetch_names, quant=None):
         self.read, self.written, self.needs_rng = _block_io(block)
         # why the step may be neither captured nor exported: control flow
-        # decided on the host (an unbounded while, a cond)
+        # decided on the host (an unbounded while, a cond), a print
         self.host_reads = control_flow_ops.host_read_reason(block.program,
                                                             block)
         if quant:

@@ -30,9 +30,10 @@ _DIM_PLACEHOLDER = 8191
 # the modules whose import registers the port's ops
 OP_MODULES = ("activation_ops", "attention_ops", "beam_search_ops",
               "conv_bn", "control_flow_ops", "crf_ctc_ops", "decoding_ops",
-              "generation_ops", "loss_ops", "math_ops", "metric_ops",
-              "nested_ops", "nn_ops", "optimizer_ops", "random_ops",
-              "seq2seq_ops", "sequence_ops", "sparse_ops", "tensor_ops")
+              "detection_ops", "generation_ops", "legacy_tail_ops",
+              "loss_ops", "math_ops", "metric_ops", "misc_ops", "nested_ops",
+              "nn_ops", "optimizer_ops", "random_ops", "seq2seq_ops",
+              "sequence_ops", "sparse_ops", "tensor_ops")
 # the modules outside ``ops/`` whose import registers ops: the distributed
 # lookup and its gradient
 OTHER_OP_MODULES = ("paddle_tpu_torch.embeddings.sharded",)
@@ -40,18 +41,11 @@ OTHER_OP_MODULES = ("paddle_tpu_torch.embeddings.sharded",)
 _registry = {}
 _loaded = []
 
-_TAIL = 'ROADMAP Queue A, "Long tail"'
-
-# The reference's op types the port does not register yet, each with the
-# ROADMAP Queue A item that brings it, cited by title: a program holding
-# one fails at build or run time with that citation.
-PENDING = dict(
-    [(t, _TAIL) for t in (
-        "kmax_seq_score", "print", "resize", "roi_pool", "scale_shift",
-        "scale_sub_region", "switch_order", "bilinear_interp",
-        "cross_entropy_over_beam", "data_norm", "lambda_cost", "mdlstm",
-        "selective_fc", "box_coder", "detection_output", "multibox_loss",
-        "prior_box")])
+# The reference's op types the port does not register yet, each mapped to
+# the citation of the ROADMAP Queue A item that brings it (by its title),
+# which a program holding one fails with at build or run time. Nothing is
+# pending: the port registers all 219 of the reference's op types.
+PENDING = {}
 
 
 class OpDef:

@@ -1,8 +1,8 @@
 """Control-flow layers of the program front end (reference
 ``paddle_tpu/layers/control_flow.py``): ``StaticRNN``, ``While``,
 ``cond``, the compares and ``recompute``, each building a sub-block and
-the op that runs it (``ops/control_flow_ops.py``). ``Print`` comes with
-the ``print`` op (ROADMAP Queue A, "Long tail")."""
+the op that runs it (``ops/control_flow_ops.py``); and ``Print``, over
+the ``print`` op (``ops/misc_ops.py``)."""
 
 import contextlib
 
@@ -303,8 +303,17 @@ def greater_than(x, y, **kwargs):
 
 
 def Print(input, message=None, summarize=20, **kwargs):
-    raise NotImplementedError('Print is not ported yet: ROADMAP Queue A, '
-                              '"Long tail"')
+    """Print a tensor at every run (the ``print`` op,
+    ``ops/misc_ops.py``: ``message: <array>`` on standard output, a read
+    back to the host, so the program is neither captured nor exported).
+    Returns the input, passed through."""
+    helper = LayerHelper("print", **kwargs)
+    out = helper.create_tmp_variable(input.dtype)
+    helper.append_op(type="print", inputs={"X": [input.name]},
+                     outputs={"Out": [out.name]},
+                     attrs={"message": message or input.name,
+                            "summarize": summarize})
+    return out
 
 
 def recompute(fn, name=None, main_program=None):

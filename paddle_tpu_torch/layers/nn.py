@@ -5,10 +5,7 @@ reference's does, byte for byte.
 
 Each layer appends ops to the current program; output shapes and dtypes
 are inferred by running the op's torch compute on meta tensors
-(``core/registry.py`` ``infer_shape``). The reference's legacy layers
-(``switch_order``, ``scale_shift``, ``resize``, ``kmax_seq_score``,
-``scale_sub_region``) come with the last item (ROADMAP Queue A, "Long
-tail").
+(``core/registry.py`` ``infer_shape``).
 """
 
 import numpy as np
@@ -20,7 +17,8 @@ from ..initializer import ConstantInitializer, NormalInitializer
 __all__ = [
     "fc", "embedding", "conv2d", "batch_conv2d", "conv3d",
     "conv2d_transpose", "conv3d_transpose", "factorization_machine",
-    "pool2d", "pool3d", "batch_norm", "fused_conv_bn", "layer_norm",
+    "switch_order", "scale_shift", "resize", "kmax_seq_score",
+    "scale_sub_region", "pool2d", "pool3d", "batch_norm", "fused_conv_bn", "layer_norm",
     "dropout", "cross_entropy", "softmax_with_cross_entropy",
     "sigmoid_cross_entropy_with_logits", "square_error_cost", "accuracy",
     "auc", "topk", "matmul", "reduce_sum", "reduce_mean", "reduce_max",
@@ -911,3 +909,57 @@ def factorization_machine(input, factor_size, param_attr=None, act=None,
                      inputs={"X": [input.name], "V": [v.name]},
                      outputs={"Out": [out.name]})
     return helper.append_activation(out)
+
+
+def switch_order(input, to_nhwc=True, name=None, **kwargs):
+    """NCHW <-> NHWC layout switch (reference SwitchOrderLayer)."""
+    helper = LayerHelper("switch_order", name=name, **kwargs)
+    return _single(helper, "switch_order", {"X": [input.name]},
+                   {"to_nhwc": to_nhwc})
+
+
+def scale_shift(input, param_attr=None, bias_attr=None, name=None,
+                **kwargs):
+    """y = w*x + b with trainable scalar w (and b unless bias_attr is
+    False) — reference ScaleShiftLayer."""
+    helper = LayerHelper("scale_shift", name=name, **kwargs)
+    w = helper.create_parameter(param_attr, shape=[1], dtype=input.dtype)
+    inputs = {"X": [input.name], "Scale": [w.name]}
+    if bias_attr is not False:
+        b = helper.create_parameter(ParamAttr.to_attr(bias_attr),
+                                    shape=[1], dtype=input.dtype,
+                                    is_bias=True)
+        inputs["Bias"] = [b.name]
+    return _single(helper, "scale_shift", inputs, {})
+
+
+def resize(input, size, name=None, **kwargs):
+    """Reshape rows to trailing ``size`` (reference ResizeLayer)."""
+    helper = LayerHelper("resize", name=name, **kwargs)
+    return _single(helper, "resize", {"X": [input.name]},
+                   {"size": size})
+
+
+def kmax_seq_score(input, length=None, beam_size=1, name=None,
+                   **kwargs):
+    """Top-k score indices per padded sequence (reference
+    KmaxSeqScoreLayer); -1 marks slots past a sequence's k."""
+    helper = LayerHelper("kmax_seq_score", name=name, **kwargs)
+    inputs = {"X": [input.name]}
+    if length is not None:
+        inputs["Length"] = [length.name]
+    out = helper.create_tmp_variable("int32", stop_gradient=True)
+    helper.append_op(type="kmax_seq_score", inputs=inputs,
+                     outputs={"Out": [out.name]},
+                     attrs={"beam_size": beam_size})
+    return out
+
+
+def scale_sub_region(input, indices, value=1.0, name=None, **kwargs):
+    """Scale a per-sample NCHW sub-region by ``value`` (reference
+    ScaleSubRegionLayer; indices [N,6] 1-based inclusive
+    (c1,c2,h1,h2,w1,w2))."""
+    helper = LayerHelper("scale_sub_region", name=name, **kwargs)
+    return _single(helper, "scale_sub_region",
+                   {"X": [input.name], "Indices": [indices.name]},
+                   {"value": value})

@@ -25,7 +25,8 @@ mode, so a differentiated op records its whole loop and the executor's
 Every host read adds one to :data:`HOST_READS` under its op type. The
 executor refuses to capture or export a program holding an unbounded
 ``while`` or a ``cond`` (``core/executor.py``), since a graph would bake
-in one trip count or one branch. The other loops read nothing back and
+in one trip count or one branch, or a ``print`` (``ops/misc_ops.py``),
+whose read a graph would skip. The other loops read nothing back and
 capture.
 
 Sub-blocks take the parent run's amp dtype, and a carry is cast back to
@@ -102,15 +103,17 @@ def is_unbounded_while(op):
 
 
 def host_read_reason(program, block):
-    """Why a run of ``block`` reads data back to the host to decide its
-    control flow (an unbounded ``while``, a ``cond``, in it or in a
-    sub-block of it), or None."""
+    """Why a run of ``block`` reads data back to the host (an unbounded
+    ``while`` or a ``cond`` to decide its control flow, a ``print`` to
+    print; in it or in a sub-block of it), or None."""
     for op in walk_ops(program, block.ops):
         if is_unbounded_while(op):
             return ("an unbounded while (no max_iters) reads its condition "
                     "on the host before each iteration")
         if op.type == "cond":
             return "cond reads its predicate on the host to pick a branch"
+        if op.type == "print":
+            return "print reads its input back to the host at every run"
     return None
 
 

@@ -1,9 +1,11 @@
 """The op cases of the LeNet-5/MNIST slice (``CASES``: for each of the
-118 op types the slice ports) and of the RNN and seq2seq slice
-(``RNN_CASES``: its 31 op types outside sub-blocks): the inputs (numpy,
-from a seed of the case's name), attributes and tolerance of one or more
-op descriptions. The CPU tests hold each case against the reference's
-op (``tests/test_torch_ops_*.py``; the RNN slice's in its own files) and
+118 op types the slice ports), of the RNN and seq2seq slice
+(``RNN_CASES``: its 31 op types outside sub-blocks) and of the op tail
+(``TAIL_CASES``: its 17 detection, misc and legacy op types): the inputs
+(numpy, from a seed of the case's name), attributes and tolerance of one
+or more op descriptions. The CPU tests hold each case against the
+reference's op (``tests/test_torch_ops_*.py``; the other slices' in their
+own files) and
 ``chip_smoke.py``'s ``[ops]`` runs each on the card against the CPU.
 Numpy and torch only: nothing here imports the reference.
 
@@ -27,6 +29,7 @@ import torch
 
 __all__ = ["EXACT", "ULP4", "SUM", "CONV", "RNN", "Case", "CASES",
            "SLICE_OPS", "RNN_CASES", "RNN_OPS", "RNN_FAMILIES",
+           "TAIL_CASES", "TAIL_FAMILIES", "TAIL_OPS", "tail_family",
            "RNN_BLOCK_OPS", "KEY_WORDS", "UPDATE_RULES", "UPDATE_OUTPUTS",
            "FAMILIES", "family", "rnn_family", "op_desc", "to_torch"]
 
@@ -668,6 +671,182 @@ RNN_FAMILIES = {
 RNN_BLOCK_OPS = ("static_rnn", "while", "cond", "dynamic_beam_search")
 RNN_OPS = sorted({c.op_type for c in RNN_CASES} | set(RNN_BLOCK_OPS))
 
+
+# -- the op tail: detection, misc and the legacy layer ops -----------------
+#
+# The 17 op types of ``ops/{detection,misc,legacy_tail}_ops.py``, by family
+# (``TAIL_FAMILIES``). ``print`` prints at every run, the one op of the
+# port that reads back to the host: the card's check reads its line.
+
+
+def _corners(rs, n, lo=0.0, hi=0.7, size=(0.05, 0.3)):
+    """``n`` corner boxes [n, 4] inside the unit square."""
+    xy = rs.uniform(lo, hi, (n, 2))
+    wh = rs.uniform(size[0], size[1], (n, 2))
+    return np.concatenate([xy, xy + wh], axis=1).astype(np.float32)
+
+
+def _grid_priors(rows=4, cols=6, size=0.3):
+    """A [rows * cols, 4] grid of square priors of side ``size``."""
+    cy, cx = np.meshgrid((np.arange(rows) + 0.5) / rows,
+                         (np.arange(cols) + 0.5) / cols, indexing="ij")
+    c = np.stack([cx.ravel(), cy.ravel()], axis=1)
+    return np.concatenate([c - size / 2, c + size / 2], 1).astype(np.float32)
+
+
+_VAR = np.tile(np.array([0.1, 0.1, 0.2, 0.2], np.float32), (24, 1))
+
+
+def _multibox_in(rs, n=2, g=3, c=4):
+    priors = _grid_priors()
+    # ground truth near some priors: IoU above 0.5 with them
+    pick = rs.choice(len(priors), (n, g), replace=False)
+    gt = priors[pick] + rs.uniform(-0.02, 0.02, (n, g, 4)).astype(
+        np.float32)
+    return {"Loc": 0.5 * _f(rs, n, len(priors), 4),
+            "Conf": _f(rs, n, len(priors), c), "PriorBox": priors,
+            "PriorBoxVar": _VAR, "GtBox": gt.astype(np.float32),
+            "GtLabel": _i(rs, c, n, g, lo=1),
+            "GtCount": np.array([2, 3][:n], np.int32)}
+
+
+def _detect_in(rs, n=2, c=4):
+    priors = _grid_priors()
+    logits = 2 * _f(rs, n, len(priors), c)
+    e = np.exp(logits - logits.max(-1, keepdims=True))
+    return {"Loc": 0.5 * _f(rs, n, len(priors), 4),
+            "Scores": (e / e.sum(-1, keepdims=True)).astype(np.float32),
+            "PriorBox": priors, "PriorBoxVar": _VAR}
+
+
+def _beam_xent_in(rs):
+    """Two expansion steps of beam width 2 over 3 sequences: gold on the
+    beam to the end (0), falling off at step 1 (1), at step 0 (2)."""
+    return {"Scores": [_f(rs, 3, 5), _f(rs, 3, 6)],
+            "Ids": [np.array([[[1, 3]], [[0, 2]], [[1, 4]]], np.int32),
+                    np.array([[[0, 2], [4, 5]], [[1, -1], [3, 4]],
+                              [[0, 1], [2, 3]]], np.int32)],
+            "Gold": [np.array([3, 0, 2], np.int32),
+                     np.array([5, 3, 0], np.int32)]}
+
+
+def _mdlstm_in(rs, b=2, h=3, w=4, nb=2):
+    return {"GatesX": _f(rs, b, h, w, 5 * nb),
+            "WeightH": 0.5 * _f(rs, nb, 5 * nb),
+            "Peephole": 0.5 * _f(rs, 4 * nb)}
+
+
+TAIL_CASES = [
+    # detection
+    Case("prior_box", lambda rs: {"Input": _f(rs, 2, 8, 4, 5),
+                                  "Image": _f(rs, 2, 3, 32, 40)},
+         {"min_sizes": [4.0, 8.0], "max_sizes": [12.0],
+          "aspect_ratios": [2.0, 3.0], "variances": [0.1, 0.1, 0.2, 0.2],
+          "flip": True, "clip": True, "step_w": 0.0, "step_h": 0.0,
+          "offset": 0.5}, grad=False),
+    Case("prior_box", lambda rs: {"Input": _f(rs, 1, 4, 3, 3),
+                                  "Image": _f(rs, 1, 3, 30, 30)},
+         {"min_sizes": [30.0], "max_sizes": [], "aspect_ratios": [2.0, 1.0],
+          "variances": [0.1, 0.2, 0.3, 0.4], "flip": False, "clip": False,
+          "step_w": 7.0, "step_h": 9.0, "offset": 0.3}, grad=False,
+         name="steps-noclip"),
+    Case("box_coder", lambda rs: {"PriorBox": _corners(rs, 6),
+                                  "PriorBoxVar": _VAR[:6],
+                                  "TargetBox": 0.5 * _f(rs, 2, 6, 4)},
+         {"code_type": "decode_center_size"}, tol=ULP4),
+    Case("box_coder", lambda rs: {"PriorBox": _corners(rs, 6),
+                                  "PriorBoxVar": _VAR[:6],
+                                  "TargetBox": _corners(rs, 12).reshape(
+                                      2, 6, 4)},
+         {"code_type": "encode_center_size"}, tol=ULP4, name="encode"),
+    Case("multibox_loss", _multibox_in,
+         {"overlap_threshold": 0.5, "neg_pos_ratio": 3.0,
+          "background_label": 0}, tol=SUM),
+    Case("detection_output", _detect_in,
+         {"background_label": 0, "confidence_threshold": 0.2,
+          "nms_threshold": 0.45, "nms_top_k": 8, "keep_top_k": 10},
+         tol=ULP4, grad=False),
+    Case("detection_output", _detect_in,
+         {"background_label": 2, "confidence_threshold": 0.01,
+          "nms_threshold": 0.3, "nms_top_k": 6, "keep_top_k": 24},
+         tol=ULP4, grad=False, name="padded"),
+    # misc
+    Case("print", lambda rs: {"X": _f(rs, 2, 3)}, {"message": "probe"}),
+    Case("roi_pool", lambda rs: {
+        "X": _f(rs, 2, 3, 8, 10),
+        "ROIs": np.array([[0, 2, 2, 12, 9], [1, 0, 0, 19, 15],
+                          [1, 15, 3, 30, 20], [0, 9, 9, 5, 5]],
+                         np.float32)},
+        {"pooled_height": 3, "pooled_width": 2, "spatial_scale": 0.5}),
+    Case("switch_order", lambda rs: {"X": _f(rs, 2, 3, 4, 5)},
+         {"to_nhwc": True}),
+    Case("switch_order", lambda rs: {"X": _f(rs, 2, 4, 5, 3)},
+         {"to_nhwc": False}, name="nchw"),
+    # the compiled reference contracts x * w + b into one rounding
+    Case("scale_shift", lambda rs: {"X": _f(rs, 3, 4), "Scale": _f(rs, 1),
+                                    "Bias": _f(rs, 1)}, tol=ULP4),
+    Case("scale_shift", lambda rs: {"X": _f(rs, 3, 4), "Scale": _f(rs, 1)},
+         name="nobias"),
+    Case("resize", lambda rs: {"X": _f(rs, 2, 6, 4)}, {"size": 3}),
+    Case("kmax_seq_score", lambda rs: {
+        "X": rs.randint(0, 3, (3, 6)).astype(np.float32),
+        "Length": np.array([6, 2, 0], np.int32)}, {"beam_size": 4},
+        grad=False),
+    Case("kmax_seq_score", lambda rs: {"X": _f(rs, 2, 3, 2)},
+         {"beam_size": 8}, grad=False, name="past-t"),
+    Case("scale_sub_region", lambda rs: {
+        "X": _f(rs, 2, 3, 4, 5),
+        "Indices": np.array([[1, 2, 2, 3, 1, 5], [3, 3, 1, 4, 2, 2]],
+                            np.int32)}, {"value": 2.5}),
+    # the legacy layer tail
+    Case("bilinear_interp", lambda rs: {"X": _f(rs, 2, 3, 4, 5)},
+         {"out_h": 7, "out_w": 3}, tol=ULP4),
+    Case("bilinear_interp", lambda rs: {"X": _f(rs, 1, 2, 3, 3)},
+         {"out_h": 1, "out_w": 5}, tol=ULP4, name="one-row"),
+    Case("selective_fc", lambda rs: {
+        "X": _f(rs, 3, 5), "W": _f(rs, 5, 9), "Bias": _f(rs, 9),
+        "Sel": np.array([[0, 4, 8], [2, -1, 2], [-1, -1, 7]], np.int32)},
+        tol=SUM),
+    Case("selective_fc", lambda rs: {"X": _f(rs, 3, 5), "W": _f(rs, 5, 9),
+                                     "Bias": _f(rs, 9)}, tol=SUM,
+         name="full"),
+    Case("data_norm", lambda rs: {"X": _f(rs, 4, 3),
+                                  "Mean": _f(rs, 3),
+                                  "Std": _f(rs, 3, lo=0.5, hi=2)},
+         {"mode": "z-score"}),
+    Case("data_norm", lambda rs: {"X": _f(rs, 4, 3), "Min": _f(rs, 3) - 2,
+                                  "Max": _f(rs, 3) + 2},
+         {"mode": "min-max"}, name="min-max"),
+    Case("data_norm", lambda rs: {"X": 50 * _f(rs, 4, 3),
+                                  "Max": _f(rs, 3, lo=0.05, hi=500)},
+         {"mode": "decimal-scaling"}, tol=ULP4, name="decimal"),
+    Case("lambda_cost", lambda rs: {
+        "X": _f(rs, 3, 6),
+        "Score": rs.randint(0, 4, (3, 6)).astype(np.float32),
+        "Length": np.array([6, 4, 1], np.int32)}, {"NDCG_num": 3},
+        tol=SUM),
+    Case("cross_entropy_over_beam", _beam_xent_in, tol=SUM),
+]
+for _name, _dirs in (("", (True, True)), ("rev-h", (False, True)),
+                     ("rev-w", (True, False)), ("rev-hw", (False, False))):
+    TAIL_CASES.append(Case("mdlstm", _mdlstm_in, {"directions": _dirs},
+                           tol=RNN, name=_name))
+
+TAIL_FAMILIES = {
+    "detection": ("prior_box", "box_coder", "multibox_loss",
+                  "detection_output"),
+    "misc": ("print", "roi_pool", "switch_order", "scale_shift", "resize",
+             "kmax_seq_score", "scale_sub_region"),
+    "legacy": ("bilinear_interp", "selective_fc", "data_norm", "mdlstm",
+               "lambda_cost", "cross_entropy_over_beam"),
+}
+TAIL_OPS = sorted(t for types_ in TAIL_FAMILIES.values() for t in types_)
+
+
+def tail_family(op_type):
+    """The family of an op type of the op tail."""
+    return next(f for f, types_ in TAIL_FAMILIES.items()
+                if op_type in types_)
 
 # input slot -> output slot of each update rule (``minimize`` names the
 # same variable in both: the update runs in place)

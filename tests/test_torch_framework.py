@@ -21,7 +21,7 @@ from paddle_tpu_torch.core import enforce, registry, unique_name
 from paddle_tpu_torch.core.framework import (BFLOAT16, convert_dtype,
                                              dtype_name, torch_dtype)
 from paddle_tpu_torch.ops import conv_bn
-from paddle_tpu_torch.probes.op_cases import RNN_OPS
+from paddle_tpu_torch.probes.op_cases import RNN_OPS, TAIL_OPS
 from test_torch_ops_cases import SLICE_OPS
 
 
@@ -132,8 +132,9 @@ def test_the_port_registers_the_slice():
         # the distribution slice's sparse and distributed lookups
         "lookup_table_dist", "lookup_table_dist_grad",
         "lookup_table_sparse_grad"] +
-        # the LeNet-5/MNIST slice's op library, the RNN and seq2seq slice's
-        SLICE_OPS + RNN_OPS)
+        # the LeNet-5/MNIST slice's op library, the RNN and seq2seq slice's,
+        # the op tail's
+        SLICE_OPS + RNN_OPS + TAIL_OPS)
     with pytest.raises(NotImplementedError, match="no op registered"):
         registry.get_op_def("lstm")
 
@@ -312,9 +313,10 @@ def test_shape_cases_cover_the_slice():
     reference's: here, or for the LeNet-5/MNIST slice's op library case
     by case in ``test_torch_ops_forward.py``, or for the RNN and seq2seq
     slice's in its files (``RNN_CASES`` case by case, the sub-block ops
-    through programs that serialize as the reference's)."""
+    through programs that serialize as the reference's), and for the op
+    tail's in its files (``TAIL_CASES`` case by case)."""
     assert sorted(set(SHAPE_CASES) | set(SKIPPED) | set(SLICE_OPS) |
-                  set(RNN_OPS)) == registry.registered_ops()
+                  set(RNN_OPS) | set(TAIL_OPS)) == registry.registered_ops()
 
 
 @pytest.mark.parametrize("op_type", sorted(SHAPE_CASES))

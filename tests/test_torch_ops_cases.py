@@ -3,9 +3,9 @@ helpers that run one case of ``paddle_tpu_torch/probes/op_cases.py``
 (inputs from a seed, attributes, tolerance) through both packages'
 registries, the reference's compute on jax arrays and the port's on CPU
 tensors (``test_torch_ops_forward.py`` and ``test_torch_ops_grad.py``
-run every case); and the registry's coverage: the port registers the
-reference's op types but the 20 that ``core/registry.PENDING`` names,
-each with the ROADMAP Queue A item that will bring it.
+run every case); and the registry's coverage: the port registers all
+219 of the reference's op types, and ``core/registry.PENDING`` names
+none.
 """
 
 import os
@@ -143,7 +143,7 @@ def test_the_slice_registers_118_op_types():
 
 def test_registered_and_pending_partition_the_reference():
     """Every reference op type is registered in the port or named in
-    ``PENDING``, never both: 202 registered, 17 pending."""
+    ``PENDING``, never both: all 219 registered, none pending."""
     ref = _reference_registry()
     port = set(port_registry.registered_ops())
     pending = set(port_registry.PENDING)
@@ -151,26 +151,18 @@ def test_registered_and_pending_partition_the_reference():
     assert port <= ref
     assert not port & pending
     assert port | pending == ref, sorted(ref - port - pending)
-    assert (len(port), len(pending)) == (202, 17)
+    assert (len(port), len(pending)) == (219, 0)
 
 
 def test_pending_ops_cite_their_queue_a_item():
-    """Each pending op type cites a Queue A item by its title, and the
-    registry's refusal carries that citation."""
+    """Nothing is pending: the registry's refusal of an unknown op type
+    names no Queue A item, and a citation would have to name a Queue A
+    title."""
     titles = _queue_a_titles()
-    cited = {}
-    for op_type, citation in port_registry.PENDING.items():
-        m = re.fullmatch(r'ROADMAP Queue A, "(.+)"', citation)
-        assert m and any(t.startswith(m.group(1)) for t in titles), \
-            (op_type, citation)
-        cited.setdefault(m.group(1), []).append(op_type)
-        try:
-            port_registry.get_op_def(op_type)
-        except NotImplementedError as exc:
-            assert citation in str(exc)
-        else:
-            raise AssertionError(op_type)
-    assert {k: len(v) for k, v in cited.items()} == {"Long tail": 17}
+    assert port_registry.PENDING == {}
+    assert any(t.startswith("Long tail") for t in titles)
+    with pytest.raises(NotImplementedError, match="no op registered"):
+        port_registry.get_op_def("lstm")
 
 
 def test_flags_of_the_slice_ops_are_the_references():

@@ -31,9 +31,11 @@ def _float_slots(inputs):
     return out
 
 
-def grads(case, inputs=None, seed=7):
+def grads(case, inputs=None, seed=7, jit=False):
     """(reference gradients, port gradients) of every float32 input, for
-    seeded cotangents of every float output."""
+    seeded cotangents of every float output; ``jit``: the reference's
+    compute jitted (one compile instead of an eager dispatch an
+    operation)."""
     inputs = case.inputs() if inputs is None else inputs
     op = op_desc(case.op_type, inputs, case.attrs)
     diff = _float_slots(inputs)
@@ -57,7 +59,7 @@ def grads(case, inputs=None, seed=7):
                 if jnp.issubdtype(a.dtype, jnp.floating)]
     primals = [jnp.asarray(np.asarray(inputs[s] if not isinstance(
         inputs[s], list) else inputs[s][i])) for s, i in diff]
-    outs, vjp = jax.vjp(ref_f, *primals)
+    outs, vjp = jax.vjp(jax.jit(ref_f) if jit else ref_f, *primals)
     rs = np.random.RandomState(seed)
     cots = [rs.standard_normal(o.shape).astype(np.asarray(o).dtype)
             for o in outs]

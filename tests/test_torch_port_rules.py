@@ -51,6 +51,18 @@ def test_the_walk_covers_the_fleet_tier():
         assert "paddle_tpu_torch." + name in mods, name
 
 
+def test_the_walk_covers_the_op_tail():
+    """The op tail's modules (the detection, misc and legacy ops, their
+    layers, the evaluators and the image recipes) are among the modules
+    the import walk and the source scan below cover."""
+    mods = _package_modules()
+    for name in ("ops.detection_ops", "ops.misc_ops", "ops.legacy_tail_ops",
+                 "layers.detection", "layers.legacy", "evaluator",
+                 "models.ssd", "models.alexnet", "models.vgg",
+                 "models.googlenet", "models.smallnet"):
+        assert "paddle_tpu_torch." + name in mods, name
+
+
 def test_import_leaves_jax_and_reference_out():
     """Import every module of the package in a fresh interpreter."""
     code = ("import importlib, sys\n"
@@ -687,11 +699,12 @@ def test_output_slots_equal_reference_on_one_program(monkeypatch):
     # held against the reference's case by case, every op type of the
     # slice with at least one case (test_torch_ops_forward.py), and so do
     # the RNN and seq2seq slice's (its sub-block ops through the programs
-    # of test_torch_control_flow.py and test_torch_beam_search.py)
-    from paddle_tpu_torch.probes.op_cases import RNN_OPS
+    # of test_torch_control_flow.py and test_torch_beam_search.py), and the
+    # op tail's (test_torch_{detection,misc_ops,legacy_tail}.py)
+    from paddle_tpu_torch.probes.op_cases import RNN_OPS, TAIL_OPS
     from test_torch_ops_cases import SLICE_OPS
-    assert sorted(set(ours) | set(SLICE_OPS) | set(RNN_OPS)) == \
-        registry.registered_ops()
+    assert sorted(set(ours) | set(SLICE_OPS) | set(RNN_OPS) |
+                  set(TAIL_OPS)) == registry.registered_ops()
     assert {t: sorted(s) for t, s in ours.items()} == \
         {t: sorted(theirs[t]) for t in ours}
 
