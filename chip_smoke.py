@@ -254,6 +254,19 @@ and PyTorch built for CUDA. In order, it:
    GoogLeNet at 224² and SmallNet at 32², batch 64, Momentum(0.01, 0.9):
    a step card against CPU, 10 timed steps beside their reckoned bound,
    SmallNet's ``Accuracy`` evaluator against its steps' accuracy).
+24. the v2 API, after ``[lstm-sentiment]`` (``[v2]``): the IMDB recipe of
+   ``benchmark/paddle/rnn`` written in v2 layers at ``[lstm-sentiment]``'s
+   widths (vocabulary 30000, embedding 128, hidden 512, 3 fc + lstmemory
+   pairs, batch 128, padded length 100) trained by
+   ``paddle.trainer.SGD.train`` over ``paddle.batch`` of Python samples
+   with ``feeding``: the step from ``EndIteration`` events (10 warm-up
+   steps, 5 windows of 10), a step's busy share, the peak, beside
+   ``[lstm-sentiment]``'s step; ``SGD.test`` and ``paddle.infer`` on the
+   card; the card's ``Parameters.to_tar`` into a CPU build of the same
+   topology, whose ``paddle.infer`` the card's must match; at a small
+   width 5 steps card against CPU from one tar; and the book's
+   ``recognize_digits`` conv net over ``paddle.dataset.mnist.train()``
+   (30 steps whose loss falls, 3 steps card against CPU).
 
 Any failed phase exits nonzero. The line before the last is the card's
 name and power limit from nvidia-smi; the one before that lists the
@@ -696,6 +709,30 @@ def uncounted(fn):
             setattr(w, attr, saved[name])
         by_shape.clear()
         by_shape.update(saved_shapes)
+
+
+def counted(fn):
+    """Call ``fn()`` with every launch count at 0 just before it: returns
+    (its result, the launches it made by kernel, read just after). The
+    counts then go on from where they were with the call's launches
+    added, since the call is part of the path they count."""
+    from paddle_tpu_torch.ops import quant_ops
+    saved = read_launches()
+    by_shape = quant_ops.quant_matmul_2d.launches_by_shape
+    saved_shapes = dict(by_shape)
+    reset_launches()
+    try:
+        out = fn()
+    finally:
+        got = read_launches()
+        shapes = dict(by_shape)
+        for name, (w, attr) in counters().items():
+            setattr(w, attr, saved[name] + got[name])
+        by_shape.clear()
+        by_shape.update(saved_shapes)
+        for key, n in shapes.items():
+            by_shape[key] = by_shape.get(key, 0) + n
+    return out, got
 
 
 def make_params(cfg, rng):
@@ -2551,6 +2588,13 @@ def profile_window(label, fn, markers=()):
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    return profile_summary(prof, label, wall_us, markers)
+
+
+def profile_summary(prof, label, wall_us, markers=()):
+    """``profile_window``'s report of a finished profiler session over a
+    window of ``wall_us`` microseconds."""
+    import torch
     by_name, count = {}, {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
@@ -5168,13 +5212,24 @@ def phase_program_serve(sess, paged, quant, dense_prompts, dense_outs,
             if cell == "dense" else ("B5 (paged_split_kernel)",
                                      ("paged_split_kernel",))
         busy[cell] = {}
+        counter = "decode_attention" if cell == "dense" else \
+            "decode_attention_paged"
         for name, s in routes:
-            got = profile_window("%s %s route: 1 decode step, %d slots"
-                                 % (cell, name, SLOTS), s.step, (kernel,))
+            # the launches are held on the kernel counters (a replay counts
+            # as its capture's launches); the profiler's count, which can
+            # miss a launch at a session's start, is printed beside them
+            got, launched = counted(functools.partial(
+                profile_window, "%s %s route: 1 decode step, %d slots"
+                % (cell, name, SLOTS), s.step, (kernel,)))
             busy[cell][name] = None if got is None else got["busy_share"]
-            check(got is None or got[kernel[0]] == layers,
+            print("[program-serve] %s %s route's profiled decode step: %d "
+                  "%s launches on the kernel counters (%d layers), %s in "
+                  "the profiler's events" % (
+                      cell, name, launched[counter], kernel[0], layers,
+                      "not measured" if got is None else got[kernel[0]]))
+            check(launched[counter] == layers,
                   "%s %s route's decode step launched %s %s kernels"
-                  % (cell, name, (got or {}).get(kernel[0]), kernel[0]))
+                  % (cell, name, launched[counter], kernel[0]))
         print("[program-serve] %s decode step at %d slots (median of %d "
               "rounds of 16, in turns): module %.3f ms, program %.3f ms "
               "(x%.2f; PR 14's program route, before capture: 10.484 ms "
@@ -7195,6 +7250,346 @@ def phase_lstm_sentiment(seed):
     check(np.isfinite(final), "[lstm-sentiment] loss %s" % final)
     print("[lstm-sentiment] done in %.1f s" % (time.perf_counter() - t0))
     return dict(step_ms=step_ms)
+
+
+# -- the v2 API: the benchmark's IMDB recipe and the book's MNIST conv net
+# written in paddle.v2, through SGD.train, SGD.test, infer and the tar ----
+
+V2_LOSS_RTOL = 1e-4         # a few SGD steps of a v2 script, card against
+#                             CPU from one tar (RNN_LOSS_RTOL's reasoning)
+V2_INFER_ATOL = 1e-4        # the trained IMDB net's class probabilities,
+#                             card against a CPU build of the topology
+V2_MNIST = dict(batch=64, lr=0.01, momentum=0.9, steps=30, compare_steps=3,
+                window=5, fall=0.5)
+V2_IMDB_POOL = 4            # distinct batches the timed reader cycles
+V2_INFER_ROWS = 16          # held-out samples through paddle.infer
+
+
+def v2_imdb_net(paddle, cfg):
+    """The IMDB recipe of ``benchmark/paddle/rnn`` in v2 layers only: an
+    embedding, then ``layers`` pairs of fc (4 x hidden, linear) and
+    lstmemory (hidden) whose direction alternates as in
+    ``stacked_lstm_net``, each later fc over the previous pair, the max
+    pooling of the last pair, a softmax fc and ``classification_cost``.
+    Returns (output, cost)."""
+    L = paddle.layer
+    words = L.data("words", paddle.data_type.integer_value_sequence(
+        cfg["vocab"]))
+    label = L.data("label", paddle.data_type.integer_value(
+        cfg.get("classes", 2)))
+    fc = L.fc(L.embedding(words, size=cfg["emb"]), size=4 * cfg["hid"])
+    lstm = L.lstmemory(fc, size=cfg["hid"])
+    for i in range(2, cfg["layers"] + 1):
+        fc = L.fc([fc, lstm], size=4 * cfg["hid"])
+        lstm = L.lstmemory(fc, size=cfg["hid"], reverse=(i % 2) == 0)
+    pooled = [L.pooling(v, pooling_type=paddle.pooling.Max())
+              for v in (fc, lstm)]
+    out = L.fc(pooled, size=cfg.get("classes", 2),
+               act=paddle.activation.Softmax())
+    return out, L.classification_cost(input=out, label=label)
+
+
+def v2_mnist_net(paddle):
+    """The book's ``recognize_digits`` conv net in v2: two
+    ``networks.simple_img_conv_pool`` (20 and 50 filters of 5 x 5, ReLU,
+    2 x 2 max pools) over the 28 x 28 image and a softmax fc. Returns
+    (output, cost)."""
+    from paddle_tpu_torch import layers
+    L = paddle.layer
+    images = L.data("pixel", paddle.data_type.dense_vector(784))
+    label = L.data("label", paddle.data_type.integer_value(10))
+    conv = layers.reshape(images, [-1, 1, 28, 28])
+    for filters in (20, 50):
+        conv = paddle.networks.simple_img_conv_pool(
+            conv, num_filters=filters, filter_size=5, pool_size=2,
+            pool_stride=2, act="relu")
+    flat = layers.reshape(conv, [-1, 50 * 4 * 4])
+    out = L.fc(flat, size=10, act=paddle.activation.Softmax())
+    return out, L.classification_cost(input=out, label=label)
+
+
+def v2_topology(paddle, net, seed, device, optimizer):
+    """``net(paddle)`` built in fresh programs, its names the same at
+    every build, with its Parameters and ``paddle.trainer.SGD`` on
+    ``device`` (None: the ``paddle.init`` device), and a fresh scope that
+    every call on the topology runs under (``core.scope_guard``)."""
+    from paddle_tpu_torch import core
+    main, startup = core.Program(), core.Program()
+    startup.random_seed = seed
+    with core.unique_name.guard(), core.program_guard(main, startup):
+        out, cost = net(paddle)
+        params = paddle.parameters.create(cost, device=device)
+        sgd = paddle.trainer.SGD(cost=cost, parameters=params,
+                                 update_equation=optimizer(), device=device)
+    return dict(scope=core.Scope(), out=out, cost=cost, params=params,
+                sgd=sgd)
+
+
+def v2_costs(paddle, sgd, reader, feeding):
+    """The costs of ``sgd.train`` over ``reader``, one an EndIteration."""
+    costs = []
+    sgd.train(reader, num_passes=1, feeding=feeding,
+              event_handler=lambda e: costs.append(e.cost) if isinstance(
+                  e, paddle.event.EndIteration) else None)
+    return costs
+
+
+def v2_pair(paddle, net, seed, optimizer, batches, feeding):
+    """``len(batches)`` SGD steps of ``net`` on the card and on the CPU
+    from the card's startup, crossed by ``Parameters.to_tar`` and
+    ``init_from_tar`` (``SGD.test`` over the first batch runs each
+    build's startup first): (losses by device, their worst relative
+    difference)."""
+    import io
+    from paddle_tpu_torch import core
+    tops = {dev: v2_topology(paddle, net, seed, dev, optimizer)
+            for dev in ("cuda", "cpu")}
+    first = [batches[0]]
+    tar = io.BytesIO()
+    with core.scope_guard(tops["cuda"]["scope"]):
+        tops["cuda"]["sgd"].test(lambda: iter(first), feeding=feeding)
+        tops["cuda"]["params"].to_tar(tar)
+    losses = {}
+    for dev, top in tops.items():
+        with core.scope_guard(top["scope"]):
+            if dev == "cpu":
+                top["sgd"].test(lambda: iter(first), feeding=feeding)
+                top["params"].init_from_tar(io.BytesIO(tar.getvalue()))
+            losses[dev] = v2_costs(paddle, top["sgd"],
+                                   lambda: iter(batches), feeding)
+    err = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"],
+                                                   losses["cpu"]))
+    return losses, err
+
+
+def v2_imdb_batches(cfg, rs, n):
+    """``n`` batches of ``cfg["batch"]`` (word ids, label) samples as
+    Python lists: lengths uniform in [min_len, max_len], the first of
+    each batch max_len long (every batch pads to max_len), ids in [2,
+    vocab), labels 0/1."""
+    out = []
+    for _ in range(n):
+        lengths = rs.randint(cfg["min_len"], cfg["max_len"] + 1,
+                             cfg["batch"])
+        lengths[0] = cfg["max_len"]
+        labels = rs.randint(0, 2, cfg["batch"])
+        out.append([(rs.randint(2, cfg["vocab"], k).tolist(), int(y))
+                    for k, y in zip(lengths, labels)])
+    return out
+
+
+def phase_v2_small(paddle, seed):
+    """The v2 IMDB script at ``LSTM_SMALL``'s widths: 5 Adam steps on the
+    card against the CPU from one tar."""
+    small = dict(LSTM_SMALL, min_len=LSTM_SMALL["t"] // 2,
+                 max_len=LSTM_SMALL["t"])
+    batches = v2_imdb_batches(small, np.random.RandomState(seed + 54),
+                              small["compare_steps"])
+    losses, err = v2_pair(
+        paddle, lambda p: v2_imdb_net(p, small), seed + 5,
+        lambda: paddle.optimizer.Adam(learning_rate=small["lr"]), batches,
+        {"words": 0, "label": 1})
+    print("[v2] small IMDB script (vocab %d, T %d, width %d, %d layers, "
+          "batch %d): %d SGD steps card %s cpu %s from one tar, rel err "
+          "%.3g (tolerance %.0e)" % (
+              small["vocab"], small["t"], small["hid"], small["layers"],
+              small["batch"], len(batches),
+              [round(v, 6) for v in losses["cuda"]],
+              [round(v, 6) for v in losses["cpu"]], err, V2_LOSS_RTOL))
+    check(err <= V2_LOSS_RTOL, "[v2] small IMDB card against CPU %.3g"
+          % err)
+
+
+def phase_v2_mnist(paddle, seed):
+    """The book's ``recognize_digits`` conv net over
+    ``paddle.dataset.mnist.train()`` (the surrogate without the files) at
+    batch 64, Momentum(0.01, 0.9): 3 steps card against CPU from one tar,
+    then 30 steps on the card whose loss falls below half its first."""
+    from paddle_tpu_torch import core
+    cfg = V2_MNIST
+    batches = []
+    for b in paddle.batch(paddle.dataset.mnist.train(), cfg["batch"])():
+        batches.append(b)
+        if len(batches) == cfg["steps"]:
+            break
+    feeding = {"pixel": 0, "label": 1}
+
+    def momentum():
+        return paddle.optimizer.Momentum(momentum=cfg["momentum"],
+                                         learning_rate=cfg["lr"])
+    losses, err = v2_pair(paddle, v2_mnist_net, seed + 7, momentum,
+                          batches[:cfg["compare_steps"]], feeding)
+    print("[v2] MNIST conv net (batch %d): %d SGD steps card %s cpu %s from "
+          "one tar, rel err %.3g (tolerance %.0e)" % (
+              cfg["batch"], cfg["compare_steps"],
+              [round(v, 6) for v in losses["cuda"]],
+              [round(v, 6) for v in losses["cpu"]], err, V2_LOSS_RTOL))
+    check(err <= V2_LOSS_RTOL, "[v2] MNIST card against CPU %.3g" % err)
+    top = v2_topology(paddle, v2_mnist_net, seed + 7, None, momentum)
+    t0 = time.perf_counter()
+    with core.scope_guard(top["scope"]):
+        costs = v2_costs(paddle, top["sgd"], lambda: iter(batches), feeding)
+    w = cfg["window"]
+    first, last = float(np.mean(costs[:w])), float(np.mean(costs[-w:]))
+    print("[v2] MNIST conv net on the card: %d SGD steps in %.1f s, mean "
+          "loss of the first %d %.6f, of the last %d %.6f (must fall below "
+          "x%.1f)" % (len(costs), time.perf_counter() - t0, w, first, w,
+                      last, cfg["fall"]))
+    check(len(costs) == cfg["steps"] and np.isfinite(costs).all() and
+          last < cfg["fall"] * first,
+          "[v2] MNIST loss did not fall: %s -> %s" % (first, last))
+
+
+def phase_v2(seed, fluid_step_ms):
+    """[v2]: the v2 API on the card. The IMDB recipe (``v2_imdb_net`` at
+    ``LSTM_SENT``'s widths: vocabulary 30000, embedding 128, hidden 512, 3
+    layers, batch 128, padded length 100, lengths uniform in [50, 100])
+    trained by ``paddle.trainer.SGD.train`` over ``paddle.batch`` of a
+    seeded reader of Python samples with ``feeding``, Adam(1e-3): the
+    step from ``EndIteration`` events (10 warm-up steps, then 5 windows
+    of 10), a profiled step's busy share, the peak, beside
+    ``[lstm-sentiment]``'s step of this run (``fluid_step_ms``: the same
+    widths through the fluid front end); ``SGD.test`` over a held-out
+    reader and ``paddle.infer`` on the card; the card's
+    ``Parameters.to_tar`` into a CPU build of the topology, whose
+    ``paddle.infer`` the card's must match within ``V2_INFER_ATOL``; and
+    first the small IMDB script and the MNIST conv net card against CPU.
+    No TPU kernel lies on this path: the launch counts over the phase are
+    printed."""
+    import io
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    import paddle_tpu_torch.v2 as paddle
+    from paddle_tpu_torch import core
+    t0 = time.perf_counter()
+    reset_launches()
+    paddle.init(device="cuda", trainer_count=1)
+    phase_v2_small(paddle, seed)
+    phase_v2_mnist(paddle, seed)
+    cfg = dict(LSTM_SENT, min_len=LSTM_SENT["min_len"],
+               max_len=LSTM_SENT["max_len"])
+    net = functools.partial(v2_imdb_net, cfg=cfg)
+
+    def adam():
+        return paddle.optimizer.Adam(learning_rate=cfg["lr"])
+    top = v2_topology(paddle, net, seed + 5, None, adam)
+    pool = v2_imdb_batches(cfg, np.random.RandomState(seed + 52),
+                           V2_IMDB_POOL)
+    held = v2_imdb_batches(cfg, np.random.RandomState(seed + 53), 2)
+    steps = cfg["warmup"] + cfg["windows"] * cfg["window_steps"] + 1
+
+    def samples():
+        for i in range(steps):
+            yield from pool[i % len(pool)]
+    feeding = {"words": 0, "label": 1}
+    stamps, costs, prof = [], [], {}
+
+    def handler(e):
+        last = getattr(e, "batch_id", None) == steps - 1
+        if isinstance(e, paddle.event.BeginIteration) and last:
+            torch.cuda.synchronize()
+            prof["session"] = profile(activities=[ProfilerActivity.CPU,
+                                                  ProfilerActivity.CUDA])
+            prof["session"].__enter__()
+            prof["t0"] = time.perf_counter()
+        if isinstance(e, paddle.event.EndIteration):
+            stamps.append(time.perf_counter())
+            costs.append(e.cost)
+            if last:
+                torch.cuda.synchronize()
+                wall_us = (time.perf_counter() - prof["t0"]) * 1e6
+                prof["session"].__exit__(None, None, None)
+                prof["busy"] = profile_summary(
+                    prof["session"], "v2 IMDB LSTM: one SGD.train step",
+                    wall_us)
+    with core.scope_guard(top["scope"]):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        top["sgd"].train(paddle.batch(samples, cfg["batch"]), num_passes=1,
+                         event_handler=handler, feeding=feeding)
+        peak = torch.cuda.max_memory_allocated()
+        check(len(costs) == steps and np.isfinite(costs).all(),
+              "[v2] IMDB training: %d costs of %d steps, last %s"
+              % (len(costs), steps, costs[-1:]))
+        w0, ws = cfg["warmup"], cfg["window_steps"]
+        windows = [(stamps[w0 + (k + 1) * ws - 1] - stamps[w0 + k * ws - 1])
+                   * 1e3 / ws for k in range(cfg["windows"])]
+        step_ms = float(np.median(windows))
+        busy = prof.get("busy")
+        print("[v2] IMDB LSTM through paddle.trainer.SGD.train (batch %d x T "
+              "%d, vocab %d, embedding %d, hidden %d, %d layers, Adam(%g)): "
+              "step %.3f ms (median of %d windows of %d after %d warm-up, "
+              "EndIteration to EndIteration: %s), %.1f sequences/s, loss "
+              "%.6f -> %.6f, busy %s, peak allocated %.2f GB (%.2f GB "
+              "before); [lstm-sentiment]'s step in this run %.3f ms (x%.3f); "
+              "%s" % (
+                  cfg["batch"], cfg["max_len"], cfg["vocab"], cfg["emb"],
+                  cfg["hid"], cfg["layers"], cfg["lr"], step_ms,
+                  cfg["windows"], ws, w0, [round(x, 3) for x in windows],
+                  cfg["batch"] / step_ms * 1e3, costs[0], costs[-1],
+                  "not measured" if busy is None else "%.1f%%" % (
+                      100 * busy["busy_share"]), peak / 1e9, base / 1e9,
+                  fluid_step_ms, step_ms / fluid_step_ms, card_line()))
+
+        # where the step beyond the fluid one goes: the feeding of one
+        # batch on the host, and the v2 program's step through
+        # Executor.run on a batch fed to the card once, as
+        # [lstm-sentiment] times its program
+        trainer = top["sgd"]._trainer
+        feeds, feed_ms = [], []
+        for batch in pool:
+            t1 = time.perf_counter()
+            feeds.append(trainer.feeder.feed(batch))
+            feed_ms.append((time.perf_counter() - t1) * 1e3)
+        feed = cuda_feed(feeds[0])
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(ws):
+            trainer.exe.run(trainer.main_program, feed=feed,
+                            fetch_list=[top["cost"]], return_numpy=False)
+        torch.cuda.synchronize()
+        exe_ms = (time.perf_counter() - t1) * 1e3 / ws
+        print("[v2] the step apart: DataFeeder.feed of one batch of %d "
+              "Python samples %.3f ms on the host (median of %d); the v2 "
+              "program's step through Executor.run on a batch fed once, %d "
+              "steps closed by a synchronize, %.3f ms ([lstm-sentiment]'s "
+              "program %.3f ms); SGD.train's step %.3f ms; %s" % (
+                  cfg["batch"], float(np.median(feed_ms)), len(feed_ms), ws,
+                  exe_ms, fluid_step_ms, step_ms, card_line()))
+
+        def held_samples():
+            for b in held:
+                yield from b
+        result = top["sgd"].test(paddle.batch(held_samples, cfg["batch"]),
+                                 feeding=feeding)
+        rows = held[0][:V2_INFER_ROWS]
+        probs = paddle.infer(output_layer=top["out"],
+                             parameters=top["params"], input=rows,
+                             feeding=feeding)
+        tar = io.BytesIO()
+        top["params"].to_tar(tar)
+    check(np.isfinite(result.cost), "[v2] SGD.test cost %s" % result.cost)
+    cpu = v2_topology(paddle, net, seed + 5, "cpu", adam)
+    with core.scope_guard(cpu["scope"]):
+        cpu["params"].init_from_tar(io.BytesIO(tar.getvalue()))
+        want = paddle.infer(output_layer=cpu["out"], parameters=cpu["params"],
+                            input=rows, feeding=feeding, device="cpu")
+    err = float(np.abs(probs - want).max())
+    print("[v2] SGD.test over %d held-out batches on the card: cost %.6f; "
+          "paddle.infer of %d held-out samples on the card against the "
+          "card's tar (%d parameters, %.1f MB) in a CPU build: max abs "
+          "difference %.3g of probabilities (tolerance %.0e)" % (
+              len(held), result.cost, len(rows),
+              len(top["params"].names()), len(tar.getvalue()) / 1e6, err,
+              V2_INFER_ATOL))
+    check(probs.shape == (len(rows), 2) and np.isfinite(probs).all() and
+          err <= V2_INFER_ATOL, "[v2] infer card against CPU: shape %s, "
+          "err %.3g" % (probs.shape, err))
+    print("[v2] kernel launches over the phase (no TPU kernel lies on the "
+          "v2 path): %s" % read_launches())
+    print("[v2] done in %.1f s" % (time.perf_counter() - t0))
+    return dict(step_ms=step_ms, exe_ms=exe_ms, peak=peak)
 
 
 def lm_generate_program(**kw):
@@ -9613,7 +10008,11 @@ def main(argv=None):
         phase_seq2seq(args.seed)
         gc.collect()
         torch.cuda.empty_cache()
-        phase_lstm_sentiment(args.seed)
+        lstm_sent = phase_lstm_sentiment(args.seed)
+        gc.collect()
+        torch.cuda.empty_cache()
+        # the v2 API: the same widths through paddle.v2's SGD
+        phase_v2(args.seed, lstm_sent["step_ms"])
         gc.collect()
         torch.cuda.empty_cache()
         generate_b2 = phase_lm_generate(args.seed)

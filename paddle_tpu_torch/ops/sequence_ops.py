@@ -70,6 +70,24 @@ def _steps(*seqs, axis=1):
     return [torch.unbind(s, dim=axis) for s in seqs]
 
 
+def _loop_steps(*seqs):
+    """``_steps`` of ``seqs`` along the time axis, and the length the
+    stacked steps take: on ``meta`` tensors (shape inference at build
+    time) only the first step, since every step has its shapes and an
+    unknown length stands in as 8191 steps; the caller expands the
+    stacked step to the length."""
+    t = seqs[0].shape[1]
+    if seqs[0].device.type == "meta":
+        seqs = [s[:, :1] for s in seqs]
+    return _steps(*seqs), t
+
+
+def _stack_steps(steps, t):
+    """The steps of a ``_loop_steps`` loop stacked to [B, t, ...]."""
+    out = torch.stack(steps, dim=1)
+    return out if out.shape[1] == t else out.expand(-1, t, *out.shape[2:])
+
+
 def _finfo_min(x):
     return torch.full((), torch.finfo(x.dtype).min, dtype=x.dtype,
                       device=x.device)
@@ -235,7 +253,8 @@ def run_lstm(x_proj, w, bias, mask, h0, c0, use_peepholes, acts):
     ms = mask.to(x_proj.dtype)[:, :, None]
     keeps = 1.0 - ms      # once for every step, as each step's 1 - m
     hs, cs = [], []
-    for x_t, m, keep in zip(*_steps(x_proj, ms, keeps)):
+    steps, t = _loop_steps(x_proj, ms, keeps)
+    for x_t, m, keep in zip(*steps):
         gates = x_t + hp @ w + gate_bias
         gc, gi, gf, go = torch.chunk(gates, 4, dim=-1)
         if peep is not None:
@@ -253,7 +272,7 @@ def run_lstm(x_proj, w, bias, mask, h0, c0, use_peepholes, acts):
         cp = m * c_new + keep * cp
         hs.append(hp)
         cs.append(cp)
-    return torch.stack(hs, dim=1), torch.stack(cs, dim=1)
+    return _stack_steps(hs, t), _stack_steps(cs, t)
 
 
 @register_op("dynamic_lstm")
@@ -308,11 +327,12 @@ def _dynamic_gru(ctx):
     ms = mask.to(x.dtype)[:, :, None]
     keeps = 1.0 - ms
     hs = []
-    for x_t, m, keep in zip(*_steps(x, ms, keeps)):
+    steps, t = _loop_steps(x, ms, keeps)
+    for x_t, m, keep in zip(*steps):
         hp = gru_step(x_t, hp, w_g, w_c, b_g, b_c, m, keep, act_gate,
                       act_cand)
         hs.append(hp)
-    hidden = torch.stack(hs, dim=1)
+    hidden = _stack_steps(hs, t)
     if rev:
         hidden = torch.flip(hidden, dims=(1,))
     return {"Hidden": hidden}

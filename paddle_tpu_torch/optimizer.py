@@ -495,6 +495,9 @@ class Ftrl(_ProgramOptimizer):
                    "lr_power": self._lr_power}, infer_shape=False)
 
 
+# the base class under the reference's name (``paddle_tpu/optimizer.py``)
+Optimizer = _Optimizer
+
 # fluid-style aliases
 SGDOptimizer = SGD
 MomentumOptimizer = Momentum

@@ -55,6 +55,9 @@ from paddle_tpu_torch.serving import deploy
 from paddle_tpu_torch.serving import quant as port_quant
 from paddle_tpu_torch.serving.decoding import DecodePolicy
 from paddle_tpu_torch.utils import merge_model
+from test_torch_ops_cases import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 V, MAXLEN, SLOTS = 64, 32, 4
 KW = dict(d_model=32, num_heads=2, d_ff=64, num_layers=2)

@@ -34,8 +34,9 @@ from paddle_tpu_torch.serving.batcher import ServingOverloadError
 from paddle_tpu_torch.serving.fleet import TenantQuotaError
 
 from test_torch_fleet import FakeMember, counter, make_router
+from test_torch_ops_cases import one_thread  # noqa: F401
 
-pytestmark = pytest.mark.autoscale
+pytestmark = [pytest.mark.autoscale, pytest.mark.usefixtures("one_thread")]
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

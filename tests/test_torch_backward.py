@@ -35,6 +35,9 @@ from paddle_tpu_torch.core import serialization as port_ser
 from paddle_tpu_torch.core.backward import append_backward
 from paddle_tpu_torch.core.executor import _TraceState
 from paddle_tpu_torch.initializer import Constant
+from test_torch_ops_cases import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 CPU = dict(device="cpu")
 

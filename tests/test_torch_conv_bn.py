@@ -43,6 +43,9 @@ from paddle_tpu_torch.ops import loss_ops as port_loss
 from paddle_tpu_torch.ops import metric_ops as port_metric
 from paddle_tpu_torch.ops import nn_ops as port_nn
 from paddle_tpu_torch.ops import optimizer_ops as port_opt
+from test_torch_ops_cases import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RTOL = 1e-5

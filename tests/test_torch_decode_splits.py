@@ -47,6 +47,9 @@ from paddle_tpu.ops import quant_ops as ref_q
 from paddle_tpu.serving import quant as ref_sq
 from paddle_tpu_torch.ops import flash_attention as port_fa
 from paddle_tpu_torch.ops import quant_ops as port_q
+from test_torch_ops_cases import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 

@@ -20,6 +20,9 @@ import paddle_tpu as ptpu
 from paddle_tpu import layers
 from paddle_tpu_torch.ops import decoding_ops as port_d
 from paddle_tpu_torch.ops import random_ops as port_r
+from test_torch_ops_cases import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 V = 29
 ROWS = 24

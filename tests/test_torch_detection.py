@@ -37,6 +37,9 @@ from test_torch_ops_cases import (assert_outputs_match, rel_err, run_port,
                                   run_ref)
 from test_torch_ops_grad import grads
 from test_torch_ops_shapes import _infer
+from test_torch_ops_cases import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 GRAD_RTOL = 1e-5
 STEP_RTOL = 1e-5

@@ -48,8 +48,9 @@ from paddle_tpu_torch.resilience import (RecoveryPolicy, ResilientTrainer,
 from paddle_tpu_torch.trainer import EndIteration, EndPass, Trainer
 
 from torch_ranks import RankPool, _free_port
+from test_torch_ops_cases import one_thread  # noqa: F401
 
-pytestmark = pytest.mark.multihost
+pytestmark = [pytest.mark.multihost, pytest.mark.usefixtures("one_thread")]
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -271,10 +272,20 @@ def test_elastic_loop_restart_on_peer_death(tmp_path):
         srv.stop()
 
 
+# The hang scenario's step deadline: far past what an ordinary step of
+# the regressor takes in either package, the reference's first step and
+# its compile included, when six test workers load the box (a 0.6 s
+# deadline gave a loaded step an extra restart); the hang it ends, with
+# the watchdog's poll of a quarter deadline, stays inside the master's
+# 5 s task lease that the hung step's chunk holds, and far inside the
+# test's 60 s bound on the whole escalation.
+HANG_DEADLINE_SEC = 3.0
+
+
 def _hang_scenario(tmp_path, ref):
     """The hang escalation on one package: collective_hang at step 2
-    under a 0.6 s deadline. Returns (generations, restarts, stats,
-    seconds)."""
+    under a ``HANG_DEADLINE_SEC`` deadline. Returns (generations,
+    restarts, stats, seconds)."""
     sub = tmp_path / ("ref" if ref else "port")
     sub.mkdir()
     ds_glob = _make_dataset(sub)
@@ -285,7 +296,8 @@ def _hang_scenario(tmp_path, ref):
         ElasticDataDispatcher(c, ds_glob).register_dataset()
         (ref_faults if ref else faults).arm("collective_hang", at=2)
         t0 = time.monotonic()
-        build = _build_factory(sub, ds_glob, deadline=0.6, ref=ref)
+        build = _build_factory(sub, ds_glob, deadline=HANG_DEADLINE_SEC,
+                               ref=ref)
         if ref:
             with ptpu.scope_guard(ptpu.Scope()):
                 loop = RefLoop(build, srv.port, worker_id="w-hang",

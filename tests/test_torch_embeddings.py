@@ -28,6 +28,9 @@ from paddle_tpu_torch.embeddings import sharded as tsharded
 from paddle_tpu_torch.ops.sparse_ops import merge_duplicate_rows
 
 from torch_ranks import RankPool
+from test_torch_ops_cases import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 N = 4
 V, SLOTS, DDIM = 1000, 4, 8

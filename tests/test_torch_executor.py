@@ -36,6 +36,9 @@ from paddle_tpu_torch.core.framework import RNG_STATE_VAR
 from paddle_tpu_torch.initializer import Constant, Normal, Uniform
 from paddle_tpu_torch.ops import random_ops
 from paddle_tpu_torch.param_attr import ParamAttr
+from test_torch_ops_cases import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 
 def _exe():

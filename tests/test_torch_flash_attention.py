@@ -13,6 +13,9 @@ import jax.numpy as jnp
 
 from paddle_tpu.ops import pallas_attention as ref_attn
 from paddle_tpu_torch.ops import flash_attention as port_attn
+from test_torch_ops_cases import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 

@@ -28,6 +28,9 @@ import torch
 
 from paddle_tpu.ops import pallas_attention as ref_attn
 from paddle_tpu_torch.ops import flash_attention as port_attn
+from test_torch_ops_cases import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 BF16_STEP = 2.0 ** -7
 TOL = {"float32": 1e-5, "bfloat16": BF16_STEP}

@@ -55,8 +55,9 @@ from paddle_tpu_torch.serving import wire
 from paddle_tpu_torch.serving.fleet import EngineWorker, FleetRouter
 from paddle_tpu_torch.serving.resilience import (ServingDeadlineError,
                                                  ServingUnavailableError)
+from test_torch_ops_cases import one_thread  # noqa: F401
 
-pytestmark = pytest.mark.fleet
+pytestmark = [pytest.mark.fleet, pytest.mark.usefixtures("one_thread")]
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

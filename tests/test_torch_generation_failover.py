@@ -47,6 +47,9 @@ from paddle_tpu_torch.serving import (GenerationScheduler, GenerationSession,
                                       ServingUnavailableError)
 from paddle_tpu_torch.serving import decoding as port_dec
 from paddle_tpu_torch.serving.resilience import REPLICA_HEALTHY
+from test_torch_ops_cases import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 V, MAXLEN = 29, 12
 KW = dict(d_model=16, num_heads=2, d_ff=32, num_layers=2)

@@ -50,6 +50,9 @@ from paddle_tpu_torch.ops import _build
 from paddle_tpu_torch.ops import flash_attention as fa
 from paddle_tpu_torch.serving import GenerationSession, ServingEngine
 from paddle_tpu_torch.serving.decoding import DecodePolicy
+from test_torch_ops_cases import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 V, MAXLEN, SLOTS = 64, 32, 4
 KW = dict(d_model=32, num_heads=2, d_ff=64, num_layers=2)

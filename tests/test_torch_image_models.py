@@ -32,6 +32,9 @@ from paddle_tpu_torch.models import (alexnet as port_alexnet,
                                      googlenet as port_googlenet,
                                      smallnet as port_smallnet,
                                      ssd as port_ssd)
+from test_torch_ops_cases import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 RTOL = 1e-5
 G = 3          # SSD's padded ground-truth boxes an image

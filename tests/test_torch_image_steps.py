@@ -11,6 +11,9 @@ programs are held to the reference's in ``test_torch_image_models.py``.
 import pytest
 
 from test_torch_image_models import check_one_step
+from test_torch_ops_cases import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 
 @pytest.mark.parametrize("name", ["googlenet", "vgg19"])

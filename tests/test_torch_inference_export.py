@@ -52,6 +52,9 @@ from paddle_tpu_torch.models import transformer as port_tf
 from paddle_tpu_torch.ops import quant_ops as port_qops
 from paddle_tpu_torch.serving import quant as port_quant
 from paddle_tpu_torch.utils import merge_model as port_merge
+from test_torch_ops_cases import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 # the LM at a small size: 2 layers, d_model 64, T 64
 NET = dict(vocab_size=100, d_model=64, num_heads=2, d_ff=128, num_layers=2)

@@ -38,6 +38,9 @@ from paddle_tpu_torch import optimizer as port_opt
 from paddle_tpu_torch.core import ingest
 from paddle_tpu_torch.core import serialization as port_ser
 from paddle_tpu_torch.models import resnet as port_resnet
+from test_torch_ops_cases import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 SCALE = 1.0 / 255.0
 MEAN = (0.485, 0.456, 0.406)

@@ -15,6 +15,9 @@ import paddle_tpu_torch.distributed as tdist
 from paddle_tpu_torch.distributed import launch
 
 from torch_ranks import RankPool, _free_port
+from test_torch_ops_cases import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

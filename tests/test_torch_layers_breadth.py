@@ -22,6 +22,9 @@ from paddle_tpu_torch import initializer as port_init
 from paddle_tpu_torch import layers as port_layers
 from paddle_tpu_torch import nets as port_nets
 from paddle_tpu_torch.core import serialization as port_ser
+from test_torch_ops_cases import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 RTOL = 1e-5
 

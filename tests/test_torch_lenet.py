@@ -25,6 +25,9 @@ from paddle_tpu_torch import layers as port_layers
 from paddle_tpu_torch import optimizer as port_opt
 from paddle_tpu_torch.core import serialization as port_ser
 from paddle_tpu_torch.models import lenet as port_lenet
+from test_torch_ops_cases import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 LOSS_RTOL = 1e-5
 

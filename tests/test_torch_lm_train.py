@@ -51,6 +51,9 @@ from paddle_tpu_torch.models import transformer as port_tf
 from paddle_tpu_torch.ops import flash_attention as port_attn
 from paddle_tpu_torch.ops import optimizer_ops
 from paddle_tpu_torch.serving import GenerationSession
+from test_torch_ops_cases import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 NET = dict(vocab_size=100, d_model=64, num_heads=2, d_ff=128, num_layers=2)
 T, B, LR, STEPS = 128, 4, 1e-3, 3

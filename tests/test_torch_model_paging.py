@@ -39,8 +39,9 @@ from paddle_tpu_torch.serving import wire
 from paddle_tpu_torch.serving.fleet import EngineWorker, FleetRouter
 
 from test_torch_fleet import FakeMember, counter, fake_next, make_router
+from test_torch_ops_cases import one_thread  # noqa: F401
 
-pytestmark = pytest.mark.paging
+pytestmark = [pytest.mark.paging, pytest.mark.usefixtures("one_thread")]
 
 
 @pytest.fixture(autouse=True)

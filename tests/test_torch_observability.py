@@ -76,6 +76,9 @@ from paddle_tpu.observability import slo as _ref_slo  # noqa: F401
 # model_paging.py), the autoscaler's when its module is
 from paddle_tpu_torch.serving import autoscale as _autoscale  # noqa: F401
 from paddle_tpu.serving import autoscale as _ref_autoscale  # noqa: F401
+from test_torch_ops_cases import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 V, MAXLEN = 29, 24

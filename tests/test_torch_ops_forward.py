@@ -12,6 +12,9 @@ import pytest
 from paddle_tpu_torch.probes.op_cases import FAMILIES
 from test_torch_ops_cases import (CASES, assert_outputs_match, run_port,
                                   run_ref)
+from test_torch_ops_cases import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 _RANDOM = ("randint", "gaussian_random", "uniform_random")
 

@@ -17,6 +17,9 @@ import torch
 from paddle_tpu.core import registry as ref_registry
 from paddle_tpu_torch.core import registry as port_registry
 from test_torch_ops_cases import CASES, KEY_WORDS, Case, op_desc, rel_err
+from test_torch_ops_cases import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 GRAD_CASES = [c for c in CASES if c.grad]
 

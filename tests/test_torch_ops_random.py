@@ -18,6 +18,9 @@ import paddle_tpu as ptpu
 from paddle_tpu_torch import core as pc
 from paddle_tpu_torch.ops import random_ops
 from test_torch_ops_cases import Case, run_port, run_ref
+from test_torch_ops_cases import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 
 @pytest.mark.parametrize("shape,low,high", [

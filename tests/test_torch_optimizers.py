@@ -44,6 +44,9 @@ from paddle_tpu_torch.core import serialization as port_ser
 from paddle_tpu_torch.param_attr import ParamAttr as PortParamAttr
 from paddle_tpu_torch.probes.op_cases import UPDATE_OUTPUTS, UPDATE_RULES
 from test_torch_ops_cases import CASES, run_port, run_ref
+from test_torch_ops_cases import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 ULP4 = 4 * 2.0 ** -23
 RTOL = 1e-5

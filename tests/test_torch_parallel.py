@@ -18,6 +18,9 @@ from paddle_tpu_torch import core as tcore
 from paddle_tpu_torch import parallel as tparallel
 
 from torch_ranks import RankPool
+from test_torch_ops_cases import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 N = 4
 

@@ -19,6 +19,9 @@ from paddle_tpu_torch import config as port_config
 from paddle_tpu_torch import io as port_io
 from paddle_tpu_torch import place
 from paddle_tpu_torch.models import transformer as port_tf
+from test_torch_ops_cases import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "paddle_tpu_torch")
@@ -853,3 +856,75 @@ def test_the_distribution_modules_are_walked_and_import_clean():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             init_multihost("localhost:1", 2, 0)
+
+
+V2_SLICE_MODULES = (
+    ["paddle_tpu_torch.v2"] +
+    ["paddle_tpu_torch.v2." + m for m in (
+        "activation", "data_type", "event", "inference", "layer",
+        "optimizer", "parameters", "place", "pooling", "trainer")] +
+    ["paddle_tpu_torch.dataset"] +
+    ["paddle_tpu_torch.dataset." + m for m in (
+        "common", "mnist", "cifar", "uci_housing", "imdb", "imikolov",
+        "movielens", "wmt14", "mq2007", "conll05", "flowers", "voc2012",
+        "sentiment")] +
+    ["paddle_tpu_torch.utils.image", "paddle_tpu_torch.utils.net_drawer",
+     "paddle_tpu_torch.plot"])
+
+
+def test_the_walk_covers_the_v2_slice():
+    """The v2 API, the datasets, ``utils/{image,net_drawer}.py`` and
+    ``plot.py`` are among the modules the import walk and the source scan
+    cover, and ``import paddle_tpu_torch.v2`` in a fresh interpreter brings
+    in neither jax nor paddle_tpu."""
+    assert set(V2_SLICE_MODULES) <= set(_package_modules())
+    code = ("import sys\nimport paddle_tpu_torch.v2 as paddle\n"
+            "print(sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith('jax.') or m == 'paddle_tpu' or "
+            "m.startswith('paddle_tpu.')), paddle.__all__)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    import paddle_tpu_torch.v2 as port_v2
+    assert out.stdout.strip() == "[] %s" % (port_v2.__all__,)
+
+
+def test_v2_entry_points_raise_without_cuda(monkeypatch):
+    """``paddle.init()`` means CUDA and raises without it; with nothing
+    recorded, ``parameters.create``, ``SGD`` and ``infer`` take CUDA and
+    raise; ``init(device="cpu")`` or ``use_gpu=False`` is the caller
+    asking for the CPU."""
+    import paddle_tpu_torch.v2 as paddle
+    from paddle_tpu_torch import core
+    from paddle_tpu_torch.v2 import place as v2_place
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(v2_place, "_recorded", [None])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        paddle.init()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        paddle.init(device="cuda")
+    main, startup = core.Program(), core.Program()
+    with core.unique_name.guard(), core.program_guard(main, startup):
+        x = paddle.layer.data("x", paddle.data_type.dense_vector(3))
+        y = paddle.layer.data("y", paddle.data_type.dense_vector(1))
+        out = paddle.layer.fc(x, size=1)
+        cost = paddle.layer.regression_cost(input=out, label=y)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            paddle.parameters.create(cost)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            paddle.trainer.SGD(cost, paddle.parameters.Parameters(),
+                               paddle.optimizer.Momentum())
+        sample = [(np.ones(3, np.float32), np.ones(1, np.float32))]
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            paddle.infer(output_layer=out, parameters=None, input=sample,
+                         feeding={"x": 0, "y": 1})
+        assert paddle.init(use_gpu=False) == torch.device("cpu")
+        params = paddle.parameters.create(cost)
+        sgd = paddle.trainer.SGD(cost, params, paddle.optimizer.Momentum())
+    scope = core.Scope()
+    with core.scope_guard(scope):
+        sgd.train(lambda: iter([sample * 2]), feeding={"x": 0, "y": 1})
+        got = paddle.infer(output_layer=out, parameters=params,
+                           input=sample, feeding={"x": 0, "y": 1})
+    assert got.shape == (1, 1) and np.isfinite(got).all()
+    assert scope.find_var(params.names()[0]).device == torch.device("cpu")

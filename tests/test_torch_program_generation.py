@@ -53,6 +53,9 @@ from paddle_tpu_torch.models import transformer as port_tf
 from paddle_tpu_torch.resilience import faults
 from paddle_tpu_torch.serving import GenerationScheduler, GenerationSession
 from paddle_tpu_torch.serving import decoding as port_dec
+from test_torch_ops_cases import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 V, MAXLEN, SLOTS = 64, 32, 4
 KW = dict(d_model=32, num_heads=2, d_ff=64, num_layers=2)

@@ -52,6 +52,9 @@ from paddle_tpu_torch import optimizer as port_opt
 from paddle_tpu_torch import trainer
 from paddle_tpu_torch.core import serialization as port_ser
 from paddle_tpu_torch.models import transformer as port_tf
+from test_torch_ops_cases import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 NET = dict(vocab_size=100, d_model=64, num_heads=2, d_ff=128, num_layers=2)
 T, B, LR, STEPS = 64, 4, 1e-3, 3

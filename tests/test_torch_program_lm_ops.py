@@ -36,6 +36,9 @@ import paddle_tpu.ops  # noqa: F401  (registers the reference's ops)
 from paddle_tpu.core import registry as ref_registry
 from paddle_tpu_torch.core import registry as port_registry
 from paddle_tpu_torch.ops import flash_attention as port_flash
+from test_torch_ops_cases import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 
 def _op(op_type, inputs, attrs):

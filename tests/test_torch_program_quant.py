@@ -57,6 +57,9 @@ from paddle_tpu_torch.models import transformer as port_tf
 from paddle_tpu_torch.observability import metrics
 from paddle_tpu_torch.ops import quant_ops as port_qops
 from paddle_tpu_torch.serving import quant as port_quant
+from test_torch_ops_cases import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 NET = dict(vocab_size=100, d_model=64, num_heads=2, d_ff=128, num_layers=2)
 T, B = 16, 2

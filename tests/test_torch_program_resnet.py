@@ -35,6 +35,9 @@ from paddle_tpu_torch import optimizer as port_opt
 from paddle_tpu_torch import trainer
 from paddle_tpu_torch.core import serialization as port_ser
 from paddle_tpu_torch.models import resnet as port_resnet
+from test_torch_ops_cases import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 LR, STEPS, RES, BATCH = 0.01, 3, 16, 4
 F32_RTOL = 1e-4

@@ -27,6 +27,9 @@ from paddle_tpu_torch import io as port_io
 from paddle_tpu_torch.models import transformer as port_tf
 from paddle_tpu_torch.ops import quant_ops as port_q
 from paddle_tpu_torch.serving import generation as port_gen
+from test_torch_ops_cases import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 V, MAXLEN = 29, 12
 KW = dict(d_model=16, num_heads=2, d_ff=32, num_layers=2)

@@ -45,6 +45,9 @@ from paddle_tpu_torch.models import resnet as port_resnet
 from paddle_tpu_torch.ops import conv_bn as port_cb
 from paddle_tpu_torch.ops.loss_ops import mean, softmax_with_cross_entropy
 from paddle_tpu_torch.ops.nn_ops import pool2d
+from test_torch_ops_cases import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 
 def _state(scope):

@@ -46,6 +46,9 @@ from paddle_tpu_torch.serving import deploy as port_deploy
 from paddle_tpu_torch.serving import engine as port_engine
 from paddle_tpu_torch.serving import resilience as port_sres
 from paddle_tpu_torch.utils import merge_model as port_merge
+from test_torch_ops_cases import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 IN, OUT = 16, 10
 

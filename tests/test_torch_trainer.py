@@ -36,6 +36,9 @@ from paddle_tpu_torch import trainer as port_trainer
 from paddle_tpu_torch.models import resnet as port_resnet
 from paddle_tpu_torch.observability import metrics
 from paddle_tpu_torch.reader import staging
+from test_torch_ops_cases import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 RES, BATCH, LR = 16, 4, 0.01
 F32_RTOL = 1e-4
