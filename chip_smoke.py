@@ -285,17 +285,17 @@ import time
 
 import numpy as np
 
+# the H100's data-sheet peaks, the training program's reckoned work and
+# the card's nvidia-smi line, shared with the measurement probes
+from paddle_tpu_torch.probes.common import (BF16_FLOPS, F32_FLOPS,
+                                            HBM_BYTES_PER_S, INT8_OPS,
+                                            card_line, program_work)
+
 FULL = dict(vocab_size=32768, d_model=2048, num_heads=16, d_ff=8192,
             num_layers=12, max_len=1024)
 SLOTS, CACHE_LEN, BUCKETS = 8, 1024, (128, 512)
 PROMPT_LENS = (100, 128, 300, 512)
 NEW_TOKENS = 32
-# H100 SXM data sheet: HBM3 bandwidth, f32 outside the tensor cores, and
-# dense bf16 and int8 on the tensor cores
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOPS = 67e12
-BF16_FLOPS = 989e12
-INT8_OPS = 1979e12
 # kernel vs plain version on the card: both f32, sums in another order
 KERNEL_ATOL = 1e-4
 # the small LM on the card vs on the CPU: f32 through two layers
@@ -608,16 +608,6 @@ class SmokeFailure(RuntimeError):
 def check(cond, msg):
     if not cond:
         raise SmokeFailure(msg)
-
-
-@functools.lru_cache(maxsize=1)
-def card_line():
-    """The card's name and power limit, as nvidia-smi gives them."""
-    lines = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60).stdout.strip().splitlines()
-    return lines[0] if lines else "nvidia-smi: no output"
 
 
 def two_clocks(fn, iters=10):
@@ -9781,34 +9771,6 @@ def vision_program(name, res, classes, seed, with_eval=False):
         optimizer.Momentum(VISION["lr"], VISION["momentum"]).minimize(
             loss, startup)
     return main, startup, loss, acc, ev
-
-
-def program_work(main, batch):
-    """A training step's reckoned work at ``batch``: (f32 FLOPs, bytes).
-    FLOPs: 3x the forward's convolutions and fc products (forward, and
-    the two gradient products); bytes: each parameter read and written
-    with its gradient and velocity (24 B), each convolution, fc and pool
-    output written forward and read backward (8 B an element)."""
-    block = main.global_block()
-
-    def numel(name):
-        shape = block.var(name).shape
-        return batch * int(np.prod([d for d in shape if d != -1]))
-    flops = acts = 0
-    for op in block.ops:
-        if op.type == "conv2d":
-            w = block.var(op.inputs["Filter"][0]).shape
-            flops += 2 * numel(op.outputs["Output"][0]) * \
-                int(np.prod(w[1:]))
-            acts += numel(op.outputs["Output"][0])
-        elif op.type == "mul":
-            k = block.var(op.inputs["Y"][0]).shape[0]
-            flops += 2 * numel(op.outputs["Out"][0]) * k
-            acts += numel(op.outputs["Out"][0])
-        elif op.type == "pool2d":
-            acts += numel(op.outputs["Out"][0])
-    params = sum(int(np.prod(p.shape)) for p in block.all_parameters())
-    return 3 * flops, 24 * params + 8 * acts, params
 
 
 def phase_vision(seed):

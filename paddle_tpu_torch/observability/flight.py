@@ -57,7 +57,11 @@ class FlightRecorder:
         self.max_dumps = 8
         self.last_dump_path = None
         self._last_bundle = None
-        self._last_dump_t = 0.0
+        # None: never dumped, so the first trigger dumps whatever the
+        # monotonic clock reads (it counts from the host's boot: the
+        # reference's 0.0 debounces a first trigger on a host up for
+        # less than ``min_interval_sec``)
+        self._last_dump_t = None
         # RLock, not Lock: the SIGTERM handler calls dump() on
         # whatever thread the signal interrupts — if that frame was
         # already inside one of these critical sections, a plain lock
@@ -123,6 +127,12 @@ class FlightRecorder:
         os.makedirs(d, exist_ok=True)
         return d
 
+    def _debounced(self, now):
+        """Does a dump within ``min_interval_sec`` before ``now`` hold
+        the window? (Never dumped: no.) Called under the lock."""
+        return self._last_dump_t is not None and \
+            now - self._last_dump_t < self.min_interval_sec
+
     def trigger(self, reason, **attrs):
         """Debounced dump: at most one bundle per ``min_interval_sec``
         window — a failure storm yields one post-mortem, not one per
@@ -134,7 +144,7 @@ class FlightRecorder:
             return None
         now = time.monotonic()
         with self._lock:
-            if now - self._last_dump_t < self.min_interval_sec:
+            if self._debounced(now):
                 return None
             prev_t, self._last_dump_t = self._last_dump_t, now
         path = self.dump(reason, **attrs)
@@ -274,7 +284,7 @@ class FlightRecorder:
             return
         now = time.monotonic()
         with self._lock:
-            if now - self._last_dump_t < self.min_interval_sec:
+            if self._debounced(now):
                 return
             prev_t, self._last_dump_t = self._last_dump_t, now
 

@@ -1,20 +1,33 @@
 """What the probes and ``chip_smoke.py`` share: the one clock of a
 kernel's time (CUDA events over calls queued behind a sleep kernel, on
 warm buffers or taken in turn over copies that keep the L2 cold), the
-profiler's sums printed beside it, the host time of a call, and builds
-of edited copies of a kernel's source (the probes' design variants and
-tile sweeps)."""
+profiler's sums printed beside it, the host time of a call, builds of
+edited copies of a kernel's source (the probes' design variants and tile
+sweeps), the card's data-sheet peaks, a training program's reckoned
+work, the card's nvidia-smi line, and the start of a measurement probe
+(its ``--device``, its first line, the kernel launches of its run)."""
 
 import ctypes
+import functools
 import itertools
 import os
 import subprocess
+import sys
 import tempfile
 import time
 
+import numpy as np
 import torch
 
 from ..ops import _build
+
+# H100 SXM data sheet: HBM3 bandwidth, f32 outside the tensor cores, and
+# dense bf16, int8 and fp8 on the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS = 67e12
+BF16_FLOPS = 989e12
+INT8_OPS = 1979e12
+FP8_FLOPS = 1979e12
 
 # the shortest sleep that holds back a timed run, in cycles: about 17 ms
 # at the H100's boost clock
@@ -186,3 +199,186 @@ def host_us(fn, n=2000):
     us = (time.perf_counter() - t0) / n * 1e6
     torch.cuda.synchronize()
     return us
+
+
+def program_work(main, batch):
+    """A training step's reckoned work at ``batch``: (f32 FLOPs, bytes,
+    parameters). FLOPs: 3x the forward's convolutions (``conv2d``, and
+    the fused ``conv2d_bn``) and fc products (forward, and the two
+    gradient products); bytes: each parameter read and written with its
+    gradient and velocity (24 B), each convolution, fc and pool output
+    written forward and read backward (8 B an element)."""
+    block = main.global_block()
+
+    def numel(name):
+        shape = block.var(name).shape
+        return batch * int(np.prod([d for d in shape if d != -1]))
+    flops = acts = 0
+    for op in block.ops:
+        if op.type in ("conv2d", "conv2d_bn"):
+            out = op.outputs["Output" if op.type == "conv2d" else "Y"][0]
+            w = block.var(op.inputs["Filter"][0]).shape
+            flops += 2 * numel(out) * int(np.prod(w[1:]))
+            acts += numel(out)
+        elif op.type == "mul":
+            k = block.var(op.inputs["Y"][0]).shape[0]
+            flops += 2 * numel(op.outputs["Out"][0]) * k
+            acts += numel(op.outputs["Out"][0])
+        elif op.type == "pool2d":
+            acts += numel(op.outputs["Out"][0])
+    params = sum(int(np.prod(p.shape)) for p in block.all_parameters())
+    return 3 * flops, 24 * params + 8 * acts, params
+
+
+@functools.lru_cache(maxsize=1)
+def card_line():
+    """The card's name and power limit, as nvidia-smi gives them (read
+    once a process)."""
+    lines = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()
+    return lines[0] if lines else "nvidia-smi: no output"
+
+
+def probe_device(name):
+    """The device a measurement probe runs on, from its ``--device``
+    (``name``): CUDA unless the caller asked for the CPU. Without CUDA
+    and without ``--device cpu`` it prints "no CUDA device" and returns
+    None (the probe then exits nonzero: no run falls back to the CPU on
+    its own). On the card its first line is the card's nvidia-smi
+    line."""
+    if torch.device(name).type == "cuda" and not torch.cuda.is_available():
+        print("FAIL: no CUDA device (pass --device cpu to run on the CPU)",
+              file=sys.stderr)
+        return None
+    from ..place import resolve_device
+    device = resolve_device(name)
+    print("[device] %s" % (card_line() if device.type == "cuda"
+                           else "cpu"), flush=True)
+    return device
+
+
+# the kernels of ``ops/launches.py``'s counts, in its order
+_KERNELS = ("B2 f32", "B2 bf16", "T2", "B4", "B5", "B3", "B1", "T1")
+
+
+def launch_counts():
+    """{kernel: launches so far} of every hand-written kernel."""
+    from ..ops import launches
+    return {k: getattr(*pair)
+            for k, pair in zip(_KERNELS, launches._counted())}
+
+
+def launches_since(before):
+    """{kernel: launches since ``before`` (a :func:`launch_counts`)}."""
+    return {k: n - before[k] for k, n in launch_counts().items()}
+
+
+def check(cond, msg):
+    """A probe's check: raise with ``msg`` (the run exits nonzero)
+    unless ``cond``."""
+    if not cond:
+        raise AssertionError(msg)
+
+
+def sync(device):
+    """Wait for ``device``'s work (a no-op on the CPU): every wall time
+    of a probe ends here."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def probe_ms(fn, device, iters=10, warmup=1):
+    """ms a call of ``fn()``: on the card its device time
+    (:func:`cuda_ms`), on the CPU the mean wall time of ``iters`` calls
+    after ``warmup``."""
+    if device.type == "cuda":
+        return cuda_ms(fn, iters=iters, warmup=warmup)
+    for _ in range(warmup):
+        fn()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
+# the widths of the flagship LM (``bench.py``'s transformer at the
+# accelerator's size; ``probes/flash.py``'s step)
+FLAGSHIP_LM = dict(vocab_size=32768, d_model=2048, num_heads=16, d_ff=8192,
+                   num_layers=12)
+# the head dims the attention kernels B2, B4 and B5 are built for
+KERNEL_HEAD_DIMS = (64, 128)
+
+
+# an LM probe's --model: the reference probe's own widths; those widths
+# with 64-wide heads (the same d_model in fewer heads), the card's run of
+# a probe whose reference heads are narrower than the kernels take; and
+# the flagship LM's
+LM_MODELS = ("small", "small-h64", "flagship")
+
+
+def lm_widths(model, vocab, kw, device):
+    """(vocab, widths) of an LM probe's ``--model``: ``small`` is the
+    reference probe's own (``vocab``, ``kw``), ``small-h64`` those widths
+    with heads 64 wide, ``flagship`` the flagship LM's. ValueError for
+    ``small`` on the card where its heads are not a width that B2, B4 and
+    B5 take (64 and 128 only)."""
+    if model == "flagship":
+        kw = dict(FLAGSHIP_LM)
+        return kw.pop("vocab_size"), kw
+    kw = dict(kw)
+    if model == "small-h64":
+        kw["num_heads"] = max(1, kw["d_model"] // KERNEL_HEAD_DIMS[0])
+    elif device.type == "cuda" and \
+            kw["d_model"] // kw["num_heads"] not in KERNEL_HEAD_DIMS:
+        raise ValueError(
+            "--model small has %d-wide heads; the attention kernels take "
+            "%s: run --model small-h64 or flagship on the card"
+            % (kw["d_model"] // kw["num_heads"],
+               " and ".join(map(str, KERNEL_HEAD_DIMS))))
+    return vocab, kw
+
+
+def lm_scope(vocab, kw, max_len, device, generate=False, seed=7,
+             residual_eps=None, bos=0, eos=1):
+    """(scope, executor, main program, fetch) of the reference probes'
+    LM: ``transformer_lm`` over [1, max_len] tokens (``is_test``), or with
+    ``generate`` ``transformer_lm_generate`` (beam 1; fetch its ids), its
+    startup run on ``device``, then every variable in name order
+    overwritten with ``RandomState(seed)`` standard normals in its dtype,
+    as the reference probes do. With ``residual_eps`` (the decode-policy
+    probe's init) only floating variables are drawn, the layer norms keep
+    their initial values, and the residual-writing projections (``.o.w``,
+    ``.ffn2.``) are scaled by eps / sqrt(fan_in)."""
+    from .. import core, layers
+    from ..models.transformer import transformer_lm, transformer_lm_generate
+    main, startup = core.Program(), core.Program()
+    fetch = None
+    with core.unique_name.guard(), core.program_guard(main, startup):
+        if generate:
+            anchor = layers.data("anchor", shape=[1], dtype="int32")
+            fetch, _, _ = transformer_lm_generate(
+                anchor, vocab_size=vocab, max_len=max_len, beam_size=1,
+                bos_id=bos, eos_id=eos, **kw)
+        else:
+            toks = layers.data("toks", shape=[1, max_len], dtype="int64",
+                               append_batch_size=False)
+            lbls = layers.data("lbls", shape=[1, max_len], dtype="int64",
+                               append_batch_size=False)
+            transformer_lm(toks, lbls, vocab_size=vocab, is_test=True, **kw)
+    exe, scope = core.Executor(device=device), core.Scope()
+    exe.run(startup, scope=scope)
+    rs = np.random.RandomState(seed)
+    for n in sorted(scope.var_names()):
+        cur = scope.find_var(n)
+        if residual_eps is not None and (
+                not cur.dtype.is_floating_point or
+                n.startswith("layer_norm")):
+            continue
+        w = rs.standard_normal(tuple(cur.shape))
+        if residual_eps is not None and (".o.w" in n or ".ffn2." in n):
+            fan_in = cur.shape[0] if cur.dim() == 2 else 1
+            w = w * (residual_eps / np.sqrt(max(fan_in, 1)))
+        scope.set_var(n, torch.from_numpy(w).to(cur.dtype).to(device))
+    return scope, exe, main, fetch

@@ -48,9 +48,9 @@ import torch
 
 from ..ops import _build, conv_bn
 from ..place import resolve_device
-from .common import build_baseline, build_edited, cuda_ms, device_ms
+from .common import (HBM_BYTES_PER_S, build_baseline, build_edited, cuda_ms,
+                     device_ms)
 
-HBM_BYTES_PER_S = 3.35e12
 # (name, rows, C, O): bottleneck conv3 shapes per stage at batch 256
 CASES = (("stage2 28x28 128->512", 256 * 28 * 28, 128, 512),
          ("stage3 14x14 256->1024", 256 * 14 * 14, 256, 1024),

@@ -42,15 +42,14 @@ import torch
 
 from ..ops import _build
 from ..ops import flash_attention as fa
-from .common import (build_baseline, build_edited, cold_calls, cuda_ms,
-                     host_us)
+from .common import (HBM_BYTES_PER_S, build_baseline, build_edited,
+                     cold_calls, cuda_ms, host_us)
 
 SLOTS, HEADS, HEAD_DIM, BLOCK, TABLE = 8, 16, 128, 16, 64
 POOL = SLOTS * TABLE
 LENGTHS = {"paged cell": (259, 331, 531, 259, 131, 1, 1, 1),
            "one at 1024": (1024,) + (1,) * (SLOTS - 1),
            "all at 1024": (1024,) * SLOTS}
-HBM_BYTES_PER_S = 3.35e12
 DTYPES = (torch.float32, torch.bfloat16)
 # the sweep: key-chunk sizes, grid sizes (at the plan's chunk), and edited
 # builds of the shared body: the other number of loads in flight for each

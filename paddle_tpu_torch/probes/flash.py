@@ -39,12 +39,9 @@ from ..models.transformer import TransformerLM
 from ..ops import _build
 from ..ops import flash_attention as fa
 from ..place import resolve_device
-from .common import device_ms
+from .common import BF16_FLOPS, device_ms
+from .common import FLAGSHIP_LM as FLAGSHIP
 
-FLAGSHIP = dict(vocab_size=32768, d_model=2048, num_heads=16, d_ff=8192,
-                num_layers=12)
-# H100 SXM data sheet: dense bf16 on the tensor cores
-BF16_FLOPS = 989e12
 CONFIGS = ((8, 1024), (4, 2048), (2, 4096), (6, 1536), (12, 1024))
 
 

@@ -510,6 +510,10 @@ class GenerationSession:
     def active_slots(self):
         return [int(i) for i in np.flatnonzero(self.active)]
 
+    def occupancy(self):
+        """The share of the slots that hold a sequence."""
+        return float(self.active.sum()) / self.spec.slots
+
     def capacity_left(self, slot):
         """Decode steps ``slot`` can still take before its cache or the
         position table runs out."""

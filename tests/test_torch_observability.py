@@ -579,6 +579,33 @@ def test_flight_bundle_as_the_reference(tmp_path):
     assert set(ours["metrics"]) == set(FAMILIES)
 
 
+def test_first_trigger_dumps_whatever_the_uptime(tmp_path, monkeypatch):
+    """A difference by design: the reference's recorder starts its
+    debounce clock at 0.0 and compares it with ``time.monotonic()``,
+    which counts from the host's boot, so on a host up for less than
+    ``min_interval_sec`` its first trigger is debounced. The port's
+    recorder starts at "never dumped": with the clock at 5.0 s and an
+    hour's window the first trigger (and the first asynchronous one)
+    dumps, and the next within the window does not."""
+    port_config.set_flags(flight_dir=str(tmp_path))
+    monkeypatch.setattr(flight.time, "monotonic", lambda: 5.0)
+    for use_async in (False, True):
+        rec = flight.FlightRecorder()
+        rec.set_armed(True)
+        rec.min_interval_sec = 3600.0
+        if use_async:
+            rec.trigger_async("breaker_open")
+            deadline = time.perf_counter() + 10
+            while rec.latest() is None and time.perf_counter() < deadline:
+                time.sleep(0.01)
+            assert rec.latest()["reason"] == "breaker_open"
+        else:
+            path = rec.trigger("breaker_open")
+            assert path is not None and path.startswith(str(tmp_path))
+        assert rec.trigger("client_error") is None
+        rec.set_armed(False)
+
+
 def test_config_hook_arms_tracers_and_refuses_a_port():
     """The hook arms the tracers, and a nonzero ``telemetry_port`` starts
     the HTTP server where the port used to refuse one (0 stops it; a

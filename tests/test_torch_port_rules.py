@@ -66,6 +66,15 @@ def test_the_walk_covers_the_op_tail():
         assert "paddle_tpu_torch." + name in mods, name
 
 
+def test_the_walk_covers_the_measurement_probes():
+    """The measurement probes ported from the reference's ``tools/`` are
+    among the modules the import walk and the source scan below cover."""
+    mods = _package_modules()
+    for name in ("pipeline", "mfu", "rn50_raw", "layout", "quant_matmul",
+                 "trace", "paged_cache", "generate", "decode_policy"):
+        assert "paddle_tpu_torch.probes." + name in mods, name
+
+
 def test_import_leaves_jax_and_reference_out():
     """Import every module of the package in a fresh interpreter."""
     code = ("import importlib, sys\n"
